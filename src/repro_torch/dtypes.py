@@ -1,0 +1,71 @@
+"""Dtype names as the wire writes them, mapped to torch and numpy.
+
+The wire records a dtype by its numpy name (``"float32"``, ``"bfloat16"``,
+...). numpy has no bfloat16, so a bfloat16 payload travels as the raw bytes
+of a ``uint16`` array and is viewed back as ``torch.bfloat16``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_TORCH = {
+    "float64": torch.float64,
+    "float32": torch.float32,
+    "float16": torch.float16,
+    "bfloat16": torch.bfloat16,
+    "int64": torch.int64,
+    "int32": torch.int32,
+    "int16": torch.int16,
+    "int8": torch.int8,
+    "uint8": torch.uint8,
+    "uint16": torch.uint16,
+    "uint32": torch.uint32,
+    "uint64": torch.uint64,
+    "bool": torch.bool,
+}
+_NAME = {v: k for k, v in _TORCH.items()}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    try:
+        return _TORCH[name]
+    except KeyError:
+        raise TypeError(f"unknown dtype name {name!r}") from None
+
+
+def dtype_name(dtype) -> str:
+    """Wire name of a torch or numpy dtype."""
+    if isinstance(dtype, torch.dtype):
+        return _NAME[dtype]
+    return np.dtype(dtype).name
+
+
+def storage_numpy_dtype(name: str) -> np.dtype:
+    """numpy dtype whose bytes carry a payload of wire dtype ``name``."""
+    torch_dtype(name)
+    return np.dtype(np.uint16) if name == "bfloat16" else np.dtype(name)
+
+
+def to_numpy(x) -> np.ndarray:
+    """Host numpy array holding the bytes of ``x`` (bfloat16 as uint16).
+    A CPU tensor is viewed, not copied."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        if x.dtype == torch.bfloat16:
+            x = x.view(torch.uint16)
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
+def from_numpy(arr: np.ndarray, name: str) -> torch.Tensor:
+    """CPU tensor of wire dtype ``name`` aliasing ``arr``'s memory."""
+    t = torch.from_numpy(arr)
+    return t.view(torch.bfloat16) if name == "bfloat16" else t
+
+
+def is_floating(x) -> bool:
+    if isinstance(x, torch.Tensor):
+        return x.is_floating_point()
+    return np.issubdtype(np.asarray(x).dtype, np.floating)

@@ -1,0 +1,89 @@
+"""Build the hand-written CUDA kernels and bind them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+``nvcc`` for Hopper (``sm_90a``) into ``build/repro_torch/<name>-<hash>.so``
+at the root of the checkout, the first time a kernel is launched. The
+library name carries a hash of the source, so an edited kernel is rebuilt
+and a stale library is never loaded. ``build_all`` compiles every source in
+parallel (one ``nvcc`` process per file).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+KERNELS = ("quantize_pack", "ternary_matmul")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: install the CUDA toolkit or set CUDA_HOME")
+    return str(path)
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:
+    """Start ``nvcc`` for one kernel unless its library is built already.
+    It writes to a temporary name that ``_finish`` renames into place."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return out, Path(tmp), proc
+
+
+def _finish(name: str, started) -> str:
+    out, tmp, proc = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, out)
+    return log
+
+
+def build_all() -> dict[str, str]:
+    """Compile every kernel source at once; returns nvcc's log per kernel
+    (register and shared-memory use from ``-Xptxas -v``), empty where the
+    library was already built."""
+    started = {name: _start(name) for name in KERNELS}
+    return {name: (_finish(name, s) if s is not None else "")
+            for name, s in started.items()}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library ``name``, built on first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        started = _start(name)
+        if started is not None:
+            _finish(name, started)
+        lib = ctypes.CDLL(str(library_path(name)))
+        _LIBS[name] = lib
+    return lib

@@ -1,0 +1,113 @@
+"""Ternary-weight matmul on 2-bit packed weights: ``csrc/ternary_matmul.cu``.
+
+Replaces the TPU kernel ``repro/kernels/ternary_matmul.py::_kernel``:
+y = x @ (w_q · unpack(W)) with W the ``(K//4, N)`` uint8 layout of
+``kernels.repack`` (each byte holds 4 K-consecutive codes of one column),
+fp32 accumulation, w_q applied once to the finished sum.
+
+Bound on the H100: operations. At decode (M = 4) olmo-1b's 112 launches per
+step read 2^28 packed bytes (80 µs at 3.35 TB/s) but do 8.6 GFLOP (128 µs at
+67 TFLOP/s of fp32 on the CUDA cores), so this CUDA-core kernel is FLOP-bound
+even at decode; a tensor-core kernel is what moves that bound. The design
+(see the source) unpacks codes in registers without int→float conversions,
+coalesces packed-byte loads 4 columns per lane, and splits K across blocks
+when M and N alone give too few blocks to fill 132 SMs.
+
+``ternary_matmul`` dispatches on the tensor's device: the plain PyTorch
+version for CPU tensors, the CUDA kernel for CUDA tensors (or it raises).
+``ternary_matmul.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+BN = 128           # output columns per block
+KC4 = 32           # packed rows per staged x chunk: the least K work of a split
+TARGET_BLOCKS = 264  # two blocks per SM of an H100
+
+
+def unpack_kernel_layout(packed: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(K//4, N) uint8 → (K, N) ternary values in ``dtype``."""
+    k4, n = packed.shape
+    shifts = torch.arange(0, 8, 2, dtype=torch.uint8, device=packed.device)
+    codes = (packed.reshape(k4, 1, n) >> shifts.reshape(1, 4, 1)) & 3
+    return codes.reshape(4 * k4, n).to(dtype) - 1
+
+
+def ternary_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
+                         w_q: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version (``repro.kernels.ref.ternary_matmul_ref``)."""
+    w = unpack_kernel_layout(packed, torch.float32)
+    y = x.to(torch.float32) @ w
+    return (y * w_q.to(torch.float32)).to(x.dtype)
+
+
+def launch_shape(m: int, k4: int, n: int) -> tuple[int, int]:
+    """(row tile, K splits) for an (m, 4·k4) @ (4·k4, n) product: split K
+    only as far as needed for ~TARGET_BLOCKS blocks, and never below one
+    staged chunk of K per split."""
+    bm = 4 if m <= 4 else 16
+    blocks = -(-n // BN) * -(-m // bm)
+    split = max(1, min(-(-TARGET_BLOCKS // blocks), k4 // KC4))
+    per = max(1, -(-k4 // split))
+    return bm, max(1, -(-k4 // per))
+
+
+def _lib():
+    from repro_torch.kernels import _build
+
+    lib = _build.load("ternary_matmul")
+    fn = lib.ternary_matmul_f32
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def ternary_matmul(x: torch.Tensor, packed: torch.Tensor,
+                   w_q: torch.Tensor) -> torch.Tensor:
+    """x: (M, K) · packed: (K//4, N) uint8 · w_q: scalar tensor → (M, N)."""
+    if x.ndim != 2 or packed.ndim != 2 or packed.shape[0] * 4 != x.shape[1]:
+        raise ValueError(
+            f"ternary_matmul: x {tuple(x.shape)} does not match packed "
+            f"{tuple(packed.shape)} (want x (M, K), packed (K//4, N))"
+        )
+    if x.device.type == "cpu":
+        return ternary_matmul_plain(x, packed, w_q)
+    if x.device.type != "cuda":
+        raise ValueError(f"ternary_matmul: unsupported device {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"ternary_matmul kernel takes float32 x, got {x.dtype}")
+    if packed.dtype != torch.uint8 or w_q.numel() != 1 or w_q.dtype != torch.float32:
+        raise TypeError("ternary_matmul: packed must be uint8 and w_q one float32")
+    if packed.device != x.device or w_q.device != x.device:
+        raise ValueError("ternary_matmul: x, packed and w_q must share a device")
+    if not (x.is_contiguous() and packed.is_contiguous()):
+        raise ValueError("ternary_matmul: x and packed must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError("ternary_matmul: x must be 16-byte aligned")
+    m, _ = x.shape
+    k4, n = packed.shape
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    bm, split = launch_shape(m, k4, n)
+    ws = (torch.empty((split, m, n), dtype=torch.float32, device=x.device)
+          if split > 1 else out)
+    wvec = int(n % 4 == 0 and packed.data_ptr() % 4 == 0)
+    fn = _lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), packed.data_ptr(), w_q.data_ptr(), out.data_ptr(),
+                 ws.data_ptr(), m, k4, n, bm, split, wvec, stream)
+    if err != 0:
+        raise RuntimeError(f"ternary_matmul kernel launch failed: CUDA error {err}")
+    ternary_matmul.launches += 1
+    return out
+
+
+ternary_matmul.launches = 0

@@ -1,0 +1,118 @@
+"""Port vs reference: wire → kernel-layout repack bytes, the ternary
+matmul's plain version against the Pallas kernel (interpret mode), and the
+packed matmul against the dequantized product. The CUDA kernel is held
+against its plain version in test_torch_gpu.py."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.ternary import encode_ternary as jencode
+from repro.kernels import repack as jrepack
+from repro.kernels.ternary_matmul import ternary_matmul as jternary_matmul
+from repro_torch.core.ternary import encode_ternary
+from repro_torch.kernels.repack import (
+    packed_matmul, packed_params_from_wire, repack_to_kernel_layout,
+)
+from repro_torch.kernels.ternary_matmul import (
+    BN, launch_shape, ternary_matmul, ternary_matmul_plain,
+)
+
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("shape", [(64, 48), (32, 16), (100, 26), (10, 6), (7, 5),
+                                   (3, 32, 16), (2, 12, 20)])
+def test_repack_bytes_identical_to_reference(shape):
+    rng = np.random.default_rng(sum(shape))
+    it = rng.integers(-1, 2, size=shape).astype(np.int8)
+    wq = np.float32(0.4)
+    ref = jrepack.repack_to_kernel_layout(jencode(jnp.asarray(it), jnp.asarray(wq)))
+    got = repack_to_kernel_layout(encode_ternary(torch.from_numpy(it), torch.tensor(wq)))
+    np.testing.assert_array_equal(got.packed.numpy(), np.asarray(ref.packed))
+    np.testing.assert_array_equal(got.w_q.numpy(), np.asarray(ref.w_q))
+    assert got.k == ref.k == shape[-2]
+
+
+def _pack_along_k(codes: np.ndarray) -> np.ndarray:
+    """(K, N) wire codes in {0, 1, 2} → (K//4, N) kernel-layout bytes."""
+    c = codes.reshape(codes.shape[0] // 4, 4, codes.shape[1])
+    return (c[:, 0] | (c[:, 1] << 2) | (c[:, 2] << 4) | (c[:, 3] << 6)).astype(np.uint8)
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 64, 48), (5, 32, 37), (1, 8, 3), (17, 128, 130)])
+def test_plain_matches_pallas_kernel(m, k, n):
+    """Ragged M and N included; every shape fits one reference block."""
+    rng = np.random.default_rng(m * k + n)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    codes = rng.integers(0, 3, size=(k, n)).astype(np.uint8)
+    packed = _pack_along_k(codes)
+    wq = np.float32(0.37)
+    ref = jternary_matmul(jnp.asarray(x), jnp.asarray(packed), jnp.asarray(wq),
+                          interpret=True)
+    got = ternary_matmul_plain(torch.from_numpy(x), torch.from_numpy(packed), torch.tensor(wq))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    dense = (codes.astype(np.float32) - 1) * wq
+    np.testing.assert_allclose(got.numpy(), x @ dense, rtol=1e-5, atol=1e-5)
+
+
+def test_packed_matmul_matches_dequantized_and_pads_k():
+    rng = np.random.default_rng(5)
+    for k, n in [(64, 48), (10, 6)]:
+        it = rng.integers(-1, 2, size=(k, n)).astype(np.int8)
+        t = encode_ternary(torch.from_numpy(it), torch.tensor(0.3))
+        y = packed_matmul(torch.from_numpy(rng.normal(size=(2, 3, k)).astype(np.float32)),
+                          repack_to_kernel_layout(t))
+        assert y.shape == (2, 3, n)
+    x = torch.from_numpy(rng.normal(size=(5, 10)).astype(np.float32))
+    y = packed_matmul(x, repack_to_kernel_layout(t))
+    torch.testing.assert_close(y, x @ t.dequantize(), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="contraction dim"):
+        packed_matmul(torch.ones(2, 12), repack_to_kernel_layout(t))
+
+
+def test_packed_params_from_wire_keeps_weights_2bit():
+    rng = np.random.default_rng(6)
+    it = rng.integers(-1, 2, size=(2, 16, 8)).astype(np.int8)
+    tree = {"w": encode_ternary(torch.from_numpy(it), torch.tensor(0.5)),
+            "b": torch.ones(3)}
+    served = packed_params_from_wire(tree, "cpu")
+    assert served["w"].packed.shape == (2, 4, 8) and served["w"].w_q.shape == (2, 1, 1)
+    assert torch.equal(served["b"], torch.ones(3))
+    layer = served["w"].layer(1)
+    x = torch.from_numpy(rng.normal(size=(3, 16)).astype(np.float32))
+    torch.testing.assert_close(packed_matmul(x, layer),
+                               x @ (torch.from_numpy(it[1]).float() * 0.5))
+
+
+def test_launch_shape_fills_the_card_and_covers_k():
+    for m, k, n in [(4, 2048, 2048), (4, 2048, 8192), (4, 8192, 2048),
+                    (128, 2048, 2048), (128, 2048, 8192), (128, 8192, 2048), (3, 4, 5)]:
+        bm, split = launch_shape(m, k // 4, n)
+        per = -(-(k // 4) // split)
+        assert per * split >= k // 4 and per * (split - 1) < k // 4   # no empty split
+        blocks = -(-n // BN) * -(-m // bm) * split
+        assert blocks >= 128 or split == max(1, (k // 4) // 32)
+
+
+def test_wrapper_takes_plain_version_on_cpu():
+    x = torch.randn(3, 8)
+    packed = torch.full((2, 5), 0b10011001, dtype=torch.uint8)
+    before = ternary_matmul.launches
+    torch.testing.assert_close(ternary_matmul(x, packed, torch.tensor(2.0)),
+                               ternary_matmul_plain(x, packed, torch.tensor(2.0)))
+    assert ternary_matmul.launches == before
+
+
+def test_wrappers_refuse_devices_they_have_no_kernel_for():
+    """Dispatch is by the tensor's device: CPU takes the plain version, CUDA
+    the kernel, anything else raises (there is no silent fallback)."""
+    from repro_torch.kernels.quantize_pack import quantize_pack
+
+    x = torch.empty(4, 8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ternary_matmul(x, torch.empty(2, 5, dtype=torch.uint8, device="meta"),
+                       torch.empty((), device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        quantize_pack(x, torch.empty(2, device="meta"))
