@@ -6,20 +6,39 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; no phase is skipped):
-  1. device  — the card's name and power limit (nvidia-smi);
-  2. build   — nvcc builds every kernel of the serving path from src/;
-  3. checks  — each kernel against its plain PyTorch version at the serving
-               path's shapes (quantize_pack on full-width olmo-1b leaves,
-               ternary_matmul at decode and prefill shapes, fp32, TF32 off);
-  4. serve   — olmo-1b at full width (16 layers, d_model 2048, 2^30 quantized
-               weights, random weights from a seed) deployed through the TFW1
-               wire and served 2-bit: packed-vs-dequantized logits check,
-               prefill of 4 × 32 tokens, 15 greedy decode steps; the kernels'
-               launch counters are zeroed just before and read just after;
-  5. timings — each kernel, its plain version and the PyTorch library call
-               that computes the same function, with CUDA events, beside the
-               least time the card could take (bytes over 3.35 TB/s or fp32
-               operations over 67 TFLOP/s, whichever is larger).
+  1. device    — the card's name and power limit (nvidia-smi);
+  2. build     — nvcc builds every kernel from src/, one process per source;
+  3. checks    — each kernel against its plain PyTorch version: quantize_pack
+                 on full-width olmo-1b leaves and on ResNet18*'s segments
+                 written at their offsets of one buffer (payload and server
+                 mode), ternary_matmul at decode and
+                 prefill shapes (fp32, TF32 off), aggregate bit for bit at
+                 ResNet18*'s segment shapes and 16 clients × 2^26 elements;
+  4. serve     — olmo-1b at full width (16 layers, d_model 2048, 2^30 quantized
+                 weights, random weights from a seed) deployed through the TFW1
+                 wire and served 2-bit: packed-vs-dequantized logits check,
+                 prefill of 4 × 32 tokens, 15 greedy decode steps;
+  5. timings   — quantize_pack and ternary_matmul, their plain versions and the
+                 PyTorch library call, with CUDA events, beside the least time
+                 the card could take (bytes over 3.35 TB/s or fp32 operations
+                 over 67 TFLOP/s, whichever is larger);
+  6. trace     — three decode steps under torch.profiler;
+  7. federated — two T-FedAvg sync rounds (paper Algorithm 2) on ResNet18* at
+                 full width with the paper's CIFAR setting (FedConfig
+                 defaults: 100 clients, λ = 0.1, E = 5, B = 64, adam(1e-3), 500
+                 synthetic 32×32×3 samples per client); per round the bytes,
+                 simulated time, wall seconds per phase, accuracy and loss and
+                 the kernels' launches; the round's kernel fold against the
+                 list reference ``server_aggregate``; the card's fused
+                 encode of the last broadcast and of one client's upload
+                 against the reference chain;
+  8. fan-in timings — aggregate at one round's fan-in (52 groups at C = 16)
+                 and at 16 clients × 2^26 elements, beside its bytes bound and
+                 its plain version;
+  9. fed trace — one round of one client at E = 5, B = 64, timed untraced
+                 and then run under torch.profiler.
+Before each driven path (serve, federated) every kernel's launch counter is
+set to 0, and read just after.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -99,6 +118,404 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+FED_ROUNDS = 2
+FED_SAMPLES = 500         # per client: the paper's CIFAR-10 split over 100 clients
+FED_TEST = 1000
+FANIN_C = 16              # FedConfig.agg_chunk_c: one bucket per round at λN = 10
+STRESS_ELEMENTS = 2 ** 26  # per client: 16 MB of wire codes
+
+
+def _zero_counters(*fns) -> None:
+    for fn in fns:
+        fn.launches = 0
+
+
+def _segment_stack(nbytes: int, c: int, n_real: int, gen, dev):
+    """A (c, R, 128) staging buffer as the aggregator fills it: ``n_real``
+    clients' random wire codes in the first ``nbytes`` of each row, zero
+    tails and zero padding rows; coefficients 0 on the padding rows."""
+    import torch
+
+    from repro_torch.kernels.aggregate import LANES, padded_rows
+
+    rows = padded_rows(nbytes)
+    codes = torch.randint(0, 3, (c, nbytes, 4), generator=gen, device=dev, dtype=torch.uint8)
+    packed = codes[..., 0] | (codes[..., 1] << 2) | (codes[..., 2] << 4) | (codes[..., 3] << 6)
+    stacked = torch.zeros(c, rows * LANES, dtype=torch.uint8, device=dev)
+    stacked[:n_real, :nbytes] = packed[:n_real]
+    coeffs = torch.zeros(c, device=dev)
+    coeffs[:n_real] = torch.rand(n_real, generator=gen, device=dev) * 0.02 + 0.005
+    return stacked.reshape(c, rows, LANES), coeffs
+
+
+def resnet_segment_bytes() -> list[int]:
+    """Packed bytes of each ResNet18* aggregation segment: the stem's 3
+    kernel rows (576 elements), 16 convs × 3 kernel rows (12,288) and the
+    head (640) — 52 groups."""
+    return [576 // 4] * 3 + [12288 // 4] * 48 + [640 // 4]
+
+
+def quantize_pack_segment_checks(dev) -> float:
+    """quantize_pack as the federated encode launches it: ResNet18*'s
+    segments (the stem's 3 kernel rows of 576 elements, a conv's 3 of
+    12,288, the head's 640), each written through ``out=`` at its byte
+    offset of one leaf buffer, in payload mode (Δ by the threshold rule) and
+    server mode (Δ = server_delta). Codes, counts and the bytes around the
+    segments exact; tile sums within 1e-6 relative. Returns the largest
+    absolute sum error."""
+    import torch
+
+    from repro_torch.core.encode import segment_scalars
+    from repro_torch.core.fttq import FTTQConfig
+    from repro_torch.core.ternary import packed_nbytes
+    from repro_torch.kernels.quantize_pack import quantize_pack, quantize_pack_plain
+
+    fcfg = FTTQConfig()
+    gen = torch.Generator(dev).manual_seed(14)
+    guard = 16
+    worst = 0.0
+    for shape in ((3, 3, 3, 64), (3, 3, 64, 64), (64, 10)):
+        leaf = torch.randn(shape, generator=gen, device=dev) * 0.05
+        rows = leaf.reshape(shape[0] if len(shape) >= 3 else 1, -1)
+        seg_bytes = packed_nbytes(rows.shape[1])
+        for mode in ("payload", "server"):
+            denom, delta = segment_scalars(rows, mode, fcfg)
+            scal = torch.cat([denom, delta], dim=1).to(torch.float32)
+            buf = torch.full((guard + rows.shape[0] * seg_bytes + guard,), 0xA5,
+                             dtype=torch.uint8, device=dev)
+            want = buf.clone()
+            bad_counts, rel, err = 0, 0.0, 0.0
+            for i in range(rows.shape[0]):
+                at = guard + i * seg_bytes
+                _, moments = quantize_pack(rows[i], scal[i], out=buf[at:at + seg_bytes])
+                ref_packed, ref_moments = quantize_pack_plain(rows[i], scal[i])
+                want[at:at + seg_bytes] = ref_packed
+                bad_counts += int((moments[:, 1] != ref_moments[:, 1]).sum())
+                err = max(err, float((moments[:, 0] - ref_moments[:, 0]).abs().max()))
+                rel = max(rel, float(((moments[:, 0] - ref_moments[:, 0]).abs()
+                                      / ref_moments[:, 0].abs().clamp_min(1e-30)).max()))
+            torch.cuda.synchronize()
+            bad_bytes = int((buf != want).sum())
+            worst = max(worst, err)
+            print(f"  {mode} {shape}: {rows.shape[0]} segment(s) of {rows.shape[1]} elements "
+                  f"into one buffer: {bad_bytes} bytes differ (guards included), "
+                  f"{bad_counts} counts differ, sum max rel err {rel:.3e}")
+            check(bad_bytes == 0 and bad_counts == 0 and rel <= 1e-6,
+                  f"quantize_pack segment write disagrees ({mode}, {shape})")
+    return worst
+
+
+def encode_checks(fold, trained, fcfg) -> None:
+    """The card's fused encode against the reference chain (``fused=False``)
+    on the same card: the broadcast of the last round's fold
+    (``server_requantize``) and one client's upload (``client_update_payload``)
+    from its trained params and factors. Upload wire bytes byte-identical;
+    broadcast codes, shapes and dtypes identical and scales within 1e-6
+    relative (the tile sums run in another order)."""
+    import torch
+
+    from repro_torch.comm.wire import encode_update
+    from repro_torch.core.ternary import TernaryTensor
+    from repro_torch.core.tfedavg import client_update_payload, server_requantize
+    from repro_torch.tree import flatten_with_path
+
+    def host(x):
+        return torch.as_tensor(x).cpu()
+
+    params_k, wq = trained
+    up = [encode_update(client_update_payload(params_k, wq, fcfg, fused=f)) for f in (True, False)]
+    print(f"client upload, fused vs reference chain on the card: {len(up[0])} and "
+          f"{len(up[1])} wire bytes, byte-identical: {up[0] == up[1]}")
+    check(up[0] == up[1], "client upload: the fused encode differs from the reference chain")
+
+    fused, ref = (dict(flatten_with_path(server_requantize(fold, fcfg, fused=f),
+                                         is_leaf=lambda x: isinstance(x, TernaryTensor)))
+                  for f in (True, False))
+    check(fused.keys() == ref.keys(), "broadcast: the two encodes hold different leaves")
+    n_ternary, bad_codes, rel = 0, 0, 0.0
+    for path, a in fused.items():
+        b = ref[path]
+        if not isinstance(b, TernaryTensor):
+            check(not isinstance(a, TernaryTensor) and torch.equal(a, b),
+                  f"broadcast: raw leaf {path} differs")
+            continue
+        n_ternary += 1
+        check(isinstance(a, TernaryTensor) and a.shape == b.shape and a.dtype == b.dtype
+              and a.w_q.shape == b.w_q.shape, f"broadcast: leaf {path} differs in framing")
+        bad_codes += int((host(a.packed) != host(b.packed)).sum())
+        wa, wb = host(a.w_q), host(b.w_q)
+        rel = max(rel, float(((wa - wb).abs() / wb.abs().clamp_min(1e-30)).max()))
+    print(f"broadcast of the last fold, fused vs reference chain on the card: {n_ternary} "
+          f"ternary leaves, {bad_codes} code bytes differ, scales max rel err {rel:.3e} "
+          f"(limit 1e-6)")
+    check(bad_codes == 0 and rel <= 1e-6,
+          "broadcast: the fused requantize differs from the reference chain")
+
+
+def aggregate_checks(dev) -> float:
+    """aggregate against its plain version, bit for bit."""
+    import torch
+
+    from repro_torch.kernels.aggregate import packed_weighted_sum, packed_weighted_sum_plain
+
+    gen = torch.Generator(dev).manual_seed(12)
+    worst = 0.0
+    cases = [(nb, c, n_real) for nb in (576 // 4, 12288 // 4, 640 // 4)
+             for c, n_real in ((1, 1), (2, 2), (4, 3), (16, 10))]
+    cases.append((STRESS_ELEMENTS // 4, 16, 16))
+    for nbytes, c, n_real in cases:
+        stacked, coeffs = _segment_stack(nbytes, c, n_real, gen, dev)
+        out = packed_weighted_sum(stacked, coeffs)
+        ref = packed_weighted_sum_plain(stacked, coeffs)
+        torch.cuda.synchronize()
+        differ = int((out.view(torch.int32) != ref.view(torch.int32)).sum())
+        err = float((out - ref).abs().max())
+        worst = max(worst, err)
+        print(f"  C={c} ({n_real} clients) x {4 * nbytes} elements "
+              f"({tuple(stacked.shape)} bytes): max |d| {err:.3e}, {differ} elements differ")
+        check(differ == 0, f"aggregate differs from its plain version at C={c}, "
+                           f"{4 * nbytes} elements")
+        del stacked, out, ref
+    return worst
+
+
+def federated_setup(dev, samples: int = FED_SAMPLES, n_test: int = FED_TEST,
+                    n_clients: int = 100):
+    """Synthetic CIFAR-shaped data split IID over the clients, ResNet18* at
+    full width from seed 1, and the test-set scorer."""
+    from repro_torch.data import partition_iid, synthetic_classification
+    from repro_torch.launch.federated import make_eval_fn
+    from repro_torch.models.paper_models import init_resnet_cifar, resnet_cifar
+
+    x, y, xt, yt = synthetic_classification(0, n_clients * samples, 10, 3072,
+                                            image_hw=(32, 32, 3), noise=3.0, n_test=n_test)
+    return (partition_iid(x, y, n_clients), init_resnet_cifar(seed=1, device=dev),
+            make_eval_fn(resnet_cifar, xt, yt, dev))
+
+
+def federated_phase(dev, setup, *, rounds: int = FED_ROUNDS, **cfg_kw) -> dict:
+    """T-FedAvg sync rounds on ResNet18* at full width through
+    ``run_federated``; returns what the kernel table and PERF.md need."""
+    import numpy as np
+    import torch
+
+    from repro_torch.comm.wire import decode_update
+    from repro_torch.core.tfedavg import TernaryUpdate, server_aggregate
+    from repro_torch.fed import simulation as sim
+    from repro_torch.fed.aggregator import Aggregator
+    from repro_torch.kernels.aggregate import packed_weighted_sum
+    from repro_torch.kernels.quantize_pack import quantize_pack
+    from repro_torch.kernels.ternary_matmul import ternary_matmul
+    from repro_torch.models.paper_models import param_count, resnet_cifar
+    from repro_torch.optim import adam
+    from repro_torch.tree import flatten_with_path
+
+    clients, params, eval_fn = setup
+    samples = len(clients[0])
+    cfg = sim.FedConfig(rounds=rounds, n_clients=len(clients), **cfg_kw)
+    print(f"ResNet18* full width: {param_count(params)} params; {cfg.n_clients} clients x "
+          f"{samples} samples, lambda {cfg.participation}, E {cfg.local_epochs}, "
+          f"B {cfg.batch_size}, adam(1e-3), {rounds} rounds")
+
+    kernels = (quantize_pack, packed_weighted_sum, ternary_matmul)
+
+    class Timer(sim.PhaseTimer):
+        def start_round(self, r):
+            super().start_round(r)
+            self.launches.append([k.launches for k in kernels])
+
+    class Recorder(Aggregator):
+        """Keeps the last round's uploads and fold for the reference check."""
+
+        def add(self, blob, weight):
+            if self.n_clients == 0:
+                self.seen = []
+            self.seen.append((blob, weight))
+            super().add(blob, weight)
+
+        def finalize(self, *, reset=False):
+            self.last = (list(self.seen), super().finalize(reset=False))
+            if reset:
+                self.reset()
+            return self.last[1]
+
+    timer = Timer(dev)
+    timer.launches = []
+    recorders = []
+
+    def make_recorder(*a, **kw):
+        recorders.append(Recorder(*a, **kw))
+        return recorders[-1]
+
+    trained = []
+    plain_payload = sim.client_update_payload
+
+    def recording_payload(params_k, wq, fcfg, **kw):
+        trained[:] = [(params_k, wq)]           # the last client trained
+        return plain_payload(params_k, wq, fcfg, **kw)
+
+    plain_aggregator = sim.Aggregator
+    sim.Aggregator = make_recorder
+    sim.client_update_payload = recording_payload
+    try:
+        _zero_counters(*kernels)
+        t0 = time.perf_counter()
+        res = sim.run_federated(resnet_cifar, params, clients, cfg, adam(1e-3), eval_fn,
+                                eval_every=1, device=dev, timer=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = [k.launches for k in kernels]
+    finally:
+        sim.Aggregator = plain_aggregator
+        sim.client_update_payload = plain_payload
+    marks = timer.launches + [launches]
+    per_round = []
+    for r in range(rounds):
+        ph = timer.rounds[r]
+        lq, la, lt = (marks[r + 1][i] - marks[r][i] for i in range(3))
+        row = {"round": r, "upload_bytes": res.telemetry["upload_bytes_per_round"][r],
+               "download_bytes": res.telemetry["download_bytes_per_round"][r],
+               "sim_s": res.round_times[r], "accuracy": res.accuracy[r], "loss": res.loss[r],
+               "participants": res.participants_per_round[r],
+               "wall_s": {k: ph.get(k, 0.0) for k in ("train", "encode", "wire", "aggregate",
+                                                      "requantize")},
+               "launches": {"quantize_pack": lq, "aggregate": la, "ternary_matmul": lt}}
+        per_round.append(row)
+        w = row["wall_s"]
+        print(f"  round {r}: up {row['upload_bytes']} B, down {row['download_bytes']} B, "
+              f"{row['participants']} clients, simulated {row['sim_s']:.3f} s; wall: train "
+              f"{w['train']:.2f} s, encode {w['encode']:.3f} s, wire {w['wire']:.3f} s, "
+              f"aggregate {w['aggregate']:.3f} s, requantize {w['requantize']:.3f} s; "
+              f"acc {row['accuracy']:.4f}, loss {row['loss']:.4f}; launches quantize_pack "
+              f"{lq}, aggregate {la}")
+        check(np.isfinite(row["loss"]) and 0.0 <= row["accuracy"] <= 1.0,
+              f"round {r}: accuracy/loss not finite")
+        check(row["upload_bytes"] > 0 and row["download_bytes"] > 0, f"round {r}: no bytes")
+    print(f"{rounds} rounds in {wall:.2f} s of wall time; fp32 model "
+          f"{4 * param_count(params)} B, T-FedAvg upload per client "
+          f"{res.upload_bytes // sum(res.participants_per_round)} B")
+    check(launches[1] > 0, "aggregate was not launched by the federated rounds")
+    check(launches[0] > 0, "quantize_pack was not launched by the federated rounds")
+
+    blobs, fold = recorders[-1].last
+    updates = [TernaryUpdate(payload=decode_update(b), n_samples=int(w)) for b, w in blobs]
+    listed = dict(flatten_with_path(server_aggregate(updates, dev)))
+    cpu_agg = Aggregator(chunk_c=cfg.agg_chunk_c, device="cpu")
+    for b, w in blobs:
+        cpu_agg.add(b, w)
+    cpu_fold = dict(flatten_with_path(cpu_agg.finalize()))
+    worst, worst_cpu = 0.0, 0
+    for path, leaf in flatten_with_path(fold):
+        ref = listed[path]
+        err = (leaf - ref).abs()
+        check(bool((err <= 1e-6 + 1e-5 * ref.abs()).all()),
+              f"kernel fold disagrees with server_aggregate at {path}")
+        worst = max(worst, float(err.max()))
+        worst_cpu += int((leaf.cpu() != cpu_fold[path]).sum())
+    print(f"last round's fold ({len(blobs)} uploads): max |d| vs server_aggregate "
+          f"{worst:.3e} (limit 1e-6 + 1e-5|ref|); {worst_cpu} elements differ from the "
+          f"CPU plain fold")
+    check(worst_cpu == 0, "the kernel fold differs from the plain fold")
+    encode_checks(fold, trained[0], cfg.fttq)
+    return {"per_round": per_round, "launches": launches, "wall_s": wall,
+            "fold_vs_list_max_abs": worst}
+
+
+def aggregate_timings(dev) -> dict:
+    """aggregate over one round's 52 groups at C = 16, and at 16 clients ×
+    2^26 elements, with its plain version and its bytes bound."""
+    import torch
+
+    from repro_torch.kernels.aggregate import packed_weighted_sum, packed_weighted_sum_plain
+
+    gen = torch.Generator(dev).manual_seed(13)
+
+    def nbytes(seg_bytes: int, n_real: int) -> int:
+        """What the fold needs: each real client's codes and coefficient
+        in, the segment's fp32 out; not the staging's padding rows and
+        tails."""
+        return n_real * (seg_bytes + 4) + 4 * 4 * seg_bytes
+
+    n_real = 10                                  # λN clients in a round
+    groups = [_segment_stack(nb, FANIN_C, n_real, gen, dev) for nb in resnet_segment_bytes()]
+    out = {"groups": len(groups)}
+    out["round_ms"] = time_ms(lambda: [packed_weighted_sum(s, c) for s, c in groups], 50)
+    out["round_plain_ms"] = time_ms(
+        lambda: [packed_weighted_sum_plain(s, c) for s, c in groups], 5)
+    out["round_bound_ms"], out["round_bound_by"] = bound(
+        sum(nbytes(nb, n_real) for nb in resnet_segment_bytes()), 0)
+    stress = _segment_stack(STRESS_ELEMENTS // 4, FANIN_C, FANIN_C, gen, dev)
+    out["stress_ms"] = time_ms(lambda: packed_weighted_sum(*stress), 20)
+    out["stress_plain_ms"] = time_ms(lambda: packed_weighted_sum_plain(*stress), 3)
+    stress_bytes = nbytes(STRESS_ELEMENTS // 4, FANIN_C)
+    out["stress_bound_ms"], out["stress_bound_by"] = bound(stress_bytes, 0)
+    print(f"aggregate, one round's fan-in ({len(groups)} launches at C={FANIN_C}, "
+          f"{n_real} clients): kernel {out['round_ms']:.4f} ms, plain "
+          f"{out['round_plain_ms']:.4f} ms, bound {out['round_bound_ms']:.5f} ms "
+          f"({out['round_bound_by']}, {sum(nbytes(nb, n_real) for nb in resnet_segment_bytes())}"
+          f" B); library: none")
+    print(f"aggregate, C={FANIN_C} x {STRESS_ELEMENTS} elements: kernel {out['stress_ms']:.4f} "
+          f"ms, plain {out['stress_plain_ms']:.4f} ms, bound {out['stress_bound_ms']:.4f} ms "
+          f"({out['stress_bound_by']}, {stress_bytes} B); library: none")
+    return out
+
+
+def federated_trace(dev, setup) -> None:
+    """A window of the federated configuration: one round of one client at
+    E = 5, B = 64 (35 QAT steps, with the broadcast, encode, fan-in and
+    eval around them), run once untraced and timed, then again under
+    torch.profiler. The idle share is the device time against the untraced
+    wall of the same window, since the profiler slows the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.fed.simulation import FedConfig, run_federated
+    from repro_torch.models.paper_models import resnet_cifar
+    from repro_torch.optim import adam
+
+    clients, params, eval_fn = setup
+    cfg = FedConfig(rounds=1, n_clients=len(clients), participation=1 / len(clients))
+
+    def one_round():
+        run_federated(resnet_cifar, params, clients, cfg, adam(1e-3), eval_fn, device=dev)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_round()
+    torch.cuda.synchronize()
+    untraced_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_round()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    report_trace(prof, wall_ms, f"1 round, 1 client x E {cfg.local_epochs}, B "
+                 f"{cfg.batch_size}", untraced_ms)
+
+
+def report_trace(prof, wall_ms: float, what: str, untraced_ms: float | None = None) -> None:
+    """Device time of a traced window and the device's idle share of it:
+    against the untraced wall of the same window where one was timed,
+    else against the traced wall."""
+    events = prof.key_averages()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    busy_ms = sum(device_us(e) for e in events) / 1e3
+    if untraced_ms is None:
+        print(f"{what}: {wall_ms:.2f} ms wall, {busy_ms:.3f} ms of device time "
+              f"(device idle {100 * (1 - busy_ms / wall_ms):.1f}% of the window)")
+    else:
+        print(f"{what}: {untraced_ms:.2f} ms wall untraced ({wall_ms:.2f} ms traced), "
+              f"{busy_ms:.3f} ms of device time (device idle "
+              f"{100 * (1 - busy_ms / untraced_ms):.1f}% of the untraced window)")
+    for e in sorted(events, key=device_us, reverse=True)[:10]:
+        print(f"  {device_us(e) / 1e3:9.3f} ms device  {e.count:6d} calls  {e.key[:70]}")
+    for e in sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
+        print(f"  {e.self_cpu_time_total / 1e3:9.3f} ms host    {e.count:6d} calls  {e.key[:70]}")
+
+
 def main() -> int:
     import torch
 
@@ -116,6 +533,7 @@ def main() -> int:
     from repro_torch.core.encode import leaf_scalars
     from repro_torch.core.fttq import FTTQConfig, is_quantizable
     from repro_torch.kernels import _build
+    from repro_torch.kernels.aggregate import packed_weighted_sum
     from repro_torch.kernels.quantize_pack import quantize_pack, quantize_pack_plain
     from repro_torch.kernels.repack import PackedTernary
     from repro_torch.kernels.ternary_matmul import (
@@ -177,6 +595,10 @@ def main() -> int:
               f"quantize_pack disagrees with its plain version at {tuple(leaf.shape)}")
         del packed, moments, ref_packed, ref_moments
 
+    phase("checks: quantize_pack segments through out= (codes, counts and guards exact, "
+          "sums rtol 1e-6)")
+    qp_err = max(qp_err, quantize_pack_segment_checks(dev))
+
     phase("checks: ternary_matmul vs plain (fp32, TF32 off, rtol 1e-4, atol 1e-4)")
     gen = torch.Generator(dev).manual_seed(5)
     tm_err = 0.0
@@ -216,9 +638,11 @@ def main() -> int:
         check(ok, f"ternary_matmul disagrees with its plain version at {(m, k, n)}")
         del x, c, packed, dense, y, y_ref
 
+    phase("checks: aggregate vs plain (bit-identical)")
+    agg_err = aggregate_checks(dev)
+
     phase("serve: olmo-1b --ternary --packed at full width")
-    quantize_pack.launches = 0
-    ternary_matmul.launches = 0
+    _zero_counters(quantize_pack, ternary_matmul, packed_weighted_sum)
     t0 = time.perf_counter()
     fp_bytes = update_nbytes(params)
     served, wire_bytes, dl_s, link = ternary_deploy(params, fcfg, packed=True, device=dev)
@@ -240,6 +664,7 @@ def main() -> int:
     tokens, t_prefill, t_decode = generate(cfg, served, prompts, GEN)
     qp_launches = quantize_pack.launches
     tm_launches = ternary_matmul.launches
+    check(packed_weighted_sum.launches == 0, "the serving path launched aggregate")
     print(f"prefill: {BATCH}x{PROMPT} tokens in {t_prefill * 1e3:.2f} ms")
     print(f"decode: {GEN - 1} steps x batch {BATCH} in {t_decode * 1e3:.2f} ms "
           f"({BATCH * (GEN - 1) / t_decode:.1f} tok/s)")
@@ -315,20 +740,17 @@ def main() -> int:
             tok = torch.argmax(logits, dim=-1)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
+    report_trace(prof, wall_ms, "3 decode steps")
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+    phase("federated: ResNet18* T-FedAvg sync rounds at full width")
+    setup = federated_setup(dev)
+    fed = federated_phase(dev, setup)
 
-    busy_ms = sum(device_us(e) for e in events) / 1e3
-    ranked = sorted(events, key=device_us, reverse=True)
-    print(f"3 decode steps: {wall_ms:.2f} ms wall, {busy_ms:.3f} ms of device time "
-          f"(device idle {100 * (1 - busy_ms / wall_ms):.1f}% of the window)")
-    for e in ranked[:10]:
-        print(f"  {device_us(e) / 1e3:9.3f} ms device  {e.count:6d} calls  {e.key[:70]}")
-    cpu_ranked = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)
-    for e in cpu_ranked[:8]:
-        print(f"  {e.self_cpu_time_total / 1e3:9.3f} ms host    {e.count:6d} calls  {e.key[:70]}")
+    phase("fan-in timings")
+    agg_t = aggregate_timings(dev)
+
+    phase("fed trace: one round of 1 client at E = 5, B = 64 under torch.profiler")
+    federated_trace(dev, setup)
 
     table = {"kernels": [
         {"name": "quantize_pack", "route": "cuda",
@@ -343,6 +765,16 @@ def main() -> int:
          "launches": tm_launches, "max_abs_err": tm_err, "ms": tm_ms,
          "plain_ms": tm_plain_ms, "bound_ms": tm_bound, "bound_by": tm_by,
          "library_ms": tm_lib_ms, "eager_ms": tm_eager_ms, "per_shape": per_shape},
+        {"name": "aggregate", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/aggregate.cu",
+         "replaces": "src/repro/kernels/aggregate.py:51",
+         "launches": fed["launches"][1], "max_abs_err": agg_err, "ms": agg_t["round_ms"],
+         "plain_ms": agg_t["round_plain_ms"], "bound_ms": agg_t["round_bound_ms"],
+         "bound_by": agg_t["round_bound_by"], "library_ms": None,
+         "stress_ms": agg_t["stress_ms"], "stress_plain_ms": agg_t["stress_plain_ms"],
+         "stress_bound_ms": agg_t["stress_bound_ms"],
+         "federated_quantize_pack_launches": fed["launches"][0],
+         "per_round": fed["per_round"]},
     ]}
     print(card)
     print(json.dumps(table))

@@ -1,36 +1,329 @@
-"""Link model for the download estimate of a deployment.
+"""Simulated transport: payload bytes → wall-clock transfer times.
 
-Port of the deterministic part of ``repro.comm.channel``: ``ChannelConfig``
-(its link medians) and ``ClientLink.transfer_time``. The lossy, jittered
-``Channel`` and the fields that drive it arrive with the federated slice.
+Port of ``repro.comm.channel`` (pure numpy). Each client gets a
+``ClientLink`` with bandwidth and latency drawn once from log-normal /
+normal distributions; a transfer of ``nbytes`` costs
+
+    t = latency + jitter + nbytes / bandwidth
+
+so stragglers are emergent from bytes ÷ bandwidth. ``transfer_concurrent``
+shares the server NIC (``server_bandwidth_bytes_s``) max-min fairly among
+simultaneous flows. Lossy links move payloads in ``chunk_bytes`` chunks,
+lost iid (``loss_rate``) or in Gilbert–Elliott bursts, and retransmitted
+after a timeout with exponential backoff; retransmissions are metered apart
+from goodput. With loss off no loss randomness is drawn, so the rng stream
+is the loss-free model's.
+
+Every draw happens in the reference's order from a ``numpy`` Generator
+with the same seed, so a seeded run gives the reference's transfer log,
+bit for bit. The batched fleet transfers (``transfer_batch``,
+``compute_time_batch``) and the async ``transfer_timed`` arrive with the
+fleet and async slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+
 
 @dataclasses.dataclass(frozen=True)
 class ChannelConfig:
-    """Fleet-level link medians.
+    """Fleet-level link distribution + round deadline.
 
-    mean_bandwidth_bytes_s: median link bandwidth, bytes/second (≈ a 1 MB/s
-      uplink, the regime of limited capacity the paper targets).
-    base_latency_s: mean one-way link latency.
+    Attributes:
+      mean_bandwidth_bytes_s: median link bandwidth, bytes/second (≈ a
+        1 MB/s uplink, the regime of limited capacity the paper targets).
+      bandwidth_sigma: σ of the log-normal bandwidth draw (0 → homogeneous).
+      base_latency_s: mean one-way link latency.
+      latency_jitter_s: per-transfer uniform jitter in [0, jitter).
+      deadline_s: sync round deadline; a client whose download + compute +
+        upload exceeds it is dropped as a straggler (0 or inf → never).
+      compute_speed_sigma: σ of the log-normal per-client compute speed.
+      server_bandwidth_bytes_s: server NIC capacity shared by simultaneous
+        transfers (0 or inf → no shared bottleneck).
+      loss_rate: per-chunk Bernoulli loss probability (``loss_model="iid"``).
+      chunk_bytes: loss granularity.
+      retransmit_timeout_s: wait before the first retransmission of a lost
+        chunk; each further loss of it backs off by ``retransmit_backoff``×.
+      retransmit_backoff: exponential backoff factor (≥ 1).
+      loss_model: "iid" or "gilbert_elliott" (the ``ge_*`` knobs).
+      ge_p_good_bad / ge_p_bad_good: state hop probabilities per chunk.
+      ge_loss_good / ge_loss_bad: chunk loss probability in each state.
     """
 
     mean_bandwidth_bytes_s: float = 1e6
+    bandwidth_sigma: float = 0.5
     base_latency_s: float = 0.05
+    latency_jitter_s: float = 0.01
+    deadline_s: float = float("inf")
+    compute_speed_sigma: float = 0.3
+    server_bandwidth_bytes_s: float = float("inf")
+    loss_rate: float = 0.0
+    chunk_bytes: int = 64 * 1024
+    retransmit_timeout_s: float = 0.05
+    retransmit_backoff: float = 2.0
+    loss_model: str = "iid"
+    ge_p_good_bad: float = 0.05
+    ge_p_bad_good: float = 0.5
+    ge_loss_good: float = 0.0
+    ge_loss_bad: float = 0.5
 
 
 @dataclasses.dataclass(frozen=True)
 class ClientLink:
-    """One client's link and device characteristics."""
+    """One client's drawn link and device characteristics."""
 
     client_id: int
     bandwidth_bytes_s: float
     latency_s: float
     compute_speed: float  # multiplier on nominal examples/sec
 
-    def transfer_time(self, nbytes: int) -> float:
-        return self.latency_s + nbytes / self.bandwidth_bytes_s
+    def transfer_time(self, nbytes: int, jitter: float = 0.0) -> float:
+        return self.latency_s + jitter + nbytes / self.bandwidth_bytes_s
+
+
+@dataclasses.dataclass
+class TransferEvent:
+    """One wire transfer: ``nbytes`` of goodput, plus ``retrans_bytes`` of
+    retransmissions (``retries`` chunks), all inside ``seconds``."""
+
+    client_id: int
+    direction: str  # "down" | "up"
+    nbytes: int
+    seconds: float
+    retrans_bytes: int = 0
+    retries: int = 0
+
+
+def _fair_share_completion(
+    starts: list[float], nbytes: list[int], caps: list[float], total_cap: float
+) -> list[float]:
+    """Fluid processor-sharing model: absolute completion time of each flow.
+
+    Flow i becomes active at ``starts[i]`` with ``nbytes[i]`` to move, its
+    rate capped by ``caps[i]``; active flows share ``total_cap`` max-min
+    fairly (water-filling). With ``total_cap`` = inf every flow runs at its
+    own cap."""
+    n = len(starts)
+    remaining = [float(b) for b in nbytes]
+    done = [0.0] * n
+    finished = [False] * n
+    t = 0.0
+    while not all(finished):
+        active = [i for i in range(n) if not finished[i] and starts[i] <= t]
+        if not active:
+            t = min(s for i, s in enumerate(starts) if not finished[i] and s > t)
+            continue
+        rates = {}
+        pool = total_cap
+        todo = list(active)
+        while todo:
+            share = pool / len(todo) if pool != float("inf") else float("inf")
+            capped = [i for i in todo if caps[i] <= share]
+            if not capped:
+                for i in todo:
+                    rates[i] = share
+                todo = []
+            else:
+                for i in capped:
+                    rates[i] = caps[i]
+                    if pool != float("inf"):
+                        pool -= caps[i]
+                todo = [i for i in todo if i not in capped]
+        dt_complete = min(
+            remaining[i] / rates[i] if rates[i] > 0 else float("inf")
+            for i in active
+        )
+        upcoming = [s for i, s in enumerate(starts) if not finished[i] and s > t]
+        dt = min(dt_complete, min(upcoming) - t) if upcoming else dt_complete
+        for i in active:
+            remaining[i] -= rates[i] * dt
+            if remaining[i] <= 1e-9:
+                finished[i] = True
+                done[i] = t + dt
+        t += dt
+    return done
+
+
+class _LinkView:
+    """Sequence view of the channel's per-client arrays as ``ClientLink``s;
+    assigning a ``ClientLink`` stores back into the arrays."""
+
+    def __init__(self, channel: "Channel"):
+        self._ch = channel
+
+    def __len__(self) -> int:
+        return self._ch.n_clients
+
+    def __getitem__(self, k: int) -> ClientLink:
+        ch = self._ch
+        return ClientLink(int(k), float(ch._bw[k]), float(ch._lat[k]),
+                          float(ch._speed[k]))
+
+    def __setitem__(self, k: int, link: ClientLink) -> None:
+        ch = self._ch
+        ch._bw[k] = link.bandwidth_bytes_s
+        ch._lat[k] = link.latency_s
+        ch._speed[k] = link.compute_speed
+
+    def __iter__(self):
+        return (self[k] for k in range(len(self)))
+
+
+class Channel:
+    """Holds the fleet's links and meters transfers through them."""
+
+    def __init__(self, cfg: ChannelConfig, n_clients: int, seed: int = 0):
+        self.cfg = cfg
+        self.n_clients = int(n_clients)
+        rng = np.random.default_rng(seed)
+        self._bw = cfg.mean_bandwidth_bytes_s * rng.lognormal(
+            mean=0.0, sigma=cfg.bandwidth_sigma, size=n_clients
+        )
+        self._lat = np.maximum(
+            rng.normal(cfg.base_latency_s, cfg.base_latency_s * 0.2, size=n_clients),
+            1e-4,
+        )
+        self._speed = rng.lognormal(
+            mean=0.0, sigma=cfg.compute_speed_sigma, size=n_clients
+        )
+        self.links = _LinkView(self)
+        self._rng = rng
+        self.log: list[TransferEvent] = []
+
+    # -- loss / retransmission --------------------------------------------
+
+    def _chunk_sizes(self, nbytes: int) -> np.ndarray:
+        chunk = max(1, int(self.cfg.chunk_bytes))
+        n_chunks = (nbytes + chunk - 1) // chunk
+        sizes = np.full(n_chunks, chunk, dtype=np.int64)
+        sizes[-1] = nbytes - chunk * (n_chunks - 1)
+        return sizes
+
+    def _penalty_from_extra(
+        self, extra: np.ndarray, sizes: np.ndarray
+    ) -> tuple[int, float, int]:
+        """Per-chunk retransmission counts → (retrans_bytes, timeout delay,
+        retries); a chunk lost ``e`` times waits t0·(b^e − 1)/(b − 1)."""
+        retrans_bytes = int(np.sum(extra * sizes))
+        retries = int(extra.sum())
+        if retries == 0:
+            return 0, 0.0, 0
+        t0, b = self.cfg.retransmit_timeout_s, self.cfg.retransmit_backoff
+        if b == 1.0:
+            delay = t0 * retries
+        else:
+            delay = float(t0 * np.sum((b ** extra[extra > 0] - 1.0) / (b - 1.0)))
+        return retrans_bytes, delay, retries
+
+    def _ge_loss_penalty(self, nbytes: int) -> tuple[int, float, int]:
+        """Gilbert–Elliott penalty: the good/bad chain steps once per chunk
+        from its stationary start; each chunk needs a geometric number of
+        transmissions at its state's loss rate. Draws nothing when both
+        state loss rates are 0."""
+        cfg = self.cfg
+        pg, pb = cfg.ge_loss_good, cfg.ge_loss_bad
+        if (pg <= 0.0 and pb <= 0.0) or nbytes == 0:
+            return 0, 0.0, 0
+        for name, v in (("ge_loss_good", pg), ("ge_loss_bad", pb)):
+            if not 0.0 <= v < 1.0:
+                raise ValueError(f"{name} must be in [0, 1), got {v}")
+        gb, bg = cfg.ge_p_good_bad, cfg.ge_p_bad_good
+        for name, v in (("ge_p_good_bad", gb), ("ge_p_bad_good", bg)):
+            if not 0.0 <= v <= 1.0:
+                raise ValueError(f"{name} must be in [0, 1], got {v}")
+        sizes = self._chunk_sizes(nbytes)
+        n_chunks = len(sizes)
+        pi_bad = gb / (gb + bg) if gb + bg > 0 else 0.0
+        bad = bool(self._rng.random() < pi_bad)
+        steps = self._rng.random(size=n_chunks)
+        extra = np.zeros(n_chunks, dtype=np.int64)
+        for i in range(n_chunks):
+            p = pb if bad else pg
+            if p > 0.0:
+                extra[i] = self._rng.geometric(1.0 - p) - 1
+            bad = (steps[i] >= bg) if bad else (steps[i] < gb)
+        return self._penalty_from_extra(extra, sizes)
+
+    def _loss_penalty(self, nbytes: int) -> tuple[int, float, int]:
+        """(retrans_bytes, timeout_delay_s, retries) for one transfer; draws
+        nothing when loss is off."""
+        model = self.cfg.loss_model
+        if model == "gilbert_elliott":
+            return self._ge_loss_penalty(nbytes)
+        if model != "iid":
+            raise ValueError(
+                f"loss_model must be 'iid' or 'gilbert_elliott', got {model!r}")
+        p = self.cfg.loss_rate
+        if p <= 0.0 or nbytes == 0:
+            return 0, 0.0, 0
+        if not p < 1.0:
+            raise ValueError(f"loss_rate must be < 1, got {p}")
+        sizes = self._chunk_sizes(nbytes)
+        tx = self._rng.geometric(1.0 - p, size=len(sizes))
+        return self._penalty_from_extra(tx - 1, sizes)
+
+    # -- transfers ---------------------------------------------------------
+
+    def transfer(self, client_id: int, nbytes: int, direction: str) -> float:
+        """Seconds to move ``nbytes`` over this client's link (logged)."""
+        jitter = float(self._rng.uniform(0.0, self.cfg.latency_jitter_s))
+        retrans, delay, retries = self._loss_penalty(nbytes)
+        dt = self.links[client_id].transfer_time(nbytes + retrans, jitter) + delay
+        self.log.append(
+            TransferEvent(client_id, direction, nbytes, dt, retrans, retries)
+        )
+        return dt
+
+    def transfer_concurrent(
+        self, client_ids: list[int], nbytes: list[int], direction: str
+    ) -> list[float]:
+        """Seconds for SIMULTANEOUS transfers contending for the server NIC:
+        each flow starts after its latency (+ jitter), then the data phases
+        share ``server_bandwidth_bytes_s`` max-min fairly, each capped by its
+        link; lost chunks re-enter the pipe and their timeouts extend the
+        flow. Logged and returned in ``client_ids`` order."""
+        jitters = [
+            float(self._rng.uniform(0.0, self.cfg.latency_jitter_s))
+            for _ in client_ids
+        ]
+        penalties = [self._loss_penalty(b) for b in nbytes]
+        starts = [self.links[k].latency_s + j for k, j in zip(client_ids, jitters)]
+        caps = [self.links[k].bandwidth_bytes_s for k in client_ids]
+        wire = [b + pen[0] for b, pen in zip(nbytes, penalties)]
+        nic = self.cfg.server_bandwidth_bytes_s
+        done = _fair_share_completion(
+            starts, wire, caps, nic if nic > 0 else float("inf")
+        )
+        done = [d + pen[1] for d, pen in zip(done, penalties)]
+        for k, b, dt, pen in zip(client_ids, nbytes, done, penalties):
+            self.log.append(TransferEvent(k, direction, b, dt, pen[0], pen[2]))
+        return done
+
+    def compute_time(self, client_id: int, n_examples: int,
+                     nominal_examples_per_s: float = 5000.0) -> float:
+        """Local-training wall time for ``n_examples`` processed examples."""
+        return n_examples / (nominal_examples_per_s * self.links[client_id].compute_speed)
+
+    def summary(self) -> dict:
+        """Transfer statistics: ``total_bytes`` is goodput, retransmission
+        overhead is reported apart."""
+        if not self.log:
+            return {"n_transfers": 0, "total_bytes": 0, "total_seconds": 0.0,
+                    "mean_seconds": 0.0, "p95_seconds": 0.0,
+                    "retrans_bytes": 0, "retries": 0, "goodput_fraction": 1.0}
+        secs = np.array([e.seconds for e in self.log])
+        goodput = int(sum(e.nbytes for e in self.log))
+        retrans = int(sum(e.retrans_bytes for e in self.log))
+        return {
+            "n_transfers": len(self.log),
+            "total_bytes": goodput,
+            "total_seconds": float(secs.sum()),
+            "mean_seconds": float(secs.mean()),
+            "p95_seconds": float(np.percentile(secs, 95)),
+            "retrans_bytes": retrans,
+            "retries": int(sum(e.retries for e in self.log)),
+            "goodput_fraction": goodput / max(goodput + retrans, 1),
+        }

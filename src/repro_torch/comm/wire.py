@@ -21,7 +21,8 @@ and copies each payload into it once (a device tensor straight from the
 card); ``update_nbytes`` returns that size without building the buffer.
 ``decode_update`` returns CPU tensors that are zero-copy views of the
 buffer, and raises ``WireError`` on any corrupted, truncated or malformed
-input.
+input. ``decode_update_leaves`` returns the flat records for the streaming
+aggregator, and ``tree_from_records`` rebuilds a tree from them.
 """
 
 from __future__ import annotations
@@ -296,7 +297,7 @@ def _containerize(node):
     return {k: _containerize(v) for (_, k), v in node.items()}
 
 
-def _decode_update(data) -> Pytree:
+def _decode_records(data) -> list[tuple[str, Any]]:
     body, n_records = _check_header(data)
     r = _Reader(body)
     pairs = []
@@ -311,6 +312,43 @@ def _decode_update(data) -> Pytree:
         pairs.append((path, _DECODERS[kind](r)))
     if r.pos != len(body):
         raise WireError(f"{len(body) - r.pos} trailing bytes after last record")
+    return pairs
+
+
+def _guarded(fn, data):
+    try:
+        return fn(data)
+    except WireError:
+        raise
+    except (struct.error, ValueError, TypeError, OverflowError,
+            UnicodeDecodeError) as e:
+        raise WireError(f"malformed wire buffer: {e}") from e
+
+
+def decode_update(data) -> Pytree:
+    """Inverse of ``encode_update``: the tree, with CPU tensors that view
+    ``data``. Dicts come back as dicts, sequences as lists; a single leaf
+    with an empty path decodes to the bare leaf."""
+    return _guarded(lambda d: tree_from_records(_decode_records(d)), data)
+
+
+def decode_update_leaves(data) -> list[tuple[str, Any]]:
+    """The flat (path, leaf) records in wire order, without rebuilding
+    containers: the streaming aggregator reads records straight off the
+    buffer. Arrays are zero-copy CPU tensors viewing ``data``."""
+    return _guarded(_decode_records, data)
+
+
+def tree_leaf_paths(tree: Pytree) -> list[tuple[str, Any]]:
+    """(wire path, leaf) pairs of a tree: the path strings ``encode_update``
+    stamps on its records, in record order."""
+    return [(_PATH_SEP.join(_path_entries(p)), leaf)
+            for p, leaf in flatten_with_path(tree, is_leaf=is_wire_leaf)]
+
+
+def tree_from_records(pairs: list[tuple[str, Any]]) -> Pytree:
+    """Rebuild the tree from (path, leaf) records, with the container
+    normalization of ``decode_update``."""
     root: dict = {}
     for path, leaf in pairs:
         if not path:
@@ -319,16 +357,3 @@ def _decode_update(data) -> Pytree:
             return leaf
         _insert(root, path.split(_PATH_SEP), leaf)
     return _containerize(root)
-
-
-def decode_update(data) -> Pytree:
-    """Inverse of ``encode_update``: the tree, with CPU tensors that view
-    ``data``. Dicts come back as dicts, sequences as lists; a single leaf
-    with an empty path decodes to the bare leaf."""
-    try:
-        return _decode_update(data)
-    except WireError:
-        raise
-    except (struct.error, ValueError, TypeError, OverflowError,
-            UnicodeDecodeError) as e:
-        raise WireError(f"malformed wire buffer: {e}") from e

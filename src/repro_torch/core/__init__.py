@@ -1,2 +1,2 @@
-"""FTTQ statistics, the ternary wire tensor, codecs and the fused encode
-(port of ``repro.core``, serving subset)."""
+"""FTTQ statistics and QAT quantizer, the ternary wire tensor, codecs, the
+fused encode and the T-FedAvg protocol pieces (port of ``repro.core``)."""

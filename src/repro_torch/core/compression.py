@@ -1,10 +1,12 @@
-"""Codec registry and tree compression, the subset on the serving path.
+"""Codec registry and tree compression, the subset on the serving and
+federated paths.
 
-Port of ``repro.core.compression``: ``CodecSpec``, the ``none`` and
-``ternary`` codecs, ``compress_pytree`` and ``decompress_pytree``. A codec
-turns one leaf into a wire leaf and back and owns a wire record kind byte.
-The downcast and top-k codecs arrive with their slice (naming one raises
-``NotImplementedError``), and error feedback with them.
+Port of ``repro.core.compression``: ``CodecSpec``, ``CompressionSpec``,
+the ``none`` and ``ternary`` codecs, ``compress_pytree`` and
+``decompress_pytree``. A codec turns one leaf into a wire leaf and back and
+owns a wire record kind byte. The downcast and top-k codecs arrive with
+their slice (naming one raises ``NotImplementedError``), and error
+feedback with them.
 """
 
 from __future__ import annotations
@@ -53,6 +55,10 @@ class TernaryCodec:
         return self.encode_leaves_batch([leaf], spec)[0]
 
     def encode_leaves_batch(self, leaves, spec):
+        if not spec.fused_encode:
+            from repro_torch.core.tfedavg import reference_leaf
+
+            return [reference_leaf(leaf, "codec", spec.fttq) for leaf in leaves]
         from repro_torch.core.encode import encode_codec_leaves_fused
 
         return encode_codec_leaves_fused(leaves, spec)
@@ -112,6 +118,9 @@ class CodecSpec:
     kind: str = "ternary"
     residual: str = "none"
     fttq: fttq.FTTQConfig = dataclasses.field(default_factory=fttq.FTTQConfig)
+    # True → ternary leaves encode through the quantize→pack kernel
+    # (core.encode); False → the per-leaf reference chain. Same wire bytes.
+    fused_encode: bool = True
 
     def __post_init__(self):
         for field in ("kind", "residual"):
@@ -120,6 +129,21 @@ class CodecSpec:
     @property
     def is_identity(self) -> bool:
         return self.kind == "none" and self.residual == "none"
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressionSpec:
+    """Per-direction codec selection: upstream (client→server) and
+    downstream (server→client) compress independently."""
+
+    upstream: CodecSpec = dataclasses.field(default_factory=CodecSpec)
+    downstream: CodecSpec = dataclasses.field(default_factory=CodecSpec)
+
+    @classmethod
+    def symmetric(cls, kind: str = "ternary", residual: str = "none",
+                  **kw) -> "CompressionSpec":
+        d = CodecSpec(kind=kind, residual=residual, **kw)
+        return cls(upstream=d, downstream=d)
 
 
 def compress_pytree(tree: Pytree, spec: CodecSpec) -> tuple[Pytree, None]:

@@ -7,19 +7,28 @@ Port of the forward half of ``repro.core.fttq`` (paper §III.A, eqs. 6-12):
     I_t  = sign(ε(|θ_s| − Δ) ⊙ θ_s) ternary codes in {-1, 0, +1}        (eq. 11)
 
 plus the policy that decides which leaves of a parameter tree are
-quantized. The straight-through ``fttq_quantize`` arrives with the
-federated training slice.
+quantized, and the quantization-aware training (QAT) forward
+``fttq_quantize`` (θ_t = w_q · I_t) with the straight-through backward of
+Algorithm 1:
+
+    ∂J/∂w_q = Σ_i ∂J/∂θ_t_i · I_t_i
+    ∂J/∂θ_i = ∂J/∂θ_t_i · (w_q if I_t_i ≠ 0 else 1)
+
+Leaves with ndim ≥ 3 are "stacked": one factor per leading index, so an
+HWIO conv weight (3, 3, 64, 64) trains 3 factors of shape (3, 1, 1, 1), one
+per kernel row, as the reference's ``vmap`` does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import re
+from typing import Any
 
 import torch
 
 from repro_torch.dtypes import is_floating
-from repro_torch.tree import Path, path_str
+from repro_torch.tree import Path, flatten_with_path, path_str, tree_map_with_path
 
 _EPS = 1e-8
 
@@ -101,3 +110,105 @@ def is_quantizable(path: Path, leaf, cfg: FTTQConfig) -> bool:
     if any(pat in name for pat in excludes):
         return False
     return not any(re.search(pat, name) for pat in cfg.exclude_patterns)
+
+
+# --------------------------------------------------------------------------
+# The QAT quantizer (Algorithm 1), over rows: one row per trained factor.
+# --------------------------------------------------------------------------
+
+
+def _row_abs_max(rows: torch.Tensor) -> torch.Tensor:
+    return torch.maximum(rows.amax(dim=1, keepdim=True), -rows.amin(dim=1, keepdim=True))
+
+
+def row_denom(rows: torch.Tensor) -> torch.Tensor:
+    """max|θ| + ε per row of a (L, m) weight, as (L, 1): each row (a layer
+    of a stacked leaf, or a whole leaf as one row) is scaled on its own."""
+    return _row_abs_max(rows) + _EPS
+
+
+def row_threshold(theta_s: torch.Tensor, t_k: float, rule: str = "mean") -> torch.Tensor:
+    """Δ per row of a (L, m) scaled weight, as (L, 1)."""
+    if rule == "mean":
+        return t_k * theta_s.abs().mean(dim=1, keepdim=True)
+    if rule == "max":
+        return t_k * _row_abs_max(theta_s)
+    raise ValueError(f"unknown threshold rule: {rule!r}")
+
+
+def row_codes(rows: torch.Tensor, t_k: float, rule: str = "mean") -> torch.Tensor:
+    """I_t of a (L, m) weight, each row with its own scale and threshold."""
+    theta_s = rows / row_denom(rows)
+    return ternarize(theta_s, row_threshold(theta_s, t_k, rule))
+
+
+class FTTQQuantize(torch.autograd.Function):
+    """θ_t = w_q · ternarize(g(θ), Δ(g(θ))) per row of ``theta.reshape(L, -1)``
+    with ``w_q`` of L elements (L = 1 for a whole-leaf factor).
+
+    The forward's Δ always follows eq. (8) (the "mean" rule), whatever the
+    config's ``threshold_rule``: the reference's ``fttq_quantize`` calls
+    ``fttq_threshold`` with its default rule."""
+
+    @staticmethod
+    def forward(ctx, theta, w_q, t_k):
+        n_rows = w_q.numel()
+        i_t = row_codes(theta.reshape(n_rows, -1), t_k)
+        w = w_q.reshape(n_rows, 1)
+        ctx.save_for_backward(i_t, w_q)
+        return (w * i_t).reshape(theta.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        i_t, w_q = ctx.saved_tensors
+        n_rows = w_q.numel()
+        g_rows = g.reshape(n_rows, -1)
+        g_wq = (g_rows * i_t).sum(dim=1).reshape(w_q.shape).to(w_q.dtype)
+        w = w_q.reshape(n_rows, 1)
+        scale = torch.where(i_t != 0, w, torch.ones_like(w))
+        g_theta = (g_rows * scale).reshape(g.shape)
+        return g_theta, g_wq, None
+
+
+def fttq_quantize(theta: torch.Tensor, w_q: torch.Tensor, t_k: float) -> torch.Tensor:
+    """Whole-leaf QAT forward θ_t = w_q · I_t, differentiable via STE."""
+    return FTTQQuantize.apply(theta, w_q, t_k)
+
+
+def _is_stacked(leaf, wq) -> bool:
+    """Per-layer treatment: ndim ≥ 3 with a broadcast-shaped factor."""
+    return leaf.ndim >= 3 and hasattr(wq, "ndim") and wq.ndim == leaf.ndim
+
+
+def init_wq_tree(params: Any, cfg: FTTQConfig) -> Any:
+    """One w_q per quantizable leaf, ``None`` elsewhere. A leaf with
+    ndim ≥ 3 gets a factor per leading index, shaped (L, 1, ..., 1)."""
+
+    def make(path, leaf):
+        if not is_quantizable(path, leaf, cfg):
+            return None
+        if leaf.ndim >= 3:
+            rows = leaf.reshape(leaf.shape[0], -1)
+            theta_s = rows / row_denom(rows)
+            sel = theta_s.abs() > row_threshold(theta_s, cfg.t_k, cfg.threshold_rule)
+            num = torch.where(sel, rows.abs(), 0.0).sum(dim=1)
+            den = sel.sum(dim=1).to(torch.float32) + _EPS
+            return (num / den).to(leaf.dtype).reshape(
+                (leaf.shape[0],) + (1,) * (leaf.ndim - 1))
+        return init_wq(leaf, cfg)
+
+    return tree_map_with_path(make, params)
+
+
+def quantize_tree(params: Any, wq_tree: Any, cfg: FTTQConfig) -> Any:
+    """QAT forward over a tree: every leaf with a factor in ``wq_tree``
+    (as made by ``init_wq_tree``) is quantized, the rest pass through."""
+    wqs = dict(flatten_with_path(wq_tree))
+
+    def one(path, leaf):
+        wq = wqs.get(path)
+        if wq is None:
+            return leaf
+        return FTTQQuantize.apply(leaf, wq, cfg.t_k)
+
+    return tree_map_with_path(one, params)

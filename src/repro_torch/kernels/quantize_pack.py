@@ -51,18 +51,28 @@ def quantize_pack_plain(x: torch.Tensor, scal: torch.Tensor
         codes = torch.cat([codes, codes.new_ones(pad)])
     c = codes.reshape(-1, 4)
     packed = c[:, 0] | (c[:, 1] << 2) | (c[:, 2] << 4) | (c[:, 3] << 6)
+    return packed, _tile_moments(xs, pos | neg)
 
+
+def moments_plain(x: torch.Tensor, scal: torch.Tensor) -> torch.Tensor:
+    """The tile moments alone (the reference's ``moments_ref``): (G, 2)
+    fp32 per-tile [Σ masked |θ_s|, selected count]."""
+    xs = x.reshape(-1) / scal[0].to(x.dtype)
+    d = scal[1].to(x.dtype)
+    return _tile_moments(xs, (xs > d) | (xs < -d))
+
+
+def _tile_moments(xs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    n = xs.numel()
     g = n_tiles(n)
-    mask = pos | neg
-    a = torch.zeros(g * TILE, dtype=torch.float32, device=x.device)
+    a = torch.zeros(g * TILE, dtype=torch.float32, device=xs.device)
     a[:n] = torch.where(mask, xs.abs().to(torch.float32), 0.0)
-    cnt = torch.zeros(g * TILE, dtype=torch.int32, device=x.device)
+    cnt = torch.zeros(g * TILE, dtype=torch.int32, device=xs.device)
     cnt[:n] = mask.to(torch.int32)
-    moments = torch.stack(
+    return torch.stack(
         [a.reshape(g, TILE).sum(1), cnt.reshape(g, TILE).sum(1).to(torch.float32)],
         dim=1,
     )
-    return packed, moments
 
 
 def _lib():
@@ -78,11 +88,21 @@ def _lib():
     return fn
 
 
-def quantize_pack(x: torch.Tensor, scal: torch.Tensor
+def quantize_pack(x: torch.Tensor, scal: torch.Tensor, out: torch.Tensor | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Ternarize + pack one flat leaf; see ``quantize_pack_plain``."""
+    """Ternarize + pack one flat leaf; see ``quantize_pack_plain``. With
+    ``out`` (a contiguous uint8 tensor of ``packed_nbytes(n)`` on x's
+    device, e.g. a slice of a larger wire buffer) the bytes land there."""
+    n = x.numel()
+    if out is not None and (out.dtype != torch.uint8 or not out.is_contiguous()
+                            or out.numel() != packed_nbytes(n) or out.device != x.device):
+        raise ValueError("quantize_pack: out must be contiguous uint8 of "
+                         f"{packed_nbytes(n)} bytes on x's device")
     if x.device.type == "cpu":
-        return quantize_pack_plain(x, scal)
+        packed, moments = quantize_pack_plain(x, scal)
+        if out is not None:
+            packed = out.copy_(packed)
+        return packed, moments
     if x.device.type != "cuda":
         raise ValueError(f"quantize_pack: unsupported device {x.device}")
     if x.dtype != torch.float32:
@@ -92,9 +112,9 @@ def quantize_pack(x: torch.Tensor, scal: torch.Tensor
     if scal.device != x.device or scal.dtype != torch.float32 or scal.shape != (2,):
         raise ValueError("quantize_pack: scal must be a (2,) float32 tensor on x's device")
     scal = scal.contiguous()
-    n = x.numel()
     g = n_tiles(n)
-    packed = torch.empty(packed_nbytes(n), dtype=torch.uint8, device=x.device)
+    packed = (torch.empty(packed_nbytes(n), dtype=torch.uint8, device=x.device)
+              if out is None else out)
     moments = torch.empty((g, 2), dtype=torch.float32, device=x.device)
     vec = int(x.data_ptr() % 16 == 0)
     fn = _lib()

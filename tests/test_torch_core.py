@@ -123,6 +123,11 @@ def test_port_imports_neither_jax_nor_reference():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert len(mods) >= 20, mods\n"
+        "need = {'repro_torch.' + m for m in ('core.tfedavg', 'core.encode', 'fed.aggregator',\n"
+        "        'fed.simulation', 'fed.availability', 'kernels.aggregate', 'parallel.fanin',\n"
+        "        'models.paper_models', 'optim.optimizers', 'data.federated', 'data.synthetic',\n"
+        "        'comm.channel', 'launch.federated')}\n"
+        "assert need <= set(mods), sorted(need - set(mods))\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )

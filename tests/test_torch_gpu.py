@@ -10,9 +10,16 @@ runs on a machine without JAX:
 import pytest
 import torch
 
-from repro_torch.core.encode import leaf_scalars
-from repro_torch.core.fttq import FTTQConfig
+from repro_torch.comm.wire import encode_update
+from repro_torch.core.encode import leaf_scalars, segment_scalars
+from repro_torch.core.fttq import FTTQConfig, init_wq_tree
+from repro_torch.core.ternary import TernaryTensor, packed_nbytes
+from repro_torch.core.tfedavg import client_update_payload, server_requantize
+from repro_torch.fed.aggregator import Aggregator
+from repro_torch.kernels.aggregate import LANES, packed_weighted_sum, packed_weighted_sum_plain
 from repro_torch.kernels.quantize_pack import quantize_pack, quantize_pack_plain
+from repro_torch.models.paper_models import init_resnet_cifar
+from repro_torch.tree import flatten_with_path
 from repro_torch.kernels.ternary_matmul import ternary_matmul, ternary_matmul_plain
 
 pytestmark = pytest.mark.gpu
@@ -53,6 +60,55 @@ def test_quantize_pack_unaligned_leaf(cuda_device):
     torch.testing.assert_close(moments, ref_moments, rtol=1e-5, atol=0)
 
 
+@pytest.mark.parametrize("mode", ["payload", "server"])
+@pytest.mark.parametrize("shape", [(3, 3, 3, 64), (3, 3, 64, 64), (64, 10)])
+def test_quantize_pack_segments_through_out(cuda_device, shape, mode):
+    """ResNet18*'s segments (576, 12,288 and 640 elements) as the encode
+    writes them, each at its byte offset of one buffer: codes, counts and
+    the bytes around them exact, tile sums within rtol 1e-6."""
+    gen = torch.Generator(cuda_device).manual_seed(len(shape))
+    leaf = torch.randn(shape, generator=gen, device=cuda_device) * 0.05
+    rows = leaf.reshape(shape[0] if len(shape) >= 3 else 1, -1)
+    denom, delta = segment_scalars(rows, mode, FTTQConfig())
+    scal = torch.cat([denom, delta], dim=1).to(torch.float32)
+    seg = packed_nbytes(rows.shape[1])
+    buf = torch.full((16 + rows.shape[0] * seg + 16,), 0xA5, dtype=torch.uint8,
+                     device=cuda_device)
+    want = buf.clone()
+    for i in range(rows.shape[0]):
+        at = 16 + i * seg
+        _, moments = quantize_pack(rows[i], scal[i], out=buf[at:at + seg])
+        ref_packed, ref_moments = quantize_pack_plain(rows[i], scal[i])
+        want[at:at + seg] = ref_packed
+        assert torch.equal(moments[:, 1], ref_moments[:, 1])
+        torch.testing.assert_close(moments[:, 0], ref_moments[:, 0], rtol=1e-6, atol=0)
+    assert torch.equal(buf, want)
+
+
+def test_encode_on_the_card_matches_the_reference_chain(cuda_device):
+    """ResNet18* (width 16): the fused upload's wire bytes equal the
+    reference chain's; the fused broadcast's codes equal it and its scales
+    are within rtol 1e-6."""
+    cfg = FTTQConfig()
+    params = init_resnet_cifar(seed=3, width=16, device=cuda_device)
+    wq = init_wq_tree(params, cfg)
+    up = [encode_update(client_update_payload(params, wq, cfg, fused=f)) for f in (True, False)]
+    assert up[0] == up[1]
+    fused, ref = (flatten_with_path(server_requantize(params, cfg, fused=f)) for f in (True, False))
+    n_ternary = 0
+    for (pa, a), (pb, b) in zip(fused, ref):
+        assert pa == pb
+        if isinstance(b, TernaryTensor):
+            n_ternary += 1
+            assert a.shape == b.shape and a.dtype == b.dtype
+            assert torch.equal(torch.as_tensor(a.packed).cpu(), torch.as_tensor(b.packed).cpu())
+            torch.testing.assert_close(torch.as_tensor(a.w_q).cpu(),
+                                       torch.as_tensor(b.w_q).cpu(), rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(a, b), pa
+    assert n_ternary == 18
+
+
 def _random_packed(k: int, n: int, gen: torch.Generator, device) -> torch.Tensor:
     c = torch.randint(0, 3, (k // 4, 4, n), generator=gen, device=device, dtype=torch.uint8)
     return c[:, 0] | (c[:, 1] << 2) | (c[:, 2] << 4) | (c[:, 3] << 6)
@@ -84,3 +140,60 @@ def test_ternary_matmul_rejects_what_it_cannot_take(cuda_device):
         ternary_matmul(x[:, :32], packed, wq)
     with pytest.raises(ValueError):
         ternary_matmul(x, packed.cpu(), wq)
+
+
+def _random_stack(c: int, rows: int, gen: torch.Generator, device) -> torch.Tensor:
+    codes = torch.randint(0, 3, (c, rows * LANES, 4), generator=gen, device=device,
+                          dtype=torch.uint8)
+    packed = (codes[..., 0] | (codes[..., 1] << 2) | (codes[..., 2] << 4)
+              | (codes[..., 3] << 6))
+    return packed.reshape(c, rows, LANES)
+
+
+@pytest.mark.parametrize("c,rows,n_pad", [(1, 32, 0), (2, 32, 1), (4, 32, 2), (16, 32, 6),
+                                          (16, 4096, 0), (16, 131072, 3)])
+def test_aggregate_bit_identical_to_plain(cuda_device, c, rows, n_pad):
+    """ResNet18*'s segments pad to 32 rows of 128 bytes; the last case is
+    16 clients × 2^26 elements. Zero-coefficient rows hold garbage bytes."""
+    gen = torch.Generator(cuda_device).manual_seed(c * rows)
+    stacked = _random_stack(c, rows, gen, cuda_device)
+    coeffs = torch.randn(c, generator=gen, device=cuda_device)
+    if n_pad:
+        coeffs[c - n_pad:] = 0.0
+        stacked[c - n_pad:] = 0xFF
+    before = packed_weighted_sum.launches
+    out = packed_weighted_sum(stacked, coeffs)
+    assert packed_weighted_sum.launches == before + 1
+    ref = packed_weighted_sum_plain(stacked, coeffs)
+    torch.cuda.synchronize()
+    assert out.shape == (4 * rows * LANES,)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+def test_aggregator_on_the_card_equals_the_cpu(cuda_device):
+    """ResNet18* (width 16) uploads folded by the kernel equal the plain
+    version's fold bit for bit."""
+    cfg = FTTQConfig()
+    blobs = []
+    for seed in range(5):
+        params = init_resnet_cifar(seed=seed, width=16, device="cpu")
+        blobs.append(encode_update(client_update_payload(params, init_wq_tree(params, cfg), cfg)))
+    outs = []
+    for dev in ("cpu", cuda_device):
+        agg = Aggregator(chunk_c=4, device=dev)
+        for i, blob in enumerate(blobs):
+            agg.add(blob, 100 + i)
+        outs.append(flatten_with_path(agg.finalize()))
+    for (pa, a), (pb, b) in zip(*outs):
+        assert pa == pb
+        assert torch.equal(a, b.cpu()), pa
+
+
+def test_aggregate_rejects_what_it_cannot_take(cuda_device):
+    stacked = torch.zeros(2, 32, LANES, dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError):
+        packed_weighted_sum(stacked, torch.ones(2, device=cuda_device, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        packed_weighted_sum(stacked, torch.ones(3, device=cuda_device))
+    with pytest.raises(ValueError):
+        packed_weighted_sum(stacked, torch.ones(2))
