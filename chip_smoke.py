@@ -12,16 +12,21 @@ Phases (any failure exits non-zero; no phase is skipped):
                  on full-width olmo-1b leaves and on ResNet18*'s segments
                  written at their offsets of one buffer (payload and server
                  mode), ternary_matmul at decode and
-                 prefill shapes (fp32, TF32 off), aggregate bit for bit at
-                 ResNet18*'s segment shapes and 16 clients × 2^26 elements;
+                 prefill shapes (fp32, TF32 off), aggregate and vote bit for
+                 bit at ResNet18*'s segment shapes and 16 clients × 2^26
+                 elements, ternary_quantize bit for bit on all 112 2-D layers
+                 of olmo-1b (and one in bf16);
   4. serve     — olmo-1b at full width (16 layers, d_model 2048, 2^30 quantized
                  weights, random weights from a seed) deployed through the TFW1
                  wire and served 2-bit: packed-vs-dequantized logits check,
-                 prefill of 4 × 32 tokens, 15 greedy decode steps;
-  5. timings   — quantize_pack and ternary_matmul, their plain versions and the
-                 PyTorch library call, with CUDA events, beside the least time
-                 the card could take (bytes over 3.35 TB/s or fp32 operations
-                 over 67 TFLOP/s, whichever is larger);
+                 prefill of 4 × 32 tokens, 15 greedy decode steps; then
+                 unpack2bit and pack2bit against their plain versions on the
+                 served 2-bit bytes (bit for bit);
+  5. timings   — quantize_pack, ternary_matmul, ternary_quantize, pack2bit and
+                 unpack2bit, their plain versions and the PyTorch library call
+                 where one exists, with CUDA events, beside the least time the
+                 card could take (bytes over 3.35 TB/s or fp32 operations over
+                 67 TFLOP/s, whichever is larger);
   6. trace     — three decode steps under torch.profiler;
   7. federated — two T-FedAvg sync rounds (paper Algorithm 2) on ResNet18* at
                  full width with the paper's CIFAR setting (FedConfig
@@ -32,13 +37,23 @@ Phases (any failure exits non-zero; no phase is skipped):
                  list reference ``server_aggregate``; the card's fused
                  encode of the last broadcast and of one client's upload
                  against the reference chain;
-  8. fan-in timings — aggregate at one round's fan-in (52 groups at C = 16)
-                 and at 16 clients × 2^26 elements, beside its bytes bound and
-                 its plain version;
-  9. fed trace — one round of one client at E = 5, B = 64, timed untraced
+  8. robust    — one defended sync round of ResNet18* at full width (rule
+                 majority on the vote kernel, 30 seeded sign-flip attackers of
+                 100 clients): bytes, phase wall times, the gate's telemetry and
+                 ledger, launches; then, on the last federated round's 10
+                 uploads, the majority, median and trimmed_mean folds on the
+                 card against the CPU plain folds, the sign-flip guarantee, and
+                 the gate against 3 nan_poison uploads;
+  9. quickstart — repro_torch.launch.quickstart on the card, then its own
+                 ternary_quantize, pack2bit and unpack2bit outputs against
+                 the plain versions on the same inputs, bit for bit;
+ 10. fan-in timings — aggregate and vote at one round's fan-in (52 groups at
+                 C = 16) and at 16 clients × 2^26 elements, beside their bytes
+                 bound and their plain versions;
+ 11. fed trace — one round of one client at E = 5, B = 64, timed untraced
                  and then run under torch.profiler.
-Before each driven path (serve, federated) every kernel's launch counter is
-set to 0, and read just after.
+Before each driven path (serve, federated, robust, quickstart) every
+kernel's launch counter is set to 0, and read just after.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -123,11 +138,31 @@ FED_SAMPLES = 500         # per client: the paper's CIFAR-10 split over 100 clie
 FED_TEST = 1000
 FANIN_C = 16              # FedConfig.agg_chunk_c: one bucket per round at λN = 10
 STRESS_ELEMENTS = 2 ** 26  # per client: 16 MB of wire codes
+ROBUST_ATTACKERS = 30      # sign-flip attackers of the 100 clients
 
 
-def _zero_counters(*fns) -> None:
-    for fn in fns:
+def kernel_counters() -> dict:
+    """Every kernel wrapper of the port, by kernel name."""
+    from repro_torch.kernels.aggregate import packed_weighted_sum
+    from repro_torch.kernels.pack2bit import pack2bit, unpack2bit
+    from repro_torch.kernels.quantize_pack import quantize_pack
+    from repro_torch.kernels.ternary_matmul import ternary_matmul
+    from repro_torch.kernels.ternary_quantize import ternary_quantize
+    from repro_torch.kernels.vote import packed_vote_counts
+
+    return {"quantize_pack": quantize_pack, "ternary_matmul": ternary_matmul,
+            "aggregate": packed_weighted_sum, "vote": packed_vote_counts,
+            "ternary_quantize": ternary_quantize, "pack2bit": pack2bit,
+            "unpack2bit": unpack2bit}
+
+
+def zero_counters() -> None:
+    for fn in kernel_counters().values():
         fn.launches = 0
+
+
+def read_counters() -> dict:
+    return {name: fn.launches for name, fn in kernel_counters().items()}
 
 
 def _segment_stack(nbytes: int, c: int, n_real: int, gen, dev):
@@ -358,13 +393,14 @@ def federated_phase(dev, setup, *, rounds: int = FED_ROUNDS, **cfg_kw) -> dict:
     sim.Aggregator = make_recorder
     sim.client_update_payload = recording_payload
     try:
-        _zero_counters(*kernels)
+        zero_counters()
         t0 = time.perf_counter()
         res = sim.run_federated(resnet_cifar, params, clients, cfg, adam(1e-3), eval_fn,
                                 eval_every=1, device=dev, timer=timer)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = [k.launches for k in kernels]
+        others = read_counters()
     finally:
         sim.Aggregator = plain_aggregator
         sim.client_update_payload = plain_payload
@@ -395,6 +431,7 @@ def federated_phase(dev, setup, *, rounds: int = FED_ROUNDS, **cfg_kw) -> dict:
           f"{4 * param_count(params)} B, T-FedAvg upload per client "
           f"{res.upload_bytes // sum(res.participants_per_round)} B")
     check(launches[1] > 0, "aggregate was not launched by the federated rounds")
+    check(others["vote"] == 0, "the mean rounds launched vote")
     check(launches[0] > 0, "quantize_pack was not launched by the federated rounds")
 
     blobs, fold = recorders[-1].last
@@ -418,7 +455,7 @@ def federated_phase(dev, setup, *, rounds: int = FED_ROUNDS, **cfg_kw) -> dict:
     check(worst_cpu == 0, "the kernel fold differs from the plain fold")
     encode_checks(fold, trained[0], cfg.fttq)
     return {"per_round": per_round, "launches": launches, "wall_s": wall,
-            "fold_vs_list_max_abs": worst}
+            "fold_vs_list_max_abs": worst, "last_uploads": blobs}
 
 
 def aggregate_timings(dev) -> dict:
@@ -457,6 +494,309 @@ def aggregate_timings(dev) -> dict:
     print(f"aggregate, C={FANIN_C} x {STRESS_ELEMENTS} elements: kernel {out['stress_ms']:.4f} "
           f"ms, plain {out['stress_plain_ms']:.4f} ms, bound {out['stress_bound_ms']:.4f} ms "
           f"({out['stress_bound_by']}, {stress_bytes} B); library: none")
+    return out
+
+
+def vote_checks(dev) -> float:
+    """vote against its plain version, bit for bit, at ResNet18*'s segments
+    for C ∈ {1, 2, 4, 16} (padding rows of 0xFF bytes at coefficient 0) and
+    at 16 clients × 2^26 elements."""
+    import torch
+
+    from repro_torch.kernels.vote import packed_vote_counts, packed_vote_counts_plain
+
+    gen = torch.Generator(dev).manual_seed(15)
+    worst = 0.0
+    cases = [(nb, c, n_real) for nb in (576 // 4, 12288 // 4, 640 // 4)
+             for c, n_real in ((1, 1), (2, 2), (4, 3), (16, 10))]
+    cases.append((STRESS_ELEMENTS // 4, 16, 16))
+    for nbytes, c, n_real in cases:
+        stacked, coeffs = _segment_stack(nbytes, c, n_real, gen, dev)
+        stacked[n_real:] = 0xFF
+        coeffs[:n_real] = torch.randint(40, 600, (n_real,), generator=gen, device=dev) / 7.0
+        out = packed_vote_counts(stacked, coeffs)
+        ref = packed_vote_counts_plain(stacked, coeffs)
+        torch.cuda.synchronize()
+        differ = int((out.view(torch.int32) != ref.view(torch.int32)).sum())
+        worst = max(worst, float((out - ref).abs().max()))
+        print(f"  C={c} ({n_real} clients) x {4 * nbytes} elements "
+              f"({tuple(stacked.shape)} bytes): {differ} of {out.numel()} masses differ")
+        check(differ == 0, f"vote differs from its plain version at C={c}, {4 * nbytes} elements")
+        del stacked, out, ref
+    return worst
+
+
+def _max_abs_diff(a, b) -> float:
+    import torch
+
+    return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
+
+
+def ternary_quantize_checks(layers) -> float:
+    """ternary_quantize against its plain version on every given fp32 layer
+    and on the first in bf16, with the layer's own statistics
+    (``ops.fttq_scalars``): codes and θ_t bit for bit. Returns the largest
+    |Δ| of the codes and of θ_t."""
+    import torch
+
+    from repro_torch.kernels.ops import fttq_scalars
+    from repro_torch.kernels.ternary_quantize import ternary_quantize, ternary_quantize_plain
+
+    bad_codes = bad_theta = n = 0
+    worst = 0.0
+    for theta in layers + [layers[0].to(torch.bfloat16)]:
+        scal = fttq_scalars(theta, 0.7)
+        it, tt = ternary_quantize(theta, *scal)
+        it_ref, tt_ref = ternary_quantize_plain(theta, *scal)
+        bad_codes += int((it != it_ref).sum())
+        bad_theta += int((tt.view(torch.uint8) != tt_ref.view(torch.uint8)).sum())
+        worst = max(worst, _max_abs_diff(it, it_ref), _max_abs_diff(tt, tt_ref))
+        n += theta.numel()
+    torch.cuda.synchronize()
+    print(f"  {len(layers)} fp32 layers and 1 bf16 layer, {n} weights: {bad_codes} codes and "
+          f"{bad_theta} bytes of theta_t differ; max |diff| {worst}")
+    check(bad_codes == 0 and bad_theta == 0, "ternary_quantize differs from its plain version")
+    return worst
+
+
+def pack_checks(served) -> tuple[float, float]:
+    """unpack2bit on the served 2-bit weights of olmo-1b against the plain
+    unpack, and pack2bit of the plain unpack against pack2bit_plain and the
+    served bytes. Returns the largest |Δ| of (pack2bit, unpack2bit)."""
+    import torch
+
+    from repro_torch.kernels.pack2bit import pack2bit, pack2bit_plain, unpack2bit, unpack2bit_plain
+
+    n_codes = bad_unpack = bad_pack = 0
+    pack_err = unpack_err = 0.0
+    for group in ("attn", "mlp"):
+        for name, w in served["blocks"][group].items():
+            packed = w.packed.reshape(-1, w.packed.shape[-1])   # layers stacked along K
+            codes, codes_ref = unpack2bit(packed), unpack2bit_plain(packed)
+            bad_unpack += int((codes != codes_ref).sum())
+            unpack_err = max(unpack_err, _max_abs_diff(codes, codes_ref))
+            repacked, repacked_ref = pack2bit(codes_ref), pack2bit_plain(codes_ref)
+            bad_pack += int((repacked != repacked_ref).sum()) + int((repacked != packed).sum())
+            pack_err = max(pack_err, _max_abs_diff(repacked, repacked_ref),
+                           _max_abs_diff(repacked, packed))
+            n_codes += codes.numel()
+            del codes, codes_ref, repacked, repacked_ref
+    torch.cuda.synchronize()
+    print(f"  {n_codes} served codes: {bad_unpack} unpacked codes differ from the plain "
+          f"unpack, {bad_pack} packed bytes differ from pack2bit_plain or the served bytes; "
+          f"max |diff| pack {pack_err}, unpack {unpack_err}")
+    check(n_codes == 2 ** 30, f"expected 2^30 served codes, got {n_codes}")
+    check(bad_unpack == 0 and bad_pack == 0, "pack2bit / unpack2bit differ from their plain "
+          "versions on the served bytes")
+    return pack_err, unpack_err
+
+
+def quickstart_checks(qs: dict, t_k: float) -> dict:
+    """The quickstart's own kernel outputs on the card against the plain
+    versions on the same inputs, bit for bit: ternary_quantize (codes and
+    θ_t) on its layer with the statistics ``ops.fttq_apply`` used,
+    pack2bit on its codes, unpack2bit on its packed bytes. Returns the
+    largest |Δ| per kernel."""
+    import torch
+
+    from repro_torch.kernels.ops import fttq_scalars
+    from repro_torch.kernels.pack2bit import pack2bit_plain, unpack2bit_plain
+    from repro_torch.kernels.ternary_quantize import ternary_quantize_plain
+
+    t = qs["tensors"]
+    scal = fttq_scalars(t["theta"], t_k)
+    check(torch.equal(scal[2].view(torch.int32), t["w_q"].view(torch.int32)),
+          "fttq_scalars does not give the w_q that fttq_apply used")
+    it_ref, tt_ref = ternary_quantize_plain(t["theta"], *scal)
+    packed_ref = pack2bit_plain(t["i_t"])
+    unpacked_ref = unpack2bit_plain(t["packed"])
+    differ = {
+        "ternary_quantize": int((t["i_t"] != it_ref).sum())
+        + int((t["theta_t"].view(torch.int32) != tt_ref.view(torch.int32)).sum()),
+        "pack2bit": int((t["packed"] != packed_ref).sum()),
+        "unpack2bit": int((t["unpacked"] != unpacked_ref).sum()),
+    }
+    err = {
+        "ternary_quantize": max(_max_abs_diff(t["i_t"], it_ref),
+                                _max_abs_diff(t["theta_t"], tt_ref)),
+        "pack2bit": _max_abs_diff(t["packed"], packed_ref),
+        "unpack2bit": _max_abs_diff(t["unpacked"], unpacked_ref),
+    }
+    print(f"  quickstart layer {tuple(t['theta'].shape)} {t['theta'].dtype}, packed "
+          f"{tuple(t['packed'].shape)}: elements that differ from the plain versions "
+          f"{json.dumps(differ)}; max |diff| {json.dumps(err)}")
+    for name, n in differ.items():
+        check(n == 0, f"the quickstart's {name} output differs from its plain version")
+    return err
+
+
+def _fold(uploads, dev, rule: str) -> dict:
+    from repro_torch.fed.aggregator import Aggregator
+    from repro_torch.tree import flatten_with_path
+
+    agg = Aggregator(chunk_c=FANIN_C, device=dev, rule=rule)
+    for blob, weight in uploads:
+        agg.add(blob, weight)
+    return dict(flatten_with_path(agg.finalize()))
+
+
+def _bits_differ(a: dict, b: dict) -> int:
+    import torch
+
+    check(a.keys() == b.keys(), "two folds hold different leaves")
+    return sum(int((a[k].cpu().view(torch.int32) != b[k].cpu().view(torch.int32)).sum())
+               for k in a)
+
+
+def robust_phase(dev, setup, uploads) -> dict:
+    """One defended T-FedAvg round on ResNet18* at full width: rule majority,
+    30 seeded sign-flip attackers of 100 clients. Then the robust folds of
+    the last federated round's honest uploads on the card against the CPU
+    plain folds, the sign-flip guarantee, and the gate on nan_poison."""
+    import numpy as np
+    import torch
+
+    from repro_torch.fed import simulation as sim
+    from repro_torch.fed.attackers import AttackConfig, attacker_ids, poison_blob
+    from repro_torch.fed.defense import DefenseConfig, UpdateGate
+    from repro_torch.models.paper_models import resnet_cifar
+    from repro_torch.optim import adam
+
+    clients, params, eval_fn = setup
+    attack = AttackConfig(kind="sign_flip", n_attackers=ROBUST_ATTACKERS, seed=0)
+    cfg = sim.FedConfig(rounds=1, n_clients=len(clients), attack=attack,
+                        defense=DefenseConfig(enabled=True, rule="majority"))
+    print(f"ResNet18* full width, {cfg.n_clients} clients, lambda {cfg.participation}, "
+          f"E {cfg.local_epochs}, B {cfg.batch_size}; defense rule majority; "
+          f"{len(attacker_ids(attack, cfg.n_clients))} sign_flip attackers (seed 0)")
+    timer = sim.PhaseTimer(dev)
+    zero_counters()
+    t0 = time.perf_counter()
+    res = sim.run_federated(resnet_cifar, params, clients, cfg, adam(1e-3), eval_fn,
+                            eval_every=1, device=dev, timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    d = res.telemetry["defense"]
+    w = {k: timer.rounds[0].get(k, 0.0)
+         for k in ("train", "attack", "encode", "wire", "gate", "aggregate", "requantize")}
+    print(f"  round 0: up {res.upload_bytes} B, down {res.download_bytes} B, "
+          f"{res.participants_per_round[0]} clients, simulated {res.round_times[0]:.3f} s; "
+          f"wall {wall:.2f} s: " + ", ".join(f"{k} {v:.3f} s" for k, v in w.items())
+          + f"; acc {res.accuracy[0]:.4f}, loss {res.loss[0]:.4f}")
+    print(f"  defense telemetry: {json.dumps(d)}")
+    print(f"  launches: {json.dumps(launches)}")
+    check(d["ledger_balanced"], "the gate's ledger does not balance")
+    check(d["passed_updates"] + d["quarantined_updates"] == res.participants_per_round[0],
+          "the gate did not see every survivor")
+    check(launches["vote"] == 52, f"vote launched {launches['vote']} times, want 52 (one "
+                                  "per scale segment)")
+    check(launches["aggregate"] == 0, "the majority round launched aggregate")
+    check(np.isfinite(res.loss[0]) and 0.0 <= res.accuracy[0] <= 1.0, "robust round not finite")
+
+    differ = {}
+    for rule in ("majority", "median", "trimmed_mean"):
+        differ[rule] = _bits_differ(_fold(uploads, dev, rule), _fold(uploads, "cpu", rule))
+    print(f"  robust folds of the last federated round's {len(uploads)} uploads, card vs CPU "
+          f"plain: elements that differ {json.dumps(differ)}")
+    check(not any(differ.values()), "a robust fold on the card differs from the plain fold")
+
+    honest = uploads[0][0]
+    flipped = poison_blob(honest, AttackConfig(kind="sign_flip", n_attackers=4), client_id=0)
+    defended = _fold([(honest, 2.0)] * 5 + [(flipped, 1.0)] * 4, dev, "majority")
+    honest_only = _fold([(honest, 2.0)] * 5, dev, "majority")
+    moved = _bits_differ(defended, honest_only)
+    print(f"  5 honest copies at weight 2 + 4 sign-flipped at weight 1 vs the honest-only "
+          f"majority: {moved} elements differ")
+    check(moved == 0, "the sign-flip minority moved the majority fold")
+
+    poisoned = {1, 4, 7}
+    nan = AttackConfig(kind="nan_poison", n_attackers=len(poisoned))
+    blobs = [poison_blob(b, nan, i) if i in poisoned else b for i, (b, _) in enumerate(uploads)]
+    gate = UpdateGate(DefenseConfig(enabled=True), params)
+    caught = {i for i, b in enumerate(blobs) if not gate.check(b).ok}
+    balanced = gate.passed_bytes + gate.quarantined_bytes == sum(len(b) for b in blobs)
+    print(f"  nan_poison on uploads {sorted(poisoned)}: quarantined {sorted(caught)} "
+          f"({dict(gate.reasons)}), ledger balanced {balanced}")
+    check(caught == poisoned and balanced, "the gate missed or over-caught nan_poison")
+    return {"launches": launches, "wall_s": wall, "phase_wall_s": w, "defense": d,
+            "upload_bytes": res.upload_bytes, "download_bytes": res.download_bytes}
+
+
+def vote_timings(dev) -> dict:
+    """vote over one round's 52 groups at C = 16 (10 real clients), and at
+    16 clients × 2^26 elements, with its plain version and its bytes bound."""
+    from repro_torch.kernels.vote import packed_vote_counts, packed_vote_counts_plain
+
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(16)
+
+    def nbytes(seg_bytes: int, n_real: int) -> int:
+        """Each real client's codes and weight in, two fp32 planes out."""
+        return n_real * (seg_bytes + 4) + 2 * 4 * 4 * seg_bytes
+
+    n_real = 10
+    groups = [_segment_stack(nb, FANIN_C, n_real, gen, dev) for nb in resnet_segment_bytes()]
+    out = {"round_ms": time_ms(lambda: [packed_vote_counts(s, c) for s, c in groups], 50),
+           "round_plain_ms": time_ms(
+               lambda: [packed_vote_counts_plain(s, c) for s, c in groups], 5)}
+    round_bytes = sum(nbytes(nb, n_real) for nb in resnet_segment_bytes())
+    out["round_bound_ms"], out["round_bound_by"] = bound(round_bytes, 0)
+    stress = _segment_stack(STRESS_ELEMENTS // 4, FANIN_C, FANIN_C, gen, dev)
+    out["stress_ms"] = time_ms(lambda: packed_vote_counts(*stress), 20)
+    out["stress_plain_ms"] = time_ms(lambda: packed_vote_counts_plain(*stress), 3)
+    stress_bytes = nbytes(STRESS_ELEMENTS // 4, FANIN_C)
+    out["stress_bound_ms"], out["stress_bound_by"] = bound(stress_bytes, 0)
+    print(f"vote, one round's fan-in ({len(groups)} launches at C={FANIN_C}, {n_real} "
+          f"clients): kernel {out['round_ms']:.4f} ms, plain {out['round_plain_ms']:.4f} ms, "
+          f"bound {out['round_bound_ms']:.5f} ms ({out['round_bound_by']}, {round_bytes} B); "
+          "library: none")
+    print(f"vote, C={FANIN_C} x {STRESS_ELEMENTS} elements: kernel {out['stress_ms']:.4f} ms, "
+          f"plain {out['stress_plain_ms']:.4f} ms, bound {out['stress_bound_ms']:.4f} ms "
+          f"({out['stress_bound_by']}, {stress_bytes} B); library: none")
+    return out
+
+
+def ops_timings(layers, served) -> dict:
+    """ternary_quantize over the given fp32 layers (olmo-1b's 112, 2^30
+    weights) and pack2bit / unpack2bit (to int8) over the served 2^30 codes,
+    with their plain versions and bytes bounds. No single PyTorch call
+    computes any of the three."""
+    import torch
+
+    from repro_torch.kernels.ops import fttq_scalars
+    from repro_torch.kernels.pack2bit import pack2bit, pack2bit_plain, unpack2bit, unpack2bit_plain
+    from repro_torch.kernels.ternary_quantize import ternary_quantize, ternary_quantize_plain
+
+    out = {}
+    scals = [fttq_scalars(t, 0.7) for t in layers]
+    n = sum(t.numel() for t in layers)
+    out["tq_ms"] = time_ms(lambda: [ternary_quantize(t, *s) for t, s in zip(layers, scals)], 5)
+    out["tq_plain_ms"] = time_ms(
+        lambda: [ternary_quantize_plain(t, *s) for t, s in zip(layers, scals)], 2)
+    tq_bytes = 9 * n + 12 * len(layers)     # θ and 3 scalars in; codes and θ_t out
+    out["tq_bound_ms"], out["tq_bound_by"] = bound(tq_bytes, 2 * n)
+    print(f"ternary_quantize, {len(layers)} layers ({n} fp32 weights): kernel "
+          f"{out['tq_ms']:.4f} ms, plain {out['tq_plain_ms']:.4f} ms, bound "
+          f"{out['tq_bound_ms']:.4f} ms ({out['tq_bound_by']}, {tq_bytes} B); library: none")
+
+    packed = [w.packed.reshape(-1, w.packed.shape[-1]) for group in ("attn", "mlp")
+              for w in served["blocks"][group].values()]
+    codes = [unpack2bit(p) for p in packed]
+    n_codes = sum(c.numel() for c in codes)
+    pk_bytes = n_codes + n_codes // 4
+    for name, fn, plain, args in (("pack2bit", pack2bit, pack2bit_plain, codes),
+                                  ("unpack2bit", unpack2bit, unpack2bit_plain, packed)):
+        out[f"{name}_ms"] = time_ms(lambda: [fn(a) for a in args], 10)
+        out[f"{name}_plain_ms"] = time_ms(lambda: [plain(a) for a in args], 2)
+        out[f"{name}_bound_ms"], out[f"{name}_bound_by"] = bound(pk_bytes, 0)
+        print(f"{name}, {len(args)} launches over {n_codes} codes: kernel "
+              f"{out[f'{name}_ms']:.4f} ms, plain {out[f'{name}_plain_ms']:.4f} ms, bound "
+              f"{out[f'{name}_bound_ms']:.4f} ms ({out[f'{name}_bound_by']}, {pk_bytes} B); "
+              "library: none")
+    del codes
+    torch.cuda.empty_cache()
     return out
 
 
@@ -534,11 +874,11 @@ def main() -> int:
     from repro_torch.core.fttq import FTTQConfig, is_quantizable
     from repro_torch.kernels import _build
     from repro_torch.kernels.aggregate import packed_weighted_sum
+    from repro_torch.kernels.pack2bit import unpack2bit_plain
     from repro_torch.kernels.quantize_pack import quantize_pack, quantize_pack_plain
     from repro_torch.kernels.repack import PackedTernary
-    from repro_torch.kernels.ternary_matmul import (
-        ternary_matmul, ternary_matmul_plain, unpack_kernel_layout,
-    )
+    from repro_torch.kernels.ternary_matmul import ternary_matmul, ternary_matmul_plain
+    from repro_torch.launch.quickstart import main as quickstart_main
     from repro_torch.launch.serve import generate, packed_logits_check, ternary_deploy
     from repro_torch.models.transformer import init_params, param_count
     from repro_torch.tree import flatten_with_path
@@ -614,7 +954,7 @@ def main() -> int:
         err = float((y - y_ref).abs().max())
         ok = bool(torch.allclose(y, y_ref, rtol=1e-4, atol=1e-4))
         tm_err = max(tm_err, err)
-        dense = unpack_kernel_layout(packed, torch.float32) * wq
+        dense = unpack2bit_plain(packed, torch.float32) * wq
         box = {}
 
         def kernel_call():
@@ -641,8 +981,17 @@ def main() -> int:
     phase("checks: aggregate vs plain (bit-identical)")
     agg_err = aggregate_checks(dev)
 
+    phase("checks: vote vs plain (bit-identical)")
+    vote_err = vote_checks(dev)
+
+    names = [("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
+             ("mlp", "w_in"), ("mlp", "w_gate"), ("mlp", "w_out")]
+    layers = [params["blocks"][a][b][i] for i in range(cfg.n_layers) for a, b in names]
+    phase("checks: ternary_quantize vs plain on every 2-D layer of olmo-1b (bit-identical)")
+    tq_err = ternary_quantize_checks(layers)
+
     phase("serve: olmo-1b --ternary --packed at full width")
-    _zero_counters(quantize_pack, ternary_matmul, packed_weighted_sum)
+    zero_counters()
     t0 = time.perf_counter()
     fp_bytes = update_nbytes(params)
     served, wire_bytes, dl_s, link = ternary_deploy(params, fcfg, packed=True, device=dev)
@@ -682,6 +1031,9 @@ def main() -> int:
     check(tm_launches == per_forward * forwards,
           f"ternary_matmul launched {tm_launches} times, want {per_forward * forwards}")
 
+    phase("checks: unpack2bit / pack2bit on the served 2-bit weights (bit-identical)")
+    pack_err, unpack_err = pack_checks(served)
+
     phase("timings")
     leaves = [leaf for _, leaf in quantizable]
     scals = [leaf_scalars(leaf, fcfg)[0] for leaf in leaves]
@@ -698,10 +1050,10 @@ def main() -> int:
           f"kernel {qp_ms:.4f} ms, plain {qp_plain_ms:.4f} ms, bound {qp_bound:.4f} ms "
           f"({qp_by}, {qp_bytes} B)")
 
+    ops_t = ops_timings(layers, served)
+
     blocks = served["blocks"]
     dense_blocks = ref_params["blocks"]
-    names = [("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
-             ("mlp", "w_in"), ("mlp", "w_gate"), ("mlp", "w_out")]
     step = []
     for i in range(cfg.n_layers):
         for a, b in names:
@@ -746,8 +1098,29 @@ def main() -> int:
     setup = federated_setup(dev)
     fed = federated_phase(dev, setup)
 
+    phase("robust: one defended ResNet18* round (majority, 30 sign-flip attackers)")
+    robust = robust_phase(dev, setup, fed["last_uploads"])
+
+    phase("quickstart: repro_torch.launch.quickstart on the card")
+    zero_counters()
+    qs = quickstart_main(["--device", "cuda"])
+    torch.cuda.synchronize()
+    qs_launches = read_counters()
+    print(f"quickstart launches: {json.dumps(qs_launches)}")
+    check(qs["unpack_roundtrip"] and qs["global_finite"] and qs["matmul_rel_err"] < 1e-5,
+          "the quickstart's round trip, matmul or round is wrong")
+    check(qs["codes_differ_core"] <= 512 * 256 // 10_000,
+          "the quickstart's fttq_apply codes disagree with core.fttq")
+    for name in ("ternary_quantize", "pack2bit", "unpack2bit", "ternary_matmul"):
+        check(qs_launches[name] >= 1, f"the quickstart did not launch {name}")
+    qs_err = quickstart_checks(qs, fcfg.t_k)
+    tq_err = max(tq_err, qs_err["ternary_quantize"])
+    pack_err = max(pack_err, qs_err["pack2bit"])
+    unpack_err = max(unpack_err, qs_err["unpack2bit"])
+
     phase("fan-in timings")
     agg_t = aggregate_timings(dev)
+    vote_t = vote_timings(dev)
 
     phase("fed trace: one round of 1 client at E = 5, B = 64 under torch.profiler")
     federated_trace(dev, setup)
@@ -775,6 +1148,38 @@ def main() -> int:
          "stress_bound_ms": agg_t["stress_bound_ms"],
          "federated_quantize_pack_launches": fed["launches"][0],
          "per_round": fed["per_round"]},
+        {"name": "vote", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/vote.cu",
+         "replaces": "src/repro/kernels/vote.py:40",
+         "launches": robust["launches"]["vote"], "max_abs_err": vote_err,
+         "ms": vote_t["round_ms"], "plain_ms": vote_t["round_plain_ms"],
+         "bound_ms": vote_t["round_bound_ms"], "bound_by": vote_t["round_bound_by"],
+         "library_ms": None, "stress_ms": vote_t["stress_ms"],
+         "stress_plain_ms": vote_t["stress_plain_ms"],
+         "stress_bound_ms": vote_t["stress_bound_ms"],
+         "robust_round": {k: robust[k] for k in ("wall_s", "phase_wall_s", "defense",
+                                                  "upload_bytes", "download_bytes")}},
+        {"name": "ternary_quantize", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ternary_quantize.cu",
+         "replaces": "src/repro/kernels/ternary_quantize.py:25",
+         "launches": qs_launches["ternary_quantize"], "max_abs_err": tq_err,
+         "ms": ops_t["tq_ms"], "plain_ms": ops_t["tq_plain_ms"],
+         "bound_ms": ops_t["tq_bound_ms"], "bound_by": ops_t["tq_bound_by"],
+         "library_ms": None},
+        {"name": "pack2bit", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/pack2bit.cu",
+         "replaces": "src/repro/kernels/pack2bit.py:23",
+         "launches": qs_launches["pack2bit"], "max_abs_err": pack_err,
+         "ms": ops_t["pack2bit_ms"], "plain_ms": ops_t["pack2bit_plain_ms"],
+         "bound_ms": ops_t["pack2bit_bound_ms"], "bound_by": ops_t["pack2bit_bound_by"],
+         "library_ms": None},
+        {"name": "unpack2bit", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/pack2bit.cu",
+         "replaces": "src/repro/kernels/pack2bit.py:31",
+         "launches": qs_launches["unpack2bit"], "max_abs_err": unpack_err,
+         "ms": ops_t["unpack2bit_ms"], "plain_ms": ops_t["unpack2bit_plain_ms"],
+         "bound_ms": ops_t["unpack2bit_bound_ms"], "bound_by": ops_t["unpack2bit_bound_by"],
+         "library_ms": None},
     ]}
     print(card)
     print(json.dumps(table))

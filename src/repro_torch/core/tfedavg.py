@@ -27,6 +27,7 @@ import torch
 from repro_torch.core import fttq
 from repro_torch.core.encode import segment_scalars
 from repro_torch.core.ternary import TernaryTensor, encode_ternary
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.dtypes import dtype_name
 from repro_torch.kernels.quantize_pack import moments_plain, scale_from_moments
 from repro_torch.tree import flatten_with_path, tree_map, tree_map_with_path
@@ -85,13 +86,14 @@ def client_update_payload(params: Pytree, wq_tree: Pytree, cfg: fttq.FTTQConfig,
     return tree_map_with_path(one, params)
 
 
-def server_aggregate(updates: list[TernaryUpdate], device: str | torch.device = "cpu"
-                     ) -> Pytree:
+def server_aggregate(updates: list[TernaryUpdate],
+                     device: str | torch.device = DEFAULT_DEVICE) -> Pytree:
     """θ_{r+1} = Σ_k |D_k|/Σ|D_k| · dequant(payload_k), the list-based
     reference: every client is dequantized to a dense tree on ``device``
     first, then folded in order."""
     from repro_torch.core.compression import decompress_pytree
 
+    device = resolve_device(device)
     if not updates:
         raise ValueError("server_aggregate: no client updates survived the round")
     total = float(sum(u.n_samples for u in updates))

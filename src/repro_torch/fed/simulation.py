@@ -21,9 +21,16 @@ for each trained client in pre-time order its batch permutations and its
 upload transfer — so byte counts, round times, participants and dropped
 stragglers equal the reference's for the same seed.
 
-The async server, the hierarchy tier, the defense gate, attackers and the
-adaptive compression controller wait for their slices; asking for one
-raises ``NotImplementedError``.
+Byzantine robustness: seeded attackers (``fed.attackers``) poison their
+upload after training and before it is sent; the content gate
+(``fed.defense.UpdateGate``, alive across rounds) vets the survivors
+before the aggregator, whose rule ``cfg.defense.rule`` may be robust.
+Quarantined uploads count as upload bytes; a round whose every survivor
+is quarantined holds the model.
+
+The async server, the hierarchy tier and the adaptive compression
+controller wait for their slices; asking for one raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -47,9 +54,11 @@ from repro_torch.core.tfedavg import (
 from repro_torch.data.federated import ClientDataset
 from repro_torch.device import resolve_device
 from repro_torch.fed.aggregator import Aggregator
+from repro_torch.fed.attackers import AttackConfig, attacker_ids, poison_blob
 from repro_torch.fed.availability import (
     AvailabilityConfig, draw_participants, make_availability,
 )
+from repro_torch.fed.defense import DefenseConfig, UpdateGate
 from repro_torch.optim.optimizers import Optimizer, apply_updates
 from repro_torch.tree import flatten_with_path, tree_leaves, tree_map
 
@@ -77,10 +86,12 @@ class FedConfig:
     # True → quantize→pack kernel encode; False → the per-leaf reference
     fused_encode: bool = True
     availability: AvailabilityConfig = dataclasses.field(default_factory=AvailabilityConfig)
+    # content defense (None or enabled=False → the undefended ingest path)
+    # and seeded attackers (None → every client honest)
+    defense: DefenseConfig | None = None
+    attack: AttackConfig | None = None
     # not ported yet: must stay at their defaults
     hierarchy: Any = None
-    defense: Any = None
-    attack: Any = None
     controller: Any = None
 
 
@@ -112,10 +123,8 @@ def _check_ported(cfg: FedConfig) -> None:
         raise ValueError(f"unknown algorithm {cfg.algorithm!r}")
     if cfg.hierarchy is not None and getattr(cfg.hierarchy, "n_edges", 0) > 0:
         raise NotImplementedError("the hierarchical edge tier is not ported yet")
-    for name in ("defense", "attack", "controller"):
-        value = getattr(cfg, name)
-        if value is not None and getattr(value, "enabled", True):
-            raise NotImplementedError(f"FedConfig.{name} is not ported yet")
+    if cfg.controller is not None and getattr(cfg.controller, "enabled", True):
+        raise NotImplementedError("FedConfig.controller is not ported yet")
 
 
 class PhaseTimer:
@@ -193,11 +202,17 @@ def _make_local_steps(apply_fn, optimizer: Optimizer, cfg: FedConfig):
 # --------------------------------------------------------------------------
 
 
-def resolve_rule(cfg: FedConfig) -> str:
-    """The aggregation rule of a run: with no defense, the weighted mean."""
-    if cfg.defense is not None and getattr(cfg.defense, "enabled", True):
-        raise NotImplementedError("robust aggregation rules are not ported yet")
-    return "mean"
+def resolve_rule(cfg: FedConfig) -> tuple[str, float]:
+    """The (aggregation rule, trim fraction) of a run. With the defense off
+    it is the weighted mean; the robust rules live on the streaming
+    aggregator, so they require ``fused_aggregation=True``."""
+    if cfg.defense is None or not cfg.defense.enabled:
+        return "mean", 0.2
+    if cfg.defense.rule != "mean" and not cfg.fused_aggregation:
+        raise ValueError(
+            f"robust rule {cfg.defense.rule!r} requires fused_aggregation=True "
+            "(the reference loop only computes the weighted mean)")
+    return cfg.defense.rule, cfg.defense.trim_frac
 
 
 def resolve_compression(cfg: FedConfig) -> CompressionSpec:
@@ -290,8 +305,16 @@ def run_federated_sync(
     channel = Channel(cfg.channel, len(clients), seed=cfg.seed + 1)
     avail = make_availability(cfg.availability, len(clients), seed=cfg.seed)
     deadline = cfg.channel.deadline_s if cfg.channel.deadline_s > 0 else float("inf")
-    agg = (Aggregator(chunk_c=cfg.agg_chunk_c, device=dev, rule=resolve_rule(cfg))
+    rule, trim_frac = resolve_rule(cfg)
+    agg = (Aggregator(chunk_c=cfg.agg_chunk_c, device=dev, rule=rule, trim_frac=trim_frac)
            if cfg.fused_aggregation else None)
+    # the seeded attacker cohort, and a gate that lives across rounds so its
+    # scale history warms up
+    attackers = (attacker_ids(cfg.attack, len(clients)) if cfg.attack is not None
+                 else frozenset())
+    gate = (UpdateGate(cfg.defense, global_params)
+            if cfg.defense is not None and cfg.defense.enabled else None)
+    gated_bytes = 0            # survivor bytes presented to the gate
 
     up_bytes = 0
     down_bytes = 0
@@ -339,6 +362,10 @@ def run_federated_sync(
                 continue
             up_blob = train_client(clients[k], start_params, cfg, optimizer, fp_step,
                                    qat_step, rng, device=dev, timer=timer)
+            if k in attackers:
+                # decode → poison → re-encode: the frame stays wire-valid
+                with _phase(timer, "attack"):
+                    up_blob = poison_blob(up_blob, cfg.attack, k, round_idx=r)
             t_up = channel.transfer(k, len(up_blob), "up")
             arrivals.append((pt + t_up, k, up_blob))
 
@@ -356,9 +383,25 @@ def run_federated_sync(
                                      else last_survivor))
         t_now += round_times[-1]
 
+        # ---- ingest gate: quarantined uploads were shipped and paid for,
+        # so their bytes count as upload AND as quarantine ----------------
+        if gate is not None:
+            with _phase(timer, "gate"):
+                accepted = []
+                for total, k, up_blob in survivors:
+                    gated_bytes += len(up_blob)
+                    if gate.check(up_blob).ok:
+                        accepted.append((total, k, up_blob))
+                    else:
+                        up_bytes += len(up_blob)
+                survivors = accepted
+
         # ---- aggregation (the server decodes the real upload buffers) ---
         with _phase(timer, "aggregate"):
-            if agg is not None:
+            if not survivors:
+                # every survivor was quarantined: hold the model this round
+                pass
+            elif agg is not None:
                 for _, k, up_blob in survivors:
                     up_bytes += len(up_blob)
                     agg.add(up_blob, weight=len(clients[k]))
@@ -389,6 +432,11 @@ def run_federated_sync(
         "upload_bytes_per_round": up_per_round,
         "download_bytes_per_round": down_per_round,
     }
+    if gate is not None:
+        telemetry["defense"] = gate.telemetry()
+        # every survivor byte presented to the gate was ingested or quarantined
+        telemetry["defense"]["ledger_balanced"] = (
+            gated_bytes == gate.passed_bytes + gate.quarantined_bytes)
     return FedResult(
         accuracy=acc_hist, loss=loss_hist, upload_bytes=up_bytes,
         download_bytes=down_bytes, rounds_run=cfg.rounds,
@@ -403,6 +451,7 @@ def run_federated(apply_fn: Callable, global_params: Pytree, clients: list[Clien
                   eval_every: int = 10, device: str | torch.device = "cuda",
                   timer: PhaseTimer | None = None) -> FedResult:
     """Unified entry point, dispatching on ``cfg.mode`` ("sync" only here;
-    "async" raises ``NotImplementedError``)."""
+    "async", with or without a defense or attackers, raises
+    ``NotImplementedError``)."""
     return run_federated_sync(apply_fn, global_params, clients, cfg, optimizer, eval_fn,
                               eval_every=eval_every, device=device, timer=timer)

@@ -1,7 +1,17 @@
 """Hand-written Hopper kernels with their plain PyTorch versions.
 
-``quantize_pack``, ``ternary_matmul`` and ``aggregate.packed_weighted_sum``
-dispatch on the tensor's device: the plain version for CPU tensors, the
-CUDA kernel (built from ``csrc/`` at first use) for CUDA tensors.
+  quantize_pack    — fused quantize→pack of a leaf into wire bytes, with the
+                     w_q tile moments (client upload, server broadcast)
+  ternary_matmul   — x @ (w_q · unpack(W)) on 2-bit weights (packed serving)
+  aggregate        — Σ coeff_c · (code − 1) over stacked client wire bytes
+                     (the T-FedAvg fan-in, rule "mean")
+  vote             — weighted −1/+1 vote masses over the same stacked bytes
+                     (the Byzantine-robust rule "majority")
+  ternary_quantize — fused FTTQ apply: codes and θ_t from one read of θ
+  pack2bit         — pack2bit / unpack2bit in the (K//4, N) matmul layout
+
+Each wrapper dispatches on the tensor's device: the plain version for CPU
+tensors, the CUDA kernel (built from ``csrc/`` at first use) for CUDA
+tensors. ``ops`` holds the kernel-level entry points (``fttq_apply``);
 ``repack`` turns wire bytes into the matmul kernel's layout.
 """

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.core.compression import decompress_pytree, is_wire_leaf
 from repro_torch.core.ternary import TernaryTensor
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.dtypes import to_numpy
 from repro_torch.kernels.ternary_matmul import ternary_matmul
 from repro_torch.tree import tree_map
@@ -91,12 +92,13 @@ def _repack2d(flat: np.ndarray, k: int, n: int, out=None) -> np.ndarray:
 
 
 def repack_to_kernel_layout(t: TernaryTensor,
-                            device: str | torch.device = "cpu") -> PackedTernary:
+                            device: str | torch.device = DEFAULT_DEVICE) -> PackedTernary:
     """A decoded wire ``TernaryTensor`` → ``PackedTernary`` on ``device``.
 
     2-D leaves become ``(K//4, N)``; stacked 3-D leaves ``(L, K, N)`` become
     ``(L, K//4, N)`` with an ``(L, 1, 1)`` scale (a shared scale is
     broadcast per layer). Higher-rank leaves are not matmul weights."""
+    device = resolve_device(device)
     shape = tuple(int(s) for s in t.shape)
     buf = to_numpy(t.packed)
     w_q = t.w_q if isinstance(t.w_q, torch.Tensor) else torch.from_numpy(np.array(t.w_q))
@@ -147,9 +149,10 @@ def packed_matmul(x: torch.Tensor, w: PackedTernary) -> torch.Tensor:
     return y.reshape(*lead, y.shape[-1])
 
 
-def packed_params_from_wire(tree, device: str | torch.device = "cpu"):
+def packed_params_from_wire(tree, device: str | torch.device = DEFAULT_DEVICE):
     """Decoded wire tree → servable params on ``device``: ternary matmul
     weights become ``PackedTernary``; every other leaf decodes dense."""
+    device = resolve_device(device)
 
     def one(leaf):
         if isinstance(leaf, TernaryTensor) and len(leaf.shape) in (2, 3):

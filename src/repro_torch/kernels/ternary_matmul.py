@@ -24,23 +24,17 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels.pack2bit import unpack2bit_plain
+
 BN = 128           # output columns per block
 KC4 = 32           # packed rows per staged x chunk: the least K work of a split
 TARGET_BLOCKS = 264  # two blocks per SM of an H100
 
 
-def unpack_kernel_layout(packed: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """(K//4, N) uint8 → (K, N) ternary values in ``dtype``."""
-    k4, n = packed.shape
-    shifts = torch.arange(0, 8, 2, dtype=torch.uint8, device=packed.device)
-    codes = (packed.reshape(k4, 1, n) >> shifts.reshape(1, 4, 1)) & 3
-    return codes.reshape(4 * k4, n).to(dtype) - 1
-
-
 def ternary_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
                          w_q: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version (``repro.kernels.ref.ternary_matmul_ref``)."""
-    w = unpack_kernel_layout(packed, torch.float32)
+    w = unpack2bit_plain(packed, torch.float32)
     y = x.to(torch.float32) @ w
     return (y * w_q.to(torch.float32)).to(x.dtype)
 

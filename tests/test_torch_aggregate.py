@@ -163,7 +163,7 @@ def test_aggregator_bit_identical_to_reference(n_clients):
 
     updates = [TernaryUpdate(payload=decode_update(b), n_samples=w)
                for b, w in zip(blobs, weights)]
-    listed = _flat_np(server_aggregate(updates))
+    listed = _flat_np(server_aggregate(updates, "cpu"))
     jlisted = _flat_jax(jserver_aggregate(
         [JUpdate(payload=p, n_samples=w) for p, w in zip(payloads, weights)]))
     _assert_identical(jlisted, listed)
@@ -210,8 +210,11 @@ def test_aggregator_fedavg_raw_updates_and_ledgers():
     with pytest.raises(ValueError):
         agg.add(jencode(trees[0]), -1.0)
     for rule in ("majority", "trimmed_mean", "median"):
-        with pytest.raises(NotImplementedError):
-            Aggregator(device="cpu", rule=rule)
+        assert Aggregator(device="cpu", rule=rule).rule == rule
+    with pytest.raises(ValueError, match="rule"):
+        Aggregator(device="cpu", rule="krum")
+    with pytest.raises(ValueError, match="trim_frac"):
+        Aggregator(device="cpu", trim_frac=0.5)
 
 
 def test_record_paths_and_rebuild_match_reference():

@@ -38,6 +38,8 @@ from repro.optim import optimizers as joptim
 from repro_torch.comm.channel import ChannelConfig
 from repro_torch.convert import params_from_jax
 from repro_torch.data.federated import partition_iid
+from repro_torch.fed.attackers import AttackConfig
+from repro_torch.fed.defense import DefenseConfig
 from repro_torch.fed.simulation import FedConfig, PhaseTimer, run_federated
 from repro_torch.launch.federated import main as federated_main
 from repro_torch.launch.federated import make_eval_fn
@@ -168,7 +170,9 @@ def test_unported_options_raise(mlp_setup):
     params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
     clients = partition_iid(x, y, 6)
     eval_fn = make_eval_fn(mlp_mnist, xt, yt, torch.device("cpu"))
-    for kw in ({"mode": "async"}, {"defense": object()}, {"attack": object()},
+    for kw in ({"mode": "async"},
+               {"mode": "async", "defense": DefenseConfig(enabled=True)},
+               {"mode": "async", "attack": AttackConfig(n_attackers=1)},
                {"controller": object()},
                {"hierarchy": dataclasses.make_dataclass("H", [("n_edges", int)])(2)}):
         with pytest.raises(NotImplementedError):

@@ -16,8 +16,12 @@ from repro_torch.core.fttq import FTTQConfig, init_wq_tree
 from repro_torch.core.ternary import TernaryTensor, packed_nbytes
 from repro_torch.core.tfedavg import client_update_payload, server_requantize
 from repro_torch.fed.aggregator import Aggregator
+from repro_torch.kernels import ops
 from repro_torch.kernels.aggregate import LANES, packed_weighted_sum, packed_weighted_sum_plain
+from repro_torch.kernels.pack2bit import pack2bit, pack2bit_plain, unpack2bit, unpack2bit_plain
 from repro_torch.kernels.quantize_pack import quantize_pack, quantize_pack_plain
+from repro_torch.kernels.ternary_quantize import ternary_quantize, ternary_quantize_plain
+from repro_torch.kernels.vote import packed_vote_counts, packed_vote_counts_plain
 from repro_torch.models.paper_models import init_resnet_cifar
 from repro_torch.tree import flatten_with_path
 from repro_torch.kernels.ternary_matmul import ternary_matmul, ternary_matmul_plain
@@ -197,3 +201,98 @@ def test_aggregate_rejects_what_it_cannot_take(cuda_device):
         packed_weighted_sum(stacked, torch.ones(3, device=cuda_device))
     with pytest.raises(ValueError):
         packed_weighted_sum(stacked, torch.ones(2))
+
+
+@pytest.mark.parametrize("c,rows,n_pad", [(1, 32, 0), (2, 32, 1), (4, 32, 2), (16, 32, 6),
+                                          (16, 4096, 0), (16, 131072, 3)])
+def test_vote_bit_identical_to_plain(cuda_device, c, rows, n_pad):
+    """Both masses bit for bit; zero-coefficient rows hold 0xFF bytes (code
+    3). The last case is 16 clients × 2^26 elements."""
+    gen = torch.Generator(cuda_device).manual_seed(c * rows + 1)
+    stacked = _random_stack(c, rows, gen, cuda_device)
+    coeffs = torch.rand(c, generator=gen, device=cuda_device) * 3.0
+    if n_pad:
+        coeffs[c - n_pad:] = 0.0
+        stacked[c - n_pad:] = 0xFF
+    before = packed_vote_counts.launches
+    out = packed_vote_counts(stacked, coeffs)
+    assert packed_vote_counts.launches == before + 1
+    ref = packed_vote_counts_plain(stacked, coeffs)
+    torch.cuda.synchronize()
+    assert out.shape == (2, 4 * rows * LANES)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.parametrize("rule", ["majority", "median", "trimmed_mean"])
+def test_robust_aggregator_on_the_card_equals_the_cpu(cuda_device, rule):
+    """ResNet18* (width 16) uploads under each robust rule: the card's fold
+    equals the plain fold bit for bit (5 clients at chunk_c=4)."""
+    cfg = FTTQConfig()
+    blobs = []
+    for seed in range(5):
+        params = init_resnet_cifar(seed=seed, width=16, device="cpu")
+        blobs.append(encode_update(client_update_payload(params, init_wq_tree(params, cfg), cfg)))
+    outs = []
+    for dev in ("cpu", cuda_device):
+        agg = Aggregator(chunk_c=4, device=dev, rule=rule)
+        for i, blob in enumerate(blobs):
+            agg.add(blob, 100 + 7 * i)
+        outs.append(flatten_with_path(agg.finalize()))
+    for (pa, a), (pb, b) in zip(*outs):
+        assert pa == pb
+        assert torch.equal(a, b.cpu()), pa
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,offset", [((2048, 2048), 0), ((100, 260), 0), ((4097,), 1),
+                                          ((7,), 0)])
+def test_ternary_quantize_matches_plain(cuda_device, dtype, shape, offset):
+    """Codes and θ_t bit for bit in fp32 and bf16; an odd length and a view
+    off a 16-byte boundary take the scalar path."""
+    gen = torch.Generator(cuda_device).manual_seed(sum(shape))
+    n = 1
+    for s in shape:
+        n *= s
+    base = torch.randn(n + offset, generator=gen, device=cuda_device).to(dtype)
+    theta = base[offset:].reshape(shape)
+    _, _, wq = ops.fttq_apply(theta, 0.7)
+    absw = theta.float().abs()
+    inv = 1.0 / (absw.max() + 1e-8)
+    delta = 0.7 * absw.mean() * inv
+    before = ternary_quantize.launches
+    it, tt = ternary_quantize(theta, inv, delta, wq)
+    assert ternary_quantize.launches == before + 1
+    it_ref, tt_ref = ternary_quantize_plain(theta, inv, delta, wq)
+    torch.cuda.synchronize()
+    assert it.dtype == torch.int8 and tt.dtype == dtype and tt.shape == shape
+    assert torch.equal(it, it_ref)
+    assert torch.equal(tt.view(torch.uint8), tt_ref.view(torch.uint8))
+
+
+@pytest.mark.parametrize("k,n", [(8192, 2048), (512, 256), (1024, 130), (260, 64), (4, 1)])
+def test_pack_unpack_match_plain(cuda_device, k, n):
+    """pack2bit and unpack2bit (int8, fp32, bf16, fp16) bit for bit; the
+    round trip is exact; N % 4 ≠ 0 takes the one-column path."""
+    gen = torch.Generator(cuda_device).manual_seed(k + n)
+    it = torch.randint(-1, 2, (k, n), generator=gen, device=cuda_device, dtype=torch.int8)
+    before = (pack2bit.launches, unpack2bit.launches)
+    packed = pack2bit(it)
+    assert torch.equal(packed, pack2bit_plain(it))
+    for dtype in (torch.int8, torch.float32, torch.bfloat16, torch.float16):
+        assert torch.equal(unpack2bit(packed, dtype), unpack2bit_plain(packed, dtype)), dtype
+    assert torch.equal(unpack2bit(packed), it)
+    assert (pack2bit.launches, unpack2bit.launches) == (before[0] + 1, before[1] + 5)
+
+
+def test_ops_kernels_reject_what_they_cannot_take(cuda_device):
+    with pytest.raises(TypeError):
+        ternary_quantize(torch.zeros(8, device=cuda_device, dtype=torch.float16), 1.0, 0.1, 0.2)
+    with pytest.raises(ValueError):
+        ternary_quantize(torch.zeros(8, 8, device=cuda_device).t(), 1.0, 0.1, 0.2)
+    with pytest.raises(TypeError):
+        pack2bit(torch.zeros(8, 4, device=cuda_device))
+    with pytest.raises(TypeError):
+        unpack2bit(torch.zeros(2, 4, dtype=torch.uint8, device=cuda_device), torch.int32)
+    with pytest.raises(ValueError):
+        packed_vote_counts(torch.zeros(2, 32, LANES, dtype=torch.uint8, device=cuda_device),
+                           torch.ones(2))

@@ -29,7 +29,8 @@ def test_repack_bytes_identical_to_reference(shape):
     it = rng.integers(-1, 2, size=shape).astype(np.int8)
     wq = np.float32(0.4)
     ref = jrepack.repack_to_kernel_layout(jencode(jnp.asarray(it), jnp.asarray(wq)))
-    got = repack_to_kernel_layout(encode_ternary(torch.from_numpy(it), torch.tensor(wq)))
+    got = repack_to_kernel_layout(encode_ternary(torch.from_numpy(it), torch.tensor(wq)),
+                                  "cpu")
     np.testing.assert_array_equal(got.packed.numpy(), np.asarray(ref.packed))
     np.testing.assert_array_equal(got.w_q.numpy(), np.asarray(ref.w_q))
     assert got.k == ref.k == shape[-2]
@@ -63,13 +64,13 @@ def test_packed_matmul_matches_dequantized_and_pads_k():
         it = rng.integers(-1, 2, size=(k, n)).astype(np.int8)
         t = encode_ternary(torch.from_numpy(it), torch.tensor(0.3))
         y = packed_matmul(torch.from_numpy(rng.normal(size=(2, 3, k)).astype(np.float32)),
-                          repack_to_kernel_layout(t))
+                          repack_to_kernel_layout(t, "cpu"))
         assert y.shape == (2, 3, n)
     x = torch.from_numpy(rng.normal(size=(5, 10)).astype(np.float32))
-    y = packed_matmul(x, repack_to_kernel_layout(t))
+    y = packed_matmul(x, repack_to_kernel_layout(t, "cpu"))
     torch.testing.assert_close(y, x @ t.dequantize(), rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="contraction dim"):
-        packed_matmul(torch.ones(2, 12), repack_to_kernel_layout(t))
+        packed_matmul(torch.ones(2, 12), repack_to_kernel_layout(t, "cpu"))
 
 
 def test_packed_params_from_wire_keeps_weights_2bit():
