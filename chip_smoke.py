@@ -8,32 +8,47 @@ Run from the root of a checkout, with no arguments:
 Phases (any failure exits non-zero; no phase is skipped):
   1. device    — the card's name and power limit (nvidia-smi);
   2. build     — nvcc builds every kernel from src/, one process per source;
-  3. checks    — each kernel against its plain PyTorch version: quantize_pack
-                 on full-width olmo-1b leaves and on ResNet18*'s segments
-                 written at their offsets of one buffer (payload and server
-                 mode), ternary_matmul at decode and
-                 prefill shapes (fp32, TF32 off), aggregate and vote bit for
-                 bit at ResNet18*'s segment shapes and 16 clients × 2^26
-                 elements, ternary_quantize bit for bit on all 112 2-D layers
-                 of olmo-1b (and one in bf16);
+  3. checks    — each kernel against its plain PyTorch version:
+                 quantize_pack_segments on the deploy's segments (olmo-1b's
+                 7 quantized leaves, up to 8,192 tiles each, in one launch,
+                 scales formed on the card) and on one ResNet18* encode's 52
+                 segments in one launch (bytes, guard bytes, counts, sums and
+                 scales), quantize_pack on ResNet18*'s segments written at
+                 their offsets of one buffer (payload and server mode);
+                 ternary_matmul at ragged, decode and prefill shapes (fp32,
+                 TF32 off) against the plain version and against its exact
+                 bf16 split in plain PyTorch, and bit for bit on one-hot
+                 weights, where every output is one exact product;
+                 aggregate and vote bit for bit at ResNet18*'s segment shapes
+                 and 16 clients × 2^26 elements, ternary_quantize bit for bit
+                 on all 112 2-D layers of olmo-1b (and one in bf16);
   4. serve     — olmo-1b at full width (16 layers, d_model 2048, 2^30 quantized
                  weights, random weights from a seed) deployed through the TFW1
                  wire and served 2-bit: packed-vs-dequantized logits check,
-                 prefill of 4 × 32 tokens, 15 greedy decode steps; then
-                 unpack2bit and pack2bit against their plain versions on the
-                 served 2-bit bytes (bit for bit);
-  5. timings   — quantize_pack, ternary_matmul, ternary_quantize, pack2bit and
-                 unpack2bit, their plain versions and the PyTorch library call
-                 where one exists, with CUDA events, beside the least time the
-                 card could take (bytes over 3.35 TB/s or fp32 operations over
-                 67 TFLOP/s, whichever is larger);
+                 prefill of 4 × 32 tokens, 15 greedy decode steps, one
+                 quantize_pack launch per deploy; then unpack2bit and pack2bit
+                 against their plain versions on the served 2-bit bytes (bit
+                 for bit);
+  5. timings   — quantize_pack, eagerly as core.encode calls it (the
+                 deploy's one call over olmo-1b's 7 leaves beside 7
+                 one-segment calls; one ResNet18* encode as 52 one-segment
+                 calls and as one call, per encode and per round),
+                 ternary_matmul (one decode step's and one prefill forward's
+                 112 matmuls beside torch.matmul on the dequantized weights),
+                 ternary_quantize, pack2bit and unpack2bit, their plain
+                 versions and the PyTorch library call where one exists, with
+                 CUDA events, beside the least time the card could take (bytes
+                 over 3.35 TB/s, or operations over 67 TFLOP/s of fp32 or, for
+                 the tensor-core ternary_matmul, 3 · 2MKN over 989 TFLOP/s of
+                 bf16, whichever is larger);
   6. trace     — three decode steps under torch.profiler;
   7. federated — two T-FedAvg sync rounds (paper Algorithm 2) on ResNet18* at
                  full width with the paper's CIFAR setting (FedConfig
                  defaults: 100 clients, λ = 0.1, E = 5, B = 64, adam(1e-3), 500
                  synthetic 32×32×3 samples per client); per round the bytes,
                  simulated time, wall seconds per phase, accuracy and loss and
-                 the kernels' launches; the round's kernel fold against the
+                 the kernels' launches (exactly one quantize_pack launch per
+                 upload and per broadcast); the round's kernel fold against the
                  list reference ``server_aggregate``; the card's fused
                  encode of the last broadcast and of one client's upload
                  against the reference chain;
@@ -72,8 +87,11 @@ SRC = os.path.join(ROOT, "src")
 
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FP32_S = 67e12         # H100 SXM fp32 outside the tensor cores
+PEAK_BF16_S = 989e12        # H100 SXM dense bf16 on the tensor cores
 MATMUL_SHAPES = [(4, 2048, 2048), (4, 2048, 8192), (4, 8192, 2048),
                  (128, 2048, 2048), (128, 2048, 8192), (128, 8192, 2048)]
+RAGGED_MATMUL_SHAPES = [(3, 36, 130), (1, 8, 4), (1, 2048, 2048), (8, 2048, 2048),
+                        (16, 2048, 2048), (33, 64, 70), (40, 1024, 260), (17, 4, 1)]
 BATCH, PROMPT, GEN = 4, 32, 16
 LAYER_MATMULS = 7
 
@@ -128,15 +146,27 @@ def time_ms(fn, reps: int, graph: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FP32_S * 1e3
+def bound(nbytes: float, flops: float, peak_ops: float = PEAK_FP32_S) -> tuple[float, str]:
+    """The least time (ms) the card could take: bytes over the memory rate
+    or operations over ``peak_ops``, whichever is larger."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def matmul_bound(m: int, k: int, n: int) -> tuple[float, str, int, int]:
+    """The tensor-core ternary matmul's bound: x, the packed weights, w_q in
+    and out once; 3 · 2MKN bf16 operations (three exact bf16 parts of x).
+    Returns (ms, by, bytes, operations)."""
+    nbytes = k // 4 * n + 4 * (m * k + m * n) + 4
+    flops = 3 * 2 * m * k * n
+    return (*bound(nbytes, flops, PEAK_BF16_S), nbytes, flops)
 
 
 FED_ROUNDS = 2
 FED_SAMPLES = 500         # per client: the paper's CIFAR-10 split over 100 clients
 FED_TEST = 1000
 FANIN_C = 16              # FedConfig.agg_chunk_c: one bucket per round at λN = 10
+FED_UPLOADS = 10          # λN = 10 clients encode an upload each round
 STRESS_ELEMENTS = 2 ** 26  # per client: 16 MB of wire codes
 ROBUST_ATTACKERS = 30      # sign-flip attackers of the 100 clients
 
@@ -238,6 +268,207 @@ def quantize_pack_segment_checks(dev) -> float:
             check(bad_bytes == 0 and bad_counts == 0 and rel <= 1e-6,
                   f"quantize_pack segment write disagrees ({mode}, {shape})")
     return worst
+
+
+def resnet_upload_segments(dev, mode: str):
+    """One ResNet18* (full width, seed 1, perturbed) encode's 52 segments as
+    ``core.encode`` stages them: flat fp32 rows read in place and their
+    (denom, Δ) rows, in payload (client upload) or server (broadcast)
+    mode."""
+    import torch
+
+    from repro_torch.core import encode, fttq
+    from repro_torch.core.fttq import FTTQConfig, init_wq_tree
+    from repro_torch.models.paper_models import init_resnet_cifar
+    from repro_torch.tree import flatten_with_path
+
+    cfg = FTTQConfig()
+    params = init_resnet_cifar(seed=1, device=dev)
+    gen = torch.Generator(dev).manual_seed(21)
+    leaves = {p: leaf + 0.01 * torch.randn(leaf.shape, generator=gen, device=dev)
+              for p, leaf in flatten_with_path(params)}
+    rows, scals = [], []
+    for path, wq in flatten_with_path(init_wq_tree(params, cfg)):
+        item = encode._Item(leaf=leaves[path], mode=mode, cfg=cfg, wq=wq,
+                            stacked=fttq._is_stacked(leaves[path], wq))
+        seg_rows, scal, n_seg = encode._segments(item)
+        rows += [seg_rows[i] for i in range(n_seg)]
+        scals.append(scal)
+    return rows, torch.cat(scals)
+
+
+def quantize_pack_fed_checks(dev) -> float:
+    """quantize_pack_segments as the federated encode launches it: one
+    ResNet18* encode's 52 segments in ONE launch into a guarded buffer, in
+    payload and server mode (with the scales formed on the card), against
+    the plain per-segment versions: bytes and guard bytes identical, counts
+    exact, tile sums and scales within 1e-6 relative. Returns the largest
+    absolute sum error."""
+    import torch
+
+    from repro_torch.kernels.quantize_pack import (
+        quantize_pack, quantize_pack_segments, quantize_pack_segments_plain, segment_layout,
+    )
+
+    guard = 16
+    worst = 0.0
+    for mode in ("payload", "server"):
+        rows, scal = resnet_upload_segments(dev, mode)
+        lay = segment_layout([r.numel() for r in rows])
+        buf = torch.full((guard + lay.n_bytes + guard,), 0xA5, dtype=torch.uint8, device=dev)
+        before = quantize_pack.launches
+        _, moments, scales = quantize_pack_segments(rows, scal, out=buf[guard:guard + lay.n_bytes],
+                                                    with_scales=mode == "server")
+        launched = quantize_pack.launches - before
+        ref_packed, ref_moments, ref_scales = quantize_pack_segments_plain(
+            rows, scal, with_scales=mode == "server")
+        torch.cuda.synchronize()
+        want = torch.full_like(buf, 0xA5)
+        want[guard:guard + lay.n_bytes] = ref_packed
+        bad_bytes = int((buf != want).sum())
+        bad_counts = int((moments[:, 1] != ref_moments[:, 1]).sum())
+        err = float((moments[:, 0] - ref_moments[:, 0]).abs().max())
+        rel = float(((moments[:, 0] - ref_moments[:, 0]).abs()
+                     / ref_moments[:, 0].abs().clamp_min(1e-30)).max())
+        srel = 0.0
+        if scales is not None:
+            srel = float(((scales - ref_scales).abs() / ref_scales.abs().clamp_min(1e-30)).max())
+        worst = max(worst, err)
+        print(f"  {mode}: {len(rows)} segments ({lay.n_tiles} tiles, {lay.n_bytes} wire bytes) "
+              f"in {launched} launch(es): {bad_bytes} bytes differ (guards included), {bad_counts} "
+              f"counts differ, sum max rel err {rel:.3e}, scale max rel err {srel:.3e}")
+        check(launched == 1 and bad_bytes == 0 and bad_counts == 0 and rel <= 1e-6
+              and srel <= 1e-6, f"quantize_pack_segments disagrees ({mode})")
+    return worst
+
+
+def quantize_pack_fed_timings(dev, n_uploads: int) -> dict:
+    """One ResNet18* encode's 52 segments: first as 52 one-segment calls
+    through ``out=`` (the old encode's launch count), then in one call
+    (payload mode, and server mode with the scales), the plain version, and
+    the bound; per encode and per round (``n_uploads`` client uploads and
+    one broadcast). Every call runs eagerly, as ``core.encode`` makes it:
+    the segment table's host build and copy are inside the time."""
+    import torch
+
+    from repro_torch.core.ternary import packed_nbytes
+    from repro_torch.kernels.quantize_pack import (
+        quantize_pack, quantize_pack_segments, quantize_pack_segments_plain, segment_layout,
+    )
+
+    out = {}
+    for mode in ("payload", "server"):
+        rows, scal = resnet_upload_segments(dev, mode)
+        lay = segment_layout([r.numel() for r in rows])
+        buf = torch.empty(lay.n_bytes, dtype=torch.uint8, device=dev)
+        views = [buf[b:b + packed_nbytes(r.numel())] for b, r in zip(lay.byte_offsets, rows)]
+        scales = mode == "server"
+        if mode == "payload":
+            out["segments"] = len(rows)
+            out["old_ms"] = time_ms(lambda: [quantize_pack(r, scal[i], out=views[i])
+                                             for i, r in enumerate(rows)], 50, graph=False)
+        out[f"{mode}_ms"] = time_ms(
+            lambda: quantize_pack_segments(rows, scal, out=buf, with_scales=scales), 50,
+            graph=False)
+        out[f"{mode}_plain_ms"] = time_ms(
+            lambda: quantize_pack_segments_plain(rows, scal, with_scales=scales), 5, graph=False)
+        nbytes = (sum(4 * r.numel() for r in rows) + lay.n_bytes + 8 * lay.n_tiles
+                  + 8 * len(rows) + (4 * len(rows) if scales else 0))
+        out[f"{mode}_bound_ms"], out[f"{mode}_bound_by"] = bound(nbytes, 4 * sum(r.numel() for r in rows))
+        out[f"{mode}_bytes"] = nbytes
+    out["round_old_ms"] = (n_uploads + 1) * out["old_ms"]
+    out["round_ms"] = n_uploads * out["payload_ms"] + out["server_ms"]
+    out["round_bound_ms"] = n_uploads * out["payload_bound_ms"] + out["server_bound_ms"]
+    print(f"quantize_pack, one ResNet18* encode ({out['segments']} segments), eager: "
+          f"{out['segments']} one-segment calls {out['old_ms']:.4f} ms; one call "
+          f"{out['payload_ms']:.4f} ms "
+          f"(payload), {out['server_ms']:.4f} ms (server, scales on the card); plain "
+          f"{out['payload_plain_ms']:.4f} / {out['server_plain_ms']:.4f} ms; bound "
+          f"{out['payload_bound_ms']:.5f} / {out['server_bound_ms']:.5f} ms "
+          f"({out['payload_bound_by']}, {out['payload_bytes']} / {out['server_bytes']} B)")
+    print(f"quantize_pack per federated round ({n_uploads} uploads + 1 broadcast), eager: "
+          f"{(n_uploads + 1) * out['segments']} one-segment calls {out['round_old_ms']:.4f} ms, "
+          f"{n_uploads + 1} calls {out['round_ms']:.4f} ms, bound {out['round_bound_ms']:.5f} ms")
+    return out
+
+
+def deploy_segments(leaves, fcfg):
+    """The serving deploy's encode staging (``core.encode`` in codec mode,
+    as ``ternary_deploy`` reaches it): every quantized leaf one flat segment
+    read in place, its (denom, Δ) row by the threshold rule."""
+    import torch
+
+    from repro_torch.core import encode
+
+    segs = [encode._segments(encode._Item(leaf=leaf, mode="codec", cfg=fcfg))
+            for leaf in leaves]
+    return [rows[0] for rows, _, _ in segs], torch.cat([scal for _, scal, _ in segs])
+
+
+def quantize_pack_deploy_checks(rows, scal):
+    """quantize_pack_segments as the serving deploy launches it: olmo-1b's
+    quantized leaves as one segment each (2^26 to 2^28 elements, 2,048 to
+    8,192 moment tiles), in one launch with the scales formed on the card,
+    into a guarded buffer, against the plain version: bytes and guard bytes
+    identical, counts exact, tile sums and scales within 1e-6 relative.
+    Returns (largest absolute sum error, the kernel's bytes, its scales)."""
+    import torch
+
+    from repro_torch.kernels.quantize_pack import (
+        quantize_pack, quantize_pack_segments, quantize_pack_segments_plain, segment_layout,
+    )
+
+    guard = 16
+    lay = segment_layout([r.numel() for r in rows])
+    buf = torch.full((guard + lay.n_bytes + guard,), 0xA5, dtype=torch.uint8, device=scal.device)
+    before = quantize_pack.launches
+    packed, moments, scales = quantize_pack_segments(
+        rows, scal, out=buf[guard:guard + lay.n_bytes], with_scales=True)
+    launched = quantize_pack.launches - before
+    ref_packed, ref_moments, ref_scales = quantize_pack_segments_plain(rows, scal, True)
+    torch.cuda.synchronize()
+    bad_bytes = (int((packed != ref_packed).sum()) + int((buf[:guard] != 0xA5).sum())
+                 + int((buf[guard + lay.n_bytes:] != 0xA5).sum()))
+    bad_counts = int((moments[:, 1] != ref_moments[:, 1]).sum())
+    err = float((moments[:, 0] - ref_moments[:, 0]).abs().max())
+    rel = float(((moments[:, 0] - ref_moments[:, 0]).abs()
+                 / ref_moments[:, 0].abs().clamp_min(1e-30)).max())
+    srel = float(((scales - ref_scales).abs() / ref_scales.abs().clamp_min(1e-30)).max())
+    print(f"  {len(rows)} segments of {min(lay.sizes)}..{max(lay.sizes)} elements "
+          f"({lay.n_tiles} tiles, {lay.n_bytes} wire bytes) in {launched} launch(es): "
+          f"{bad_bytes} bytes differ (guards included), {bad_counts} counts differ, sum max "
+          f"rel err {rel:.3e}, scale max rel err {srel:.3e}")
+    check(launched == 1 and bad_bytes == 0 and bad_counts == 0 and rel <= 1e-6
+          and srel <= 1e-6, "quantize_pack_segments disagrees on the deploy's segments")
+    return err, packed, scales
+
+
+def onehot_matmul_mismatches(m: int, k: int, n: int, gen, dev) -> int:
+    """ternary_matmul on weights with one nonzero code per column (±1 at a
+    random k, every other code 0): each output is ±x[i, k_n] · w_q, a single
+    exact product, so every summation order gives it exactly and the kernel
+    must equal its plain version and its bf16 split bit for bit. A kernel
+    that lost a part of the split (lo is about 2^-17 of x) or misplaced a k
+    differs. Returns the number of output elements that differ."""
+    import torch
+
+    from repro_torch.kernels.ternary_matmul import (
+        ternary_matmul, ternary_matmul_plain, ternary_matmul_split,
+    )
+
+    x = torch.randn(m, k, generator=gen, device=dev)
+    codes = torch.ones(k, n, dtype=torch.uint8, device=dev)
+    at = torch.randint(0, k, (n,), generator=gen, device=dev)
+    codes[at, torch.arange(n, device=dev)] = 2 * torch.randint(
+        0, 2, (n,), generator=gen, device=dev, dtype=torch.uint8)
+    c = codes.reshape(k // 4, 4, n)
+    packed = c[:, 0] | (c[:, 1] << 2) | (c[:, 2] << 4) | (c[:, 3] << 6)
+    wq = torch.tensor(0.37, device=dev)
+    y = ternary_matmul(x, packed, wq)
+    y_ref = ternary_matmul_plain(x, packed, wq)
+    y_split = ternary_matmul_split(x, packed, wq)
+    torch.cuda.synchronize()
+    return int(((y != y_ref) | (y != y_split)).sum())
 
 
 def encode_checks(fold, trained, fcfg) -> None:
@@ -353,11 +584,12 @@ def federated_phase(dev, setup, *, rounds: int = FED_ROUNDS, **cfg_kw) -> dict:
           f"B {cfg.batch_size}, adam(1e-3), {rounds} rounds")
 
     kernels = (quantize_pack, packed_weighted_sum, ternary_matmul)
+    encodes = [0]             # client uploads encoded so far
 
     class Timer(sim.PhaseTimer):
         def start_round(self, r):
             super().start_round(r)
-            self.launches.append([k.launches for k in kernels])
+            self.launches.append([k.launches for k in kernels] + [encodes[0]])
 
     class Recorder(Aggregator):
         """Keeps the last round's uploads and fold for the reference check."""
@@ -387,6 +619,7 @@ def federated_phase(dev, setup, *, rounds: int = FED_ROUNDS, **cfg_kw) -> dict:
 
     def recording_payload(params_k, wq, fcfg, **kw):
         trained[:] = [(params_k, wq)]           # the last client trained
+        encodes[0] += 1
         return plain_payload(params_k, wq, fcfg, **kw)
 
     plain_aggregator = sim.Aggregator
@@ -404,17 +637,18 @@ def federated_phase(dev, setup, *, rounds: int = FED_ROUNDS, **cfg_kw) -> dict:
     finally:
         sim.Aggregator = plain_aggregator
         sim.client_update_payload = plain_payload
-    marks = timer.launches + [launches]
+    marks = timer.launches + [launches + [encodes[0]]]
     per_round = []
     for r in range(rounds):
         ph = timer.rounds[r]
-        lq, la, lt = (marks[r + 1][i] - marks[r][i] for i in range(3))
+        lq, la, lt, uploads = (marks[r + 1][i] - marks[r][i] for i in range(4))
         row = {"round": r, "upload_bytes": res.telemetry["upload_bytes_per_round"][r],
                "download_bytes": res.telemetry["download_bytes_per_round"][r],
                "sim_s": res.round_times[r], "accuracy": res.accuracy[r], "loss": res.loss[r],
                "participants": res.participants_per_round[r],
                "wall_s": {k: ph.get(k, 0.0) for k in ("train", "encode", "wire", "aggregate",
                                                       "requantize")},
+               "uploads_encoded": uploads,
                "launches": {"quantize_pack": lq, "aggregate": la, "ternary_matmul": lt}}
         per_round.append(row)
         w = row["wall_s"]
@@ -423,7 +657,9 @@ def federated_phase(dev, setup, *, rounds: int = FED_ROUNDS, **cfg_kw) -> dict:
               f"{w['train']:.2f} s, encode {w['encode']:.3f} s, wire {w['wire']:.3f} s, "
               f"aggregate {w['aggregate']:.3f} s, requantize {w['requantize']:.3f} s; "
               f"acc {row['accuracy']:.4f}, loss {row['loss']:.4f}; launches quantize_pack "
-              f"{lq}, aggregate {la}")
+              f"{lq} ({uploads} uploads + 1 broadcast encoded), aggregate {la}")
+        check(lq == uploads + 1, f"round {r}: quantize_pack launched {lq} times for {uploads} "
+                                 "uploads and 1 broadcast: want one launch per tree encode")
         check(np.isfinite(row["loss"]) and 0.0 <= row["accuracy"] <= 1.0,
               f"round {r}: accuracy/loss not finite")
         check(row["upload_bytes"] > 0 and row["download_bytes"] > 0, f"round {r}: no bytes")
@@ -432,7 +668,6 @@ def federated_phase(dev, setup, *, rounds: int = FED_ROUNDS, **cfg_kw) -> dict:
           f"{res.upload_bytes // sum(res.participants_per_round)} B")
     check(launches[1] > 0, "aggregate was not launched by the federated rounds")
     check(others["vote"] == 0, "the mean rounds launched vote")
-    check(launches[0] > 0, "quantize_pack was not launched by the federated rounds")
 
     blobs, fold = recorders[-1].last
     updates = [TernaryUpdate(payload=decode_update(b), n_samples=int(w)) for b, w in blobs]
@@ -870,14 +1105,17 @@ def main() -> int:
 
     from repro_torch.comm.wire import update_nbytes
     from repro_torch.configs import get_config
-    from repro_torch.core.encode import leaf_scalars
     from repro_torch.core.fttq import FTTQConfig, is_quantizable
     from repro_torch.kernels import _build
     from repro_torch.kernels.aggregate import packed_weighted_sum
     from repro_torch.kernels.pack2bit import unpack2bit_plain
-    from repro_torch.kernels.quantize_pack import quantize_pack, quantize_pack_plain
+    from repro_torch.kernels.quantize_pack import (
+        quantize_pack, quantize_pack_segments, quantize_pack_segments_plain,
+    )
     from repro_torch.kernels.repack import PackedTernary
-    from repro_torch.kernels.ternary_matmul import ternary_matmul, ternary_matmul_plain
+    from repro_torch.kernels.ternary_matmul import (
+        launch_shape, ternary_matmul, ternary_matmul_plain, ternary_matmul_split,
+    )
     from repro_torch.launch.quickstart import main as quickstart_main
     from repro_torch.launch.serve import generate, packed_logits_check, ternary_deploy
     from repro_torch.models.transformer import init_params, param_count
@@ -915,33 +1153,45 @@ def main() -> int:
           f"(init {time.perf_counter() - t0:.1f} s)")
     check(n_quant == 2 ** 30, f"expected 2^30 quantized weights, got {n_quant}")
 
-    phase("checks: quantize_pack vs plain (codes and counts exact, sums rtol 1e-5)")
-    qp_err = 0.0
-    for leaf in (params["blocks"]["mlp"]["w_out"], params["blocks"]["attn"]["wq"]):
-        scal, _ = leaf_scalars(leaf, fcfg)
-        packed, moments = quantize_pack(leaf, scal)
-        ref_packed, ref_moments = quantize_pack_plain(leaf, scal)
-        torch.cuda.synchronize()
-        bad_codes = int((packed != ref_packed).sum())
-        bad_counts = int((moments[:, 1] != ref_moments[:, 1]).sum())
-        err = float((moments[:, 0] - ref_moments[:, 0]).abs().max())
-        rel = float(((moments[:, 0] - ref_moments[:, 0]).abs()
-                     / ref_moments[:, 0].abs().clamp_min(1e-30)).max())
-        qp_err = max(qp_err, err)
-        print(f"  {tuple(leaf.shape)}: {packed.numel()} wire bytes, {bad_codes} differ; "
-              f"{moments.shape[0]} tiles, {bad_counts} counts differ; "
-              f"sum max abs err {err:.3e}, max rel err {rel:.3e}")
-        check(bad_codes == 0 and bad_counts == 0 and rel <= 1e-5,
-              f"quantize_pack disagrees with its plain version at {tuple(leaf.shape)}")
-        del packed, moments, ref_packed, ref_moments
+    phase("checks: quantize_pack_segments on the deploy's segments, olmo-1b in one launch "
+          "(bytes, guards and counts exact, sums and scales rtol 1e-6)")
+    qp_rows, qp_scal = deploy_segments([leaf for _, leaf in quantizable], fcfg)
+    qp_err, qp_bytes_checked, qp_scales_checked = quantize_pack_deploy_checks(qp_rows, qp_scal)
 
     phase("checks: quantize_pack segments through out= (codes, counts and guards exact, "
           "sums rtol 1e-6)")
     qp_err = max(qp_err, quantize_pack_segment_checks(dev))
 
-    phase("checks: ternary_matmul vs plain (fp32, TF32 off, rtol 1e-4, atol 1e-4)")
+    phase("checks: quantize_pack_segments, one ResNet18* encode in one launch (bytes, guards "
+          "and counts exact, sums and scales rtol 1e-6)")
+    qp_err = max(qp_err, quantize_pack_fed_checks(dev))
+
+    phase("checks: ternary_matmul vs plain (fp32, TF32 off, rtol 1e-4, atol 1e-4; one-hot "
+          "weights bit for bit)")
     gen = torch.Generator(dev).manual_seed(5)
     tm_err = 0.0
+    for m, k, n in RAGGED_MATMUL_SHAPES:
+        x = torch.randn(m, k, generator=gen, device=dev)
+        c = torch.randint(0, 3, (k // 4, 4, n), generator=gen, device=dev, dtype=torch.uint8)
+        packed = c[:, 0] | (c[:, 1] << 2) | (c[:, 2] << 4) | (c[:, 3] << 6)
+        wq = torch.tensor(0.37, device=dev)
+        y = ternary_matmul(x, packed, wq)
+        y_ref = ternary_matmul_plain(x, packed, wq)
+        y_split = ternary_matmul_split(x, packed, wq)
+        torch.cuda.synchronize()
+        err = float((y - y_ref).abs().max())
+        tm_err = max(tm_err, err)
+        ok = bool(torch.allclose(y, y_ref, rtol=1e-4, atol=1e-4)
+                  and torch.allclose(y, y_split, rtol=1e-4, atol=1e-4))
+        print(f"  M={m} K={k} N={n} (launch shape {launch_shape(m, k // 4, n)}): max abs err "
+              f"{err:.3e} vs plain, {float((y - y_split).abs().max()):.3e} vs the split in "
+              "plain PyTorch")
+        check(ok, f"ternary_matmul disagrees with its plain version at {(m, k, n)}")
+    for m, k, n in RAGGED_MATMUL_SHAPES + MATMUL_SHAPES:
+        bad = onehot_matmul_mismatches(m, k, n, gen, dev)
+        print(f"  one-hot weights, M={m} K={k} N={n}: {bad} of {m * n} outputs differ from the "
+              "plain version or the split (want 0)")
+        check(bad == 0, f"ternary_matmul is not exact on one-hot weights at {(m, k, n)}")
     per_shape = []
     for m, k, n in MATMUL_SHAPES:
         x = torch.randn(m, k, generator=gen, device=dev)
@@ -967,13 +1217,13 @@ def main() -> int:
         t_e = time_ms(kernel_call, 20, graph=False)
         t_p = time_ms(lambda: ternary_matmul_plain(x, packed, wq), 5)
         t_l = time_ms(lambda: torch.matmul(x, dense), 20)
-        b_ms, b_by = bound(packed.numel() + 4 * (m * k + m * n) + 4, 2 * m * k * n)
+        b_ms, b_by, _, _ = matmul_bound(m, k, n)
         per_shape.append({"m": m, "k": k, "n": n, "ms": t_k, "eager_ms": t_e, "plain_ms": t_p,
                           "library_ms": t_l, "bound_ms": b_ms, "bound_by": b_by,
                           "max_abs_err": err})
-        print(f"  M={m} K={k} N={n}: max abs err {err:.3e}; kernel {t_k:.4f} ms "
-              f"(eager {t_e:.4f} ms), "
-              f"plain {t_p:.4f} ms, torch.matmul(dense) {t_l:.4f} ms, "
+        print(f"  M={m} K={k} N={n} (launch shape {launch_shape(m, k // 4, n)}): max abs err "
+              f"{err:.3e}; kernel {t_k:.4f} ms (eager {t_e:.4f} ms), plain {t_p:.4f} ms, "
+              f"torch.matmul(dense) {t_l:.4f} ms ({t_l / t_k:.2f}x the kernel), "
               f"bound {b_ms:.4f} ms ({b_by})")
         check(ok, f"ternary_matmul disagrees with its plain version at {(m, k, n)}")
         del x, c, packed, dense, y, y_ref
@@ -1027,7 +1277,8 @@ def main() -> int:
     per_forward = cfg.n_layers * LAYER_MATMULS
     print(f"launches on the serving path: quantize_pack {qp_launches}, "
           f"ternary_matmul {tm_launches} = {per_forward} x {forwards} forwards")
-    check(qp_launches >= 1, "quantize_pack was not launched by the deploy")
+    check(qp_launches == 2, f"quantize_pack launched {qp_launches} times by two deploys: want "
+                            "one launch per deploy")
     check(tm_launches == per_forward * forwards,
           f"ternary_matmul launched {tm_launches} times, want {per_forward * forwards}")
 
@@ -1035,46 +1286,67 @@ def main() -> int:
     pack_err, unpack_err = pack_checks(served)
 
     phase("timings")
-    leaves = [leaf for _, leaf in quantizable]
-    scals = [leaf_scalars(leaf, fcfg)[0] for leaf in leaves]
+    box = {}
 
-    def encode_all(fn):
-        return lambda: [fn(leaf, s) for leaf, s in zip(leaves, scals)]
+    def deploy_encode():
+        box["out"] = quantize_pack_segments(qp_rows, qp_scal, with_scales=True)
 
-    qp_ms = time_ms(encode_all(quantize_pack), 5)
-    qp_plain_ms = time_ms(encode_all(quantize_pack_plain), 2)
-    qp_bytes = sum(4 * n.numel() + (n.numel() + 3) // 4 + 8 * -(-n.numel() // 32768) + 8
-                   for n in leaves)
+    # the deploy's encode as core.encode makes it: eager, the table built and copied inside
+    qp_ms = time_ms(deploy_encode, 5, graph=False)
+    check(torch.equal(box["out"][0], qp_bytes_checked)
+          and torch.equal(box["out"][2], qp_scales_checked),
+          "the timed deploy encode differs from the checked one")
+    del box
+    qp_old_ms = time_ms(lambda: [quantize_pack(r, qp_scal[i]) for i, r in enumerate(qp_rows)],
+                        5, graph=False)
+    qp_plain_ms = time_ms(lambda: quantize_pack_segments_plain(qp_rows, qp_scal, True), 2,
+                          graph=False)
+    qp_bytes = sum(4 * n.numel() + (n.numel() + 3) // 4 + 8 * -(-n.numel() // 32768) + 12
+                   for n in qp_rows)
     qp_bound, qp_by = bound(qp_bytes, 4 * n_quant)
-    print(f"quantize_pack, all {len(leaves)} quantized leaves ({n_quant} weights): "
-          f"kernel {qp_ms:.4f} ms, plain {qp_plain_ms:.4f} ms, bound {qp_bound:.4f} ms "
-          f"({qp_by}, {qp_bytes} B)")
+    print(f"quantize_pack, all {len(qp_rows)} quantized leaves ({n_quant} weights), eager: one "
+          f"call {qp_ms:.4f} ms ({len(qp_rows)} one-segment calls: {qp_old_ms:.4f} ms), plain "
+          f"{qp_plain_ms:.4f} ms, bound {qp_bound:.4f} ms ({qp_by}, {qp_bytes} B)")
+    qp_fed = quantize_pack_fed_timings(dev, FED_UPLOADS)
 
     ops_t = ops_timings(layers, served)
 
     blocks = served["blocks"]
     dense_blocks = ref_params["blocks"]
-    step = []
-    for i in range(cfg.n_layers):
-        for a, b in names:
-            w: PackedTernary = blocks[a][b].layer(i)
-            x = torch.randn(BATCH, w.k, generator=gen, device=dev)
-            step.append((x, w.packed, w.w_q.reshape(()), dense_blocks[a][b][i]))
-    check(len(step) == per_forward, "decode step does not hold 112 matmuls")
-    tm_ms = time_ms(lambda: [ternary_matmul(x, p, s) for x, p, s, _ in step], 10)
-    tm_eager_ms = time_ms(lambda: [ternary_matmul(x, p, s) for x, p, s, _ in step], 10,
-                          graph=False)
-    tm_plain_ms = time_ms(lambda: [ternary_matmul_plain(x, p, s) for x, p, s, _ in step], 3)
-    tm_lib_ms = time_ms(lambda: [torch.matmul(x, d) for x, _, _, d in step], 10)
-    tm_bytes = sum(p.numel() + 4 * (x.numel() + x.shape[0] * p.shape[1]) + 4
-                   for x, p, _, _ in step)
-    tm_flops = sum(2 * x.shape[0] * x.shape[1] * p.shape[1] for x, p, _, _ in step)
-    tm_bound, tm_by = bound(tm_bytes, tm_flops)
-    print(f"ternary_matmul, one decode step's {len(step)} matmuls at M={BATCH}: "
-          f"kernel {tm_ms:.4f} ms (eager, with launch cost: {tm_eager_ms:.4f} ms), "
-          f"plain {tm_plain_ms:.4f} ms, torch.matmul on the "
-          f"dequantized weights {tm_lib_ms:.4f} ms, bound {tm_bound:.4f} ms "
-          f"({tm_by}; {tm_bytes} B, {tm_flops} FLOP)")
+
+    def forward_matmuls(rows: int):
+        """One forward's 112 matmuls of the served weights at ``rows`` rows
+        of x, with the dequantized weights beside them."""
+        calls = []
+        for i in range(cfg.n_layers):
+            for a, b in names:
+                w: PackedTernary = blocks[a][b].layer(i)
+                x = torch.randn(rows, w.k, generator=gen, device=dev)
+                calls.append((x, w.packed, w.w_q.reshape(()), dense_blocks[a][b][i]))
+        check(len(calls) == per_forward, "a forward does not hold 112 matmuls")
+        return calls
+
+    def time_forward(calls, what: str) -> dict:
+        t = {"ms": time_ms(lambda: [ternary_matmul(x, p, s) for x, p, s, _ in calls], 10),
+             "eager_ms": time_ms(lambda: [ternary_matmul(x, p, s) for x, p, s, _ in calls], 10,
+                                 graph=False),
+             "plain_ms": time_ms(lambda: [ternary_matmul_plain(x, p, s) for x, p, s, _ in calls],
+                                 3),
+             "library_ms": time_ms(lambda: [torch.matmul(x, d) for x, _, _, d in calls], 10)}
+        shapes = [matmul_bound(x.shape[0], x.shape[1], p.shape[1]) for x, p, _, _ in calls]
+        t["bytes"] = sum(b[2] for b in shapes)
+        t["flops"] = sum(b[3] for b in shapes)
+        t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["flops"], PEAK_BF16_S)
+        print(f"ternary_matmul, {what}: {len(calls)} matmuls at M={calls[0][0].shape[0]}: "
+              f"kernel {t['ms']:.4f} ms (eager, with launch cost: {t['eager_ms']:.4f} ms), "
+              f"plain {t['plain_ms']:.4f} ms, torch.matmul on the dequantized weights "
+              f"{t['library_ms']:.4f} ms ({t['library_ms'] / t['ms']:.2f}x the kernel), bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}; {t['bytes']} B, {t['flops']} bf16 "
+              "operations)")
+        return t
+
+    decode_t = time_forward(forward_matmuls(BATCH), "one decode step")
+    prefill_t = time_forward(forward_matmuls(BATCH * PROMPT), "one prefill forward")
 
     phase("trace: three decode steps under torch.profiler")
     from torch.profiler import ProfilerActivity, profile
@@ -1131,13 +1403,15 @@ def main() -> int:
          "replaces": "src/repro/kernels/quantize_pack.py:83",
          "launches": qp_launches, "max_abs_err": qp_err, "ms": qp_ms,
          "plain_ms": qp_plain_ms, "bound_ms": qp_bound, "bound_by": qp_by,
-         "library_ms": None},
+         "library_ms": None, "old_path_ms": qp_old_ms, "federated": qp_fed,
+         "federated_launches": fed["launches"][0]},
         {"name": "ternary_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ternary_matmul.cu",
          "replaces": "src/repro/kernels/ternary_matmul.py:34",
-         "launches": tm_launches, "max_abs_err": tm_err, "ms": tm_ms,
-         "plain_ms": tm_plain_ms, "bound_ms": tm_bound, "bound_by": tm_by,
-         "library_ms": tm_lib_ms, "eager_ms": tm_eager_ms, "per_shape": per_shape},
+         "launches": tm_launches, "max_abs_err": tm_err, "ms": decode_t["ms"],
+         "plain_ms": decode_t["plain_ms"], "bound_ms": decode_t["bound_ms"],
+         "bound_by": decode_t["bound_by"], "library_ms": decode_t["library_ms"],
+         "eager_ms": decode_t["eager_ms"], "prefill": prefill_t, "per_shape": per_shape},
         {"name": "aggregate", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/aggregate.cu",
          "replaces": "src/repro/kernels/aggregate.py:51",

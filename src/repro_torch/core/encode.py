@@ -13,16 +13,17 @@ A leaf is encoded as segments: a stacked leaf (ndim ≥ 3 with a per-layer
 factor, e.g. an HWIO conv weight with one factor per kernel row) has one
 segment per leading index, every other leaf is one segment. Per segment,
 ``denom = max|θ| + 1e-8`` and Δ come from one batched row reduction over
-the leaf, then one ``kernels.quantize_pack`` launch reads the segment in
-place — a zero-copy contiguous slice — and writes its wire bytes at the
-segment's byte offset of the leaf's buffer, and its tile moments, from
-which ``w_q`` follows (the moment tiles restart at every segment, as the
-reference's per-layer staging does). The reference concatenated a dtype
-group into one staging buffer and gave each kernel block its own
-(denom, Δ) row; one launch per segment reads the leaf without a staging
-copy. A segment of ``n % 4 ≠ 0`` elements ends mid-byte on the wire, so a
-ragged stacked leaf is re-aligned on the host (``_repack_ragged``). Wire
-bytes and scales reach the host once per leaf, after every launch.
+the leaf. Then the whole tree goes through ONE
+``kernels.quantize_pack_segments`` launch, as the reference drives a dtype
+group through one kernel call: a segment table lists every segment of
+every leaf (a zero-copy contiguous slice, read in place), its (denom, Δ)
+row and the byte offset of its wire bytes in one buffer. In server and
+codec modes the same launch forms every segment's w_q from its tile
+moments (the moment tiles restart at every segment, as the reference's
+per-layer staging does). The tree's wire bytes and scales (and, in payload
+mode, the trained factors) reach the host in one device-to-host copy. A
+segment of ``n % 4 ≠ 0`` elements ends mid-byte on the wire, so a ragged
+stacked leaf is re-aligned on the host (``_repack_ragged``).
 
 Codes and framing are byte-identical to the reference's; a kernel-computed
 scale differs from the reference's in the last bits only, because the tile
@@ -40,7 +41,7 @@ import torch
 from repro_torch.core import fttq
 from repro_torch.core.ternary import TernaryTensor, packed_nbytes
 from repro_torch.dtypes import dtype_name
-from repro_torch.kernels.quantize_pack import quantize_pack, scale_from_moments
+from repro_torch.kernels.quantize_pack import quantize_pack_segments
 from repro_torch.tree import flatten_with_path, tree_map_with_path
 
 Pytree = Any
@@ -92,43 +93,63 @@ def _repack_ragged(packed_np: np.ndarray, n_layers: int, layer_n: int) -> np.nda
     return (q[:, 0] | (q[:, 1] << 2) | (q[:, 2] << 4) | (q[:, 3] << 6)).astype(np.uint8)
 
 
-def _launch(it: _Item):
-    """Every segment of one leaf through the kernel; stays on the device."""
+def _segments(it: _Item) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """The (n_seg, m) segment rows of one leaf and their (denom, Δ) rows as
+    (n_seg, 2) fp32."""
     leaf = it.leaf.detach().contiguous()
     n_seg = leaf.shape[0] if it.stacked else 1
     rows = leaf.reshape(n_seg, -1)
     denom, delta = segment_scalars(rows, it.mode, it.cfg)
-    scal = torch.cat([denom, delta], dim=1).to(torch.float32)
-    seg_bytes = packed_nbytes(rows.shape[1])
-    buf = torch.empty(n_seg * seg_bytes, dtype=torch.uint8, device=leaf.device)
-    scales = []
-    for i in range(n_seg):
-        _, moments = quantize_pack(rows[i], scal[i],
-                                   out=buf[i * seg_bytes:(i + 1) * seg_bytes])
-        if it.mode != "payload":
-            scales.append(scale_from_moments(moments, denom[i, 0]))
-    if it.mode == "payload":
-        w_q = it.wq.detach()
-    elif it.stacked:
-        w_q = torch.stack(scales).to(leaf.dtype).reshape(
-            (n_seg,) + (1,) * (leaf.ndim - 1))
-    else:
-        w_q = scales[0].to(leaf.dtype)
-    return buf, w_q, n_seg, rows.shape[1]
+    return rows, torch.cat([denom, delta], dim=1).to(torch.float32), n_seg
 
 
 def _encode_items(items: Sequence[_Item]) -> list[TernaryTensor]:
-    """Launch every leaf, then bring each leaf's bytes and scale to the
-    host. Output order matches input."""
-    launched = [_launch(it) for it in items]
-    out = []
-    for it, (buf, w_q, n_seg, layer_n) in zip(items, launched):
-        packed = buf.cpu()
+    """Every segment of every leaf through one kernel launch, then the
+    bytes and scales to the host in one copy. Items share one mode and one
+    device; output order matches input."""
+    if not items:
+        return []
+    mode = items[0].mode
+    segs = [_segments(it) for it in items]
+    rows = [r[i] for r, _, n_seg in segs for i in range(n_seg)]
+    scal = torch.cat([sc for _, sc, _ in segs])
+    n_scales = 0 if mode == "payload" else scal.shape[0]
+    wqs = [it.wq.detach() for it in items] if mode == "payload" else []
+    n_wq = sum(w.numel() for w in wqs)
+    nbytes = sum(packed_nbytes(r.numel()) for r in rows)
+    at = -(-nbytes // 4) * 4                     # scales and factors start 4-aligned
+    buf = torch.empty(at + 4 * (n_scales + n_wq), dtype=torch.uint8, device=scal.device)
+    floats = buf[at:].view(torch.float32)
+    _, _, scales = quantize_pack_segments(rows, scal, out=buf[:nbytes],
+                                          with_scales=mode != "payload")
+    if n_scales:
+        floats[:n_scales].copy_(scales)
+    if wqs:
+        floats[n_scales:].copy_(torch.cat([w.reshape(-1).to(torch.float32) for w in wqs]))
+    host = buf.cpu()
+    host_floats = host[at:].view(torch.float32)
+
+    out, byte0, seg0, wq0 = [], 0, 0, n_scales
+    for k, (it, (r, _, n_seg)) in enumerate(zip(items, segs)):
+        leaf = it.leaf
+        layer_n = r.shape[1]
+        size = n_seg * packed_nbytes(layer_n)
+        packed = host[byte0:byte0 + size]
+        byte0 += size
         if n_seg > 1 and layer_n % 4:
             packed = torch.from_numpy(_repack_ragged(packed.numpy(), n_seg, layer_n))
-        out.append(TernaryTensor(packed=packed, w_q=w_q.cpu(),
-                                 shape=tuple(it.leaf.shape),
-                                 dtype=dtype_name(it.leaf.dtype)))
+        if mode == "payload":
+            w = wqs[k]
+            w_q = host_floats[wq0:wq0 + w.numel()].reshape(w.shape).to(w.dtype)
+            wq0 += w.numel()
+        elif it.stacked:
+            w_q = host_floats[seg0:seg0 + n_seg].to(leaf.dtype).reshape(
+                (n_seg,) + (1,) * (leaf.ndim - 1))
+        else:
+            w_q = host_floats[seg0].to(leaf.dtype)
+        seg0 += n_seg
+        out.append(TernaryTensor(packed=packed, w_q=w_q, shape=tuple(leaf.shape),
+                                 dtype=dtype_name(leaf.dtype)))
     return out
 
 

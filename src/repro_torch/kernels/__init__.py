@@ -1,8 +1,11 @@
 """Hand-written Hopper kernels with their plain PyTorch versions.
 
-  quantize_pack    — fused quantize→pack of a leaf into wire bytes, with the
-                     w_q tile moments (client upload, server broadcast)
-  ternary_matmul   — x @ (w_q · unpack(W)) on 2-bit weights (packed serving)
+  quantize_pack    — fused quantize→pack of many segments into wire bytes in
+                     one launch, with the w_q tile moments and, on request,
+                     each segment's scale (client upload, server broadcast)
+  ternary_matmul   — x @ (w_q · unpack(W)) on 2-bit weights on the tensor
+                     cores, x split exactly into three bf16 parts (packed
+                     serving)
   aggregate        — Σ coeff_c · (code − 1) over stacked client wire bytes
                      (the T-FedAvg fan-in, rule "mean")
   vote             — weighted −1/+1 vote masses over the same stacked bytes

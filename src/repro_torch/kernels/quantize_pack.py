@@ -1,28 +1,38 @@
 """Fused quantize→pack for client egress: ``csrc/quantize_pack.cu``.
 
 Replaces the TPU kernel ``repro/kernels/quantize_pack.py::_kernel``
-(``quantize_pack_segments``). One pass over a flat leaf turns it into wire
-bytes (4 consecutive flat codes per byte, ``core.ternary.pack2bit`` layout)
-and emits per-tile moments (Σ masked |θ_s|, selected count) from which
-``scale_from_moments`` forms the trained scale w_q.
+(``quantize_pack_segments``). One pass over flat fp32 segments turns them
+into wire bytes (4 consecutive flat codes per byte, ``core.ternary.pack2bit``
+layout) and emits per-tile moments (Σ masked |θ_s|, selected count) from
+which ``scale_from_moments`` forms the trained scale w_q.
+
+``quantize_pack_segments`` encodes many segments in ONE launch, as the TPU
+kernel did: a segment table in device memory (source address, element
+count, byte offset, first tile; ``segment_table``) gives every block its
+segment, each with its own (denom, Δ) row, and the kernel can also form
+every segment's scale on the device. ``quantize_pack`` is the one-segment
+case: a one-row table.
 
 Bound on the H100: bytes — 4 B read and 0.25 B written per fp32 element.
 The TPU kernel read a staged transpose of the leaf (``stage_encode``) so its
-pack was a sublane shuffle; the CUDA kernel reads the leaf in place, one
+pack was a sublane shuffle; the CUDA kernel reads each segment in place, one
 float4 per thread and one wire byte out, so no staging copy is built. A
 moment tile is the reference's 32,768 contiguous flat elements
-(``BLOCK_S · LANES``): codes and counts match the reference exactly and only
-the float sum's reduction order differs.
+(``BLOCK_S · LANES``), restarting at every segment: codes and counts match
+the reference exactly and only the float sum's reduction order differs.
 
-``quantize_pack`` dispatches on the tensor's device: the plain PyTorch
-version for a CPU tensor, the CUDA kernel for a CUDA tensor (or it raises).
-``quantize_pack.launches`` counts kernel launches.
+Both wrappers dispatch on the tensor's device: the plain PyTorch version for
+a CPU tensor, the CUDA kernel for a CUDA tensor (or they raise). Both count
+their launches of the one kernel in ``quantize_pack.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from typing import Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core.ternary import packed_nbytes
@@ -75,56 +85,135 @@ def _tile_moments(xs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class SegmentLayout:
+    """Where each of a run of segments lands: its wire bytes at
+    ``byte_offsets[s]`` of one buffer of ``n_bytes``, its moment tiles from
+    ``tile_starts[s]`` of ``n_tiles`` rows."""
+
+    sizes: tuple
+    byte_offsets: tuple
+    tile_starts: tuple
+    n_bytes: int
+    n_tiles: int
+
+
+def segment_layout(sizes: Sequence[int]) -> SegmentLayout:
+    """Segments back to back: bytes packed_nbytes(n) each, tiles
+    n_tiles(n) each."""
+    offs, tiles, b, t = [], [], 0, 0
+    for n in sizes:
+        offs.append(b)
+        tiles.append(t)
+        b += packed_nbytes(n)
+        t += n_tiles(n)
+    return SegmentLayout(tuple(int(n) for n in sizes), tuple(offs), tuple(tiles), b, t)
+
+
+def segment_table(segments: Sequence[torch.Tensor]) -> tuple[torch.Tensor, SegmentLayout]:
+    """The kernel's segment table for ``segments`` (flat fp32 sources on
+    one device): an (S, 5) int64 tensor on that device, one row per segment
+    (source address, element count, byte offset, first tile, done counter
+    = 0), built on the host and copied once per launch."""
+    lay = segment_layout([x.numel() for x in segments])
+    rows = np.zeros((len(segments), 5), dtype=np.int64)
+    rows[:, 0] = [x.data_ptr() for x in segments]
+    rows[:, 1] = lay.sizes
+    rows[:, 2] = lay.byte_offsets
+    rows[:, 3] = lay.tile_starts
+    return torch.from_numpy(rows).to(segments[0].device), lay
+
+
+def quantize_pack_segments_plain(segments: Sequence[torch.Tensor], scal: torch.Tensor,
+                                 with_scales: bool = False):
+    """Plain PyTorch version: ``quantize_pack_plain`` per segment, bytes
+    and moments back to back (``segment_layout``), and with ``with_scales``
+    each segment's ``scale_from_moments`` with its denom. Returns (bytes,
+    moments (G, 2), scales (S,) fp32 or None)."""
+    parts = [quantize_pack_plain(x, scal[i]) for i, x in enumerate(segments)]
+    dev = scal.device
+    packed = (torch.cat([p for p, _ in parts]) if parts
+              else torch.empty(0, dtype=torch.uint8, device=dev))
+    moments = torch.cat([m for _, m in parts])
+    scales = None
+    if with_scales:
+        scales = torch.stack([scale_from_moments(m, scal[i, 0])
+                              for i, (_, m) in enumerate(parts)]).to(torch.float32)
+    return packed, moments, scales
+
+
 def _lib():
     from repro_torch.kernels import _build
 
     lib = _build.load("quantize_pack")
     fn = lib.quantize_pack_f32
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, ctypes.c_longlong, p, p, p, ctypes.c_longlong,
-                       ctypes.c_int, p]
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, i, p, p, p, p, ll, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def quantize_pack(x: torch.Tensor, scal: torch.Tensor, out: torch.Tensor | None = None
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Ternarize + pack one flat leaf; see ``quantize_pack_plain``. With
-    ``out`` (a contiguous uint8 tensor of ``packed_nbytes(n)`` on x's
-    device, e.g. a slice of a larger wire buffer) the bytes land there."""
-    n = x.numel()
+def _check_out(out, n_bytes: int, device) -> None:
     if out is not None and (out.dtype != torch.uint8 or not out.is_contiguous()
-                            or out.numel() != packed_nbytes(n) or out.device != x.device):
+                            or out.numel() != n_bytes or out.device != device):
         raise ValueError("quantize_pack: out must be contiguous uint8 of "
-                         f"{packed_nbytes(n)} bytes on x's device")
-    if x.device.type == "cpu":
-        packed, moments = quantize_pack_plain(x, scal)
+                         f"{n_bytes} bytes on x's device")
+
+
+def quantize_pack_segments(segments: Sequence[torch.Tensor], scal: torch.Tensor, *,
+                           out: torch.Tensor | None = None, with_scales: bool = False):
+    """Ternarize + pack many flat segments in one launch; see
+    ``quantize_pack_segments_plain``. scal: (S, 2) fp32 (denom, Δ) rows on
+    the segments' device. With ``out`` (contiguous uint8 of the layout's
+    ``n_bytes``) the bytes land there. Returns (bytes, moments (G, 2),
+    scales (S,) fp32 or None)."""
+    if not segments:
+        raise ValueError("quantize_pack_segments: no segments")
+    dev = segments[0].device
+    lay = segment_layout([x.numel() for x in segments])
+    _check_out(out, lay.n_bytes, dev)
+    if scal.shape != (len(segments), 2) or scal.device != dev:
+        raise ValueError("quantize_pack: scal must be (S, 2) on the segments' device")
+    if dev.type == "cpu":
+        packed, moments, scales = quantize_pack_segments_plain(segments, scal, with_scales)
         if out is not None:
             packed = out.copy_(packed)
-        return packed, moments
-    if x.device.type != "cuda":
-        raise ValueError(f"quantize_pack: unsupported device {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"quantize_pack kernel takes float32, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("quantize_pack: x must be contiguous")
-    if scal.device != x.device or scal.dtype != torch.float32 or scal.shape != (2,):
-        raise ValueError("quantize_pack: scal must be a (2,) float32 tensor on x's device")
+        return packed, moments, scales
+    if dev.type != "cuda":
+        raise ValueError(f"quantize_pack: unsupported device {dev}")
+    for x in segments:
+        if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous():
+            raise TypeError("quantize_pack: segments must be contiguous float32 on one device")
+    if scal.dtype != torch.float32:
+        raise TypeError("quantize_pack: scal must be float32")
+    table, _ = segment_table(segments)
     scal = scal.contiguous()
-    g = n_tiles(n)
-    packed = (torch.empty(packed_nbytes(n), dtype=torch.uint8, device=x.device)
-              if out is None else out)
-    moments = torch.empty((g, 2), dtype=torch.float32, device=x.device)
-    vec = int(x.data_ptr() % 16 == 0)
+    packed = (torch.empty(lay.n_bytes, dtype=torch.uint8, device=dev) if out is None else out)
+    moments = torch.empty((lay.n_tiles, 2), dtype=torch.float32, device=dev)
+    scales = (torch.empty(len(segments), dtype=torch.float32, device=dev)
+              if with_scales else None)
     fn = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), n, scal.data_ptr(), packed.data_ptr(),
-                 moments.data_ptr(), g, vec, stream)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(table.data_ptr(), len(segments), scal.data_ptr(), packed.data_ptr(),
+                 moments.data_ptr(), None if scales is None else scales.data_ptr(),
+                 lay.n_tiles, stream)
     if err != 0:
         raise RuntimeError(f"quantize_pack kernel launch failed: CUDA error {err}")
     quantize_pack.launches += 1
+    return packed, moments, scales
+
+
+def quantize_pack(x: torch.Tensor, scal: torch.Tensor, out: torch.Tensor | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Ternarize + pack one leaf, read flat: ``quantize_pack_segments`` over
+    one segment; see ``quantize_pack_plain``. scal: (2,) fp32 (denom, Δ).
+    With ``out`` (a contiguous uint8 tensor of ``packed_nbytes(n)`` on x's
+    device, e.g. a slice of a larger wire buffer) the bytes land there."""
+    if scal.shape != (2,):
+        raise ValueError("quantize_pack: scal must be a (2,) tensor")
+    packed, moments, _ = quantize_pack_segments([x.reshape(-1)], scal.reshape(1, 2), out=out)
     return packed, moments
 
 

@@ -5,13 +5,18 @@ y = x @ (w_q · unpack(W)) with W the ``(K//4, N)`` uint8 layout of
 ``kernels.repack`` (each byte holds 4 K-consecutive codes of one column),
 fp32 accumulation, w_q applied once to the finished sum.
 
-Bound on the H100: operations. At decode (M = 4) olmo-1b's 112 launches per
-step read 2^28 packed bytes (80 µs at 3.35 TB/s) but do 8.6 GFLOP (128 µs at
-67 TFLOP/s of fp32 on the CUDA cores), so this CUDA-core kernel is FLOP-bound
-even at decode; a tensor-core kernel is what moves that bound. The design
-(see the source) unpacks codes in registers without int→float conversions,
-coalesces packed-byte loads 4 columns per lane, and splits K across blocks
-when M and N alone give too few blocks to fill 132 SMs.
+The kernel runs on the tensor cores (bf16 → fp32: ``mma.sync`` for M ≤ 16,
+``wgmma`` with the weights from registers above). The ternary
+weights are exact in bf16 and x is split into three bf16 parts whose sum is
+x exactly (``split_bf16x3``), so every product is exact and only the fp32
+accumulation rounds, as in a fp32 matmul; ``ternary_matmul_split`` is that
+arithmetic in plain PyTorch. Bound on the H100: bytes at decode (M = 4:
+2^28 packed bytes a step, 84 µs at 3.35 TB/s), bf16 operations at prefill
+(3 · 2MKN at 989 TFLOP/s). The design (see the source): weights as the A
+operand from registers, the output computed transposed, K permuted inside
+each 16-deep step so a thread unpacks whole bytes, a cp.async ring of
+shared-memory stages, and K split across blocks when M and N alone give
+too few blocks to fill 132 SMs.
 
 ``ternary_matmul`` dispatches on the tensor's device: the plain PyTorch
 version for CPU tensors, the CUDA kernel for CUDA tensors (or it raises).
@@ -27,8 +32,8 @@ import torch
 from repro_torch.kernels.pack2bit import unpack2bit_plain
 
 BN = 128           # output columns per block
-KC4 = 32           # packed rows per staged x chunk: the least K work of a split
-TARGET_BLOCKS = 264  # two blocks per SM of an H100
+KC4 = 32           # packed rows per pipeline stage: the least K work of a split
+SM_COUNT = 132     # streaming multiprocessors of an H100 SXM
 
 
 def ternary_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
@@ -39,13 +44,40 @@ def ternary_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
     return (y * w_q.to(torch.float32)).to(x.dtype)
 
 
+def split_bf16x3(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's exact split of fp32 x into three bf16 parts (returned as
+    bf16-valued fp32): hi = bf16(x), mid = bf16(x − hi), lo = bf16(x − hi −
+    mid). Both subtractions are exact in fp32, so hi + mid + lo == x for
+    every normal x."""
+    x = x.to(torch.float32)
+    hi = x.to(torch.bfloat16).to(torch.float32)
+    r = x - hi
+    mid = r.to(torch.bfloat16).to(torch.float32)
+    lo = (r - mid).to(torch.bfloat16).to(torch.float32)
+    return hi, mid, lo
+
+
+def ternary_matmul_split(x: torch.Tensor, packed: torch.Tensor,
+                         w_q: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: three products of the bf16
+    parts of x with the exact weights, summed (lo + mid) + hi, then × w_q."""
+    w = unpack2bit_plain(packed, torch.float32)
+    hi, mid, lo = split_bf16x3(x)
+    return ((lo @ w + mid @ w) + hi @ w) * w_q.to(torch.float32)
+
+
 def launch_shape(m: int, k4: int, n: int) -> tuple[int, int]:
-    """(row tile, K splits) for an (m, 4·k4) @ (4·k4, n) product: split K
-    only as far as needed for ~TARGET_BLOCKS blocks, and never below one
-    staged chunk of K per split."""
-    bm = 4 if m <= 4 else 16
+    """(row tile, K splits) for an (m, 4·k4) @ (4·k4, n) product. The row
+    tile is 4 rows of x at decode-sized m and 16 up to 16 rows (mma.sync),
+    else 32 (the warpgroup kernel); a block is BN output columns either
+    way. K is split only as far as needed for two blocks per SM at
+    decode-sized m (bound by bytes, so blocks keep reads in flight) and one
+    per SM above (bound by issue, where every split adds workspace
+    traffic), and never below one stage of K per split."""
+    bm = 4 if m <= 4 else 16 if m <= 16 else 32
+    target = 2 * SM_COUNT if bm == 4 else SM_COUNT
     blocks = -(-n // BN) * -(-m // bm)
-    split = max(1, min(-(-TARGET_BLOCKS // blocks), k4 // KC4))
+    split = max(1, min(-(-target // blocks), k4 // KC4))
     per = max(1, -(-k4 // split))
     return bm, max(1, -(-k4 // per))
 
@@ -92,7 +124,7 @@ def ternary_matmul(x: torch.Tensor, packed: torch.Tensor,
     bm, split = launch_shape(m, k4, n)
     ws = (torch.empty((split, m, n), dtype=torch.float32, device=x.device)
           if split > 1 else out)
-    wvec = int(n % 4 == 0 and packed.data_ptr() % 4 == 0)
+    wvec = next(v for v in (16, 4, 1) if n % v == 0 and packed.data_ptr() % v == 0)
     fn = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -127,3 +127,74 @@ def test_round_bytes_match_reference(name):
     assert fedavg_round_bytes(params, 7) == jfedavg_bytes(jparams, 7)
     assert tfedavg_round_bytes(params, 7, FTTQConfig()) == jtfedavg_bytes(
         jparams, 7, JFTTQConfig())
+
+
+def test_segment_table_covers_the_resnet_tree():
+    """ResNet18* at full width: the one launch's segment table lists every
+    quantized element exactly once — 52 segments (the stem's 3 kernel rows,
+    16 convs × 3, the head), each a slice of its leaf in order, its wire
+    bytes back to back and one moment tile each."""
+    from repro_torch.core import encode
+    from repro_torch.core import fttq
+    from repro_torch.core.fttq import init_wq_tree
+    from repro_torch.core.ternary import packed_nbytes
+    from repro_torch.kernels.quantize_pack import segment_table
+    from repro_torch.models.paper_models import init_resnet_cifar
+
+    cfg = FTTQConfig()
+    params = init_resnet_cifar(seed=1, device="cpu")
+    leaves = dict(flatten_with_path(params))
+    wq_paths = flatten_with_path(init_wq_tree(params, cfg))
+    items = [encode._Item(leaf=leaves[p], mode="payload", cfg=cfg, wq=wq,
+                          stacked=fttq._is_stacked(leaves[p], wq)) for p, wq in wq_paths]
+    rows, sizes = [], []
+    for it in items:
+        seg_rows, scal, n_seg = encode._segments(it)
+        assert scal.shape == (n_seg, 2) and seg_rows.data_ptr() == it.leaf.data_ptr()
+        rows += [seg_rows[i] for i in range(n_seg)]
+        sizes.append((it.leaf.numel(), n_seg))
+    table, lay = segment_table(rows)
+    t = table.numpy()
+    assert t.shape == (52, 5)
+    assert sorted(set(int(n) for n in t[:, 1])) == [576, 640, 12288]
+    np.testing.assert_array_equal(t[:, 0], [r.data_ptr() for r in rows])
+    np.testing.assert_array_equal(t[:, 3], np.arange(52))           # one tile each
+    np.testing.assert_array_equal(t[:, 4], 0)
+    ends = t[:, 2] + (t[:, 1] + 3) // 4
+    np.testing.assert_array_equal(t[1:, 2], ends[:-1])               # back to back
+    assert ends[-1] == lay.n_bytes == sum(packed_nbytes(r.numel()) for r in rows)
+    assert lay.n_tiles == 52
+    row = 0
+    for numel, n_seg in sizes:                                        # each leaf, whole, in order
+        assert t[row:row + n_seg, 1].sum() == numel
+        assert (np.diff(t[row:row + n_seg, 0]) == 4 * t[row, 1]).all()
+        row += n_seg
+    assert row == 52
+
+
+def test_one_kernel_call_per_tree_encode(monkeypatch):
+    """Each tree encode makes exactly one multi-segment call: the client
+    upload, the server broadcast and the codec pre-pass; the broadcast's
+    residual pass over an already-encoded tree makes none."""
+    from repro_torch.core import encode
+    from repro_torch.core.fttq import init_wq_tree
+    from repro_torch.models.paper_models import init_resnet_cifar
+
+    calls = []
+    real = encode.quantize_pack_segments
+
+    def counting(segments, *a, **kw):
+        calls.append(len(segments))
+        return real(segments, *a, **kw)
+
+    monkeypatch.setattr(encode, "quantize_pack_segments", counting)
+    cfg = FTTQConfig()
+    params = init_resnet_cifar(seed=2, width=8, device="cpu")
+    client_update_payload(params, init_wq_tree(params, cfg), cfg)
+    assert calls == [52]
+    broadcast = server_requantize(params, cfg)
+    assert calls == [52, 52]
+    compress_pytree(broadcast, CodecSpec(kind="ternary"))
+    assert calls == [52, 52]
+    compress_pytree(params, CodecSpec(kind="ternary"))
+    assert len(calls) == 3

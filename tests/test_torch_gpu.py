@@ -19,12 +19,17 @@ from repro_torch.fed.aggregator import Aggregator
 from repro_torch.kernels import ops
 from repro_torch.kernels.aggregate import LANES, packed_weighted_sum, packed_weighted_sum_plain
 from repro_torch.kernels.pack2bit import pack2bit, pack2bit_plain, unpack2bit, unpack2bit_plain
-from repro_torch.kernels.quantize_pack import quantize_pack, quantize_pack_plain
+from repro_torch.kernels.quantize_pack import (
+    quantize_pack, quantize_pack_plain, quantize_pack_segments, quantize_pack_segments_plain,
+    segment_layout,
+)
 from repro_torch.kernels.ternary_quantize import ternary_quantize, ternary_quantize_plain
 from repro_torch.kernels.vote import packed_vote_counts, packed_vote_counts_plain
 from repro_torch.models.paper_models import init_resnet_cifar
 from repro_torch.tree import flatten_with_path
-from repro_torch.kernels.ternary_matmul import ternary_matmul, ternary_matmul_plain
+from repro_torch.kernels.ternary_matmul import (
+    ternary_matmul, ternary_matmul_plain, ternary_matmul_split,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -113,6 +118,85 @@ def test_encode_on_the_card_matches_the_reference_chain(cuda_device):
     assert n_ternary == 18
 
 
+@pytest.mark.parametrize("mode", ["payload", "server"])
+def test_quantize_pack_segments_match_plain(cuda_device, mode):
+    """ResNet18*'s 52 segments (and a ragged, a two-tile and a one-element
+    segment) in one launch into a guarded buffer: bytes and guards exact,
+    counts exact, tile sums and scales within rtol 1e-6."""
+    gen = torch.Generator(cuda_device).manual_seed(52)
+    sizes = [576] * 3 + [12288] * 48 + [640] + [7, 40001, 1]
+    base = torch.randn(sum(sizes) + 8, generator=gen, device=cuda_device) * 0.05
+    segs, at = [], 0
+    for n in sizes:
+        segs.append(base[at:at + n])
+        at += n + (4 if n == 7 else 0)       # one segment starts off a 16-byte boundary
+    rows = torch.stack([torch.cat([x.abs().max().reshape(1) + 1e-8,
+                                   torch.full((1,), 0.05, device=cuda_device)]) for x in segs])
+    if mode == "payload":
+        rows[:, 1] = torch.stack([0.7 * (x / d).abs().mean() for x, d in zip(segs, rows[:, 0])])
+    lay = segment_layout(sizes)
+    buf = torch.full((16 + lay.n_bytes + 16,), 0xA5, dtype=torch.uint8, device=cuda_device)
+    before = quantize_pack.launches
+    _, moments, scales = quantize_pack_segments(segs, rows, out=buf[16:16 + lay.n_bytes],
+                                                with_scales=mode == "server")
+    assert quantize_pack.launches == before + 1
+    ref_packed, ref_moments, ref_scales = quantize_pack_segments_plain(
+        segs, rows, with_scales=mode == "server")
+    torch.cuda.synchronize()
+    want = torch.full_like(buf, 0xA5)
+    want[16:16 + lay.n_bytes] = ref_packed
+    assert torch.equal(buf, want)
+    assert torch.equal(moments[:, 1], ref_moments[:, 1])
+    torch.testing.assert_close(moments[:, 0], ref_moments[:, 0], rtol=1e-6, atol=0)
+    if mode == "server":
+        torch.testing.assert_close(scales, ref_scales, rtol=1e-6, atol=0)
+        for _ in range(2):                   # the scales' order is fixed: launches agree
+            _, _, again = quantize_pack_segments(segs, rows, with_scales=True)
+            torch.cuda.synchronize()
+            assert torch.equal(again, scales)
+    else:
+        assert scales is None
+
+
+def test_quantize_pack_segments_many_tiles(cuda_device):
+    """Segments of many moment tiles (129, 32 and 25) in one launch, the
+    scales formed on the card from all of a segment's tiles: bytes exact,
+    counts exact, tile sums and scales within rtol 1e-6."""
+    gen = torch.Generator(cuda_device).manual_seed(129)
+    segs = [torch.randn(n, generator=gen, device=cuda_device)
+            for n in (2 ** 22 + 3, 2 ** 20, 3 * 2 ** 18 + 1)]
+    rows = torch.stack([torch.cat([x.abs().max().reshape(1) + 1e-8,
+                                   torch.full((1,), 0.1, device=cuda_device)]) for x in segs])
+    packed, moments, scales = quantize_pack_segments(segs, rows, with_scales=True)
+    ref_packed, ref_moments, ref_scales = quantize_pack_segments_plain(segs, rows, True)
+    torch.cuda.synchronize()
+    assert moments.shape[0] == 129 + 32 + 25
+    assert torch.equal(packed, ref_packed)
+    assert torch.equal(moments[:, 1], ref_moments[:, 1])
+    torch.testing.assert_close(moments[:, 0], ref_moments[:, 0], rtol=1e-6, atol=0)
+    torch.testing.assert_close(scales, ref_scales, rtol=1e-6, atol=0)
+
+
+def test_encode_launches_quantize_pack_once_per_tree(cuda_device):
+    """A ResNet18* upload, a broadcast and a codec pass each launch the
+    kernel exactly once; the residual pass over an encoded tree launches
+    none."""
+    from repro_torch.core.compression import CodecSpec, compress_pytree
+
+    cfg = FTTQConfig()
+    params = init_resnet_cifar(seed=4, width=16, device=cuda_device)
+    wq = init_wq_tree(params, cfg)
+    before = quantize_pack.launches
+    client_update_payload(params, wq, cfg)
+    assert quantize_pack.launches == before + 1
+    broadcast = server_requantize(params, cfg)
+    assert quantize_pack.launches == before + 2
+    compress_pytree(broadcast, CodecSpec(kind="ternary"))
+    assert quantize_pack.launches == before + 2
+    compress_pytree(params, CodecSpec(kind="ternary"))
+    assert quantize_pack.launches == before + 3
+
+
 def _random_packed(k: int, n: int, gen: torch.Generator, device) -> torch.Tensor:
     c = torch.randint(0, 3, (k // 4, 4, n), generator=gen, device=device, dtype=torch.uint8)
     return c[:, 0] | (c[:, 1] << 2) | (c[:, 2] << 4) | (c[:, 3] << 6)
@@ -120,9 +204,13 @@ def _random_packed(k: int, n: int, gen: torch.Generator, device) -> torch.Tensor
 
 @pytest.mark.parametrize("m,k,n", [(4, 2048, 2048), (4, 2048, 8192), (4, 8192, 2048),
                                    (128, 2048, 2048), (128, 2048, 8192), (128, 8192, 2048),
-                                   (5, 256, 131), (33, 64, 70), (17, 4, 1), (1, 8, 4)])
+                                   (5, 256, 131), (33, 64, 70), (17, 4, 1), (1, 8, 4),
+                                   (3, 36, 130), (1, 2048, 2048), (16, 1024, 260),
+                                   (8, 2048, 2048), (16, 2048, 2048)])
 def test_ternary_matmul_matches_plain(cuda_device, m, k, n):
-    """fp32 with TF32 off; rtol and atol 1e-4 cover the summation order."""
+    """fp32 with TF32 off; rtol and atol 1e-4 cover the summation order.
+    The tensor-core kernel also agrees with its own arithmetic in plain
+    PyTorch (the exact bf16 split) to the same limit."""
     gen = torch.Generator(cuda_device).manual_seed(m + k + n)
     x = torch.randn(m, k, generator=gen, device=cuda_device)
     packed = _random_packed(k, n, gen, cuda_device)
@@ -132,6 +220,51 @@ def test_ternary_matmul_matches_plain(cuda_device, m, k, n):
     assert ternary_matmul.launches == before + 1
     torch.cuda.synchronize()
     torch.testing.assert_close(y, ternary_matmul_plain(x, packed, wq), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(y, ternary_matmul_split(x, packed, wq), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 2048, 2048), (4, 8192, 2048), (128, 2048, 8192),
+                                   (128, 8192, 2048), (1, 2048, 2048), (8, 2048, 2048),
+                                   (16, 2048, 2048), (33, 64, 70), (40, 1024, 260), (3, 36, 130)])
+def test_ternary_matmul_exact_on_one_hot_weights(cuda_device, m, k, n):
+    """One nonzero code (±1 at a random k) per column: every output is one
+    exact product ±x[i, k_n] · w_q, so any summation order gives it and the
+    kernel equals its plain version and its bf16 split bit for bit. A lost
+    part of the split (lo is about 2^-17 of x) or a misplaced k fails."""
+    gen = torch.Generator(cuda_device).manual_seed(7 * m + n)
+    x = torch.randn(m, k, generator=gen, device=cuda_device)
+    codes = torch.ones(k, n, dtype=torch.uint8, device=cuda_device)
+    at = torch.randint(0, k, (n,), generator=gen, device=cuda_device)
+    codes[at, torch.arange(n, device=cuda_device)] = 2 * torch.randint(
+        0, 2, (n,), generator=gen, device=cuda_device, dtype=torch.uint8)
+    c = codes.reshape(k // 4, 4, n)
+    packed = c[:, 0] | (c[:, 1] << 2) | (c[:, 2] << 4) | (c[:, 3] << 6)
+    wq = torch.tensor(0.37, device=cuda_device)
+    y = ternary_matmul(x, packed, wq)
+    torch.cuda.synchronize()
+    assert torch.equal(y, ternary_matmul_plain(x, packed, wq))
+    assert torch.equal(y, ternary_matmul_split(x, packed, wq))
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 2048, 2048), (128, 8192, 2048), (3, 36, 130)])
+def test_ternary_matmul_in_a_cuda_graph(cuda_device, m, k, n):
+    """Captured into a CUDA graph and replayed on new inputs, the kernel
+    gives what an eager launch gives."""
+    gen = torch.Generator(cuda_device).manual_seed(m * n)
+    x = torch.randn(m, k, generator=gen, device=cuda_device)
+    packed = _random_packed(k, n, gen, cuda_device)
+    wq = torch.tensor(0.21, device=cuda_device)
+    ternary_matmul(x, packed, wq)                 # warm-up outside the capture
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y = ternary_matmul(x, packed, wq)
+    for _ in range(2):
+        x.copy_(torch.randn(m, k, generator=gen, device=cuda_device))
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, ternary_matmul(x, packed, wq))
+        torch.testing.assert_close(y, ternary_matmul_plain(x, packed, wq), rtol=1e-4, atol=1e-4)
 
 
 def test_ternary_matmul_rejects_what_it_cannot_take(cuda_device):

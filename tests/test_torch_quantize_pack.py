@@ -16,8 +16,9 @@ from repro.core import compress_pytree as jcompress
 from repro.core import fttq as jfttq
 from repro.core.ternary import TernaryTensor as JTernary
 from repro.kernels.quantize_pack import (
-    BLOCK_S, quantize_pack_segments, stage_encode,
+    BLOCK_S, LANES, quantize_pack_segments, stage_encode,
 )
+from repro.kernels.quantize_pack import scale_from_moments as jscale_from_moments
 from repro.models import transformer as jtf
 from repro_torch.convert import params_from_jax
 from repro_torch.core.compression import CodecSpec, compress_pytree
@@ -25,8 +26,10 @@ from repro_torch.core.encode import leaf_scalars
 from repro_torch.core.fttq import FTTQConfig
 from repro_torch.core.ternary import TernaryTensor, unpack_codes
 from repro_torch.kernels.quantize_pack import (
-    n_tiles, quantize_pack, quantize_pack_plain, scale_from_moments,
+    n_tiles, quantize_pack, quantize_pack_plain, quantize_pack_segments_plain,
+    scale_from_moments, segment_layout,
 )
+from repro_torch.kernels.quantize_pack import quantize_pack_segments as qp_segments
 from repro_torch.tree import flatten_with_path
 
 torch.set_num_threads(1)
@@ -52,6 +55,83 @@ def test_plain_matches_pallas_kernel(n):
     np.testing.assert_array_equal(packed.numpy(), ref_bytes)
     np.testing.assert_array_equal(moments[:, 1].numpy(), jmoments[:, 1])
     np.testing.assert_allclose(moments[:, 0].numpy(), jmoments[:, 0], rtol=1e-5)
+
+
+SEGMENT_SETS = {
+    "ragged": [5, 32768, 40001, 7],              # n % 4 != 0, a full tile, two tiles
+    "resnet_like": [576, 12288, 12288, 640, 3],
+    "one": [70001],
+}
+
+
+@pytest.mark.parametrize("name", list(SEGMENT_SETS))
+def test_plain_segments_match_pallas_kernel(name):
+    """Many segments at once against the reference kernel on the
+    concatenated ``stage_encode`` staging with per-block (denom, Δ) rows:
+    per segment, wire bytes identical, tile counts exact, tile sums and the
+    scale within rtol 1e-6."""
+    sizes = SEGMENT_SETS[name]
+    rng = np.random.default_rng(len(sizes) + sum(sizes))
+    segs = [rng.normal(size=(n,)).astype(np.float32) * rng.uniform(0.01, 2.0) for n in sizes]
+    scal = np.zeros((len(segs), 2), np.float32)
+    staged, rows = [], []
+    for i, x in enumerate(segs):
+        denom = np.float32(np.abs(x).max() + np.float32(1e-8))
+        scal[i] = denom, np.float32(0.7 * np.mean(np.abs(x / denom)))
+        st, _ = stage_encode(jnp.asarray(x))
+        staged.append(st)
+        rows.append(st.shape[0])
+    block_scal = np.concatenate([np.broadcast_to(scal[i], (r // BLOCK_S, 2))
+                                 for i, r in enumerate(rows)])
+    jpacked, jmoments = quantize_pack_segments(jnp.concatenate(staged), jnp.asarray(block_scal),
+                                               interpret=True)
+    jbytes = np.asarray(jpacked).reshape(-1)
+    jmoments = np.asarray(jmoments)
+
+    packed, moments, scales = quantize_pack_segments_plain(
+        [torch.from_numpy(x) for x in segs], torch.from_numpy(scal), with_scales=True)
+    lay = segment_layout(sizes)
+    assert packed.shape == (lay.n_bytes,) and moments.shape == (lay.n_tiles, 2)
+    row0 = 0
+    for i, n in enumerate(sizes):
+        b, t, g = lay.byte_offsets[i], lay.tile_starts[i], n_tiles(n)
+        assert g == rows[i] // BLOCK_S
+        ref_bytes = jbytes[row0 * LANES // 4: row0 * LANES // 4 + (n + 3) // 4]
+        np.testing.assert_array_equal(packed[b:b + (n + 3) // 4].numpy(), ref_bytes)
+        ref_m = jmoments[row0 // BLOCK_S: row0 // BLOCK_S + g]
+        np.testing.assert_array_equal(moments[t:t + g, 1].numpy(), ref_m[:, 1])
+        np.testing.assert_allclose(moments[t:t + g, 0].numpy(), ref_m[:, 0], rtol=1e-6)
+        ref_scale = np.asarray(jscale_from_moments(jnp.asarray(ref_m), jnp.float32(scal[i, 0])))
+        np.testing.assert_allclose(scales[i].numpy(), ref_scale, rtol=1e-6)
+        row0 += rows[i]
+
+
+def test_segments_wrapper_takes_plain_version_on_cpu():
+    """On CPU tensors the multi-segment wrapper is the plain version,
+    writes through ``out`` and launches nothing; its table layout puts the
+    segments back to back."""
+    rng = np.random.default_rng(3)
+    segs = [torch.from_numpy(rng.normal(size=(n,)).astype(np.float32)) for n in (9, 40000, 3)]
+    scal = torch.tensor([[3.0, 0.1], [4.0, 0.2], [2.0, 0.3]])
+    lay = segment_layout([9, 40000, 3])
+    assert lay.byte_offsets == (0, 3, 10003) and lay.tile_starts == (0, 1, 3)
+    assert (lay.n_bytes, lay.n_tiles) == (10004, 4)
+    before = quantize_pack.launches
+    out = torch.full((lay.n_bytes,), 0xA5, dtype=torch.uint8)
+    got = qp_segments(segs, scal, out=out, with_scales=True)
+    want = quantize_pack_segments_plain(segs, scal, with_scales=True)
+    assert quantize_pack.launches == before
+    assert got[0].data_ptr() == out.data_ptr()
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    for i, x in enumerate(segs):
+        p, m = quantize_pack_plain(x, scal[i])
+        b, t = lay.byte_offsets[i], lay.tile_starts[i]
+        assert torch.equal(out[b:b + p.numel()], p)
+        assert torch.equal(want[1][t:t + m.shape[0]], m)
+        assert want[2][i].item() == scale_from_moments(m, scal[i, 0]).item()
+    with pytest.raises(ValueError, match="unsupported device"):
+        qp_segments([torch.empty(8, device="meta")], torch.empty(1, 2, device="meta"))
 
 
 def test_wrapper_takes_plain_version_on_cpu():

@@ -16,7 +16,8 @@ from repro_torch.kernels.repack import (
     packed_matmul, packed_params_from_wire, repack_to_kernel_layout,
 )
 from repro_torch.kernels.ternary_matmul import (
-    BN, launch_shape, ternary_matmul, ternary_matmul_plain,
+    BN, KC4, SM_COUNT, launch_shape, split_bf16x3, ternary_matmul, ternary_matmul_plain,
+    ternary_matmul_split,
 )
 
 torch.set_num_threads(1)
@@ -88,13 +89,73 @@ def test_packed_params_from_wire_keeps_weights_2bit():
 
 
 def test_launch_shape_fills_the_card_and_covers_k():
+    """Row tile 4 at decode-sized M, 16 up to 16 rows (mma.sync), else 32
+    (the warpgroup kernel); K split into non-empty ranges of at least one
+    stage, far enough for two blocks per SM at decode and one above, unless
+    K runs out of stages."""
     for m, k, n in [(4, 2048, 2048), (4, 2048, 8192), (4, 8192, 2048),
-                    (128, 2048, 2048), (128, 2048, 8192), (128, 8192, 2048), (3, 4, 5)]:
-        bm, split = launch_shape(m, k // 4, n)
-        per = -(-(k // 4) // split)
-        assert per * split >= k // 4 and per * (split - 1) < k // 4   # no empty split
+                    (128, 2048, 2048), (128, 2048, 8192), (128, 8192, 2048), (3, 4, 5),
+                    (1, 2048, 2048), (16, 2048, 2048), (33, 64, 70)]:
+        k4 = k // 4
+        bm, split = launch_shape(m, k4, n)
+        assert bm == (4 if m <= 4 else 16 if m <= 16 else 32)
+        per = -(-k4 // split)
+        assert per * split >= k4 and per * (split - 1) < k4   # no empty split
+        assert split == 1 or per >= KC4
         blocks = -(-n // BN) * -(-m // bm) * split
-        assert blocks >= 128 or split == max(1, (k // 4) // 32)
+        target = 2 * SM_COUNT if bm == 4 else SM_COUNT
+        assert blocks >= target or split == max(1, k4 // KC4)
+
+
+def test_split_bf16x3_is_exact():
+    """hi + mid + lo == x bit for bit over exponents 2^-60 .. 2^60, and
+    each part is a bf16 value."""
+    rng = np.random.default_rng(14)
+    x = (rng.normal(size=200_000) * np.exp2(rng.uniform(-60, 60, size=200_000))
+         ).astype(np.float32)
+    hi, mid, lo = split_bf16x3(torch.from_numpy(x))
+    np.testing.assert_array_equal(((hi + mid) + lo).numpy().view(np.int32), x.view(np.int32))
+    for part in (hi, mid, lo):
+        assert torch.equal(part.to(torch.bfloat16).to(torch.float32), part)
+    assert (mid.abs() <= hi.abs()).all() and (lo.abs() <= mid.abs()).all()
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 64, 48), (3, 36, 130), (1, 8, 3), (17, 128, 130)])
+def test_split_product_matches_pallas_kernel(m, k, n):
+    """The kernel's arithmetic (three bf16 parts, summed (lo + mid) + hi,
+    then × w_q) against the reference kernel, rtol 1e-5."""
+    rng = np.random.default_rng(m * k + n + 1)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    codes = rng.integers(0, 3, size=(k, n)).astype(np.uint8)
+    packed = _pack_along_k(codes)
+    wq = np.float32(0.37)
+    ref = jternary_matmul(jnp.asarray(x), jnp.asarray(packed), jnp.asarray(wq),
+                          interpret=True)
+    got = ternary_matmul_split(torch.from_numpy(x), torch.from_numpy(packed), torch.tensor(wq))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 64, 48), (3, 36, 130), (17, 128, 130)])
+def test_split_product_exact_on_one_hot_weights(m, k, n):
+    """One nonzero code per column: every output is one exact product, so
+    the split arithmetic equals the plain version and the reference kernel
+    bit for bit, and dropping the lo part does not (the card check's
+    premise)."""
+    rng = np.random.default_rng(m + k + n)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    codes = np.ones((k, n), dtype=np.uint8)
+    codes[rng.integers(0, k, size=n), np.arange(n)] = 2 * rng.integers(0, 2, size=n)
+    packed = _pack_along_k(codes)
+    wq = np.float32(0.37)
+    ref = np.asarray(jternary_matmul(jnp.asarray(x), jnp.asarray(packed), jnp.asarray(wq),
+                                     interpret=True))
+    xt, pt, wt = torch.from_numpy(x), torch.from_numpy(packed), torch.tensor(wq)
+    got = ternary_matmul_split(xt, pt, wt)
+    np.testing.assert_array_equal(got.numpy(), ternary_matmul_plain(xt, pt, wt).numpy())
+    np.testing.assert_array_equal(got.numpy(), ref)
+    hi, mid, _ = split_bf16x3(xt)
+    w = torch.from_numpy(codes.astype(np.float32) - 1)
+    assert not torch.equal((mid @ w + hi @ w) * wt, got)
 
 
 def test_wrapper_takes_plain_version_on_cpu():
