@@ -19,8 +19,10 @@ Phases (any failure exits non-zero; no phase is skipped):
                  TF32 off) against the plain version and against its exact
                  bf16 split in plain PyTorch, and bit for bit on one-hot
                  weights, where every output is one exact product;
-                 aggregate and vote bit for bit at ResNet18*'s segment shapes
-                 and 16 clients × 2^26 elements, ternary_quantize bit for bit
+                 aggregate and vote bit for bit, one launch per segment table:
+                 ResNet18*'s 52 segments with 10 clients, segments of 1, 3, 37
+                 and 144 bytes at C = 1, 3, 17, and 16 clients × 2^26 elements
+                 (a one-row table); ternary_quantize bit for bit
                  on all 112 2-D layers of olmo-1b (and one in bf16);
   4. serve     — olmo-1b at full width (16 layers, d_model 2048, 2^30 quantized
                  weights, random weights from a seed) deployed through the TFW1
@@ -48,24 +50,32 @@ Phases (any failure exits non-zero; no phase is skipped):
                  synthetic 32×32×3 samples per client); per round the bytes,
                  simulated time, wall seconds per phase, accuracy and loss and
                  the kernels' launches (exactly one quantize_pack launch per
-                 upload and per broadcast); the round's kernel fold against the
+                 upload and per broadcast, one aggregate launch per flush of
+                 agg_chunk_c uploads); the round's kernel fold against the
                  list reference ``server_aggregate``; the card's fused
                  encode of the last broadcast and of one client's upload
                  against the reference chain;
   8. robust    — one defended sync round of ResNet18* at full width (rule
                  majority on the vote kernel, 30 seeded sign-flip attackers of
                  100 clients): bytes, phase wall times, the gate's telemetry and
-                 ledger, launches; then, on the last federated round's 10
+                 ledger, launches (one vote launch per flush); then, on the
+                 last federated round's 10
                  uploads, the majority, median and trimmed_mean folds on the
                  card against the CPU plain folds, the sign-flip guarantee, and
                  the gate against 3 nan_poison uploads;
   9. quickstart — repro_torch.launch.quickstart on the card, then its own
                  ternary_quantize, pack2bit and unpack2bit outputs against
                  the plain versions on the same inputs, bit for bit;
- 10. fan-in timings — aggregate and vote at one round's fan-in (52 groups at
-                 C = 16) and at 16 clients × 2^26 elements, beside their bytes
-                 bound and their plain versions;
- 11. fed trace — one round of one client at E = 5, B = 64, timed untraced
+ 10. fan-in timings — aggregate and vote over one round's fold (52 segments,
+                 10 clients) in one launch, as a CUDA-graph replay and as an
+                 eager Aggregator flush (staging fill, pinned copy, launch),
+                 beside the per-segment pattern of 52 launches of 32-row tiles
+                 at C = 16, and at 16 clients × 2^26 elements; bytes bounds and
+                 plain versions;
+ 11. fan-in trace — the aggregate phase of one mean and one majority round
+                 on the last round's uploads under torch.profiler, with the
+                 Aggregator's host ranges (add, stage, copy, launch, finalize);
+ 12. fed trace — one round of one client at E = 5, B = 64, timed untraced
                  and then run under torch.profiler.
 Before each driven path (serve, federated, robust, quickstart) every
 kernel's launch counter is set to 0, and read just after.
@@ -165,7 +175,7 @@ def matmul_bound(m: int, k: int, n: int) -> tuple[float, str, int, int]:
 FED_ROUNDS = 2
 FED_SAMPLES = 500         # per client: the paper's CIFAR-10 split over 100 clients
 FED_TEST = 1000
-FANIN_C = 16              # FedConfig.agg_chunk_c: one bucket per round at λN = 10
+FANIN_C = 16              # FedConfig.agg_chunk_c: one flush per round at λN = 10
 FED_UPLOADS = 10          # λN = 10 clients encode an upload each round
 STRESS_ELEMENTS = 2 ** 26  # per client: 16 MB of wire codes
 ROBUST_ATTACKERS = 30      # sign-flip attackers of the 100 clients
@@ -195,22 +205,51 @@ def read_counters() -> dict:
     return {name: fn.launches for name, fn in kernel_counters().items()}
 
 
-def _segment_stack(nbytes: int, c: int, n_real: int, gen, dev):
-    """A (c, R, 128) staging buffer as the aggregator fills it: ``n_real``
-    clients' random wire codes in the first ``nbytes`` of each row, zero
-    tails and zero padding rows; coefficients 0 on the padding rows."""
+def _tile_stack(nbytes: int, c: int, n_real: int, gen, dev):
+    """A (c, R, 128) stack as a TPU-shaped staging fills it, one segment at
+    a time: ``n_real`` clients' random wire codes in the first ``nbytes``
+    of each row, R padded to whole 32-row tiles, zero tails and padding rows
+    at coefficient 0."""
     import torch
 
-    from repro_torch.kernels.aggregate import LANES, padded_rows
-
-    rows = padded_rows(nbytes)
+    rows = -(-nbytes // 128)
+    rows = -(-rows // 32) * 32
     codes = torch.randint(0, 3, (c, nbytes, 4), generator=gen, device=dev, dtype=torch.uint8)
     packed = codes[..., 0] | (codes[..., 1] << 2) | (codes[..., 2] << 4) | (codes[..., 3] << 6)
-    stacked = torch.zeros(c, rows * LANES, dtype=torch.uint8, device=dev)
+    stacked = torch.zeros(c, rows * 128, dtype=torch.uint8, device=dev)
     stacked[:n_real, :nbytes] = packed[:n_real]
     coeffs = torch.zeros(c, device=dev)
     coeffs[:n_real] = torch.rand(n_real, generator=gen, device=dev) * 0.02 + 0.005
-    return stacked.reshape(c, rows, LANES), coeffs
+    return stacked.reshape(c, rows, 128), coeffs
+
+
+RAGGED_SEGMENTS = [(1, 3), (3, 9), (37, 147), (144, 576)]   # (bytes, elements)
+
+
+def fanin_case(layout, c: int, gen, dev):
+    """One flush as the Aggregator stages it: a segment table of ``layout``
+    ((bytes, elements) per segment) on the card, a (c, row_bytes) buffer of
+    random bytes (every code, garbage in the aligned gaps), (c, S)
+    coefficients and (c,) weights."""
+    import torch
+
+    from repro_torch.kernels.aggregate import fanin_table
+
+    table = fanin_table([b for b, _ in layout], [n for _, n in layout], dev)
+    staged = torch.randint(0, 256, (c, table.row_bytes), generator=gen, device=dev,
+                           dtype=torch.uint8)
+    coeffs = torch.rand(c, table.n_segments, generator=gen, device=dev) * 0.02 + 0.005
+    weights = torch.randint(40, 600, (c,), generator=gen, device=dev) / 7.0
+    return table, staged, coeffs, weights
+
+
+def fanin_bytes(table, c: int, planes: int) -> int:
+    """What one segment launch must move: each client's real bytes and its
+    coefficients (one per segment for aggregate, one for vote), the table,
+    and ``planes`` fp32 outputs per element."""
+    coeffs = table.n_segments if planes == 1 else 1
+    return (c * (sum(table.nbytes) + 4 * coeffs) + 40 * table.n_segments
+            + planes * 4 * sum(table.n_out))
 
 
 def resnet_segment_bytes() -> list[int]:
@@ -518,30 +557,62 @@ def encode_checks(fold, trained, fcfg) -> None:
           "broadcast: the fused requantize differs from the reference chain")
 
 
-def aggregate_checks(dev) -> float:
-    """aggregate against its plain version, bit for bit."""
+def _fanin_kernels(kind: str):
+    """(segment wrapper, its plain version, stacked wrapper, its plain
+    version) of the aggregate or vote kernel; the stacked wrapper carries
+    the launch count."""
+    from repro_torch.kernels import aggregate, vote
+
+    if kind == "aggregate":
+        return (aggregate.packed_weighted_sum_segments,
+                aggregate.packed_weighted_sum_segments_plain,
+                aggregate.packed_weighted_sum, aggregate.packed_weighted_sum_plain)
+    return (vote.packed_vote_counts_segments, vote.packed_vote_counts_segments_plain,
+            vote.packed_vote_counts, vote.packed_vote_counts_plain)
+
+
+def fanin_checks(dev, kind: str) -> float:
+    """aggregate or vote against its plain version, bit for bit: ResNet18*'s
+    52 segments with 10 clients in one launch, segments of 1, 3, 37 and 144
+    bytes (ragged element counts) at C = 1, 3 and 17 in one launch each, and
+    16 clients x 2^26 elements through the stacked entry point (a one-row
+    table)."""
     import torch
 
-    from repro_torch.kernels.aggregate import packed_weighted_sum, packed_weighted_sum_plain
-
-    gen = torch.Generator(dev).manual_seed(12)
+    seg, seg_plain, stack, stack_plain = _fanin_kernels(kind)
+    gen = torch.Generator(dev).manual_seed(12 if kind == "aggregate" else 15)
+    resnet = [(b, 4 * b) for b in resnet_segment_bytes()]
     worst = 0.0
-    cases = [(nb, c, n_real) for nb in (576 // 4, 12288 // 4, 640 // 4)
-             for c, n_real in ((1, 1), (2, 2), (4, 3), (16, 10))]
-    cases.append((STRESS_ELEMENTS // 4, 16, 16))
-    for nbytes, c, n_real in cases:
-        stacked, coeffs = _segment_stack(nbytes, c, n_real, gen, dev)
-        out = packed_weighted_sum(stacked, coeffs)
-        ref = packed_weighted_sum_plain(stacked, coeffs)
+    cases = [("ResNet18*", resnet, FED_UPLOADS)] + [("ragged", RAGGED_SEGMENTS, c)
+                                                    for c in (1, 3, 17)]
+    for name, layout, c in cases:
+        table, staged, coeffs, weights = fanin_case(layout, c, gen, dev)
+        co = coeffs if kind == "aggregate" else weights
+        before = stack.launches
+        out = seg(staged, co, table)
+        launched = stack.launches - before
+        ref = seg_plain(staged, co, table)
         torch.cuda.synchronize()
         differ = int((out.view(torch.int32) != ref.view(torch.int32)).sum())
-        err = float((out - ref).abs().max())
-        worst = max(worst, err)
-        print(f"  C={c} ({n_real} clients) x {4 * nbytes} elements "
-              f"({tuple(stacked.shape)} bytes): max |d| {err:.3e}, {differ} elements differ")
-        check(differ == 0, f"aggregate differs from its plain version at C={c}, "
-                           f"{4 * nbytes} elements")
-        del stacked, out, ref
+        worst = max(worst, _max_abs_diff(out, ref))
+        print(f"  {name}: {table.n_segments} segments, C={c}, {table.row_bytes} staged bytes a "
+              f"client, {launched} launch: {differ} of {out.numel()} outputs differ")
+        check(launched == 1, f"{kind}: {launched} launches for one segment table")
+        check(differ == 0, f"{kind} differs from its plain version ({name}, C={c})")
+    stacked, coeffs = _tile_stack(STRESS_ELEMENTS // 4, FANIN_C, FANIN_C, gen, dev)
+    if kind == "vote":
+        coeffs = torch.randint(40, 600, (FANIN_C,), generator=gen, device=dev) / 7.0
+    out = stack(stacked, coeffs)
+    ref = stack_plain(stacked, coeffs)
+    torch.cuda.synchronize()
+    differ = int((out.view(torch.int32) != ref.view(torch.int32)).sum())
+    worst = max(worst, _max_abs_diff(out, ref))
+    print(f"  C={FANIN_C} x {STRESS_ELEMENTS} elements ({tuple(stacked.shape)} bytes, one-row "
+          f"table): {differ} of {out.numel()} outputs differ")
+    check(differ == 0, f"{kind} differs from its plain version at C={FANIN_C} x "
+                       f"{STRESS_ELEMENTS} elements")
+    del stacked, out, ref
+    torch.cuda.empty_cache()
     return worst
 
 
@@ -601,6 +672,7 @@ def federated_phase(dev, setup, *, rounds: int = FED_ROUNDS, **cfg_kw) -> dict:
             super().add(blob, weight)
 
         def finalize(self, *, reset=False):
+            adds.append(len(self.seen))
             self.last = (list(self.seen), super().finalize(reset=False))
             if reset:
                 self.reset()
@@ -609,6 +681,7 @@ def federated_phase(dev, setup, *, rounds: int = FED_ROUNDS, **cfg_kw) -> dict:
     timer = Timer(dev)
     timer.launches = []
     recorders = []
+    adds = []                 # uploads folded in each round
 
     def make_recorder(*a, **kw):
         recorders.append(Recorder(*a, **kw))
@@ -657,16 +730,20 @@ def federated_phase(dev, setup, *, rounds: int = FED_ROUNDS, **cfg_kw) -> dict:
               f"{w['train']:.2f} s, encode {w['encode']:.3f} s, wire {w['wire']:.3f} s, "
               f"aggregate {w['aggregate']:.3f} s, requantize {w['requantize']:.3f} s; "
               f"acc {row['accuracy']:.4f}, loss {row['loss']:.4f}; launches quantize_pack "
-              f"{lq} ({uploads} uploads + 1 broadcast encoded), aggregate {la}")
+              f"{lq} ({uploads} uploads + 1 broadcast encoded), aggregate {la} "
+              f"({adds[r]} uploads folded)")
         check(lq == uploads + 1, f"round {r}: quantize_pack launched {lq} times for {uploads} "
                                  "uploads and 1 broadcast: want one launch per tree encode")
+        flushes = -(-adds[r] // cfg.agg_chunk_c)
+        check(la == flushes, f"round {r}: aggregate launched {la} times for {adds[r]} uploads at "
+                             f"agg_chunk_c {cfg.agg_chunk_c}: want one launch per flush "
+                             f"({flushes})")
         check(np.isfinite(row["loss"]) and 0.0 <= row["accuracy"] <= 1.0,
               f"round {r}: accuracy/loss not finite")
         check(row["upload_bytes"] > 0 and row["download_bytes"] > 0, f"round {r}: no bytes")
     print(f"{rounds} rounds in {wall:.2f} s of wall time; fp32 model "
           f"{4 * param_count(params)} B, T-FedAvg upload per client "
           f"{res.upload_bytes // sum(res.participants_per_round)} B")
-    check(launches[1] > 0, "aggregate was not launched by the federated rounds")
     check(others["vote"] == 0, "the mean rounds launched vote")
 
     blobs, fold = recorders[-1].last
@@ -693,72 +770,66 @@ def federated_phase(dev, setup, *, rounds: int = FED_ROUNDS, **cfg_kw) -> dict:
             "fold_vs_list_max_abs": worst, "last_uploads": blobs}
 
 
-def aggregate_timings(dev) -> dict:
-    """aggregate over one round's 52 groups at C = 16, and at 16 clients ×
-    2^26 elements, with its plain version and its bytes bound."""
+def fanin_timings(dev, kind: str, uploads) -> dict:
+    """One round's fold in one launch (ResNet18*'s 52 segments, 10 clients):
+    the kernel as a CUDA-graph replay, and eagerly as ``Aggregator``'s flush
+    runs it on the last federated round's uploads (staging fill, pinned
+    copy, launch); beside it the per-segment staging and launch pattern on
+    this kernel (52 one-row launches of 32-row tiles at C = 16), and 16
+    clients x 2^26 elements; plain versions and bytes bounds."""
     import torch
 
-    from repro_torch.kernels.aggregate import packed_weighted_sum, packed_weighted_sum_plain
+    from repro_torch.fed.aggregator import Aggregator
+    from repro_torch.kernels.aggregate import stack_table
 
-    gen = torch.Generator(dev).manual_seed(13)
+    seg, seg_plain, _, _ = _fanin_kernels(kind)
+    planes = 1 if kind == "aggregate" else 2
+    gen = torch.Generator(dev).manual_seed(13 if kind == "aggregate" else 16)
+    resnet = [(b, 4 * b) for b in resnet_segment_bytes()]
+    table, staged, coeffs, weights = fanin_case(resnet, FED_UPLOADS, gen, dev)
+    co = coeffs if kind == "aggregate" else weights
+    out = {"round_ms": time_ms(lambda: seg(staged, co, table), 50),
+           "round_plain_ms": time_ms(lambda: seg_plain(staged, co, table), 5, graph=False)}
+    round_bytes = fanin_bytes(table, FED_UPLOADS, planes)
+    out["round_bound_ms"], out["round_bound_by"] = bound(round_bytes, 0)
 
-    def nbytes(seg_bytes: int, n_real: int) -> int:
-        """What the fold needs: each real client's codes and coefficient
-        in, the segment's fp32 out; not the staging's padding rows and
-        tails."""
-        return n_real * (seg_bytes + 4) + 4 * 4 * seg_bytes
+    agg = Aggregator(chunk_c=FANIN_C, device=dev, rule="mean" if planes == 1 else "majority")
+    for blob, weight in uploads:
+        agg.add(blob, weight)                  # fewer than chunk_c: all pending
+    check(len(agg._pending) == len(uploads), "the eager flush's clients were flushed early")
+    pending = list(agg._pending)
 
-    n_real = 10                                  # λN clients in a round
-    groups = [_segment_stack(nb, FANIN_C, n_real, gen, dev) for nb in resnet_segment_bytes()]
-    out = {"groups": len(groups)}
-    out["round_ms"] = time_ms(lambda: [packed_weighted_sum(s, c) for s, c in groups], 50)
-    out["round_plain_ms"] = time_ms(
-        lambda: [packed_weighted_sum_plain(s, c) for s, c in groups], 5)
-    out["round_bound_ms"], out["round_bound_by"] = bound(
-        sum(nbytes(nb, n_real) for nb in resnet_segment_bytes()), 0)
-    stress = _segment_stack(STRESS_ELEMENTS // 4, FANIN_C, FANIN_C, gen, dev)
-    out["stress_ms"] = time_ms(lambda: packed_weighted_sum(*stress), 20)
-    out["stress_plain_ms"] = time_ms(lambda: packed_weighted_sum_plain(*stress), 3)
-    stress_bytes = nbytes(STRESS_ELEMENTS // 4, FANIN_C)
+    def flush():
+        agg._pending[:] = pending
+        agg._partial = agg._counts = None
+        agg._flush()
+
+    out["eager_ms"] = time_ms(flush, 20, graph=False)
+
+    def one_row(stacked, c):
+        flat = stacked.reshape(stacked.shape[0], -1)
+        return flat, (c.reshape(-1, 1) if planes == 1 else c), stack_table(stacked)
+
+    groups = [one_row(*_tile_stack(nb, FANIN_C, FED_UPLOADS, gen, dev))
+              for nb in resnet_segment_bytes()]
+    out["old_path_ms"] = time_ms(lambda: [seg(*g) for g in groups], 50)
+    stress = one_row(*_tile_stack(STRESS_ELEMENTS // 4, FANIN_C, FANIN_C, gen, dev))
+    out["stress_ms"] = time_ms(lambda: seg(*stress), 20)
+    out["stress_plain_ms"] = time_ms(lambda: seg_plain(*stress), 3, graph=False)
+    stress_bytes = fanin_bytes(stress[2], FANIN_C, planes)
     out["stress_bound_ms"], out["stress_bound_by"] = bound(stress_bytes, 0)
-    print(f"aggregate, one round's fan-in ({len(groups)} launches at C={FANIN_C}, "
-          f"{n_real} clients): kernel {out['round_ms']:.4f} ms, plain "
-          f"{out['round_plain_ms']:.4f} ms, bound {out['round_bound_ms']:.5f} ms "
-          f"({out['round_bound_by']}, {sum(nbytes(nb, n_real) for nb in resnet_segment_bytes())}"
-          f" B); library: none")
-    print(f"aggregate, C={FANIN_C} x {STRESS_ELEMENTS} elements: kernel {out['stress_ms']:.4f} "
-          f"ms, plain {out['stress_plain_ms']:.4f} ms, bound {out['stress_bound_ms']:.4f} ms "
+    print(f"{kind}, one round's fold (52 segments, {FED_UPLOADS} clients, one launch): kernel "
+          f"{out['round_ms']:.4f} ms (graph replay), eager flush {out['eager_ms']:.4f} ms "
+          f"(staging fill, pinned copy, launch), plain {out['round_plain_ms']:.4f} ms, bound "
+          f"{out['round_bound_ms']:.5f} ms ({out['round_bound_by']}, {round_bytes} B); "
+          f"per segment, 52 launches of 32-row tiles at C={FANIN_C}: "
+          f"{out['old_path_ms']:.4f} ms; library: none")
+    print(f"{kind}, C={FANIN_C} x {STRESS_ELEMENTS} elements: kernel {out['stress_ms']:.4f} ms, "
+          f"plain {out['stress_plain_ms']:.4f} ms, bound {out['stress_bound_ms']:.4f} ms "
           f"({out['stress_bound_by']}, {stress_bytes} B); library: none")
+    del groups, stress
+    torch.cuda.empty_cache()
     return out
-
-
-def vote_checks(dev) -> float:
-    """vote against its plain version, bit for bit, at ResNet18*'s segments
-    for C ∈ {1, 2, 4, 16} (padding rows of 0xFF bytes at coefficient 0) and
-    at 16 clients × 2^26 elements."""
-    import torch
-
-    from repro_torch.kernels.vote import packed_vote_counts, packed_vote_counts_plain
-
-    gen = torch.Generator(dev).manual_seed(15)
-    worst = 0.0
-    cases = [(nb, c, n_real) for nb in (576 // 4, 12288 // 4, 640 // 4)
-             for c, n_real in ((1, 1), (2, 2), (4, 3), (16, 10))]
-    cases.append((STRESS_ELEMENTS // 4, 16, 16))
-    for nbytes, c, n_real in cases:
-        stacked, coeffs = _segment_stack(nbytes, c, n_real, gen, dev)
-        stacked[n_real:] = 0xFF
-        coeffs[:n_real] = torch.randint(40, 600, (n_real,), generator=gen, device=dev) / 7.0
-        out = packed_vote_counts(stacked, coeffs)
-        ref = packed_vote_counts_plain(stacked, coeffs)
-        torch.cuda.synchronize()
-        differ = int((out.view(torch.int32) != ref.view(torch.int32)).sum())
-        worst = max(worst, float((out - ref).abs().max()))
-        print(f"  C={c} ({n_real} clients) x {4 * nbytes} elements "
-              f"({tuple(stacked.shape)} bytes): {differ} of {out.numel()} masses differ")
-        check(differ == 0, f"vote differs from its plain version at C={c}, {4 * nbytes} elements")
-        del stacked, out, ref
-    return worst
 
 
 def _max_abs_diff(a, b) -> float:
@@ -885,11 +956,15 @@ def _bits_differ(a: dict, b: dict) -> int:
 
 def robust_phase(dev, setup, uploads) -> dict:
     """One defended T-FedAvg round on ResNet18* at full width: rule majority,
-    30 seeded sign-flip attackers of 100 clients. Then the robust folds of
+    30 seeded sign-flip attackers of 100 clients, its aggregate phase traced
+    in place (the process's first majority fold). Then the robust folds of
     the last federated round's honest uploads on the card against the CPU
     plain folds, the sign-flip guarantee, and the gate on nan_poison."""
+    import contextlib
+
     import numpy as np
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.fed import simulation as sim
     from repro_torch.fed.attackers import AttackConfig, attacker_ids, poison_blob
@@ -904,7 +979,22 @@ def robust_phase(dev, setup, uploads) -> dict:
     print(f"ResNet18* full width, {cfg.n_clients} clients, lambda {cfg.participation}, "
           f"E {cfg.local_epochs}, B {cfg.batch_size}; defense rule majority; "
           f"{len(attacker_ids(attack, cfg.n_clients))} sign_flip attackers (seed 0)")
-    timer = sim.PhaseTimer(dev)
+    class Timer(sim.PhaseTimer):
+        """Traces the round's aggregate phase under torch.profiler (the
+        phase's wall is taken inside the trace); the rest runs untraced."""
+
+        @contextlib.contextmanager
+        def phase(self, name):
+            if name != "aggregate":
+                with super().phase(name):
+                    yield
+                return
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                with super().phase(name):
+                    yield
+            self.prof = prof
+
+    timer = Timer(dev)
     zero_counters()
     t0 = time.perf_counter()
     res = sim.run_federated(resnet_cifar, params, clients, cfg, adam(1e-3), eval_fn,
@@ -921,11 +1011,17 @@ def robust_phase(dev, setup, uploads) -> dict:
           + f"; acc {res.accuracy[0]:.4f}, loss {res.loss[0]:.4f}")
     print(f"  defense telemetry: {json.dumps(d)}")
     print(f"  launches: {json.dumps(launches)}")
+    traced = aggregator_ranges(timer.prof)
+    print("  the round's aggregate phase, traced (the first majority fold of the process): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in traced.items()) + " of host time")
+    report_trace(timer.prof, w["aggregate"] * 1e3, "  defended round, aggregate phase (traced)")
     check(d["ledger_balanced"], "the gate's ledger does not balance")
     check(d["passed_updates"] + d["quarantined_updates"] == res.participants_per_round[0],
           "the gate did not see every survivor")
-    check(launches["vote"] == 52, f"vote launched {launches['vote']} times, want 52 (one "
-                                  "per scale segment)")
+    flushes = -(-d["passed_updates"] // cfg.agg_chunk_c)
+    check(launches["vote"] == flushes, f"vote launched {launches['vote']} times for "
+                                       f"{d['passed_updates']} uploads: want one launch per "
+                                       f"flush ({flushes})")
     check(launches["aggregate"] == 0, "the majority round launched aggregate")
     check(np.isfinite(res.loss[0]) and 0.0 <= res.accuracy[0] <= 1.0, "robust round not finite")
 
@@ -955,42 +1051,8 @@ def robust_phase(dev, setup, uploads) -> dict:
           f"({dict(gate.reasons)}), ledger balanced {balanced}")
     check(caught == poisoned and balanced, "the gate missed or over-caught nan_poison")
     return {"launches": launches, "wall_s": wall, "phase_wall_s": w, "defense": d,
+            "aggregate_traced": True, "aggregate_host_ms": traced,
             "upload_bytes": res.upload_bytes, "download_bytes": res.download_bytes}
-
-
-def vote_timings(dev) -> dict:
-    """vote over one round's 52 groups at C = 16 (10 real clients), and at
-    16 clients × 2^26 elements, with its plain version and its bytes bound."""
-    from repro_torch.kernels.vote import packed_vote_counts, packed_vote_counts_plain
-
-    import torch
-
-    gen = torch.Generator(dev).manual_seed(16)
-
-    def nbytes(seg_bytes: int, n_real: int) -> int:
-        """Each real client's codes and weight in, two fp32 planes out."""
-        return n_real * (seg_bytes + 4) + 2 * 4 * 4 * seg_bytes
-
-    n_real = 10
-    groups = [_segment_stack(nb, FANIN_C, n_real, gen, dev) for nb in resnet_segment_bytes()]
-    out = {"round_ms": time_ms(lambda: [packed_vote_counts(s, c) for s, c in groups], 50),
-           "round_plain_ms": time_ms(
-               lambda: [packed_vote_counts_plain(s, c) for s, c in groups], 5)}
-    round_bytes = sum(nbytes(nb, n_real) for nb in resnet_segment_bytes())
-    out["round_bound_ms"], out["round_bound_by"] = bound(round_bytes, 0)
-    stress = _segment_stack(STRESS_ELEMENTS // 4, FANIN_C, FANIN_C, gen, dev)
-    out["stress_ms"] = time_ms(lambda: packed_vote_counts(*stress), 20)
-    out["stress_plain_ms"] = time_ms(lambda: packed_vote_counts_plain(*stress), 3)
-    stress_bytes = nbytes(STRESS_ELEMENTS // 4, FANIN_C)
-    out["stress_bound_ms"], out["stress_bound_by"] = bound(stress_bytes, 0)
-    print(f"vote, one round's fan-in ({len(groups)} launches at C={FANIN_C}, {n_real} "
-          f"clients): kernel {out['round_ms']:.4f} ms, plain {out['round_plain_ms']:.4f} ms, "
-          f"bound {out['round_bound_ms']:.5f} ms ({out['round_bound_by']}, {round_bytes} B); "
-          "library: none")
-    print(f"vote, C={FANIN_C} x {STRESS_ELEMENTS} elements: kernel {out['stress_ms']:.4f} ms, "
-          f"plain {out['stress_plain_ms']:.4f} ms, bound {out['stress_bound_ms']:.4f} ms "
-          f"({out['stress_bound_by']}, {stress_bytes} B); library: none")
-    return out
 
 
 def ops_timings(layers, served) -> dict:
@@ -1068,6 +1130,63 @@ def federated_trace(dev, setup) -> None:
                  f"{cfg.batch_size}", untraced_ms)
 
 
+def fanin_trace(dev, uploads) -> dict:
+    """The aggregate phase of one mean and one majority round as the
+    simulation runs it (every upload's ``add``, then ``finalize(reset=True)``
+    and a synchronize) on the last federated round's uploads: once untraced
+    on a fresh Aggregator (plans, table and staging built, as in a run's
+    first round), once untraced on the kept plans, then under
+    torch.profiler, with the Aggregator's host ranges (add, stage, copy,
+    launch, finalize)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.fed.aggregator import Aggregator
+
+    out = {}
+    for rule in ("mean", "majority"):
+        agg = Aggregator(chunk_c=FANIN_C, device=dev, rule=rule)
+
+        def phase():
+            for blob, weight in uploads:
+                agg.add(blob, weight)
+            agg.finalize(reset=True)
+            torch.cuda.synchronize()
+
+        walls = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            phase()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            phase()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+        host = aggregator_ranges(prof)
+        out[rule] = {"first_ms": walls[0], "steady_ms": walls[1], "traced_ms": traced_ms,
+                     "host_ms": host}
+        print(f"aggregate phase, rule {rule}, {len(uploads)} uploads: {walls[0]:.3f} ms wall "
+              f"with planning, {walls[1]:.3f} ms on kept plans ({traced_ms:.3f} ms traced); "
+              "host ms inside the traced ranges: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in host.items()))
+        report_trace(prof, traced_ms, f"aggregate phase, rule {rule}", walls[1])
+    return out
+
+
+AGGREGATOR_RANGES = ("add", "stage", "copy", "launch", "finalize")
+
+
+def aggregator_ranges(prof) -> dict:
+    """Host ms inside each of the Aggregator's ranges (``aggregator.<name>``,
+    inclusive of what runs within), from the CPU side of a trace."""
+    host = dict.fromkeys(AGGREGATOR_RANGES, 0.0)
+    for e in prof.key_averages():
+        name = e.key.removeprefix("aggregator.")
+        if e.key.startswith("aggregator.") and name in host:
+            host[name] = max(host[name], e.cpu_time_total / 1e3)
+    return host
+
+
 def report_trace(prof, wall_ms: float, what: str, untraced_ms: float | None = None) -> None:
     """Device time of a traced window and the device's idle share of it:
     against the untraced wall of the same window where one was timed,
@@ -1077,7 +1196,9 @@ def report_trace(prof, wall_ms: float, what: str, untraced_ms: float | None = No
     def device_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    busy_ms = sum(device_us(e) for e in events) / 1e3
+    # a host range (record_function) also shows as a device-side annotation
+    # spanning its kernels: count kernels and copies only
+    busy_ms = sum(device_us(e) for e in events if not e.key.startswith("aggregator.")) / 1e3
     if untraced_ms is None:
         print(f"{what}: {wall_ms:.2f} ms wall, {busy_ms:.3f} ms of device time "
               f"(device idle {100 * (1 - busy_ms / wall_ms):.1f}% of the window)")
@@ -1085,7 +1206,8 @@ def report_trace(prof, wall_ms: float, what: str, untraced_ms: float | None = No
         print(f"{what}: {untraced_ms:.2f} ms wall untraced ({wall_ms:.2f} ms traced), "
               f"{busy_ms:.3f} ms of device time (device idle "
               f"{100 * (1 - busy_ms / untraced_ms):.1f}% of the untraced window)")
-    for e in sorted(events, key=device_us, reverse=True)[:10]:
+    for e in sorted((e for e in events if not e.key.startswith("aggregator.")), key=device_us,
+                    reverse=True)[:10]:
         print(f"  {device_us(e) / 1e3:9.3f} ms device  {e.count:6d} calls  {e.key[:70]}")
     for e in sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
         print(f"  {e.self_cpu_time_total / 1e3:9.3f} ms host    {e.count:6d} calls  {e.key[:70]}")
@@ -1228,11 +1350,11 @@ def main() -> int:
         check(ok, f"ternary_matmul disagrees with its plain version at {(m, k, n)}")
         del x, c, packed, dense, y, y_ref
 
-    phase("checks: aggregate vs plain (bit-identical)")
-    agg_err = aggregate_checks(dev)
+    phase("checks: aggregate vs plain, one launch per segment table (bit-identical)")
+    agg_err = fanin_checks(dev, "aggregate")
 
-    phase("checks: vote vs plain (bit-identical)")
-    vote_err = vote_checks(dev)
+    phase("checks: vote vs plain, one launch per segment table (bit-identical)")
+    vote_err = fanin_checks(dev, "vote")
 
     names = [("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
              ("mlp", "w_in"), ("mlp", "w_gate"), ("mlp", "w_out")]
@@ -1391,8 +1513,12 @@ def main() -> int:
     unpack_err = max(unpack_err, qs_err["unpack2bit"])
 
     phase("fan-in timings")
-    agg_t = aggregate_timings(dev)
-    vote_t = vote_timings(dev)
+    agg_t = fanin_timings(dev, "aggregate", fed["last_uploads"])
+    vote_t = fanin_timings(dev, "vote", fed["last_uploads"])
+
+    phase("fan-in trace: the aggregate phase of a mean and a majority round under "
+          "torch.profiler")
+    fanin_trace_t = fanin_trace(dev, fed["last_uploads"])
 
     phase("fed trace: one round of 1 client at E = 5, B = 64 under torch.profiler")
     federated_trace(dev, setup)
@@ -1418,21 +1544,25 @@ def main() -> int:
          "launches": fed["launches"][1], "max_abs_err": agg_err, "ms": agg_t["round_ms"],
          "plain_ms": agg_t["round_plain_ms"], "bound_ms": agg_t["round_bound_ms"],
          "bound_by": agg_t["round_bound_by"], "library_ms": None,
+         "eager_ms": agg_t["eager_ms"], "old_path_ms": agg_t["old_path_ms"],
          "stress_ms": agg_t["stress_ms"], "stress_plain_ms": agg_t["stress_plain_ms"],
          "stress_bound_ms": agg_t["stress_bound_ms"],
          "federated_quantize_pack_launches": fed["launches"][0],
-         "per_round": fed["per_round"]},
+         "per_round": fed["per_round"], "phase_trace": fanin_trace_t["mean"]},
         {"name": "vote", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/vote.cu",
          "replaces": "src/repro/kernels/vote.py:40",
          "launches": robust["launches"]["vote"], "max_abs_err": vote_err,
          "ms": vote_t["round_ms"], "plain_ms": vote_t["round_plain_ms"],
          "bound_ms": vote_t["round_bound_ms"], "bound_by": vote_t["round_bound_by"],
-         "library_ms": None, "stress_ms": vote_t["stress_ms"],
+         "library_ms": None, "eager_ms": vote_t["eager_ms"],
+         "old_path_ms": vote_t["old_path_ms"], "stress_ms": vote_t["stress_ms"],
          "stress_plain_ms": vote_t["stress_plain_ms"],
          "stress_bound_ms": vote_t["stress_bound_ms"],
+         "phase_trace": fanin_trace_t["majority"],
          "robust_round": {k: robust[k] for k in ("wall_s", "phase_wall_s", "defense",
-                                                  "upload_bytes", "download_bytes")}},
+                                                  "upload_bytes", "download_bytes",
+                                                  "aggregate_traced", "aggregate_host_ms")}},
         {"name": "ternary_quantize", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ternary_quantize.cu",
          "replaces": "src/repro/kernels/ternary_quantize.py:25",

@@ -2,40 +2,50 @@
 
 Port of ``repro.fed.aggregator``, rule ``"mean"``. Wire blobs stream in one
 at a time (``add``); their ternary records are decoded ZERO-COPY (CPU
-tensors viewing the buffer) into reusable stacked ``(bucket, R, LANES)``
-uint8 staging buffers, and every full chunk is folded into a running dense
-fp32 sum on the aggregation device by one launch of the packed fan-in
-kernel per (leaf, scale segment) group (``kernels.aggregate`` through
-``parallel.fanin``). ``finalize`` flushes the remainder and returns the
-|D_k|-weighted mean tree. The server's memory is one running partial per
-leaf plus one chunk of packed bytes, whatever the client count.
+tensors viewing the buffer) and kept until a flush, which stages every
+pending client's bytes of every (leaf, scale segment) into one row of one
+staging buffer and folds them into a running dense fp32 sum on the
+aggregation device with ONE launch of the packed fan-in kernel
+(``kernels.aggregate`` through ``parallel.fanin``). ``finalize`` flushes
+the remainder and returns the |D_k|-weighted mean tree. The server's
+memory is one running flat partial plus one chunk of packed bytes,
+whatever the client count.
 
   - A client's scale folds into its kernel coefficient,
     coeff = |D_k| · w_q, computed as a Python float product and rounded to
-    fp32 once, as the reference does.
+    fp32 once, as the reference does: a (C, S) matrix, one column per
+    segment.
   - A leaf with one scale per leading index (a stacked layer, a conv weight
     with one factor per kernel row) aggregates per SCALE SEGMENT: each
-    segment is a contiguous byte range of the wire stream, so the split is
-    a zero-copy slice. ResNet18*'s 3×3 conv leaves are 3 segments each;
-    ``head/w`` is one flat segment.
-  - A partial chunk pads up to a BUCKET, the smallest power of two ≥ its
-    client count capped at ``chunk_c``, with zero bytes and coefficient 0.
+    segment is a contiguous byte range of the wire stream. ResNet18*'s 3×3
+    conv leaves are 3 segments each; ``head/w`` is one flat segment.
+  - The segment table (``kernels.aggregate.fanin_table``) depends only on
+    the leaf plan: it is built once, from the first client's records, and
+    kept on the device. A staged row holds exactly each segment's bytes at
+    a 4-byte aligned offset; a flush stages exactly its clients, a flush
+    every ``chunk_c`` adds, and the flushes add up as ``partial + out``.
+    The outputs lie in one flat buffer, a leaf's segments side by side, so
+    ``finalize`` takes each leaf as a view.
   - Raw leaves (biases, norms) and any other non-ternary record take the
     dense fallback: Σ weight·leaf in fp32 on the device.
 
-The staging buffer is host memory, copied to the device synchronously
-before the launch that reads it, so it can be refilled as soon as the copy
-returns. The result equals the reference ``Aggregator``'s bit for bit (the
-kernel sums clients in order, each term exact) and the list reference
-``core.tfedavg.server_aggregate`` within fp32 reordering.
+On a CUDA aggregator the staging buffer is pinned host memory, and a flush
+moves its bytes and coefficients to the device in one non-blocking copy; the
+buffer is refilled only after that copy's event has completed. On a CPU
+aggregator it is plain memory that the plain version reads in place. The
+result equals the reference ``Aggregator``'s bit for bit (the kernel sums
+clients in order, each term exact; the reference's padding rows add only
+0·u terms) and the list reference ``core.tfedavg.server_aggregate`` within
+fp32 reordering.
 
 Robust rules (``rule=``; "mean" is the default):
   - "majority": ternary leaves are decided coordinate-wise by weighted
     plurality over the 2-bit codes. The ``vote`` kernel counts the ±1 vote
-    masses off the same staging buffers with the RAW weights as
+    masses off the same staging buffer with the RAW weights as
     coefficients (a vote is scale-free); the masses accumulate across
-    chunk flushes, and ``finalize`` multiplies the winning codes by each
-    segment's robust scale, the weighted median of the client scales.
+    chunk flushes, and ``finalize`` decides the whole flat buffer at once:
+    one plurality, every segment's robust scale from one weighted median
+    over the (C, S) client scales, and one multiply.
     Raw leaves take the coordinate-wise weighted median.
   - "trimmed_mean" / "median": every leaf is decoded dense and kept per
     client (O(C·model) memory: exact order statistics need the whole
@@ -54,15 +64,16 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.comm.wire import WireError, decode_update_leaves, tree_from_records
 from repro_torch.core.compression import decode_wire_leaf
 from repro_torch.core.ternary import TernaryTensor
 from repro_torch.device import resolve_device
 from repro_torch.dtypes import torch_dtype
-from repro_torch.kernels.aggregate import LANES, padded_rows
+from repro_torch.kernels.aggregate import FanInTable, fanin_table
 from repro_torch.kernels.vote import majority_from_counts
-from repro_torch.parallel.fanin import fanin_vote_counts, fanin_weighted_sum
+from repro_torch.parallel.fanin import fanin_vote_counts_segments, fanin_weighted_sum_segments
 
 Pytree = Any
 
@@ -141,46 +152,26 @@ def trimmed_mean(stack: torch.Tensor, weights: torch.Tensor, trim_frac: float) -
     return _sum0(svals * sw) / _sum0(sw)
 
 
-def bucket_for(c: int, chunk_c: int) -> int:
-    """The smallest power of two ≥ c, capped at ``chunk_c``."""
-    if c >= chunk_c:
-        return chunk_c
-    b = 1
-    while b < c:
-        b <<= 1
-    return min(b, chunk_c)
-
-
 def _f32(x: float) -> float:
     """``x`` rounded to fp32, as a Python float."""
     return float(np.float32(x))
 
 
 @dataclasses.dataclass
-class _Group:
-    """Pending rows of one (leaf, scale segment) kernel input."""
-
-    nbytes: int                  # real packed bytes per client segment
-    n_elements: int              # logical elements per segment
-    rows: int                    # padded byte-rows R (``padded_rows``)
-    views: list = dataclasses.field(default_factory=list)   # np byte views
-    coeffs: list = dataclasses.field(default_factory=list)  # weight · scale
-    partial: Any = None          # running fp32 flat sum on the device
-    # rule "majority": the running (2, 4R·LANES) ±1 vote masses, and every
-    # client's (scale, weight) for the robust scale at finalize
-    counts: Any = None
-    scale_samples: list = dataclasses.field(default_factory=list)
-
-
-@dataclasses.dataclass
 class _LeafPlan:
-    """How one record path aggregates: fused kernel groups or dense fallback."""
+    """How one record path aggregates: fused kernel segments or dense fallback."""
 
     fused: bool
     shape: tuple = ()
     dtype: str = "float32"
     n_segments: int = 1
     scale_size: int = 1
+    first: int = 0            # its first segment's index in the table
+    seg_bytes: int = 0        # packed bytes per segment
+    seg_elements: int = 0     # elements per segment
+    out_off: int = 0          # its first element in the flat output
+    # (wire offset, staged offset, bytes) copies that stage one client's leaf
+    runs: tuple = ()
 
 
 class Aggregator:
@@ -214,15 +205,29 @@ class Aggregator:
         self._client_dense: dict[str, list] = {}   # path → [(weight, fp32 leaf)]
         self._paths: list[str] | None = None   # record order of client 0
         self._plans: dict[str, _LeafPlan] = {}
-        self._groups: dict[tuple[str, int], _Group] = {}
+        self._groups: dict[tuple[str, int], int] = {}   # (path, segment) → table index
+        self._segments: list[tuple[int, int]] = []      # (bytes, elements) per segment
+        self._table: FanInTable | None = None
+        self._slots: torch.Tensor | None = None   # output slot per segment (majority)
         self._fallback: dict[str, torch.Tensor] = {}
         # paths whose fallback received adds since the last reset: a
         # mixed-codec round detours fused paths there, and a later round
         # must not fold in the (zeroed) leftovers of an earlier one.
         self._fallback_touched: set[str] = set()
         self._fallback_dtype: dict[str, torch.dtype] = {}
-        self._buffers: dict[tuple[int, int], np.ndarray] = {}
-        self._pending = 0
+        # the staging buffer, one row of bytes per client then one row of
+        # coefficients per client; on a CUDA aggregator pinned, with its
+        # device copy and the event of the last copy out of it
+        self._staging: torch.Tensor | None = None
+        self._staging_dev: torch.Tensor | None = None
+        self._copied: torch.cuda.Event | None = None
+        # per pending client: ([(plan, wire bytes)], coefficient row)
+        self._pending: list[tuple[list, np.ndarray]] = []
+        self._partial: torch.Tensor | None = None   # running flat fp32 sum
+        self._counts: torch.Tensor | None = None    # rule "majority": (2, n) masses
+        # rule "majority": every client's segment scales and weight
+        self._scale_rows: list[np.ndarray] = []
+        self._scale_weights: list[float] = []
         self._n_clients = 0
         self._total_weight = 0.0
         # updates received and paid for but not folded in (cumulative
@@ -245,29 +250,42 @@ class Aggregator:
         self.quarantined_bytes += int(nbytes)
 
     def add(self, blob: bytes, weight: float) -> None:
-        """Decode one client's wire buffer (zero-copy) and stage it; a full
-        chunk launches the kernel once per leaf group."""
+        """Decode one client's wire buffer (zero-copy) and keep it; a full
+        chunk is staged and folded in one kernel launch."""
         if weight < 0:
             raise ValueError(f"client weight must be ≥ 0, got {weight}")
-        pairs = decode_update_leaves(blob)
-        paths = [p for p, _ in pairs]
-        if len(set(paths)) != len(paths):
-            raise WireError("duplicate record paths in client update")
-        if self._paths is None:
-            self._paths = paths
+        with record_function("aggregator.add"):
+            pairs = decode_update_leaves(blob)
+            paths = [p for p, _ in pairs]
+            if len(set(paths)) != len(paths):
+                raise WireError("duplicate record paths in client update")
+            if self._paths is None:
+                self._paths = paths
+                for path, leaf in pairs:
+                    self._plan_leaf(path, leaf)
+                self._plan_table()
+            elif paths != self._paths:
+                raise ValueError(
+                    "client update structure changed mid-aggregation: "
+                    f"{len(paths)} records vs {len(self._paths)}"
+                )
+            # a client's coefficients: its weight (rule "majority", one for
+            # every segment) or weight · scale per segment, 0 where a leaf
+            # detours to the fallback
+            coeffs = (np.full(1, weight, np.float32) if self.rule == "majority"
+                      else np.zeros(len(self._segments), np.float32))
+            staged = ([], coeffs)
+            scales = np.zeros(len(self._segments))
             for path, leaf in pairs:
-                self._plan_leaf(path, leaf)
-        elif paths != self._paths:
-            raise ValueError(
-                "client update structure changed mid-aggregation: "
-                f"{len(paths)} records vs {len(self._paths)}"
-            )
-        for path, leaf in pairs:
-            self._add_leaf(path, leaf, float(weight))
-        self._total_weight += float(weight)
-        self._n_clients += 1
-        self._pending += 1
-        if self._pending >= self.chunk_c:
+                self._add_leaf(path, leaf, float(weight), staged, scales)
+            if self._table is not None:
+                self._pending.append(staged)
+                if self.rule == "majority":
+                    self._scale_rows.append(scales)
+                    self._scale_weights.append(float(weight))
+            self._total_weight += float(weight)
+            self._n_clients += 1
+        if len(self._pending) >= self.chunk_c:
             self._flush()
 
     def _plan_leaf(self, path: str, leaf) -> None:
@@ -285,18 +303,49 @@ class Aggregator:
             else:
                 segs = 0        # odd scale layout → dense fallback
             if segs:
-                self._plans[path] = _LeafPlan(fused=True, shape=shape, dtype=leaf.dtype,
-                                              n_segments=segs, scale_size=size)
                 seg_elems = n // segs
                 seg_bytes = (seg_elems + 3) // 4 if segs == 1 else seg_elems // 4
-                rows = padded_rows(seg_bytes)
+                first = len(self._segments)
                 for s in range(segs):
-                    self._groups[(path, s)] = _Group(nbytes=seg_bytes,
-                                                     n_elements=seg_elems, rows=rows)
+                    self._groups[(path, s)] = first + s
+                    self._segments.append((seg_bytes, seg_elems))
+                self._plans[path] = _LeafPlan(fused=True, shape=shape, dtype=leaf.dtype,
+                                              n_segments=segs, scale_size=size, first=first,
+                                              seg_bytes=seg_bytes, seg_elements=seg_elems)
                 return
         self._plans[path] = _LeafPlan(fused=False)
 
-    def _add_leaf(self, path: str, leaf, weight: float) -> None:
+    def _plan_table(self) -> None:
+        """The segment table on the device, each fused leaf's output offset
+        and staging copies, and the staging buffer for ``chunk_c`` clients."""
+        if not self._segments:
+            return
+        table = fanin_table([b for b, _ in self._segments], [n for _, n in self._segments],
+                            self.device)
+        for plan in self._plans.values():
+            if not plan.fused:
+                continue
+            plan.out_off = table.out_offsets[plan.first]
+            runs = []
+            for s in range(plan.n_segments):
+                wire, stage = s * plan.seg_bytes, table.byte_offsets[plan.first + s]
+                if runs and (runs[-1][0] + runs[-1][2], runs[-1][1] + runs[-1][2]) == (wire, stage):
+                    runs[-1][2] += plan.seg_bytes     # contiguous in both: one copy
+                else:
+                    runs.append([wire, stage, plan.seg_bytes])
+            plan.runs = tuple(tuple(r) for r in runs)
+        self._table = table
+        n_coeffs = 1 if self.rule == "majority" else table.n_segments
+        cuda = self.device.type == "cuda"
+        size = self.chunk_c * (table.row_bytes + 4 * n_coeffs)
+        self._staging = torch.empty(size, dtype=torch.uint8, pin_memory=cuda)
+        if cuda:
+            self._staging_dev = torch.empty(size, dtype=torch.uint8, device=self.device)
+            self._copied = torch.cuda.Event()
+        if self.rule == "majority":
+            self._slots = torch.tensor([-(-n // 4) * 4 for n in table.n_out], device=self.device)
+
+    def _add_leaf(self, path: str, leaf, weight: float, staged, scales: np.ndarray) -> None:
         plan = self._plans[path]
         if plan.fused and not isinstance(leaf, TernaryTensor) and self.rule != "mean":
             raise ValueError(
@@ -306,26 +355,24 @@ class Aggregator:
         if not plan.fused or not isinstance(leaf, TernaryTensor):
             # a raw leaf, or (rule "mean") a mixed-codec round's non-ternary
             # record on a path planned fused: the mean is additive, so it
-            # detours through the dense fallback and finalize sums both routes.
+            # detours through the dense fallback and finalize sums both
+            # routes; the client's kernel coefficients there stay 0.
             self._add_fallback(path, leaf, weight)
             return
         if tuple(int(s) for s in leaf.shape) != plan.shape:
             raise ValueError(f"leaf {path!r} changed shape mid-aggregation")
-        packed = leaf.packed.numpy().reshape(-1)     # zero-copy views of the blob
         scale = leaf.w_q.to(torch.float64).reshape(-1).numpy()
         if scale.size != plan.scale_size:
             raise ValueError(f"leaf {path!r} changed scale layout")
+        staged[0].append((plan, leaf.packed.numpy().reshape(-1)))   # zero-copy view
         for s in range(plan.n_segments):
-            g = self._groups[(path, s)]
-            g.views.append(packed[s * g.nbytes:(s + 1) * g.nbytes])
             seg_scale = float(scale[s if scale.size > 1 else 0])
             if self.rule == "majority":
                 # votes are scale-free: the coefficient is the raw weight,
                 # and the scale joins at finalize as a weighted median
-                g.coeffs.append(weight)
-                g.scale_samples.append((seg_scale, weight))
+                scales[plan.first + s] = seg_scale
             else:
-                g.coeffs.append(weight * seg_scale)
+                staged[1][plan.first + s] = weight * seg_scale
 
     def _add_fallback(self, path: str, leaf, weight: float) -> None:
         dense = decode_wire_leaf(leaf, self.device)
@@ -345,44 +392,46 @@ class Aggregator:
 
     # -- kernel launches ---------------------------------------------------
 
-    def _buffer(self, c_pad: int, rows: int) -> np.ndarray:
-        buf = self._buffers.get((c_pad, rows))
-        if buf is None:
-            buf = self._buffers[(c_pad, rows)] = np.empty((c_pad, rows * LANES), np.uint8)
-        return buf
-
     def _flush(self) -> None:
-        for g in self._groups.values():
-            self._flush_group(g)
-        self._pending = 0
-
-    def _flush_group(self, g: _Group) -> None:
-        c = len(g.views)
+        """Stage the pending clients (exactly their bytes, then their
+        coefficients), move them in one copy and fold them in one launch."""
+        c = len(self._pending)
         if c == 0:
             return
-        c_pad = bucket_for(c, self.chunk_c)
-        buf = self._buffer(c_pad, g.rows)
-        for i, v in enumerate(g.views):
-            buf[i, :g.nbytes] = v
-            buf[i, g.nbytes:] = 0
-        buf[c:] = 0
-        coeffs = np.zeros((c_pad,), np.float32)
-        coeffs[:c] = g.coeffs
-        # a synchronous host→device copy: it has returned before ``buf`` is
-        # refilled (on the CPU the plain version runs before the return)
-        stacked = torch.from_numpy(buf).reshape(c_pad, g.rows, LANES).to(self.device)
-        coeffs_t = torch.from_numpy(coeffs).to(self.device)
-        if self.rule == "majority":
-            # a zero byte is four code-0 slots (−1 votes): coefficient 0
-            # cancels the padding rows, and real clients' zeroed tails land
-            # past n_elements
-            out = fanin_vote_counts(stacked, coeffs_t, mesh=self.mesh)
-            g.counts = out if g.counts is None else g.counts + out
-        else:
-            out = fanin_weighted_sum(stacked, coeffs_t, mesh=self.mesh)
-            g.partial = out if g.partial is None else g.partial + out
-        g.views.clear()
-        g.coeffs.clear()
+        table = self._table
+        row = table.row_bytes
+        k = self._pending[0][1].size
+        nbytes = c * (row + 4 * k)
+        with record_function("aggregator.stage"):
+            if self._copied is not None:
+                self._copied.synchronize()      # the last copy out of the buffer is done
+            host = self._staging.numpy()
+            for i, (leaves, coeffs) in enumerate(self._pending):
+                dst = host[i * row:(i + 1) * row]
+                for plan, packed in leaves:
+                    for wire, stage, n in plan.runs:
+                        dst[stage:stage + n] = packed[wire:wire + n]
+            host[c * row:nbytes].view(np.float32).reshape(c, k)[:] = [
+                coeffs for _, coeffs in self._pending]
+        with record_function("aggregator.copy"):
+            if self._staging_dev is None:
+                buf = self._staging[:nbytes]     # the plain version reads it in place
+            else:
+                buf = self._staging_dev[:nbytes]
+                buf.copy_(self._staging[:nbytes], non_blocking=True)
+                self._copied.record()
+        staged = buf[:c * row].view(c, row)
+        coeffs = buf[c * row:].view(torch.float32).view(c, k)
+        with record_function("aggregator.launch"):
+            if self.rule == "majority":
+                # a client's weight is its coefficient in every segment
+                out = fanin_vote_counts_segments(staged, coeffs.reshape(c), table,
+                                                 mesh=self.mesh)
+                self._counts = out if self._counts is None else self._counts + out
+            else:
+                out = fanin_weighted_sum_segments(staged, coeffs, table, mesh=self.mesh)
+                self._partial = out if self._partial is None else self._partial + out
+        self._pending.clear()
 
     # -- result ------------------------------------------------------------
 
@@ -393,18 +442,16 @@ class Aggregator:
 
     def reset(self) -> None:
         """Clear the accumulated state, keeping plans and staging buffers."""
-        for g in self._groups.values():
-            g.views.clear()
-            g.coeffs.clear()
-            g.partial = None
-            g.counts = None
-            g.scale_samples.clear()
+        self._pending.clear()
+        self._partial = None
+        self._counts = None
+        self._scale_rows.clear()
+        self._scale_weights.clear()
         for acc in self._fallback.values():
             acc.zero_()
         self._fallback_touched.clear()
         for samples in self._client_dense.values():
             samples.clear()
-        self._pending = 0
         self._n_clients = 0
         self._total_weight = 0.0
 
@@ -417,22 +464,28 @@ class Aggregator:
         if self._total_weight <= 0:
             raise ValueError("Aggregator.finalize: total client weight is zero")
         self._flush()
+        with record_function("aggregator.finalize"):
+            out = self._finalize()
+        if reset:
+            self.reset()
+        return out
+
+    def _finalize(self) -> Pytree:
         inv = _f32(1.0 / self._total_weight)
+        flat_all = self._partial
+        if self.rule == "majority" and self._table is not None:
+            flat_all = self._majority()
         pairs = []
         for path in self._paths:
             plan = self._plans[path]
-            if plan.fused and self.rule == "majority":
-                leaf = self._majority_leaf(path, plan)
-            elif plan.fused:
-                parts = []
-                for s in range(plan.n_segments):
-                    g = self._groups[(path, s)]
-                    parts.append(g.partial[:g.n_elements] if g.partial is not None
-                                 else torch.zeros(g.n_elements, device=self.device))
-                flat = parts[0] if len(parts) == 1 else torch.cat(parts)
-                if path in self._fallback_touched:
-                    flat = flat + self._fallback[path].reshape(-1)
-                leaf = (flat * inv).reshape(plan.shape).to(torch_dtype(plan.dtype))
+            if plan.fused:
+                n = plan.n_segments * plan.seg_elements
+                flat = flat_all[plan.out_off:plan.out_off + n]   # the leaf's segments: a view
+                if self.rule == "mean":
+                    if path in self._fallback_touched:
+                        flat = flat + self._fallback[path].reshape(-1)
+                    flat = flat * inv
+                leaf = flat.reshape(plan.shape).to(torch_dtype(plan.dtype))
             elif self.rule == "mean":
                 leaf = (self._fallback[path] * inv).to(self._fallback_dtype[path])
             else:
@@ -445,21 +498,15 @@ class Aggregator:
                     acc = weighted_median(stack, ws)
                 leaf = acc.to(self._fallback_dtype[path])
             pairs.append((path, leaf))
-        out = tree_from_records(pairs)
-        if reset:
-            self.reset()
-        return out
+        return tree_from_records(pairs)
 
-    def _majority_leaf(self, path: str, plan: _LeafPlan) -> torch.Tensor:
-        """The plurality codes of each scale segment times the weighted
-        median of the clients' scales for it."""
-        parts = []
-        for s in range(plan.n_segments):
-            g = self._groups[(path, s)]
-            votes = majority_from_counts(g.counts[:, :g.n_elements], self._total_weight)
-            vals = torch.tensor([v for v, _ in g.scale_samples], dtype=torch.float32)
-            ws = torch.tensor([w for _, w in g.scale_samples], dtype=torch.float32)
-            scale = weighted_median(vals, ws).to(self.device)
-            parts.append(votes.to(torch.float32) * scale)
-        flat = parts[0] if len(parts) == 1 else torch.cat(parts)
-        return flat.reshape(plan.shape).to(torch_dtype(plan.dtype))
+    def _majority(self) -> torch.Tensor:
+        """Every fused element decided at once: the plurality codes of the
+        whole flat counts buffer times each segment's robust scale, the
+        weighted median of the clients' scales for it (coordinate-wise, so
+        one median over the (C, S) stack gives every segment's)."""
+        votes = majority_from_counts(self._counts, self._total_weight)
+        vals = torch.from_numpy(np.stack(self._scale_rows)).to(torch.float32)
+        ws = torch.tensor(self._scale_weights, dtype=torch.float32)
+        scales = weighted_median(vals, ws).to(self.device)
+        return votes.to(torch.float32) * torch.repeat_interleave(scales, self._slots)

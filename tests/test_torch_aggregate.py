@@ -1,5 +1,7 @@
-"""Port vs reference: the packed fan-in kernel's plain version against the
-Pallas kernel (interpret mode), and the streaming ``Aggregator`` against
+"""Port vs reference: the packed fan-in kernel's plain versions (the
+reference's one-stack entry point and the segment-table form the
+``Aggregator`` launches) against the Pallas kernel (interpret mode), and
+the streaming ``Aggregator`` against
 ``repro.fed.aggregator.Aggregator`` and the list reference
 ``server_aggregate`` on the same wire blobs. The CUDA kernel is held
 against its plain version in test_torch_gpu.py."""
@@ -20,13 +22,16 @@ from repro.fed.aggregator import Aggregator as JAggregator
 from repro.kernels.aggregate import packed_weighted_sum as jpws
 from repro.kernels.aggregate import packed_weighted_sum_ref
 from repro.kernels.aggregate import padded_rows as jpadded_rows
-from repro_torch.comm.wire import decode_update
+from repro_torch.comm.wire import decode_update, decode_update_leaves
+from repro_torch.core.ternary import TernaryTensor
 from repro_torch.core.tfedavg import TernaryUpdate, server_aggregate
-from repro_torch.fed.aggregator import Aggregator, bucket_for
+from repro_torch.fed import aggregator as aggregator_mod
+from repro_torch.fed.aggregator import Aggregator
 from repro_torch.kernels.aggregate import (
-    LANES, packed_weighted_sum, packed_weighted_sum_plain, padded_rows,
+    LANES, fanin_table, packed_weighted_sum, packed_weighted_sum_plain,
+    packed_weighted_sum_segments, packed_weighted_sum_segments_plain,
 )
-from repro_torch.parallel.fanin import fanin_weighted_sum
+from repro_torch.parallel.fanin import fanin_weighted_sum, fanin_weighted_sum_segments
 from repro_torch.tree import flatten_with_path, path_str
 
 torch.set_num_threads(1)
@@ -75,16 +80,89 @@ def test_wrapper_takes_plain_version_on_cpu_and_rejects_other_devices():
         fanin_weighted_sum(stacked, coeffs, mesh=object())
 
 
-@pytest.mark.parametrize("nbytes", [1, 127, 128, 144, 3072, 4096, 4097, 160_000])
-def test_padded_rows_matches_reference(nbytes):
-    assert padded_rows(nbytes) == jpadded_rows(nbytes)
+# (bytes, elements) per segment: ResNet18*'s stem (3 kernel rows of 144 B),
+# conv (3 × 3,072 B) and head (160 B) at a quarter of their bytes, and a
+# ragged layout — a 1-byte segment, leaves with n % 4 ≠ 0, a 37-byte one.
+LAYOUTS = {
+    "resnet": [(36, 144)] * 3 + [(768, 3072)] * 3 + [(40, 160)],
+    "ragged": [(1, 3), (3, 9), (37, 147), (144, 576), (2, 5), (1, 4)],
+}
 
 
-@pytest.mark.parametrize("c,chunk", [(1, 16), (3, 16), (5, 4), (16, 16), (17, 16), (9, 6)])
-def test_bucket_for(c, chunk):
-    from repro.fed.aggregator import bucket_for as jbucket_for
+def _staged_segments(layout, c: int, seed: int):
+    """Random wire codes per client and segment, staged at the table's
+    offsets (the aligned gaps hold garbage bytes the kernel must not use)."""
+    rng = np.random.default_rng(seed)
+    table = fanin_table([b for b, _ in layout], [n for _, n in layout])
+    staged = rng.integers(0, 256, size=(c, table.row_bytes), dtype=np.uint8)
+    segs = []
+    for (nb, _), off in zip(layout, table.byte_offsets):
+        seg = rng.integers(0, 3, size=(c, nb), dtype=np.uint8)
+        for j in range(1, 4):
+            seg |= rng.integers(0, 3, seg.shape, dtype=np.uint8) << (2 * j)
+        staged[:, off:off + nb] = seg
+        segs.append(seg)
+    return table, staged, segs
 
-    assert bucket_for(c, chunk) == jbucket_for(c, chunk)
+
+def _jax_stack(seg: np.ndarray) -> np.ndarray:
+    """A segment staged for the Pallas kernel, as the reference stages it:
+    whole 32-row tiles of 128 bytes, zero tail."""
+    c, nb = seg.shape
+    rows = jpadded_rows(nb)
+    out = np.zeros((c, rows * LANES), np.uint8)
+    out[:, :nb] = seg
+    return out.reshape(c, rows, LANES)
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("c", [1, 3, 10, 17])
+def test_segments_plain_bit_identical_to_pallas(layout, c):
+    """The one-launch segment form's plain version equals the Pallas kernel
+    segment by segment, bit for bit, each segment staged by the reference's
+    own ``padded_rows``; slot tails past a ragged segment's elements are
+    +0.0. One exception, the sign of a zero: at C = 1 XLA folds the
+    kernel's ``0 + w·u`` to ``w·u``, so a code-1 element under a negative
+    coefficient is −0.0 there and +0.0 in the port, which sums from +0.0 as
+    stated (real coefficients, weight · scale, are ≥ 0)."""
+    table, staged, segs = _staged_segments(LAYOUTS[layout], c, 7 * c)
+    coeffs = np.random.default_rng(c).normal(size=(c, len(segs))).astype(np.float32)
+    got = packed_weighted_sum_segments_plain(torch.from_numpy(staged),
+                                             torch.from_numpy(coeffs), table).numpy()
+    assert got.shape == (table.n_total,) and table.n_total % 4 == 0
+    for s, (seg, n, off) in enumerate(zip(segs, table.n_out, table.out_offsets)):
+        ref = np.asarray(jpws(jnp.asarray(_jax_stack(seg)), jnp.asarray(coeffs[:, s]),
+                              interpret=True))[:n]
+        mine = got[off:off + n]
+        np.testing.assert_array_equal(mine, ref)
+        nonzero = ref != 0
+        np.testing.assert_array_equal(mine[nonzero].view(np.uint32),
+                                      ref[nonzero].view(np.uint32))
+        if c > 1:
+            np.testing.assert_array_equal(mine.view(np.uint32), ref.view(np.uint32))
+        tail = got[off + n:off + -(-n // 4) * 4]
+        assert not tail.any() and not np.signbit(tail).any()
+
+
+def test_segments_wrapper_takes_plain_version_on_cpu():
+    table, staged, _ = _staged_segments(LAYOUTS["ragged"], 3, 0)
+    staged = torch.from_numpy(staged)
+    coeffs = torch.randn(3, table.n_segments, generator=torch.Generator().manual_seed(0))
+    before = packed_weighted_sum.launches
+    out = packed_weighted_sum_segments(staged, coeffs, table)
+    assert packed_weighted_sum.launches == before
+    assert torch.equal(out, packed_weighted_sum_segments_plain(staged, coeffs, table))
+    assert torch.equal(fanin_weighted_sum_segments(staged, coeffs.double(), table), out)
+    with pytest.raises(ValueError, match="unsupported device"):
+        packed_weighted_sum_segments(staged.to("meta"), coeffs.to("meta"), table)
+    with pytest.raises(ValueError):
+        packed_weighted_sum_segments(staged[:, :-4], coeffs, table)
+    with pytest.raises(ValueError):
+        packed_weighted_sum_segments_plain(staged, coeffs[:, :-1], table)
+    with pytest.raises(ValueError):
+        fanin_table([4, 2], [16, 9])          # 9 elements need 3 bytes
+    with pytest.raises(NotImplementedError):
+        fanin_weighted_sum_segments(staged, coeffs, table, mesh=object())
 
 
 # --------------------------------------------------------------------------
@@ -173,13 +251,14 @@ def test_aggregator_bit_identical_to_reference(n_clients):
 
 
 def test_aggregator_reset_reuse():
-    """finalize(reset=True) keeps plans and staging buffers; the next round
-    equals a fresh reference aggregator's on its own blobs."""
+    """finalize(reset=True) keeps plans, the segment table and the staging
+    buffer; the next round equals a fresh reference aggregator's on its own
+    blobs."""
     agg = Aggregator(chunk_c=4, device="cpu")
     for blob, w in zip(*(_blobs(5)[0], _weights(5))):
         agg.add(blob, w)
     agg.finalize(reset=True)
-    buffers = dict(agg._buffers)
+    kept = (agg._staging, agg._table)
     blobs2, _ = _blobs(3, offset=2)
     jagg = JAggregator(chunk_c=4)
     for blob, w in zip(blobs2, _weights(3, offset=4)):
@@ -187,7 +266,49 @@ def test_aggregator_reset_reuse():
         jagg.add(blob, w)
     assert agg.n_clients == 3
     _assert_identical(_flat_jax(jagg.finalize()), _flat_np(agg.finalize()))
-    assert all(agg._buffers[k] is v for k, v in buffers.items())
+    assert agg._staging is kept[0] and agg._table is kept[1]
+
+
+def test_aggregator_stages_exact_bytes():
+    """A staged row holds exactly each ternary segment's bytes (rounded up
+    to 4) at its table offset, and a flush stages only its own clients
+    (7 adds at chunk_c=3: flushes of 3, 3 and 1) and their coefficients."""
+    blobs, weights = _blobs(7)[0], _weights(7)
+    seen = []
+    plain = aggregator_mod.fanin_weighted_sum_segments
+
+    def spy(staged, coeffs, table, **kw):
+        seen.append((staged.clone(), coeffs.clone()))
+        return plain(staged, coeffs, table, **kw)
+
+    aggregator_mod.fanin_weighted_sum_segments = spy
+    try:
+        agg = Aggregator(chunk_c=3, device="cpu")
+        for blob, w in zip(blobs, weights):
+            agg.add(blob, w)
+        agg.finalize()
+    finally:
+        aggregator_mod.fanin_weighted_sum_segments = plain
+    segs = []          # (client's bytes of each segment, its scale) per client
+    for blob in blobs:
+        rows = []
+        for _, leaf in decode_update_leaves(blob):
+            if isinstance(leaf, TernaryTensor):
+                packed, scale = leaf.packed.numpy().reshape(-1), leaf.w_q.reshape(-1).numpy()
+                nb = packed.size // scale.size if scale.size > 1 else packed.size
+                rows += [(packed[i * nb:(i + 1) * nb], float(scale[i]))
+                         for i in range(scale.size)]
+        segs.append(rows)
+    row_bytes = sum(-(-len(b) // 4) * 4 for b, _ in segs[0])
+    assert agg._table.row_bytes == row_bytes and agg._table.n_segments == len(segs[0])
+    assert agg._staging.numel() == 3 * (row_bytes + 4 * len(segs[0]))
+    assert [tuple(st.shape) for st, _ in seen] == [(3, row_bytes), (3, row_bytes), (1, row_bytes)]
+    for k, (staged, coeffs) in enumerate(seen):
+        for i in range(staged.shape[0]):
+            client = 3 * k + i
+            for s, ((b, scale), off) in enumerate(zip(segs[client], agg._table.byte_offsets)):
+                assert bytes(staged[i, off:off + len(b)].numpy()) == b.tobytes()
+                assert coeffs[i, s].item() == np.float32(weights[client] * scale)
 
 
 def test_aggregator_fedavg_raw_updates_and_ledgers():
@@ -233,3 +354,18 @@ def test_record_paths_and_rebuild_match_reference():
     assert [p for p, _ in jtree_leaf_paths(_params(0))] == [p for p, _ in pairs]
     np.testing.assert_array_equal(tree["enc"]["b"].numpy(),
                                   np.asarray(_params(0)["enc"]["b"]))
+
+
+def test_aggregator_mixed_codec_round_bit_identical_to_reference():
+    """A mean round mixing ternary and raw (FedAvg) uploads of the same
+    tree: the raw clients' fused leaves detour to the dense fallback and
+    their staged rows carry coefficient 0; the fold equals the reference's
+    bit for bit across flushes of 2 (raw clients alone in one flush too)."""
+    blobs, _ = _blobs(3)
+    raw = [jencode(_params(10 + i)) for i in range(3)]
+    order = [raw[0], raw[1], blobs[0], raw[2], blobs[1], blobs[2]]
+    jagg, agg = JAggregator(chunk_c=2), Aggregator(chunk_c=2, device="cpu")
+    for blob, w in zip(order, _weights(6)):
+        jagg.add(blob, w)
+        agg.add(blob, w)
+    _assert_identical(_flat_jax(jagg.finalize()), _flat_np(agg.finalize()))

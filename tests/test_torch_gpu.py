@@ -17,14 +17,20 @@ from repro_torch.core.ternary import TernaryTensor, packed_nbytes
 from repro_torch.core.tfedavg import client_update_payload, server_requantize
 from repro_torch.fed.aggregator import Aggregator
 from repro_torch.kernels import ops
-from repro_torch.kernels.aggregate import LANES, packed_weighted_sum, packed_weighted_sum_plain
+from repro_torch.kernels.aggregate import (
+    LANES, fanin_table, packed_weighted_sum, packed_weighted_sum_plain,
+    packed_weighted_sum_segments, packed_weighted_sum_segments_plain,
+)
 from repro_torch.kernels.pack2bit import pack2bit, pack2bit_plain, unpack2bit, unpack2bit_plain
 from repro_torch.kernels.quantize_pack import (
     quantize_pack, quantize_pack_plain, quantize_pack_segments, quantize_pack_segments_plain,
     segment_layout,
 )
 from repro_torch.kernels.ternary_quantize import ternary_quantize, ternary_quantize_plain
-from repro_torch.kernels.vote import packed_vote_counts, packed_vote_counts_plain
+from repro_torch.kernels.vote import (
+    packed_vote_counts, packed_vote_counts_plain, packed_vote_counts_segments,
+    packed_vote_counts_segments_plain,
+)
 from repro_torch.models.paper_models import init_resnet_cifar
 from repro_torch.tree import flatten_with_path
 from repro_torch.kernels.ternary_matmul import (
@@ -371,6 +377,124 @@ def test_robust_aggregator_on_the_card_equals_the_cpu(cuda_device, rule):
         for i, blob in enumerate(blobs):
             agg.add(blob, 100 + 7 * i)
         outs.append(flatten_with_path(agg.finalize()))
+    for (pa, a), (pb, b) in zip(*outs):
+        assert pa == pb
+        assert torch.equal(a, b.cpu()), pa
+
+
+# (bytes, elements) per segment: segments of 1, 3, 37 and 144 bytes (ragged
+# element counts) and one of 5 blocks; ResNet18*'s 52 segments of a round.
+SEGMENT_LAYOUTS = {
+    "ragged": [(1, 3), (3, 9), (37, 147), (144, 576), (5000, 19999), (2, 8)],
+    "resnet52": [(144, 576)] * 3 + [(3072, 12288)] * 48 + [(160, 640)],
+}
+
+
+def _segment_case(layout: str, c: int, dev, seed: int):
+    """A staged buffer of random bytes (every code, garbage in the aligned
+    gaps), a (C, S) coefficient matrix with negative entries and (C,)
+    weights, on the card."""
+    nb, n_out = zip(*SEGMENT_LAYOUTS[layout])
+    table = fanin_table(nb, n_out, dev)
+    gen = torch.Generator(dev).manual_seed(seed)
+    staged = torch.randint(0, 256, (c, table.row_bytes), generator=gen, device=dev,
+                           dtype=torch.uint8)
+    coeffs = torch.randn(c, table.n_segments, generator=gen, device=dev)
+    weights = torch.rand(c, generator=gen, device=dev) * 3.0
+    return table, staged, coeffs, weights
+
+
+@pytest.mark.parametrize("layout,c", [("ragged", 1), ("ragged", 3), ("ragged", 17),
+                                      ("ragged", 9), ("resnet52", 10), ("resnet52", 16)])
+def test_segment_kernels_bit_identical_to_plain(cuda_device, layout, c):
+    """One launch of each segment kernel over a whole layout equals its
+    plain version bit for bit over the whole flat output, slot tails
+    included (C = 9 and 17 run the 8-deep client unroll and its rest)."""
+    table, staged, coeffs, weights = _segment_case(layout, c, cuda_device, 31 * c)
+    before = (packed_weighted_sum.launches, packed_vote_counts.launches)
+    out = packed_weighted_sum_segments(staged, coeffs, table)
+    votes = packed_vote_counts_segments(staged, weights, table)
+    assert (packed_weighted_sum.launches, packed_vote_counts.launches) == (before[0] + 1,
+                                                                           before[1] + 1)
+    ref = packed_weighted_sum_segments_plain(staged, coeffs, table)
+    ref_votes = packed_vote_counts_segments_plain(staged, weights, table)
+    torch.cuda.synchronize()
+    assert out.shape == (table.n_total,) and votes.shape == (2, table.n_total)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(votes.view(torch.int32), ref_votes.view(torch.int32))
+
+
+@pytest.mark.parametrize("bad", [float("inf"), float("nan")])
+def test_vote_with_a_non_finite_weight_equals_plain(cuda_device, bad):
+    """A non-finite weight makes w · 0 NaN: the kernel then keeps the
+    multiply-add for every client (the finite path skips zero indicators)
+    and still equals its plain version bit for bit."""
+    table, staged, _, weights = _segment_case("ragged", 9, cuda_device, 5)
+    weights[4] = bad
+    out = packed_vote_counts_segments(staged, weights, table)
+    ref = packed_vote_counts_segments_plain(staged, weights, table)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+
+
+def test_segment_kernels_reject_what_they_cannot_take(cuda_device):
+    table, staged, coeffs, weights = _segment_case("ragged", 2, cuda_device, 0)
+    with pytest.raises(ValueError):
+        packed_weighted_sum_segments(staged, coeffs.double(), table)
+    with pytest.raises(ValueError):
+        packed_weighted_sum_segments(staged, coeffs[:, :-1].contiguous(), table)
+    with pytest.raises(ValueError):
+        packed_vote_counts_segments(staged, weights.cpu(), table)
+    with pytest.raises(ValueError):
+        packed_vote_counts_segments(staged, weights, fanin_table([4], [16]))
+    cpu_table = fanin_table([nb for nb, _ in SEGMENT_LAYOUTS["ragged"]],
+                            [n for _, n in SEGMENT_LAYOUTS["ragged"]])
+    with pytest.raises(ValueError):
+        packed_weighted_sum_segments(staged, coeffs, cpu_table)
+
+
+def _resnet_blobs(n: int) -> list:
+    cfg = FTTQConfig()
+    blobs = []
+    for seed in range(n):
+        params = init_resnet_cifar(seed=seed % 6, width=16, device="cpu")
+        blobs.append(encode_update(client_update_payload(params, init_wq_tree(params, cfg), cfg)))
+    return blobs
+
+
+@pytest.mark.parametrize("rule", ["mean", "majority"])
+def test_aggregator_launches_once_per_flush(cuda_device, rule):
+    """10 ResNet18* (width 16) uploads at chunk_c=16 are one flush: one
+    launch of the rule's kernel for all 52 segments, none of the other."""
+    blobs = _resnet_blobs(10)
+    agg = Aggregator(chunk_c=16, device=cuda_device, rule=rule)
+    before = (packed_weighted_sum.launches, packed_vote_counts.launches)
+    for i, blob in enumerate(blobs):
+        agg.add(blob, 100 + i)
+    agg.finalize()
+    torch.cuda.synchronize()
+    launched = (packed_weighted_sum.launches - before[0], packed_vote_counts.launches - before[1])
+    assert agg._table.n_segments == 52
+    assert launched == ((1, 0) if rule == "mean" else (0, 1))
+
+
+@pytest.mark.parametrize("rule", ["mean", "majority"])
+def test_aggregator_five_flushes_equal_the_cpu(cuda_device, rule):
+    """17 uploads at chunk_c=4: five flushes through one pinned staging
+    buffer (refilled after each copy's event), five launches, and the fold
+    equals the CPU plain fold bit for bit."""
+    blobs = _resnet_blobs(17)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        agg = Aggregator(chunk_c=4, device=dev, rule=rule)
+        counter = packed_weighted_sum if rule == "mean" else packed_vote_counts
+        before = counter.launches
+        for i, blob in enumerate(blobs):
+            agg.add(blob, 100 + 7 * i)
+        outs.append(flatten_with_path(agg.finalize()))
+        if dev != "cpu":
+            assert counter.launches - before == 5
+            assert agg._staging.is_pinned()
     for (pa, a), (pb, b) in zip(*outs):
         assert pa == pb
         assert torch.equal(a, b.cpu()), pa

@@ -34,6 +34,7 @@ from repro.fed.defense import UpdateGate as JUpdateGate
 from repro.kernels.vote import majority_from_counts as jmajority
 from repro.kernels.vote import packed_vote_counts as jvote
 from repro.kernels.vote import packed_vote_counts_ref
+from repro.kernels.aggregate import padded_rows as jpadded_rows
 from repro.models.paper_models import init_mlp_mnist as jinit_mlp
 from repro.models.paper_models import mlp_mnist as jmlp
 from repro.optim import adam as jadam
@@ -46,14 +47,15 @@ from repro_torch.fed import (
 from repro_torch.fed.aggregator import Aggregator, trimmed_mean, weighted_median
 from repro_torch.fed.defense import REASONS
 from repro_torch.fed.simulation import resolve_rule
-from repro_torch.kernels.aggregate import LANES
+from repro_torch.kernels.aggregate import LANES, fanin_table
 from repro_torch.kernels.vote import (
     majority_from_counts, packed_vote_counts, packed_vote_counts_plain,
+    packed_vote_counts_segments, packed_vote_counts_segments_plain,
 )
 from repro_torch.launch.federated import make_eval_fn
 from repro_torch.models.paper_models import mlp_mnist
 from repro_torch.optim import adam
-from repro_torch.parallel.fanin import fanin_vote_counts
+from repro_torch.parallel.fanin import fanin_vote_counts, fanin_vote_counts_segments
 from repro_torch.tree import flatten_with_path, path_str
 
 torch.set_num_threads(1)
@@ -102,6 +104,68 @@ def test_vote_wrapper_takes_plain_version_on_cpu_and_rejects_other_devices():
         packed_vote_counts(stacked[:, :, :64], coeffs)
     with pytest.raises(NotImplementedError):
         fanin_vote_counts(stacked, coeffs, mesh=object())
+
+
+# (bytes, elements) per segment: ResNet18*'s stem, conv and head at a
+# quarter of their bytes, and a ragged layout (a 1-byte segment, n % 4 ≠ 0).
+LAYOUTS = {
+    "resnet": [(36, 144)] * 3 + [(768, 3072)] * 3 + [(40, 160)],
+    "ragged": [(1, 3), (3, 9), (37, 147), (144, 576), (2, 5), (1, 4)],
+}
+
+
+def _staged_segments(layout, c: int, seed: int):
+    """Valid wire codes per client and segment at the table's offsets; the
+    aligned gaps hold garbage bytes the kernel must not use."""
+    rng = np.random.default_rng(seed)
+    table = fanin_table([b for b, _ in layout], [n for _, n in layout])
+    staged = rng.integers(0, 256, size=(c, table.row_bytes), dtype=np.uint8)
+    segs = []
+    for (nb, _), off in zip(layout, table.byte_offsets):
+        seg = _valid_codes(rng, (c, nb))
+        staged[:, off:off + nb] = seg
+        segs.append(seg)
+    return table, staged, segs
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("c", [1, 3, 10, 17])
+def test_vote_segments_plain_bit_identical_to_pallas(layout, c):
+    """Both masses of the one-launch segment form equal the Pallas kernel
+    segment by segment, bit for bit, each segment staged by the reference's
+    own ``padded_rows`` (whole 32-row tiles, zero tail); slot tails past a
+    ragged segment's elements are +0.0 in both planes."""
+    table, staged, segs = _staged_segments(LAYOUTS[layout], c, 11 * c)
+    weights = np.random.default_rng(c).uniform(0.5, 3.0, size=(c,)).astype(np.float32)
+    got = packed_vote_counts_segments_plain(torch.from_numpy(staged),
+                                            torch.from_numpy(weights), table).numpy()
+    assert got.shape == (2, table.n_total)
+    for seg, n, off in zip(segs, table.n_out, table.out_offsets):
+        rows = jpadded_rows(seg.shape[1])
+        stack = np.zeros((c, rows * LANES), np.uint8)
+        stack[:, :seg.shape[1]] = seg
+        ref = np.asarray(jvote(jnp.asarray(stack.reshape(c, rows, LANES)),
+                               jnp.asarray(weights), interpret=True))[:, :n]
+        np.testing.assert_array_equal(got[:, off:off + n].view(np.uint32), ref.view(np.uint32))
+        tail = got[:, off + n:off + -(-n // 4) * 4]
+        assert not tail.view(np.uint32).any()
+
+
+def test_vote_segments_wrapper_takes_plain_version_on_cpu():
+    table, staged, _ = _staged_segments(LAYOUTS["ragged"], 3, 0)
+    staged = torch.from_numpy(staged)
+    weights = torch.tensor([1.5, 0.25, 2.0])
+    before = packed_vote_counts.launches
+    out = packed_vote_counts_segments(staged, weights, table)
+    assert packed_vote_counts.launches == before
+    assert torch.equal(out, packed_vote_counts_segments_plain(staged, weights, table))
+    assert torch.equal(fanin_vote_counts_segments(staged, weights.double(), table), out)
+    with pytest.raises(ValueError, match="unsupported device"):
+        packed_vote_counts_segments(staged.to("meta"), weights.to("meta"), table)
+    with pytest.raises(ValueError):
+        packed_vote_counts_segments_plain(staged, weights[:2], table)
+    with pytest.raises(NotImplementedError):
+        fanin_vote_counts_segments(staged, weights, table, mesh=object())
 
 
 def test_majority_from_counts_matches_reference():
