@@ -63,22 +63,39 @@ Phases (any failure exits non-zero; no phase is skipped):
                  uploads, the majority, median and trimmed_mean folds on the
                  card against the CPU plain folds, the sign-flip guarantee, and
                  the gate against 3 nan_poison uploads;
-  9. quickstart — repro_torch.launch.quickstart on the card, then its own
+  9. async     — the buffered-async T-FedAvg server (``mode="async"``) on
+                 ResNet18* at full width, FedConfig defaults (10 clients in
+                 flight), buffer_k 4, staleness exponent 0.5, η 1, staleness
+                 cap 1 with the drop policy, 3 mixes: per mix the simulated
+                 time, wall seconds per phase, bytes, dispatches, staleness,
+                 drops and accuracy; launches (one quantize_pack per dispatch
+                 and per broadcast version, one aggregate per mix on the run's
+                 one long-lived aggregator); the last mix's fold on its
+                 buffered uploads and staleness weights against
+                 ``server_aggregate``;
+ 10. hierarchy — one sync T-FedAvg round on ResNet18* at full width through
+                 3 requantizing edges (``mod``): the tier's telemetry and
+                 ledger, upload = client→edge + edge→root bytes, launches (one
+                 quantize_pack per broadcast, upload and active edge; one
+                 aggregate per active edge and at the root); then a lossless
+                 tier on the card over the same uploads against a flat card
+                 Aggregator;
+ 11. quickstart — repro_torch.launch.quickstart on the card, then its own
                  ternary_quantize, pack2bit and unpack2bit outputs against
                  the plain versions on the same inputs, bit for bit;
- 10. fan-in timings — aggregate and vote over one round's fold (52 segments,
+ 12. fan-in timings — aggregate and vote over one round's fold (52 segments,
                  10 clients) in one launch, as a CUDA-graph replay and as an
                  eager Aggregator flush (staging fill, pinned copy, launch),
                  beside the per-segment pattern of 52 launches of 32-row tiles
                  at C = 16, and at 16 clients × 2^26 elements; bytes bounds and
                  plain versions;
- 11. fan-in trace — the aggregate phase of one mean and one majority round
+ 13. fan-in trace — the aggregate phase of one mean and one majority round
                  on the last round's uploads under torch.profiler, with the
                  Aggregator's host ranges (add, stage, copy, launch, finalize);
- 12. fed trace — one round of one client at E = 5, B = 64, timed untraced
+ 14. fed trace — one round of one client at E = 5, B = 64, timed untraced
                  and then run under torch.profiler.
-Before each driven path (serve, federated, robust, quickstart) every
-kernel's launch counter is set to 0, and read just after.
+Before each driven path (serve, federated, robust, async, hierarchy,
+quickstart) every kernel's launch counter is set to 0, and read just after.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -179,6 +196,8 @@ FANIN_C = 16              # FedConfig.agg_chunk_c: one flush per round at λN = 
 FED_UPLOADS = 10          # λN = 10 clients encode an upload each round
 STRESS_ELEMENTS = 2 ** 26  # per client: 16 MB of wire codes
 ROBUST_ATTACKERS = 30      # sign-flip attackers of the 100 clients
+ASYNC_MIXES = 3            # buffered mixes of the async server
+HIER_EDGES = 3             # edge aggregators of the hierarchical round
 
 
 def kernel_counters() -> dict:
@@ -1055,6 +1074,271 @@ def robust_phase(dev, setup, uploads) -> dict:
             "upload_bytes": res.upload_bytes, "download_bytes": res.download_bytes}
 
 
+def _fold_gap(fold, ref) -> float:
+    """Largest |fold - ref| over the leaves of two trees, checked against
+    the sync round's limit 1e-6 + 1e-5·|ref| per element."""
+    from repro_torch.tree import flatten_with_path
+
+    want = dict(flatten_with_path(ref))
+    worst = 0.0
+    for path, leaf in flatten_with_path(fold):
+        err = (leaf.to(want[path].device) - want[path]).abs()
+        check(bool((err <= 1e-6 + 1e-5 * want[path].abs()).all()),
+              f"fold disagrees with its reference at {path}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def async_phase(dev, setup, *, rounds: int = ASYNC_MIXES, **cfg_kw) -> dict:
+    """The buffered-async T-FedAvg server on ResNet18* at full width
+    (``FedConfig`` defaults, so 10 clients in flight at λ 0.1; buffer_k 4,
+    staleness exponent 0.5, η 1, staleness cap 1 with the drop policy):
+    per mix the simulated time, wall seconds per phase, bytes, staleness,
+    drops and accuracy; launches (one quantize_pack per dispatch and per
+    broadcast version, one aggregate per mix on the run's one aggregator);
+    the last mix's fold on its buffered blobs and staleness weights against
+    ``server_aggregate``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.comm.wire import decode_update
+    from repro_torch.core.tfedavg import TernaryUpdate, server_aggregate
+    from repro_torch.fed import async_server
+    from repro_torch.fed import simulation as sim
+    from repro_torch.fed.aggregator import Aggregator
+    from repro_torch.kernels.aggregate import packed_weighted_sum
+    from repro_torch.kernels.quantize_pack import quantize_pack
+    from repro_torch.models.paper_models import resnet_cifar
+    from repro_torch.optim import adam
+
+    clients, params, eval_fn = setup
+    cfg = sim.FedConfig(mode="async", rounds=rounds, n_clients=len(clients), buffer_k=4,
+                        staleness_exponent=0.5, mixing_rate=1.0, max_staleness=1,
+                        staleness_policy="drop", **cfg_kw)
+    print(f"ResNet18* full width, {cfg.n_clients} clients, lambda {cfg.participation} "
+          f"(in flight {int(np.ceil(cfg.participation * cfg.n_clients))}), E {cfg.local_epochs}, "
+          f"B {cfg.batch_size}; buffer_k {cfg.buffer_k}, alpha {cfg.staleness_exponent}, "
+          f"eta {cfg.mixing_rate}, max_staleness {cfg.max_staleness} "
+          f"({cfg.staleness_policy}), {rounds} mixes")
+    tally = {"dispatches": 0, "versions": 0, "blob": 0, "down": 0, "up": 0, "adds": 0}
+
+    def marks():
+        return {"quantize_pack": quantize_pack.launches,
+                "aggregate": packed_weighted_sum.launches, **tally}
+
+    class Timer(sim.PhaseTimer):
+        def start_round(self, r):
+            super().start_round(r)
+            self.marks.append(marks())
+
+    class Recorder(Aggregator):
+        """The run's one aggregator, keeping each mix's adds for the check."""
+
+        def add(self, blob, weight):
+            if self.n_clients == 0:
+                self.seen = []
+            self.seen.append((blob, weight))
+            tally["up"] += len(blob)
+            tally["adds"] += 1
+            super().add(blob, weight)
+
+        def note_dropped(self, nbytes):
+            tally["up"] += nbytes
+            super().note_dropped(nbytes)
+
+        def finalize(self, *, reset=False):
+            self.last = (list(self.seen), super().finalize(reset=False))
+            if reset:
+                self.reset()
+            return self.last[1]
+
+    recorders = []
+
+    def make_recorder(*a, **kw):
+        recorders.append(Recorder(*a, **kw))
+        return recorders[-1]
+
+    plain = (async_server.Aggregator, async_server.broadcast_blob, async_server.train_client)
+
+    def counting_broadcast(*a, **kw):
+        blob = plain[1](*a, **kw)
+        tally["versions"] += 1
+        tally["blob"] = len(blob)
+        return blob
+
+    def counting_train(*a, **kw):
+        tally["dispatches"] += 1
+        tally["down"] += tally["blob"]
+        return plain[2](*a, **kw)
+
+    timer = Timer(dev)
+    timer.marks = []
+    async_server.Aggregator = make_recorder
+    async_server.broadcast_blob = counting_broadcast
+    async_server.train_client = counting_train
+    try:
+        zero_counters()
+        t0 = time.perf_counter()
+        res = sim.run_federated(resnet_cifar, params, clients, cfg, adam(1e-3), eval_fn,
+                                eval_every=1, device=dev, timer=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+    finally:
+        (async_server.Aggregator, async_server.broadcast_blob,
+         async_server.train_client) = plain
+    tel = res.telemetry
+    check(len(recorders) == 1, f"the async run made {len(recorders)} aggregators, want one")
+    check(res.rounds_run == rounds and len(timer.rounds) == rounds, "the run did not mix "
+          f"{rounds} times")
+    ends = timer.marks[1:] + [marks()]
+    per_mix = []
+    for r in range(rounds):
+        d = {k: ends[r][k] - timer.marks[r][k] for k in ends[r]}
+        ph = timer.rounds[r]
+        row = {"mix": r, "sim_s": res.round_times[r], "upload_bytes": d["up"],
+               "download_bytes": d["down"], "dispatches": d["dispatches"],
+               "broadcast_versions": d["versions"], "folded": d["adds"],
+               "buffer_k": tel["buffer_k_per_agg"][r], "accuracy": res.accuracy[r],
+               "loss": res.loss[r],
+               "wall_s": {k: ph.get(k, 0.0) for k in ("train", "encode", "wire",
+                                                      "requantize", "aggregate")},
+               "launches": {"quantize_pack": d["quantize_pack"], "aggregate": d["aggregate"]}}
+        per_mix.append(row)
+        w = row["wall_s"]
+        print(f"  mix {r}: simulated {row['sim_s']:.3f} s since the last mix; up "
+              f"{row['upload_bytes']} B, down {row['download_bytes']} B; {row['dispatches']} "
+              f"dispatches, {row['broadcast_versions']} broadcast versions, "
+              f"{row['folded']} uploads folded (buffer_k {row['buffer_k']}); wall: "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in w.items())
+              + f"; acc {row['accuracy']:.4f}, loss {row['loss']:.4f}; launches "
+              f"quantize_pack {d['quantize_pack']}, aggregate {d['aggregate']}")
+        check(d["quantize_pack"] == d["dispatches"] + d["versions"],
+              f"mix {r}: quantize_pack launched {d['quantize_pack']} times for "
+              f"{d['dispatches']} dispatches and {d['versions']} broadcast versions")
+        check(d["aggregate"] == 1 and d["adds"] == row["buffer_k"],
+              f"mix {r}: aggregate launched {d['aggregate']} times for {d['adds']} uploads "
+              "(want one launch per mix)")
+        check(np.isfinite(row["loss"]) and 0.0 <= row["accuracy"] <= 1.0,
+              f"mix {r}: accuracy/loss not finite")
+    print(f"{rounds} mixes in {wall:.2f} s of wall time: {tally['dispatches']} dispatches, "
+          f"{tally['versions']} broadcast versions; up {res.upload_bytes} B, down "
+          f"{res.download_bytes} B; staleness histogram {tel['staleness_hist']}, "
+          f"buffer_k per mix {tel['buffer_k_per_agg']}, dropped {tel['dropped_updates']} "
+          f"updates ({tel['dropped_update_bytes']} B)")
+    check(launches["quantize_pack"] == tally["dispatches"] + tally["versions"],
+          "quantize_pack launches differ from dispatches + broadcast versions")
+    check(launches["aggregate"] == rounds, f"aggregate launched {launches['aggregate']} "
+                                           f"times in {rounds} mixes")
+    check(launches["vote"] == 0, "the mean mixes launched vote")
+    check(tally["versions"] == rounds, "a broadcast version was encoded twice")
+    check(res.upload_bytes == tally["up"] and res.download_bytes == tally["down"],
+          "the per-mix bytes do not add up to the run's")
+    check(sum(tel["staleness_hist"]) == len(res.staleness_per_agg)
+          and tel["dropped_updates"] == sum(1 for s in res.staleness_per_agg if s > 1),
+          "the staleness ledger does not add up")
+
+    blobs, fold = recorders[0].last
+    updates = [TernaryUpdate(payload=decode_update(b), n_samples=w) for b, w in blobs]
+    worst = _fold_gap(fold, server_aggregate(updates, dev))
+    print(f"last mix's fold ({len(blobs)} uploads at staleness weights "
+          f"{[round(w, 3) for _, w in blobs]}): max |d| vs server_aggregate {worst:.3e} "
+          "(limit 1e-6 + 1e-5|ref|)")
+    agg_s = [m["wall_s"]["aggregate"] for m in per_mix]
+    return {"per_mix": per_mix, "launches": launches, "wall_s": wall,
+            "fold_vs_list_max_abs": worst, "dispatches": tally["dispatches"],
+            "broadcast_versions": tally["versions"], "staleness_hist": tel["staleness_hist"],
+            "dropped_updates": tel["dropped_updates"],
+            "dropped_update_bytes": tel["dropped_update_bytes"],
+            "aggregate_s_first_mix": agg_s[0], "aggregate_s_later_mixes": agg_s[1:]}
+
+
+def hierarchy_phase(dev, setup, **cfg_kw) -> dict:
+    """One sync T-FedAvg round on ResNet18* at full width with three
+    requantizing edges (``mod`` assignment): the tier's telemetry, its
+    ledger, and launches (one quantize_pack per broadcast, upload and
+    active edge; one aggregate per active edge and at the root). Then the
+    same round's uploads through a lossless tier on the card against a flat
+    card Aggregator (its root folds raw records: no kernel)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.fed import simulation as sim
+    from repro_torch.fed.aggregator import Aggregator
+    from repro_torch.fed.hierarchy import EdgeTier, HierarchyConfig
+    from repro_torch.models.paper_models import resnet_cifar
+    from repro_torch.optim import adam
+
+    clients, params, eval_fn = setup
+    cfg = sim.FedConfig(rounds=1, n_clients=len(clients),
+                        hierarchy=HierarchyConfig(n_edges=HIER_EDGES), **cfg_kw)
+    print(f"ResNet18* full width, {cfg.n_clients} clients, lambda {cfg.participation}, "
+          f"E {cfg.local_epochs}, B {cfg.batch_size}; {cfg.hierarchy.n_edges} edges "
+          f"({cfg.hierarchy.assignment}, requantize at the edge)")
+    seen = []
+
+    class Recorder(EdgeTier):
+        def add(self, client_id, blob, weight, staleness=0.0):
+            seen.append((client_id, blob, weight))
+            super().add(client_id, blob, weight, staleness)
+
+    plain = sim.EdgeTier
+    sim.EdgeTier = Recorder
+    timer = sim.PhaseTimer(dev)
+    try:
+        zero_counters()
+        t0 = time.perf_counter()
+        res = sim.run_federated(resnet_cifar, params, clients, cfg, adam(1e-3), eval_fn,
+                                eval_every=1, device=dev, timer=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+    finally:
+        sim.EdgeTier = plain
+    tier = res.telemetry["hierarchy"]
+    active = sum(1 for c in tier["clients_per_edge"] if c)
+    w = {k: timer.rounds[0].get(k, 0.0) for k in ("train", "encode", "wire", "requantize",
+                                                   "aggregate")}
+    print(f"  round 0: up {res.upload_bytes} B, down {res.download_bytes} B, "
+          f"{res.participants_per_round[0]} clients, simulated {res.round_times[0]:.3f} s, "
+          f"wall {wall:.2f} s: " + ", ".join(f"{k} {v:.3f} s" for k, v in w.items())
+          + f" (the edge folds, requantizes and root fold are in aggregate); "
+          f"acc {res.accuracy[0]:.4f}, loss {res.loss[0]:.4f}")
+    print(f"  tier telemetry: {json.dumps(tier)}")
+    print(f"  launches: {json.dumps(launches)} ({len(seen)} uploads, {active} active edges)")
+    check(tier["ledger_balanced"], "the tier's ledger does not balance")
+    check(res.upload_bytes == tier["client_to_edge_bytes"] + tier["edge_to_root_bytes"],
+          "upload bytes are not client→edge + edge→root")
+    check(launches["quantize_pack"] == 1 + len(seen) + active,
+          f"quantize_pack launched {launches['quantize_pack']} times: want 1 broadcast + "
+          f"{len(seen)} uploads + {active} edges")
+    check(launches["aggregate"] == active + 1,
+          f"aggregate launched {launches['aggregate']} times: want {active} edges + the root")
+    check(np.isfinite(res.loss[0]) and 0.0 <= res.accuracy[0] <= 1.0, "tier round not finite")
+
+    lossless = EdgeTier(HierarchyConfig(n_edges=HIER_EDGES, requantize_at_edge=False),
+                        cfg.fttq, cfg.n_clients, device=dev)
+    flat = Aggregator(chunk_c=cfg.agg_chunk_c, device=dev)
+    for k, blob, weight in seen:
+        lossless.add(k, blob, weight)
+        flat.add(blob, weight)
+    zero_counters()
+    mean, info = lossless.fold()
+    torch.cuda.synchronize()
+    lossless_launches = read_counters()
+    worst = _fold_gap(mean, flat.finalize())
+    print(f"  lossless tier on the same {len(seen)} uploads: max |d| vs a flat card "
+          f"Aggregator {worst:.3e} (limit 1e-6 + 1e-5|ref|); {info['edge_to_root_bytes']} B "
+          f"edge→root; launches {json.dumps(lossless_launches)}")
+    check(lossless_launches["aggregate"] == info["edges_active"]
+          and lossless_launches["quantize_pack"] == 0,
+          "the lossless tier launched other than one aggregate per edge")
+    return {"launches": launches, "wall_s": wall, "phase_wall_s": w, "telemetry": tier,
+            "uploads": len(seen),
+            "edges_active": active, "upload_bytes": res.upload_bytes,
+            "download_bytes": res.download_bytes, "lossless_vs_flat_max_abs": worst}
+
+
 def ops_timings(layers, served) -> dict:
     """ternary_quantize over the given fp32 layers (olmo-1b's 112, 2^30
     weights) and pack2bit / unpack2bit (to int8) over the served 2^30 codes,
@@ -1495,6 +1779,12 @@ def main() -> int:
     phase("robust: one defended ResNet18* round (majority, 30 sign-flip attackers)")
     robust = robust_phase(dev, setup, fed["last_uploads"])
 
+    phase("async: the buffered-async ResNet18* T-FedAvg server at full width")
+    asy = async_phase(dev, setup)
+
+    phase("hierarchy: one ResNet18* T-FedAvg sync round through 3 requantizing edges")
+    hier = hierarchy_phase(dev, setup)
+
     phase("quickstart: repro_torch.launch.quickstart on the card")
     zero_counters()
     qs = quickstart_main(["--device", "cuda"])
@@ -1530,7 +1820,9 @@ def main() -> int:
          "launches": qp_launches, "max_abs_err": qp_err, "ms": qp_ms,
          "plain_ms": qp_plain_ms, "bound_ms": qp_bound, "bound_by": qp_by,
          "library_ms": None, "old_path_ms": qp_old_ms, "federated": qp_fed,
-         "federated_launches": fed["launches"][0]},
+         "federated_launches": fed["launches"][0],
+         "async_launches": asy["launches"]["quantize_pack"],
+         "hierarchy_launches": hier["launches"]["quantize_pack"]},
         {"name": "ternary_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ternary_matmul.cu",
          "replaces": "src/repro/kernels/ternary_matmul.py:34",
@@ -1548,7 +1840,18 @@ def main() -> int:
          "stress_ms": agg_t["stress_ms"], "stress_plain_ms": agg_t["stress_plain_ms"],
          "stress_bound_ms": agg_t["stress_bound_ms"],
          "federated_quantize_pack_launches": fed["launches"][0],
-         "per_round": fed["per_round"], "phase_trace": fanin_trace_t["mean"]},
+         "per_round": fed["per_round"], "phase_trace": fanin_trace_t["mean"],
+         "async_launches": asy["launches"]["aggregate"],
+         "hierarchy_launches": hier["launches"]["aggregate"],
+         "async": {k: asy[k] for k in ("per_mix", "wall_s", "fold_vs_list_max_abs",
+                                       "dispatches", "broadcast_versions",
+                                       "staleness_hist", "dropped_updates",
+                                       "dropped_update_bytes", "aggregate_s_first_mix",
+                                       "aggregate_s_later_mixes")},
+         "hierarchy": {k: hier[k] for k in ("wall_s", "phase_wall_s", "telemetry", "uploads",
+                                            "edges_active",
+                                            "upload_bytes", "download_bytes",
+                                            "lossless_vs_flat_max_abs")}},
         {"name": "vote", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/vote.cu",
          "replaces": "src/repro/kernels/vote.py:40",

@@ -16,9 +16,10 @@ is the loss-free model's.
 
 Every draw happens in the reference's order from a ``numpy`` Generator
 with the same seed, so a seeded run gives the reference's transfer log,
-bit for bit. The batched fleet transfers (``transfer_batch``,
-``compute_time_batch``) and the async ``transfer_timed`` arrive with the
-fleet and async slices.
+bit for bit. ``transfer_timed`` meters one transfer that starts at an
+absolute simulated time, for the async server, whose uploads contend for
+a capped NIC with the other flows in flight. The batched fleet transfers
+(``transfer_batch``, ``compute_time_batch``) arrive with the fleet slice.
 """
 
 from __future__ import annotations
@@ -192,6 +193,9 @@ class Channel:
         self.links = _LinkView(self)
         self._rng = rng
         self.log: list[TransferEvent] = []
+        # in-flight (data_start, data_end) windows per direction, for the
+        # overlap count of ``transfer_timed``; filled only under a NIC cap
+        self._inflight: dict[str, list[tuple[float, float]]] = {}
 
     # -- loss / retransmission --------------------------------------------
 
@@ -301,6 +305,43 @@ class Channel:
         for k, b, dt, pen in zip(client_ids, nbytes, done, penalties):
             self.log.append(TransferEvent(k, direction, b, dt, pen[0], pen[2]))
         return done
+
+    def transfer_timed(self, client_id: int, nbytes: int, start_s: float,
+                       direction: str, *, now_s: float | None = None) -> float:
+        """One transfer STARTING at absolute simulated time ``start_s``,
+        contending for the server NIC with the other ``transfer_timed``
+        flows in flight in the same direction (async uploads).
+
+        The flow's rate is min(link, NIC / (1 + overlapping flows)),
+        iterated twice toward a fixed point on the overlap count. Flows
+        that ended before ``now_s`` (the caller's non-decreasing event
+        clock; ``start_s`` plus latency and jitter by default) are pruned.
+        On an uncapped NIC it is the same float expression as ``transfer``.
+        Returns the duration from ``start_s`` to completion (logged).
+        """
+        jitter = float(self._rng.uniform(0.0, self.cfg.latency_jitter_s))
+        retrans, delay, retries = self._loss_penalty(nbytes)
+        link = self.links[client_id]
+        wire = nbytes + retrans
+        nic = self.cfg.server_bandwidth_bytes_s
+        if nic <= 0 or nic == float("inf"):
+            dt = link.transfer_time(wire, jitter) + delay
+            self.log.append(TransferEvent(client_id, direction, nbytes, dt, retrans, retries))
+            return dt
+        data_start = start_s + link.latency_s + jitter
+        flows = self._inflight.setdefault(direction, [])
+        prune_t = now_s if now_s is not None else data_start
+        flows[:] = [f for f in flows if f[1] > prune_t]
+        dur = wire / min(link.bandwidth_bytes_s, nic)
+        for _ in range(2):
+            end = data_start + dur
+            overlap = sum(1 for s, e in flows if s < end and e > data_start)
+            rate = min(link.bandwidth_bytes_s, nic / (1 + overlap))
+            dur = wire / rate
+        flows.append((data_start, data_start + dur))
+        dt = (data_start + dur + delay) - start_s
+        self.log.append(TransferEvent(client_id, direction, nbytes, dt, retrans, retries))
+        return dt
 
     def compute_time(self, client_id: int, n_examples: int,
                      nominal_examples_per_s: float = 5000.0) -> float:

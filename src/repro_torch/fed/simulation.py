@@ -1,5 +1,6 @@
 """Round-based federated simulation: the synchronous server of paper
-Algorithm 2 (port of ``repro.fed.simulation``, sync mode).
+Algorithm 2 and the entry point of both servers (port of
+``repro.fed.simulation``).
 
 Each round:
   1. SELECTION      — sample ⌈λN⌉ clients from those online.
@@ -28,8 +29,13 @@ before the aggregator, whose rule ``cfg.defense.rule`` may be robust.
 Quarantined uploads count as upload bytes; a round whose every survivor
 is quarantined holds the model.
 
-The async server, the hierarchy tier and the adaptive compression
-controller wait for their slices; asking for one raises
+Hierarchy: with ``cfg.hierarchy.n_edges > 0`` the survivors fan into
+regional edges (``fed.hierarchy.EdgeTier``, alive across rounds), each
+shipping one record to the root; that edge→root hop is booked as upload.
+
+``run_federated`` dispatches on ``cfg.mode``: "sync" is this server,
+"async" the buffered-asynchronous one in ``fed.async_server``. The
+adaptive compression controller waits for its slice; asking for it raises
 ``NotImplementedError``.
 """
 
@@ -59,6 +65,7 @@ from repro_torch.fed.availability import (
     AvailabilityConfig, draw_participants, make_availability,
 )
 from repro_torch.fed.defense import DefenseConfig, UpdateGate
+from repro_torch.fed.hierarchy import EdgeTier, HierarchyConfig
 from repro_torch.optim.optimizers import Optimizer, apply_updates
 from repro_torch.tree import flatten_with_path, tree_leaves, tree_map
 
@@ -68,12 +75,12 @@ Pytree = Any
 @dataclasses.dataclass
 class FedConfig:
     algorithm: str = "tfedavg"          # "fedavg" | "tfedavg"
-    mode: str = "sync"                  # only "sync" is ported
+    mode: str = "sync"                  # "sync" | "async" (buffered, FedBuf-style)
     n_clients: int = 100
     participation: float = 0.1          # λ
     local_epochs: int = 5               # E
     batch_size: int = 64                # B
-    rounds: int = 100
+    rounds: int = 100                   # sync rounds / async aggregations
     fttq: fttq_mod.FTTQConfig = dataclasses.field(default_factory=fttq_mod.FTTQConfig)
     channel: ChannelConfig = dataclasses.field(default_factory=ChannelConfig)
     # per-direction codecs; None → tfedavg ships ternary both ways, fedavg fp32
@@ -85,13 +92,29 @@ class FedConfig:
     agg_chunk_c: int = 16               # clients per fan-in kernel launch
     # True → quantize→pack kernel encode; False → the per-leaf reference
     fused_encode: bool = True
+    # async server: aggregate every K arrivals, K clients in flight
+    # (0 → ⌈λN⌉), arrival weight ∝ (1+staleness)^-α, and the global moves
+    # by (1-η)·global + η·buffer mean
+    buffer_k: int = 4
+    max_concurrency: int = 0
+    staleness_exponent: float = 0.5
+    mixing_rate: float = 1.0
     availability: AvailabilityConfig = dataclasses.field(default_factory=AvailabilityConfig)
+    # the edge tier (n_edges=0 → flat)
+    hierarchy: HierarchyConfig = dataclasses.field(default_factory=HierarchyConfig)
+    # async staleness cap (0 → none): past it an update is dropped ("drop")
+    # or discounted again by the excess ("downweight")
+    max_staleness: int = 0
+    staleness_policy: str = "drop"
+    # async: retune buffer_k after every mix so the time between mixes
+    # tracks target_mix_latency_s (0 → the first mix's latency)
+    adaptive_buffer: bool = False
+    target_mix_latency_s: float = 0.0
     # content defense (None or enabled=False → the undefended ingest path)
     # and seeded attackers (None → every client honest)
     defense: DefenseConfig | None = None
     attack: AttackConfig | None = None
-    # not ported yet: must stay at their defaults
-    hierarchy: Any = None
+    # not ported yet: must stay at its default
     controller: Any = None
 
 
@@ -115,22 +138,17 @@ class FedResult:
 
 
 def _check_ported(cfg: FedConfig) -> None:
-    if cfg.mode != "sync":
-        if cfg.mode == "async":
-            raise NotImplementedError("the async server is not ported yet")
-        raise ValueError(f"unknown federated mode {cfg.mode!r}")
     if cfg.algorithm not in ("fedavg", "tfedavg"):
         raise ValueError(f"unknown algorithm {cfg.algorithm!r}")
-    if cfg.hierarchy is not None and getattr(cfg.hierarchy, "n_edges", 0) > 0:
-        raise NotImplementedError("the hierarchical edge tier is not ported yet")
     if cfg.controller is not None and getattr(cfg.controller, "enabled", True):
         raise NotImplementedError("FedConfig.controller is not ported yet")
 
 
 class PhaseTimer:
-    """Wall seconds per phase of every round. Each phase ends by
-    synchronizing the device, so its time holds the device work it queued;
-    without a timer the server never synchronizes for timing."""
+    """Wall seconds per phase of every round (of every mix, on the async
+    server). Each phase ends by synchronizing the device, so its time holds
+    the device work it queued; without a timer the server never
+    synchronizes for timing."""
 
     def __init__(self, device: str | torch.device = "cuda"):
         self.device = torch.device(device)
@@ -224,6 +242,12 @@ def resolve_compression(cfg: FedConfig) -> CompressionSpec:
     return CompressionSpec.symmetric(kind=kind, fttq=cfg.fttq, fused_encode=cfg.fused_encode)
 
 
+def dequantize_tree(tree: Pytree, device: str | torch.device = "cuda") -> Pytree:
+    """Decode every wire leaf of a decoded update onto ``device``; raw
+    leaves pass."""
+    return decompress_pytree(tree, resolve_device(device))
+
+
 def broadcast_blob(global_params: Pytree, cfg: FedConfig, *,
                    timer: PhaseTimer | None = None) -> bytes:
     """The downstream payload, serialized: T-FedAvg re-quantizes with the
@@ -242,7 +266,7 @@ def broadcast_blob(global_params: Pytree, cfg: FedConfig, *,
 def receive_broadcast(blob: bytes, device: str | torch.device = "cuda") -> Pytree:
     """Client side of CONFIGURATION: decode the buffer and dequantize onto
     ``device``; every recipient of the same buffer shares the result."""
-    return decompress_pytree(decode_update(blob), resolve_device(device))
+    return dequantize_tree(decode_update(blob), device)
 
 
 def train_client(client: ClientDataset, start_params: Pytree, cfg: FedConfig,
@@ -306,8 +330,12 @@ def run_federated_sync(
     avail = make_availability(cfg.availability, len(clients), seed=cfg.seed)
     deadline = cfg.channel.deadline_s if cfg.channel.deadline_s > 0 else float("inf")
     rule, trim_frac = resolve_rule(cfg)
+    # the edge tier lives across rounds: its plans and byte ledger persist
+    tier = (EdgeTier(cfg.hierarchy, cfg.fttq, len(clients), fused_encode=cfg.fused_encode,
+                     device=dev, rule=rule, trim_frac=trim_frac)
+            if cfg.hierarchy.enabled else None)
     agg = (Aggregator(chunk_c=cfg.agg_chunk_c, device=dev, rule=rule, trim_frac=trim_frac)
-           if cfg.fused_aggregation else None)
+           if cfg.fused_aggregation and tier is None else None)
     # the seeded attacker cohort, and a gate that lives across rounds so its
     # scale history warms up
     attackers = (attacker_ids(cfg.attack, len(clients)) if cfg.attack is not None
@@ -394,6 +422,8 @@ def run_federated_sync(
                         accepted.append((total, k, up_blob))
                     else:
                         up_bytes += len(up_blob)
+                        if tier is not None:
+                            tier.note_quarantined(len(up_blob))
                 survivors = accepted
 
         # ---- aggregation (the server decodes the real upload buffers) ---
@@ -401,6 +431,14 @@ def run_federated_sync(
             if not survivors:
                 # every survivor was quarantined: hold the model this round
                 pass
+            elif tier is not None:
+                # survivors fan into their edges; each edge ships one record
+                # to the root, and that hop is booked as upload
+                for _, k, up_blob in survivors:
+                    up_bytes += len(up_blob)
+                    tier.add(k, up_blob, weight=len(clients[k]))
+                global_params, fold_info = tier.fold()
+                up_bytes += fold_info["edge_to_root_bytes"]
             elif agg is not None:
                 for _, k, up_blob in survivors:
                     up_bytes += len(up_blob)
@@ -437,6 +475,8 @@ def run_federated_sync(
         # every survivor byte presented to the gate was ingested or quarantined
         telemetry["defense"]["ledger_balanced"] = (
             gated_bytes == gate.passed_bytes + gate.quarantined_bytes)
+    if tier is not None:
+        telemetry["hierarchy"] = tier.telemetry()
     return FedResult(
         accuracy=acc_hist, loss=loss_hist, upload_bytes=up_bytes,
         download_bytes=down_bytes, rounds_run=cfg.rounds,
@@ -450,8 +490,15 @@ def run_federated(apply_fn: Callable, global_params: Pytree, clients: list[Clien
                   eval_fn: Callable[[Pytree], tuple[float, float]], *,
                   eval_every: int = 10, device: str | torch.device = "cuda",
                   timer: PhaseTimer | None = None) -> FedResult:
-    """Unified entry point, dispatching on ``cfg.mode`` ("sync" only here;
-    "async", with or without a defense or attackers, raises
-    ``NotImplementedError``)."""
+    """Unified entry point, dispatching on ``cfg.mode``: "sync" runs
+    Algorithm 2's round-synchronous server (this module), "async" the
+    buffered-asynchronous one (``fed.async_server``)."""
+    if cfg.mode == "async":
+        from repro_torch.fed.async_server import run_federated_async
+
+        return run_federated_async(apply_fn, global_params, clients, cfg, optimizer, eval_fn,
+                                   eval_every=eval_every, device=device, timer=timer)
+    if cfg.mode != "sync":
+        raise ValueError(f"unknown federated mode {cfg.mode!r}")
     return run_federated_sync(apply_fn, global_params, clients, cfg, optimizer, eval_fn,
                               eval_every=eval_every, device=device, timer=timer)

@@ -1,9 +1,11 @@
 """FedAvg vs T-FedAvg on a synthetic stand-in for MNIST or CIFAR-10, with
 accuracy and communication measured from the real serialized wire buffers
 and simulated transfer times from the channel model (port of
-``examples/federated_training.py``, sync server).
+``examples/federated_training.py``). ``--mode async`` runs the
+buffered-asynchronous server.
 
     PYTHONPATH=src python -m repro_torch.launch.federated --device cpu --model mlp --rounds 2
+    PYTHONPATH=src python -m repro_torch.launch.federated --device cpu --mode async --buffer-k 3
     PYTHONPATH=src python -m repro_torch.launch.federated --model resnet --rounds 2
     PYTHONPATH=src python -m repro_torch.launch.federated --deadline 0.3 --bandwidth-mbps 2
 
@@ -54,7 +56,9 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", choices=tuple(MODELS), default="mlp")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--mode", choices=("sync",), default="sync")
+    ap.add_argument("--mode", choices=("sync", "async"), default="sync")
+    ap.add_argument("--buffer-k", type=int, default=4,
+                    help="async: aggregate every K arrivals")
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--clients", type=int, default=10)
     ap.add_argument("--participation", type=float, default=1.0)
@@ -68,7 +72,14 @@ def main(argv=None) -> dict:
                     default="always_on")
     ap.add_argument("--loss-rate", type=float, default=0.0,
                     help="per-chunk packet loss probability")
+    ap.add_argument("--max-staleness", type=int, default=0,
+                    help="async: drop updates staler than this (0 = no cap)")
+    ap.add_argument("--adaptive-buffer", action="store_true",
+                    help="async: retune buffer_k from the arrival rate")
     args = ap.parse_args(argv)
+    if args.mode == "async" and args.deadline > 0:
+        ap.error("--deadline applies to --mode sync only "
+                 "(the async server never blocks on a round barrier)")
     dev = resolve_device(args.device)
 
     init_fn, apply_fn, dim, image_hw = MODELS[args.model]
@@ -92,6 +103,8 @@ def main(argv=None) -> dict:
         cfg = FedConfig(algorithm=algo, mode=args.mode, n_clients=args.clients,
                         participation=args.participation, local_epochs=2, batch_size=32,
                         rounds=args.rounds, fttq=FTTQConfig(), channel=chan,
+                        buffer_k=args.buffer_k, max_staleness=args.max_staleness,
+                        adaptive_buffer=args.adaptive_buffer,
                         availability=AvailabilityConfig(kind=args.availability))
         res = run_federated(apply_fn, params, clients, cfg, adam(1e-3), eval_fn,
                             eval_every=args.rounds, device=dev)
@@ -104,10 +117,14 @@ def main(argv=None) -> dict:
             print(f"{'':10s} stragglers dropped per round: {res.dropped_per_round}")
         tel = res.telemetry
         if tel.get("retrans_bytes") or tel.get("dropped_updates"):
+            # sync drops stragglers at the deadline, async over-stale arrivals
+            what = "stale" if args.mode == "async" else "straggler"
             print(f"{'':10s} scenario: retrans {tel.get('retrans_bytes', 0) / 1e3:.1f}kB "
-                  f"(goodput {tel.get('goodput_fraction', 1.0):.3f}), straggler-dropped "
+                  f"(goodput {tel.get('goodput_fraction', 1.0):.3f}), {what}-dropped "
                   f"{tel.get('dropped_updates', 0)} "
                   f"({tel.get('dropped_update_bytes', 0) / 1e3:.1f}kB wasted)")
+        if args.adaptive_buffer and tel.get("buffer_k_per_agg"):
+            print(f"{'':10s} buffer_k trajectory: {tel['buffer_k_per_agg']}")
     r = results["fedavg"].upload_bytes / results["tfedavg"].upload_bytes
     t = results["fedavg"].total_time_s / max(results["tfedavg"].total_time_s, 1e-9)
     print(f"\ncommunication compression: {r:.1f}x  wall-clock speedup: {t:.1f}x  "

@@ -10,12 +10,14 @@ runs on a machine without JAX:
 import pytest
 import torch
 
-from repro_torch.comm.wire import encode_update
+from repro_torch.comm.wire import decode_update_leaves, encode_update
 from repro_torch.core.encode import leaf_scalars, segment_scalars
 from repro_torch.core.fttq import FTTQConfig, init_wq_tree
-from repro_torch.core.ternary import TernaryTensor, packed_nbytes
+from repro_torch.core.ternary import TernaryTensor, encode_ternary, packed_nbytes
 from repro_torch.core.tfedavg import client_update_payload, server_requantize
+from repro_torch.fed import hierarchy
 from repro_torch.fed.aggregator import Aggregator
+from repro_torch.fed.hierarchy import EdgeTier, HierarchyConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.aggregate import (
     LANES, fanin_table, packed_weighted_sum, packed_weighted_sum_plain,
@@ -498,6 +500,141 @@ def test_aggregator_five_flushes_equal_the_cpu(cuda_device, rule):
     for (pa, a), (pb, b) in zip(*outs):
         assert pa == pb
         assert torch.equal(a, b.cpu()), pa
+
+
+def _dyadic_blobs(n: int, raw_at: tuple = ()) -> list:
+    """Uploads whose every product and sum is exact in fp32: ternary leaves
+    with power-of-two scales (one flat, one stacked with a scale per layer)
+    and integer-valued raw leaves; the clients in ``raw_at`` ship every
+    leaf raw (a mixed-codec upload)."""
+    gen = torch.Generator().manual_seed(11)
+    blobs = []
+    for i in range(n):
+        flat = torch.randint(0, 3, (16, 12), generator=gen, dtype=torch.int8) - 1
+        stack = torch.randint(0, 3, (3, 8, 12), generator=gen, dtype=torch.int8) - 1
+        w_flat = torch.tensor(2.0 ** -(i % 3))
+        w_stack = (2.0 ** -torch.randint(0, 4, (3, 1, 1), generator=gen)).float()
+        bias = torch.randint(-8, 9, (12,), generator=gen).float()
+        if i in raw_at:
+            tree = {"a": {"w": flat.float() * w_flat}, "b": {"w": stack.float() * w_stack},
+                    "bias": bias}
+        else:
+            tree = {"a": {"w": encode_ternary(flat, w_flat)},
+                    "b": {"w": encode_ternary(stack, w_stack)}, "bias": bias}
+        blobs.append(encode_update(tree))
+    return blobs
+
+
+@pytest.mark.parametrize("rule,blobs_of", [("mean", "resnet"), ("majority", "resnet"),
+                                           ("mean", "mixed")])
+def test_long_lived_aggregator_equals_fresh_ones(cuda_device, rule, blobs_of):
+    """One CUDA aggregator over three finalize(reset=True) mixes, as the
+    async server keeps it, equals a fresh CUDA aggregator per mix and the
+    CPU fold, bit for bit. The mixes have 3, 5 and 2 uploads at chunk_c=2
+    (flushes refill the pinned buffer across mixes); no later mix starts
+    with the upload that planned the table, and in the mixed case the
+    second mix starts with a raw upload whose leaves the table planned as
+    fused, while its fresh aggregator plans them raw."""
+    if blobs_of == "resnet":
+        blobs = _resnet_blobs(10)
+        weights = [100 + 7 * i for i in range(10)]
+    else:
+        blobs = _dyadic_blobs(10, raw_at=(3, 8))
+        weights = [1 + i % 4 for i in range(10)]
+    mixes = [[0, 1, 2], [3, 4, 5, 6, 7], [8, 9]]
+    counter = packed_weighted_sum if rule == "mean" else packed_vote_counts
+    kept = Aggregator(chunk_c=2, device=cuda_device, rule=rule)
+    for mix in mixes:
+        before = counter.launches
+        for i in mix:
+            kept.add(blobs[i], weights[i])
+        got = kept.finalize(reset=True)
+        torch.cuda.synchronize()
+        assert counter.launches - before == -(-len(mix) // 2)
+        assert kept.n_clients == 0
+        for dev in (cuda_device, "cpu"):
+            fresh = Aggregator(chunk_c=2, device=dev, rule=rule)
+            for i in mix:
+                fresh.add(blobs[i], weights[i])
+            want = flatten_with_path(fresh.finalize())
+            for (pa, a), (pb, b) in zip(flatten_with_path(got), want):
+                assert pa == pb
+                assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu()), (mix, dev, pa)
+    assert kept._staging.is_pinned()
+
+
+def _assert_same_records(got: bytes, want: bytes, scale_rtol: float) -> None:
+    """Two wire blobs hold the same records: raw payloads and ternary codes
+    bit for bit, each ternary scale within ``scale_rtol``."""
+    got_pairs, want_pairs = decode_update_leaves(got), decode_update_leaves(want)
+    assert [p for p, _ in got_pairs] == [p for p, _ in want_pairs]
+    for (path, a), (_, b) in zip(got_pairs, want_pairs):
+        assert type(a) is type(b), path
+        if isinstance(a, TernaryTensor):
+            assert a.shape == b.shape and a.dtype == b.dtype, path
+            assert torch.equal(a.packed, b.packed), path
+            torch.testing.assert_close(a.w_q, b.w_q, rtol=scale_rtol, atol=0)
+        else:
+            assert torch.equal(a, b), path
+
+
+@pytest.mark.parametrize("requantize", [True, False])
+def test_edge_tier_on_the_card_equals_the_cpu(cuda_device, requantize, monkeypatch):
+    """A 3-edge tier over two folds of ResNet18* (width 16) uploads against
+    the CPU tier. Lossless: the upstream blobs byte for byte and the folds
+    bit for bit. Requantizing: the edge means are bit-identical, so the
+    upstream codes are too; each scale comes from tile moments that the
+    card sums in another order than the plain version, so it is held to
+    the encode's rtol 1e-6, and the card's root fold of its own blobs
+    equals the CPU fold of those blobs bit for bit. Per fold one
+    quantize_pack launch per requantizing edge, one aggregate launch per
+    edge, and one at the root when its records are ternary (a lossless root
+    folds raw records without a kernel)."""
+    blobs = _resnet_blobs(12)
+    shipped = []
+
+    def recording_encode(tree):
+        shipped.append(encode_update(tree))
+        return shipped[-1]
+
+    monkeypatch.setattr(hierarchy, "encode_update", recording_encode)
+    tiers = {dev: EdgeTier(HierarchyConfig(n_edges=3, requantize_at_edge=requantize),
+                           FTTQConfig(), 12, device=dev) for dev in ("cpu", cuda_device)}
+    for fold in range(2):
+        clients = range(fold * 6, fold * 6 + 6)
+        outs = {}
+        for dev, tier in tiers.items():
+            for k in clients:
+                tier.add(k, blobs[k], 100 + k, staleness=float(fold))
+            before = (quantize_pack.launches, packed_weighted_sum.launches)
+            shipped.clear()
+            mean, info = tier.fold()
+            torch.cuda.synchronize()
+            outs[dev] = (flatten_with_path(mean), list(shipped), info,
+                         (quantize_pack.launches - before[0],
+                          packed_weighted_sum.launches - before[1]))
+        (want, want_blobs, want_info, _), (got, got_blobs, got_info, launched) = (
+            outs["cpu"], outs[cuda_device])
+        assert got_info == want_info and got_info["edges_active"] == 3
+        assert len(got_blobs) == len(want_blobs) == 3
+        assert launched == ((3, 4) if requantize else (0, 3))
+        if requantize:
+            root = Aggregator(chunk_c=16, device="cpu")
+            for e, blob in enumerate(got_blobs):
+                _assert_same_records(blob, want_blobs[e], scale_rtol=1e-6)
+                weight = 0.0
+                for k in clients:
+                    if k % 3 == e:
+                        weight += float(100 + k)
+                root.add(blob, weight)
+            want = flatten_with_path(root.finalize())
+        else:
+            assert got_blobs == want_blobs
+        for (pa, a), (pb, b) in zip(got, want):
+            assert pa == pb
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b), (fold, pa)
+    assert tiers["cpu"].telemetry() == tiers[cuda_device].telemetry()
+    assert tiers[cuda_device].telemetry()["ledger_balanced"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
