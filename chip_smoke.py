@@ -80,22 +80,36 @@ Phases (any failure exits non-zero; no phase is skipped):
                  aggregate per active edge and at the root); then a lossless
                  tier on the card over the same uploads against a flat card
                  Aggregator;
- 11. quickstart — repro_torch.launch.quickstart on the card, then its own
+ 11. controller — two sync T-FedAvg rounds on ResNet18* at full width with
+                 the adaptive compression controller (20 clients of 500
+                 samples, λ 0.5, E 5, B 64; ControllerConfig(warmup_encodes=1,
+                 divergence_high=1e9): each client's first upload ternary,
+                 every later one topk16 at 5% with error feedback): rungs and
+                 bytes per rung per round (round 0 all ternary, round 1
+                 mixed), bytes by rung summing to the upload bytes, every
+                 topk16 blob under every ternary one, launches (quantize_pack
+                 = ternary uploads + 1 broadcast, aggregate = 1 a round),
+                 each round's card fold against the CPU Aggregator's on the
+                 same blobs bit for bit, each rung's card encode of one
+                 trained tree against the CPU's (wire bytes, residual bits),
+                 and one eager upload encode's ms per rung;
+ 12. quickstart — repro_torch.launch.quickstart on the card, then its own
                  ternary_quantize, pack2bit and unpack2bit outputs against
                  the plain versions on the same inputs, bit for bit;
- 12. fan-in timings — aggregate and vote over one round's fold (52 segments,
+ 13. fan-in timings — aggregate and vote over one round's fold (52 segments,
                  10 clients) in one launch, as a CUDA-graph replay and as an
                  eager Aggregator flush (staging fill, pinned copy, launch),
                  beside the per-segment pattern of 52 launches of 32-row tiles
                  at C = 16, and at 16 clients × 2^26 elements; bytes bounds and
                  plain versions;
- 13. fan-in trace — the aggregate phase of one mean and one majority round
+ 14. fan-in trace — the aggregate phase of one mean and one majority round
                  on the last round's uploads under torch.profiler, with the
                  Aggregator's host ranges (add, stage, copy, launch, finalize);
- 14. fed trace — one round of one client at E = 5, B = 64, timed untraced
+ 15. fed trace — one round of one client at E = 5, B = 64, timed untraced
                  and then run under torch.profiler.
 Before each driven path (serve, federated, robust, async, hierarchy,
-quickstart) every kernel's launch counter is set to 0, and read just after.
+controller, quickstart) every kernel's launch counter is set to 0, and read
+just after.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -198,6 +212,9 @@ STRESS_ELEMENTS = 2 ** 26  # per client: 16 MB of wire codes
 ROBUST_ATTACKERS = 30      # sign-flip attackers of the 100 clients
 ASYNC_MIXES = 3            # buffered mixes of the async server
 HIER_EDGES = 3             # edge aggregators of the hierarchical round
+CTRL_CLIENTS = 20          # the controller rounds' fleet (the paper's 100, cut)
+CTRL_LAMBDA = 0.5          # 10 uploads a round, as the federated phase
+CTRL_ROUNDS = 2
 
 
 def kernel_counters() -> dict:
@@ -1339,6 +1356,212 @@ def hierarchy_phase(dev, setup, **cfg_kw) -> dict:
             "download_bytes": res.download_bytes, "lossless_vs_flat_max_abs": worst}
 
 
+def controller_phase(dev, *, n_clients: int = CTRL_CLIENTS, rounds: int = CTRL_ROUNDS,
+                     samples: int = FED_SAMPLES, n_test: int = FED_TEST, **cfg_kw) -> dict:
+    """Sync T-FedAvg rounds on ResNet18* at full width with the adaptive
+    compression controller: 20 clients of 500 samples, λ 0.5, E 5, B 64,
+    ``ControllerConfig(warmup_encodes=1, divergence_high=1e9)`` — each
+    client's first upload ships ternary, every later one topk16 at 5% with
+    error feedback, so a client drawn in both rounds makes round 1 mix
+    codecs. Checks the rungs, the bytes by rung against the run's upload
+    bytes, every topk16 blob under every ternary one, the launches per
+    round (quantize_pack = ternary uploads + 1 broadcast, aggregate = 1),
+    each round's card fold against the CPU Aggregator fold of the same
+    blobs bit for bit, and each rung's card encode of one trained tree
+    against the CPU's (wire sha256 and residual bits)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch.comm.wire import encode_update
+    from repro_torch.core.compression import CodecSpec, compress_pytree
+    from repro_torch.core.fttq import init_wq_tree
+    from repro_torch.core.tfedavg import client_update_payload
+    from repro_torch.fed import controller as controller_mod
+    from repro_torch.fed import simulation as sim
+    from repro_torch.fed.aggregator import Aggregator
+    from repro_torch.fed.controller import ControllerConfig
+    from repro_torch.kernels.aggregate import packed_weighted_sum
+    from repro_torch.kernels.quantize_pack import quantize_pack
+    from repro_torch.models.paper_models import resnet_cifar
+    from repro_torch.optim import adam
+    from repro_torch.tree import flatten_with_path, tree_map
+
+    clients, params, eval_fn = federated_setup(dev, samples, n_test, n_clients)
+    ctrl_cfg = ControllerConfig(warmup_encodes=1, divergence_high=1e9)
+    cfg = sim.FedConfig(rounds=rounds, n_clients=n_clients, participation=CTRL_LAMBDA,
+                        controller=ctrl_cfg, **cfg_kw)
+    print(f"ResNet18* full width, {n_clients} clients x {len(clients[0])} samples, lambda "
+          f"{cfg.participation}, E {cfg.local_epochs}, B {cfg.batch_size}, adam(1e-3), "
+          f"{rounds} rounds; controller warmup {ctrl_cfg.warmup_encodes}, aggressive rung "
+          f"{ctrl_cfg.aggressive_rung} at {ctrl_cfg.topk_fraction}, error feedback "
+          f"{ctrl_cfg.error_feedback}")
+
+    uploads = []              # (round, client, rung, blob)
+    last = {}                 # the last upload's trained tree and controller
+    plain_payload = controller_mod.CompressionController.client_payload
+
+    def recording_payload(self, client_id, params_k, wq_tree, start_params, **kw):
+        before = dict(self._bytes_by_kind)
+        blob = plain_payload(self, client_id, params_k, wq_tree, start_params, **kw)
+        rung = next(r for r, n in self._bytes_by_kind.items() if n != before.get(r, 0))
+        uploads.append((self._round, int(client_id), rung, blob))
+        last.update(params=params_k, ctrl=self, client=int(client_id))
+        return blob
+
+    class Timer(sim.PhaseTimer):
+        def start_round(self, r):
+            super().start_round(r)
+            self.marks.append((quantize_pack.launches, packed_weighted_sum.launches))
+
+    class Recorder(Aggregator):
+        """The run's one aggregator, keeping each round's adds and fold."""
+
+        def add(self, blob, weight):
+            if self.n_clients == 0:
+                self.seen = []
+            self.seen.append((blob, weight))
+            super().add(blob, weight)
+
+        def finalize(self, *, reset=False):
+            folds.append((list(self.seen), super().finalize(reset=False)))
+            if reset:
+                self.reset()
+            return folds[-1][1]
+
+    folds, recorders = [], []
+
+    def make_recorder(*a, **kw):
+        recorders.append(Recorder(*a, **kw))
+        return recorders[-1]
+
+    timer = Timer(dev)
+    timer.marks = []
+    plain_aggregator = sim.Aggregator
+    sim.Aggregator = make_recorder
+    controller_mod.CompressionController.client_payload = recording_payload
+    try:
+        zero_counters()
+        t0 = time.perf_counter()
+        res = sim.run_federated(resnet_cifar, params, clients, cfg, adam(1e-3), eval_fn,
+                                eval_every=1, device=dev, timer=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+    finally:
+        sim.Aggregator = plain_aggregator
+        controller_mod.CompressionController.client_payload = plain_payload
+    tel = res.telemetry["controller"]
+    marks = timer.marks + [(launches["quantize_pack"], launches["aggregate"])]
+    check(len(recorders) == 1 and len(folds) == rounds, "the run did not fold once a round "
+                                                        "on one aggregator")
+    per_round = []
+    for r in range(rounds):
+        mine = [u for u in uploads if u[0] == r]
+        rungs = {}
+        for _, _, rung, blob in mine:
+            n, b = rungs.get(rung, (0, 0))
+            rungs[rung] = (n + 1, b + len(blob))
+        lq, la = (marks[r + 1][i] - marks[r][i] for i in range(2))
+        w = {k: timer.rounds[r].get(k, 0.0) for k in ("train", "encode", "wire", "aggregate",
+                                                       "requantize")}
+        row = {"round": r, "rungs": {k: v[0] for k, v in rungs.items()},
+               "bytes_by_rung": {k: v[1] for k, v in rungs.items()},
+               "upload_bytes": res.telemetry["upload_bytes_per_round"][r],
+               "download_bytes": res.telemetry["download_bytes_per_round"][r],
+               "sim_s": res.round_times[r], "accuracy": res.accuracy[r], "loss": res.loss[r],
+               "residual_l2": tel["residual_l2_per_round"][r], "wall_s": w,
+               "launches": {"quantize_pack": lq, "aggregate": la}}
+        per_round.append(row)
+        print(f"  round {r}: rungs {row['rungs']}, bytes by rung {row['bytes_by_rung']}, up "
+              f"{row['upload_bytes']} B, down {row['download_bytes']} B, simulated "
+              f"{row['sim_s']:.3f} s; wall: " + ", ".join(f"{k} {v:.3f} s" for k, v in w.items())
+              + f"; residual L2 {row['residual_l2']:.2f}; acc {row['accuracy']:.4f}, loss "
+              f"{row['loss']:.4f}; launches quantize_pack {lq}, aggregate {la}")
+        check(row["rungs"] == tel["rung_counts_per_round"][r],
+              f"round {r}: the recorded rungs differ from the telemetry")
+        check(sum(row["rungs"].values()) == round(cfg.participation * n_clients),
+              f"round {r}: {sum(row['rungs'].values())} uploads")
+        check(lq == row["rungs"].get("ternary", 0) + 1,
+              f"round {r}: quantize_pack launched {lq} times for "
+              f"{row['rungs'].get('ternary', 0)} ternary uploads and 1 broadcast")
+        check(la == 1, f"round {r}: aggregate launched {la} times (want one per round)")
+        check(np.isfinite(row["loss"]) and 0.0 <= row["accuracy"] <= 1.0,
+              f"round {r}: accuracy/loss not finite")
+    check(set(per_round[0]["rungs"]) == {"ternary"}, "round 0 shipped a rung other than ternary")
+    check(set(per_round[-1]["rungs"]) == {"ternary", "topk16"}, "round 1 did not mix codecs")
+    check(sum(tel["bytes_by_kind"].values()) == res.upload_bytes,
+          f"bytes by rung {tel['bytes_by_kind']} do not sum to the upload bytes "
+          f"{res.upload_bytes}")
+    sizes = {rung: sorted(len(b) for _, _, r, b in uploads if r == rung)
+             for rung in ("ternary", "topk16")}
+    print(f"blob sizes: ternary {sizes['ternary'][0]}–{sizes['ternary'][-1]} B, topk16 "
+          f"{sizes['topk16'][0]}–{sizes['topk16'][-1]} B; bytes by rung "
+          f"{tel['bytes_by_kind']}; {rounds} rounds in {wall:.2f} s of wall time")
+    check(sizes["topk16"][-1] < sizes["ternary"][0], "a topk16 blob is not under every ternary "
+                                                     "blob")
+    check(launches["vote"] == 0, "the controller rounds launched vote")
+
+    # each round's card fold against the CPU Aggregator, kept across rounds
+    # as the server keeps its own (the table planned from round 0's first)
+    cpu_agg = Aggregator(chunk_c=cfg.agg_chunk_c, device="cpu")
+    fold_diff = []
+    for r, (blobs, fold) in enumerate(folds):
+        for b, w in blobs:
+            cpu_agg.add(b, w)
+        cpu_fold = dict(flatten_with_path(cpu_agg.finalize(reset=True)))
+        fold_diff.append(sum(int((leaf.cpu() != cpu_fold[p]).sum())
+                             for p, leaf in flatten_with_path(fold)))
+    print(f"card folds vs the CPU Aggregator's on the same blobs: {fold_diff} elements differ")
+    check(fold_diff == [0] * rounds, "a card fold differs from the CPU fold")
+
+    # each rung's encode of one trained tree, card vs CPU, from the
+    # residual the controller keeps for that client
+    trained, ctrl = last["params"], last["ctrl"]
+    residual = ctrl._residual[last["client"]]
+    encode_ms, sha = {}, {}
+    for rung in ("fp16", "bf16", "topk", "topk16"):
+        spec = CodecSpec(kind=rung, topk_fraction=ctrl_cfg.topk_fraction, error_feedback=True)
+        out = {}
+        for where, tree, r0 in (("card", trained, residual),
+                                ("cpu", tree_map(lambda t: t.cpu(), trained),
+                                 tree_map(lambda t: t.cpu(), residual))):
+            wire, new_res = compress_pytree(tree, spec, residual=r0)
+            out[where] = (encode_update(wire), new_res)
+        same_res = all(torch.equal(a.cpu(), b) for (_, a), (_, b) in zip(
+            flatten_with_path(out["card"][1]), flatten_with_path(out["cpu"][1])))
+        sha[rung] = [hashlib.sha256(out[w][0]).hexdigest()[:16] for w in ("card", "cpu")]
+        print(f"  {rung} encode of one trained tree: {len(out['card'][0])} B, sha256 card "
+              f"{sha[rung][0]} cpu {sha[rung][1]}, residual bit-identical: {same_res}")
+        check(out["card"][0] == out["cpu"][0], f"{rung}: the card's wire bytes differ")
+        check(same_res, f"{rung}: the card's residual differs from the CPU's")
+
+    wq = init_wq_tree(trained, cfg.fttq)
+
+    def upload(rung):
+        if rung == "ternary":
+            return encode_update(client_update_payload(trained, wq, cfg.fttq))
+        wire, _ = compress_pytree(trained, CodecSpec(kind=rung, topk_fraction=0.05,
+                                                     error_feedback=True), residual=residual)
+        return encode_update(wire)
+
+    for rung in ("ternary", "fp16", "bf16", "topk", "topk16"):
+        upload(rung)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            upload(rung)
+        torch.cuda.synchronize()
+        encode_ms[rung] = (time.perf_counter() - t0) / 5 * 1e3
+    print("one eager upload encode (codec + wire), ms: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in encode_ms.items()))
+    return {"per_round": per_round, "launches": launches, "wall_s": wall,
+            "bytes_by_kind": tel["bytes_by_kind"], "blob_sizes": {
+                k: [v[0], v[-1]] for k, v in sizes.items()},
+            "fold_vs_cpu_elements": fold_diff, "encode_ms": encode_ms}
+
+
 def ops_timings(layers, served) -> dict:
     """ternary_quantize over the given fp32 layers (olmo-1b's 112, 2^30
     weights) and pack2bit / unpack2bit (to int8) over the served 2^30 codes,
@@ -1785,6 +2008,9 @@ def main() -> int:
     phase("hierarchy: one ResNet18* T-FedAvg sync round through 3 requantizing edges")
     hier = hierarchy_phase(dev, setup)
 
+    phase("controller: ResNet18* sync rounds with the adaptive compression controller")
+    ctrl = controller_phase(dev)
+
     phase("quickstart: repro_torch.launch.quickstart on the card")
     zero_counters()
     qs = quickstart_main(["--device", "cuda"])
@@ -1822,7 +2048,8 @@ def main() -> int:
          "library_ms": None, "old_path_ms": qp_old_ms, "federated": qp_fed,
          "federated_launches": fed["launches"][0],
          "async_launches": asy["launches"]["quantize_pack"],
-         "hierarchy_launches": hier["launches"]["quantize_pack"]},
+         "hierarchy_launches": hier["launches"]["quantize_pack"],
+         "controller_launches": ctrl["launches"]["quantize_pack"]},
         {"name": "ternary_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ternary_matmul.cu",
          "replaces": "src/repro/kernels/ternary_matmul.py:34",
@@ -1843,6 +2070,10 @@ def main() -> int:
          "per_round": fed["per_round"], "phase_trace": fanin_trace_t["mean"],
          "async_launches": asy["launches"]["aggregate"],
          "hierarchy_launches": hier["launches"]["aggregate"],
+         "controller_launches": ctrl["launches"]["aggregate"],
+         "controller": {k: ctrl[k] for k in ("per_round", "wall_s", "bytes_by_kind",
+                                             "blob_sizes", "fold_vs_cpu_elements",
+                                             "encode_ms")},
          "async": {k: asy[k] for k in ("per_mix", "wall_s", "fold_vs_list_max_abs",
                                        "dispatches", "broadcast_versions",
                                        "staleness_hist", "dropped_updates",

@@ -212,3 +212,22 @@ def quantize_tree(params: Any, wq_tree: Any, cfg: FTTQConfig) -> Any:
         return FTTQQuantize.apply(leaf, wq, cfg.t_k)
 
     return tree_map_with_path(one, params)
+
+
+def ternary_stats(params: Any, cfg: FTTQConfig) -> dict:
+    """Diagnostics: the share of parameters quantized, and the share of
+    zero codes among them. The per-leaf zero counts stay on the device and
+    cross to the host in one transfer, summed there as int64."""
+    total = quantized = 0
+    zero_counts = []
+    for path, leaf in flatten_with_path(params):
+        total += leaf.numel()
+        if is_quantizable(path, leaf, cfg):
+            quantized += leaf.numel()
+            theta_s = scale_layer(leaf)
+            delta = fttq_threshold(theta_s, cfg.t_k, cfg.threshold_rule)
+            zero_counts.append(torch.sum(torch.abs(theta_s) <= delta))
+    zeros = int(torch.stack(zero_counts).cpu().sum(dtype=torch.int64)) if zero_counts else 0
+    return {"total_params": total, "quantized_params": quantized,
+            "quantized_fraction": quantized / max(total, 1),
+            "ternary_sparsity": zeros / max(quantized, 1)}

@@ -83,13 +83,44 @@ class TernaryTensor:
         packed = _as_tensor(self.packed, device)
         return unpack2bit(packed, self.n_elements, torch.int8).reshape(self.shape)
 
+    def nbytes_wire(self) -> int:
+        """Packed bytes plus the scale's bytes, from metadata only (a scale
+        on the card is not read); a Python scalar counts as float64."""
+        w = self.w_q
+        if isinstance(w, torch.Tensor):
+            scale_bytes = w.numel() * w.element_size()
+        elif hasattr(w, "dtype") and hasattr(w, "shape"):
+            scale_bytes = int(np.prod(w.shape)) * np.dtype(w.dtype).itemsize
+        else:
+            scale_bytes = np.asarray(w).nbytes
+        packed = self.packed
+        return (packed.numel() if isinstance(packed, torch.Tensor)
+                else int(np.asarray(packed).size)) + scale_bytes
+
     def dequantize(self, device: str | torch.device = "cpu") -> torch.Tensor:
         dt = torch_dtype(self.dtype)
         w_q = _as_tensor(self.w_q, device).to(dt)
         return self.ternary(device).to(dt) * w_q
+
+    def to_bytes(self) -> bytes:
+        """The framed single-tensor wire buffer (``comm.wire.encode_tensor``)."""
+        from repro_torch.comm.wire import encode_tensor
+
+        return encode_tensor(self)
+
+    @classmethod
+    def from_bytes(cls, data: bytes) -> "TernaryTensor":
+        """Inverse of ``to_bytes`` (CRC-checked)."""
+        from repro_torch.comm.wire import decode_tensor
+
+        return decode_tensor(data)
 
 
 def encode_ternary(i_t: torch.Tensor, w_q, dtype: str = "float32") -> TernaryTensor:
     """Wrap ternary codes + scale into wire format."""
     return TernaryTensor(packed=pack2bit(i_t), w_q=w_q,
                          shape=tuple(i_t.shape), dtype=dtype)
+
+
+def decode_ternary(t: TernaryTensor, device: str | torch.device = "cpu") -> torch.Tensor:
+    return t.dequantize(device)

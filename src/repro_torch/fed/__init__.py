@@ -1,7 +1,8 @@
 """Federated runtime (port of ``repro.fed``): the synchronous and the
 buffered-asynchronous T-FedAvg / FedAvg servers, the edge→root tier, the
 streaming fan-in aggregator with its robust rules, the content defense
-gate, seeded attackers, client availability and the event queue."""
+gate, seeded attackers, client availability, the event queue and the
+adaptive compression controller."""
 
 from repro_torch.fed.aggregator import AGG_RULES, Aggregator
 from repro_torch.fed.attackers import ATTACKS, AttackConfig, attacker_ids, poison_blob
@@ -14,6 +15,12 @@ from repro_torch.fed.availability import (
     make_availability,
 )
 from repro_torch.fed.async_server import run_federated_async
+from repro_torch.fed.controller import (
+    CompressionController,
+    ControllerConfig,
+    FleetCohortController,
+    make_controller,
+)
 from repro_torch.fed.defense import DefenseConfig, UpdateGate, Verdict
 from repro_torch.fed.fleet import EventHeap
 from repro_torch.fed.hierarchy import EdgeTier, HierarchyConfig, edge_of, edges_of
@@ -26,4 +33,5 @@ __all__ = [
     "TraceReplay", "make_availability",
     "AGG_RULES", "ATTACKS", "AttackConfig", "attacker_ids", "poison_blob",
     "DefenseConfig", "UpdateGate", "Verdict",
+    "CompressionController", "ControllerConfig", "FleetCohortController", "make_controller",
 ]

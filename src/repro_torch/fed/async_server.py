@@ -60,7 +60,8 @@ from repro_torch.fed.fleet import EventHeap
 from repro_torch.fed.hierarchy import EdgeTier
 from repro_torch.fed.simulation import (
     FedConfig, FedResult, PhaseTimer, _check_ported, _make_local_steps, _phase, _rebuild,
-    broadcast_blob, dequantize_tree, receive_broadcast, resolve_rule, train_client,
+    broadcast_blob, dequantize_tree, make_run_controller, receive_broadcast, resolve_rule,
+    train_client,
 )
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.tree import tree_leaves
@@ -152,6 +153,8 @@ def run_federated_async(
                  else frozenset())
     gate = (UpdateGate(cfg.defense, global_params)
             if cfg.defense is not None and cfg.defense.enabled else None)
+    # the controller's encodes are bucketed by the version they trained from
+    ctrl = make_run_controller(cfg, rule)
     arrived_bytes = 0             # client-hop bytes presented to the gate
     n_buffered = 0
     acc_hist, loss_hist = [], []
@@ -183,8 +186,10 @@ def run_federated_async(
         nonlocal down_bytes
         blob, start_params = current_broadcast()
         down_bytes += len(blob)
+        if ctrl is not None:
+            ctrl.note_round(version)
         up_blob = train_client(clients[k], start_params, cfg, optimizer, fp_step, qat_step,
-                               rng, device=dev, timer=timer)
+                               rng, controller=ctrl, client_id=k, device=dev, timer=timer)
         if k in attackers:
             # colluders key their rng on the version they trained from
             with _phase(timer, "attack"):
@@ -193,6 +198,8 @@ def run_federated_async(
         t_comp = channel.compute_time(k, len(clients[k]) * cfg.local_epochs)
         t_up = channel.transfer_timed(k, len(up_blob), t0 + t_down + t_comp, "up",
                                       now_s=clock)
+        if ctrl is not None:
+            ctrl.observe_upload(k, len(up_blob), t_up)
         events.push(t0 + (t_down + t_comp + t_up), (k, up_blob, version))
 
     def refill(now: float) -> None:
@@ -312,6 +319,8 @@ def run_federated_async(
         "goodput_fraction": summary.get("goodput_fraction", 1.0),
         "availability": cfg.availability.kind,
     }
+    if ctrl is not None:
+        telemetry["controller"] = ctrl.telemetry()
     if gate is not None:
         telemetry["defense"] = gate.telemetry()
         # every arrived byte passed the gate (then was ingested or dropped

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.comm.wire import decode_update_leaves, encode_update, tree_from_records
+from repro_torch.core.compression import DowncastTensor, TopKTensor
 from repro_torch.core.ternary import TernaryTensor
 from repro_torch.dtypes import to_numpy
 
@@ -104,9 +105,22 @@ def _poison_leaf(leaf, kind: str, blowup: float, rng: np.random.Generator):
             w_q = torch.full_like(w_q, float("nan"))
         return TernaryTensor(packed=torch.from_numpy(packed), w_q=w_q,
                              shape=tuple(leaf.shape), dtype=leaf.dtype)
-    if leaf.is_floating_point():
-        return _poison_float(leaf, kind, blowup, rng)
-    return leaf   # integer leaves (step counters) ride through untouched
+    # a payload is poisoned where the reference's numpy counts it as
+    # floating: bfloat16 is not (ROADMAP Queue 3), integers never are
+    if isinstance(leaf, TopKTensor):
+        return TopKTensor(indices=leaf.indices, values=_poison_payload(
+            leaf.values, kind, blowup, rng), shape=tuple(leaf.shape), dtype=leaf.dtype)
+    if isinstance(leaf, DowncastTensor):
+        return DowncastTensor(data=_poison_payload(leaf.data, kind, blowup, rng),
+                              orig_dtype=leaf.orig_dtype)
+    return _poison_payload(leaf, kind, blowup, rng)
+
+
+def _poison_payload(t: torch.Tensor, kind: str, blowup: float,
+                    rng: np.random.Generator) -> torch.Tensor:
+    if t.is_floating_point() and t.dtype != torch.bfloat16:
+        return _poison_float(t, kind, blowup, rng)
+    return t
 
 
 def poison_blob(blob: bytes, cfg: AttackConfig, client_id: int, round_idx: int = 0) -> bytes:

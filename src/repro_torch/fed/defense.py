@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.comm.wire import WireError, decode_update_leaves, tree_leaf_paths
+from repro_torch.core.compression import DowncastTensor, TopKTensor
 from repro_torch.core.ternary import TernaryTensor
 from repro_torch.dtypes import dtype_name, to_numpy
 from repro_torch.fed.aggregator import AGG_RULES
@@ -90,8 +91,10 @@ class Verdict:
 def _leaf_signature(leaf: Any) -> tuple[tuple, str]:
     """(logical shape, wire dtype name) of a wire or dense leaf, from
     metadata only (a leaf on the card is not read)."""
-    if isinstance(leaf, TernaryTensor):
+    if isinstance(leaf, (TernaryTensor, TopKTensor)):
         return tuple(int(s) for s in leaf.shape), str(leaf.dtype)
+    if isinstance(leaf, DowncastTensor):
+        return tuple(leaf.data.shape), str(leaf.orig_dtype)
     if isinstance(leaf, torch.Tensor):
         return tuple(leaf.shape), dtype_name(leaf.dtype)
     arr = np.asarray(leaf)
@@ -144,10 +147,14 @@ class UpdateGate:
                     return v
                 if _HAS_CODE3[to_numpy(leaf.packed)].any():
                     return Verdict(False, "code_plane", path)
-            elif leaf.dtype != torch.bfloat16:
+            else:
+                payload = (leaf.data if isinstance(leaf, DowncastTensor)
+                           else leaf.values if isinstance(leaf, TopKTensor) else leaf)
                 # the reference's np.floating test passes bfloat16 payloads
                 # unchecked; the port gives the same verdicts (ROADMAP Queue 3)
-                payload = _host_floats(leaf)
+                if payload.dtype == torch.bfloat16:
+                    continue
+                payload = _host_floats(payload)
                 if (np.issubdtype(payload.dtype, np.floating)
                         and not np.all(np.isfinite(payload))):
                     return Verdict(False, "payload_nonfinite", path)

@@ -33,10 +33,14 @@ Hierarchy: with ``cfg.hierarchy.n_edges > 0`` the survivors fan into
 regional edges (``fed.hierarchy.EdgeTier``, alive across rounds), each
 shipping one record to the root; that edge→root hop is booked as upload.
 
+Adaptive compression: with ``cfg.controller`` (``fed.controller``) each
+upload's codec is chosen per client and the dropped mass is carried by
+error feedback; a round may then mix codecs, which only rule "mean"
+aggregates. ``controller=None`` constructs nothing: the run is the static
+codec path byte for byte.
+
 ``run_federated`` dispatches on ``cfg.mode``: "sync" is this server,
-"async" the buffered-asynchronous one in ``fed.async_server``. The
-adaptive compression controller waits for its slice; asking for it raises
-``NotImplementedError``.
+"async" the buffered-asynchronous one in ``fed.async_server``.
 """
 
 from __future__ import annotations
@@ -63,6 +67,9 @@ from repro_torch.fed.aggregator import Aggregator
 from repro_torch.fed.attackers import AttackConfig, attacker_ids, poison_blob
 from repro_torch.fed.availability import (
     AvailabilityConfig, draw_participants, make_availability,
+)
+from repro_torch.fed.controller import (
+    CompressionController, ControllerConfig, make_controller,
 )
 from repro_torch.fed.defense import DefenseConfig, UpdateGate
 from repro_torch.fed.hierarchy import EdgeTier, HierarchyConfig
@@ -114,8 +121,9 @@ class FedConfig:
     # and seeded attackers (None → every client honest)
     defense: DefenseConfig | None = None
     attack: AttackConfig | None = None
-    # not ported yet: must stay at its default
-    controller: Any = None
+    # adaptive per-client compression (None or enabled=False → the static
+    # codec path, bit for bit)
+    controller: ControllerConfig | None = None
 
 
 @dataclasses.dataclass
@@ -140,8 +148,16 @@ class FedResult:
 def _check_ported(cfg: FedConfig) -> None:
     if cfg.algorithm not in ("fedavg", "tfedavg"):
         raise ValueError(f"unknown algorithm {cfg.algorithm!r}")
-    if cfg.controller is not None and getattr(cfg.controller, "enabled", True):
-        raise NotImplementedError("FedConfig.controller is not ported yet")
+
+
+def make_run_controller(cfg: FedConfig, rule: str) -> CompressionController | None:
+    """The run's controller, or None; a mixed-codec round has no robust
+    decomposition, so a controller needs rule "mean"."""
+    ctrl = make_controller(cfg)
+    if ctrl is not None and rule != "mean":
+        raise ValueError("adaptive compression requires aggregation rule 'mean': "
+                         "mixed-codec rounds have no robust-vote decomposition")
+    return ctrl
 
 
 class PhaseTimer:
@@ -271,10 +287,13 @@ def receive_broadcast(blob: bytes, device: str | torch.device = "cuda") -> Pytre
 
 def train_client(client: ClientDataset, start_params: Pytree, cfg: FedConfig,
                  optimizer: Optimizer, fp_step, qat_step, rng: np.random.Generator,
-                 *, device: str | torch.device = "cuda",
+                 *, controller: CompressionController | None = None, client_id: int = -1,
+                 device: str | torch.device = "cuda",
                  timer: PhaseTimer | None = None) -> bytes:
     """One client's round: train from the decoded broadcast, then
-    serialize the upload through the upstream codec spec."""
+    serialize the upload through the upstream codec spec, or with a
+    ``controller`` through its rung for ``client_id`` and error feedback
+    (the training is the same either way)."""
     dev = resolve_device(device)
     spec = resolve_compression(cfg).upstream
     with _phase(timer, "train"):
@@ -292,6 +311,10 @@ def train_client(client: ClientDataset, start_params: Pytree, cfg: FedConfig,
             for sel in batches:
                 idx = torch.from_numpy(sel).to(dev)
                 params_k, opt_state, _ = fp_step(params_k, opt_state, x[idx], y[idx])
+    if controller is not None:
+        return controller.client_payload(
+            client_id, params_k, wq if cfg.algorithm == "tfedavg" else None, start_params,
+            timer=timer)
     with _phase(timer, "encode"):
         if cfg.algorithm == "tfedavg":
             payload = client_update_payload(params_k, wq, cfg.fttq, fused=spec.fused_encode)
@@ -343,6 +366,7 @@ def run_federated_sync(
     gate = (UpdateGate(cfg.defense, global_params)
             if cfg.defense is not None and cfg.defense.enabled else None)
     gated_bytes = 0            # survivor bytes presented to the gate
+    ctrl = make_run_controller(cfg, rule)
 
     up_bytes = 0
     down_bytes = 0
@@ -356,6 +380,8 @@ def run_federated_sync(
     for r in range(cfg.rounds):
         if timer is not None:
             timer.start_round(r)
+        if ctrl is not None:
+            ctrl.note_round(r)
         round_up0, round_down0 = up_bytes, down_bytes
         # ---- selection (from the clients online right now) --------------
         wait_s = 0.0
@@ -389,12 +415,16 @@ def run_federated_sync(
             if pt > deadline and arrivals:
                 continue
             up_blob = train_client(clients[k], start_params, cfg, optimizer, fp_step,
-                                   qat_step, rng, device=dev, timer=timer)
+                                   qat_step, rng, controller=ctrl, client_id=k, device=dev,
+                                   timer=timer)
             if k in attackers:
                 # decode → poison → re-encode: the frame stays wire-valid
                 with _phase(timer, "attack"):
                     up_blob = poison_blob(up_blob, cfg.attack, k, round_idx=r)
             t_up = channel.transfer(k, len(up_blob), "up")
+            if ctrl is not None:
+                # the channel's metered view: bytes over seconds with retransmissions
+                ctrl.observe_upload(k, len(up_blob), t_up)
             arrivals.append((pt + t_up, k, up_blob))
 
         # ---- stragglers: emergent from the channel ----------------------
@@ -470,6 +500,8 @@ def run_federated_sync(
         "upload_bytes_per_round": up_per_round,
         "download_bytes_per_round": down_per_round,
     }
+    if ctrl is not None:
+        telemetry["controller"] = ctrl.telemetry()
     if gate is not None:
         telemetry["defense"] = gate.telemetry()
         # every survivor byte presented to the gate was ingested or quarantined

@@ -162,17 +162,28 @@ def test_sync_round_reference_paths_match_reference(mlp_setup):
 
 
 def test_unported_options_raise(mlp_setup):
-    """Only the adaptive compression controller is still unported, on both
-    servers."""
+    """The adaptive compression controller is ported; a mixed-codec round
+    has no robust decomposition, so with a controller a robust rule raises
+    ``ValueError`` on both servers, as the reference's does."""
+    from repro.fed import ControllerConfig as JControllerConfig
+    from repro.fed.defense import DefenseConfig as JDefenseConfig
+    from repro_torch.fed import ControllerConfig, DefenseConfig
+
     x, y, xt, yt, jparams = mlp_setup
     params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
     clients = partition_iid(x, y, 6)
     eval_fn = make_eval_fn(mlp_mnist, xt, yt, torch.device("cpu"))
     for mode in ("sync", "async"):
-        with pytest.raises(NotImplementedError, match="controller"):
+        with pytest.raises(ValueError, match="adaptive compression requires"):
             run_federated(mlp_mnist, params, clients,
-                          FedConfig(mode=mode, controller=object()), adam(1e-3), eval_fn,
-                          device="cpu")
+                          FedConfig(mode=mode, controller=ControllerConfig(),
+                                    defense=DefenseConfig(enabled=True, rule="majority")),
+                          adam(1e-3), eval_fn, device="cpu")
+        with pytest.raises(ValueError, match="adaptive compression requires"):
+            jrun_federated(jmlp, jparams, jpartition_iid(x, y, 6),
+                           JFedConfig(mode=mode, controller=JControllerConfig(),
+                                      defense=JDefenseConfig(enabled=True, rule="majority")),
+                           jadam(1e-3), _jax_eval(xt, yt))
 
 
 def test_federated_cli_raises_without_a_card(monkeypatch):

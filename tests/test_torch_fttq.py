@@ -139,3 +139,20 @@ def test_fttq_quantize_whole_leaf_backward():
     assert set(i_t.unique().tolist()) <= {-1.0, 0.0, 1.0}
     torch.testing.assert_close(w.grad, (g * i_t).sum())
     torch.testing.assert_close(theta.grad, torch.where(i_t != 0, g * 0.5, g))
+
+
+@pytest.mark.parametrize("rule", ["mean", "max"])
+def test_ternary_stats_matches_reference(rule):
+    """Parameter counts exact; the zero-code share within one code per
+    leaf (Δ comes from a mean summed in another order than XLA's)."""
+    np_tree = _tree(3)
+    cfg, jcfg = fttq.FTTQConfig(threshold_rule=rule), jfttq.FTTQConfig(threshold_rule=rule)
+    ref = jfttq.ternary_stats(jax.tree_util.tree_map(jnp.asarray, np_tree), jcfg)
+    got = fttq.ternary_stats(jax.tree_util.tree_map(torch.from_numpy, np_tree), cfg)
+    assert got.keys() == ref.keys()
+    for key in ("total_params", "quantized_params", "quantized_fraction"):
+        assert got[key] == ref[key], key
+    assert abs(got["ternary_sparsity"] - ref["ternary_sparsity"]) * got["quantized_params"] <= 3
+    assert 0.0 < got["ternary_sparsity"] < 1.0
+    assert fttq.ternary_stats({"norm": {"scale": torch.ones(3)}}, cfg) == jfttq.ternary_stats(
+        {"norm": {"scale": jnp.ones(3)}}, jcfg)

@@ -690,3 +690,114 @@ def test_ops_kernels_reject_what_they_cannot_take(cuda_device):
     with pytest.raises(ValueError):
         packed_vote_counts(torch.zeros(2, 32, LANES, dtype=torch.uint8, device=cuda_device),
                            torch.ones(2))
+
+
+# --------------------------------------------------------------------------
+# The codec registry, the controller and mixed-codec folds on the card.
+# --------------------------------------------------------------------------
+
+
+def _codec_tree(device) -> dict:
+    """A weight with top-k ties (zeros, −0.0, repeated magnitudes), a bias
+    and a norm scale, from a seeded CPU generator."""
+    gen = torch.Generator().manual_seed(0)
+    w = torch.randn(96, 48, generator=gen)
+    w[0, :6], w[1, :4], w[2, :3], w[3, :3] = 0.0, -0.0, 0.5, -0.5
+    tree = {"layer": {"w": w, "bias": 0.1 * torch.randn(48, generator=gen)},
+            "norm_scale": torch.arange(8.0) / 8.0}
+    return {"layer": {k: v.to(device) for k, v in tree["layer"].items()},
+            "norm_scale": tree["norm_scale"].to(device)}
+
+
+@pytest.mark.parametrize("kind", ["fp16", "bf16", "topk", "topk16"])
+def test_codec_on_the_card_equals_the_cpu(cuda_device, kind):
+    """Three error-feedback encodes on the card and on the CPU: the same
+    wire bytes and bit-identical residuals, top-k ties included."""
+    from repro_torch.core.compression import CodecSpec, compress_pytree
+
+    spec = CodecSpec(kind=kind, residual="fp16" if kind != "fp16" else "topk",
+                     topk_fraction=0.1, error_feedback=True)
+    trees = {dev: _codec_tree(dev) for dev in ("cpu", cuda_device)}
+    res = {dev: None for dev in trees}
+    for step in range(3):
+        blobs = {}
+        for dev, tree in trees.items():
+            wire, res[dev] = compress_pytree(tree, spec, residual=res[dev])
+            blobs[dev] = encode_update(wire)
+        assert blobs["cpu"] == blobs[cuda_device], (kind, step)
+        for (pa, a), (_, b) in zip(flatten_with_path(res["cpu"]),
+                                   flatten_with_path(res[cuda_device])):
+            assert b.device.type == "cuda" and torch.equal(a, b.cpu()), (kind, step, pa)
+
+
+def test_narrow_on_the_card_writes_the_cpu_bits(cuda_device):
+    """fp16 and bf16 downcasts at subnormals, overflow, ties and on NaNs
+    with payloads and signs: the card writes the CPU's (XLA's) bits."""
+    from repro_torch.core.compression import narrow
+
+    vals = torch.tensor([6e-8, -6e-8, 6.1e-5, 3e-8, 65504.0, 65519.99, 65520.0, -65520.0,
+                         1e-40, 0.0, -0.0, float("inf"), float("-inf"), 1.0 + 2 ** -8,
+                         1.0 + 3 * 2 ** -8, 1.0 + 2 ** -11, 3.0e38])
+    nans = torch.tensor([0x7FC00000, -0x00400000, 0x7F800001, 0x7FA00000, -0x005FFFFF],
+                        dtype=torch.int32).view(torch.float32)
+    x = torch.cat([vals, nans, torch.randn(100_000, generator=torch.Generator().manual_seed(1))])
+    for dtype in (torch.float16, torch.bfloat16):
+        want = narrow(x, dtype).view(torch.int16)
+        got = narrow(x.to(cuda_device), dtype).view(torch.int16).cpu()
+        assert torch.equal(got, want), dtype
+
+
+def _controller_run(device, mode: str):
+    from repro_torch.data.federated import partition_iid
+    from repro_torch.data.synthetic import synthetic_classification
+    from repro_torch.fed import ControllerConfig, FedConfig, run_federated
+    from repro_torch.models.paper_models import init_mlp_mnist, mlp_mnist
+    from repro_torch.optim import adam
+
+    x, y, _, _ = synthetic_classification(0, 360, 10, 784, noise=3.0, n_test=10)
+    cfg = FedConfig(mode=mode, n_clients=6, participation=0.5, local_epochs=1, batch_size=16,
+                    rounds=3, seed=3, controller=ControllerConfig(
+                        warmup_encodes=1, divergence_high=1e9, slow_factor=0.0))
+    return run_federated(mlp_mnist, init_mlp_mnist(seed=1, device=device),
+                         partition_iid(x, y, 6), cfg, adam(1e-3), lambda p: (0.0, 0.0),
+                         eval_every=3, device=device)
+
+
+@pytest.mark.parametrize("mode", ["sync", "async"])
+def test_controller_run_on_the_card_equals_the_cpu(cuda_device, mode):
+    """An MLP controller run on the card and on the CPU: the same rungs
+    per round, bytes by rung, bytes up and down and simulated times (a
+    top-k upload's size depends only on which indices make the cut)."""
+    cpu, card = _controller_run("cpu", mode), _controller_run(cuda_device, mode)
+    a, b = cpu.telemetry["controller"], card.telemetry["controller"]
+    assert b["rung_counts_per_round"] == a["rung_counts_per_round"]
+    assert b["bytes_by_kind"] == a["bytes_by_kind"] and "topk16" in b["bytes_by_kind"]
+    assert (card.upload_bytes, card.download_bytes) == (cpu.upload_bytes, cpu.download_bytes)
+    assert card.round_times == cpu.round_times
+
+
+@pytest.mark.parametrize("kinds", [("ternary", "topk16", "ternary", "fp16"),
+                                   ("topk16", "ternary", "ternary", "bf16")])
+def test_mixed_codec_aggregator_on_the_card_equals_the_cpu(cuda_device, kinds):
+    """Mixed-codec uploads in both orders (the table planned from a ternary
+    or from a top-k upload): the card's fold equals the CPU's bit for bit."""
+    from repro_torch.core.compression import CodecSpec, compress_pytree
+
+    blobs = []
+    for i, kind in enumerate(kinds):
+        tree = init_resnet_cifar(seed=i, width=16, device="cpu")
+        wire, _ = compress_pytree(tree, CodecSpec(kind=kind, topk_fraction=0.05))
+        blobs.append(encode_update(wire))
+    outs = []
+    for dev in ("cpu", cuda_device):
+        agg = Aggregator(chunk_c=2, device=dev)
+        before = packed_weighted_sum.launches
+        for i, blob in enumerate(blobs):
+            agg.add(blob, 100 + 7 * i)
+        outs.append(flatten_with_path(agg.finalize()))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert packed_weighted_sum.launches - before == (2 if kinds[0] == "ternary" else 0)
+    for (pa, a), (pb, b) in zip(*outs):
+        assert pa == pb
+        assert torch.equal(a, b.cpu()), pa

@@ -185,6 +185,43 @@ def test_lossless_tier_close_to_flat_on_ternary_payloads():
                                    err_msg=path)
 
 
+def test_lossless_tier_close_to_flat_on_mixed_codec_payloads():
+    """The general-inputs case with fp16 residual leaves on every other
+    client (a mixed-codec fold: the fp16 records take the dense fallback):
+    the 2-tier mean within 1e-5 of the flat one and of the reference tier."""
+    from repro.core import compression as jcomp
+
+    jcfg = JFTTQConfig()
+    spec = jcomp.CodecSpec(kind="ternary", residual="fp16", fttq=jcfg)
+    blobs = []
+    for c in range(6):
+        k = jax.random.split(jax.random.PRNGKey(c), 3)
+        params = {"enc": {"w": jax.random.normal(k[0], (17, 9))},
+                  "stack": {"w": jax.random.normal(k[1], (3, 8, 12))},
+                  "head": {"b": jax.random.normal(k[2], (5,))}}
+        payload = jclient_update_payload(params, jfttq.init_wq_tree(params, jcfg), jcfg)
+        if c % 2:
+            payload, _ = jcomp.compress_pytree(payload, spec)
+        blobs.append(jencode_update(payload))
+    hier = dict(n_edges=3, requantize_at_edge=False)
+    flat = Aggregator(chunk_c=4, device="cpu")
+    tier = EdgeTier(HierarchyConfig(**hier), CFG, len(blobs), device="cpu")
+    jtier = JEdgeTier(JHierarchyConfig(**hier), jcfg, len(blobs))
+    for k, b in enumerate(blobs):
+        flat.add(b, weight=10.0 + 3 * k)
+        tier.add(k, b, weight=10.0 + 3 * k)
+        jtier.add(k, b, weight=10.0 + 3 * k)
+    want_flat, got = _flat(flat.finalize()), _flat(tier.fold()[0])
+    want_ref = _jflat(jtier.fold()[0])
+    assert want_flat.keys() == got.keys() == want_ref.keys()
+    for path, leaf in got.items():
+        assert leaf.dtype == torch.float32, path
+        np.testing.assert_allclose(leaf.numpy(), want_flat[path].numpy(), rtol=1e-5,
+                                   atol=1e-5, err_msg=path)
+        np.testing.assert_allclose(leaf.numpy(), want_ref[path], rtol=1e-5, atol=1e-5,
+                                   err_msg=path)
+
+
 def test_cohort_add_equals_individual_adds():
     """add_cohort(w = Σ w_k, n) folds like n adds of the byte-identical blob
     (power-of-two weights keep the sums exact) and books n× the bytes."""
