@@ -93,23 +93,40 @@ Phases (any failure exits non-zero; no phase is skipped):
                  same blobs bit for bit, each rung's card encode of one
                  trained tree against the CPU's (wire bytes, residual bits),
                  and one eager upload encode's ms per rung;
- 12. quickstart — repro_torch.launch.quickstart on the card, then its own
+ 12. fleet     — ``repro_torch.fed.run_fleet`` on ResNet18* at full width at
+                 bench_hierarchy.py's top cell (10^6 clients, λ 0.1,
+                 DiurnalChurn, FleetConfig defaults: a pool of 8 payloads):
+                 (a) sync flat, 2 rounds; (b) sync through 64 requantizing
+                 edges, 2 rounds; (c) async at FedConfig's defaults, 3
+                 folds; (d) one round with 300,000 sign-flip attackers
+                 against rule majority. Per run the participants, drops,
+                 simulated times, bytes, the tier ledger or the defense
+                 telemetry, wall seconds of the pool encode and of the run,
+                 the run's peak device memory and launches; checks the byte
+                 ledger, root ingress under 64 edge records a round, the
+                 launches the code fixes (quantize_pack 1 + 8 + one per
+                 active edge a round; aggregate one per flat round or fold,
+                 or per edge and per root flush; vote 1 in (d)), and the
+                 final update against the port's CPU path fed the same
+                 cohorts (bit for bit; under the tier the edge codes bit for
+                 bit, scales within 1e-6, and the root fold bit for bit);
+ 13. quickstart — repro_torch.launch.quickstart on the card, then its own
                  ternary_quantize, pack2bit and unpack2bit outputs against
                  the plain versions on the same inputs, bit for bit;
- 13. fan-in timings — aggregate and vote over one round's fold (52 segments,
+ 14. fan-in timings — aggregate and vote over one round's fold (52 segments,
                  10 clients) in one launch, as a CUDA-graph replay and as an
                  eager Aggregator flush (staging fill, pinned copy, launch),
                  beside the per-segment pattern of 52 launches of 32-row tiles
                  at C = 16, and at 16 clients × 2^26 elements; bytes bounds and
                  plain versions;
- 14. fan-in trace — the aggregate phase of one mean and one majority round
+ 15. fan-in trace — the aggregate phase of one mean and one majority round
                  on the last round's uploads under torch.profiler, with the
                  Aggregator's host ranges (add, stage, copy, launch, finalize);
- 15. fed trace — one round of one client at E = 5, B = 64, timed untraced
+ 16. fed trace — one round of one client at E = 5, B = 64, timed untraced
                  and then run under torch.profiler.
 Before each driven path (serve, federated, robust, async, hierarchy,
-controller, quickstart) every kernel's launch counter is set to 0, and read
-just after.
+controller, each fleet run, quickstart) every kernel's launch counter is set
+to 0, and read just after.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -215,6 +232,11 @@ HIER_EDGES = 3             # edge aggregators of the hierarchical round
 CTRL_CLIENTS = 20          # the controller rounds' fleet (the paper's 100, cut)
 CTRL_LAMBDA = 0.5          # 10 uploads a round, as the federated phase
 CTRL_ROUNDS = 2
+FLEET_CLIENTS = 1_000_000  # benchmarks/bench_hierarchy.py's top cell
+FLEET_LAMBDA = 0.1
+FLEET_EDGES = 64           # bench_hierarchy.py's N_EDGES
+FLEET_ATTACKERS = 300_000  # sign-flip attackers of the defended fleet run
+FLEET_POOL = 8             # FleetConfig().update_pool
 
 
 def kernel_counters() -> dict:
@@ -1562,6 +1584,269 @@ def controller_phase(dev, *, n_clients: int = CTRL_CLIENTS, rounds: int = CTRL_R
             "fold_vs_cpu_elements": fold_diff, "encode_ms": encode_ms}
 
 
+def _blob_gap(got: bytes, want: bytes) -> tuple[int, float, int]:
+    """(ternary codes that differ, largest relative scale gap, raw or other
+    record bytes that differ) between two wire blobs of one structure."""
+    import torch
+
+    from repro_torch.comm.wire import decode_update_leaves
+    from repro_torch.core.ternary import TernaryTensor
+
+    got_pairs, want_pairs = decode_update_leaves(got), decode_update_leaves(want)
+    check([p for p, _ in got_pairs] == [p for p, _ in want_pairs],
+          "two edge records hold different leaves")
+    codes = other = 0
+    scale = 0.0
+    for (path, a), (_, b) in zip(got_pairs, want_pairs):
+        if isinstance(b, TernaryTensor):
+            check(isinstance(a, TernaryTensor), f"{path}: a ternary record on one side only")
+            codes += int((a.packed != b.packed).sum())
+            scale = max(scale, float(((a.w_q.double() - b.w_q.double()).abs()
+                                      / b.w_q.double().abs()).max()))
+        else:
+            other += int((a.reshape(-1).view(torch.uint8)
+                          != b.reshape(-1).view(torch.uint8)).sum())
+    return codes, scale, other
+
+
+def fleet_run(dev, params, label: str, cfg) -> dict:
+    """One ``run_fleet`` on the card with its aggregators recorded: per
+    round or fold the participants, drops and simulated times, bytes, the
+    tier ledger or the defense telemetry, wall seconds of the pool encode
+    and of the run, peak device memory and launches; then the byte ledger,
+    the launch counts the code fixes, and the final update against the
+    port's CPU path fed the same cohorts (the same blobs, float64 cohort
+    weights and add order)."""
+    import torch
+
+    from repro_torch.fed import fleet as fleet_mod
+    from repro_torch.fed.aggregator import Aggregator
+    from repro_torch.fed.hierarchy import EdgeTier
+    from repro_torch.fed.simulation import resolve_rule
+    from repro_torch.tree import flatten_with_path
+
+    class FleetAggregator(Aggregator):
+        """The run's one aggregator, keeping the adds of its last fold."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.adds, self.last, self.fold_sizes = [], [], []
+
+        def add(self, blob, weight):
+            if self.n_clients == 0:
+                self.adds = []
+            self.adds.append((blob, weight))
+            super().add(blob, weight)
+
+        def finalize(self, *, reset=False):
+            self.last = list(self.adds)
+            self.fold_sizes.append(len(self.last))
+            return super().finalize(reset=reset)
+
+    class FleetTier(EdgeTier):
+        """The run's tier, keeping each fold's cohorts and edge records."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.cohorts, self.folded = [], []
+
+        def add_cohort(self, edge, blob, weight, n_clients, staleness_sum=0.0):
+            self.cohorts.append((edge, blob, weight, n_clients, staleness_sum))
+            super().add_cohort(edge, blob, weight, n_clients, staleness_sum)
+
+        def collect(self):
+            records = super().collect()
+            self.folded.append((self.cohorts, records))
+            self.cohorts = []
+            return records
+
+    made, pool_s = [], []
+    plain_pool = fleet_mod._payload_pool
+
+    def timed_pool(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain_pool(*a, **kw)
+        torch.cuda.synchronize()
+        pool_s.append(time.perf_counter() - t0)
+        return out
+
+    def making(cls):
+        def make(*a, **kw):
+            made.append(cls(*a, **kw))
+            return made[-1]
+        return make
+
+    plain = (fleet_mod.Aggregator, fleet_mod.EdgeTier)
+    fleet_mod.Aggregator, fleet_mod.EdgeTier = making(FleetAggregator), making(FleetTier)
+    fleet_mod._payload_pool = timed_pool
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero_counters()
+        t0 = time.perf_counter()
+        res = fleet_mod.run_fleet(params, cfg, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        peak = torch.cuda.max_memory_allocated() - base
+    finally:
+        fleet_mod.Aggregator, fleet_mod.EdgeTier = plain
+        fleet_mod._payload_pool = plain_pool
+    check(len(made) == 1, f"{label}: the run made {len(made)} aggregators or tiers, want one")
+    sink = made[0]
+    tel = res.telemetry
+    summary = tel["transfer_summary"]
+    out = {"participants": res.participants_per_round, "dropped": res.dropped_per_round,
+           "round_times_s": res.round_times, "upload_bytes": res.upload_bytes,
+           "download_bytes": res.download_bytes, "pool_encode_s": sum(pool_s), "wall_s": wall,
+           "peak_bytes_over_start": peak, "allocated_at_start": base, "launches": launches}
+    print(f"  {label}: {res.rounds_run} {'folds' if cfg.mode == 'async' else 'rounds'}, "
+          f"participants {res.participants_per_round}, dropped {res.dropped_per_round}, "
+          f"simulated {[round(t, 4) for t in res.round_times]} s; up {res.upload_bytes} B, "
+          f"down {res.download_bytes} B; wall: pool encode {sum(pool_s):.3f} s, run {wall:.3f} s "
+          f"({wall - sum(pool_s):.3f} s after the pool); peak {peak / 2**20:.1f} MiB over the "
+          f"{base / 2**20:.1f} MiB allocated before; "
+          f"launches {json.dumps(launches)}")
+
+    # the byte ledger: what the channel metered against what the run booked
+    # every honest pool slot encodes the same tree structure: one blob size
+    honest = (len(sink.last[0][0]) if isinstance(sink, Aggregator)
+              else len(sink.folded[-1][0][0][1]))
+    if cfg.mode == "async":
+        arrivals = sum(tel["staleness_hist"])
+        dispatched = summary["n_transfers"] // 2
+        bcast = res.download_bytes // dispatched
+        check(arrivals == sum(res.participants_per_round) + tel["dropped_updates"],
+              f"{label}: {arrivals} arrivals against the folds' participants and drops")
+        check(res.upload_bytes == arrivals * honest
+              and res.download_bytes == dispatched * bcast
+              and summary["total_bytes"] == res.download_bytes + dispatched * honest,
+              f"{label}: the byte ledger does not balance")
+        out.update(arrivals=arrivals, dispatched=dispatched,
+                   staleness_hist=tel["staleness_hist"])
+    else:
+        client_up = (tel["hierarchy"]["client_to_edge_bytes"] if "hierarchy" in tel
+                     else res.upload_bytes)
+        check(summary["total_bytes"] == client_up + res.download_bytes,
+              f"{label}: the channel carried {summary['total_bytes']} B, the run booked "
+              f"{client_up} + {res.download_bytes} B")
+        if "defense" not in tel:
+            check(client_up == sum(res.participants_per_round) * honest,
+                  f"{label}: upload bytes are not participants x blob size")
+    if "hierarchy" in tel:
+        hier = tel["hierarchy"]
+        per_fold = [len(records) for _, records in sink.folded]
+        check(hier["ledger_balanced"]
+              and res.upload_bytes == hier["client_to_edge_bytes"] + hier["edge_to_root_bytes"],
+              f"{label}: the tier's ledger does not balance")
+        # root ingress: one record per active edge, so at most n_edges a round
+        check(all(0 < n <= cfg.hierarchy.n_edges for n in per_fold)
+              and hier["root_ingest_bytes"] == sum(len(b) for _, records in sink.folded
+                                                   for _, b, _ in records),
+              f"{label}: root ingress is not one record per active edge")
+        print(f"    tier: {json.dumps({k: v for k, v in hier.items() if 'per_edge' not in k})}; "
+              f"active edges per round {per_fold}")
+        out.update(tier={k: v for k, v in hier.items() if "per_edge" not in k},
+                   edges_per_round=per_fold)
+    if "defense" in tel:
+        d = tel["defense"]
+        print(f"    defense: {json.dumps(d)}")
+        check(d["ledger_balanced"], f"{label}: the defense ledger does not balance")
+        out["defense"] = d
+
+    # the launches the code fixes
+    want = {name: 0 for name in launches}
+    rule, _ = resolve_rule(cfg)
+    if "hierarchy" in tel:
+        want["quantize_pack"] = 1 + FLEET_POOL + sum(out["edges_per_round"])
+        want["aggregate"] = sum(e + -(-e // cfg.hierarchy.root_chunk_c)
+                                for e in out["edges_per_round"])
+    else:
+        want["quantize_pack"] = 1 + FLEET_POOL
+        flushes = sum(-(-n // cfg.agg_chunk_c) for n in sink.fold_sizes)
+        want["vote" if rule == "majority" else "aggregate"] = flushes
+    check(launches == want, f"{label}: launches {launches}, want {want}")
+
+    # the final update against the port's CPU path fed the same cohorts
+    final = dict(flatten_with_path(res.final_update))
+    shapes = {p: tuple(t.shape) for p, t in flatten_with_path(params)}
+    check({p: tuple(t.shape) for p, t in final.items()} == shapes
+          and all(bool(torch.isfinite(t).all()) for t in final.values()),
+          f"{label}: the final update is not finite or not the model's shape")
+    if isinstance(sink, Aggregator):
+        cpu = Aggregator(chunk_c=cfg.agg_chunk_c, device="cpu", rule=rule)
+        for blob, weight in sink.last:
+            cpu.add(blob, weight)
+        differ = _bits_differ(final, dict(flatten_with_path(cpu.finalize())))
+        print(f"    final update vs the CPU Aggregator over the last fold's {len(sink.last)} "
+              f"cohorts: {differ} elements differ (want 0)")
+        check(differ == 0, f"{label}: the card's fold differs from the CPU's")
+        out.update(cohorts_last_fold=len(sink.last), fold_vs_cpu_elements=differ)
+    else:
+        cohorts, records = sink.folded[-1]
+        cpu_tier = EdgeTier(cfg.hierarchy, cfg.fttq, cfg.n_clients, device="cpu", rule=rule)
+        for edge, blob, weight, n, stale in cohorts:
+            cpu_tier.add_cohort(edge, blob, weight, n, stale)
+        cpu_records = cpu_tier.collect()
+        check([(e, w) for e, _, w in records] == [(e, w) for e, _, w in cpu_records],
+              f"{label}: the card's edges or weights differ from the CPU's")
+        gaps = [_blob_gap(a, b) for (_, a, _), (_, b, _) in zip(records, cpu_records)]
+        codes, scale, other = (sum(g[0] for g in gaps), max(g[1] for g in gaps),
+                               sum(g[2] for g in gaps))
+        root = Aggregator(chunk_c=cfg.hierarchy.root_chunk_c, device="cpu", rule=rule)
+        for _, blob, weight in records:
+            root.add(blob, weight)
+        differ = _bits_differ(final, dict(flatten_with_path(root.finalize())))
+        print(f"    last round's {len(records)} edge records vs the CPU tier's on the same "
+              f"{len(cohorts)} cohorts: {codes} code bytes and {other} raw bytes differ (want "
+              f"0), scales within {scale:.2e} (limit 1e-6); final update vs the CPU root fold "
+              f"of the card's records: {differ} elements differ (want 0)")
+        check(codes == 0 and other == 0 and scale <= 1e-6,
+              f"{label}: the card's edge records differ from the CPU's")
+        check(differ == 0, f"{label}: the card's root fold differs from the CPU's")
+        out.update(cohorts_last_fold=len(cohorts), edge_code_bytes_differ=codes,
+                   edge_scale_rel_gap=scale, fold_vs_cpu_elements=differ)
+    return out
+
+
+def fleet_phase(dev, params, *, n_clients: int = FLEET_CLIENTS,
+                n_edges: int = FLEET_EDGES, n_attackers: int = FLEET_ATTACKERS) -> dict:
+    """``run_fleet`` on ResNet18* at full width (594,378 parameters, weights
+    from seed 1) at ``bench_hierarchy.py``'s top cell: 10⁶ clients, λ 0.1,
+    ``DiurnalChurn``, ``FleetConfig()`` defaults (a pool of 8 payloads, 50
+    examples per client). Four runs: (a) sync, flat, 2 rounds; (b) sync
+    through 64 requantizing edges (``mod``), 2 rounds; (c) async, flat,
+    ``FedConfig``'s async defaults (buffer_k 4, ⌈λN⌉ in flight), 3 folds;
+    (d) sync, flat, 1 round, 300,000 sign-flip attackers against rule
+    majority, on the vote kernel over 8 honest and 8 poisoned cohorts."""
+    from repro_torch.fed.attackers import AttackConfig
+    from repro_torch.fed.availability import AvailabilityConfig
+    from repro_torch.fed.defense import DefenseConfig
+    from repro_torch.fed.hierarchy import HierarchyConfig
+    from repro_torch.fed.simulation import FedConfig
+
+    base = dict(n_clients=n_clients, participation=FLEET_LAMBDA,
+                availability=AvailabilityConfig(kind="diurnal"))
+    runs = {
+        "sync_flat": FedConfig(rounds=2, **base),
+        "sync_tier": FedConfig(rounds=2, hierarchy=HierarchyConfig(n_edges=n_edges), **base),
+        "async_flat": FedConfig(mode="async", rounds=3, **base),
+        "sync_majority": FedConfig(
+            rounds=1, attack=AttackConfig(kind="sign_flip", n_attackers=n_attackers),
+            defense=DefenseConfig(enabled=True, rule="majority"), **base),
+    }
+    print(f"ResNet18* full width, {n_clients} clients, lambda {FLEET_LAMBDA}, diurnal churn, "
+          f"a pool of {FLEET_POOL} payloads, 50 examples per client; tier {n_edges} edges; "
+          f"{n_attackers} sign-flip attackers in the defended run")
+    t0 = time.perf_counter()
+    out = {"runs": {label: fleet_run(dev, params, label, cfg) for label, cfg in runs.items()}}
+    out["phase_wall_s"] = time.perf_counter() - t0
+    print(f"fleet phase: {out['phase_wall_s']:.2f} s of wall time")
+    return out
+
+
 def ops_timings(layers, served) -> dict:
     """ternary_quantize over the given fp32 layers (olmo-1b's 112, 2^30
     weights) and pack2bit / unpack2bit (to int8) over the served 2^30 codes,
@@ -2011,6 +2296,13 @@ def main() -> int:
     phase("controller: ResNet18* sync rounds with the adaptive compression controller")
     ctrl = controller_phase(dev)
 
+    phase("fleet: run_fleet on ResNet18* at full width, 10^6 clients (sync, 2-tier, async, "
+          "defended)")
+    flt = fleet_phase(dev, setup[1])
+
+    def fleet_launches(name: str) -> dict:
+        return {label: run["launches"][name] for label, run in flt["runs"].items()}
+
     phase("quickstart: repro_torch.launch.quickstart on the card")
     zero_counters()
     qs = quickstart_main(["--device", "cuda"])
@@ -2049,7 +2341,8 @@ def main() -> int:
          "federated_launches": fed["launches"][0],
          "async_launches": asy["launches"]["quantize_pack"],
          "hierarchy_launches": hier["launches"]["quantize_pack"],
-         "controller_launches": ctrl["launches"]["quantize_pack"]},
+         "controller_launches": ctrl["launches"]["quantize_pack"],
+         "fleet_launches": fleet_launches("quantize_pack")},
         {"name": "ternary_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ternary_matmul.cu",
          "replaces": "src/repro/kernels/ternary_matmul.py:34",
@@ -2071,6 +2364,7 @@ def main() -> int:
          "async_launches": asy["launches"]["aggregate"],
          "hierarchy_launches": hier["launches"]["aggregate"],
          "controller_launches": ctrl["launches"]["aggregate"],
+         "fleet_launches": fleet_launches("aggregate"), "fleet": flt,
          "controller": {k: ctrl[k] for k in ("per_round", "wall_s", "bytes_by_kind",
                                              "blob_sizes", "fold_vs_cpu_elements",
                                              "encode_ms")},
@@ -2087,6 +2381,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/vote.cu",
          "replaces": "src/repro/kernels/vote.py:40",
          "launches": robust["launches"]["vote"], "max_abs_err": vote_err,
+         "fleet_launches": fleet_launches("vote"),
          "ms": vote_t["round_ms"], "plain_ms": vote_t["round_plain_ms"],
          "bound_ms": vote_t["round_bound_ms"], "bound_by": vote_t["round_bound_by"],
          "library_ms": None, "eager_ms": vote_t["eager_ms"],

@@ -18,8 +18,15 @@ Every draw happens in the reference's order from a ``numpy`` Generator
 with the same seed, so a seeded run gives the reference's transfer log,
 bit for bit. ``transfer_timed`` meters one transfer that starts at an
 absolute simulated time, for the async server, whose uploads contend for
-a capped NIC with the other flows in flight. The batched fleet transfers
-(``transfer_batch``, ``compute_time_batch``) arrive with the fleet slice.
+a capped NIC with the other flows in flight.
+
+Fleet-scale batches (``transfer_batch``, ``compute_time_batch``) meter a
+whole cohort of transfers with one rng fold per batch and keep a batch
+ledger (counters plus one seconds array per batch) that ``summary()``
+merges with the per-event log. A lossless batch consumes the stream exactly
+like the same scalar transfers laid end to end; under iid loss one
+geometric draw covers every chunk of the batch, so ``compat=True`` keeps
+the scalar call order instead.
 """
 
 from __future__ import annotations
@@ -193,6 +200,12 @@ class Channel:
         self.links = _LinkView(self)
         self._rng = rng
         self.log: list[TransferEvent] = []
+        # the batch ledger of ``transfer_batch``: counters and one seconds
+        # array per batch instead of one TransferEvent per client
+        self._batch_secs: list[np.ndarray] = []
+        self._batch_bytes = 0
+        self._batch_retrans = 0
+        self._batch_retries = 0
         # in-flight (data_start, data_end) windows per direction, for the
         # overlap count of ``transfer_timed``; filled only under a NIC cap
         self._inflight: dict[str, list[tuple[float, float]]] = {}
@@ -281,6 +294,99 @@ class Channel:
         )
         return dt
 
+    def _loss_penalty_batch(
+        self, nbytes: np.ndarray
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """``_loss_penalty`` over a batch of transfers, as (retrans_bytes,
+        delay_s, retries) arrays. iid: ONE geometric draw covers every chunk
+        of every transfer (the values per-transfer draws laid end to end
+        would give), segment-summed back per transfer. Gilbert–Elliott: the
+        scalar penalties in order (each chain is its own). Draws nothing
+        when loss is off."""
+        n = len(nbytes)
+        zeros = np.zeros(n, dtype=np.int64)
+        if self.cfg.loss_model == "gilbert_elliott":
+            if self.cfg.ge_loss_good <= 0.0 and self.cfg.ge_loss_bad <= 0.0:
+                return zeros, np.zeros(n), zeros
+            pens = [self._ge_loss_penalty(int(b)) for b in np.asarray(nbytes)]
+            return (np.array([p[0] for p in pens], dtype=np.int64),
+                    np.array([p[1] for p in pens]),
+                    np.array([p[2] for p in pens], dtype=np.int64))
+        if self.cfg.loss_model != "iid":
+            raise ValueError("loss_model must be 'iid' or 'gilbert_elliott', "
+                             f"got {self.cfg.loss_model!r}")
+        p = self.cfg.loss_rate
+        if p <= 0.0 or n == 0:
+            return zeros, np.zeros(n), zeros
+        if not p < 1.0:
+            raise ValueError(f"loss_rate must be < 1, got {p}")
+        chunk = max(1, int(self.cfg.chunk_bytes))
+        nb = np.asarray(nbytes, dtype=np.int64)
+        n_chunks = (nb + chunk - 1) // chunk          # 0 chunks for 0 bytes
+        total = int(n_chunks.sum())
+        if total == 0:
+            return zeros, np.zeros(n), zeros
+        extra = self._rng.geometric(1.0 - p, size=total) - 1
+        sizes = np.full(total, chunk, dtype=np.int64)
+        ends = np.cumsum(n_chunks)
+        starts = ends - n_chunks
+        nz = n_chunks > 0
+        sizes[ends[nz] - 1] = nb[nz] - chunk * (n_chunks[nz] - 1)
+        csum_b = np.concatenate([[0], np.cumsum(extra * sizes)])
+        retrans = csum_b[ends] - csum_b[starts]
+        csum_r = np.concatenate([[0], np.cumsum(extra)])
+        retries = csum_r[ends] - csum_r[starts]
+        t0, b = self.cfg.retransmit_timeout_s, self.cfg.retransmit_backoff
+        if b == 1.0:
+            delay = t0 * retries.astype(np.float64)
+        else:
+            term = np.where(extra > 0, (b ** extra - 1.0) / (b - 1.0), 0.0)
+            csum_d = np.concatenate([[0.0], np.cumsum(term)])
+            delay = t0 * (csum_d[ends] - csum_d[starts])
+        return retrans, delay, retries
+
+    def transfer_batch(
+        self, client_ids: np.ndarray, nbytes: np.ndarray, direction: str,
+        *, share_nic: bool = False, compat: bool = False,
+    ) -> np.ndarray:
+        """Seconds for a fleet-scale batch of per-link transfers.
+
+        One uniform jitter vector and one loss fold per batch, one
+        closed-form seconds vector, metered in the batch ledger. Lossless,
+        the jitter draw equals ``len(client_ids)`` scalar ``transfer``
+        calls; under loss the geometric draw is folded once per batch, so
+        ``compat=True`` runs the scalar ``transfer`` calls in order instead
+        (logged per event). ``share_nic=True`` gives every flow of the
+        batch min(link, NIC / batch): the flows are simultaneous, and this
+        closed form stands in for ``transfer_concurrent``'s water-filling.
+        """
+        ids = np.asarray(client_ids, dtype=np.int64)
+        nb = np.broadcast_to(np.asarray(nbytes, dtype=np.int64), ids.shape)
+        if compat:
+            return np.array([self.transfer(int(k), int(b), direction)
+                             for k, b in zip(ids, nb)])
+        jitter = self._rng.uniform(0.0, self.cfg.latency_jitter_s, size=ids.size)
+        retrans, delay, retries = self._loss_penalty_batch(nb)
+        wire = nb + retrans
+        rate = self._bw[ids]
+        nic = self.cfg.server_bandwidth_bytes_s
+        if share_nic and 0 < nic < float("inf") and ids.size:
+            rate = np.minimum(rate, nic / ids.size)
+        secs = self._lat[ids] + jitter + wire / rate + delay
+        self._batch_secs.append(secs)
+        self._batch_bytes += int(nb.sum())
+        self._batch_retrans += int(retrans.sum())
+        self._batch_retries += int(retries.sum())
+        return secs
+
+    def compute_time_batch(
+        self, client_ids: np.ndarray, n_examples: np.ndarray,
+        nominal_examples_per_s: float = 5000.0,
+    ) -> np.ndarray:
+        """``compute_time`` over a batch of clients (the same expression)."""
+        ids = np.asarray(client_ids, dtype=np.int64)
+        return np.asarray(n_examples) / (nominal_examples_per_s * self._speed[ids])
+
     def transfer_concurrent(
         self, client_ids: list[int], nbytes: list[int], direction: str
     ) -> list[float]:
@@ -349,22 +455,25 @@ class Channel:
         return n_examples / (nominal_examples_per_s * self.links[client_id].compute_speed)
 
     def summary(self) -> dict:
-        """Transfer statistics: ``total_bytes`` is goodput, retransmission
-        overhead is reported apart."""
-        if not self.log:
+        """Transfer statistics over the per-event log and the batch ledger:
+        ``total_bytes`` is goodput, retransmission overhead is reported
+        apart."""
+        n_batch = sum(a.size for a in self._batch_secs)
+        if not self.log and n_batch == 0:
             return {"n_transfers": 0, "total_bytes": 0, "total_seconds": 0.0,
                     "mean_seconds": 0.0, "p95_seconds": 0.0,
                     "retrans_bytes": 0, "retries": 0, "goodput_fraction": 1.0}
-        secs = np.array([e.seconds for e in self.log])
-        goodput = int(sum(e.nbytes for e in self.log))
-        retrans = int(sum(e.retrans_bytes for e in self.log))
+        parts = [np.array([e.seconds for e in self.log])] if self.log else []
+        secs = np.concatenate(parts + self._batch_secs)
+        goodput = int(sum(e.nbytes for e in self.log)) + self._batch_bytes
+        retrans = int(sum(e.retrans_bytes for e in self.log)) + self._batch_retrans
         return {
-            "n_transfers": len(self.log),
+            "n_transfers": len(self.log) + n_batch,
             "total_bytes": goodput,
             "total_seconds": float(secs.sum()),
             "mean_seconds": float(secs.mean()),
             "p95_seconds": float(np.percentile(secs, 95)),
             "retrans_bytes": retrans,
-            "retries": int(sum(e.retries for e in self.log)),
+            "retries": int(sum(e.retries for e in self.log)) + self._batch_retries,
             "goodput_fraction": goodput / max(goodput + retrans, 1),
         }

@@ -801,3 +801,68 @@ def test_mixed_codec_aggregator_on_the_card_equals_the_cpu(cuda_device, kinds):
     for (pa, a), (pb, b) in zip(*outs):
         assert pa == pb
         assert torch.equal(a, b.cpu()), pa
+
+
+@pytest.mark.parametrize("mode,n_edges", [("sync", 0), ("sync", 8), ("async", 0)])
+def test_run_fleet_on_the_card_equals_the_cpu(cuda_device, mode, n_edges, monkeypatch):
+    """``run_fleet`` at 10⁴ clients on the MLP, on the card and on the CPU
+    fed the card's pool (the same blobs, cohort weights and add order): the
+    rounds, participants, drops, times, bytes and telemetry equal; the card
+    launches quantize_pack once per pool slot, for the broadcast and per
+    requantizing edge, and aggregate once per flat round or fold, or per
+    edge and per root flush. Flat and async: the final update bit for bit.
+    Tier: each edge's upstream codes bit for bit and its scale within the
+    encode's rtol 1e-6, and the card's final update equals the CPU root
+    fold of the card's edge records bit for bit."""
+    from repro_torch.fed import fleet
+    from repro_torch.fed.availability import AvailabilityConfig
+    from repro_torch.fed.simulation import FedConfig
+    from repro_torch.models.paper_models import init_mlp_mnist
+
+    params = init_mlp_mnist(seed=1, device="cpu")
+    cfg = FedConfig(mode=mode, n_clients=10_000, participation=0.05,
+                    rounds=3 if mode == "async" else 2, buffer_k=16,
+                    availability=AvailabilityConfig(kind="diurnal"),
+                    hierarchy=HierarchyConfig(n_edges=n_edges))
+    pools, collected = [], []
+    plain_pool, plain_collect = fleet._payload_pool, EdgeTier.collect
+
+    def recording_pool(*a, **kw):
+        pools.append(plain_pool(*a, **kw))
+        return pools[-1]
+
+    def recording_collect(self):
+        collected.append((self.device.type, plain_collect(self)))
+        return collected[-1][1]
+
+    monkeypatch.setattr(fleet, "_payload_pool", recording_pool)
+    monkeypatch.setattr(EdgeTier, "collect", recording_collect)
+    before = (quantize_pack.launches, packed_weighted_sum.launches)
+    card = fleet.run_fleet(params, cfg, device=cuda_device)
+    torch.cuda.synchronize()
+    launched = (quantize_pack.launches - before[0], packed_weighted_sum.launches - before[1])
+    given = iter(pools)
+    monkeypatch.setattr(fleet, "_payload_pool", lambda *a, **kw: next(given))
+    cpu = fleet.run_fleet(params, cfg, device="cpu")
+
+    for field in ("rounds_run", "participants_per_round", "dropped_per_round", "round_times",
+                  "upload_bytes", "download_bytes", "telemetry"):
+        assert getattr(card, field) == getattr(cpu, field), field
+    edges = [len(recs) for dev, recs in collected if dev == "cuda"]
+    assert launched == (1 + 8 + sum(edges),
+                        sum(e + -(-e // 16) for e in edges) if n_edges else cfg.rounds)
+    want = cpu.final_update
+    if n_edges:
+        card_recs = [recs for dev, recs in collected if dev == "cuda"]
+        cpu_recs = [recs for dev, recs in collected if dev == "cpu"]
+        for got, ref in zip(card_recs, cpu_recs):
+            assert [(e, w) for e, _, w in got] == [(e, w) for e, _, w in ref]
+            for (_, a, _), (_, b, _) in zip(got, ref):
+                _assert_same_records(a, b, scale_rtol=1e-6)
+        root = Aggregator(chunk_c=cfg.hierarchy.root_chunk_c, device="cpu")
+        for _, blob, w in card_recs[-1]:
+            root.add(blob, w)
+        want = root.finalize()
+    for (pa, a), (pb, b) in zip(flatten_with_path(card.final_update), flatten_with_path(want)):
+        assert pa == pb
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b), pa
