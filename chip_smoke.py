@@ -110,23 +110,39 @@ Phases (any failure exits non-zero; no phase is skipped):
                  final update against the port's CPU path fed the same
                  cohorts (bit for bit; under the tier the edge codes bit for
                  bit, scales within 1e-6, and the root fold bit for bit);
- 13. quickstart — repro_torch.launch.quickstart on the card, then its own
+ 13. socket    — ``repro_torch.fed.run_socket_round`` on ResNet18* at full
+                 width, the server's aggregator and every client process on
+                 the card: (a) sync, 8 clients; (b) buffered, 8 clients,
+                 buffer_k 3, η 0.5; (c) sync through the chaos proxy at fault
+                 seed 19 with 6 clients, quorum 0.5, the preset's chunk
+                 scaled to the ResNet18* frame; (d) sync, 8 clients, 2
+                 nan_poison attackers against rule majority. Per run the
+                 wall seconds, the clients' start-up to HELLO, bytes up and
+                 down, framing overhead, the server's launches (aggregate 1
+                 in (a), ⌈8/3⌉ in (b), vote 1 in (d)) and each client's
+                 (quantize_pack 1 each in (a), reported through its exit
+                 report); checks outcomes, the ledger, the hash against the
+                 port's in-process card reference over the same survivors,
+                 and (a)'s fold against a CPU Aggregator on the received
+                 blobs, bit for bit;
+ 14. quickstart — repro_torch.launch.quickstart on the card, then its own
                  ternary_quantize, pack2bit and unpack2bit outputs against
                  the plain versions on the same inputs, bit for bit;
- 14. fan-in timings — aggregate and vote over one round's fold (52 segments,
+ 15. fan-in timings — aggregate and vote over one round's fold (52 segments,
                  10 clients) in one launch, as a CUDA-graph replay and as an
                  eager Aggregator flush (staging fill, pinned copy, launch),
                  beside the per-segment pattern of 52 launches of 32-row tiles
                  at C = 16, and at 16 clients × 2^26 elements; bytes bounds and
                  plain versions;
- 15. fan-in trace — the aggregate phase of one mean and one majority round
+ 16. fan-in trace — the aggregate phase of one mean and one majority round
                  on the last round's uploads under torch.profiler, with the
                  Aggregator's host ranges (add, stage, copy, launch, finalize);
- 16. fed trace — one round of one client at E = 5, B = 64, timed untraced
+ 17. fed trace — one round of one client at E = 5, B = 64, timed untraced
                  and then run under torch.profiler.
 Before each driven path (serve, federated, robust, async, hierarchy,
-controller, each fleet run, quickstart) every kernel's launch counter is set
-to 0, and read just after.
+controller, each fleet run, each socket run, quickstart) every kernel's
+launch counter is set to 0, and read just after; a socket run's client
+processes count their own launches and report them as they exit.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -237,6 +253,14 @@ FLEET_LAMBDA = 0.1
 FLEET_EDGES = 64           # bench_hierarchy.py's N_EDGES
 FLEET_ATTACKERS = 300_000  # sign-flip attackers of the defended fleet run
 FLEET_POOL = 8             # FleetConfig().update_pool
+SOCKET_CLIENTS = 8         # client processes of the socket rounds
+SOCKET_CHAOS_CLIENTS = 6   # the chaos round's (the reference CLI's chaos demo)
+SOCKET_SEED = 7
+SOCKET_BUFFER_K = 3
+SOCKET_ETA = 0.5
+SOCKET_CHAOS_SEED = 19     # refused connects, mid-frame kills and resumes
+SOCKET_ATTACKERS = 2       # nan_poison attackers of the defended socket round
+SOCKET_TIMEOUT_S = 300.0
 
 
 def kernel_counters() -> dict:
@@ -1847,6 +1871,197 @@ def fleet_phase(dev, params, *, n_clients: int = FLEET_CLIENTS,
     return out
 
 
+def _same_tree(a, b) -> bool:
+    """Two dense trees bit for bit (paths, dtypes, values)."""
+    import torch
+
+    from repro_torch.tree import flatten_with_path
+
+    fa, fb = flatten_with_path(a), flatten_with_path(b)
+    return len(fa) == len(fb) and all(
+        pa == pb and x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+        for (pa, x), (pb, y) in zip(fa, fb))
+
+
+def socket_run(dev, params, label: str, n_clients: int, **kw) -> tuple:
+    """One ``run_socket_round`` with the clients' exit reports: the server's
+    launch counts (set to 0 just before, read just after), each child's
+    device and launches, wall and start-up seconds, bytes up and down and
+    the framing overhead. Returns (result, summary)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.fed.mp_server import run_socket_round
+
+    with tempfile.TemporaryDirectory() as reports:
+        zero_counters()
+        t0 = time.perf_counter()
+        res = run_socket_round(params, n_clients, seed=SOCKET_SEED, device=dev,
+                               report_dir=reports, timeout_s=SOCKET_TIMEOUT_S, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+    led = res.ledger()
+    reps = res.client_reports
+    startup = sorted(r["startup_s"] for r in reps.values() if r["startup_s"] is not None)
+    child_qp = {cid: r["launches"]["quantize_pack"] for cid, r in sorted(reps.items())}
+    out = {"wall_s": wall, "round_wall_s": res.wall_s, "committed": res.committed,
+           "arrivals": res.arrivals,
+           "outcomes": {str(k): v for k, v in sorted(res.outcomes.items())},
+           "upload_bytes": res.upload_bytes, "download_bytes": res.download_bytes,
+           "payload_bytes": res.payload_bytes,
+           "framing_overhead_bytes": res.framing_overhead_bytes,
+           "balance_ok": led["balance_ok"], "retries": res.retries,
+           "resumed_bytes": res.resumed_bytes, "dropped_update_bytes": res.dropped_update_bytes,
+           "quarantined_update_bytes": res.quarantined_update_bytes, "chaos": res.chaos,
+           "defense": res.defense, "server_launches": launches,
+           "child_devices": sorted({r["device"] for r in reps.values()}),
+           "child_quantize_pack_launches": child_qp,
+           "child_startup_s": startup}
+    print(f"  {label}: {n_clients} client processes, committed {res.committed}, arrivals "
+          f"{res.arrivals}, outcomes {out['outcomes']}; wall {wall:.3f} s (the round "
+          f"{res.wall_s:.3f} s); client start-up to HELLO "
+          f"{startup[0] if startup else float('nan'):.3f}-"
+          f"{startup[-1] if startup else float('nan'):.3f} s; up {res.upload_bytes} B "
+          f"(payload {res.payload_bytes} B, framing {res.framing_overhead_bytes} B), down "
+          f"{res.download_bytes} B; retries {res.retries}, resumed {res.resumed_bytes} B, "
+          f"dropped {res.dropped_update_bytes} B, quarantined {res.quarantined_update_bytes} B"
+          + (f"; proxy {json.dumps(res.chaos)}" if res.chaos else "")
+          + f"; server launches {json.dumps(launches)}; client quantize_pack launches "
+          f"{json.dumps(child_qp)} on {out['child_devices']}")
+    check(led["balance_ok"], f"socket {label}: the update-byte ledger does not balance")
+    check(out["child_devices"] == ["cuda"],
+          f"socket {label}: client devices {out['child_devices']}, want cuda only")
+    check(launches["quantize_pack"] == 0 and launches["ternary_matmul"] == 0,
+          f"socket {label}: the server launched {json.dumps(launches)}")
+    return res, out
+
+
+def socket_phase(dev, params, *, n_clients: int = SOCKET_CLIENTS,
+                 chaos_clients: int = SOCKET_CHAOS_CLIENTS) -> dict:
+    """``run_socket_round`` on ResNet18* at full width (594,378 parameters,
+    weights from seed 1), the server and every client process on the card:
+    (a) sync, 8 clients; (b) buffered, 8 clients, buffer_k 3, η 0.5; (c)
+    sync through the chaos proxy at fault seed 19, 6 clients, quorum 0.5,
+    with the preset's chunk scaled to the ResNet18* frame; (d) sync, 8
+    clients, 2 nan_poison attackers against rule majority. Each run's hash
+    against the port's in-process reference on the card over the same
+    survivors in the same order; (a) also against a CPU Aggregator fed the
+    blobs the server received, bit for bit."""
+    import math
+
+    import torch
+
+    from repro_torch.comm.transport import FT_UPDATE, pack_frame
+    from repro_torch.comm.wire import decode_update, encode_update
+    from repro_torch.fed.aggregator import Aggregator
+    from repro_torch.fed.attackers import AttackConfig, attacker_ids
+    from repro_torch.fed.defense import DefenseConfig
+    from repro_torch.fed.mp_server import (
+        client_update_blob, client_weight, default_chaos, demo_params, params_hash,
+        run_inprocess_reference,
+    )
+
+    t_phase = time.perf_counter()
+    start = decode_update(encode_update(params))
+    blob = client_update_blob(start, 0, SOCKET_SEED, device=dev)
+    bcast = len(encode_update(params))
+    print(f"ResNet18* full width, seed {SOCKET_SEED}: one client upload {len(blob)} B "
+          f"(ternary, fp16 residuals), broadcast {bcast} B (fp32)")
+    runs = {}
+
+    def reference_hash(order, **kw) -> str:
+        return params_hash(run_inprocess_reference(params, n_clients, seed=SOCKET_SEED,
+                                                   order=order, device=dev, **kw))
+
+    # (a) sync
+    res, runs["sync"] = socket_run(dev, params, "sync", n_clients)
+    check(res.committed == "full" and all(v == "ok" for v in res.outcomes.values()),
+          f"socket sync: outcomes {res.outcomes}")
+    check(runs["sync"]["server_launches"]["aggregate"] == 1
+          and runs["sync"]["server_launches"]["vote"] == 0,
+          f"socket sync: server launches {runs['sync']['server_launches']}, want aggregate 1")
+    check(runs["sync"]["child_quantize_pack_launches"] == {c: 1 for c in range(n_clients)},
+          "socket sync: every client must launch quantize_pack exactly once")
+    check(res.payload_bytes == n_clients * len(blob),
+          f"socket sync: payload {res.payload_bytes} B, want {n_clients} x {len(blob)} B")
+    check(res.download_bytes >= n_clients * bcast, "socket sync: download under the broadcasts")
+    check(params_hash(res.params) == reference_hash(None),
+          "socket sync: the round differs from the in-process card reference")
+    cpu = Aggregator(chunk_c=16, device="cpu")
+    for _cid, weight, b in sorted(res.received):
+        cpu.add(b, weight=weight)
+    check(_same_tree(res.params, cpu.finalize()),
+          "socket sync: the card's fold differs from a CPU Aggregator on the received blobs")
+    print("  sync: hash equals the in-process card reference; fold equals the CPU "
+          "Aggregator's on the 8 received blobs bit for bit")
+
+    # (b) buffered
+    res, runs["buffered"] = socket_run(dev, params, "buffered", n_clients, mode="buffered",
+                                       buffer_k=SOCKET_BUFFER_K, eta=SOCKET_ETA)
+    want = math.ceil(n_clients / SOCKET_BUFFER_K)
+    check(res.committed == "full", f"socket buffered: outcomes {res.outcomes}")
+    check(runs["buffered"]["server_launches"]["aggregate"] == want,
+          f"socket buffered: aggregate launched {runs['buffered']['server_launches']}, "
+          f"want {want} mixes")
+    check(params_hash(res.params) == reference_hash(res.arrivals, mode="buffered",
+                                                    buffer_k=SOCKET_BUFFER_K, eta=SOCKET_ETA),
+          "socket buffered: the round differs from the reference in arrival order")
+    print(f"  buffered: hash equals the in-process card reference in arrival order "
+          f"{res.arrivals}")
+
+    # (c) chaos: the preset's rates, seed and crash client, its chunk scaled
+    # so a ResNet18* frame spans as many chunks as a demo frame at 512 B
+    demo = demo_params(seed=SOCKET_SEED)
+    demo_blob = client_update_blob(decode_update(encode_update(demo)), 0, SOCKET_SEED,
+                                   device="cpu")
+    meta = {"client_id": 0, "weight": client_weight(0)}
+    demo_frame = len(pack_frame(FT_UPDATE, demo_blob, meta))
+    frame = len(pack_frame(FT_UPDATE, blob, meta))
+    chunk = round(512 * frame / demo_frame)
+    print(f"  chaos chunk: {chunk} B (a {frame} B ResNet18* UPDATE frame over "
+          f"{frame / chunk:.2f} chunks; the preset's 512 B over a {demo_frame} B demo frame)")
+    cfg = default_chaos(seed=SOCKET_CHAOS_SEED, n_clients=chaos_clients, chunk_bytes=chunk)
+    res, runs["chaos"] = socket_run(dev, params, "chaos", chaos_clients, fault_cfg=cfg,
+                                    quorum_frac=0.5)
+    runs["chaos"]["chunk_bytes"] = chunk
+    check(res.committed == "quorum", f"socket chaos: committed {res.committed}")
+    check(res.outcomes[chaos_clients - 1] == "crashed",
+          f"socket chaos: the crash client's outcome is {res.outcomes[chaos_clients - 1]}")
+    check(res.retries >= 1 and res.chaos["killed"] >= 1,
+          f"socket chaos: retries {res.retries}, killed {res.chaos['killed']}")
+    chaos_ref = params_hash(run_inprocess_reference(
+        params, chaos_clients, seed=SOCKET_SEED, order=sorted(res.arrivals), device=dev))
+    check(params_hash(res.params) == chaos_ref,
+          "socket chaos: the round differs from the reference over its survivors")
+    print(f"  chaos: hash equals the in-process card reference over survivors "
+          f"{sorted(res.arrivals)}")
+
+    # (d) defended: nan_poison against rule majority, on the vote kernel
+    attack = AttackConfig(kind="nan_poison", n_attackers=SOCKET_ATTACKERS)
+    attackers = attacker_ids(attack, n_clients)
+    res, runs["majority"] = socket_run(
+        dev, params, "majority", n_clients, attack=attack,
+        defense=DefenseConfig(enabled=True, rule="majority"),
+        quorum_frac=(n_clients - SOCKET_ATTACKERS) / n_clients)
+    quarantined = {c for c, v in res.outcomes.items() if v == "quarantined"}
+    check(quarantined == set(attackers),
+          f"socket majority: quarantined {sorted(quarantined)}, attackers {sorted(attackers)}")
+    check(runs["majority"]["server_launches"]["vote"] == 1
+          and runs["majority"]["server_launches"]["aggregate"] == 0,
+          f"socket majority: server launches {runs['majority']['server_launches']}, want vote 1")
+    honest = sorted(set(range(n_clients)) - attackers)
+    check(params_hash(res.params) == reference_hash(honest, rule="majority"),
+          "socket majority: the round differs from the honest survivors' reference")
+    print(f"  majority: attackers {sorted(attackers)} quarantined; hash equals the in-process "
+          f"card reference over {honest} under rule majority")
+    wall = time.perf_counter() - t_phase
+    print(f"socket phase: {wall:.2f} s of wall time")
+    return {"runs": runs, "blob_bytes": len(blob), "broadcast_bytes": bcast,
+            "phase_wall_s": wall}
+
+
 def ops_timings(layers, served) -> dict:
     """ternary_quantize over the given fp32 layers (olmo-1b's 112, 2^30
     weights) and pack2bit / unpack2bit (to int8) over the served 2^30 codes,
@@ -2303,6 +2518,13 @@ def main() -> int:
     def fleet_launches(name: str) -> dict:
         return {label: run["launches"][name] for label, run in flt["runs"].items()}
 
+    phase("socket: run_socket_round on ResNet18* at full width, server and client processes "
+          "on the card (sync, buffered, chaos, majority)")
+    sock = socket_phase(dev, setup[1])
+
+    def socket_launches(name: str) -> dict:
+        return {label: run["server_launches"][name] for label, run in sock["runs"].items()}
+
     phase("quickstart: repro_torch.launch.quickstart on the card")
     zero_counters()
     qs = quickstart_main(["--device", "cuda"])
@@ -2342,7 +2564,9 @@ def main() -> int:
          "async_launches": asy["launches"]["quantize_pack"],
          "hierarchy_launches": hier["launches"]["quantize_pack"],
          "controller_launches": ctrl["launches"]["quantize_pack"],
-         "fleet_launches": fleet_launches("quantize_pack")},
+         "fleet_launches": fleet_launches("quantize_pack"),
+         "socket_client_launches": {label: sum(run["child_quantize_pack_launches"].values())
+                                    for label, run in sock["runs"].items()}},
         {"name": "ternary_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ternary_matmul.cu",
          "replaces": "src/repro/kernels/ternary_matmul.py:34",
@@ -2365,6 +2589,7 @@ def main() -> int:
          "hierarchy_launches": hier["launches"]["aggregate"],
          "controller_launches": ctrl["launches"]["aggregate"],
          "fleet_launches": fleet_launches("aggregate"), "fleet": flt,
+         "socket_launches": socket_launches("aggregate"), "socket": sock,
          "controller": {k: ctrl[k] for k in ("per_round", "wall_s", "bytes_by_kind",
                                              "blob_sizes", "fold_vs_cpu_elements",
                                              "encode_ms")},
@@ -2381,7 +2606,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/vote.cu",
          "replaces": "src/repro/kernels/vote.py:40",
          "launches": robust["launches"]["vote"], "max_abs_err": vote_err,
-         "fleet_launches": fleet_launches("vote"),
+         "fleet_launches": fleet_launches("vote"), "socket_launches": socket_launches("vote"),
          "ms": vote_t["round_ms"], "plain_ms": vote_t["round_plain_ms"],
          "bound_ms": vote_t["round_bound_ms"], "bound_by": vote_t["round_bound_by"],
          "library_ms": None, "eager_ms": vote_t["eager_ms"],

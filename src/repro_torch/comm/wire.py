@@ -598,3 +598,93 @@ def tree_from_records(pairs: list[tuple[str, Any]]) -> Pytree:
             return leaf
         _insert(root, path.split(_PATH_SEP), leaf)
     return _containerize(root)
+
+
+# --------------------------------------------------------------------------
+# Incremental / chunked reading (the transport boundary).
+# --------------------------------------------------------------------------
+
+
+# A wire buffer larger than this is a corrupted or hostile length field, not
+# a model update: a full-size fp32 LLM checkpoint stays far below it.
+MAX_BODY_BYTES = 1 << 34  # 16 GiB
+
+
+class StreamDecoder:
+    """Incremental wire-buffer framing over an arbitrary chunk stream.
+
+    ``feed(chunk)`` accumulates bytes and returns every wire buffer the
+    stream has completed so far (possibly several per chunk, possibly
+    none), each exactly one ``encode_update`` output for ``decode_update``
+    or ``decode_update_leaves`` (which verify the CRC; this class only
+    frames). A bad magic, an unsupported version or an oversized
+    ``body_len`` raises ``WireError`` as soon as the 24 header bytes are
+    in, so a corrupted length never makes the reader wait for a body.
+    ``close()`` at EOF raises ``WireError`` if an unfinished buffer is
+    pending: a torn stream is an error, never a short read.
+    """
+
+    def __init__(self, *, max_body_bytes: int = MAX_BODY_BYTES):
+        self._buf = bytearray()
+        self._need: int | None = None   # the whole buffer's length once its header is in
+        self._max_body = int(max_body_bytes)
+        self.frames_out = 0
+        self.bytes_in = 0
+
+    def _header_check(self) -> int:
+        """Validate the buffered header; returns the whole buffer's length."""
+        magic, version, _flags, _n, _crc, body_len = _HEADER.unpack_from(self._buf)
+        if magic != WIRE_MAGIC:
+            raise WireError(f"bad magic {magic!r} in stream (expected {WIRE_MAGIC!r})")
+        if version not in SUPPORTED_VERSIONS:
+            raise WireError(f"wire version {version} not supported (have {SUPPORTED_VERSIONS})")
+        if body_len > self._max_body:
+            raise WireError(f"body_len {body_len} exceeds stream cap {self._max_body} — "
+                            "corrupted length field")
+        return _HEADER.size + body_len
+
+    def feed(self, chunk: bytes) -> list[bytes]:
+        """Absorb one chunk (any size, empty included); returns the wire
+        buffers it completed, in stream order."""
+        self._buf += chunk
+        self.bytes_in += len(chunk)
+        out: list[bytes] = []
+        while True:
+            if self._need is None:
+                if len(self._buf) < _HEADER.size:
+                    break
+                self._need = self._header_check()
+            if len(self._buf) < self._need:
+                break
+            out.append(bytes(self._buf[:self._need]))
+            del self._buf[:self._need]
+            self._need = None
+        self.frames_out += len(out)
+        return out
+
+    @property
+    def pending_bytes(self) -> int:
+        """Bytes buffered toward an incomplete wire buffer."""
+        return len(self._buf)
+
+    def close(self) -> None:
+        """Declare EOF: a partly received buffer is a truncation error."""
+        if self._buf:
+            need = "?" if self._need is None else str(self._need)
+            raise WireError(f"stream ended mid-buffer: {len(self._buf)} bytes pending of {need}")
+
+
+def decode_update_chunks(chunks) -> Pytree:
+    """Decode ONE update delivered as an iterable of byte chunks: raises
+    ``WireError`` on truncation, trailing bytes or more than one buffer in
+    the stream."""
+    dec = StreamDecoder()
+    frames: list[bytes] = []
+    for chunk in chunks:
+        frames.extend(dec.feed(chunk))
+        if len(frames) > 1:
+            raise WireError("multiple wire buffers in a single-update stream")
+    dec.close()
+    if len(frames) != 1:
+        raise WireError("stream ended before a complete wire buffer arrived")
+    return decode_update(frames[0])

@@ -1,6 +1,7 @@
 """Federated runtime (port of ``repro.fed``): the synchronous and the
 buffered-asynchronous T-FedAvg / FedAvg servers, the vectorized fleet
-simulator (``run_fleet``), the edge→root tier, the streaming fan-in
+simulator (``run_fleet``), the multi-process socket round
+(``run_socket_round``), the edge→root tier, the streaming fan-in
 aggregator with its robust rules, the content defense gate, seeded
 attackers, client availability, the event queue and the adaptive
 compression controller."""
@@ -25,12 +26,18 @@ from repro_torch.fed.controller import (
 from repro_torch.fed.defense import DefenseConfig, UpdateGate, Verdict
 from repro_torch.fed.fleet import EventHeap, FleetConfig, FleetResult, run_fleet
 from repro_torch.fed.hierarchy import EdgeTier, HierarchyConfig, edge_of, edges_of
+from repro_torch.fed.mp_server import (
+    QuorumNotMetError, SocketRoundResult, default_chaos, demo_params, params_hash,
+    run_inprocess_reference, run_socket_round,
+)
 from repro_torch.fed.simulation import FedConfig, FedResult, run_federated, run_federated_sync
 
 __all__ = [
     "Aggregator", "FedConfig", "FedResult", "run_federated", "run_federated_sync",
     "run_federated_async", "EventHeap", "FleetConfig", "FleetResult", "run_fleet",
     "HierarchyConfig", "EdgeTier", "edge_of", "edges_of",
+    "SocketRoundResult", "QuorumNotMetError", "run_socket_round", "run_inprocess_reference",
+    "default_chaos", "demo_params", "params_hash",
     "AvailabilityConfig", "ClientAvailability", "AlwaysOn", "DiurnalChurn",
     "TraceReplay", "make_availability",
     "AGG_RULES", "ATTACKS", "AttackConfig", "attacker_ids", "poison_blob",

@@ -18,3 +18,19 @@ tensors, the CUDA kernel (built from ``csrc/`` at first use) for CUDA
 tensors. ``ops`` holds the kernel-level entry points (``fttq_apply``);
 ``repack`` turns wire bytes into the matmul kernel's layout.
 """
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel wrapper's launch count in this process, by kernel name
+    (each wrapper adds one where it launches its kernel)."""
+    from repro_torch.kernels.aggregate import packed_weighted_sum
+    from repro_torch.kernels.pack2bit import pack2bit, unpack2bit
+    from repro_torch.kernels.quantize_pack import quantize_pack
+    from repro_torch.kernels.ternary_matmul import ternary_matmul
+    from repro_torch.kernels.ternary_quantize import ternary_quantize
+    from repro_torch.kernels.vote import packed_vote_counts
+
+    return {"quantize_pack": quantize_pack.launches, "ternary_matmul": ternary_matmul.launches,
+            "aggregate": packed_weighted_sum.launches, "vote": packed_vote_counts.launches,
+            "ternary_quantize": ternary_quantize.launches, "pack2bit": pack2bit.launches,
+            "unpack2bit": unpack2bit.launches}

@@ -126,7 +126,8 @@ def test_port_imports_neither_jax_nor_reference():
         "need = {'repro_torch.' + m for m in ('core.tfedavg', 'core.encode', 'fed.aggregator',\n"
         "        'fed.simulation', 'fed.availability', 'kernels.aggregate', 'parallel.fanin',\n"
         "        'models.paper_models', 'optim.optimizers', 'data.federated', 'data.synthetic',\n"
-        "        'comm.channel', 'launch.federated')}\n"
+        "        'comm.channel', 'launch.federated', 'comm.transport', 'comm.faults',\n"
+        "        'fed.mp_server')}\n"
         "assert need <= set(mods), sorted(need - set(mods))\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"

@@ -866,3 +866,44 @@ def test_run_fleet_on_the_card_equals_the_cpu(cuda_device, mode, n_edges, monkey
     for (pa, a), (pb, b) in zip(flatten_with_path(card.final_update), flatten_with_path(want)):
         assert pa == pb
         assert a.dtype == b.dtype and torch.equal(a.cpu(), b), pa
+
+
+def test_socket_round_on_the_card_equals_the_card_reference(cuda_device, tmp_path):
+    """Four client processes encode on the card (one quantize_pack launch
+    each) and the server folds there (one aggregate launch): the hash is the
+    in-process card reference's, and the fold of the received blobs on a
+    CPU Aggregator is the card's bit for bit."""
+    from repro_torch.fed.mp_server import (
+        demo_params, params_hash, run_inprocess_reference, run_socket_round,
+    )
+
+    params = demo_params(seed=7)
+    before = packed_weighted_sum.launches
+    res = run_socket_round(params, 4, seed=7, timeout_s=300.0, device=cuda_device,
+                           report_dir=str(tmp_path))
+    torch.cuda.synchronize()
+    assert packed_weighted_sum.launches - before == 1
+    assert res.committed == "full" and res.ledger()["balance_ok"]
+    ref = run_inprocess_reference(params, 4, seed=7, device=cuda_device)
+    assert params_hash(res.params) == params_hash(ref)
+    assert sorted(res.client_reports) == [0, 1, 2, 3]
+    for rep in res.client_reports.values():
+        assert rep["device"] == "cuda" and rep["launches"]["quantize_pack"] == 1
+    cpu = Aggregator(chunk_c=16, device="cpu")
+    for _, weight, blob in sorted(res.received):
+        cpu.add(blob, weight=weight)
+    for (pa, a), (pb, b) in zip(flatten_with_path(res.params),
+                                flatten_with_path(cpu.finalize())):
+        assert pa == pb and torch.equal(a.cpu(), b), pa
+
+
+def test_socket_round_raises_where_no_card_is_present(monkeypatch):
+    """Asked for the card where none is present, the socket tier raises
+    before it binds a socket or starts a client."""
+    from repro_torch.fed.mp_server import demo_params, run_inprocess_reference, run_socket_round
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_socket_round(demo_params(), 2, device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_inprocess_reference(demo_params(), 2, device="cuda")

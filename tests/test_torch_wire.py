@@ -387,3 +387,136 @@ def test_every_truncation_of_a_codec_buffer_raises_wire_error():
     for cut in range(0, len(blob), 7):
         with pytest.raises(WireError):
             decode_update(blob[:cut])
+
+
+# --------------------------------------------------------------------------
+# Incremental reading: StreamDecoder and decode_update_chunks against the
+# reference's (the cases of tests/test_wire_compat.py). Each scenario runs
+# on both decoders and must give the same buffers, counters and errors.
+# --------------------------------------------------------------------------
+
+
+def _chunked(blob, sizes):
+    """Split blob into chunks following the (cycled) size pattern."""
+    out, i, k = [], 0, 0
+    while i < len(blob):
+        n = sizes[k % len(sizes)]
+        out.append(blob[i:i + n])
+        i += n
+        k += 1
+    return out
+
+
+def _stream_outcome(decoder_cls, chunks, *, close=True, **kw):
+    """What a decoder makes of a chunk sequence: the buffers each feed
+    returned and its counters, or the error it raised (class name and
+    message), so two packages' decoders compare as values."""
+    dec = decoder_cls(**kw)
+    fed = []
+    try:
+        for chunk in chunks:
+            fed.append(dec.feed(chunk))
+        if close:
+            dec.close()
+    except Exception as e:  # noqa: BLE001 — the error IS the outcome
+        return ("error", type(e).__name__, str(e), fed)
+    return ("ok", fed, dec.bytes_in, dec.frames_out, dec.pending_bytes)
+
+
+def _stream_blob(seed=4):
+    _, ttree = _trees(seed)
+    return encode_update(ttree)
+
+
+@pytest.mark.parametrize("sizes", [[1], [3], [7, 1, 13], [23], [10 ** 9], [5, 1000]])
+def test_stream_decoder_reassembles_any_chunking_like_reference(sizes):
+    """Every chunking, byte-at-a-time included, gives the identical buffer
+    out of both decoders, at the same feed."""
+    from repro_torch.comm import StreamDecoder
+
+    blob = _stream_blob()
+    chunks = _chunked(blob, sizes)
+    got = _stream_outcome(StreamDecoder, chunks)
+    assert got == _stream_outcome(jwire.StreamDecoder, chunks)
+    assert got[0] == "ok" and [b for f in got[1] for b in f] == [blob]
+    assert got[2] == len(blob) and got[3] == 1
+    assert encode_update(decode_update(blob)) == blob
+
+
+def test_stream_decoder_multiple_buffers_in_order_like_reference():
+    from repro_torch.comm import StreamDecoder
+
+    a = encode_update({"x": torch.arange(6.0)})
+    b = _stream_blob(5)
+    chunks = _chunked(a + b + a, [11, 2, 59])
+    got = _stream_outcome(StreamDecoder, chunks)
+    assert got == _stream_outcome(jwire.StreamDecoder, chunks)
+    assert [x for f in got[1] for x in f] == [a, b, a] and got[3] == 3
+
+
+def test_stream_decoder_truncation_every_cut_like_reference():
+    """EOF at ANY interior offset raises at close(), with the reference's
+    error; nothing comes out of a prefix; an empty stream closes clean."""
+    from repro_torch.comm import StreamDecoder
+
+    blob = _stream_blob()
+    for cut in list(range(1, 40)) + list(range(40, len(blob), 37)):
+        chunks = _chunked(blob[:cut], [13])
+        got = _stream_outcome(StreamDecoder, chunks)
+        assert got == _stream_outcome(jwire.StreamDecoder, chunks), cut
+        assert got[0] == "error" and got[1] == "WireError"
+        assert all(f == [] for f in got[3])
+    assert _stream_outcome(StreamDecoder, []) == ("ok", [], 0, 0, 0)
+
+
+def test_stream_decoder_bad_header_fails_fast_like_reference():
+    """Magic, version and length problems raise the moment the 24 header
+    bytes are in, also when the header is split across feeds; a body of
+    exactly the cap parses and one byte more is refused."""
+    from repro_torch.comm import MAX_BODY_BYTES, StreamDecoder
+
+    assert MAX_BODY_BYTES == jwire.MAX_BODY_BYTES
+    blob = _stream_blob()
+    magic, ver, fl, n, crc, bl = _HEADER.unpack_from(blob)
+    cases = [
+        [b"NOPE" + blob[4:_HEADER.size]],
+        [_HEADER.pack(magic, 99, fl, n, crc, bl)],
+        [_HEADER.pack(magic, ver, fl, n, crc, MAX_BODY_BYTES + 1)],
+        [b"NO", b"PE" + blob[4:_HEADER.size]],
+    ]
+    for chunks in cases:
+        got = _stream_outcome(StreamDecoder, chunks, close=False)
+        assert got == _stream_outcome(jwire.StreamDecoder, chunks, close=False)
+        assert got[0] == "error" and got[1] == "WireError"
+    cap = bl
+    for body_cap in (cap, cap - 1):
+        chunks = _chunked(blob, [17])
+        got = _stream_outcome(StreamDecoder, chunks, max_body_bytes=body_cap)
+        assert got == _stream_outcome(jwire.StreamDecoder, chunks, max_body_bytes=body_cap)
+        assert (got[0] == "ok") == (body_cap == cap)
+
+
+def test_stream_decoder_frames_but_crc_still_verified_downstream():
+    from repro_torch.comm import StreamDecoder
+
+    blob = bytearray(_stream_blob())
+    blob[_HEADER.size + 5] ^= 0x10
+    got = _stream_outcome(StreamDecoder, [bytes(blob)])
+    assert got == _stream_outcome(jwire.StreamDecoder, [bytes(blob)])
+    (frame,), = got[1]
+    with pytest.raises(WireError):
+        decode_update(frame)
+
+
+def test_decode_update_chunks_contract_like_reference():
+    from repro_torch.comm import decode_update_chunks
+
+    blob = _stream_blob()
+    out = decode_update_chunks(_chunked(blob, [19]))
+    assert encode_update(out) == blob
+    for chunks in (_chunked(blob[:-3], [19]), [blob, blob], [], [blob, b"\x01\x02\x03"]):
+        with pytest.raises(WireError) as port:
+            decode_update_chunks(chunks)
+        with pytest.raises(jwire.WireError) as ref:
+            jwire.decode_update_chunks(chunks)
+        assert str(port.value) == str(ref.value)
