@@ -31,20 +31,50 @@ Phases (any failure exits non-zero; no phase is skipped):
                  quantize_pack launch per deploy; then unpack2bit and pack2bit
                  against their plain versions on the served 2-bit bytes (bit
                  for bit);
-  5. timings   — quantize_pack, eagerly as core.encode calls it (the
+  5. serve_loop — ``launch.serve_loop.ServeEngine`` on olmo-1b at full width
+                 (max_batch 8, fp16 residuals) at two dequant-cache
+                 capacities, 16 MiB and 1 GiB, each under ``run_closed_loop``
+                 (64 requests of 8 tokens) at 5 and 2,000 offered QPS: p50,
+                 p99 and mean latency, mean batch, achieved QPS and the cache
+                 counters; one quantize_pack launch per engine, 112
+                 ternary_matmul launches per forward, the lazy and packed byte
+                 counts, the engine's logits against the one-shot packed
+                 deploy (rtol 1e-5, atol 1e-5);
+  6. timings   — quantize_pack, eagerly as core.encode calls it (the
                  deploy's one call over olmo-1b's 7 leaves beside 7
                  one-segment calls; one ResNet18* encode as 52 one-segment
                  calls and as one call, per encode and per round),
                  ternary_matmul (one decode step's and one prefill forward's
-                 112 matmuls beside torch.matmul on the dequantized weights),
+                 112 matmuls beside torch.matmul on the dequantized weights,
+                 and the zoo's new shapes: gemma3's wq, granite's MLP,
+                 hubert's 1,280-wide layers, the vlm's cross K/V at 6,400
+                 rows),
                  ternary_quantize, pack2bit and unpack2bit, their plain
                  versions and the PyTorch library call where one exists, with
                  CUDA events, beside the least time the card could take (bytes
                  over 3.35 TB/s, or operations over 67 TFLOP/s of fp32 or, for
                  the tensor-core ternary_matmul, 3 · 2MKN over 989 TFLOP/s of
                  bf16, whichever is larger);
-  6. trace     — three decode steps under torch.profiler;
-  7. federated — two T-FedAvg sync rounds (paper Algorithm 2) on ResNet18* at
+  7. trace     — three decode steps under torch.profiler;
+  8. zoo       — every family through ``launch.serve``'s functions, random
+                 weights from seed 0, one deploy through TFW1 each (one
+                 quantize_pack launch): gemma3-4b, granite-20b (4 of 52
+                 layers), llama-3.2-vision-11b (10 of 40 layers, cross gates
+                 0.5, 4 × 1,600 patch embeds) and hubert-xlarge packed, with
+                 the packed-vs-dequantized logits check (≤ 1e-4 of max
+                 |logits|); qwen3-moe-30b-a3b and deepseek-moe-16b (4 layers
+                 each), mamba2-370m and zamba2-1.2b dequantized; causal archs
+                 prefill 4 × 32 and take 15 greedy steps, hubert runs an
+                 encoder forward of 2 × 512 frame embeds; per arch the peak
+                 device memory, deploy s, prefill ms, decode tok/s and
+                 ternary_matmul launches (238 / 24 / 84 / 288 per forward for
+                 the packed four). Then gemma3's 4,096-token prefill into
+                 4,112 slots (the blocked softmax on every layer, held to the
+                 naive one on a global and a sliding layer within 1e-5),
+                 decode against prefill for qwen3-moe (capacity 16), mamba2
+                 and zamba2 (3e-3), and mamba2's SSD of a 1,024-token prefill
+                 at chunk 256 against chunk 64 (1e-4);
+  9. federated — two T-FedAvg sync rounds (paper Algorithm 2) on ResNet18* at
                  full width with the paper's CIFAR setting (FedConfig
                  defaults: 100 clients, λ = 0.1, E = 5, B = 64, adam(1e-3), 500
                  synthetic 32×32×3 samples per client); per round the bytes,
@@ -55,7 +85,7 @@ Phases (any failure exits non-zero; no phase is skipped):
                  list reference ``server_aggregate``; the card's fused
                  encode of the last broadcast and of one client's upload
                  against the reference chain;
-  8. robust    — one defended sync round of ResNet18* at full width (rule
+ 10. robust    — one defended sync round of ResNet18* at full width (rule
                  majority on the vote kernel, 30 seeded sign-flip attackers of
                  100 clients): bytes, phase wall times, the gate's telemetry and
                  ledger, launches (one vote launch per flush); then, on the
@@ -63,7 +93,7 @@ Phases (any failure exits non-zero; no phase is skipped):
                  uploads, the majority, median and trimmed_mean folds on the
                  card against the CPU plain folds, the sign-flip guarantee, and
                  the gate against 3 nan_poison uploads;
-  9. async     — the buffered-async T-FedAvg server (``mode="async"``) on
+ 11. async     — the buffered-async T-FedAvg server (``mode="async"``) on
                  ResNet18* at full width, FedConfig defaults (10 clients in
                  flight), buffer_k 4, staleness exponent 0.5, η 1, staleness
                  cap 1 with the drop policy, 3 mixes: per mix the simulated
@@ -73,14 +103,14 @@ Phases (any failure exits non-zero; no phase is skipped):
                  one long-lived aggregator); the last mix's fold on its
                  buffered uploads and staleness weights against
                  ``server_aggregate``;
- 10. hierarchy — one sync T-FedAvg round on ResNet18* at full width through
+ 12. hierarchy — one sync T-FedAvg round on ResNet18* at full width through
                  3 requantizing edges (``mod``): the tier's telemetry and
                  ledger, upload = client→edge + edge→root bytes, launches (one
                  quantize_pack per broadcast, upload and active edge; one
                  aggregate per active edge and at the root); then a lossless
                  tier on the card over the same uploads against a flat card
                  Aggregator;
- 11. controller — two sync T-FedAvg rounds on ResNet18* at full width with
+ 13. controller — two sync T-FedAvg rounds on ResNet18* at full width with
                  the adaptive compression controller (20 clients of 500
                  samples, λ 0.5, E 5, B 64; ControllerConfig(warmup_encodes=1,
                  divergence_high=1e9): each client's first upload ternary,
@@ -93,7 +123,7 @@ Phases (any failure exits non-zero; no phase is skipped):
                  same blobs bit for bit, each rung's card encode of one
                  trained tree against the CPU's (wire bytes, residual bits),
                  and one eager upload encode's ms per rung;
- 12. fleet     — ``repro_torch.fed.run_fleet`` on ResNet18* at full width at
+ 14. fleet     — ``repro_torch.fed.run_fleet`` on ResNet18* at full width at
                  bench_hierarchy.py's top cell (10^6 clients, λ 0.1,
                  DiurnalChurn, FleetConfig defaults: a pool of 8 payloads):
                  (a) sync flat, 2 rounds; (b) sync through 64 requantizing
@@ -110,7 +140,7 @@ Phases (any failure exits non-zero; no phase is skipped):
                  final update against the port's CPU path fed the same
                  cohorts (bit for bit; under the tier the edge codes bit for
                  bit, scales within 1e-6, and the root fold bit for bit);
- 13. socket    — ``repro_torch.fed.run_socket_round`` on ResNet18* at full
+ 15. socket    — ``repro_torch.fed.run_socket_round`` on ResNet18* at full
                  width, the server's aggregator and every client process on
                  the card: (a) sync, 8 clients; (b) buffered, 8 clients,
                  buffer_k 3, η 0.5; (c) sync through the chaos proxy at fault
@@ -125,22 +155,23 @@ Phases (any failure exits non-zero; no phase is skipped):
                  port's in-process card reference over the same survivors,
                  and (a)'s fold against a CPU Aggregator on the received
                  blobs, bit for bit;
- 14. quickstart — repro_torch.launch.quickstart on the card, then its own
+ 16. quickstart — repro_torch.launch.quickstart on the card, then its own
                  ternary_quantize, pack2bit and unpack2bit outputs against
                  the plain versions on the same inputs, bit for bit;
- 15. fan-in timings — aggregate and vote over one round's fold (52 segments,
+ 17. fan-in timings — aggregate and vote over one round's fold (52 segments,
                  10 clients) in one launch, as a CUDA-graph replay and as an
                  eager Aggregator flush (staging fill, pinned copy, launch),
                  beside the per-segment pattern of 52 launches of 32-row tiles
                  at C = 16, and at 16 clients × 2^26 elements; bytes bounds and
                  plain versions;
- 16. fan-in trace — the aggregate phase of one mean and one majority round
+ 18. fan-in trace — the aggregate phase of one mean and one majority round
                  on the last round's uploads under torch.profiler, with the
                  Aggregator's host ranges (add, stage, copy, launch, finalize);
- 17. fed trace — one round of one client at E = 5, B = 64, timed untraced
+ 19. fed trace — one round of one client at E = 5, B = 64, timed untraced
                  and then run under torch.profiler.
-Before each driven path (serve, federated, robust, async, hierarchy,
-controller, each fleet run, each socket run, quickstart) every kernel's
+Before each driven path (serve, each serve-loop engine and closed-loop run,
+each zoo arch, federated, robust, async, hierarchy, controller, each fleet
+run, each socket run, quickstart) every kernel's
 launch counter is set to 0, and read just after; a socket run's client
 processes count their own launches and report them as they exit.
 
@@ -2220,6 +2251,358 @@ def report_trace(prof, wall_ms: float, what: str, untraced_ms: float | None = No
         print(f"  {e.self_cpu_time_total / 1e3:9.3f} ms host    {e.count:6d} calls  {e.key[:70]}")
 
 
+SERVE_LOOP_REQUESTS = 64
+SERVE_LOOP_PROMPT = 8
+SERVE_LOOP_BATCH = 8
+SERVE_LOOP_QPS = (5.0, 2000.0)               # under and over saturation
+SERVE_LOOP_CAPACITIES = (1 << 24, 1 << 30)   # the default, and room for the embedding
+ZOO_MATMUL_SHAPES = [(4, 2560, 2048), (128, 2560, 2048),      # gemma3 wq, head_dim 256
+                     (4, 6144, 24576), (128, 6144, 24576),    # granite's MLP
+                     (1024, 1280, 1280),                      # hubert, 2 × 512 frames
+                     (6400, 4096, 1024)]                      # vlm cross K/V, 4 × 1600
+# (arch, how it is served, layers kept; None keeps them all)
+ZOO = [("gemma3-4b", "packed", None), ("granite-20b", "packed", 4),
+       ("llama-3.2-vision-11b", "packed", 10), ("hubert-xlarge", "packed", None),
+       ("qwen3-moe-30b-a3b", "ternary", 4), ("deepseek-moe-16b", "ternary", 4),
+       ("mamba2-370m", "ternary", None), ("zamba2-1.2b", "ternary", None)]
+ZOO_FRAMES = 512           # hubert: 2 × 512 frame embeddings
+LONG_PREFILL = 4096        # gemma3: one 4,096-token prefill into 4,112 slots
+SSD_PREFILL = 1024         # mamba2-370m: 4 chunks of 256
+
+
+def serve_loop_phase(dev, cfg, params, fcfg) -> dict:
+    """``ServeEngine`` on olmo-1b at full width at two cache capacities,
+    each under ``run_closed_loop`` at two offered rates; launch counts,
+    byte counts and cache counters held to their derived values."""
+    import torch
+
+    from repro_torch.launch.serve import ternary_deploy
+    from repro_torch.launch.serve_loop import ServeEngine, run_closed_loop
+    from repro_torch.models.transformer import forward
+
+    per_forward = cfg.n_layers * LAYER_MATMULS
+    embed_bytes = cfg.vocab_size * cfg.d_model * 4
+    packed_bytes = 2 ** 30 // 4 + LAYER_MATMULS * cfg.n_layers * 4
+    out = {"engines": {}}
+    for cap in SERVE_LOOP_CAPACITIES:
+        zero_counters()
+        t0 = time.perf_counter()
+        engine = ServeEngine(cfg, params, max_batch=SERVE_LOOP_BATCH, residual="fp16",
+                             cache_capacity_bytes=cap, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        launches = read_counters()
+        st = engine.stats()
+        print(f"engine, cache {cap} B: built in {build_s:.3f} s; wire {st['wire_bytes']} B, "
+              f"packed weights {st['packed_weight_bytes']} B, lazy leaves "
+              f"{engine._lazy_keys} ({st['lazy_wire_bytes_dense']} B dense); launches "
+              f"{json.dumps(launches)}")
+        check(launches["quantize_pack"] == 1, "an engine's deploy is one quantize_pack launch")
+        check(engine._lazy_keys == ["['embed']['table']"], "olmo-1b's one lazy leaf")
+        check(st["lazy_wire_bytes_dense"] == embed_bytes == 412_090_368,
+              f"lazy dense bytes {st['lazy_wire_bytes_dense']}")
+        check(st["packed_weight_bytes"] == packed_bytes == 268_435_904,
+              f"packed weight bytes {st['packed_weight_bytes']}")
+        row = {"build_s": build_s, "stats": st, "runs": {}}
+        if cap == SERVE_LOOP_CAPACITIES[0]:
+            served, wire_bytes, _, _ = ternary_deploy(params, fcfg, packed=True,
+                                                      residual="fp16", device=dev)
+            check(wire_bytes == st["wire_bytes"], "the engine's artifact differs from the "
+                                                  "one-shot deploy's")
+            probe = torch.randint(0, cfg.vocab_size, (2, 8),
+                                  generator=torch.Generator(dev).manual_seed(3), device=dev)
+            le = engine.forward(probe)
+            lr, _, _ = forward(cfg, served, probe)
+            err = float((le - lr).abs().max())
+            print(f"engine vs one-shot packed deploy logits: max |d| = {err:.3e} "
+                  "(rtol 1e-5, atol 1e-5)")
+            check(bool(torch.allclose(le, lr, rtol=1e-5, atol=1e-5)),
+                  "the engine's logits differ from the one-shot deploy's")
+            row["vs_deploy_max_abs"] = err
+            del served, le, lr
+        for qps in SERVE_LOOP_QPS:
+            zero_counters()
+            f0 = engine.forwards
+            rep = run_closed_loop(engine, n_requests=SERVE_LOOP_REQUESTS, offered_qps=qps,
+                                  prompt_len=SERVE_LOOP_PROMPT, seed=0)
+            launches = read_counters()
+            n_fwd = engine.forwards - f0
+            r = rep.row()
+            print(f"  offered {qps} QPS: p50 {r['p50_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms, "
+                  f"mean {r['mean_ms']:.3f} ms, mean batch {r['mean_batch']:.3f}, achieved "
+                  f"{r['achieved_qps']:.3f} QPS, busy {r['wall_s']:.3f} s, {n_fwd} forwards; "
+                  f"cache {json.dumps(r['cache'])}; launches {json.dumps(launches)}")
+            check(launches["ternary_matmul"] == per_forward * n_fwd,
+                  f"ternary_matmul launched {launches['ternary_matmul']} times in "
+                  f"{n_fwd} forwards")
+            check(launches["quantize_pack"] == 0, "serving launched quantize_pack")
+            row["runs"][qps] = {"report": r, "forwards": n_fwd, "launches": launches}
+        c = engine.cache.stats()
+        total = engine.forwards
+        if cap < embed_bytes:
+            ok = c["misses"] == total and c["evictions"] == total and c["hits"] == 0
+        else:
+            ok = c["misses"] == 1 and c["hits"] == total - 1 and c["evictions"] == 0
+        check(ok, f"cache counters {c} after {total} forwards at capacity {cap}")
+        out["engines"][cap] = row
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
+def _free() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class _Capture:
+    """Wraps ``module.name`` and keeps the arguments of the calls whose
+    index is in ``keep`` (the wrapped function still runs)."""
+
+    def __init__(self, module, name: str, keep):
+        self.module, self.name, self.keep = module, name, set(keep)
+        self.real = getattr(module, name)
+        self.calls = 0
+        self.args = {}
+
+    def __enter__(self):
+        def wrapped(*args, **kw):
+            if self.calls in self.keep:
+                self.args[self.calls] = (args, dict(kw))
+            self.calls += 1
+            return self.real(*args, **kw)
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def _decode_vs_prefill(cfg, params, dev, tokens: int = 16) -> float:
+    """Max |logits| gap between a prefill of ``tokens`` and as many cached
+    one-token steps, held to rtol 3e-3, atol 3e-3 (the reference test's)."""
+    import torch
+
+    from repro_torch.models.transformer import decode_step, forward, init_cache
+
+    toks = torch.randint(0, cfg.vocab_size, (2, tokens),
+                         generator=torch.Generator(dev).manual_seed(4), device=dev)
+    full, _, _ = forward(cfg, params, toks)
+    cache = init_cache(cfg, 2, tokens, device=dev)
+    steps = []
+    for t in range(tokens):
+        lg, cache = decode_step(cfg, params, toks[:, t:t + 1], cache, t)
+        steps.append(lg[:, 0])
+    dec = torch.stack(steps, 1)
+    gap = float((dec - full).abs().max())
+    check(bool(torch.allclose(dec, full, rtol=3e-3, atol=3e-3)),
+          f"{cfg.name}: cached decode differs from the prefill by {gap:.3e}")
+    return gap
+
+
+def _long_prefill_check(cfg, served, dev) -> dict:
+    """gemma3: one 4,096-token prefill into 4,112 slots takes the blocked
+    softmax on every layer; on global layer 5 and sliding layer 0 the
+    blocked path's output on that prefill's q/k/v equals the naive one."""
+    import torch
+
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.transformer import forward, init_cache, layer_windows
+
+    windows = layer_windows(cfg)
+    check(windows[5] == 1 << 30 and windows[0] == cfg.sliding_window, "gemma3's layer windows")
+    toks = torch.randint(0, cfg.vocab_size, (1, LONG_PREFILL),
+                         generator=torch.Generator(dev).manual_seed(6), device=dev)
+    cache = init_cache(cfg, 1, LONG_PREFILL + 16, device=dev)
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _Capture(attn_mod, "_attend_flash", keep=(0, 5)) as cap:
+        logits, _, _ = forward(cfg, served, toks, cache=cache, pos=0)
+        torch.cuda.synchronize()
+    t_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counters()
+    check(cap.calls == cfg.n_layers, f"{cap.calls} blocked-softmax calls, want {cfg.n_layers}")
+    check(bool(torch.isfinite(logits).all()), "long prefill logits are not finite")
+    errs = {}
+    for layer in (0, 5):
+        args, kw = cap.args[layer]
+        got = cap.real(*args, **kw)
+        want = attn_mod._attend_naive(*args, **kw)
+        errs[layer] = float((got - want).abs().max())
+        check(errs[layer] <= 1e-5, f"blocked vs naive softmax at layer {layer}: "
+                                   f"{errs[layer]:.3e}")
+    del cap, cache, logits
+    print(f"  long prefill 1 x {LONG_PREFILL} into {LONG_PREFILL + 16} slots: {t_ms:.2f} ms, "
+          f"blocked softmax on all {cfg.n_layers} layers; blocked vs naive max |d|: layer 0 "
+          f"(window {cfg.sliding_window}) {errs[0]:.3e}, layer 5 (global) {errs[5]:.3e} "
+          f"(limit 1e-5); ternary_matmul {launches['ternary_matmul']} launches")
+    check(launches["ternary_matmul"] == cfg.n_layers * LAYER_MATMULS,
+          "the long prefill's ternary_matmul launches")
+    return {"ms": t_ms, "max_abs": errs, "launches": launches}
+
+
+def _ssd_chunk_check(cfg, params, dev) -> dict:
+    """mamba2-370m: the first layer's SSD inputs from a 1 × 1,024 prefill
+    (4 chunks of 256) scanned at chunk 256 and at chunk 64 agree within
+    1e-4 of max |y|, final states too: the inter-chunk recurrence."""
+    import torch
+
+    from repro_torch.models import mamba2 as mb
+    from repro_torch.models.transformer import forward
+
+    toks = torch.randint(0, cfg.vocab_size, (1, SSD_PREFILL),
+                         generator=torch.Generator(dev).manual_seed(7), device=dev)
+    with _Capture(mb, "ssd_chunked", keep=(0,)) as cap:
+        forward(cfg, params, toks)
+    args, _ = cap.args[0]
+    x, dt, a, b, c, chunk = args
+    check(chunk == 256 and x.shape[1] == SSD_PREFILL, "mamba2-370m's chunk and length")
+    y256, h256 = mb.ssd_chunked(x, dt, a, b, c, 256)
+    y64, h64 = mb.ssd_chunked(x, dt, a, b, c, 64)
+    ey = float((y256 - y64).abs().max()) / float(y256.abs().max())
+    eh = float((h256 - h64).abs().max()) / float(h256.abs().max())
+    print(f"  SSD of layer 0 on a 1 x {SSD_PREFILL} prefill, chunk 256 vs 64: max |dy| / max "
+          f"|y| = {ey:.3e}, max |dh| / max |h| = {eh:.3e} (limit 1e-4)")
+    check(ey <= 1e-4 and eh <= 1e-4, "the SSD scan depends on the chunk size")
+    return {"y_rel": ey, "state_rel": eh}
+
+
+def zoo_phase(dev, fcfg) -> dict:
+    """Every family through ``launch/serve.py``'s functions: one deploy
+    through TFW1, the packed logits check (packed archs), prefill 4 × 32 and
+    15 greedy steps (causal archs) or an encoder forward (hubert); peak
+    memory, times and launches per arch; the long-prefill, decode-vs-prefill
+    and chunk checks. Each arch frees its tensors before the next."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate, packed_logits_check, ternary_deploy
+    from repro_torch.models.frontends import synth_audio_frames, synth_vision_patches
+    from repro_torch.models.transformer import forward, init_params, param_count
+
+    out = {}
+    for arch, how, layers in ZOO:
+        cut = {"n_layers": layers} if layers else {}
+        cfg = get_config(arch, **cut)
+        full_layers = get_config(arch).n_layers
+        packed = how == "packed"
+        row = {"how": how, "layers": cfg.n_layers, "of_layers": full_layers,
+               "params": param_count(cfg)}
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()       # what earlier phases still hold
+        params = init_params(cfg, seed=0, device=dev)
+        if cfg.family == "vlm":      # tanh(0) = 0 would silence the cross layers
+            params["cross"]["gate_attn"].fill_(0.5)
+            params["cross"]["gate_mlp"].fill_(0.5)
+        torch.cuda.synchronize()
+        zero_counters()
+        t0 = time.perf_counter()
+        served, wire_bytes, _, _ = ternary_deploy(params, fcfg, packed=packed, device=dev)
+        torch.cuda.synchronize()
+        row["deploy_s"] = time.perf_counter() - t0
+        row["wire_bytes"] = wire_bytes
+        launches = read_counters()
+        check(launches["quantize_pack"] == 1, f"{arch}: the deploy's quantize_pack launches")
+        check(launches["ternary_matmul"] == 0, f"{arch}: the deploy launched ternary_matmul")
+        row["launches"] = {"quantize_pack": launches["quantize_pack"]}
+        per_forward = 0
+        if packed:
+            per_forward = (cfg.n_layers + cfg.n_cross) * (6 + cfg.gated_mlp)
+        gen = torch.Generator(dev).manual_seed(2)
+        vis4 = (synth_vision_patches(gen, BATCH, cfg.n_patches, cfg.d_model)
+                if cfg.family == "vlm" else None)
+        forwards = 0
+        if packed:
+            ref_params, ref_bytes, _, _ = ternary_deploy(params, fcfg, packed=False, device=dev)
+            check(ref_bytes == wire_bytes, f"{arch}: the two deploys' artifacts differ")
+            row["launches"]["quantize_pack"] = read_counters()["quantize_pack"]
+            check(row["launches"]["quantize_pack"] == 2, f"{arch}: two deploys, want two "
+                                                         "quantize_pack launches")
+        zero_counters()
+        if packed:
+            if cfg.family == "audio":
+                probe = {"probe": None, "embeds": synth_audio_frames(gen, 2, ZOO_FRAMES,
+                                                                     cfg.d_model)}
+            else:
+                probe = {"probe": torch.randint(0, cfg.vocab_size, (2, 8), generator=gen,
+                                                device=dev)}
+                if vis4 is not None:
+                    probe["vision_embeds"] = vis4[:2]
+            diff, ref_max = packed_logits_check(cfg, served, ref_params, **probe)
+            forwards += 1
+            row["logits_ratio"] = diff / ref_max
+            print(f"{arch}: packed-vs-dequant logits max |d| {diff:.3e}, max |logits_ref| "
+                  f"{ref_max:.3e}, ratio {diff / ref_max:.3e} (limit 1e-4)")
+            check(diff / ref_max <= 1e-4, f"{arch}: packed logits disagree")
+            del ref_params
+            _free()
+        del params
+        _free()
+        if cfg.causal:
+            prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen,
+                                    device=dev)
+            tokens, t_prefill, t_decode = generate(cfg, served, prompts, GEN,
+                                                   vision_embeds=vis4)
+            forwards += GEN
+            check(tuple(tokens.shape) == (BATCH, GEN)
+                  and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+                  f"{arch}: generated tokens out of shape or vocab")
+            row.update(prefill_ms=t_prefill * 1e3, decode_tok_s=BATCH * (GEN - 1) / t_decode)
+        else:
+            frames = synth_audio_frames(gen, 2, ZOO_FRAMES, cfg.d_model)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _, _ = forward(cfg, served, None, embeds=frames)
+            torch.cuda.synchronize()
+            row["encoder_ms"] = (time.perf_counter() - t0) * 1e3
+            forwards += 1
+            check(tuple(logits.shape) == (2, ZOO_FRAMES, cfg.vocab_size)
+                  and bool(torch.isfinite(logits).all()), f"{arch}: encoder logits")
+            del logits
+        launches = read_counters()
+        row["launches"]["ternary_matmul"] = launches["ternary_matmul"]
+        row["ternary_matmul_per_forward"] = per_forward
+        check(launches["ternary_matmul"] == per_forward * forwards,
+              f"{arch}: ternary_matmul launched {launches['ternary_matmul']} times, want "
+              f"{per_forward} x {forwards}")
+        check(launches["quantize_pack"] == 0, f"{arch}: serving launched quantize_pack")
+        if arch == "gemma3-4b":
+            row["long_prefill"] = _long_prefill_check(cfg, served, dev)
+        if arch == "qwen3-moe-30b-a3b":
+            row["decode_vs_prefill"] = _decode_vs_prefill(
+                dataclasses.replace(cfg, capacity_factor=16.0), served, dev)
+        if cfg.family in ("ssm", "hybrid"):
+            row["decode_vs_prefill"] = _decode_vs_prefill(cfg, served, dev)
+        if arch == "mamba2-370m":
+            row["ssd_chunks"] = _ssd_chunk_check(cfg, served, dev)
+        row["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        if cfg.causal:
+            times = (f"prefill {row['prefill_ms']:.2f} ms, decode "
+                     f"{row['decode_tok_s']:.1f} tok/s")
+        else:
+            times = f"encoder forward 2 x {ZOO_FRAMES} {row['encoder_ms']:.2f} ms"
+        extra = (f", decode vs prefill max |d| {row['decode_vs_prefill']:.3e} (rtol/atol 3e-3)"
+                 if "decode_vs_prefill" in row else "")
+        print(f"{arch} ({how}, {cfg.n_layers} of {full_layers} layers, {row['params']} params): "
+              f"wire {wire_bytes} B, deploy {row['deploy_s']:.3f} s, {times}, peak "
+              f"{row['peak_gib']:.2f} GiB above the {base / 2 ** 30:.2f} GiB held before; "
+              f"launches quantize_pack {row['launches']['quantize_pack']} (one per deploy), "
+              f"ternary_matmul {launches['ternary_matmul']} = {per_forward} x {forwards} "
+              f"forwards{extra}")
+        out[arch] = row
+        del served, vis4
+        _free()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2322,7 +2705,7 @@ def main() -> int:
               "plain version or the split (want 0)")
         check(bad == 0, f"ternary_matmul is not exact on one-hot weights at {(m, k, n)}")
     per_shape = []
-    for m, k, n in MATMUL_SHAPES:
+    for m, k, n in MATMUL_SHAPES + ZOO_MATMUL_SHAPES:
         x = torch.randn(m, k, generator=gen, device=dev)
         c = torch.randint(0, 3, (k // 4, 4, n), generator=gen, device=dev, dtype=torch.uint8)
         packed = c[:, 0] | (c[:, 1] << 2) | (c[:, 2] << 4) | (c[:, 3] << 6)
@@ -2414,6 +2797,13 @@ def main() -> int:
     phase("checks: unpack2bit / pack2bit on the served 2-bit weights (bit-identical)")
     pack_err, unpack_err = pack_checks(served)
 
+    phase("serve_loop: ServeEngine on olmo-1b at full width under run_closed_loop "
+          "(cache 16 MiB and 1 GiB; 5 and 2,000 QPS)")
+    t0 = time.perf_counter()
+    sloop = serve_loop_phase(dev, cfg, params, fcfg)
+    sloop["phase_s"] = time.perf_counter() - t0
+    print(f"serve_loop phase: {sloop['phase_s']:.2f} s")
+
     phase("timings")
     box = {}
 
@@ -2494,6 +2884,15 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     report_trace(prof, wall_ms, "3 decode steps")
+    del cache, logits, prof
+
+    phase("zoo: every family through launch/serve.py (gemma3-4b, granite-20b 4 of 52 layers, "
+          "llama-3.2-vision-11b 10 of 40, hubert-xlarge, qwen3-moe 4 of 48, deepseek-moe 4 of "
+          "28, mamba2-370m, zamba2-1.2b)")
+    t0 = time.perf_counter()
+    zoo = zoo_phase(dev, fcfg)
+    zoo_s = time.perf_counter() - t0
+    print(f"zoo phase: {zoo_s:.2f} s")
 
     phase("federated: ResNet18* T-FedAvg sync rounds at full width")
     setup = federated_setup(dev)
@@ -2566,14 +2965,21 @@ def main() -> int:
          "controller_launches": ctrl["launches"]["quantize_pack"],
          "fleet_launches": fleet_launches("quantize_pack"),
          "socket_client_launches": {label: sum(run["child_quantize_pack_launches"].values())
-                                    for label, run in sock["runs"].items()}},
+                                    for label, run in sock["runs"].items()},
+         "serve_loop_launches": {cap: 1 for cap in sloop["engines"]},
+         "zoo_launches": {arch: row["launches"]["quantize_pack"] for arch, row in zoo.items()}},
         {"name": "ternary_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ternary_matmul.cu",
          "replaces": "src/repro/kernels/ternary_matmul.py:34",
          "launches": tm_launches, "max_abs_err": tm_err, "ms": decode_t["ms"],
          "plain_ms": decode_t["plain_ms"], "bound_ms": decode_t["bound_ms"],
          "bound_by": decode_t["bound_by"], "library_ms": decode_t["library_ms"],
-         "eager_ms": decode_t["eager_ms"], "prefill": prefill_t, "per_shape": per_shape},
+         "eager_ms": decode_t["eager_ms"], "prefill": prefill_t, "per_shape": per_shape,
+         "serve_loop_launches": {cap: {qps: run["launches"]["ternary_matmul"]
+                                       for qps, run in row["runs"].items()}
+                                 for cap, row in sloop["engines"].items()},
+         "zoo_launches": {arch: row["launches"]["ternary_matmul"] for arch, row in zoo.items()},
+         "serve_loop": sloop, "zoo": zoo},
         {"name": "aggregate", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/aggregate.cu",
          "replaces": "src/repro/kernels/aggregate.py:51",

@@ -1,10 +1,18 @@
-"""Attention with GQA/MQA, sliding window and a KV cache (port of
-``repro.models.attention``).
+"""Attention with GQA/MQA, sliding window, cross-attention and a KV cache
+(port of ``repro.models.attention``).
 
-The softmax materializes the (Sq × Sk) scores (``_attend_naive``), as the
-reference does for short sequences. The reference switches to a blocked
-online softmax when S_kv > 2048 and S_q > 1; that path is not ported and
-raises ``NotImplementedError``.
+Two softmax paths, as in the reference:
+
+- ``_attend_naive`` materializes the (Sq × Sk) scores; short sequences and
+  decode (S_q == 1) take it.
+- ``_attend_flash`` is an online softmax over blocks of ``FLASH_BLOCK``
+  keys, O(Sq · block) live memory; it runs when S_kv > 2048 and S_q > 1.
+  It keeps the reference's block loop and its m / l / acc arithmetic, but
+  masks the keys that pad S_kv to a whole block by their index (≥ S_kv)
+  rather than by a position sentinel: the reference gives them position
+  −10⁹, which a global window does not mask, so its blocked path adds
+  exp(0 − m) per padded key to the softmax denominator whenever S_kv is
+  not a multiple of 1024. Here the blocked path equals ``_attend_naive``.
 """
 
 from __future__ import annotations
@@ -16,16 +24,20 @@ from repro_torch.models.common import apply_rope, dense_init, matmul
 
 NEG_INF = -1e30
 FLASH_THRESHOLD = 2048
+FLASH_BLOCK = 1024
+GLOBAL_WINDOW = 1 << 30
 
 
 def init_attn(gen: torch.Generator, d_model: int, n_heads: int, n_kv_heads: int,
-              head_dim: int, dtype, n_layers: int):
-    """Stacked (n_layers, ...) attention projections."""
+              head_dim: int, dtype, n_layers: int | None = None):
+    """Attention projections, stacked (n_layers, ...) unless ``n_layers``
+    is None."""
+    lead = () if n_layers is None else (n_layers,)
     return {
-        "wq": dense_init(gen, (n_layers, d_model, n_heads * head_dim), dtype),
-        "wk": dense_init(gen, (n_layers, d_model, n_kv_heads * head_dim), dtype),
-        "wv": dense_init(gen, (n_layers, d_model, n_kv_heads * head_dim), dtype),
-        "wo": dense_init(gen, (n_layers, n_heads * head_dim, d_model), dtype),
+        "wq": dense_init(gen, lead + (d_model, n_heads * head_dim), dtype),
+        "wk": dense_init(gen, lead + (d_model, n_kv_heads * head_dim), dtype),
+        "wv": dense_init(gen, lead + (d_model, n_kv_heads * head_dim), dtype),
+        "wo": dense_init(gen, lead + (n_heads * head_dim, d_model), dtype),
     }
 
 
@@ -41,13 +53,16 @@ def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
     return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
 
 
-def _attend_naive(q, k, v, q_pos, k_pos, *, causal, window, k_len=None):
-    """q: (B,Sq,Hkv,G,hd)  k,v: (B,Sk,Hkv,hd) → (B,Sq,Hkv,G,hd)."""
+def _scale(hd: int) -> float:
     # 1/sqrt(hd) rounded as the reference's f32 arithmetic rounds it, kept a
     # host scalar so no copy to the device (and no sync) happens per layer
-    scale = float(np.float32(1.0) / np.sqrt(np.float32(q.shape[-1])))
+    return float(np.float32(1.0) / np.sqrt(np.float32(hd)))
+
+
+def _attend_naive(q, k, v, q_pos, k_pos, *, causal, window, k_len=None):
+    """q: (B,Sq,Hkv,G,hd)  k,v: (B,Sk,Hkv,hd) → (B,Sq,Hkv,G,hd)."""
     logits = torch.einsum("bqhgd,bkhd->bhgqk", q.to(torch.float32),
-                          k.to(torch.float32)) * scale
+                          k.to(torch.float32)) * _scale(q.shape[-1])
     bias = _mask_bias(q_pos, k_pos, causal=causal, window=window)
     if k_len is not None:  # decode: mask unwritten cache slots
         bias = bias + torch.where(k_pos[None, :] < k_len, 0.0, NEG_INF)
@@ -56,28 +71,78 @@ def _attend_naive(q, k, v, q_pos, k_pos, *, causal, window, k_len=None):
     return out.to(q.dtype)
 
 
+def _attend_flash(q, k, v, q_pos, k_pos, *, causal, window, k_len=None,
+                  block: int = FLASH_BLOCK):
+    """Online softmax over blocks of ``block`` keys; O(Sq · block) live
+    memory. Keys past S_kv (the last block's padding) are masked by index."""
+    b, sq, hkv, g, hd = q.shape
+    sk = k.shape[1]
+    n_blocks = (sk + block - 1) // block
+    scale = _scale(hd)
+    qf = q.to(torch.float32)
+    m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, g, sq, hd), dtype=torch.float32, device=q.device)
+    for i in range(n_blocks):
+        lo, hi = i * block, min((i + 1) * block, sk)
+        kc = k[:, lo:hi].to(torch.float32)
+        vc = v[:, lo:hi].to(torch.float32)
+        pc = k_pos[lo:hi]
+        pad = block - (hi - lo)
+        if pad:
+            kc = torch.nn.functional.pad(kc, (0, 0, 0, 0, 0, pad))
+            vc = torch.nn.functional.pad(vc, (0, 0, 0, 0, 0, pad))
+            pc = torch.nn.functional.pad(pc, (0, pad))
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, kc) * scale
+        bias = _mask_bias(q_pos, pc, causal=causal, window=window)
+        if k_len is not None:
+            bias = bias + torch.where(pc[None, :] < k_len, 0.0, NEG_INF)
+        if pad:
+            valid = torch.arange(block, device=q.device) < block - pad
+            bias = bias + torch.where(valid[None, :], 0.0, NEG_INF)
+        logits = logits + bias
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vc)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)  # (B,Sq,Hkv,G,hd)
+
+
 def attention(params: dict, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
               head_dim: int, rope_theta: float = 10000.0, use_rope: bool = True,
               causal: bool = True, window: int | None = None,
+              kv_source: torch.Tensor | None = None,
               cache: tuple | None = None, pos: int = 0):
-    """Self-attention block (no norm/residual — the caller owns those).
+    """Attention block (no norm/residual — the caller owns those).
 
     cache: (k_cache, v_cache) each (B, S_max, Hkv, hd); pos = current fill.
     The new keys and values are written into the cache IN PLACE at
-    [pos : pos + Sq] and attention runs over the cache. Returns
-    (out, cache)."""
+    [pos : pos + Sq] and attention runs over the cache.
+    kv_source: cross-attention — keys and values from this tensor, no
+    causal mask, no RoPE, no cache write.
+    Returns (out, cache)."""
     b, sq, _ = x.shape
     g = n_heads // n_kv_heads
+    src = kv_source if kv_source is not None else x
+    s_src = src.shape[1]
     q = matmul(x, params["wq"]).reshape(b, sq, n_kv_heads, g, head_dim)
-    k = matmul(x, params["wk"]).reshape(b, sq, n_kv_heads, head_dim)
-    v = matmul(x, params["wv"]).reshape(b, sq, n_kv_heads, head_dim)
+    k = matmul(src, params["wk"]).reshape(b, s_src, n_kv_heads, head_dim)
+    v = matmul(src, params["wv"]).reshape(b, s_src, n_kv_heads, head_dim)
 
     q_pos = pos + torch.arange(sq, device=x.device)
-    k_pos = q_pos
+    if kv_source is not None:
+        k_pos = torch.arange(s_src, device=x.device)
+        causal = False
+        use_rope = False
+    else:
+        k_pos = q_pos
     if use_rope:
         qr = apply_rope(q.reshape(b, sq, n_heads, head_dim), q_pos.expand(b, sq), rope_theta)
         q = qr.reshape(b, sq, n_kv_heads, g, head_dim)
-        k = apply_rope(k, k_pos.expand(b, sq), rope_theta)
+        k = apply_rope(k, k_pos.expand(b, s_src), rope_theta)
 
     k_len = None
     if cache is not None:
@@ -92,10 +157,8 @@ def attention(params: dict, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
         k_len = pos + sq
 
     if window is None:
-        window = 1 << 30
-    if k.shape[1] > FLASH_THRESHOLD and sq > 1:
-        raise NotImplementedError(
-            "blocked (flash) attention for S_kv > 2048 with S_q > 1 is not ported yet")
-    out = _attend_naive(q, k, v, q_pos, k_pos, causal=causal, window=window, k_len=k_len)
+        window = GLOBAL_WINDOW
+    attend = _attend_flash if k.shape[1] > FLASH_THRESHOLD and sq > 1 else _attend_naive
+    out = attend(q, k, v, q_pos, k_pos, causal=causal, window=window, k_len=k_len)
     out = out.reshape(b, sq, n_heads * head_dim)
     return matmul(out, params["wo"]), cache

@@ -1,0 +1,176 @@
+"""Mamba2 block: the SSD (state-space duality) chunked scan and its O(1)
+decode (port of ``repro.models.mamba2``).
+
+The minimal SSD formulation of Dao & Gu (arXiv:2405.21060):
+
+    h_t = exp(Δ_t A) h_{t-1} + Δ_t B_t x_t        y_t = C_t h_t + D x_t
+
+Prefill uses the chunked algorithm (quadratic within a chunk of Q tokens,
+linear across chunks through the inter-chunk state recurrence, here a loop
+over chunks); decode is one state update. n_groups = 1 (B and C are shared
+across heads). The SSD state is always float32.
+
+Block layout (d_inner = expand·d_model, P = d_inner/n_heads, N = d_state):
+    in_proj : D → [z(d_inner), x(d_inner), B(N), C(N), dt(H)]
+    conv1d  : causal depthwise width-W over concat(x, B, C)
+    SSD core, gated RMSNorm(y · silu(z)), out_proj : d_inner → D
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.common import dense_init, rms_norm
+
+
+def d_inner_of(d_model: int, expand: int) -> int:
+    return expand * d_model
+
+
+def init_mamba(gen: torch.Generator, d_model: int, n_heads: int, d_state: int, expand: int,
+               conv_width: int, dtype, n_layers: int | None = None):
+    """One block's weights, stacked (n_layers, ...) unless ``n_layers`` is
+    None. A = −exp(a_log) starts at −1, Δ's bias at 0, the skip D at 1."""
+    lead = () if n_layers is None else (n_layers,)
+    d_in = d_inner_of(d_model, expand)
+    conv_ch = d_in + 2 * d_state
+    dev = gen.device
+    return {
+        "in_proj": dense_init(gen, lead + (d_model, 2 * d_in + 2 * d_state + n_heads), dtype),
+        "conv_w": dense_init(gen, lead + (conv_width, conv_ch), dtype),
+        "a_log": torch.zeros(lead + (n_heads,), dtype=torch.float32, device=dev),
+        "dt_bias": torch.zeros(lead + (n_heads,), dtype=torch.float32, device=dev),
+        "d_skip": torch.ones(lead + (n_heads,), dtype=torch.float32, device=dev),
+        "gate_norm": torch.zeros(lead + (d_in,), dtype=dtype, device=dev),
+        "out_proj": dense_init(gen, lead + (d_in, d_model), dtype),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, state: torch.Tensor | None):
+    """Depthwise causal conv. x: (B,L,C), w: (W,C), state: (B,W-1,C) or
+    None. Returns (y (B,L,C), new_state (B,W-1,C)). The W taps add from 0
+    in tap order, as the reference's Python ``sum`` does."""
+    width = w.shape[0]
+    if state is None:
+        state = torch.zeros((x.shape[0], width - 1, x.shape[2]), dtype=x.dtype,
+                            device=x.device)
+    xp = torch.cat([state, x], dim=1)                      # (B, L+W-1, C)
+    y = sum(xp[:, i:i + x.shape[1], :] * w[i][None, None, :] for i in range(width))
+    new_state = xp[:, -(width - 1):, :] if width > 1 else state
+    return y, new_state
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """a: (..., Q) → (..., Q, Q) lower-triangular sums Σ_{i=s+1..q} a_i,
+    −inf above the diagonal (so exp gives 0 there)."""
+    q = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=a.device))
+    return torch.where(mask, diff, -torch.inf)
+
+
+def ssd_chunked(x, dt, a, b, c, chunk: int):
+    """SSD scan. x:(B,L,H,P) dt:(B,L,H) a:(H,)<0 b,c:(B,L,N) → y:(B,L,H,P)
+    float32 and the final state (B,H,P,N) float32. A length that is not a
+    multiple of ``chunk`` is zero-padded."""
+    bsz, l, h, p = x.shape
+    n = b.shape[-1]
+    pad = (-l) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        b = F.pad(b, (0, 0, 0, pad))
+        c = F.pad(c, (0, 0, 0, pad))
+    lp = l + pad
+    nc = lp // chunk
+
+    xf = x.to(torch.float32).reshape(bsz, nc, chunk, h, p)
+    dtf = dt.to(torch.float32).reshape(bsz, nc, chunk, h)
+    bf = b.to(torch.float32).reshape(bsz, nc, chunk, n)
+    cf = c.to(torch.float32).reshape(bsz, nc, chunk, n)
+
+    adt = dtf * a[None, None, None, :]                     # (B,nc,Q,H) ≤ 0
+    adt_h = adt.permute(0, 3, 1, 2)                        # (B,H,nc,Q)
+    acs = torch.cumsum(adt_h, dim=-1)                      # within-chunk cumsum
+    xdt = xf * dtf[..., None]                              # Δ_t B_t x_t uses Δx
+
+    # 1) intra-chunk (masked quadratic) term
+    lmat = torch.exp(_segsum(adt_h))                       # (B,H,nc,Q,Q)
+    scores = torch.einsum("bcqn,bcsn->bcqs", cf, bf)       # (B,nc,Q,Q)
+    y_diag = torch.einsum("bcqs,bhcqs,bcshp->bcqhp", scores, lmat, xdt)
+
+    # 2) chunk-final states
+    decay_to_end = torch.exp(acs[..., -1:] - acs)          # (B,H,nc,Q)
+    states = torch.einsum("bcsn,bhcs,bcshp->bchpn", bf, decay_to_end, xdt)
+
+    # 3) inter-chunk recurrence, one chunk at a time
+    chunk_decay = torch.exp(acs[..., -1])                  # (B,H,nc)
+    h_state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    h_prevs = []
+    for ci in range(nc):
+        h_prevs.append(h_state)
+        h_state = h_state * chunk_decay[:, :, ci, None, None] + states[:, ci]
+    h_prev = torch.stack(h_prevs, dim=1)                   # (B,nc,H,P,N)
+
+    # 4) contribution of the carried-in state to each chunk
+    state_decay = torch.exp(acs)                           # (B,H,nc,Q)
+    y_off = torch.einsum("bcqn,bchpn,bhcq->bcqhp", cf, h_prev, state_decay)
+
+    y = (y_diag + y_off).reshape(bsz, lp, h, p)[:, :l]
+    return y, h_state
+
+
+def ssd_decode(x, dt, a, b, c, state):
+    """One-token state update. x:(B,H,P) dt:(B,H) b,c:(B,N) state:(B,H,P,N)."""
+    da = torch.exp(dt.to(torch.float32) * a[None, :])     # (B,H)
+    xdt = x.to(torch.float32) * dt.to(torch.float32)[..., None]
+    state = state * da[..., None, None] + torch.einsum(
+        "bhp,bn->bhpn", xdt, b.to(torch.float32))
+    y = torch.einsum("bhpn,bn->bhp", state, c.to(torch.float32))
+    return y, state
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + eˣ) as ``jax.nn.softplus`` computes it (``logaddexp(x, 0)``);
+    ``F.softplus`` switches to the identity above 20."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def mamba_block(params, x, *, n_heads: int, d_state: int, expand: int,
+                conv_width: int, chunk: int, cache: dict | None = None):
+    """x: (B, L, D). cache: {"conv": (B,W-1,C), "ssd": (B,H,P,N)} or None.
+    A one-token call with a cache takes the decode update; any other call
+    runs the chunked scan from a zero state (the conv still reads the
+    cache's window). Returns (out (B,L,D), new_cache)."""
+    bsz, l, d = x.shape
+    d_in = d_inner_of(d, expand)
+    p = d_in // n_heads
+    n = d_state
+
+    zxbcdt = x @ params["in_proj"]
+    z, xin, b, c, dt_raw = torch.split(zxbcdt, [d_in, d_in, n, n, n_heads], dim=-1)
+    conv_in = torch.cat([xin, b, c], dim=-1)
+    conv_state = cache["conv"] if cache is not None else None
+    conv_out, new_conv = _causal_conv(conv_in, params["conv_w"], conv_state)
+    conv_out = F.silu(conv_out)
+    xin, b, c = torch.split(conv_out, [d_in, n, n], dim=-1)
+
+    a = -torch.exp(params["a_log"])                        # (H,) < 0
+    dt = softplus(dt_raw.to(torch.float32) + params["dt_bias"])
+
+    xh = xin.reshape(bsz, l, n_heads, p)
+    if cache is not None and l == 1:
+        y, new_ssd = ssd_decode(xh[:, 0], dt[:, 0], a, b[:, 0], c[:, 0],
+                                cache["ssd"].to(torch.float32))
+        y = y[:, None]
+    else:
+        y, new_ssd = ssd_chunked(xh, dt, a, b, c, chunk)
+
+    y = y + xh.to(torch.float32) * params["d_skip"][None, None, :, None]
+    y = y.reshape(bsz, l, d_in).to(x.dtype)
+    y = y * F.silu(z)
+    y = rms_norm(y, params["gate_norm"])
+    out = y @ params["out_proj"]
+    return out, {"conv": new_conv, "ssd": new_ssd.to(torch.float32)}

@@ -9,14 +9,15 @@ from repro_torch.models.common import act_fn, dense_init, matmul
 
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, gated: bool, dtype,
-             n_layers: int):
-    """Stacked (n_layers, ...) MLP weights."""
+             n_layers: int | None = None):
+    """MLP weights, stacked (n_layers, ...) unless ``n_layers`` is None."""
+    lead = () if n_layers is None else (n_layers,)
     p = {
-        "w_in": dense_init(gen, (n_layers, d_model, d_ff), dtype),
-        "w_out": dense_init(gen, (n_layers, d_ff, d_model), dtype),
+        "w_in": dense_init(gen, lead + (d_model, d_ff), dtype),
+        "w_out": dense_init(gen, lead + (d_ff, d_model), dtype),
     }
     if gated:
-        p["w_gate"] = dense_init(gen, (n_layers, d_model, d_ff), dtype)
+        p["w_gate"] = dense_init(gen, lead + (d_model, d_ff), dtype)
     return p
 
 

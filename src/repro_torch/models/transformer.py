@@ -1,14 +1,26 @@
-"""Decoder-only LM, the dense family (port of ``repro.models.transformer``).
+"""The model zoo's LM, every family of the reference (port of
+``repro.models.transformer``):
+
+  dense  — granite-20b, gemma3-4b (5:1 local:global sliding window),
+           olmo-1b (non-parametric LN), yi-9b
+  moe    — qwen3-moe-30b-a3b (128e top-8), deepseek-moe-16b (2 shared + 64 top-6)
+  ssm    — mamba2-370m (SSD)
+  hybrid — zamba2-1.2b (Mamba2 backbone + ONE shared attention block applied
+           before every ``attn_every``-th layer, one KV cache slot per
+           application)
+  vlm    — llama-3.2-vision-11b (a gated cross-attention layer after every
+           ``cross_every``-th layer, over patch embeddings)
+  audio  — hubert-xlarge (encoder-only; the inputs are frame embeddings)
 
 Parameters are nested dicts of tensors with the reference's keys and
-layouts: ``embed/table`` (V, D); ``blocks`` holding stacked (L, ...) layer
-weights — ``attn/{wq,wk,wv,wo}`` and ``mlp/{w_in,w_gate,w_out}`` in
-(in, out) layout — and, for parametric norms, ``attn_norm``/``mlp_norm``
-(L, D) and ``final_norm`` (D,); ``lm_head`` (D, V) unless embeddings are
-tied. ``forward`` walks the stacked layers with a Python loop where the
-reference scans; every layer attends globally (the sliding windows of
-gemma3 arrive with that config). Other families (moe, ssm, hybrid, vlm,
-audio) raise ``NotImplementedError`` until their slice.
+layouts, layers stacked on a leading axis: ``embed/table`` (V, D);
+``blocks`` — ``attn/{wq,wk,wv,wo}`` and ``mlp/{w_in,w_gate,w_out}`` in
+(in, out) layout, or ``moe/{router,w_in,w_gate,w_out,shared}``, or
+``mamba/*`` — with ``attn_norm``/``mlp_norm`` (or ``norm``) for parametric
+norms; ``cross`` (vlm) and ``shared_attn`` (hybrid); ``final_norm`` and
+``lm_head`` unless embeddings are tied. ``forward`` walks the stacked
+layers with a Python loop where the reference scans, and writes a given
+cache in place.
 """
 
 from __future__ import annotations
@@ -17,26 +29,34 @@ import dataclasses
 import math
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.dtypes import torch_dtype
 from repro_torch.kernels.repack import PackedTernary
-from repro_torch.models.attention import attention, init_attn
+from repro_torch.models import mamba2 as mb
+from repro_torch.models.attention import GLOBAL_WINDOW, attention, init_attn
 from repro_torch.models.common import apply_norm, dense_init, embed_init, matmul
 from repro_torch.models.mlp import init_mlp, mlp
+from repro_torch.models.moe import init_moe, moe
 from repro_torch.tree import tree_leaves, tree_map
 
 Pytree = Any
+BIG_WINDOW = GLOBAL_WINDOW
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+_ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The reference's model configuration, the fields the dense family
-    reads (see ``repro.models.transformer.ModelConfig``)."""
+    """The reference's model configuration, field for field (see
+    ``repro.models.transformer.ModelConfig``). On one device
+    ``mesh_batch_axes`` and ``remat`` have no effect; ``moe_impl="a2a"``
+    with ``mesh_ep_axis`` set needs the multi-device slice and raises."""
 
     name: str
-    family: str                      # only "dense" is ported
+    family: str                      # dense|moe|ssm|hybrid|vlm|audio
     n_layers: int
     d_model: int
     vocab_size: int
@@ -49,14 +69,52 @@ class ModelConfig:
     gated_mlp: bool = True
     rope_theta: float = 10000.0
     use_rope: bool = True
-    causal: bool = True
+    causal: bool = True              # False → encoder-only
     tie_embeddings: bool = False
+    # sliding window (gemma3)
+    sliding_window: int = 0          # 0 = all-global
+    global_every: int = 0            # every Nth layer is global
+    # moe
+    n_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    n_shared_experts: int = 0
+    shared_d_ff: int = 0
+    capacity_factor: float = 1.25
+    # ssm / hybrid
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_heads: int = 0
+    conv_width: int = 4
+    ssm_chunk: int = 128
+    attn_every: int = 0              # hybrid: shared attn before every Nth layer
+    # vlm
+    cross_every: int = 0
+    n_patches: int = 0
+    # training
+    aux_loss_coef: float = 0.01
+    remat: str = "none"              # none|full|dots
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
+    # distribution (the reference's mesh settings; one device ignores them)
+    mesh_batch_axes: tuple = ()
+    mesh_ep_axis: str = ""
+    moe_impl: str = "gspmd"          # gspmd | a2a (multi-device only)
+    moe_wire: str = "bf16"
 
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // max(self.n_heads, 1)
+
+    @property
+    def n_cross(self) -> int:
+        return self.n_layers // self.cross_every if self.cross_every else 0
+
+    @property
+    def n_attn_apps(self) -> int:
+        if not self.attn_every:
+            return 0
+        return (self.n_layers + self.attn_every - 1) // self.attn_every
 
     def pdtype(self) -> torch.dtype:
         return torch_dtype(self.param_dtype)
@@ -66,27 +124,113 @@ class ModelConfig:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"model family {cfg.family!r} is not ported yet")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
+
+
+# --------------------------------------------------------------------------
+# Per-layer static patterns.
+# --------------------------------------------------------------------------
+
+
+def layer_windows(cfg: ModelConfig) -> np.ndarray:
+    """Per-layer attention lookback window (BIG = global)."""
+    w = np.full((cfg.n_layers,), BIG_WINDOW, np.int32)
+    if cfg.sliding_window:
+        w[:] = cfg.sliding_window
+        if cfg.global_every:
+            w[cfg.global_every - 1::cfg.global_every] = BIG_WINDOW
+    return w
+
+
+def cross_gates(cfg: ModelConfig) -> np.ndarray:
+    """1 after the layers a cross-attention layer follows."""
+    g = np.zeros((cfg.n_layers,), np.int32)
+    if cfg.cross_every:
+        g[cfg.cross_every - 1::cfg.cross_every] = 1
+    return g
+
+
+def attn_flags(cfg: ModelConfig) -> np.ndarray:
+    """1 before the layers the hybrid's shared attention block precedes."""
+    f = np.zeros((cfg.n_layers,), np.int32)
+    if cfg.attn_every:
+        f[0::cfg.attn_every] = 1
+    return f
+
+
+# --------------------------------------------------------------------------
+# Shapes and init.
+# --------------------------------------------------------------------------
+
+
+def _attn_shapes(cfg: ModelConfig, lead: tuple) -> dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    return {"wq": lead + (d, cfg.n_heads * hd), "wk": lead + (d, cfg.n_kv_heads * hd),
+            "wv": lead + (d, cfg.n_kv_heads * hd), "wo": lead + (cfg.n_heads * hd, d)}
+
+
+def _mlp_shapes(cfg: ModelConfig, lead: tuple) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    shapes = {"w_in": lead + (d, f), "w_out": lead + (f, d)}
+    if cfg.gated_mlp:
+        shapes["w_gate"] = lead + (d, f)
+    return shapes
+
+
+def _moe_shapes(cfg: ModelConfig, lead: tuple) -> dict:
+    d, e, f, fs = cfg.d_model, cfg.n_experts, cfg.moe_d_ff, cfg.shared_d_ff
+    shapes = {"router": lead + (d, e), "w_gate": lead + (e, d, f),
+              "w_in": lead + (e, d, f), "w_out": lead + (e, f, d)}
+    if cfg.n_shared_experts > 0:
+        shapes["shared"] = {"w_gate": lead + (d, fs), "w_in": lead + (d, fs),
+                            "w_out": lead + (fs, d)}
+    return shapes
+
+
+def _mamba_shapes(cfg: ModelConfig, lead: tuple) -> dict:
+    d, n, h = cfg.d_model, cfg.ssm_state, cfg.ssm_heads
+    d_in = mb.d_inner_of(d, cfg.ssm_expand)
+    return {"in_proj": lead + (d, 2 * d_in + 2 * n + h),
+            "conv_w": lead + (cfg.conv_width, d_in + 2 * n),
+            "a_log": lead + (h,), "dt_bias": lead + (h,), "d_skip": lead + (h,),
+            "gate_norm": lead + (d_in,), "out_proj": lead + (d_in, d)}
+
+
+def _with_norms(cfg: ModelConfig, block: dict, lead: tuple, names) -> dict:
+    if cfg.norm != "nonparam":
+        for key in names:
+            block[key] = lead + (cfg.d_model,)
+    return block
 
 
 def param_shapes(cfg: ModelConfig) -> dict:
     """The parameter tree's shapes, without allocating it."""
     _check_family(cfg)
-    l, d, f, hd = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
-    blocks = {
-        "attn": {"wq": (l, d, cfg.n_heads * hd), "wk": (l, d, cfg.n_kv_heads * hd),
-                 "wv": (l, d, cfg.n_kv_heads * hd), "wo": (l, cfg.n_heads * hd, d)},
-        "mlp": {"w_in": (l, d, f), "w_out": (l, f, d)},
-    }
-    if cfg.gated_mlp:
-        blocks["mlp"]["w_gate"] = (l, d, f)
-    shapes = {"embed": {"table": (cfg.vocab_size, d)}, "blocks": blocks}
+    l = (cfg.n_layers,)
+    shapes: dict = {"embed": {"table": (cfg.vocab_size, cfg.d_model)}}
+    if cfg.family in _ATTN_FAMILIES:
+        block = {"attn": _attn_shapes(cfg, l)}
+        if cfg.family == "moe":
+            block["moe"] = _moe_shapes(cfg, l)
+        else:
+            block["mlp"] = _mlp_shapes(cfg, l)
+        shapes["blocks"] = _with_norms(cfg, block, l, ("attn_norm", "mlp_norm"))
+    else:
+        shapes["blocks"] = _with_norms(cfg, {"mamba": _mamba_shapes(cfg, l)}, l, ("norm",))
+    if cfg.family == "vlm":
+        c = (cfg.n_cross,)
+        shapes["cross"] = _with_norms(
+            cfg, {"attn": _attn_shapes(cfg, c), "mlp": _mlp_shapes(cfg, c),
+                  "gate_attn": c, "gate_mlp": c}, c, ("attn_norm", "mlp_norm"))
+    if cfg.family == "hybrid":
+        shapes["shared_attn"] = _with_norms(
+            cfg, {"attn": _attn_shapes(cfg, ()), "mlp": _mlp_shapes(cfg, ())}, (),
+            ("attn_norm", "mlp_norm"))
     if cfg.norm != "nonparam":
-        blocks["attn_norm"] = blocks["mlp_norm"] = (l, d)
-        shapes["final_norm"] = (d,)
+        shapes["final_norm"] = (cfg.d_model,)
     if not cfg.tie_embeddings:
-        shapes["lm_head"] = (d, cfg.vocab_size)
+        shapes["lm_head"] = (cfg.d_model, cfg.vocab_size)
     return shapes
 
 
@@ -95,82 +239,214 @@ def param_count(cfg: ModelConfig) -> int:
     return sum(math.prod(s) for s in shapes)
 
 
+def _zeros(shape, dtype, dev) -> torch.Tensor:
+    return torch.zeros(shape, dtype=dtype, device=dev)
+
+
+def _add_norms(cfg: ModelConfig, block: dict, lead: tuple, names, dtype, dev) -> dict:
+    if cfg.norm != "nonparam":
+        for key in names:
+            block[key] = _zeros(lead + (cfg.d_model,), dtype, dev)
+    return block
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "cuda") -> Pytree:
     """Random parameters drawn from a ``torch.Generator`` seeded with
     ``seed`` on ``device``: embeddings N(0, 0.02²), matrices Lecun-normal,
-    norm scales zero (the reference's initializers, not its bits)."""
+    norm scales and cross-attention gates zero, the SSM's a_log and dt_bias
+    zero and d_skip one (the reference's initializers, not its bits)."""
     dev = resolve_device(device)
     _check_family(cfg)
     dtype = cfg.pdtype()
     gen = torch.Generator(device=dev).manual_seed(seed)
-    hd = cfg.resolved_head_dim
-    params: dict = {"embed": {"table": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype)}}
-    blocks = {
-        "attn": init_attn(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, hd, dtype,
-                          cfg.n_layers),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, dtype, cfg.n_layers),
-    }
+    hd, d, nl = cfg.resolved_head_dim, cfg.d_model, cfg.n_layers
+    params: dict = {"embed": {"table": embed_init(gen, (cfg.vocab_size, d), dtype)}}
+    if cfg.family in _ATTN_FAMILIES:
+        blocks = {"attn": init_attn(gen, d, cfg.n_heads, cfg.n_kv_heads, hd, dtype, nl)}
+        if cfg.family == "moe":
+            blocks["moe"] = init_moe(gen, d, cfg.moe_d_ff, cfg.n_experts,
+                                     cfg.n_shared_experts, cfg.shared_d_ff, dtype, nl)
+        else:
+            blocks["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.gated_mlp, dtype, nl)
+        params["blocks"] = _add_norms(cfg, blocks, (nl,), ("attn_norm", "mlp_norm"),
+                                      dtype, dev)
+    else:
+        blocks = {"mamba": mb.init_mamba(gen, d, cfg.ssm_heads, cfg.ssm_state,
+                                         cfg.ssm_expand, cfg.conv_width, dtype, nl)}
+        params["blocks"] = _add_norms(cfg, blocks, (nl,), ("norm",), dtype, dev)
+    if cfg.family == "vlm":
+        nc = cfg.n_cross
+        cross = {"attn": init_attn(gen, d, cfg.n_heads, cfg.n_kv_heads, hd, dtype, nc),
+                 "mlp": init_mlp(gen, d, cfg.d_ff, cfg.gated_mlp, dtype, nc),
+                 "gate_attn": _zeros((nc,), dtype, dev), "gate_mlp": _zeros((nc,), dtype, dev)}
+        params["cross"] = _add_norms(cfg, cross, (nc,), ("attn_norm", "mlp_norm"), dtype, dev)
+    if cfg.family == "hybrid":
+        shared = {"attn": init_attn(gen, d, cfg.n_heads, cfg.n_kv_heads, hd, dtype),
+                  "mlp": init_mlp(gen, d, cfg.d_ff, cfg.gated_mlp, dtype)}
+        params["shared_attn"] = _add_norms(cfg, shared, (), ("attn_norm", "mlp_norm"),
+                                           dtype, dev)
     if cfg.norm != "nonparam":
-        for key in ("attn_norm", "mlp_norm"):
-            blocks[key] = torch.zeros((cfg.n_layers, cfg.d_model), dtype=dtype, device=dev)
-        params["final_norm"] = torch.zeros((cfg.d_model,), dtype=dtype, device=dev)
-    params["blocks"] = blocks
+        params["final_norm"] = _zeros((d,), dtype, dev)
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), dtype)
+        params["lm_head"] = dense_init(gen, (d, cfg.vocab_size), dtype)
     return params
+
+
+# --------------------------------------------------------------------------
+# Cache.
+# --------------------------------------------------------------------------
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device: str | torch.device = "cuda") -> Pytree:
-    """Decode cache: stacked (L, B, S_max, Hkv, hd) keys and values."""
+    """Decode cache; its structure depends on the family: stacked
+    (L, B, S_max, Hkv, hd) keys and values for attention layers, (L, B,
+    W-1, C) conv windows and (L, B, H, P, N) float32 SSD states for Mamba
+    layers, and (A, B, S_max, Hkv, hd) per shared-attention application."""
     dev = resolve_device(device)
     _check_family(cfg)
     dtype = dtype or cfg.cdtype()
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    hd, nl = cfg.resolved_head_dim, cfg.n_layers
+    cache: dict = {}
+    if cfg.family in _ATTN_FAMILIES:
+        shape = (nl, batch, max_seq, cfg.n_kv_heads, hd)
+        cache["k"] = _zeros(shape, dtype, dev)
+        cache["v"] = _zeros(shape, dtype, dev)
+    else:
+        d_in = mb.d_inner_of(cfg.d_model, cfg.ssm_expand)
+        p = d_in // cfg.ssm_heads
+        cache["conv"] = _zeros((nl, batch, cfg.conv_width - 1, d_in + 2 * cfg.ssm_state),
+                               dtype, dev)
+        cache["ssd"] = _zeros((nl, batch, cfg.ssm_heads, p, cfg.ssm_state),
+                              torch.float32, dev)
+    if cfg.family == "hybrid":
+        shape = (cfg.n_attn_apps, batch, max_seq, cfg.n_kv_heads, hd)
+        cache["attn_k"] = _zeros(shape, dtype, dev)
+        cache["attn_v"] = _zeros(shape, dtype, dev)
+    return cache
 
 
-def _layer(blocks: dict, i: int) -> dict:
+# --------------------------------------------------------------------------
+# Layer bodies.
+# --------------------------------------------------------------------------
+
+
+def _layer(stack: dict, i: int) -> dict:
     return tree_map(lambda t: t.layer(i) if isinstance(t, PackedTernary) else t[i],
-                    blocks, is_leaf=lambda x: isinstance(x, PackedTernary))
+                    stack, is_leaf=lambda x: isinstance(x, PackedTernary))
 
 
-def _dense_layer(cfg: ModelConfig, bp: dict, x, kv, pos: int):
-    """One dense layer; kv = (k, v) cache slices or None."""
+def _attn_kwargs(cfg: ModelConfig) -> dict:
+    return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+                use_rope=cfg.use_rope, causal=cfg.causal)
+
+
+def _dense_layer(cfg: ModelConfig, bp: dict, x, window: int, kv, pos: int):
+    """One dense/moe/vlm/audio layer; kv = (k, v) cache slices or None.
+    Returns (x, aux) with aux the MoE loss (0 for the other families)."""
     h = apply_norm(x, bp.get("attn_norm"), cfg.norm)
-    attn_out, _ = attention(
-        bp["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
-        use_rope=cfg.use_rope, causal=cfg.causal, cache=kv, pos=pos,
-    )
+    attn_out, _ = attention(bp["attn"], h, window=window, cache=kv, pos=pos,
+                            **_attn_kwargs(cfg))
     x = x + attn_out
     h = apply_norm(x, bp.get("mlp_norm"), cfg.norm)
-    return x + mlp(bp["mlp"], h, cfg.activation)
+    if cfg.family == "moe":
+        if cfg.moe_impl == "a2a" and cfg.mesh_ep_axis:
+            raise NotImplementedError(
+                "moe_impl='a2a' over a mesh expert axis needs the multi-device slice "
+                "(models/moe_a2a.py), which is not ported")
+        mo, aux = moe(bp["moe"], h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                      activation=cfg.activation)
+        return x + mo, aux
+    return x + mlp(bp["mlp"], h, cfg.activation), None
 
 
-def forward(cfg: ModelConfig, params: Pytree, tokens: torch.Tensor, *,
+def _cross_layer(cfg: ModelConfig, cp: dict, x, vision):
+    h = apply_norm(x, cp.get("attn_norm"), cfg.norm)
+    co, _ = attention(cp["attn"], h, kv_source=vision, **_attn_kwargs(cfg))
+    x = x + torch.tanh(cp["gate_attn"]) * co
+    h = apply_norm(x, cp.get("mlp_norm"), cfg.norm)
+    return x + torch.tanh(cp["gate_mlp"]) * mlp(cp["mlp"], h, cfg.activation)
+
+
+def _shared_attn_layer(cfg: ModelConfig, sp: dict, x, kv, pos: int):
+    h = apply_norm(x, sp.get("attn_norm"), cfg.norm)
+    ao, _ = attention(sp["attn"], h, cache=kv, pos=pos, **_attn_kwargs(cfg))
+    x = x + ao
+    h = apply_norm(x, sp.get("mlp_norm"), cfg.norm)
+    return x + mlp(sp["mlp"], h, cfg.activation)
+
+
+def _mamba_layer(cfg: ModelConfig, bp: dict, x, states):
+    h = apply_norm(x, bp.get("norm"), cfg.norm)
+    mo, new_states = mb.mamba_block(
+        bp["mamba"], h, n_heads=cfg.ssm_heads, d_state=cfg.ssm_state,
+        expand=cfg.ssm_expand, conv_width=cfg.conv_width, chunk=cfg.ssm_chunk,
+        cache=states)
+    return x + mo, new_states
+
+
+# --------------------------------------------------------------------------
+# Forward.
+# --------------------------------------------------------------------------
+
+
+def forward(cfg: ModelConfig, params: Pytree, tokens: torch.Tensor | None = None, *,
+            embeds: torch.Tensor | None = None,
+            vision_embeds: torch.Tensor | None = None,
             cache: Pytree | None = None, pos: int = 0):
-    """Returns (logits (B, S, V) in the compute dtype, cache or None,
-    aux loss 0). With a cache, each layer's keys and values are written
-    into it in place."""
+    """Returns (logits (B, S, V) in the compute dtype, cache or None, aux
+    loss: the MoE layers' sum, a float32 scalar). With a cache, each layer's
+    keys, values and SSM states are written into it in place."""
     _check_family(cfg)
     cdt = cfg.cdtype()
-    x = params["embed"]["table"][tokens].to(cdt)
+    x = embeds.to(cdt) if embeds is not None else params["embed"]["table"][tokens].to(cdt)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     blocks = params["blocks"]
-    for i in range(cfg.n_layers):
-        kv = (cache["k"][i], cache["v"][i]) if cache is not None else None
-        x = _dense_layer(cfg, _layer(blocks, i), x, kv, pos)
+
+    if cfg.family in _ATTN_FAMILIES:
+        windows = layer_windows(cfg)
+        gates = cross_gates(cfg)
+        cross = params.get("cross")
+        vis = vision_embeds.to(cdt) if vision_embeds is not None else None
+        auxes, cross_idx = [], 0
+        for i in range(cfg.n_layers):
+            kv = (cache["k"][i], cache["v"][i]) if cache is not None else None
+            x, layer_aux = _dense_layer(cfg, _layer(blocks, i), x, int(windows[i]), kv, pos)
+            if layer_aux is not None:
+                auxes.append(layer_aux)
+            if cross is not None and gates[i]:
+                x = _cross_layer(cfg, _layer(cross, cross_idx), x, vis)
+                cross_idx += 1
+        if auxes:
+            aux = torch.stack(auxes).sum()
+    else:
+        flags = attn_flags(cfg)
+        app_idx = 0
+        for i in range(cfg.n_layers):
+            if cfg.family == "hybrid" and flags[i]:
+                kv = ((cache["attn_k"][app_idx], cache["attn_v"][app_idx])
+                      if cache is not None else None)
+                x = _shared_attn_layer(cfg, params["shared_attn"], x, kv, pos)
+                app_idx += 1
+            states = ({"conv": cache["conv"][i], "ssd": cache["ssd"][i]}
+                      if cache is not None else None)
+            x, new_states = _mamba_layer(cfg, _layer(blocks, i), x, states)
+            if cache is not None:
+                cache["conv"][i] = new_states["conv"]
+                cache["ssd"][i] = new_states["ssd"]
+
     x = apply_norm(x, params.get("final_norm"), cfg.norm)
     if cfg.tie_embeddings:
         logits = x @ params["embed"]["table"].T.to(cdt)
     else:
         logits = matmul(x, params["lm_head"])
-    return logits, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, cache, aux
 
 
 def decode_step(cfg: ModelConfig, params: Pytree, tokens: torch.Tensor,
-                cache: Pytree, pos: int):
+                cache: Pytree, pos: int, *, vision_embeds: torch.Tensor | None = None):
     """One-token incremental decode. tokens: (B, 1); pos: cache fill."""
-    logits, cache, _ = forward(cfg, params, tokens, cache=cache, pos=pos)
+    logits, cache, _ = forward(cfg, params, tokens, vision_embeds=vision_embeds,
+                               cache=cache, pos=pos)
     return logits, cache

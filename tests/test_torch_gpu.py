@@ -907,3 +907,121 @@ def test_socket_round_raises_where_no_card_is_present(monkeypatch):
         run_socket_round(demo_params(), 2, device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_inprocess_reference(demo_params(), 2, device="cuda")
+
+
+# --------------------------------------------------------------------------
+# The model zoo and the serve loop on the card.
+# --------------------------------------------------------------------------
+
+
+def _to(tree, device):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def test_demo_serve_engine_on_the_card_equals_the_cpu(cuda_device):
+    """The same weights served by a card engine and a CPU engine: the same
+    artifact sizes, logits within 1e-5 and the same cache counters."""
+    from repro_torch.launch.serve_loop import ServeEngine, demo_model
+
+    cfg, params = demo_model(device="cpu")
+    cpu = ServeEngine(cfg, params, max_batch=4, device="cpu")
+    before = ternary_matmul.launches
+    card = ServeEngine(cfg, _to(params, cuda_device), max_batch=4, device=cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (3, 6),
+                         generator=torch.Generator().manual_seed(2))
+    for b in (3, 1, 2):
+        got = card.forward(toks[:b])
+        want = cpu.forward(toks[:b])
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    assert ternary_matmul.launches - before == 3 * cfg.n_layers * 7
+    assert card.stats() == cpu.stats()
+
+
+@pytest.mark.parametrize("sk,window,causal", [(2100, 1 << 30, True), (2100, 1 << 30, False),
+                                              (2100, 1024, True), (3072, 1 << 30, True)])
+def test_flash_equals_naive_on_the_card(cuda_device, sk, window, causal):
+    from repro_torch.models.attention import _attend_flash, _attend_naive
+
+    gen = torch.Generator(cuda_device).manual_seed(sk)
+    q = torch.randn(1, sk, 2, 4, 64, generator=gen, device=cuda_device)
+    k = torch.randn(1, sk, 2, 64, generator=gen, device=cuda_device)
+    v = torch.randn(1, sk, 2, 64, generator=gen, device=cuda_device)
+    pos = torch.arange(sk, device=cuda_device)
+    kw = dict(causal=causal, window=window)
+    got = _attend_flash(q, k, v, pos, pos, **kw)
+    want = _attend_naive(q, k, v, pos, pos, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_moe_and_mamba_on_the_card_equal_the_cpu(cuda_device):
+    from repro_torch.models.mamba2 import init_mamba, mamba_block
+    from repro_torch.models.moe import init_moe, moe
+
+    gen = torch.Generator().manual_seed(0)
+    mp = init_moe(gen, 64, 32, 16, 2, 64, torch.float32)
+    x = torch.randn(2, 24, 64, generator=gen)
+    for top_k, cf in ((4, 1.25), (2, 0.5)):
+        want, waux = moe(mp, x, top_k=top_k, capacity_factor=cf)
+        got, aux = moe(_to(mp, cuda_device), x.to(cuda_device), top_k=top_k,
+                       capacity_factor=cf)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+        assert abs(float(aux) - float(waux)) <= 1e-6
+    bp = init_mamba(gen, 64, 8, 16, 2, 4, torch.float32)
+    xm = torch.randn(2, 37, 64, generator=gen)
+    kw = dict(n_heads=8, d_state=16, expand=2, conv_width=4, chunk=16)
+    want, wc = mamba_block(bp, xm, **kw)
+    got, c = mamba_block(_to(bp, cuda_device), xm.to(cuda_device), **kw)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(c["ssd"].cpu(), wc["ssd"], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "llama-3.2-vision-11b"])
+def test_packed_zoo_deploy_on_the_card_equals_the_cpu(cuda_device, arch):
+    """A reduced gemma3 (sliding windows) and vlm (cross-attention, gates at
+    0.5) deployed packed on the card: the CPU deploy's codes, framing and
+    byte count exactly, its scales within rtol 1e-6 (the card sums tile
+    moments in another order), its logits within 1e-4 of max |logits|."""
+    from repro_torch.comm.wire import decode_update
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.compression import CodecSpec, compress_pytree, is_wire_leaf
+    from repro_torch.launch.serve import ternary_deploy
+    from repro_torch.models.frontends import synth_vision_patches
+    from repro_torch.models.transformer import forward, init_params
+
+    cfg = get_reduced(arch)
+    params = init_params(cfg, seed=0, device="cpu")
+    if cfg.family == "vlm":
+        params["cross"]["gate_attn"].fill_(0.5)
+        params["cross"]["gate_mlp"].fill_(0.5)
+    spec = CodecSpec(kind="ternary", residual="fp16", fttq=FTTQConfig())
+    blobs = {}
+    for name, dev in (("cpu", "cpu"), ("card", cuda_device)):
+        wire, _ = compress_pytree(_to(params, dev), spec)
+        blobs[name] = encode_update(wire)
+    assert len(blobs["card"]) == len(blobs["cpu"])
+    card_leaves = flatten_with_path(decode_update(blobs["card"]), is_leaf=is_wire_leaf)
+    cpu_leaves = flatten_with_path(decode_update(blobs["cpu"]), is_leaf=is_wire_leaf)
+    n_ternary = 0
+    for (pa, a), (pb, b) in zip(card_leaves, cpu_leaves):
+        assert pa == pb and type(a) is type(b), pa
+        if isinstance(a, TernaryTensor):
+            n_ternary += 1
+            assert torch.equal(a.packed.cpu(), b.packed.cpu()), pa
+            torch.testing.assert_close(a.w_q.cpu(), b.w_q.cpu(), rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(a.data.cpu(), b.data.cpu()), pa
+    assert n_ternary == (7 if cfg.family == "dense" else 14)
+    vis = (synth_vision_patches(torch.Generator().manual_seed(2), 2, cfg.n_patches,
+                                cfg.d_model) if cfg.family == "vlm" else None)
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), generator=torch.Generator().manual_seed(1))
+    served_cpu, n_cpu, _, _ = ternary_deploy(params, FTTQConfig(), packed=True,
+                                             residual="fp16", device="cpu")
+    served, n_card, _, _ = ternary_deploy(_to(params, cuda_device), FTTQConfig(), packed=True,
+                                          residual="fp16", device=cuda_device)
+    assert n_card == n_cpu == len(blobs["cpu"])
+    want, _, _ = forward(cfg, served_cpu, toks, vision_embeds=vis)
+    got, _, _ = forward(cfg, served, toks.to(cuda_device),
+                        vision_embeds=None if vis is None else vis.to(cuda_device))
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())
