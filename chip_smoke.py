@@ -74,7 +74,32 @@ Phases (any failure exits non-zero; no phase is skipped):
                  decode against prefill for qwen3-moe (capacity 16), mamba2
                  and zamba2 (3e-3), and mamba2's SSD of a 1,024-token prefill
                  at chunk 256 against chunk 64 (1e-4);
-  9. federated — two T-FedAvg sync rounds (paper Algorithm 2) on ResNet18* at
+  9. train     — (a) ``python -m repro_torch.launch.train --preset 10m --steps
+                 60 --batch 8 --seq 128 --ckpt-every 30`` in a child process on
+                 the card, then its step-60 checkpoint deleted and the same
+                 command with --resume: it must restart at step 30, cursor 30,
+                 and print the uninterrupted final loss bit for bit, and the
+                 logged loss must fall; (b) olmo-1b at full width (random
+                 weights from seed 0) through ``init_train_state`` and
+                 ``make_train_step`` with the defaults (QAT, grad clip 1, w_q
+                 lr 0.05), 3 steps at 8 × 512 and 2 steps at 8 × 4,096 with
+                 microbatches 4 and remat "full" (configs/shapes.py's train_4k
+                 sequence, its batch of 256 cut to 8): per step the
+                 synchronized ms, tokens/s, loss and grad norm, per run the
+                 peak memory and the share of the fp32 bound; ternary_stats;
+                 the params saved as a ternary checkpoint (exactly one
+                 quantize_pack launch), its bytes on disk against the raw
+                 fp32 bytes, restored (each quantized leaf's correlation with
+                 the saved one > 0.6), and two leaves' records against the
+                 port's CPU encode (codes equal but at ties with Δ, scales
+                 within rtol 1e-6); (c) one step of olmo-1b cut to 2 layers
+                 at 2 × 128 on the card and on the CPU from the same state
+                 (loss rtol 1e-5; Adam's m, w_q and params within 1e-5 of
+                 their largest, params where |g| ≥ 1e-6; differing QAT codes
+                 counted, each a tie at Δ); (d) each of the ten reduced archs
+                 3 steps on the card and the CPU (losses within 1e-4; the MoE
+                 archs microbatched, gemma3 with remat "dots");
+ 10. federated — two T-FedAvg sync rounds (paper Algorithm 2) on ResNet18* at
                  full width with the paper's CIFAR setting (FedConfig
                  defaults: 100 clients, λ = 0.1, E = 5, B = 64, adam(1e-3), 500
                  synthetic 32×32×3 samples per client); per round the bytes,
@@ -85,7 +110,7 @@ Phases (any failure exits non-zero; no phase is skipped):
                  list reference ``server_aggregate``; the card's fused
                  encode of the last broadcast and of one client's upload
                  against the reference chain;
- 10. robust    — one defended sync round of ResNet18* at full width (rule
+ 11. robust    — one defended sync round of ResNet18* at full width (rule
                  majority on the vote kernel, 30 seeded sign-flip attackers of
                  100 clients): bytes, phase wall times, the gate's telemetry and
                  ledger, launches (one vote launch per flush); then, on the
@@ -93,7 +118,7 @@ Phases (any failure exits non-zero; no phase is skipped):
                  uploads, the majority, median and trimmed_mean folds on the
                  card against the CPU plain folds, the sign-flip guarantee, and
                  the gate against 3 nan_poison uploads;
- 11. async     — the buffered-async T-FedAvg server (``mode="async"``) on
+ 12. async     — the buffered-async T-FedAvg server (``mode="async"``) on
                  ResNet18* at full width, FedConfig defaults (10 clients in
                  flight), buffer_k 4, staleness exponent 0.5, η 1, staleness
                  cap 1 with the drop policy, 3 mixes: per mix the simulated
@@ -103,14 +128,14 @@ Phases (any failure exits non-zero; no phase is skipped):
                  one long-lived aggregator); the last mix's fold on its
                  buffered uploads and staleness weights against
                  ``server_aggregate``;
- 12. hierarchy — one sync T-FedAvg round on ResNet18* at full width through
+ 13. hierarchy — one sync T-FedAvg round on ResNet18* at full width through
                  3 requantizing edges (``mod``): the tier's telemetry and
                  ledger, upload = client→edge + edge→root bytes, launches (one
                  quantize_pack per broadcast, upload and active edge; one
                  aggregate per active edge and at the root); then a lossless
                  tier on the card over the same uploads against a flat card
                  Aggregator;
- 13. controller — two sync T-FedAvg rounds on ResNet18* at full width with
+ 14. controller — two sync T-FedAvg rounds on ResNet18* at full width with
                  the adaptive compression controller (20 clients of 500
                  samples, λ 0.5, E 5, B 64; ControllerConfig(warmup_encodes=1,
                  divergence_high=1e9): each client's first upload ternary,
@@ -123,7 +148,7 @@ Phases (any failure exits non-zero; no phase is skipped):
                  same blobs bit for bit, each rung's card encode of one
                  trained tree against the CPU's (wire bytes, residual bits),
                  and one eager upload encode's ms per rung;
- 14. fleet     — ``repro_torch.fed.run_fleet`` on ResNet18* at full width at
+ 15. fleet     — ``repro_torch.fed.run_fleet`` on ResNet18* at full width at
                  bench_hierarchy.py's top cell (10^6 clients, λ 0.1,
                  DiurnalChurn, FleetConfig defaults: a pool of 8 payloads):
                  (a) sync flat, 2 rounds; (b) sync through 64 requantizing
@@ -140,7 +165,7 @@ Phases (any failure exits non-zero; no phase is skipped):
                  final update against the port's CPU path fed the same
                  cohorts (bit for bit; under the tier the edge codes bit for
                  bit, scales within 1e-6, and the root fold bit for bit);
- 15. socket    — ``repro_torch.fed.run_socket_round`` on ResNet18* at full
+ 16. socket    — ``repro_torch.fed.run_socket_round`` on ResNet18* at full
                  width, the server's aggregator and every client process on
                  the card: (a) sync, 8 clients; (b) buffered, 8 clients,
                  buffer_k 3, η 0.5; (c) sync through the chaos proxy at fault
@@ -155,24 +180,24 @@ Phases (any failure exits non-zero; no phase is skipped):
                  port's in-process card reference over the same survivors,
                  and (a)'s fold against a CPU Aggregator on the received
                  blobs, bit for bit;
- 16. quickstart — repro_torch.launch.quickstart on the card, then its own
+ 17. quickstart — repro_torch.launch.quickstart on the card, then its own
                  ternary_quantize, pack2bit and unpack2bit outputs against
                  the plain versions on the same inputs, bit for bit;
- 17. fan-in timings — aggregate and vote over one round's fold (52 segments,
+ 18. fan-in timings — aggregate and vote over one round's fold (52 segments,
                  10 clients) in one launch, as a CUDA-graph replay and as an
                  eager Aggregator flush (staging fill, pinned copy, launch),
                  beside the per-segment pattern of 52 launches of 32-row tiles
                  at C = 16, and at 16 clients × 2^26 elements; bytes bounds and
                  plain versions;
- 18. fan-in trace — the aggregate phase of one mean and one majority round
+ 19. fan-in trace — the aggregate phase of one mean and one majority round
                  on the last round's uploads under torch.profiler, with the
                  Aggregator's host ranges (add, stage, copy, launch, finalize);
- 19. fed trace — one round of one client at E = 5, B = 64, timed untraced
+ 20. fed trace — one round of one client at E = 5, B = 64, timed untraced
                  and then run under torch.profiler.
 Before each driven path (serve, each serve-loop engine and closed-loop run,
-each zoo arch, federated, robust, async, hierarchy, controller, each fleet
-run, each socket run, quickstart) every kernel's
-launch counter is set to 0, and read just after; a socket run's client
+each zoo arch, the train phase's ternary save, federated, robust, async,
+hierarchy, controller, each fleet run, each socket run, quickstart) every
+kernel's launch counter is set to 0, and read just after; a socket run's client
 processes count their own launches and report them as they exit.
 
 The line before the last is the kernel table as JSON; the last line is
@@ -2603,6 +2628,455 @@ def zoo_phase(dev, fcfg) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# The train phase: the CLI with a resume, olmo-1b at full width, card vs
+# CPU, and every family reduced.
+# --------------------------------------------------------------------------
+
+TRAIN_CLI = ["--preset", "10m", "--steps", "60", "--batch", "8", "--seq", "128",
+             "--ckpt-every", "30"]
+# (batch, seq, steps, microbatches, remat): configs/shapes.py's train_4k
+# sequence, its global batch of 256 cut to 8 for one card
+TRAIN_RUNS = [(8, 512, 3, 1, "none"), (8, 4096, 2, 4, "full")]
+TRAIN_LR = 3e-4             # the CLI's default learning rate
+TRAIN_CHECK_LAYERS = 2      # olmo-1b cut for the card-vs-CPU step
+TRAIN_CHECK_BATCH = (2, 128)
+TRAIN_ZOO_STEPS = 3
+TRAIN_ZOO_DOTS = "gemma3-4b"  # the arch that trains with remat "dots"
+
+
+def _cli_run(argv, env) -> dict:
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.train"] + argv, env=env,
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(res.returncode == 0, f"launch.train {argv} failed: {res.stderr[-2000:]}")
+    lines = res.stdout.strip().splitlines()
+    check(lines[-1].startswith("done. final loss: "), f"no final loss in {lines[-3:]}")
+    logged = [(int(ln.split()[1]), float(ln.split("loss=")[1].split()[0]),
+               float(ln.split("gnorm=")[1].split()[0]), float(ln.split()[4]))
+              for ln in lines if ln.startswith("step ")]
+    return {"wall_s": wall, "final": lines[-1].split(": ", 1)[1], "logged": logged,
+            "lines": lines}
+
+
+def train_cli_check(device: str) -> dict:
+    """``python -m repro_torch.launch.train`` (10m preset, 60 steps of 8 x
+    128, a checkpoint every 30) in a child process on ``device``; then the
+    step-60 checkpoint is deleted and the same command resumes from step 30.
+    The resumed final loss must equal the uninterrupted one bit for bit,
+    and the logged loss must fall."""
+    import shutil
+
+    d = os.path.join(ROOT, "build", "train_smoke_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=SRC)
+    argv = TRAIN_CLI + ["--ckpt-dir", d, "--device", device]
+    full = _cli_run(argv, env)
+    steps = sorted(os.listdir(d))
+    check(steps == ["step_000000000030", "step_000000000060"], f"checkpoints {steps}")
+    shutil.rmtree(os.path.join(d, "step_000000000060"))
+    resumed = _cli_run(argv + ["--resume"], env)
+    shutil.rmtree(d, ignore_errors=True)
+    check("resumed from step 30 (cursor=30)" in resumed["lines"],
+          f"the resumed run did not start at step 30, cursor 30: {resumed['lines'][:3]}")
+    losses = [loss for _, loss, _, _ in full["logged"]]
+    print(f"CLI 10m, 60 steps of 8 x 128 on {device}: {full['wall_s']:.1f} s in its process; "
+          f"logged loss {' -> '.join(f'{x:.4f}' for x in losses)}; ms/step "
+          f"{[ms for *_, ms in full['logged']]}; final {full['final']}; resumed from step 30 "
+          f"in {resumed['wall_s']:.1f} s: final {resumed['final']}")
+    check(resumed["final"] == full["final"],
+          f"resume gave final loss {resumed['final']}, the uninterrupted run {full['final']}")
+    check(len(losses) == 6 and losses[-1] < losses[0] - 0.1,
+          f"the CLI's logged loss does not fall: {losses}")
+    return {"wall_s": full["wall_s"], "resume_wall_s": resumed["wall_s"],
+            "final_loss": full["final"], "logged": full["logged"],
+            "resumed_logged": resumed["logged"]}
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def train_full_width(dev, cfg, fcfg, runs=TRAIN_RUNS) -> dict:
+    """``init_train_state`` and ``make_train_step`` with the defaults (QAT,
+    grad_clip 1, wq_lr 0.05) on ``cfg``, one run per entry of ``runs``
+    from the same seed-0 state; per step the synchronized ms, tokens/s,
+    loss and grad norm; per run the peak device memory and the share of
+    the fp32 bound (6·N·tokens operations, 8·N under remat, over 67
+    TFLOP/s). Then the last state's params are saved as a ternary
+    checkpoint (one quantize_pack launch), restored and held to the trained
+    params, and two leaves' records to the port's CPU encode."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.fttq import ternary_stats
+    from repro_torch.data.synthetic import synthetic_tokens, token_batches
+    from repro_torch.launch.train import DATA_SEED
+    from repro_torch.models.transformer import param_count
+    from repro_torch.optim import adam
+    from repro_torch.train import TrainerConfig, init_train_state, make_train_step
+
+    n_params = param_count(cfg)
+    tcfg0 = TrainerConfig()
+    out = {"params": n_params, "runs": []}
+    tokens = synthetic_tokens(DATA_SEED, max(b * (s + 1) * n for b, s, n, _, _ in runs),
+                              cfg.vocab_size)
+    state = None
+    for b, s, n_steps, micro, remat in runs:
+        del state
+        _free()
+        run_cfg = dataclasses.replace(cfg, remat=remat)
+        tcfg = dataclasses.replace(tcfg0, microbatches=micro)
+        opt = adam(TRAIN_LR)
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()         # what earlier phases still hold
+        t0 = time.perf_counter()
+        state = init_train_state(run_cfg, tcfg, opt, seed=0, device=dev)
+        _sync(dev)
+        init_s = time.perf_counter() - t0
+        step = make_train_step(run_cfg, tcfg, opt)
+        batches = token_batches(tokens, b, s, device=dev)
+        rows = []
+        for _ in range(n_steps):
+            batch, _ = next(batches)
+            _sync(dev)
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            _sync(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            rows.append({"ms": ms, "tok_s": b * s / ms * 1e3, "loss": float(m["loss"]),
+                         "grad_norm": float(m["grad_norm"]), "ce": float(m["ce"])})
+        ops = (8 if remat != "none" else 6) * n_params * b * s
+        best = min(r["ms"] for r in rows)
+        run = {"batch": b, "seq": s, "microbatches": micro, "remat": remat, "steps": rows,
+               "init_s": init_s, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "held_gib": held / 2 ** 30,
+               "bound_ms": ops / PEAK_FP32_S * 1e3, "operations": ops}
+        run["bound_share"] = run["bound_ms"] / best
+        out["runs"].append(run)
+        print(f"{cfg.name} at full width ({n_params} params), {b} x {s}, microbatches {micro}, "
+              f"remat {remat}: steps " + "; ".join(
+                  f"{r['ms']:.1f} ms ({r['tok_s']:.0f} tok/s) loss {r['loss']:.5f} gnorm "
+                  f"{r['grad_norm']:.4f}" for r in rows)
+              + f"; peak {run['peak_gib']:.2f} GiB ({run['held_gib']:.2f} GiB held before the "
+              f"run); fp32 bound {run['bound_ms']:.1f} ms "
+              f"({ops:.3e} operations), {100 * run['bound_share']:.1f}% of it at the best step")
+        check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows),
+              "a full-width train step gave a non-finite loss or grad norm")
+        check(int(state.step) == n_steps, f"state.step {int(state.step)} after {n_steps} steps")
+    stats = ternary_stats(state.params, fcfg)
+    print(f"ternary_stats of the trained params: {json.dumps(stats)}")
+    out["ternary_stats"] = stats
+    out["ternary_checkpoint"] = ternary_checkpoint_check(dev, state.params, fcfg)
+    del state
+    _free()
+    return out
+
+
+def ternary_checkpoint_check(dev, params, fcfg) -> dict:
+    """``params`` saved as a ternary checkpoint: exactly one quantize_pack
+    launch; on-disk bytes against the raw fp32 bytes of the leaves; every
+    quantized leaf restored with correlation > 0.6 to the saved one (the
+    reference test's bound); two leaves' records against the port's CPU
+    encode: the codes equal except at ties of |θ_s| with Δ (each side sums
+    |θ_s| for Δ in its own order), the scales within rtol 1e-6."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.compression import CodecSpec, compress_pytree
+    from repro_torch.core.encode import leaf_scalars
+    from repro_torch.core.ternary import unpack_codes
+    from repro_torch.core.fttq import is_quantizable
+    from repro_torch.train import restore_checkpoint, save_checkpoint
+    from repro_torch.train._msgpack import unpackb
+    from repro_torch.train.checkpoint import flatten
+    from repro_torch.tree import flatten_with_path
+
+    d = os.path.join(ROOT, "build", "train_smoke_tern")
+    shutil.rmtree(d, ignore_errors=True)
+    spec = CodecSpec(kind="ternary", fttq=fcfg)
+    zero_counters()
+    t0 = time.perf_counter()
+    save_checkpoint(d, 1, params, compression=spec)
+    save_s = time.perf_counter() - t0
+    launches = read_counters()
+    raw = sum(leaf.numel() * leaf.element_size() for _, leaf in flatten_with_path(params))
+    path = os.path.join(d, "step_000000000001")
+    disk = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    t0 = time.perf_counter()
+    restored, meta = restore_checkpoint(d, example_state=params, device=dev)
+    _sync(dev)
+    restore_s = time.perf_counter() - t0
+    corr = {}
+    for p, leaf in flatten_with_path(params):
+        if is_quantizable(p, leaf, fcfg):
+            a = leaf.reshape(-1).double()
+            r = restored
+            for _, k in p:
+                r = r[k]
+            b = r.reshape(-1).double()
+            a, b = a - a.mean(), b - b.mean()
+            corr["/".join(str(k) for _, k in p)] = float((a @ b) / (a.norm() * b.norm()))
+    del restored
+    with open(os.path.join(path, "state.msgpack"), "rb") as f:
+        records = unpackb(f.read())["leaves"]
+    names = [name for name, _ in flatten(params)]
+    shutil.rmtree(d, ignore_errors=True)
+    probe = ("blocks/attn/wk", "blocks/attn/wq")
+    cpu_tree = {"blocks": {"attn": {k.split("/")[-1]: params["blocks"]["attn"][k.split("/")[-1]]
+                                    .cpu() for k in probe}}}
+    cpu_wire, _ = compress_pytree(cpu_tree, spec)
+    n_codes = n_diff = n_tie = 0
+    scale_gap = 0.0
+    for name in probe:
+        rec = records[names.index(name)]
+        want = cpu_wire["blocks"]["attn"][name.split("/")[-1]]
+        theta = cpu_tree["blocks"]["attn"][name.split("/")[-1]].reshape(-1)
+        n = theta.numel()
+        got_codes = unpack_codes(torch.frombuffer(bytearray(rec["packed"]), dtype=torch.uint8), n)
+        diff = got_codes != unpack_codes(want.packed, n)
+        n_codes += n
+        n_diff += int(diff.sum())
+        if bool(diff.any()):
+            # a code the two encodes set apart sits on a Δ they round apart
+            (denom, delta), _ = leaf_scalars(theta, fcfg)
+            gap = ((theta[diff] / denom).abs() - delta).abs()
+            n_tie += int((gap <= 1e-6 * delta).sum())
+        w_disk = np.frombuffer(rec["w_q"], np.float32)
+        w_cpu = want.w_q.numpy().astype(np.float32).reshape(-1)
+        scale_gap = max(scale_gap, float(np.max(np.abs(w_disk - w_cpu) / np.abs(w_cpu))))
+    print(f"ternary checkpoint of the params: {disk} B on disk against {raw} B of raw fp32 "
+          f"leaves ({raw / disk:.2f}x smaller); save {save_s:.2f} s, restore {restore_s:.2f} s; "
+          f"launches {json.dumps(launches)}; restored-vs-saved correlation of the quantized "
+          f"leaves {min(corr.values()):.4f} to {max(corr.values()):.4f} (> 0.6); "
+          f"{list(probe)} records vs the CPU encode: {n_diff} of {n_codes} codes differ, "
+          f"{n_tie} of them ties at Delta (within 1e-6 of it), scales within rtol "
+          f"{scale_gap:.2e} (limit 1e-6)")
+    check(launches["quantize_pack"] == 1,
+          f"the ternary save launched quantize_pack {launches['quantize_pack']} times, want 1")
+    check(meta["compressed"] and min(corr.values()) > 0.6, "a restored leaf does not correlate")
+    check(n_tie == n_diff and scale_gap <= 1e-6,
+          "the card's ternary records differ from the CPU's away from a tie at Delta")
+    return {"disk_bytes": disk, "raw_bytes": raw, "save_s": save_s, "restore_s": restore_s,
+            "launches": launches, "min_corr": min(corr.values()), "scale_rtol": scale_gap,
+            "codes_checked": n_codes, "codes_differing": n_diff, "ties": n_tie}
+
+
+def _code_ties(state, fcfg, dev) -> tuple[dict, int, int, int]:
+    """The QAT forward's codes of ``state`` (on the CPU) computed on the
+    CPU and on ``dev``: {param path: mask of the codes that differ}, the
+    number of codes, of differing codes and of those that are ties (|θ_s|
+    within 1e-6 of Δ, which each device sums in its own order)."""
+    from repro_torch.core import fttq
+    from repro_torch.tree import flatten_with_path
+
+    wqs = dict(flatten_with_path(state.wq))
+    masks, n_codes, n_diff, n_tie = {}, 0, 0, 0
+    for path, theta in flatten_with_path(state.params):
+        if wqs.get(path) is None:
+            continue
+        rows = theta.reshape(wqs[path].numel(), -1)
+        diff = fttq.row_codes(rows, fcfg.t_k) != fttq.row_codes(rows.to(dev), fcfg.t_k).cpu()
+        n_codes += rows.numel()
+        n_diff += int(diff.sum())
+        if bool(diff.any()):
+            masks[path] = diff.reshape(theta.shape)
+            theta_s = rows / fttq.row_denom(rows)
+            delta = fttq.row_threshold(theta_s, fcfg.t_k).expand_as(theta_s)
+            gap = (theta_s.abs() - delta).abs()[diff]
+            n_tie += int((gap <= 1e-6 * delta[diff]).sum())
+    return masks, n_codes, n_diff, n_tie
+
+
+def _update_gaps(new_cpu, new_card) -> dict:
+    """One step's results, card against CPU: Adam's m relative to each
+    leaf's largest |m|; params relative to each leaf's largest |param|
+    where |g| ≥ 1e-6 (|m| ≥ 1e-7), and absolute where |g| < 1e-6, where
+    Adam's first update lr·g/(|g| + 1e-8) is ill-conditioned (bound 2·lr);
+    and the three leaves with the largest m gaps."""
+    from repro_torch.tree import flatten_with_path, path_str
+
+    out = {"m": 0.0, "params": 0.0, "params_small_g": 0.0, "n_small_g": 0}
+    card_p = dict(flatten_with_path(new_card.params))
+    card_m = dict(flatten_with_path(new_card.opt_state["m"]))
+    cpu_m = dict(flatten_with_path(new_cpu.opt_state["m"]))
+    per_leaf = []
+    for path, p0 in flatten_with_path(new_cpu.params):
+        m0 = cpu_m[path]
+        m_gap = float((card_m[path].cpu() - m0).abs().max()) / (float(m0.abs().max()) or 1.0)
+        per_leaf.append((m_gap, path_str(path)))
+        out["m"] = max(out["m"], m_gap)
+        d = (card_p[path].cpu() - p0).abs()
+        small = m0.abs() < 1e-7
+        if bool((~small).any()):
+            out["params"] = max(out["params"], float(d[~small].max()) / float(p0.abs().max()))
+        if bool(small.any()):
+            out["params_small_g"] = max(out["params_small_g"], float(d[small].max()))
+            out["n_small_g"] += int(small.sum())
+    out["worst"] = [f"{name} {gap:.1e}" for gap, name in sorted(per_leaf, reverse=True)[:3]]
+    return out
+
+
+def train_card_vs_cpu(dev, cfg, fcfg) -> dict:
+    """One default train step of ``cfg`` at 2 x 128 from the same seed-0
+    state on the card (TF32 off) and through the port's CPU path. The QAT
+    codes of the state are counted where the two devices differ, each a tie
+    of |θ_s| with Δ; those weights are moved off Δ, and from that state:
+    loss within rtol 1e-5, Adam's m within 1e-5 of each leaf's largest,
+    params within 1e-5 of each leaf's largest where |g| ≥ 1e-6 (elsewhere
+    within 2·lr), w_q within 1e-5."""
+    import torch
+
+    from repro_torch.data.synthetic import synthetic_tokens, token_batches
+    from repro_torch.launch.train import DATA_SEED
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adam
+    from repro_torch.train import TrainerConfig, init_train_state, make_train_step
+    from repro_torch.train.fault import elastic_reshard
+    from repro_torch.tree import flatten_with_path, tree_leaves
+
+    b, s = TRAIN_CHECK_BATCH
+    tcfg = TrainerConfig()
+    opt = adam(TRAIN_LR)
+    cpu = torch.device("cpu")
+    state = init_train_state(cfg, tcfg, opt, params=init_params(cfg, seed=0, device=cpu),
+                             device=cpu)
+    # a code that differs between the devices flips one weight of the QAT
+    # forward by ±w_q and moves every gradient it feeds: count those ties,
+    # then move the tied weights to half their value (code 0 on both
+    # devices) so that the step is held on the same codes
+    masks, n_codes, n_diff, n_tie = _code_ties(state, fcfg, dev)
+    detied = 0
+    while masks and detied < 1000:
+        params = dict(flatten_with_path(state.params))
+        for path, mask in masks.items():
+            params[path][mask] *= 0.5
+            detied += int(mask.sum())
+        masks = _code_ties(state, fcfg, dev)[0]
+    check(not masks, "the card's QAT codes still differ after moving the ties off Delta")
+    card = elastic_reshard(state, dev)
+    batch, _ = next(token_batches(synthetic_tokens(DATA_SEED, b * (s + 1), cfg.vocab_size),
+                                  b, s, device=cpu))
+    step = make_train_step(cfg, tcfg, opt)
+    t0 = time.perf_counter()
+    new_cpu, m_cpu = step(state, batch)
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    new_card, m_card = step(card, {k: v.to(dev) for k, v in batch.items()})
+    _sync(dev)
+    card_s = time.perf_counter() - t0
+    gaps = _update_gaps(new_cpu, new_card)
+    loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+    wq_gap = max(float((a.cpu() - c).abs().max()) / float(c.abs().max())
+                 for a, c in zip(tree_leaves(new_card.wq), tree_leaves(new_cpu.wq)))
+    print(f"{cfg.name} cut to {cfg.n_layers} layers, one step at {b} x {s}, card vs CPU: loss "
+          f"{float(m_card['loss']):.7f} vs {float(m_cpu['loss']):.7f} (rel {loss_rel:.2e}, limit "
+          f"1e-5); QAT codes of the seed-0 state differing {n_diff} of {n_codes}, {n_tie} of "
+          f"them ties at Delta (within 1e-6 of it), {detied} weights moved off Delta; then Adam "
+          f"m gap {gaps['m']:.2e} of max (1e-5), params gap {gaps['params']:.2e} of max (1e-5) "
+          f"where |g| >= 1e-6 and {gaps['params_small_g']:.2e} abs over the "
+          f"{gaps['n_small_g']} elements below (limit {2 * TRAIN_LR:.0e}); w_q gap "
+          f"{wq_gap:.2e} of max (1e-5); worst leaves {gaps['worst']}; card step "
+          f"{card_s * 1e3:.1f} ms, CPU step {cpu_s * 1e3:.1f} ms")
+    check(loss_rel <= 1e-5, "the card's train step loss differs from the CPU's")
+    check(n_tie == n_diff, "a code differs between the card and the CPU away from a tie")
+    check(gaps["m"] <= 1e-5 and gaps["params"] <= 1e-5 and wq_gap <= 1e-5
+          and gaps["params_small_g"] <= 2 * TRAIN_LR,
+          "the card's train step update differs from the CPU's")
+    return {"loss_card": float(m_card["loss"]), "loss_cpu": float(m_cpu["loss"]),
+            "loss_rel": loss_rel, "wq_gap": wq_gap, "codes": n_codes,
+            "codes_differing": n_diff, "ties": n_tie, "detied": detied, **gaps,
+            "card_ms": card_s * 1e3, "cpu_ms": cpu_s * 1e3}
+
+
+def _zoo_batch(cfg, b: int, s: int, seed: int) -> dict:
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.family == "audio":
+        out["embeds"] = (rng.normal(size=(b, s, cfg.d_model)) * 0.02).astype(np.float32)
+    else:
+        out["tokens"] = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    out["labels"] = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    if cfg.family == "vlm":
+        out["vision_embeds"] = (rng.normal(size=(b, cfg.n_patches, cfg.d_model))
+                                * 0.02).astype(np.float32)
+    return {k: torch.from_numpy(v) for k, v in out.items()}
+
+
+def train_zoo(dev) -> dict:
+    """Each of the ten reduced archs takes TRAIN_ZOO_STEPS default steps on
+    the card and on the CPU from the same seed-0 state and batches (2 x 16;
+    the MoE archs 4 x 16 with microbatches=2; gemma3 with remat "dots"):
+    finite losses, each step's card loss within 1e-4 of the CPU's."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, get_reduced
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adam
+    from repro_torch.train import TrainerConfig, init_train_state, make_train_step
+    from repro_torch.train.fault import elastic_reshard
+
+    out = {}
+    cpu = torch.device("cpu")
+    for arch in ARCH_IDS:
+        cfg = get_reduced(arch, remat="dots" if arch == TRAIN_ZOO_DOTS else "none")
+        micro = 2 if cfg.family == "moe" else 1
+        tcfg = dataclasses.replace(TrainerConfig(), microbatches=micro)
+        opt = adam(3e-3)
+        state = init_train_state(cfg, tcfg, opt, params=init_params(cfg, seed=0, device=cpu),
+                                 device=cpu)
+        if cfg.family == "vlm":     # tanh(0) would silence the cross layers
+            for gate in ("gate_attn", "gate_mlp"):
+                state.params["cross"][gate].fill_(0.5)
+        card = elastic_reshard(state, dev)
+        step = make_train_step(cfg, tcfg, opt)
+        losses = []
+        for i in range(TRAIN_ZOO_STEPS):
+            batch = _zoo_batch(cfg, 2 * micro, 16, seed=i)
+            state, m_cpu = step(state, batch)
+            card, m_card = step(card, {k: v.to(dev) for k, v in batch.items()})
+            losses.append((float(m_card["loss"]), float(m_cpu["loss"])))
+        gap = max(abs(a - c) for a, c in losses)
+        out[arch] = {"losses": losses, "gap": gap, "microbatches": micro, "remat": cfg.remat}
+        print(f"  {arch} ({cfg.family}, microbatches {micro}, remat {cfg.remat}): card losses "
+              f"{[round(a, 6) for a, _ in losses]}, max |card - CPU| {gap:.2e} (limit 1e-4)")
+        check(all(np.isfinite(a) for a, _ in losses), f"{arch}: a non-finite loss on the card")
+        check(gap <= 1e-4, f"{arch}: the card's losses differ from the CPU's")
+    return out
+
+
+def train_phase(dev, fcfg, cfg=None, check_cfg=None, runs=TRAIN_RUNS,
+                cli_device: str = "cuda") -> dict:
+    """(a) the CLI with a resume; (b) olmo-1b at full width; (c) card vs CPU
+    on olmo-1b cut to two layers; (d) every family reduced."""
+    from repro_torch.configs import get_config
+
+    cfg = cfg or get_config("olmo-1b")
+    check_cfg = check_cfg or get_config("olmo-1b", n_layers=TRAIN_CHECK_LAYERS)
+    t0 = time.perf_counter()
+    out = {"cli": train_cli_check(cli_device)}
+    out["full_width"] = train_full_width(dev, cfg, fcfg, runs)
+    out["card_vs_cpu"] = train_card_vs_cpu(dev, check_cfg, fcfg)
+    out["zoo"] = train_zoo(dev)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"train phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2894,6 +3368,13 @@ def main() -> int:
     zoo_s = time.perf_counter() - t0
     print(f"zoo phase: {zoo_s:.2f} s")
 
+    phase("train: the CLI with a resume (10m preset), olmo-1b at full width (8 x 512; 8 x "
+          "4,096 with microbatches 4 and remat full), card vs CPU, every family reduced")
+    del params, served, ref_params, layers, blocks, dense_blocks, qp_rows, qp_scal
+    del qp_bytes_checked, qp_scales_checked, quantizable
+    _free()
+    train = train_phase(dev, fcfg)
+
     phase("federated: ResNet18* T-FedAvg sync rounds at full width")
     setup = federated_setup(dev)
     fed = federated_phase(dev, setup)
@@ -2967,7 +3448,10 @@ def main() -> int:
          "socket_client_launches": {label: sum(run["child_quantize_pack_launches"].values())
                                     for label, run in sock["runs"].items()},
          "serve_loop_launches": {cap: 1 for cap in sloop["engines"]},
-         "zoo_launches": {arch: row["launches"]["quantize_pack"] for arch, row in zoo.items()}},
+         "zoo_launches": {arch: row["launches"]["quantize_pack"] for arch, row in zoo.items()},
+         "train_launches": {"ternary_save":
+                            train["full_width"]["ternary_checkpoint"]["launches"]["quantize_pack"]},
+         "train": train},
         {"name": "ternary_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ternary_matmul.cu",
          "replaces": "src/repro/kernels/ternary_matmul.py:34",

@@ -1,4 +1,4 @@
-"""Carry the JAX package's parameters into the port.
+"""Carry the JAX package's parameters and train states into the port.
 
 JAX initializers draw with ``jax.random``, which torch cannot reproduce, so
 code that wants both packages to compute from identical weights exports the
@@ -21,3 +21,21 @@ def params_from_jax(tree_of_numpy, device: str | torch.device = "cuda"):
     ``device`` (copied, so the result is writable)."""
     dev = resolve_device(device)
     return tree_map(lambda a: torch.from_numpy(np.array(a)).to(dev), tree_of_numpy)
+
+
+def train_state_from_jax(state_of_numpy, device: str | torch.device = "cuda"):
+    """A reference ``repro.train.TrainState`` whose leaves were exported as
+    numpy (``jax.tree_util.tree_map(np.asarray, state)``) → the port's
+    ``TrainState`` on ``device``: params, w_q with its ``None`` leaves, the
+    optimizer state, residuals and step, so both packages step from the
+    same state. Reads the fields by name, so the JAX package is not
+    imported."""
+    from repro_torch.train.trainer import TrainState
+
+    def conv(tree):
+        return None if tree is None else params_from_jax(tree, device)
+
+    return TrainState(params=conv(state_of_numpy.params), wq=conv(state_of_numpy.wq),
+                      opt_state=conv(state_of_numpy.opt_state),
+                      residuals=conv(state_of_numpy.residuals),
+                      step=conv(state_of_numpy.step))

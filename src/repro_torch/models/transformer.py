@@ -26,11 +26,15 @@ cache in place.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from repro_torch.device import resolve_device
 from repro_torch.dtypes import torch_dtype
@@ -51,9 +55,12 @@ _ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The reference's model configuration, field for field (see
-    ``repro.models.transformer.ModelConfig``). On one device
-    ``mesh_batch_axes`` and ``remat`` have no effect; ``moe_impl="a2a"``
-    with ``mesh_ep_axis`` set needs the multi-device slice and raises."""
+    ``repro.models.transformer.ModelConfig``). ``remat`` recomputes each
+    layer in the backward pass of a forward without a cache: ``"full"``
+    keeps only the layer's inputs, ``"dots"`` also keeps its matmul
+    outputs; both give the numbers of ``"none"``. On one device
+    ``mesh_batch_axes`` has no effect; ``moe_impl="a2a"`` with
+    ``mesh_ep_axis`` set needs the multi-device slice and raises."""
 
     name: str
     family: str                      # dense|moe|ssm|hybrid|vlm|audio
@@ -387,6 +394,38 @@ def _mamba_layer(cfg: ModelConfig, bp: dict, x, states):
 
 
 # --------------------------------------------------------------------------
+# Rematerialization.
+# --------------------------------------------------------------------------
+
+_MATMUL_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The counterpart of ``jax.checkpoint_policies.checkpoint_dots``: keep
+    every matmul's output, recompute everything else."""
+    if op in _MATMUL_OPS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+
+
+def _remat(cfg: ModelConfig, cache, fn, *args):
+    """``fn(*args)``; in a forward without a cache that autograd records,
+    recomputed in the backward as ``cfg.remat`` says (reference
+    ``_maybe_remat``)."""
+    if cache is not None or cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if cfg.remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    if cfg.remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=_DOTS_CONTEXT)
+    raise ValueError(f"unknown remat {cfg.remat!r}")
+
+
+# --------------------------------------------------------------------------
 # Forward.
 # --------------------------------------------------------------------------
 
@@ -411,27 +450,43 @@ def forward(cfg: ModelConfig, params: Pytree, tokens: torch.Tensor | None = None
         vis = vision_embeds.to(cdt) if vision_embeds is not None else None
         auxes, cross_idx = [], 0
         for i in range(cfg.n_layers):
+            window = int(windows[i])
+            cp = _layer(cross, cross_idx) if cross is not None and gates[i] else None
             kv = (cache["k"][i], cache["v"][i]) if cache is not None else None
-            x, layer_aux = _dense_layer(cfg, _layer(blocks, i), x, int(windows[i]), kv, pos)
+
+            # one remat unit per layer: the layer and the cross layer after it
+            def body(x, bp, cp, kv=kv, window=window):
+                x, layer_aux = _dense_layer(cfg, bp, x, window, kv, pos)
+                if cp is not None:
+                    x = _cross_layer(cfg, cp, x, vis)
+                return x, layer_aux
+
+            x, layer_aux = _remat(cfg, cache, body, x, _layer(blocks, i), cp)
             if layer_aux is not None:
                 auxes.append(layer_aux)
-            if cross is not None and gates[i]:
-                x = _cross_layer(cfg, _layer(cross, cross_idx), x, vis)
-                cross_idx += 1
+            cross_idx += int(cp is not None)
         if auxes:
             aux = torch.stack(auxes).sum()
     else:
         flags = attn_flags(cfg)
+        shared = params.get("shared_attn")
         app_idx = 0
         for i in range(cfg.n_layers):
-            if cfg.family == "hybrid" and flags[i]:
-                kv = ((cache["attn_k"][app_idx], cache["attn_v"][app_idx])
-                      if cache is not None else None)
-                x = _shared_attn_layer(cfg, params["shared_attn"], x, kv, pos)
-                app_idx += 1
-            states = ({"conv": cache["conv"][i], "ssd": cache["ssd"][i]}
-                      if cache is not None else None)
-            x, new_states = _mamba_layer(cfg, _layer(blocks, i), x, states)
+            sp = shared if cfg.family == "hybrid" and flags[i] else None
+            kv = states = None
+            if cache is not None:
+                if sp is not None:
+                    kv = (cache["attn_k"][app_idx], cache["attn_v"][app_idx])
+                states = {"conv": cache["conv"][i], "ssd": cache["ssd"][i]}
+
+            # one remat unit per layer: the shared block before it, if any
+            def body(x, bp, sp, kv=kv, states=states):
+                if sp is not None:
+                    x = _shared_attn_layer(cfg, sp, x, kv, pos)
+                return _mamba_layer(cfg, bp, x, states)
+
+            x, new_states = _remat(cfg, cache, body, x, _layer(blocks, i), sp)
+            app_idx += int(sp is not None)
             if cache is not None:
                 cache["conv"][i] = new_states["conv"]
                 cache["ssd"][i] = new_states["ssd"]
@@ -450,3 +505,17 @@ def decode_step(cfg: ModelConfig, params: Pytree, tokens: torch.Tensor,
     logits, cache, _ = forward(cfg, params, tokens, vision_embeds=vision_embeds,
                                cache=cache, pos=pos)
     return logits, cache
+
+
+def loss_fn(cfg: ModelConfig, params: Pytree, batch: dict):
+    """Mean next-token (or per-frame) cross entropy, from an fp32 log-softmax
+    of the logits, plus ``aux_loss_coef`` × the MoE aux loss. ``batch`` holds
+    ``labels`` and ``tokens`` or ``embeds`` (audio), and ``vision_embeds``
+    for the vlm. Returns (loss, {"ce", "aux"})."""
+    logits, _, aux = forward(cfg, params, batch.get("tokens"), embeds=batch.get("embeds"),
+                             vision_embeds=batch.get("vision_embeds"))
+    labels = batch["labels"].to(torch.int64)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+    ce = -torch.mean(ll)
+    return ce + cfg.aux_loss_coef * aux, {"ce": ce, "aux": aux}

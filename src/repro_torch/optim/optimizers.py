@@ -1,5 +1,6 @@
 """SGD / momentum / Adam / AdamW with the reference's ``(init, update)``
-contract (port of ``repro.optim.optimizers``).
+contract, global-norm clipping and the cosine learning-rate schedules (port
+of ``repro.optim.optimizers``).
 
 Optimizers are functional over parameter trees (nested dicts of tensors):
 ``update(grads, state, params)`` returns ``(updates, new_state)`` and
@@ -11,6 +12,7 @@ place, so one broadcast tree can start many clients' training.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import torch
@@ -121,3 +123,45 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
 def apply_updates(params: Pytree, updates: Pytree) -> Pytree:
     return _map2(lambda p, u: (p.to(torch.float32) + u).to(p.dtype), params, updates)
+
+
+def global_norm(tree: Pytree) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in fp32. The leaves' sums
+    are added one after another in flatten order, as the reference's
+    Python ``sum`` adds them."""
+    total = 0
+    for leaf in tree_leaves(tree):
+        total = total + torch.sum(torch.square(leaf.to(torch.float32)))
+    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+
+
+def clip_by_global_norm(grads: Pytree, max_norm: float) -> tuple[Pytree, torch.Tensor]:
+    """(grads scaled by min(1, max_norm / (‖grads‖ + 1e-9)), ‖grads‖)."""
+    gn = global_norm(grads)
+    scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
+    return tree_map(lambda g: g * scale.to(g.dtype), grads), gn
+
+
+def cosine_schedule(base_lr: float, total_steps: int, final_frac: float = 0.1):
+    """lr(step) decaying from ``base_lr`` to ``final_frac · base_lr`` over
+    ``total_steps`` on a half cosine; ``step`` is an int32 tensor."""
+
+    def lr(step: torch.Tensor) -> torch.Tensor:
+        t = torch.clamp(step.to(torch.float32) / total_steps, 0.0, 1.0)
+        cos = 0.5 * (1.0 + torch.cos(math.pi * t))
+        return base_lr * (final_frac + (1 - final_frac) * cos)
+
+    return lr
+
+
+def warmup_cosine_schedule(base_lr: float, warmup: int, total_steps: int,
+                           final_frac: float = 0.1):
+    """Linear warm-up to ``base_lr`` over ``warmup`` steps, then the cosine
+    decay over the remaining ``total_steps - warmup``."""
+    cos = cosine_schedule(base_lr, max(total_steps - warmup, 1), final_frac)
+
+    def lr(step: torch.Tensor) -> torch.Tensor:
+        warm = base_lr * (step.to(torch.float32) + 1) / max(warmup, 1)
+        return torch.where(step < warmup, warm, cos(step - warmup))
+
+    return lr

@@ -1025,3 +1025,84 @@ def test_packed_zoo_deploy_on_the_card_equals_the_cpu(cuda_device, arch):
     got, _, _ = forward(cfg, served, toks.to(cuda_device),
                         vision_embeds=None if vis is None else vis.to(cuda_device))
     assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+# --------------------------------------------------------------------------
+# Training on the card (repro_torch.train).
+# --------------------------------------------------------------------------
+
+
+def _train_step_both(arch: str, dev, micro: int):
+    from repro_torch.configs import get_reduced
+    from repro_torch.optim import adam
+    from repro_torch.train import TrainerConfig, init_train_state, make_train_step
+    from repro_torch.train.fault import elastic_reshard
+
+    cfg = get_reduced(arch)
+    tcfg = TrainerConfig(microbatches=micro)
+    opt = adam(3e-3)
+    state = init_train_state(cfg, tcfg, opt, seed=0, device="cpu")
+    card = elastic_reshard(state, dev)
+    gen = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2 * micro, 16), generator=gen,
+                              dtype=torch.int32) for k in ("tokens", "labels")}
+    step = make_train_step(cfg, tcfg, opt)
+    new_cpu, m_cpu = step(state, batch)
+    new_card, m_card = step(card, {k: v.to(dev) for k, v in batch.items()})
+    return new_cpu, m_cpu, new_card, m_card
+
+
+@pytest.mark.parametrize("arch,micro", [("olmo-1b", 1), ("qwen3-moe-30b-a3b", 2)])
+def test_train_step_on_the_card_equals_the_cpu(cuda_device, arch, micro):
+    """One QAT step of a dense and a MoE (microbatched) reduced arch from
+    the same state: loss within rtol 1e-5, Adam's m (0.1·g) and the new w_q
+    within 1e-5 of each leaf's largest, the step counted."""
+    from repro_torch.tree import tree_leaves
+
+    new_cpu, m_cpu, new_card, m_card = _train_step_both(arch, cuda_device, micro)
+    torch.testing.assert_close(m_card["loss"].cpu(), m_cpu["loss"], rtol=1e-5, atol=0)
+    torch.testing.assert_close(m_card["grad_norm"].cpu(), m_cpu["grad_norm"], rtol=1e-4, atol=0)
+    for tree in ("m", "v"):
+        for a, c in zip(tree_leaves(new_card.opt_state[tree]), tree_leaves(new_cpu.opt_state[tree])):
+            assert float((a.cpu() - c).abs().max()) <= 1e-5 * float(c.abs().max()) + 1e-30
+    for a, c in zip(tree_leaves(new_card.wq), tree_leaves(new_cpu.wq)):
+        assert float((a.cpu() - c).abs().max()) <= 1e-5 * float(c.abs().max())
+    assert int(new_card.step) == int(new_cpu.step) == 1
+
+
+def test_ternary_checkpoint_on_the_card(cuda_device, tmp_path):
+    """A ternary save of a reduced olmo-1b tree on the card: one
+    quantize_pack launch, the packed records the CPU save's bytes and the
+    scales within rtol 1e-6, and the restored leaves the CPU's decode."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.compression import CodecSpec
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import restore_checkpoint, save_checkpoint
+    from repro_torch.train._msgpack import unpackb
+
+    params = init_params(get_reduced("olmo-1b"), seed=0, device="cpu")
+    spec = CodecSpec(kind="ternary")
+    before = quantize_pack.launches
+    save_checkpoint(str(tmp_path / "card"), 1, _to(params, cuda_device), compression=spec)
+    assert quantize_pack.launches - before == 1
+    save_checkpoint(str(tmp_path / "cpu"), 1, params, compression=spec)
+    recs = {}
+    for name in ("card", "cpu"):
+        with open(tmp_path / name / "step_000000000001" / "state.msgpack", "rb") as f:
+            recs[name] = unpackb(f.read())["leaves"]
+    n_tern = 0
+    for a, c in zip(recs["card"], recs["cpu"]):
+        if "__tern__" in c:
+            n_tern += 1
+            wa = torch.frombuffer(bytearray(a.pop("w_q")), dtype=torch.float32)
+            wc = torch.frombuffer(bytearray(c.pop("w_q")), dtype=torch.float32)
+            torch.testing.assert_close(wa, wc, rtol=1e-6, atol=0)
+        assert a == c
+    assert n_tern == 7
+    back, meta = restore_checkpoint(str(tmp_path / "card"), example_state=params,
+                                    device=cuda_device)
+    back_cpu, _ = restore_checkpoint(str(tmp_path / "cpu"), example_state=params, device="cpu")
+    assert meta["compressed"]
+    for (_, a), (_, c) in zip(flatten_with_path(back), flatten_with_path(back_cpu)):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a.cpu(), c, rtol=1e-6, atol=0)
