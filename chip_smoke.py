@@ -31,6 +31,18 @@ Phases (any failure exits non-zero; no phase is skipped):
                  quantize_pack launch per deploy; then unpack2bit and pack2bit
                  against their plain versions on the served 2-bit bytes (bit
                  for bit);
+  4b. bf16_serve — olmo-1b at full width with bf16 weights and activations
+                 (``launch.serve --dtype bfloat16``), seed 0: two deploys (one
+                 bf16 quantize_pack launch each), the packed-vs-dequantized
+                 logits probe (≤ 5e-2 of max |logits|), prefill 4 × 32 and 15
+                 greedy steps (112 ternary_matmul launches per forward), beside
+                 the fp32 phase's numbers; the bf16 quantize_pack on the
+                 deploy's 7 segments (bytes and counts bit for bit, sums and
+                 scales within 1e-6) and the bf16 ternary_matmul at every
+                 layer shape at M = 4 and 128 (within one bf16 ulp, one-hot
+                 bit for bit) against their plain versions; their times
+                 beside the bounds, the plain versions and torch.matmul on
+                 the dequantized bf16 weights;
   5. serve_loop — ``launch.serve_loop.ServeEngine`` on olmo-1b at full width
                  (max_batch 8, fp16 residuals) at two dequant-cache
                  capacities, 16 MiB and 1 GiB, each under ``run_closed_loop``
@@ -99,6 +111,31 @@ Phases (any failure exits non-zero; no phase is skipped):
                  counted, each a tie at Δ); (d) each of the ten reduced archs
                  3 steps on the card and the CPU (losses within 1e-4; the MoE
                  archs microbatched, gemma3 with remat "dots");
+  9b. multidevice — two ranks spawned on the one card, joined over gloo
+                 through a file rendezvous (NCCL will not put two ranks on one
+                 device; every collective stages through pinned host memory),
+                 in one spawn: (a) olmo-1b's whole gradient tree (1,176,764,416
+                 fp32 elements, seeded per rank) through ternary_allreduce_tree
+                 with error feedback: exactly one quantize_pack and two
+                 aggregate launches per rank, wall and device ms, the all-
+                 gather's bytes (0.25 B a coordinate plus w_q), held leaf by
+                 leaf to the plain version (codes equal but at proven ties at
+                 Δ, means and residuals within 1e-6), then the exact fp32
+                 all-reduce's time and bytes; (c) ResNet18*'s 52 segments from
+                 16 uploads, 8 per rank, folded sharded (one aggregate and one
+                 vote launch per rank) against the one-launch fold of all 16
+                 (1e-6); (d) qwen3-moe-30b-a3b at its published widths, 2 of
+                 48 layers, EP 2: the a2a forward at capacity 16 against the
+                 scatter dispatch (1e-5 of max |logits|), the int8 wire within
+                 5% relative L2; (b) olmo-1b at full width cut to 8 of 16
+                 layers, TrainerConfig defaults, adam(3e-4), 8 × 512 over 2
+                 pods, 3 compressed steps (one quantize_pack launch a step)
+                 and 3 exact ones, per step ms, loss and peak memory, held on
+                 rank 0 to a one-process emulation with the plain collective
+                 and to one process stepping the whole batch (losses rtol
+                 1e-4, final params 5e-3 in the worst leaf's relative L2),
+                 and a planted fault (the pods skip the gradient sync) that
+                 must fail both limits;
  10. federated — two T-FedAvg sync rounds (paper Algorithm 2) on ResNet18* at
                  full width with the paper's CIFAR setting (FedConfig
                  defaults: 100 clients, λ = 0.1, E = 5, B = 64, adam(1e-3), 500
@@ -3077,6 +3114,775 @@ def train_phase(dev, fcfg, cfg=None, check_cfg=None, runs=TRAIN_RUNS,
     return out
 
 
+# --------------------------------------------------------------------------
+# bf16 activations: olmo-1b served with bf16 weights and activations.
+# --------------------------------------------------------------------------
+
+
+def bf16_ulps_apart(y, y_ref, x, packed, wq) -> tuple[int, int]:
+    """Outputs of two bf16 results more than one bf16 unit in the last place
+    (of the larger magnitude) apart: (beyond the fp32 summation-order
+    allowance of two sums of the same exact products, four fp32 ulps of
+    Σ|x·w|·w_q, which matters only where a sum cancels far below its terms;
+    beyond the one ulp alone)."""
+    import torch
+
+    from repro_torch.kernels.pack2bit import unpack2bit_plain
+
+    a, b = y.float(), y_ref.float()
+    m = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+    terms = (x.float().abs() @ unpack2bit_plain(packed, torch.float32).abs()) * wq.abs()
+    ulp = torch.exp2(torch.floor(torch.log2(m)) - 7)
+    return (int(((a - b).abs() > ulp + 2.0 ** -22 * terms).sum()),
+            int(((a - b).abs() > ulp).sum()))
+
+
+def bf16_matmul_bound(m: int, k: int, n: int) -> tuple[float, str, int, int]:
+    """The bf16 ternary matmul's bound: bf16 x and out, the packed weights and
+    w_q once; 2MKN bf16 operations (bf16 x is one part)."""
+    nbytes = k // 4 * n + 2 * (m * k + m * n) + 4
+    flops = 2 * m * k * n
+    return (*bound(nbytes, flops, PEAK_BF16_S), nbytes, flops)
+
+
+def bf16_kernel_checks(dev, rows, scal, served) -> dict:
+    """The bf16 kernels against their plain versions on the bf16 model's own
+    inputs: quantize_pack_segments over the deploy's 7 bf16 segments in one
+    launch (bytes and counts bit for bit, sums and scales within 1e-6
+    relative: fp32 order); ternary_matmul on bf16 x at every served layer's
+    shape at decode (M = 4) and prefill (M = 128) rows, within one bf16 ulp
+    of the plain version (plus the fp32 summation-order allowance where a
+    sum cancels), and bit for bit on one-hot weights."""
+    import torch
+
+    from repro_torch.kernels.quantize_pack import (
+        quantize_pack, quantize_pack_segments, quantize_pack_segments_plain,
+    )
+    from repro_torch.kernels.ternary_matmul import ternary_matmul, ternary_matmul_plain
+
+    before = quantize_pack.launches
+    packed, moments, scales = quantize_pack_segments(rows, scal, with_scales=True)
+    launched = quantize_pack.launches - before
+    p_ref, m_ref, s_ref = quantize_pack_segments_plain(rows, scal, True)
+    torch.cuda.synchronize()
+    bad_bytes = int((packed != p_ref).sum())
+    bad_counts = int((moments[:, 1] != m_ref[:, 1]).sum())
+    sum_rel = float(((moments[:, 0] - m_ref[:, 0]).abs()
+                     / m_ref[:, 0].abs().clamp_min(1e-30)).max())
+    scale_rel = float(((scales - s_ref).abs() / s_ref.abs().clamp_min(1e-30)).max())
+    print(f"  quantize_pack bf16: {len(rows)} segments ({sum(r.numel() for r in rows)} "
+          f"elements) in {launched} launch: {bad_bytes} bytes and {bad_counts} counts differ "
+          f"from the plain version, sums max rel err {sum_rel:.3e}, scales {scale_rel:.3e}")
+    check(launched == 1 and bad_bytes == 0 and bad_counts == 0 and sum_rel <= 1e-6
+          and scale_rel <= 1e-6, "bf16 quantize_pack_segments disagrees with its plain version")
+    gen = torch.Generator(dev).manual_seed(17)
+    shapes = sorted({(w.k, w.packed.shape[1]) for w in _packed_layers(served)})
+    worst, bad_ulp, over_ulp, n_out, bad_onehot = 0.0, 0, 0, 0, 0
+    for m in (BATCH, BATCH * PROMPT):
+        for k, n in shapes:
+            x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+            c = torch.randint(0, 3, (k // 4, 4, n), generator=gen, device=dev,
+                              dtype=torch.uint8)
+            packed_w = c[:, 0] | (c[:, 1] << 2) | (c[:, 2] << 4) | (c[:, 3] << 6)
+            wq = torch.tensor(0.02, device=dev)
+            y, y_ref = ternary_matmul(x, packed_w, wq), ternary_matmul_plain(x, packed_w, wq)
+            check(y.dtype == torch.bfloat16, "bf16 ternary_matmul returned another dtype")
+            bad, over = bf16_ulps_apart(y, y_ref, x, packed_w, wq)
+            bad_ulp, over_ulp, n_out = bad_ulp + bad, over_ulp + over, n_out + y.numel()
+            worst = max(worst, float((y.float() - y_ref.float()).abs().max()))
+            codes = torch.ones(k, n, dtype=torch.uint8, device=dev)
+            codes[torch.randint(0, k, (n,), generator=gen, device=dev),
+                  torch.arange(n, device=dev)] = 2
+            c = codes.reshape(k // 4, 4, n)
+            onehot = c[:, 0] | (c[:, 1] << 2) | (c[:, 2] << 4) | (c[:, 3] << 6)
+            bad_onehot += int((ternary_matmul(x, onehot, wq)
+                               != ternary_matmul_plain(x, onehot, wq)).sum())
+    torch.cuda.synchronize()
+    print(f"  ternary_matmul bf16 at {len(shapes)} layer shapes x M = {BATCH}, "
+          f"{BATCH * PROMPT}: {bad_ulp} of {n_out} outputs more than 1 bf16 ulp from the "
+          f"plain version beyond the fp32-order allowance ({over_ulp} beyond 1 ulp alone; "
+          f"max abs err {worst:.3e}); one-hot weights: {bad_onehot} outputs differ")
+    check(bad_ulp == 0 and bad_onehot == 0, "bf16 ternary_matmul disagrees with its plain "
+                                            "version")
+    return {"quantize_pack_sum_rel": sum_rel, "quantize_pack_scale_rel": scale_rel,
+            "matmul_max_abs_err": worst, "packed": packed, "scales": scales}
+
+
+def _packed_layers(served):
+    from repro_torch.kernels.repack import PackedTernary
+    from repro_torch.tree import tree_leaves
+
+    stacks = tree_leaves(served, is_leaf=lambda x: isinstance(x, PackedTernary))
+    return [s.layer(0) for s in stacks if isinstance(s, PackedTernary)]
+
+
+def bf16_timings(dev, cfg, served, dense, rows, scal, checked) -> dict:
+    """The bf16 kernels' times on the card (CUDA events): the deploy's
+    quantize_pack over the 7 bf16 segments eagerly as the encode calls it;
+    one decode step's and one prefill forward's 112 ternary matmuls on bf16
+    x as graph replays, beside their plain versions and ``torch.matmul`` of
+    bf16 x with the dequantized bf16 weights; each beside its bound."""
+    import torch
+
+    from repro_torch.kernels.quantize_pack import (
+        quantize_pack_segments, quantize_pack_segments_plain,
+    )
+    from repro_torch.kernels.ternary_matmul import ternary_matmul, ternary_matmul_plain
+
+    box = {}
+
+    def encode():
+        box["out"] = quantize_pack_segments(rows, scal, with_scales=True)
+
+    out = {"quantize_pack": {"ms": time_ms(encode, 5, graph=False)}}
+    check(torch.equal(box["out"][0], checked["packed"]), "the timed bf16 encode differs")
+    out["quantize_pack"]["plain_ms"] = time_ms(
+        lambda: quantize_pack_segments_plain(rows, scal, True), 2, graph=False)
+    n = sum(r.numel() for r in rows)
+    nbytes = sum(2 * r.numel() + (r.numel() + 3) // 4 + 8 * -(-r.numel() // 32768) + 12
+                 for r in rows)
+    out["quantize_pack"]["bound_ms"], out["quantize_pack"]["bound_by"] = bound(nbytes, 4 * n)
+    out["quantize_pack"]["bytes"] = nbytes
+    gen = torch.Generator(dev).manual_seed(23)
+    names = [("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
+             ("mlp", "w_in"), ("mlp", "w_gate"), ("mlp", "w_out")]
+    for label, m in (("decode", BATCH), ("prefill", BATCH * PROMPT)):
+        calls = []
+        for i in range(cfg.n_layers):
+            for a, b in names:
+                w = served["blocks"][a][b].layer(i)
+                x = torch.randn(m, w.k, generator=gen, device=dev).to(torch.bfloat16)
+                calls.append((x, w.packed, w.w_q.reshape(()).float(), dense["blocks"][a][b][i]))
+        t = {"ms": time_ms(lambda: [ternary_matmul(x, p, s) for x, p, s, _ in calls], 10),
+             "eager_ms": time_ms(lambda: [ternary_matmul(x, p, s) for x, p, s, _ in calls], 10,
+                                 graph=False),
+             "plain_ms": time_ms(lambda: [ternary_matmul_plain(x, p, s)
+                                          for x, p, s, _ in calls], 3),
+             "library_ms": time_ms(lambda: [torch.matmul(x, d) for x, _, _, d in calls], 10),
+             "launches_per_forward": len(calls)}
+        shapes = [bf16_matmul_bound(x.shape[0], x.shape[1], p.shape[1]) for x, p, _, _ in calls]
+        t["bytes"], t["flops"] = sum(b[2] for b in shapes), sum(b[3] for b in shapes)
+        t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["flops"], PEAK_BF16_S)
+        out[f"ternary_matmul_{label}"] = t
+        print(f"ternary_matmul bf16, one {label} forward's {len(calls)} matmuls at M={m}: "
+              f"kernel {t['ms']:.4f} ms (eager {t['eager_ms']:.4f} ms), plain "
+              f"{t['plain_ms']:.4f} ms, torch.matmul on the dequantized bf16 weights "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    q = out["quantize_pack"]
+    print(f"quantize_pack bf16, the deploy's {len(rows)} segments ({n} weights), eager: "
+          f"{q['ms']:.4f} ms, plain {q['plain_ms']:.4f} ms, bound {q['bound_ms']:.4f} ms "
+          f"({q['bound_by']}, {nbytes} B)")
+    return out
+
+
+def bf16_serve_phase(dev, fcfg, fp32: dict) -> dict:
+    """olmo-1b at full width with bf16 weights and activations (the CLI's
+    ``--dtype bfloat16``), seed 0: its kernels held to their plain versions,
+    two deploys (one bf16 quantize_pack launch each), the packed-vs-
+    dequantized logits probe, prefill 4 × 32 and 15 greedy steps, beside the
+    fp32 serving phase's numbers of the same run; then the bf16 kernels'
+    times."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.fttq import is_quantizable
+    from repro_torch.launch.serve import generate, packed_logits_check, ternary_deploy
+    from repro_torch.models.transformer import init_params
+    from repro_torch.tree import flatten_with_path
+
+    cfg = dataclasses.replace(get_config("olmo-1b"), param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    params = init_params(cfg, seed=0, device=dev)
+    leaves = [leaf for _, leaf in flatten_with_path(params)]
+    check(all(leaf.dtype == torch.bfloat16 for leaf in leaves),
+          "the bf16 model's parameter tree is not bf16")
+    quantizable = [leaf for p, leaf in flatten_with_path(params) if is_quantizable(p, leaf, fcfg)]
+    rows, scal = deploy_segments(quantizable, fcfg)
+    zero_counters()
+    t0 = time.perf_counter()
+    served, wire_bytes, _, _ = ternary_deploy(params, fcfg, packed=True, device=dev)
+    torch.cuda.synchronize()
+    t_deploy = time.perf_counter() - t0
+    dense, ref_bytes, _, _ = ternary_deploy(params, fcfg, packed=False, device=dev)
+    check(ref_bytes == wire_bytes, "the two bf16 deploys saw different wire artifacts")
+    probe = torch.randint(0, cfg.vocab_size, (2, 8),
+                          generator=torch.Generator(dev).manual_seed(9), device=dev)
+    diff, ref_max = packed_logits_check(cfg, served, dense, probe)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
+                            generator=torch.Generator(dev).manual_seed(1), device=dev)
+    tokens, t_prefill, t_decode = generate(cfg, served, prompts, GEN)
+    launches = read_counters()
+    forwards = 1 + 1 + (GEN - 1)
+    per_forward = launches["ternary_matmul"] / forwards
+    out = {"wire_bytes": wire_bytes, "deploy_s": t_deploy, "logits_ratio": diff / ref_max,
+           "prefill_ms": t_prefill * 1e3, "decode_tok_s": BATCH * (GEN - 1) / t_decode,
+           "launches": launches, "ternary_matmul_per_forward": per_forward}
+    print(f"bf16 edge checkpoint: {wire_bytes} B on the wire (fp32 model: {fp32['wire_bytes']} "
+          f"B); deploy {t_deploy:.2f} s (fp32 {fp32['deploy_s']:.2f} s)")
+    print(f"bf16 packed-vs-dequant logits: max |d| = {diff:.3e}, max |logits_ref| = "
+          f"{ref_max:.3e}, ratio {diff / ref_max:.3e} (limit 5e-2: bf16 rounds the products "
+          "and sums of the two paths at other places)")
+    print(f"bf16 prefill {BATCH}x{PROMPT}: {out['prefill_ms']:.2f} ms (fp32 "
+          f"{fp32['prefill_ms']:.2f} ms); decode {out['decode_tok_s']:.1f} tok/s at batch "
+          f"{BATCH} (fp32 {fp32['decode_tok_s']:.1f}); ternary_matmul {per_forward:.0f} "
+          f"launches per forward (fp32 {fp32['per_forward']}), quantize_pack "
+          f"{launches['quantize_pack']} in two deploys")
+    check(diff / ref_max <= 5e-2, "bf16 packed logits disagree with the dequantized path")
+    check(tuple(tokens.shape) == (BATCH, GEN)
+          and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+          "bf16 serving produced bad tokens")
+    check(launches["quantize_pack"] == 2, "bf16 deploys: want one quantize_pack launch each")
+    check(launches["ternary_matmul"] == cfg.n_layers * LAYER_MATMULS * forwards,
+          f"bf16 serving launched ternary_matmul {launches['ternary_matmul']} times")
+    phase("checks: the bf16 kernels against their plain versions (quantize_pack bytes and "
+          "counts bit for bit; ternary_matmul within 1 bf16 ulp, one-hot bit for bit)")
+    checked = bf16_kernel_checks(dev, rows, scal, served)
+    out["checks"] = {k: v for k, v in checked.items() if k not in ("packed", "scales")}
+    phase("timings: the bf16 kernels")
+    out["timings"] = bf16_timings(dev, cfg, served, dense, rows, scal, checked)
+    del params, served, dense, rows, scal, checked, quantizable, leaves
+    _free()
+    return out
+
+
+# --------------------------------------------------------------------------
+# Multi-device: two ranks on the one card over gloo.
+# --------------------------------------------------------------------------
+
+MD_RANKS = 2
+MD_TRAIN_LAYERS = 8          # olmo-1b cut in depth so two ranks' training fits 80 GB
+# the two-pod runs against their one-process references: the largest loss
+# gap relative to the loss, and the worst leaf's ‖Δparam‖ / ‖param‖ after
+# the last step (a planted fault, no gradient sync, must exceed both)
+MD_LOSS_RTOL, MD_PARAM_RTOL_L2 = 1e-4, 5e-3
+MD_BATCH, MD_SEQ, MD_STEPS = 8, 512, 3
+MD_MOE_LAYERS = 2            # qwen3-moe-30b-a3b cut from 48 layers
+MD_MOE_TOKENS = (2, 64)
+MD_FANIN_UPLOADS = 16
+MD_TIMEOUT_S = 900
+
+
+def _md_device_ms(prof) -> float:
+    events = prof.key_averages()
+    return sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+               for e in events) / 1e3
+
+
+def _md_collective(mesh, dev, cfg, fcfg) -> dict:
+    """(a) olmo-1b's whole gradient tree (synthetic, seeded per rank)
+    through ``ternary_allreduce_tree`` with error feedback: launches, wire
+    bytes, wall and device ms; held leaf by leaf to the plain version
+    (codes equal except ties at Δ, each proven; means and residuals within
+    1e-6 of their largest elsewhere); then the exact fp32 all-reduce."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.transformer import param_count, param_shapes
+    from repro_torch.parallel.collectives import (
+        all_gather, all_reduce_, compressed_bytes_per_element,
+        compressed_leaf, group_rank, leaf_mean_plain, quantize_lastdim_plain, reset_wire_bytes,
+        ternary_allreduce_tree, unpack_lastdim_plain, wire_bytes,
+    )
+    from repro_torch.tree import flatten_with_path, tree_map
+
+    group, me = mesh.group("pod"), group_rank(mesh.group("pod"))
+    gen = torch.Generator(dev).manual_seed(100 + me)
+    grads = tree_map(lambda s: torch.randn(s, generator=gen, device=dev) * 1e-3,
+                     param_shapes(cfg), is_leaf=lambda x: isinstance(x, tuple))
+    n = param_count(cfg)
+    items = flatten_with_path(grads)
+    n_comp = sum(g.numel() for p, g in items if compressed_leaf(p, g, fcfg))
+    n_leaves_comp = sum(1 for p, g in items if compressed_leaf(p, g, fcfg))
+    _sync(dev)
+    zero_counters()
+    reset_wire_bytes()
+    t0 = time.perf_counter()
+    synced, res = ternary_allreduce_tree(grads, group, cfg=fcfg)
+    _sync(dev)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches, wires = read_counters(), wire_bytes()
+    del synced, res
+    _free()
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        synced, res = ternary_allreduce_tree(grads, group, cfg=fcfg)
+        _sync(dev)
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    device_ms = _md_device_ms(prof) if dev.type == "cuda" else float("nan")
+    del prof
+    out = {"elements": n, "compressed_elements": n_comp, "compressed_leaves": n_leaves_comp,
+           "wall_ms": wall_ms, "traced_wall_ms": traced_ms, "device_ms": device_ms,
+           "launches": launches, "wire": wires,
+           "want_gather_bytes": int(n_comp * compressed_bytes_per_element(MD_RANKS))
+           + 4 * n_leaves_comp * (MD_RANKS - 1)}
+    flips = ties = 0
+    mean_gap = res_gap = 0.0
+    for (path, g), s_k, r_k in zip(items, [x for _, x in flatten_with_path(synced)],
+                                   [x for _, x in flatten_with_path(res)]):
+        xs = list(all_gather(g, group).unbind(0))
+        comp = compressed_leaf(path, g, fcfg)
+        mean_p, _ = leaf_mean_plain(xs, t_k=fcfg.t_k, compressed=comp)
+        if not comp:
+            mean_gap = max(mean_gap, float((s_k - mean_p).abs().max()
+                                           / mean_p.abs().max().clamp_min(1e-30)))
+            continue
+        packed_p, wq_p, recon_p = quantize_lastdim_plain(g.to(torch.float32), fcfg.t_k)
+        codes_p = unpack_lastdim_plain(packed_p)
+        codes_k = torch.round((g - r_k) / wq_p)
+        flip = codes_k != codes_p
+        mine = int(flip.sum())
+        if mine:
+            absg = g.abs()
+            mx = absg.max() + 1e-12
+            delta = fcfg.t_k * absg.mean() / mx
+            gap = ((g[flip] / mx).abs() - delta).abs()
+            ties += int((gap <= 1e-6 * delta).sum())
+        flips += mine
+        anywhere = all_gather(flip.to(torch.uint8), group).any(0).to(torch.bool)
+        keep = ~anywhere
+        mean_gap = max(mean_gap, float((s_k - mean_p)[keep].abs().max()
+                                       / mean_p.abs().max().clamp_min(1e-30)))
+        nres_p = g - recon_p
+        res_gap = max(res_gap, float((r_k - nres_p)[~flip].abs().max()
+                                     / nres_p.abs().max().clamp_min(1e-30)))
+        del xs, mean_p, packed_p, recon_p, codes_p, codes_k, flip, anywhere, nres_p
+    out.update(code_flips=flips, proven_ties=ties, mean_rel_gap=mean_gap,
+               residual_rel_gap=res_gap)
+    del synced, res
+    _free()
+    reset_wire_bytes()
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _, g in items:
+        all_reduce_(g, group, mean=True)
+    _sync(dev)
+    out["exact_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    out["exact_wire"] = wire_bytes()
+    del grads, items
+    _free()
+    return out
+
+
+def _md_fanin(dev, mesh_data) -> dict:
+    """(c) ResNet18*'s 52 segments from 16 uploads, sharded 8 per rank:
+    one aggregate and one vote launch per rank, against the one-launch
+    fold of all 16."""
+    import torch
+
+    from repro_torch.kernels.aggregate import packed_weighted_sum_segments
+    from repro_torch.kernels.vote import packed_vote_counts_segments
+    from repro_torch.parallel.fanin import fanin_vote_counts_segments, fanin_weighted_sum_segments
+
+    layout = [(b, 4 * b) for b in resnet_segment_bytes()]
+    table, staged, coeffs, weights = fanin_case(layout, MD_FANIN_UPLOADS,
+                                                torch.Generator(dev).manual_seed(21), dev)
+    zero_counters()
+    got = fanin_weighted_sum_segments(staged, coeffs, table, mesh=mesh_data)
+    got_v = fanin_vote_counts_segments(staged, weights, table, mesh=mesh_data)
+    _sync(dev)
+    launches = read_counters()
+    ref = packed_weighted_sum_segments(staged, coeffs, table)
+    ref_v = packed_vote_counts_segments(staged, weights, table)
+    return {"launches": launches, "segments": table.n_segments,
+            "sum_rel_gap": float((got - ref).abs().max() / ref.abs().max()),
+            "vote_rel_gap": float((got_v - ref_v).abs().max() / ref_v.abs().max())}
+
+
+def _md_moe(dev, mesh_ep, moe_cfg) -> dict:
+    """(d) qwen3-moe at its published widths, cut in depth, EP 2 over the
+    "model" axis: the a2a forward at drop-free capacity against the scatter
+    dispatch (``moe.py``) on the same tokens, and the int8 wire against the
+    plain wire."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.transformer import forward, init_params
+    from repro_torch.parallel.collectives import reset_wire_bytes, set_mesh, wire_bytes
+
+    cfg_g = dataclasses.replace(moe_cfg, moe_impl="gspmd")
+    cfg_a = dataclasses.replace(moe_cfg, moe_impl="a2a", moe_wire="bf16")
+    cfg_q = dataclasses.replace(cfg_a, moe_wire="int8")
+    params = init_params(cfg_g, seed=0, device=dev)
+    toks = torch.randint(0, moe_cfg.vocab_size, MD_MOE_TOKENS,
+                         generator=torch.Generator(dev).manual_seed(5), device=dev)
+    out = {}
+    with torch.no_grad(), set_mesh(mesh_ep):
+        for name, cfg in (("scatter", cfg_g), ("a2a", cfg_a), ("a2a_int8", cfg_q)):
+            reset_wire_bytes()
+            _sync(dev)
+            t0 = time.perf_counter()
+            logits, _, _ = forward(cfg, params, toks)
+            _sync(dev)
+            out[name] = {"ms": (time.perf_counter() - t0) * 1e3,
+                         "a2a_bytes": wire_bytes().get("all_to_all", 0), "logits": logits}
+    lg, la, lq = (out[k].pop("logits") for k in ("scatter", "a2a", "a2a_int8"))
+    out["a2a_rel_gap"] = float((la - lg).abs().max() / lg.abs().max())
+    out["int8_rel_l2"] = float(torch.linalg.vector_norm(la - lq)
+                               / (torch.linalg.vector_norm(la) + 1e-9))
+    del params, lg, la, lq
+    _free()
+    return out
+
+
+def _md_train(mesh, dev, cfg, batch: int, seq: int, steps: int) -> dict:
+    """(b) olmo-1b at full width cut in depth, TrainerConfig defaults,
+    adam(3e-4), the global batch split over the pods: ``steps`` compressed
+    steps and ``steps`` exact ones (per step ms and loss, launches, wire
+    bytes, peak memory); then, on rank 0 alone, the one-process emulation
+    (both pods' halves, the plain collective) and the single-process
+    full-batch step from the same state, each held to its run's losses and
+    final params, and a planted fault (no gradient sync) held to the
+    full-batch step by the same measures."""
+    import torch
+
+    from repro_torch.data.synthetic import synthetic_tokens, token_batches
+    from repro_torch.launch.train import DATA_SEED
+    from repro_torch.optim import adam
+    from repro_torch.parallel.collectives import reset_wire_bytes, wire_bytes
+    from repro_torch.train import TrainerConfig, init_train_state, make_train_step
+
+    tokens = synthetic_tokens(DATA_SEED, batch * (seq + 1) * steps, cfg.vocab_size)
+    gen = token_batches(tokens, batch, seq, device=dev)
+    batches = [next(gen)[0] for _ in range(steps)]
+    out = {"layers": cfg.n_layers, "batch": batch, "seq": seq}
+    final = {}
+    for name, compressed in (("compressed", True), ("exact", False)):
+        tcfg = TrainerConfig(pod_compression=compressed, error_feedback=True)
+        opt = adam(TRAIN_LR)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(cfg, tcfg, opt, seed=0, device=dev, n_pods=MD_RANKS, mesh=mesh)
+        step = make_train_step(cfg, tcfg, opt, mesh=mesh)
+        zero_counters()
+        reset_wire_bytes()
+        rows = []
+        for b in batches:
+            _sync(dev)
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            _sync(dev)
+            rows.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": float(m["loss"])})
+        out[name] = {"steps": rows, "launches": read_counters(), "wire": wire_bytes(),
+                     "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                                  if dev.type == "cuda" else float("nan"))}
+        final[name] = _host_tree(state.params)
+        del state, step
+        _free()
+    torch.distributed.barrier()
+    if mesh.index("pod") == 0:
+        losses = {k: [r["loss"] for r in out[k]["steps"]] for k in final}
+        out["emulation"] = _md_train_emulation(dev, cfg, batches, losses["compressed"],
+                                               final["compressed"])
+        out["single"], single_params = _md_train_single(dev, cfg, batches, losses["exact"],
+                                                        final["exact"])
+        out["fault"] = _md_train_fault(dev, cfg, batches, out["single"]["losses"],
+                                       single_params)
+        del single_params
+    del final
+    torch.distributed.barrier()
+    return out
+
+
+def _host_tree(tree):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+
+
+def _md_gaps(dev, losses, ref_losses, params, ref_params) -> dict:
+    """The largest loss gap over the steps relative to the reference's
+    loss; after the last step the worst leaf's max |Δparam| over its largest
+    reference |param|, and the worst leaf's ‖Δparam‖ over its reference
+    ‖param‖."""
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    worst, worst_l2 = 0.0, 0.0
+    for a, b in zip(tree_leaves(params), tree_leaves(ref_params)):
+        d, b = a.to(dev) - b.to(dev), b.to(dev)
+        worst = max(worst, float(d.abs().max() / b.abs().max().clamp_min(1e-30)))
+        worst_l2 = max(worst_l2, float(torch.linalg.vector_norm(d)
+                                       / torch.linalg.vector_norm(b).clamp_min(1e-30)))
+    return {"loss_rel_gap": max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
+            "param_rel_gap": worst, "param_rel_l2": worst_l2}
+
+
+def _md_train_emulation(dev, cfg, batches, losses, params) -> dict:
+    """Both pods' halves in one process with the plain collective
+    (``pods_mean_plain``), the compressed run's losses and params held to
+    it."""
+    import torch
+
+    from repro_torch.optim import adam
+    from repro_torch.parallel.collectives import pods_mean_plain
+    from repro_torch.train import TrainerConfig, init_train_state
+    from repro_torch.train.trainer import _apply_grads, _local_grads
+    from repro_torch.tree import tree_leaves, tree_map
+
+    tcfg, opt = TrainerConfig(pod_compression=True, error_feedback=True), adam(TRAIN_LR)
+    state = init_train_state(cfg, tcfg, opt, seed=0, device=dev, n_pods=MD_RANKS)
+    got = []
+    with torch.no_grad():
+        for b in batches:
+            half = {k: v.chunk(MD_RANKS) for k, v in b.items()}
+            parts = [_local_grads(cfg, tcfg, state, {k: v[i] for k, v in half.items()})
+                     for i in range(MD_RANKS)]
+            res = [tree_map(lambda r: r[i], state.residuals) for i in range(MD_RANKS)]
+            g_p, new_res = pods_mean_plain([p[2] for p in parts], cfg=tcfg.fttq,
+                                           residuals_per_pod=res)
+            it = iter([sum(ws) / MD_RANKS for ws in zip(*(tree_leaves(p[3]) for p in parts))])
+            g_w = tree_map(lambda _: next(it), state.wq)
+            loss = sum(p[0] for p in parts) / MD_RANKS
+            metrics = {k: sum(p[1][k] for p in parts) / MD_RANKS for k in parts[0][1]}
+            del parts, res
+            state, m = _apply_grads(tcfg, opt, state, loss, metrics, g_p, g_w,
+                                    _stack_pods(new_res))
+            got.append(float(m["loss"]))
+            del g_p, new_res, g_w
+    out = {"losses": got, **_md_gaps(dev, losses, got, params, state.params)}
+    del state
+    _free()
+    return out
+
+
+def _stack_pods(trees):
+    import torch
+
+    from repro_torch.tree import tree_leaves, tree_map
+
+    leaves = [tree_leaves(t) for t in trees]
+    it = iter([torch.stack(rs) for rs in zip(*leaves)])
+    return tree_map(lambda _: next(it), trees[0])
+
+
+def _md_train_single(dev, cfg, batches, losses, params) -> tuple[dict, object]:
+    """The exact run's losses and params held to one process stepping the
+    whole global batch; also returns that process's params (on the host)."""
+    from repro_torch.optim import adam
+    from repro_torch.train import TrainerConfig, init_train_state, make_train_step
+
+    tcfg, opt = TrainerConfig(pod_compression=False), adam(TRAIN_LR)
+    state = init_train_state(cfg, tcfg, opt, seed=0, device=dev)
+    step = make_train_step(cfg, tcfg, opt)
+    got = []
+    for b in batches:
+        state, m = step(state, b)
+        got.append(float(m["loss"]))
+    out = {"losses": got, **_md_gaps(dev, losses, got, params, state.params)}
+    ref = _host_tree(state.params)
+    del state
+    _free()
+    return out, ref
+
+
+def _md_train_fault(dev, cfg, batches, losses, params) -> dict:
+    """A planted fault, to show the limits catch one: the pods skip the
+    gradient sync, so each steps on its own half of the batch (the logged
+    loss still the pods' mean). Held to the single-process full-batch run
+    as the exact run is; both gaps must exceed their limits."""
+    from repro_torch.optim import adam
+    from repro_torch.train import TrainerConfig, init_train_state, make_train_step
+
+    tcfg, opt = TrainerConfig(pod_compression=False), adam(TRAIN_LR)
+    step = make_train_step(cfg, tcfg, opt)
+    per_pod, pod0 = [], None
+    for p in range(MD_RANKS):
+        state = init_train_state(cfg, tcfg, opt, seed=0, device=dev)
+        got = []
+        for b in batches:
+            state, m = step(state, {k: v.chunk(MD_RANKS)[p] for k, v in b.items()})
+            got.append(float(m["loss"]))
+        per_pod.append(got)
+        if p == 0:
+            pod0 = _host_tree(state.params)
+        del state
+        _free()
+    mean = [sum(ls) / MD_RANKS for ls in zip(*per_pod)]
+    return {"losses": mean, **_md_gaps(dev, mean, losses, pod0, params)}
+
+
+def multidevice_rank(rank: int, world: int, rdv: str, out_dir: str, device: str,
+                     sizes: dict) -> None:
+    """One rank of the multidevice phase (a spawned process): joins the gloo
+    group through ``rdv``, runs (a) the collective, (c) the fan-in, (d) the
+    MoE and (b) training, and writes its report to ``out_dir``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.fttq import FTTQConfig
+    from repro_torch.launch.mesh import AXES, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=MD_TIMEOUT_S))
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh = make_mesh((world, 1, 1), AXES, device=device)
+    mesh_data = make_mesh((world,), ("data",), device=device)
+    mesh_ep = make_mesh((1, world), ("data", "model"), device=device)
+    report = {"rank": rank, "device": str(dev)}
+    path = os.path.join(out_dir, f"rank{rank}.json")
+
+    def save():
+        with open(path, "w") as f:
+            json.dump(report, f)
+
+    t0 = time.perf_counter()
+    report["collective"] = _md_collective(mesh, dev, sizes["olmo"], FTTQConfig())
+    save()
+    dist.barrier()
+    report["fanin"] = _md_fanin(dev, mesh_data)
+    save()
+    dist.barrier()
+    report["moe"] = _md_moe(dev, mesh_ep, sizes["moe"])
+    save()
+    dist.barrier()
+    report["train"] = _md_train(mesh, dev, sizes["train"], sizes["batch"], sizes["seq"],
+                                sizes["steps"])
+    report["rank_s"] = time.perf_counter() - t0
+    save()
+    dist.destroy_process_group()
+
+
+def multidevice_phase(device: str = "cuda:0", olmo_cfg=None, moe_cfg=None, train_cfg=None,
+                      batch: int = MD_BATCH, seq: int = MD_SEQ, steps: int = MD_STEPS) -> dict:
+    """Two ranks spawned on the one card over gloo (a file rendezvous in a
+    temporary directory), in one spawn: (a) the collective at full width,
+    (c) the client-sharded fan-in, (d) the expert-parallel MoE, (b)
+    compressed multi-pod training. A rank that fails or does not finish in
+    time fails the phase; both processes are stopped."""
+    import multiprocessing as mp
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    sizes = {"olmo": olmo_cfg or get_config("olmo-1b"),
+             "moe": moe_cfg or get_config("qwen3-moe-30b-a3b", n_layers=MD_MOE_LAYERS,
+                                          capacity_factor=16.0, mesh_batch_axes=("data",),
+                                          mesh_ep_axis="model"),
+             "train": train_cfg or get_config("olmo-1b", n_layers=MD_TRAIN_LAYERS),
+             "batch": batch, "seq": seq, "steps": steps}
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=multidevice_rank,
+                             args=(r, MD_RANKS, os.path.join(tmp, "rdv"), tmp, device, sizes))
+                 for r in range(MD_RANKS)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            deadline = time.monotonic() + MD_TIMEOUT_S
+            for p in procs:
+                p.join(max(1.0, deadline - time.monotonic()))
+            codes = [p.exitcode for p in procs]
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        reports = []
+        for r in range(MD_RANKS):
+            path = os.path.join(tmp, f"rank{r}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    reports.append(json.load(f))
+        if any(c != 0 for c in codes):
+            print(f"the ranks' reports so far: {json.dumps(reports)}")
+        check(all(c == 0 for c in codes), f"a multidevice rank failed or hung: exit codes {codes}")
+    wall_s = time.perf_counter() - t0
+    return {"reports": reports, "wall_s": wall_s, "sizes": {
+        "olmo_layers": sizes["olmo"].n_layers, "train_layers": sizes["train"].n_layers,
+        "moe_layers": sizes["moe"].n_layers, "batch": batch, "seq": seq, "steps": steps}}
+
+
+def multidevice_checks(md: dict) -> None:
+    """Print the multidevice phase's numbers and hold them to the contract."""
+    reports = md["reports"]
+    for rep in reports:
+        r, c = rep["rank"], rep["collective"]
+        print(f"rank {r} ({rep['device']}), (a) ternary_allreduce_tree over {c['elements']} "
+              f"elements ({c['compressed_elements']} compressed in {c['compressed_leaves']} "
+              f"leaves): wall {c['wall_ms']:.1f} ms, traced {c['traced_wall_ms']:.1f} ms with "
+              f"{c['device_ms']:.3f} ms of device time; launches quantize_pack "
+              f"{c['launches']['quantize_pack']}, aggregate {c['launches']['aggregate']}; "
+              f"wire received {json.dumps(c['wire'])} (all-gather want "
+              f"{c['want_gather_bytes']} = 0.25 B x {c['compressed_elements']} + w_q); exact "
+              f"fp32 all-reduce {c['exact_wall_ms']:.1f} ms, {json.dumps(c['exact_wire'])}; "
+              f"code flips {c['code_flips']} ({c['proven_ties']} proven ties at Δ), mean rel "
+              f"gap {c['mean_rel_gap']:.3e}, residual rel gap {c['residual_rel_gap']:.3e}")
+        check(c["launches"]["quantize_pack"] == 1,
+              "the collective launched quantize_pack other than once per rank")
+        check(c["launches"]["aggregate"] == 2, "the collective launched aggregate other than "
+                                                "twice (mean and residual) per rank")
+        check(c["wire"].get("all_gather", 0) == c["want_gather_bytes"],
+              "the collective's all-gather bytes are not 0.25 B a coordinate plus w_q")
+        check(c["code_flips"] == c["proven_ties"], "a code differs from the plain version "
+                                                   "where Δ is not a tie")
+        check(c["mean_rel_gap"] <= 1e-6 and c["residual_rel_gap"] <= 1e-6,
+              "the collective's mean or residual disagrees with the plain version")
+        f = rep["fanin"]
+        print(f"rank {r}, (c) sharded fan-in over {f['segments']} segments, "
+              f"{MD_FANIN_UPLOADS // MD_RANKS} of {MD_FANIN_UPLOADS} uploads: launches "
+              f"{json.dumps(f['launches'])}; sum rel gap {f['sum_rel_gap']:.3e}, vote rel gap "
+              f"{f['vote_rel_gap']:.3e} against the one-launch fold of all {MD_FANIN_UPLOADS}")
+        check(f["launches"]["aggregate"] == 1 and f["launches"]["vote"] == 1,
+              "the sharded fold launched other than one aggregate and one vote per rank")
+        check(f["sum_rel_gap"] <= 1e-6 and f["vote_rel_gap"] <= 1e-6,
+              "the sharded fold disagrees with the one-launch fold")
+        mo = rep["moe"]
+        print(f"rank {r}, (d) qwen3-moe ({md['sizes']['moe_layers']} layers, EP {MD_RANKS}): "
+              f"scatter {mo['scatter']['ms']:.1f} ms, a2a {mo['a2a']['ms']:.1f} ms "
+              f"({mo['a2a']['a2a_bytes']} B received), int8 wire {mo['a2a_int8']['ms']:.1f} ms "
+              f"({mo['a2a_int8']['a2a_bytes']} B); a2a vs scatter rel gap "
+              f"{mo['a2a_rel_gap']:.3e} (limit 1e-5), int8 rel L2 {mo['int8_rel_l2']:.3e} "
+              "(limit 5e-2)")
+        check(mo["a2a_rel_gap"] <= 1e-5, "the a2a MoE disagrees with the scatter dispatch")
+        check(mo["int8_rel_l2"] < 0.05, "the int8 a2a wire is off by 5% or more")
+        tr = rep["train"]
+        for name in ("compressed", "exact"):
+            run = tr[name]
+            print(f"rank {r}, (b) olmo-1b {tr['layers']} of 16 layers at full width, "
+                  f"{tr['batch']} x {tr['seq']} over {MD_RANKS} pods, {name}: steps "
+                  + "; ".join(f"{s['ms']:.1f} ms loss {s['loss']:.6f}" for s in run["steps"])
+                  + f"; peak {run['peak_gib']:.2f} GiB; launches {json.dumps(run['launches'])};"
+                  f" wire {json.dumps(run['wire'])}")
+        check(tr["compressed"]["launches"]["quantize_pack"] == len(tr["compressed"]["steps"]),
+              "compressed training launched quantize_pack other than once per step")
+        if "emulation" in tr:
+            for name, what in (("emulation", "compressed run vs its one-process emulation"),
+                               ("single", "exact run vs one process on the full batch"),
+                               ("fault", "planted fault (no gradient sync) vs one process "
+                                         "on the full batch")):
+                g = tr[name]
+                print(f"rank {r}: {what}: one-process losses {g['losses']}; max loss rel gap "
+                      f"{g['loss_rel_gap']:.3e} (limit {MD_LOSS_RTOL:g}); params after "
+                      f"{len(g['losses'])} steps, worst leaf ‖Δ‖/‖p‖ {g['param_rel_l2']:.3e} "
+                      f"(limit {MD_PARAM_RTOL_L2:g}), max |Δ| / max |p| "
+                      f"{g['param_rel_gap']:.3e} (not held: Adam's sign-like steps move a few "
+                      "weights by up to 2·lr on summation order alone)")
+            for name in ("emulation", "single"):
+                g = tr[name]
+                check(g["loss_rel_gap"] <= MD_LOSS_RTOL
+                      and g["param_rel_l2"] <= MD_PARAM_RTOL_L2,
+                      f"multi-pod training disagrees with its reference ({name})")
+            f = tr["fault"]
+            check(f["loss_rel_gap"] > MD_LOSS_RTOL and f["param_rel_l2"] > MD_PARAM_RTOL_L2,
+                  "a limit of the multi-pod checks does not catch the planted fault")
+    check([s["loss"] for s in reports[0]["train"]["compressed"]["steps"]]
+          == [s["loss"] for s in reports[1]["train"]["compressed"]["steps"]],
+          "the two pods logged different losses")
+    print(f"multidevice phase: {md['wall_s']:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -3271,6 +4077,12 @@ def main() -> int:
     phase("checks: unpack2bit / pack2bit on the served 2-bit weights (bit-identical)")
     pack_err, unpack_err = pack_checks(served)
 
+    phase("bf16_serve: olmo-1b --ternary --packed --dtype bfloat16 at full width (bf16 "
+          "weights and activations)")
+    bf16 = bf16_serve_phase(dev, fcfg, {
+        "wire_bytes": wire_bytes, "deploy_s": t_deploy, "prefill_ms": t_prefill * 1e3,
+        "decode_tok_s": BATCH * (GEN - 1) / t_decode, "per_forward": per_forward})
+
     phase("serve_loop: ServeEngine on olmo-1b at full width under run_closed_loop "
           "(cache 16 MiB and 1 GiB; 5 and 2,000 QPS)")
     t0 = time.perf_counter()
@@ -3375,6 +4187,15 @@ def main() -> int:
     _free()
     train = train_phase(dev, fcfg)
 
+    phase("multidevice: two ranks on the card over gloo (a) ternary_allreduce_tree over "
+          "olmo-1b's gradient tree, (c) the sharded fan-in, (d) the a2a MoE on qwen3-moe 2 of "
+          f"48 layers, (b) compressed and exact 2-pod training of olmo-1b {MD_TRAIN_LAYERS} of "
+          "16 layers")
+    _free()
+    md = multidevice_phase(f"cuda:{torch.cuda.current_device()}")
+    multidevice_checks(md)
+    md_reports = md["reports"]
+
     phase("federated: ResNet18* T-FedAvg sync rounds at full width")
     setup = federated_setup(dev)
     fed = federated_phase(dev, setup)
@@ -3451,7 +4272,15 @@ def main() -> int:
          "zoo_launches": {arch: row["launches"]["quantize_pack"] for arch, row in zoo.items()},
          "train_launches": {"ternary_save":
                             train["full_width"]["ternary_checkpoint"]["launches"]["quantize_pack"]},
-         "train": train},
+         "train": train,
+         "bf16": {"launches": bf16["launches"]["quantize_pack"],
+                  **bf16["timings"]["quantize_pack"],
+                  "max_abs_err_rel": bf16["checks"]["quantize_pack_sum_rel"]},
+         "multidevice_launches": {
+             f"rank{r['rank']}": {"collective": r["collective"]["launches"]["quantize_pack"],
+                                  "train_compressed": r["train"]["compressed"]["launches"][
+                                      "quantize_pack"]} for r in md_reports},
+         "multidevice": md},
         {"name": "ternary_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ternary_matmul.cu",
          "replaces": "src/repro/kernels/ternary_matmul.py:34",
@@ -3463,7 +4292,14 @@ def main() -> int:
                                        for qps, run in row["runs"].items()}
                                  for cap, row in sloop["engines"].items()},
          "zoo_launches": {arch: row["launches"]["ternary_matmul"] for arch, row in zoo.items()},
-         "serve_loop": sloop, "zoo": zoo},
+         "serve_loop": sloop, "zoo": zoo,
+         "bf16": {"launches": bf16["launches"]["ternary_matmul"],
+                  "per_forward": bf16["ternary_matmul_per_forward"],
+                  "max_abs_err": bf16["checks"]["matmul_max_abs_err"],
+                  "decode": bf16["timings"]["ternary_matmul_decode"],
+                  "prefill": bf16["timings"]["ternary_matmul_prefill"],
+                  "serve": {k: bf16[k] for k in ("wire_bytes", "deploy_s", "logits_ratio",
+                                                 "prefill_ms", "decode_tok_s")}}},
         {"name": "aggregate", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/aggregate.cu",
          "replaces": "src/repro/kernels/aggregate.py:51",
@@ -3479,6 +4315,11 @@ def main() -> int:
          "hierarchy_launches": hier["launches"]["aggregate"],
          "controller_launches": ctrl["launches"]["aggregate"],
          "fleet_launches": fleet_launches("aggregate"), "fleet": flt,
+         "multidevice_launches": {
+             f"rank{r['rank']}": {"collective": r["collective"]["launches"]["aggregate"],
+                                  "fanin": r["fanin"]["launches"]["aggregate"],
+                                  "train_compressed": r["train"]["compressed"]["launches"][
+                                      "aggregate"]} for r in md_reports},
          "socket_launches": socket_launches("aggregate"), "socket": sock,
          "controller": {k: ctrl[k] for k in ("per_round", "wall_s", "bytes_by_kind",
                                              "blob_sizes", "fold_vs_cpu_elements",
@@ -3497,6 +4338,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/vote.py:40",
          "launches": robust["launches"]["vote"], "max_abs_err": vote_err,
          "fleet_launches": fleet_launches("vote"), "socket_launches": socket_launches("vote"),
+         "multidevice_launches": {f"rank{r['rank']}": r["fanin"]["launches"]["vote"]
+                                  for r in md_reports},
          "ms": vote_t["round_ms"], "plain_ms": vote_t["round_plain_ms"],
          "bound_ms": vote_t["round_bound_ms"], "bound_by": vote_t["round_bound_by"],
          "library_ms": None, "eager_ms": vote_t["eager_ms"],

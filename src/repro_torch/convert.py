@@ -13,14 +13,24 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.dtypes import from_numpy
 from repro_torch.tree import tree_map
+
+
+def _tensor(a) -> torch.Tensor:
+    """One numpy array as a writable CPU tensor; a bfloat16 array (numpy
+    has none of its own; JAX exports ``ml_dtypes.bfloat16``) keeps its bits."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return from_numpy(a.view(np.uint16), "bfloat16")
+    return torch.from_numpy(a)
 
 
 def params_from_jax(tree_of_numpy, device: str | torch.device = "cuda"):
     """A nested dict/list of numpy arrays → the same tree of tensors on
     ``device`` (copied, so the result is writable)."""
     dev = resolve_device(device)
-    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(dev), tree_of_numpy)
+    return tree_map(lambda a: _tensor(a).to(dev), tree_of_numpy)
 
 
 def train_state_from_jax(state_of_numpy, device: str | torch.device = "cuda"):

@@ -13,11 +13,12 @@ A leaf is encoded as segments: a stacked leaf (ndim ≥ 3 with a per-layer
 factor, e.g. an HWIO conv weight with one factor per kernel row) has one
 segment per leading index, every other leaf is one segment. Per segment,
 ``denom = max|θ| + 1e-8`` and Δ come from one batched row reduction over
-the leaf. Then the whole tree goes through ONE
+the leaf. Then each dtype group of the tree (fp32, bf16) goes through ONE
 ``kernels.quantize_pack_segments`` launch, as the reference drives a dtype
 group through one kernel call: a segment table lists every segment of
-every leaf (a zero-copy contiguous slice, read in place), its (denom, Δ)
-row and the byte offset of its wire bytes in one buffer. In server and
+every leaf of the group (a zero-copy contiguous slice, read in place), its
+(denom, Δ) row and the byte offset of its wire bytes in one buffer. A bf16
+leaf is encoded in bf16, and its kernel-formed w_q is cast back to bf16. In server and
 codec modes the same launch forms every segment's w_q from its tile
 moments (the moment tiles restart at every segment, as the reference's
 per-layer staging does). The tree's wire bytes and scales (and, in payload
@@ -104,33 +105,46 @@ def _segments(it: _Item) -> tuple[torch.Tensor, torch.Tensor, int]:
 
 
 def _encode_items(items: Sequence[_Item]) -> list[TernaryTensor]:
-    """Every segment of every leaf through one kernel launch, then the
-    bytes and scales to the host in one copy. Items share one mode and one
-    device; output order matches input."""
+    """Every segment of every leaf through one kernel launch per dtype
+    group, then the bytes and scales to the host in one copy. Items share
+    one mode and one device; output order matches input."""
     if not items:
         return []
     mode = items[0].mode
-    segs = [_segments(it) for it in items]
-    rows = [r[i] for r, _, n_seg in segs for i in range(n_seg)]
-    scal = torch.cat([sc for _, sc, _ in segs])
-    n_scales = 0 if mode == "payload" else scal.shape[0]
-    wqs = [it.wq.detach() for it in items] if mode == "payload" else []
-    n_wq = sum(w.numel() for w in wqs)
-    nbytes = sum(packed_nbytes(r.numel()) for r in rows)
+    groups: dict[torch.dtype, list[int]] = {}
+    for k, it in enumerate(items):
+        groups.setdefault(it.leaf.dtype, []).append(k)
+    order = [k for ks in groups.values() for k in ks]      # the buffer's order
+    segs = {k: _segments(items[k]) for k in order}
+    group_rows = [[segs[k][0][i] for k in ks for i in range(segs[k][2])]
+                  for ks in groups.values()]
+    group_scal = [torch.cat([segs[k][1] for k in ks]) for ks in groups.values()]
+    n_scales = 0 if mode == "payload" else sum(s.shape[0] for s in group_scal)
+    wqs = {k: items[k].wq.detach() for k in order} if mode == "payload" else {}
+    n_wq = sum(w.numel() for w in wqs.values())
+    group_bytes = [sum(packed_nbytes(r.numel()) for r in rows) for rows in group_rows]
+    nbytes = sum(group_bytes)
     at = -(-nbytes // 4) * 4                     # scales and factors start 4-aligned
-    buf = torch.empty(at + 4 * (n_scales + n_wq), dtype=torch.uint8, device=scal.device)
+    buf = torch.empty(at + 4 * (n_scales + n_wq), dtype=torch.uint8,
+                      device=group_scal[0].device)
     floats = buf[at:].view(torch.float32)
-    _, _, scales = quantize_pack_segments(rows, scal, out=buf[:nbytes],
-                                          with_scales=mode != "payload")
-    if n_scales:
-        floats[:n_scales].copy_(scales)
+    b0 = s0 = 0
+    for rows, scal, nb in zip(group_rows, group_scal, group_bytes):
+        _, _, scales = quantize_pack_segments(rows, scal, out=buf[b0:b0 + nb],
+                                              with_scales=mode != "payload")
+        if n_scales:
+            floats[s0:s0 + scal.shape[0]].copy_(scales)
+        b0, s0 = b0 + nb, s0 + scal.shape[0]
     if wqs:
-        floats[n_scales:].copy_(torch.cat([w.reshape(-1).to(torch.float32) for w in wqs]))
+        floats[n_scales:].copy_(torch.cat([w.reshape(-1).to(torch.float32)
+                                           for w in wqs.values()]))
     host = buf.cpu()
     host_floats = host[at:].view(torch.float32)
 
-    out, byte0, seg0, wq0 = [], 0, 0, n_scales
-    for k, (it, (r, _, n_seg)) in enumerate(zip(items, segs)):
+    out: list = [None] * len(items)
+    byte0, seg0, wq0 = 0, 0, n_scales
+    for k in order:
+        it, (r, _, n_seg) = items[k], segs[k]
         leaf = it.leaf
         layer_n = r.shape[1]
         size = n_seg * packed_nbytes(layer_n)
@@ -148,8 +162,8 @@ def _encode_items(items: Sequence[_Item]) -> list[TernaryTensor]:
         else:
             w_q = host_floats[seg0].to(leaf.dtype)
         seg0 += n_seg
-        out.append(TernaryTensor(packed=packed, w_q=w_q, shape=tuple(leaf.shape),
-                                 dtype=dtype_name(leaf.dtype)))
+        out[k] = TernaryTensor(packed=packed, w_q=w_q, shape=tuple(leaf.shape),
+                               dtype=dtype_name(leaf.dtype))
     return out
 
 

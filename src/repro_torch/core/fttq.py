@@ -67,12 +67,18 @@ def scale_layer(theta: torch.Tensor, denom: torch.Tensor | None = None) -> torch
     return theta / denom
 
 
+def _t(t_k: float, like: torch.Tensor) -> torch.Tensor:
+    """T_k in the weights' dtype, as JAX rounds a Python scalar to the array's
+    dtype before it multiplies (a bf16 Δ would round once more otherwise)."""
+    return torch.tensor(t_k, dtype=like.dtype, device=like.device)
+
+
 def fttq_threshold(theta_s: torch.Tensor, t_k: float, rule: str = "mean") -> torch.Tensor:
     """Δ for one layer. rule="mean" is eq. (8); rule="max" is eq. (7)."""
     if rule == "mean":
-        return t_k * torch.mean(torch.abs(theta_s))
+        return _t(t_k, theta_s) * torch.mean(torch.abs(theta_s))
     if rule == "max":
-        return t_k * abs_max(theta_s)
+        return _t(t_k, theta_s) * abs_max(theta_s)
     raise ValueError(f"unknown threshold rule: {rule!r}")
 
 
@@ -130,9 +136,9 @@ def row_denom(rows: torch.Tensor) -> torch.Tensor:
 def row_threshold(theta_s: torch.Tensor, t_k: float, rule: str = "mean") -> torch.Tensor:
     """Δ per row of a (L, m) scaled weight, as (L, 1)."""
     if rule == "mean":
-        return t_k * theta_s.abs().mean(dim=1, keepdim=True)
+        return _t(t_k, theta_s) * theta_s.abs().mean(dim=1, keepdim=True)
     if rule == "max":
-        return t_k * _row_abs_max(theta_s)
+        return _t(t_k, theta_s) * _row_abs_max(theta_s)
     raise ValueError(f"unknown threshold rule: {rule!r}")
 
 

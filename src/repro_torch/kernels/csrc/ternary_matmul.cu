@@ -4,7 +4,7 @@
 // Replaces the TPU kernel src/repro/kernels/ternary_matmul.py::_kernel
 // (launched by ternary_matmul). Computes
 //
-//   out = (x @ (code(W) - 1)) * w_q        x (M, K) fp32, out (M, N) fp32
+//   out = (x @ (code(W) - 1)) * w_q        x (M, K) fp32 or bf16, out (M, N) x's type
 //
 // where W is (K/4, N) uint8 and byte W[r, n] holds the codes of rows
 // 4r..4r+3 of column n (2 bits each, little-endian). Sums accumulate in fp32
@@ -17,6 +17,15 @@
 // rounding is the fp32 accumulation, as in a fp32 matmul. Each part has its
 // own accumulator; the result is ((lo + mid) + hi) * w_q. One bf16 part (or
 // TF32) would keep about 3 decimal digits.
+//
+// bf16 x (ternary_matmul_bf16). A bf16 x is its own hi part (mid = lo = 0),
+// so the split reduces to one term: one bf16 x exact-weight product per
+// output with fp32 accumulation, times w_q in fp32, rounded to bf16 (to
+// nearest, ties to even) as the reference's (acc * w_q).astype(x.dtype).
+// The same two kernels serve it, templated on x's type: one part per row of
+// x instead of three (mma.sync: 4 pairs padded to 8 at decode, 16 at BM =
+// 16; wgmma.m64n32k16 for the 32 rows of a warpgroup block), x staged as
+// bf16 (8 bytes per packed row) and copied, not split, into the MMA layout.
 //
 // Bound: bytes at decode, operations at prefill. The tensor cores do
 // 3 * 2 * M * K * N bf16 operations (989 TFLOP/s dense); the kernel reads
@@ -75,17 +84,27 @@ constexpr int kXbStride = 2 * kKC + 32;  // smem bytes per bf16 part row: confli
 
 constexpr int kBN = 128;                       // output columns per block (both kernels)
 
+// x as the kernels take it: fp32 (split into three bf16 parts) or bf16 (one
+// part, held as its raw 16 bits).
+using bf16_t = uint16_t;
+template <typename XT>
+struct XType {
+  static_assert(sizeof(XT) == 4 || sizeof(XT) == 2, "x is fp32 or bf16");
+  static constexpr int kParts = sizeof(XT) == 4 ? 3 : 1;
+};
+
 // The mma.sync kernel: BM rows of x, 4 warps of 32 output columns.
-template <int BM>
+template <int BM, typename XT>
 struct Cfg {
+  static constexpr int kParts = XType<XT>::kParts;
   static constexpr int kThreads = 128;
   static constexpr int kWStride = kBN + 32;             // smem bytes per packed row: conflict-free A loads
   static constexpr int kRedStride = kBN + 4;            // floats per pair row of the epilogue
-  static constexpr int kNT = (3 * BM + 7) / 8;          // n8 tiles of (part, row) pairs
+  static constexpr int kNT = (kParts * BM + 7) / 8;     // n8 tiles of (part, row) pairs
   static constexpr int kPairs = kNT * 8;
   static constexpr int kStages = 4;
   static constexpr int kWBytes = kKC4 * kWStride;
-  static constexpr int kXfBytes = BM * kKC * 4;
+  static constexpr int kXfBytes = BM * kKC * (int)sizeof(XT);
   static constexpr int kStageBytes = kWBytes + kXfBytes;
   static constexpr int kXbBytes = kPairs * kXbStride;
   static constexpr int kMainBytes = kStages * kStageBytes + 2 * kXbBytes;
@@ -100,6 +119,11 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 8 : 0));
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
@@ -162,8 +186,8 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 // matching K range of its BM rows of x, zero-filled past the split's K
 // range, past N and past M. WV is the width of a packed copy: 16 or 4 bytes
 // with cp.async, or 1 (ragged N) with plain loads.
-template <int BM, int kBN, int kThreads, int WV>
-__device__ __forceinline__ void load_stage(uint8_t* ws, float* xf, const float* x,
+template <int BM, int kBN, int kThreads, int WV, typename XT>
+__device__ __forceinline__ void load_stage(uint8_t* ws, XT* xf, const XT* x,
                                            const uint8_t* w, int M, int K4, int N,
                                            int m0, int n0, int k4, int k4_hi) {
   constexpr int kWStride = kBN + 32;
@@ -190,10 +214,13 @@ __device__ __forceinline__ void load_stage(uint8_t* ws, float* xf, const float* 
   const size_t K = (size_t)K4 * 4;
   for (int i = threadIdx.x; i < BM * kKC4; i += kThreads) {
     const int m = i / kKC4;
-    const int r = i % kKC4;                    // one float4 of x is one packed row
+    const int r = i % kKC4;                    // 4 values of x (16 or 8 bytes) are one packed row
     const bool valid = m0 + m < M && k4 + r < k4_hi;
-    const float* src = valid ? x + (size_t)(m0 + m) * K + (size_t)(k4 + r) * 4 : x;
-    cp_async16(xf + m * kKC + 4 * r, src, valid);
+    const XT* src = valid ? x + (size_t)(m0 + m) * K + (size_t)(k4 + r) * 4 : x;
+    if (sizeof(XT) == 4)
+      cp_async16(xf + m * kKC + 4 * r, src, valid);
+    else
+      cp_async8(xf + m * kKC + 4 * r, src, valid);
   }
 }
 
@@ -211,27 +238,54 @@ __device__ __forceinline__ void split4(const float4 v, uint2 (&p)[3]) {
   p[2] = make_uint2(bf16x2(r0, r1), bf16x2(r2, r3));
 }
 
-// The staged fp32 x of one stage into its three bf16 parts: pair p * BM + m
-// holds part p (0 hi, 1 mid, 2 lo) of row m, in logical k order.
-template <int BM>
-__device__ __forceinline__ void split_stage(const float* xf, uint8_t* xb) {
-  for (int i = threadIdx.x; i < BM * kKC4; i += Cfg<BM>::kThreads) {
+// Four staged values of x (one packed row's K range) as their bf16 parts,
+// each as two bf16x2 registers (values 0, 1 and 2, 3): the three parts of
+// fp32 x, or bf16 x itself.
+__device__ __forceinline__ void parts4(const float* xf, uint2 (&p)[3]) {
+  split4(*reinterpret_cast<const float4*>(xf), p);
+}
+
+__device__ __forceinline__ void parts4(const bf16_t* xf, uint2 (&p)[3]) {
+  p[0] = *reinterpret_cast<const uint2*>(xf);
+}
+
+// The staged x of one stage into its bf16 parts: pair p * BM + m holds part
+// p (0 hi, 1 mid, 2 lo; bf16 x has only p = 0) of row m, in logical k order.
+template <int BM, typename XT>
+__device__ __forceinline__ void split_stage(const XT* xf, uint8_t* xb) {
+  constexpr int kParts = XType<XT>::kParts;
+  for (int i = threadIdx.x; i < BM * kKC4; i += Cfg<BM, XT>::kThreads) {
     const int m = i / kKC4;
     const int r = i % kKC4;
     uint2 p[3];
-    split4(*reinterpret_cast<const float4*>(xf + m * kKC + 4 * r), p);
+    parts4(xf + m * kKC + 4 * r, p);
 #pragma unroll
-    for (int part = 0; part < 3; ++part)
+    for (int part = 0; part < kParts; ++part)
       *reinterpret_cast<uint2*>(xb + (part * BM + m) * kXbStride + 8 * r) = p[part];
   }
 }
 
-template <int BM, int WV>
+// One output: the rounded product for bf16 (to nearest even), as is for fp32.
+__device__ __forceinline__ void store_out(float* out, size_t i, float y) { out[i] = y; }
+__device__ __forceinline__ void store_out(bf16_t* out, size_t i, float y) {
+  out[i] = (bf16_t)(bf16x2(y, 0.f) & 0xFFFFu);
+}
+
+// The finished sum of row m, column c from the epilogue's pair rows:
+// (lo + mid) + hi for fp32 x, the one part for bf16.
+template <int kParts>
+__device__ __forceinline__ float pair_sum(const float* red, int stride, int bm, int m, int c) {
+  if (kParts == 3)
+    return (red[(2 * bm + m) * stride + c] + red[(bm + m) * stride + c]) + red[m * stride + c];
+  return red[m * stride + c];
+}
+
+template <int BM, int WV, typename XT>
 __global__ void __launch_bounds__(128, 2)
-ternary_matmul_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
-                      const float* __restrict__ wq, float* __restrict__ out,
+ternary_matmul_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
+                      const float* __restrict__ wq, XT* __restrict__ out,
                       float* __restrict__ ws, int M, int K4, int N, int k4_per_split) {
-  using C = Cfg<BM>;
+  using C = Cfg<BM, XT>;
   constexpr int kThreads = C::kThreads;
   constexpr int kWStride = C::kWStride, kRedStride = C::kRedStride;
   extern __shared__ __align__(16) uint8_t smem[];
@@ -247,10 +301,10 @@ ternary_matmul_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w
   const int k4_hi = min(K4, k4_lo + k4_per_split);
   const int n_chunks = (k4_hi - k4_lo + kKC4 - 1) / kKC4;
 
-  // pairs past 3 * BM pad the last n8 tile and stay zero (in both buffers)
-  for (int i = threadIdx.x; i < (C::kPairs - 3 * BM) * kXbStride / 4; i += kThreads) {
-    reinterpret_cast<uint32_t*>(xb + 3 * BM * kXbStride)[i] = 0u;
-    reinterpret_cast<uint32_t*>(xb + C::kXbBytes + 3 * BM * kXbStride)[i] = 0u;
+  // pairs past kParts * BM pad the last n8 tile and stay zero (in both buffers)
+  for (int i = threadIdx.x; i < (C::kPairs - C::kParts * BM) * kXbStride / 4; i += kThreads) {
+    reinterpret_cast<uint32_t*>(xb + C::kParts * BM * kXbStride)[i] = 0u;
+    reinterpret_cast<uint32_t*>(xb + C::kXbBytes + C::kParts * BM * kXbStride)[i] = 0u;
   }
 
   float acc[2][C::kNT][4];
@@ -263,14 +317,14 @@ ternary_matmul_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w
 
   auto stage_w = [&](int s) { return smem + s * C::kStageBytes; };
   auto stage_x = [&](int s) {
-    return reinterpret_cast<float*>(smem + s * C::kStageBytes + C::kWBytes);
+    return reinterpret_cast<XT*>(smem + s * C::kStageBytes + C::kWBytes);
   };
 
 #pragma unroll
   for (int s = 0; s < C::kStages - 1; ++s) {
     if (s < n_chunks)
-      load_stage<BM, kBN, kThreads, WV>(stage_w(s), stage_x(s), x, w, M, K4, N, m0, n0,
-                         k4_lo + s * kKC4, k4_hi);
+      load_stage<BM, kBN, kThreads, WV, XT>(stage_w(s), stage_x(s), x, w, M, K4, N, m0, n0,
+                                             k4_lo + s * kKC4, k4_hi);
     cp_async_commit();
   }
 
@@ -279,7 +333,7 @@ ternary_matmul_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w
   // stage overlaps the MMAs of the one before.
   cp_async_wait<C::kStages - 2>();
   __syncthreads();
-  if (n_chunks > 0) split_stage<BM>(stage_x(0), xb);
+  if (n_chunks > 0) split_stage<BM, XT>(stage_x(0), xb);
   const int col = 32 * warp + 4 * g;           // this thread's 4 output columns
   for (int i = 0; i < n_chunks; ++i) {
     cp_async_wait<C::kStages - 3>();
@@ -287,12 +341,13 @@ ternary_matmul_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w
     {
       const int next = i + C::kStages - 1;
       if (next < n_chunks)
-        load_stage<BM, kBN, kThreads, WV>(stage_w(next % C::kStages), stage_x(next % C::kStages), x, w,
-                           M, K4, N, m0, n0, k4_lo + next * kKC4, k4_hi);
+        load_stage<BM, kBN, kThreads, WV, XT>(stage_w(next % C::kStages),
+                                               stage_x(next % C::kStages), x, w, M, K4, N, m0,
+                                               n0, k4_lo + next * kKC4, k4_hi);
       cp_async_commit();
     }
     if (i + 1 < n_chunks)
-      split_stage<BM>(stage_x((i + 1) % C::kStages), xb + ((i + 1) & 1) * C::kXbBytes);
+      split_stage<BM, XT>(stage_x((i + 1) % C::kStages), xb + ((i + 1) & 1) * C::kXbBytes);
     const uint8_t* wsm = stage_w(i % C::kStages);
     const uint8_t* xbi = xb + (i & 1) * C::kXbBytes;
 #pragma unroll
@@ -316,7 +371,7 @@ ternary_matmul_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w
   __syncthreads();
 
   // Epilogue: accumulators to shared memory as red[pair][column], then each
-  // output is (lo + mid) + hi of its row.
+  // output is (lo + mid) + hi of its row (its one part for bf16 x).
   float* red = reinterpret_cast<float*>(smem);
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
@@ -337,42 +392,49 @@ ternary_matmul_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w
     const int gm = m0 + m;
     const int gn = n0 + c;
     if (gm >= M || gn >= N) continue;
-    const float y = (red[(2 * BM + m) * kRedStride + c] + red[(BM + m) * kRedStride + c])
-                    + red[m * kRedStride + c];
+    const float y = pair_sum<C::kParts>(red, kRedStride, BM, m, c);
     if (ws == nullptr)
-      out[(size_t)gm * N + gn] = y * scale;
+      store_out(out, (size_t)gm * N + gn, y * scale);
     else
       ws[((size_t)blockIdx.z * M + gm) * N + gn] = y;
   }
 }
 
 // ---------------------------------------------------------------------------
-// The warpgroup kernel, for M > 16: wgmma.m64n96k16, A (the weights) from
-// registers, B (the 96 (part, row) pairs of 32 rows of x) from shared memory.
-// The same exact split, K permutation, unpack and split-K as above; each of
-// its two warpgroups owns 64 output columns, and one instruction does a
-// whole 64 x 96 x 16 step, so no B fragment passes through registers.
+// The warpgroup kernel, for M > 16: wgmma.m64n96k16 (fp32 x) or m64n32k16
+// (bf16 x), A (the weights) from registers, B (the 96 or 32 (part, row)
+// pairs of 32 rows of x) from shared memory. The same exact split, K
+// permutation, unpack and split-K as above; each of its two warpgroups owns
+// 64 output columns, and one instruction does a whole 64 x pairs x 16 step,
+// so no B fragment passes through registers.
 
 constexpr int kGBM = 32;                       // rows of x per block
-constexpr int kGPairs = 3 * kGBM;              // 96: the instruction's N
 constexpr int kGThreads = 256;                 // two warpgroups
 constexpr int kGStages = 3;
 constexpr int kGWStride = kBN + 32;
-constexpr int kGStageBytes = kKC4 * kGWStride + kGBM * kKC * 4;
-// B of one k16 step in the no-swizzle core-matrix layout: two k-halves of
-// 12 core matrices (8 pairs x 8 k-slots, 128 contiguous bytes each); the 16
-// spare bytes per step spread the split's stores over all 32 banks.
-constexpr int kGCoreK = (kGPairs / 8) * 128;   // 1536: leading (K) byte offset
-constexpr int kGStep = 2 * kGCoreK + 16;
-constexpr int kGXbBytes = kSteps * kGStep;
 constexpr int kGRedStride = kBN + 4;
-constexpr int kGMain = kGStages * kGStageBytes + 2 * kGXbBytes;
-constexpr int kGRed = kGPairs * kGRedStride * 4;
-constexpr int kGSmem = kGMain > kGRed ? kGMain : kGRed;
 
+template <typename XT>
+struct G {
+  static constexpr int kParts = XType<XT>::kParts;
+  static constexpr int kPairs = kParts * kGBM;           // 96 or 32: the instruction's N
+  static constexpr int kStageBytes = kKC4 * kGWStride + kGBM * kKC * (int)sizeof(XT);
+  // B of one k16 step in the no-swizzle core-matrix layout: two k-halves of
+  // kPairs / 8 core matrices (8 pairs x 8 k-slots, 128 contiguous bytes
+  // each); the 16 spare bytes per step spread the split's stores over all
+  // 32 banks.
+  static constexpr int kCoreK = (kPairs / 8) * 128;      // leading (K) byte offset
+  static constexpr int kStep = 2 * kCoreK + 16;
+  static constexpr int kXbBytes = kSteps * kStep;
+  static constexpr int kMain = kGStages * kStageBytes + 2 * kXbBytes;
+  static constexpr int kRed = kPairs * kGRedStride * 4;
+  static constexpr int kSmem = kMain > kRed ? kMain : kRed;
+};
+
+template <int kCoreK>
 __device__ __forceinline__ uint64_t gmma_desc(const void* p) {
   const uint64_t addr = smem_addr(p);
-  return ((addr >> 4) & 0x3FFF) | ((uint64_t)(kGCoreK >> 4) << 16) |
+  return ((addr >> 4) & 0x3FFF) | ((uint64_t)(kCoreK >> 4) << 16) |
          ((uint64_t)(128 >> 4) << 32);       // no swizzle; N-adjacent core matrices 128 B apart
 }
 
@@ -391,35 +453,57 @@ __device__ __forceinline__ void wgmma_m64n96k16(float (&d)[48], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-// The staged fp32 x of one stage into its three bf16 parts in the core-matrix
-// layout, with K permuted as the A fragments need: in step s, k-slots
-// (2t, 2t+1) of the first half and of the second half hold logical k
-// 16s + 4t + (0, 1) and + (2, 3).
-__device__ __forceinline__ void split_stage_cm(const float* xf, uint8_t* xb) {
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], const uint32_t (&a)[4],
+                                                uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_step(float (&d)[48], const uint32_t (&a)[4], uint64_t desc) {
+  wgmma_m64n96k16(d, a, desc);
+}
+
+__device__ __forceinline__ void wgmma_step(float (&d)[16], const uint32_t (&a)[4], uint64_t desc) {
+  wgmma_m64n32k16(d, a, desc);
+}
+
+// The staged x of one stage into its bf16 parts in the core-matrix layout,
+// with K permuted as the A fragments need: in step s, k-slots (2t, 2t+1) of
+// the first half and of the second half hold logical k 16s + 4t + (0, 1)
+// and + (2, 3).
+template <typename XT>
+__device__ __forceinline__ void split_stage_cm(const XT* xf, uint8_t* xb) {
+  using C = G<XT>;
   for (int i = threadIdx.x; i < kGBM * kKC4; i += kGThreads) {
     const int m = i / kKC4;
     const int r = i % kKC4;
     uint2 p[3];
-    split4(*reinterpret_cast<const float4*>(xf + m * kKC + 4 * r), p);
-    uint8_t* dst = xb + (r >> 2) * kGStep + 4 * (r & 3);
+    parts4(xf + m * kKC + 4 * r, p);
+    uint8_t* dst = xb + (r >> 2) * C::kStep + 4 * (r & 3);
 #pragma unroll
-    for (int part = 0; part < 3; ++part) {
+    for (int part = 0; part < C::kParts; ++part) {
       const int pair = part * kGBM + m;
       uint8_t* row = dst + (pair >> 3) * 128 + (pair & 7) * 16;
       *reinterpret_cast<uint32_t*>(row) = p[part].x;
-      *reinterpret_cast<uint32_t*>(row + kGCoreK) = p[part].y;
+      *reinterpret_cast<uint32_t*>(row + C::kCoreK) = p[part].y;
     }
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // visible to wgmma
 }
 
-template <int WV>
+template <int WV, typename XT>
 __global__ void __launch_bounds__(kGThreads, 2)
-ternary_matmul_wgmma_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
-                            const float* __restrict__ wq, float* __restrict__ out,
+ternary_matmul_wgmma_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
+                            const float* __restrict__ wq, XT* __restrict__ out,
                             float* __restrict__ ws, int M, int K4, int N, int k4_per_split) {
+  using C = G<XT>;
   extern __shared__ __align__(128) uint8_t smem[];
-  uint8_t* xb = smem + kGStages * kGStageBytes;
+  uint8_t* xb = smem + kGStages * C::kStageBytes;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2;
@@ -432,25 +516,25 @@ ternary_matmul_wgmma_kernel(const float* __restrict__ x, const uint8_t* __restri
   // A row g of this warp's 16 is column cb + 2g, row g + 8 is column cb + 2g + 1
   const int cb = 64 * (warp >> 2) + 16 * (warp & 3);
 
-  auto stage_w = [&](int s) { return smem + s * kGStageBytes; };
+  auto stage_w = [&](int s) { return smem + s * C::kStageBytes; };
   auto stage_x = [&](int s) {
-    return reinterpret_cast<float*>(smem + s * kGStageBytes + kKC4 * kGWStride);
+    return reinterpret_cast<XT*>(smem + s * C::kStageBytes + kKC4 * kGWStride);
   };
 
-  float d[48];
+  float d[C::kPairs / 2];
 #pragma unroll
-  for (int e = 0; e < 48; ++e) d[e] = 0.f;
+  for (int e = 0; e < C::kPairs / 2; ++e) d[e] = 0.f;
 
 #pragma unroll
   for (int s = 0; s < kGStages - 1; ++s) {
     if (s < n_chunks)
-      load_stage<kGBM, kBN, kGThreads, WV>(stage_w(s), stage_x(s), x, w, M, K4, N, m0, n0,
-                                            k4_lo + s * kKC4, k4_hi);
+      load_stage<kGBM, kBN, kGThreads, WV, XT>(stage_w(s), stage_x(s), x, w, M, K4, N, m0, n0,
+                                                k4_lo + s * kKC4, k4_hi);
     cp_async_commit();
   }
   cp_async_wait<kGStages - 2>();
   __syncthreads();
-  if (n_chunks > 0) split_stage_cm(stage_x(0), xb);
+  if (n_chunks > 0) split_stage_cm<XT>(stage_x(0), xb);
   for (int i = 0; i < n_chunks; ++i) {
     cp_async_wait<kGStages - 3>();             // stage i + 1 landed
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");   // stage i - 1 done
@@ -458,9 +542,9 @@ ternary_matmul_wgmma_kernel(const float* __restrict__ x, const uint8_t* __restri
     {
       const int next = i + kGStages - 1;
       if (next < n_chunks)
-        load_stage<kGBM, kBN, kGThreads, WV>(stage_w(next % kGStages),
-                                              stage_x(next % kGStages), x, w, M, K4, N,
-                                              m0, n0, k4_lo + next * kKC4, k4_hi);
+        load_stage<kGBM, kBN, kGThreads, WV, XT>(stage_w(next % kGStages),
+                                                  stage_x(next % kGStages), x, w, M, K4, N,
+                                                  m0, n0, k4_lo + next * kKC4, k4_hi);
       cp_async_commit();
     }
     const uint8_t* wsm = stage_w(i % kGStages) + cb + 2 * g;
@@ -471,13 +555,14 @@ ternary_matmul_wgmma_kernel(const float* __restrict__ x, const uint8_t* __restri
       unpack_byte<0>(wb, a[s][0], a[s][2]);
       unpack_byte<1>(wb, a[s][1], a[s][3]);
     }
-    const uint8_t* xbi = xb + (i & 1) * kGXbBytes;
+    const uint8_t* xbi = xb + (i & 1) * C::kXbBytes;
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-    for (int s = 0; s < kSteps; ++s) wgmma_m64n96k16(d, a[s], gmma_desc(xbi + s * kGStep));
+    for (int s = 0; s < kSteps; ++s)
+      wgmma_step(d, a[s], gmma_desc<C::kCoreK>(xbi + s * C::kStep));
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     if (i + 1 < n_chunks)
-      split_stage_cm(stage_x((i + 1) % kGStages), xb + ((i + 1) & 1) * kGXbBytes);
+      split_stage_cm<XT>(stage_x((i + 1) % kGStages), xb + ((i + 1) & 1) * C::kXbBytes);
   }
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
   cp_async_wait<0>();
@@ -485,7 +570,7 @@ ternary_matmul_wgmma_kernel(const float* __restrict__ x, const uint8_t* __restri
 
   float* red = reinterpret_cast<float*>(smem);
 #pragma unroll
-  for (int c = 0; c < 12; ++c)
+  for (int c = 0; c < C::kPairs / 8; ++c)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       red[(8 * c + 2 * t + (e & 1)) * kGRedStride + cb + 2 * g + (e >> 1)] = d[4 * c + e];
@@ -497,25 +582,25 @@ ternary_matmul_wgmma_kernel(const float* __restrict__ x, const uint8_t* __restri
     const int gm = m0 + m;
     const int gn = n0 + c;
     if (gm >= M || gn >= N) continue;
-    const float y = (red[(2 * kGBM + m) * kGRedStride + c] + red[(kGBM + m) * kGRedStride + c])
-                    + red[m * kGRedStride + c];
+    const float y = pair_sum<C::kParts>(red, kGRedStride, kGBM, m, c);
     if (ws == nullptr)
-      out[(size_t)gm * N + gn] = y * scale;
+      store_out(out, (size_t)gm * N + gn, y * scale);
     else
       ws[((size_t)blockIdx.z * M + gm) * N + gn] = y;
   }
 }
 
+template <typename XT>
 __global__ void splitk_reduce_kernel(const float* __restrict__ ws,
                                      const float* __restrict__ wq,
-                                     float* __restrict__ out, int split,
+                                     XT* __restrict__ out, int split,
                                      size_t mn) {
   const float scale = *wq;
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < mn;
        i += (size_t)gridDim.x * blockDim.x) {
     float s = 0.f;
     for (int z = 0; z < split; ++z) s += ws[(size_t)z * mn + i];
-    out[i] = s * scale;
+    store_out(out, i, s * scale);
   }
 }
 
@@ -537,40 +622,60 @@ cudaError_t raise_smem_limit(Kernel kernel, int smem, std::atomic<bool>* ready) 
   return err;
 }
 
-template <int BM, int WV>
-cudaError_t launch(const float* x, const uint8_t* w, const float* wq, float* out,
+template <int BM, int WV, typename XT>
+cudaError_t launch(const XT* x, const uint8_t* w, const float* wq, XT* out,
                    float* ws, int M, int K4, int N, int split, cudaStream_t stream) {
-  using C = Cfg<BM>;
+  using C = Cfg<BM, XT>;
   static std::atomic<bool> ready[kMaxDevices];
-  const cudaError_t err = raise_smem_limit(ternary_matmul_kernel<BM, WV>, C::kSmem, ready);
+  const cudaError_t err = raise_smem_limit(ternary_matmul_kernel<BM, WV, XT>, C::kSmem, ready);
   if (err != cudaSuccess) return err;
   const int k4_per_split = (K4 + split - 1) / split;
   const dim3 grid((N + kBN - 1) / kBN, (M + BM - 1) / BM, split);
-  ternary_matmul_kernel<BM, WV><<<grid, C::kThreads, C::kSmem, stream>>>(
+  ternary_matmul_kernel<BM, WV, XT><<<grid, C::kThreads, C::kSmem, stream>>>(
       x, w, wq, out, split > 1 ? ws : nullptr, M, K4, N, k4_per_split);
   return cudaGetLastError();
 }
 
-template <int WV>
-cudaError_t launch_wgmma(const float* x, const uint8_t* w, const float* wq, float* out,
+template <int WV, typename XT>
+cudaError_t launch_wgmma(const XT* x, const uint8_t* w, const float* wq, XT* out,
                          float* ws, int M, int K4, int N, int split, cudaStream_t stream) {
   static std::atomic<bool> ready[kMaxDevices];
-  const cudaError_t err = raise_smem_limit(ternary_matmul_wgmma_kernel<WV>, kGSmem, ready);
+  const cudaError_t err =
+      raise_smem_limit(ternary_matmul_wgmma_kernel<WV, XT>, G<XT>::kSmem, ready);
   if (err != cudaSuccess) return err;
   const int k4_per_split = (K4 + split - 1) / split;
   const dim3 grid((N + kBN - 1) / kBN, (M + kGBM - 1) / kGBM, split);
-  ternary_matmul_wgmma_kernel<WV><<<grid, kGThreads, kGSmem, stream>>>(
+  ternary_matmul_wgmma_kernel<WV, XT><<<grid, kGThreads, G<XT>::kSmem, stream>>>(
       x, w, wq, out, split > 1 ? ws : nullptr, M, K4, N, k4_per_split);
   return cudaGetLastError();
 }
 
-template <int BM>
-cudaError_t launch_wv(const float* x, const uint8_t* w, const float* wq, float* out,
+template <int BM, typename XT>
+cudaError_t launch_wv(const XT* x, const uint8_t* w, const float* wq, XT* out,
                       float* ws, int M, int K4, int N, int split, int wvec,
                       cudaStream_t stream) {
-  if (wvec == 16) return launch<BM, 16>(x, w, wq, out, ws, M, K4, N, split, stream);
-  if (wvec == 4) return launch<BM, 4>(x, w, wq, out, ws, M, K4, N, split, stream);
-  return launch<BM, 1>(x, w, wq, out, ws, M, K4, N, split, stream);
+  if (wvec == 16) return launch<BM, 16, XT>(x, w, wq, out, ws, M, K4, N, split, stream);
+  if (wvec == 4) return launch<BM, 4, XT>(x, w, wq, out, ws, M, K4, N, split, stream);
+  return launch<BM, 1, XT>(x, w, wq, out, ws, M, K4, N, split, stream);
+}
+
+template <typename XT>
+int run(const XT* x, const uint8_t* w, const float* wq, XT* out, float* ws, int M, int K4,
+        int N, int bm, int split, int wvec, cudaStream_t s) {
+  cudaError_t err;
+  if (bm == 32)
+    err = wvec == 16 ? launch_wgmma<16, XT>(x, w, wq, out, ws, M, K4, N, split, s)
+          : wvec == 4 ? launch_wgmma<4, XT>(x, w, wq, out, ws, M, K4, N, split, s)
+                      : launch_wgmma<1, XT>(x, w, wq, out, ws, M, K4, N, split, s);
+  else if (bm == 16)
+    err = launch_wv<16, XT>(x, w, wq, out, ws, M, K4, N, split, wvec, s);
+  else
+    err = launch_wv<4, XT>(x, w, wq, out, ws, M, K4, N, split, wvec, s);
+  if (err != cudaSuccess || split == 1) return (int)err;
+  const size_t mn = (size_t)M * N;
+  const int blocks = (int)((mn + 255) / 256 < 4096 ? (mn + 255) / 256 : 4096);
+  splitk_reduce_kernel<XT><<<blocks, 256, 0, s>>>(ws, wq, out, split, mn);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -582,19 +687,13 @@ extern "C" int ternary_matmul_f32(const float* x, const uint8_t* w,
                                   const float* wq, float* out, float* ws, int M,
                                   int K4, int N, int bm, int split, int wvec,
                                   void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (bm == 32)
-    err = wvec == 16 ? launch_wgmma<16>(x, w, wq, out, ws, M, K4, N, split, s)
-          : wvec == 4 ? launch_wgmma<4>(x, w, wq, out, ws, M, K4, N, split, s)
-                      : launch_wgmma<1>(x, w, wq, out, ws, M, K4, N, split, s);
-  else if (bm == 16)
-    err = launch_wv<16>(x, w, wq, out, ws, M, K4, N, split, wvec, s);
-  else
-    err = launch_wv<4>(x, w, wq, out, ws, M, K4, N, split, wvec, s);
-  if (err != cudaSuccess || split == 1) return (int)err;
-  const size_t mn = (size_t)M * N;
-  const int blocks = (int)((mn + 255) / 256 < 4096 ? (mn + 255) / 256 : 4096);
-  splitk_reduce_kernel<<<blocks, 256, 0, s>>>(ws, wq, out, split, mn);
-  return (int)cudaGetLastError();
+  return run<float>(x, w, wq, out, ws, M, K4, N, bm, split, wvec, (cudaStream_t)stream);
+}
+
+// The same for bf16 x and a bf16 out (raw 16-bit values); ws stays fp32.
+extern "C" int ternary_matmul_bf16(const uint16_t* x, const uint8_t* w,
+                                   const float* wq, uint16_t* out, float* ws, int M,
+                                   int K4, int N, int bm, int split, int wvec,
+                                   void* stream) {
+  return run<bf16_t>(x, w, wq, out, ws, M, K4, N, bm, split, wvec, (cudaStream_t)stream);
 }

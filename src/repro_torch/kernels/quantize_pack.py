@@ -13,6 +13,11 @@ segment, each with its own (denom, Δ) row, and the kernel can also form
 every segment's scale on the device. ``quantize_pack`` is the one-segment
 case: a one-row table.
 
+Segments are fp32 or bf16, one dtype per launch (the reference drives one
+launch per dtype group). A bf16 segment is computed in bf16, as the
+reference kernel computes in x's dtype: xs = x / denom rounded to bf16,
+compared with Δ rounded to bf16, |xs| widened to fp32 for the moments.
+
 Bound on the H100: bytes — 4 B read and 0.25 B written per fp32 element.
 The TPU kernel read a staged transpose of the leaf (``stage_encode``) so its
 pack was a sublane shuffle; the CUDA kernel reads each segment in place, one
@@ -111,8 +116,8 @@ def segment_layout(sizes: Sequence[int]) -> SegmentLayout:
 
 
 def segment_table(segments: Sequence[torch.Tensor]) -> tuple[torch.Tensor, SegmentLayout]:
-    """The kernel's segment table for ``segments`` (flat fp32 sources on
-    one device): an (S, 5) int64 tensor on that device, one row per segment
+    """The kernel's segment table for ``segments`` (flat sources of one
+    dtype on one device): an (S, 5) int64 tensor on that device, one row per segment
     (source address, element count, byte offset, first tile, done counter
     = 0), built on the host and copied once per launch."""
     lay = segment_layout([x.numel() for x in segments])
@@ -142,11 +147,13 @@ def quantize_pack_segments_plain(segments: Sequence[torch.Tensor], scal: torch.T
     return packed, moments, scales
 
 
-def _lib():
+_ENTRIES = {torch.float32: "quantize_pack_f32", torch.bfloat16: "quantize_pack_bf16"}
+
+
+def _lib(dtype: torch.dtype):
     from repro_torch.kernels import _build
 
-    lib = _build.load("quantize_pack")
-    fn = lib.quantize_pack_f32
+    fn = getattr(_build.load("quantize_pack"), _ENTRIES[dtype])
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p, i, p, p, p, p, ll, p]
@@ -163,8 +170,9 @@ def _check_out(out, n_bytes: int, device) -> None:
 
 def quantize_pack_segments(segments: Sequence[torch.Tensor], scal: torch.Tensor, *,
                            out: torch.Tensor | None = None, with_scales: bool = False):
-    """Ternarize + pack many flat segments in one launch; see
-    ``quantize_pack_segments_plain``. scal: (S, 2) fp32 (denom, Δ) rows on
+    """Ternarize + pack many flat segments of one dtype (fp32 or bf16) in
+    one launch; see ``quantize_pack_segments_plain``. scal: (S, 2) fp32
+    (denom, Δ) rows on
     the segments' device. With ``out`` (contiguous uint8 of the layout's
     ``n_bytes``) the bytes land there. Returns (bytes, moments (G, 2),
     scales (S,) fp32 or None)."""
@@ -182,9 +190,13 @@ def quantize_pack_segments(segments: Sequence[torch.Tensor], scal: torch.Tensor,
         return packed, moments, scales
     if dev.type != "cuda":
         raise ValueError(f"quantize_pack: unsupported device {dev}")
+    dtype = segments[0].dtype
+    if dtype not in _ENTRIES:
+        raise TypeError(f"quantize_pack: segments must be float32 or bfloat16, got {dtype}")
     for x in segments:
-        if x.device != dev or x.dtype != torch.float32 or not x.is_contiguous():
-            raise TypeError("quantize_pack: segments must be contiguous float32 on one device")
+        if x.device != dev or x.dtype != dtype or not x.is_contiguous():
+            raise TypeError("quantize_pack: segments must be contiguous, of one dtype, on one "
+                            "device")
     if scal.dtype != torch.float32:
         raise TypeError("quantize_pack: scal must be float32")
     table, _ = segment_table(segments)
@@ -193,7 +205,7 @@ def quantize_pack_segments(segments: Sequence[torch.Tensor], scal: torch.Tensor,
     moments = torch.empty((lay.n_tiles, 2), dtype=torch.float32, device=dev)
     scales = (torch.empty(len(segments), dtype=torch.float32, device=dev)
               if with_scales else None)
-    fn = _lib()
+    fn = _lib(dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(table.data_ptr(), len(segments), scal.data_ptr(), packed.data_ptr(),

@@ -18,6 +18,13 @@ each 16-deep step so a thread unpacks whole bytes, a cp.async ring of
 shared-memory stages, and K split across blocks when M and N alone give
 too few blocks to fill 132 SMs.
 
+bf16 x takes the same kernels through ``ternary_matmul_bf16``: a bf16 x is
+its own hi part, so each output is one bf16 × exact-weight product summed in
+fp32, times w_q in fp32, rounded to bf16 (to nearest, ties to even) and
+returned as bf16, as the reference kernel returns ``x.dtype``. Its bound is
+bytes at decode as well (x and the output are half as wide) and 2MKN bf16
+operations at prefill.
+
 ``ternary_matmul`` dispatches on the tensor's device: the plain PyTorch
 version for CPU tensors, the CUDA kernel for CUDA tensors (or it raises).
 ``ternary_matmul.launches`` counts kernel launches.
@@ -38,7 +45,8 @@ SM_COUNT = 132     # streaming multiprocessors of an H100 SXM
 
 def ternary_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
                          w_q: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version (``repro.kernels.ref.ternary_matmul_ref``)."""
+    """Plain PyTorch version (``repro.kernels.ref.ternary_matmul_ref``):
+    the product in fp32 (exact for bf16 x), × w_q, cast to x's dtype."""
     w = unpack2bit_plain(packed, torch.float32)
     y = x.to(torch.float32) @ w
     return (y * w_q.to(torch.float32)).to(x.dtype)
@@ -82,11 +90,13 @@ def launch_shape(m: int, k4: int, n: int) -> tuple[int, int]:
     return bm, max(1, -(-k4 // per))
 
 
-def _lib():
+_ENTRIES = {torch.float32: "ternary_matmul_f32", torch.bfloat16: "ternary_matmul_bf16"}
+
+
+def _lib(dtype: torch.dtype):
     from repro_torch.kernels import _build
 
-    lib = _build.load("ternary_matmul")
-    fn = lib.ternary_matmul_f32
+    fn = getattr(_build.load("ternary_matmul"), _ENTRIES[dtype])
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
@@ -96,7 +106,8 @@ def _lib():
 
 def ternary_matmul(x: torch.Tensor, packed: torch.Tensor,
                    w_q: torch.Tensor) -> torch.Tensor:
-    """x: (M, K) · packed: (K//4, N) uint8 · w_q: scalar tensor → (M, N)."""
+    """x: (M, K) fp32 or bf16 · packed: (K//4, N) uint8 · w_q: scalar
+    tensor → (M, N) in x's dtype."""
     if x.ndim != 2 or packed.ndim != 2 or packed.shape[0] * 4 != x.shape[1]:
         raise ValueError(
             f"ternary_matmul: x {tuple(x.shape)} does not match packed "
@@ -106,8 +117,8 @@ def ternary_matmul(x: torch.Tensor, packed: torch.Tensor,
         return ternary_matmul_plain(x, packed, w_q)
     if x.device.type != "cuda":
         raise ValueError(f"ternary_matmul: unsupported device {x.device}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"ternary_matmul kernel takes float32 x, got {x.dtype}")
+    if x.dtype not in _ENTRIES:
+        raise TypeError(f"ternary_matmul kernel takes float32 or bfloat16 x, got {x.dtype}")
     if packed.dtype != torch.uint8 or w_q.numel() != 1 or w_q.dtype != torch.float32:
         raise TypeError("ternary_matmul: packed must be uint8 and w_q one float32")
     if packed.device != x.device or w_q.device != x.device:
@@ -118,14 +129,14 @@ def ternary_matmul(x: torch.Tensor, packed: torch.Tensor,
         raise ValueError("ternary_matmul: x must be 16-byte aligned")
     m, _ = x.shape
     k4, n = packed.shape
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return out
     bm, split = launch_shape(m, k4, n)
     ws = (torch.empty((split, m, n), dtype=torch.float32, device=x.device)
           if split > 1 else out)
     wvec = next(v for v in (16, 4, 1) if n % v == 0 and packed.data_ptr() % v == 0)
-    fn = _lib()
+    fn = _lib(x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), packed.data_ptr(), w_q.data_ptr(), out.data_ptr(),

@@ -9,12 +9,14 @@ the weights 2-bit: decoded ternary records are repacked into the
 runs through that kernel; a dequantized copy exists only for the logits
 check against the reference path. ``--packed`` serves the families whose
 hot matmuls are attention and MLP weights (dense, vlm, audio); moe, ssm and
-hybrid route theirs elsewhere and take ``--ternary`` alone. ``--residual-codec``
+hybrid route theirs elsewhere and take ``--ternary`` alone. ``--dtype
+bfloat16`` serves bf16 weights and activations (the packed matmul then takes
+bf16 x and returns bf16, as the reference kernel does). ``--residual-codec``
 picks the wire codec of the non-quantizable leaves (norms, embeddings);
 ``--loss-rate`` runs the download estimate through the lossy channel.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo-1b \
-        --no-reduced --batch 4 --prompt-len 32 --gen 16 --ternary --packed
+        --no-reduced --batch 4 --prompt-len 32 --gen 16 --ternary --packed [--dtype bfloat16]
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
         --arch llama-3.2-vision-11b --ternary --packed
 
@@ -25,6 +27,7 @@ card is present; ``--device cpu`` runs the kernels' plain versions.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -147,6 +150,9 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--loss-rate", type=float, default=0.0,
                     help="edge-link packet loss for the download estimate "
                          "(chunk retransmission through comm.channel)")
+    ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                    help="parameter and compute dtype of the model (bfloat16: bf16 "
+                         "weights and activations, bf16 through the packed matmul)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.packed and not args.ternary:
@@ -156,6 +162,7 @@ def main(argv: list[str] | None = None) -> None:
     from repro_torch.configs import get_config, get_reduced
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    cfg = dataclasses.replace(cfg, param_dtype=args.dtype, compute_dtype=args.dtype)
     if not cfg.causal:
         raise SystemExit(f"{args.arch} is encoder-only — no decode path")
     if args.packed and cfg.family not in PACKED_FAMILIES:

@@ -1,9 +1,25 @@
-"""End-to-end training entry point: FTTQ quantization-aware LM pretraining on one
-device with checkpoint and restart, on a synthetic token stream (port of
+"""End-to-end training entry point: FTTQ quantization-aware LM pretraining
+with checkpoint and restart, on a synthetic token stream (port of
 ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --preset 10m --steps 300
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --preset 1m --steps 20
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --pods 2 --preset 10m
+    RANK=r WORLD_SIZE=2 python -m repro_torch.launch.train --pods 2 --backend gloo \
+        --init-method file:///tmp/rdv --device cpu --preset 1m      # r = 0 and 1
+
+With ``--pods N`` (N > 1) one process runs per rank under
+``torch.distributed``: the rendezvous is ``--init-method`` (``env://``, as
+``torchrun`` sets MASTER_ADDR, MASTER_PORT, RANK and WORLD_SIZE, or
+``file://<path>`` with RANK and WORLD_SIZE in the environment), the mesh
+is (N, WORLD_SIZE / N, 1) over ("pod", "data", "model"), every rank reads
+the same token stream and trains on its rows of each global batch, and the
+pods sync their gradients ternary-compressed with error feedback
+(``--no-pod-compression``: an exact mean; ``--no-error-feedback``). Rank r
+runs on ``cuda:{r % device_count}`` (or the CPU with ``--device cpu``); the
+backend is ``--backend`` (default nccl on cuda, gloo on the CPU; gloo also
+lets several ranks share one GPU). Rank 0 prints and writes checkpoints
+(with every pod's residuals gathered).
 
 With ``--ckpt-dir`` a checkpoint (state, data cursor) is written every
 ``--ckpt-every`` steps; ``--resume`` restarts from the newest one and repeats
@@ -16,17 +32,23 @@ with the int that ``jax.random`` draws from key 1. The weights come from a
 from __future__ import annotations
 
 import argparse
+import os
 import time
+
+import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_reduced
 from repro_torch.data.synthetic import synthetic_tokens, token_batches
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import AXES, make_mesh
 from repro_torch.models.transformer import ModelConfig, param_count
 from repro_torch.optim import adam, warmup_cosine_schedule
 from repro_torch.train import (
     TrainerConfig, init_train_state, latest_step, make_train_step, restore_checkpoint,
     save_checkpoint,
 )
+from repro_torch.train.trainer import gather_residuals
 
 PRESETS = {
     # ~100M-param dense LM for the end-to-end example.
@@ -58,36 +80,67 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--pods", type=int, default=1,
+                    help="pods on the mesh's 'pod' axis; > 1 runs one process per rank")
+    ap.add_argument("--pod-compression", action=argparse.BooleanOptionalAction, default=True,
+                    help="ternary-compressed cross-pod gradient sync (else an exact mean)")
+    ap.add_argument("--error-feedback", action=argparse.BooleanOptionalAction, default=True)
+    ap.add_argument("--init-method", default="env://",
+                    help="torch.distributed rendezvous for --pods > 1 (env:// or file://...)")
+    ap.add_argument("--backend", default=None,
+                    help="nccl or gloo (default: nccl on cuda, gloo on the CPU)")
     return ap
+
+
+def _distributed(args):
+    """(rank, mesh, device) of this process: one rank and no mesh for one
+    pod, else the process group and the (pods, data, 1) mesh."""
+    if args.pods <= 1:
+        return 0, None, resolve_device(args.device)
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    if world % args.pods:
+        raise SystemExit(f"--pods {args.pods} does not divide WORLD_SIZE {world}")
+    dev = resolve_device(args.device)
+    if dev.type == "cuda":
+        dev = resolve_device(f"cuda:{rank % torch.cuda.device_count()}")
+    backend = args.backend or ("nccl" if dev.type == "cuda" else "gloo")
+    dist.init_process_group(backend, init_method=args.init_method, rank=rank,
+                            world_size=world)
+    mesh = make_mesh((args.pods, world // args.pods, 1), AXES, device=dev)
+    return rank, mesh, dev
 
 
 def main(argv=None) -> float:
     """Train; returns the final loss (also printed as the last line)."""
     args = build_parser().parse_args(argv)
-    dev = resolve_device(args.device)
+    rank, mesh, dev = _distributed(args)
+    say = print if rank == 0 else (lambda *a, **k: None)
 
     if args.arch:
         cfg = get_reduced(args.arch)
     else:
         cfg = ModelConfig(**PRESETS[args.preset])
-    print(f"model={cfg.name} params={param_count(cfg) / 1e6:.1f}M "
-          f"qat={not args.no_qat}")
+    say(f"model={cfg.name} params={param_count(cfg) / 1e6:.1f}M "
+        f"qat={not args.no_qat}" + (f" pods={args.pods} ranks={mesh.n_devices} "
+                                    f"compression={args.pod_compression}" if mesh else ""))
 
-    tcfg = TrainerConfig(qat=not args.no_qat, pod_compression=False,
-                         microbatches=args.microbatches)
+    tcfg = TrainerConfig(qat=not args.no_qat, pod_compression=args.pod_compression,
+                         error_feedback=args.error_feedback, microbatches=args.microbatches)
     optimizer = adam(warmup_cosine_schedule(args.lr, 20, args.steps))
-    state = init_train_state(cfg, tcfg, optimizer, seed=0, device=dev)
-    step_fn = make_train_step(cfg, tcfg, optimizer)
+    state = init_train_state(cfg, tcfg, optimizer, seed=0, device=dev, n_pods=args.pods,
+                             mesh=mesh)
+    step_fn = make_train_step(cfg, tcfg, optimizer, mesh=mesh)
 
     toks = synthetic_tokens(DATA_SEED, max(args.batch * (args.seq + 1) * 64, 200_000),
                             vocab=cfg.vocab_size)
     cursor = 0
     start = 0
     if args.resume and args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
-        state, meta = restore_checkpoint(args.ckpt_dir, example_state=state, device=dev)
+        example = gather_residuals(state, mesh) if mesh else state
+        state, meta = restore_checkpoint(args.ckpt_dir, example_state=example, device=dev)
         cursor = meta.get("data_cursor", 0)
         start = meta["step"]
-        print(f"resumed from step {start} (cursor={cursor})")
+        say(f"resumed from step {start} (cursor={cursor})")
     batches = token_batches(toks, args.batch, args.seq, start=cursor, device=dev)
 
     t0 = time.time()
@@ -99,13 +152,19 @@ def main(argv=None) -> float:
             loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
             dt = (time.time() - t0) / args.log_every
             tok_s = args.batch * args.seq / dt
-            print(f"step {i + 1:5d}  loss={loss:.4f}  gnorm={gnorm:.2f}  "
-                  f"{dt * 1e3:.0f} ms/step  {tok_s:.0f} tok/s", flush=True)
+            say(f"step {i + 1:5d}  loss={loss:.4f}  gnorm={gnorm:.2f}  "
+                f"{dt * 1e3:.0f} ms/step  {tok_s:.0f} tok/s", flush=True)
             t0 = time.time()
         if args.ckpt_dir and (i + 1) % args.ckpt_every == 0:
-            save_checkpoint(args.ckpt_dir, i + 1, state, metadata={"data_cursor": cursor})
+            snap = gather_residuals(state, mesh) if mesh else state
+            if rank == 0:
+                save_checkpoint(args.ckpt_dir, i + 1, snap, metadata={"data_cursor": cursor})
+            if mesh:
+                dist.barrier()
     final = float(metrics["loss"]) if metrics is not None else float("nan")
-    print("done. final loss:", final)
+    say("done. final loss:", final)
+    if mesh:
+        dist.destroy_process_group()
     return final
 
 

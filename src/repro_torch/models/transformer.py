@@ -44,6 +44,8 @@ from repro_torch.models.attention import GLOBAL_WINDOW, attention, init_attn
 from repro_torch.models.common import apply_norm, dense_init, embed_init, matmul
 from repro_torch.models.mlp import init_mlp, mlp
 from repro_torch.models.moe import init_moe, moe
+from repro_torch.models.moe_a2a import moe_a2a
+from repro_torch.parallel.collectives import current_mesh
 from repro_torch.tree import tree_leaves, tree_map
 
 Pytree = Any
@@ -58,9 +60,12 @@ class ModelConfig:
     ``repro.models.transformer.ModelConfig``). ``remat`` recomputes each
     layer in the backward pass of a forward without a cache: ``"full"``
     keeps only the layer's inputs, ``"dots"`` also keeps its matmul
-    outputs; both give the numbers of ``"none"``. On one device
-    ``mesh_batch_axes`` has no effect; ``moe_impl="a2a"`` with
-    ``mesh_ep_axis`` set needs the multi-device slice and raises."""
+    outputs; both give the numbers of ``"none"``. ``moe_impl="a2a"`` with
+    ``mesh_ep_axis`` set runs the MoE layers through ``models.moe_a2a``
+    over the EP subgroup of the mesh made current by
+    ``parallel.collectives.set_mesh`` (each rank passing its own rows of the
+    batch; the load loss is averaged over ``mesh_batch_axes``); with no mesh
+    it runs on the one rank. The scatter dispatch ignores the mesh fields."""
 
     name: str
     family: str                      # dense|moe|ssm|hybrid|vlm|audio
@@ -106,7 +111,7 @@ class ModelConfig:
     # distribution (the reference's mesh settings; one device ignores them)
     mesh_batch_axes: tuple = ()
     mesh_ep_axis: str = ""
-    moe_impl: str = "gspmd"          # gspmd | a2a (multi-device only)
+    moe_impl: str = "gspmd"          # gspmd | a2a (expert parallel over mesh_ep_axis)
     moe_wire: str = "bf16"
 
     @property
@@ -359,11 +364,16 @@ def _dense_layer(cfg: ModelConfig, bp: dict, x, window: int, kv, pos: int):
     h = apply_norm(x, bp.get("mlp_norm"), cfg.norm)
     if cfg.family == "moe":
         if cfg.moe_impl == "a2a" and cfg.mesh_ep_axis:
-            raise NotImplementedError(
-                "moe_impl='a2a' over a mesh expert axis needs the multi-device slice "
-                "(models/moe_a2a.py), which is not ported")
-        mo, aux = moe(bp["moe"], h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
-                      activation=cfg.activation)
+            mesh = current_mesh()
+            group = mesh.group if mesh is not None else (lambda _: None)
+            mo, aux = moe_a2a(bp["moe"], h, top_k=cfg.top_k, n_experts=cfg.n_experts,
+                              capacity_factor=cfg.capacity_factor, activation=cfg.activation,
+                              ep_group=group(cfg.mesh_ep_axis),
+                              data_groups=tuple(group(a) for a in cfg.mesh_batch_axes),
+                              wire_dtype=cfg.moe_wire)
+        else:
+            mo, aux = moe(bp["moe"], h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                          activation=cfg.activation)
         return x + mo, aux
     return x + mlp(bp["mlp"], h, cfg.activation), None
 

@@ -1,1 +1,2 @@
-"""Client-axis fan-in (port of ``repro.parallel``, single-device path)."""
+"""Multi-device: the client-sharded fan-in, the ternary-compressed
+collectives and the sharding rules (port of ``repro.parallel``)."""

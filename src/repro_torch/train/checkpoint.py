@@ -274,12 +274,8 @@ def restore_checkpoint(directory: str, step: int | None = None, *,
     """Load a checkpoint (the newest if ``step`` is None) into
     ``example_state``'s structure, every leaf on ``device``; a compressed
     checkpoint is decoded to dense tensors. Returns (state, metadata).
-    ``sharding`` re-places leaves over a mesh in the reference, which needs
-    the multi-device slice (ROADMAP item 14) and raises here."""
-    if sharding is not None:
-        raise NotImplementedError(
-            "restoring onto a sharding needs the multi-device slice (ROADMAP item 14), "
-            "which is not ported; use device=")
+    ``sharding`` (a ``NamedSharding`` or a tree of them) then re-places
+    every leaf over its mesh, as ``train.fault.elastic_reshard`` does."""
     dev = resolve_device(device)
     if step is None:
         step = latest_step(directory)
@@ -295,4 +291,9 @@ def restore_checkpoint(directory: str, step: int | None = None, *,
     leaves = [_unpack_leaf(obj, dev) for obj in payload["leaves"]]
     if (compression is not None and not compression.is_identity) or meta.get("compressed"):
         leaves = decompress_pytree(leaves, dev)
-    return unflatten(example_state, leaves), meta
+    state = unflatten(example_state, leaves)
+    if sharding is not None:
+        from repro_torch.train.fault import elastic_reshard
+
+        state = elastic_reshard(state, sharding)
+    return state, meta

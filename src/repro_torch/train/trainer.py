@@ -1,4 +1,5 @@
-"""The single-device train step (port of ``repro.train.trainer``).
+"""The train step, on one device or over a mesh of ranks (port of
+``repro.train.trainer``).
 
 The paper-faithful QAT path: the loss is evaluated on FTTQ-quantized params
 (clients train the quantized network, Algorithm 1), and the latent
@@ -9,15 +10,26 @@ w_q by ``wq_lr · g / numel`` and counts the step. With ``microbatches > 1``
 the batch is split on dim 0 and the chunks' gradients are averaged in fp32,
 as the reference's scan does.
 
-The reference's multi-pod branch (a mesh, ternary-compressed cross-pod
-gradient sync with error-feedback residuals) is ROADMAP item 14 and raises
-here. The step is eager PyTorch; the backward is autograd through plain
-ops, as the reference's is ``jax.grad`` through plain ``jnp``.
+Over a mesh (``launch.mesh``) every rank holds the whole state and takes
+its own rows of the global batch (dim 0 sharded over ("pod", "data"), pod
+major). A "data" axis is exact data parallelism: gradients, loss and
+metrics are averaged over its subgroup, which is what GSPMD's automatic
+axis computes. Across pods (a "pod" axis) with ``pod_compression`` the
+parameter gradients are synced by ``parallel.collectives.
+ternary_allreduce_tree`` with error feedback, the w_q gradients, loss and
+metrics by an exact mean, and every rank applies the same update (the
+reference's ``trainer.py:213–262``); without it the pod sync is an exact
+mean too. Each rank keeps its own pod's residuals as a (1, *shape) block;
+``gather_residuals`` assembles the reference's (n_pods, *shape) tree. A
+"model" axis of size > 1 (tensor-parallel compute) is not ported yet
+(ROADMAP) and raises. The step is eager PyTorch; the backward is autograd
+through plain ops, as the reference's is ``jax.grad`` through plain ``jnp``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -25,12 +37,14 @@ import torch
 from repro_torch.core import fttq
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import Optimizer, apply_updates, clip_by_global_norm
+from repro_torch.parallel.collectives import all_gather, all_reduce_, ternary_allreduce_tree
+from repro_torch.parallel.sharding import logical_batch_axes
 from repro_torch.tree import flatten_with_path, tree_leaves, tree_map
 
 Pytree = Any
 
-_MULTI_DEVICE = ("needs the multi-device slice (ROADMAP item 14: the trainer's multi-pod "
-                 "branch with ternary_allreduce_tree), which is not ported")
+_TENSOR_PARALLEL = ("a 'model' axis of size > 1 needs tensor-parallel compute, which is not "
+                    "ported yet (ROADMAP Queue 1, item 14b)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +62,9 @@ class TrainerConfig:
 class TrainState:
     """Latent params, their w_q factors (``None`` where a leaf is not
     quantized, or for the whole tree without QAT), the optimizer state, the
-    cross-pod residuals (``None`` on one device) and the int32 step."""
+    cross-pod error-feedback residuals (``None`` without compressed pods:
+    (n_pods, *shape) per leaf in one process, this rank's (1, *shape) pod
+    block on a mesh) and the int32 step."""
 
     params: Pytree
     wq: Pytree
@@ -59,17 +75,28 @@ class TrainState:
 
 def init_train_state(model_cfg: tfm.ModelConfig, tcfg: TrainerConfig, optimizer: Optimizer,
                      seed: int = 0, *, params: Pytree | None = None,
-                     device: str | torch.device = "cuda", n_pods: int = 1) -> TrainState:
+                     device: str | torch.device = "cuda", n_pods: int = 1,
+                     mesh=None) -> TrainState:
     """Fresh state: ``params`` if given (kept as they are), else
-    ``init_params(model_cfg, seed, device)``; w_q at its Prop-4.1 optimum."""
-    if n_pods > 1 and tcfg.pod_compression:
-        raise NotImplementedError(f"n_pods={n_pods} with pod_compression {_MULTI_DEVICE}")
+    ``init_params(model_cfg, seed, device)``; w_q at its Prop-4.1 optimum.
+    With compressed pods (``n_pods`` > 1, ``pod_compression`` and
+    ``error_feedback``) the residuals start at zero: (n_pods, *shape) per
+    leaf, as the reference stacks them, or on a ``mesh`` whose "pod" axis
+    has ``n_pods`` ranks this rank's (1, *shape) block."""
+    if mesh is not None and mesh.size("pod") != n_pods:
+        raise ValueError(f"the mesh has {mesh.size('pod')} pods, not n_pods={n_pods}")
     if params is None:
         params = tfm.init_params(model_cfg, seed=seed, device=device)
     wq = fttq.init_wq_tree(params, tcfg.fttq) if tcfg.qat else None
     step = torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device)
+    residuals = None
+    if tcfg.pod_compression and n_pods > 1 and tcfg.error_feedback:
+        lead = 1 if mesh is not None else n_pods
+        residuals = tree_map(
+            lambda p: torch.zeros((lead,) + tuple(p.shape), dtype=torch.float32,
+                                  device=p.device), params)
     return TrainState(params=params, wq=wq, opt_state=optimizer.init(params),
-                      residuals=None, step=step)
+                      residuals=residuals, step=step)
 
 
 def _loss(model_cfg, tcfg: TrainerConfig, params, wq, batch):
@@ -130,7 +157,7 @@ def _local_grads(model_cfg, tcfg: TrainerConfig, state: TrainState, batch):
 
 
 def _apply_grads(tcfg: TrainerConfig, optimizer: Optimizer, state: TrainState, loss, metrics,
-                 grads, g_wq):
+                 grads, g_wq, residuals):
     grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
     updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
     params = apply_updates(state.params, updates)
@@ -144,22 +171,104 @@ def _apply_grads(tcfg: TrainerConfig, optimizer: Optimizer, state: TrainState, l
     else:
         wq = state.wq
     new_state = TrainState(params=params, wq=wq, opt_state=opt_state,
-                           residuals=state.residuals, step=state.step + 1)
+                           residuals=residuals, step=state.step + 1)
     return new_state, {"loss": loss, "grad_norm": gnorm, **metrics}
+
+
+def _mean_over(group, loss, metrics, g_p, g_w):
+    """Exact mean over ``group`` of the loss, the metrics and the gradient
+    trees (``g_p`` may be None), in one fp32 all-reduce."""
+    if group is None:
+        return loss, metrics, g_p, g_w
+    parts = [loss.reshape(1)] + [metrics[k].reshape(1) for k in sorted(metrics)]
+    leaves = (tree_leaves(g_p) if g_p is not None else []) + (
+        tree_leaves(g_w) if g_w is not None else [])
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in parts + leaves])
+    all_reduce_(flat, group, mean=True)
+    out, at = [], 0
+    for t in parts + leaves:
+        out.append(flat[at:at + t.numel()].view(t.shape).to(t.dtype))
+        at += t.numel()
+    n = 1 + len(metrics)
+    loss, metrics = out[0].reshape(()), dict(zip(sorted(metrics), (m.reshape(()) for m in out[1:n])))
+    it = iter(out[n:])
+    g_p = _rebuild(g_p, [next(it) for _ in tree_leaves(g_p)]) if g_p is not None else None
+    g_w = _rebuild(g_w, [next(it) for _ in tree_leaves(g_w)]) if g_w is not None else None
+    return loss, metrics, g_p, g_w
+
+
+def _pod_block(residuals: Pytree, mesh) -> Pytree | None:
+    """This rank's pod residuals, (1, *shape) blocks or the stacked
+    (n_pods, *shape) tree, as (*shape) leaves."""
+    if residuals is None:
+        return None
+    i = mesh.index("pod")
+    return tree_map(lambda r: r[0] if r.shape[0] == 1 else r[i], residuals)
+
+
+def local_state(state: TrainState) -> TrainState:
+    """``state`` with every DTensor leaf (a state re-placed by
+    ``fault.elastic_reshard``) gathered into a whole tensor on its rank."""
+    from repro_torch.train.checkpoint import flatten, unflatten
+
+    leaves = [leaf for _, leaf in flatten(state)]
+    if not any(hasattr(leaf, "full_tensor") for leaf in leaves):
+        return state
+    return unflatten(state, [leaf.full_tensor() if hasattr(leaf, "full_tensor") else leaf
+                             for leaf in leaves])
+
+
+def gather_residuals(state: TrainState, mesh) -> TrainState:
+    """``state`` with its per-rank (1, *shape) pod residuals gathered over
+    the mesh's "pod" axis into the reference's (n_pods, *shape) tree (for
+    checkpoints and parity); every rank of the pod axis calls it."""
+    if state.residuals is None:
+        return state
+    group = mesh.group("pod")
+    res = tree_map(lambda r: all_gather(r[0], group), state.residuals)
+    return dataclasses.replace(state, residuals=res)
 
 
 def make_train_step(model_cfg: tfm.ModelConfig, tcfg: TrainerConfig, optimizer: Optimizer,
                     mesh=None):
     """Returns ``step(state, batch) -> (state, metrics)`` with metrics
     ``loss, grad_norm, ce, aux`` as 0-d tensors on the state's device. The
-    input state is not modified."""
-    if mesh is not None:
-        raise NotImplementedError(f"a mesh {_MULTI_DEVICE}")
+    input state is not modified. With a ``mesh``, every rank calls the step
+    with the same global batch and the same state."""
+    if mesh is not None and mesh.size("model") > 1:
+        raise NotImplementedError(_TENSOR_PARALLEL)
+    # no mesh is one shard with no subgroups: every sync below is the identity
+    compressed = mesh is not None and "pod" in mesh.axis_names and tcfg.pod_compression
+    batch_axes = logical_batch_axes(mesh) if mesh is not None else ()
+    n_shards = math.prod(mesh.size(a) for a in batch_axes)
+    shard = mesh.linear_index(batch_axes) if mesh is not None else 0
+    data_group = mesh.group("data") if mesh is not None else None
+    pod_group = mesh.group("pod") if mesh is not None else None
+
+    def synced_grads(state: TrainState, batch: dict):
+        """(loss, metrics, g_p, g_w, residuals): this rank's rows' gradients,
+        synced over the data and pod subgroups."""
+        rows = {}
+        for k, v in batch.items():
+            if v.shape[0] % n_shards:
+                raise ValueError(f"batch {k!r} of {v.shape[0]} rows does not split over "
+                                 f"{n_shards} ranks")
+            per = v.shape[0] // n_shards
+            rows[k] = v[shard * per:(shard + 1) * per]
+        loss, metrics, g_p, g_w = _local_grads(model_cfg, tcfg, state, rows)
+        loss, metrics, g_p, g_w = _mean_over(data_group, loss, metrics, g_p, g_w)
+        if not compressed:
+            return (*_mean_over(pod_group, loss, metrics, g_p, g_w), state.residuals)
+        g_p, res = ternary_allreduce_tree(
+            g_p, pod_group, cfg=tcfg.fttq, residuals=_pod_block(state.residuals, mesh),
+            error_feedback=tcfg.error_feedback)
+        loss, metrics, _, g_w = _mean_over(pod_group, loss, metrics, None, g_w)
+        return loss, metrics, g_p, g_w, tree_map(lambda r: r[None], res)
 
     def step(state: TrainState, batch: dict):
+        state = local_state(state)
         with torch.no_grad():
             # no frame here keeps the gradients, so clipping frees them
-            return _apply_grads(tcfg, optimizer, state,
-                                *_local_grads(model_cfg, tcfg, state, batch))
+            return _apply_grads(tcfg, optimizer, state, *synced_grads(state, batch))
 
     return step

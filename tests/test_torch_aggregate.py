@@ -31,6 +31,7 @@ from repro_torch.kernels.aggregate import (
     LANES, fanin_table, packed_weighted_sum, packed_weighted_sum_plain,
     packed_weighted_sum_segments, packed_weighted_sum_segments_plain,
 )
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.parallel.fanin import fanin_weighted_sum, fanin_weighted_sum_segments
 from repro_torch.tree import flatten_with_path, path_str
 
@@ -76,8 +77,9 @@ def test_wrapper_takes_plain_version_on_cpu_and_rejects_other_devices():
         packed_weighted_sum(stacked.to("meta"), coeffs.to("meta"))
     with pytest.raises(ValueError):
         packed_weighted_sum(stacked[:, :, :64], coeffs)
-    with pytest.raises(NotImplementedError):
-        fanin_weighted_sum(stacked, coeffs, mesh=object())
+    # a mesh with one rank on the client axis folds on this rank, unsharded
+    one = make_mesh((1,), ("data",), device="cpu")
+    assert torch.equal(fanin_weighted_sum(stacked, coeffs, mesh=one), out)
 
 
 # (bytes, elements) per segment: ResNet18*'s stem (3 kernel rows of 144 B),
@@ -161,8 +163,9 @@ def test_segments_wrapper_takes_plain_version_on_cpu():
         packed_weighted_sum_segments_plain(staged, coeffs[:, :-1], table)
     with pytest.raises(ValueError):
         fanin_table([4, 2], [16, 9])          # 9 elements need 3 bytes
-    with pytest.raises(NotImplementedError):
-        fanin_weighted_sum_segments(staged, coeffs, table, mesh=object())
+    # a mesh with one rank on the client axis folds on this rank, unsharded
+    one = make_mesh((1,), ("data",), device="cpu")
+    assert torch.equal(fanin_weighted_sum_segments(staged, coeffs, table, mesh=one), out)
 
 
 # --------------------------------------------------------------------------

@@ -151,14 +151,15 @@ def test_retrying_recovers():
 
 
 def test_elastic_reshard_single_device():
-    """Re-placement onto one device keeps every leaf; a per-leaf placement
-    (a mesh's shardings) is the multi-device slice and raises."""
+    """Re-placement onto one device keeps every leaf; a tree that is not
+    one of shardings is refused (the mesh case is
+    ``tests/test_torch_elastic.py``)."""
     state, _, _ = _state_and_step()
     out = elastic_reshard(state.params, "cpu")
     assert torch.equal(out["embed"]["table"], state.params["embed"]["table"])
     whole = elastic_reshard(state, torch.device("cpu"))
     _assert_same(whole, state)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="not a sharding tree"):
         elastic_reshard(state.params, {"embed": "cpu"})
 
 
@@ -346,6 +347,6 @@ def test_restore_needs_an_example_and_refuses_a_sharding(tmp_path):
         restore_checkpoint(d, device="cpu")
     with pytest.raises(ValueError):
         restore_checkpoint(d, example_state=state.params, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="not a sharding tree"):
         restore_checkpoint(d, example_state=state, sharding=object(), device="cpu")
     assert len(tree_leaves(state.params)) == 12

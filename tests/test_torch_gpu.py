@@ -34,7 +34,7 @@ from repro_torch.kernels.vote import (
     packed_vote_counts_segments_plain,
 )
 from repro_torch.models.paper_models import init_resnet_cifar
-from repro_torch.tree import flatten_with_path
+from repro_torch.tree import flatten_with_path, tree_map
 from repro_torch.kernels.ternary_matmul import (
     ternary_matmul, ternary_matmul_plain, ternary_matmul_split,
 )
@@ -276,15 +276,106 @@ def test_ternary_matmul_in_a_cuda_graph(cuda_device, m, k, n):
 
 
 def test_ternary_matmul_rejects_what_it_cannot_take(cuda_device):
+    """bf16 x is taken and returns bf16 equal to the plain version (all
+    weights zero here, so every product is exact); a mismatched K and a
+    packed tensor on another device are refused."""
     x = torch.randn(4, 64, device=cuda_device)
     packed = torch.zeros(16, 8, dtype=torch.uint8, device=cuda_device)
     wq = torch.tensor(1.0, device=cuda_device)
-    with pytest.raises(TypeError):
-        ternary_matmul(x.to(torch.bfloat16), packed, wq)
+    xb = x.to(torch.bfloat16)
+    y = ternary_matmul(xb, packed, wq)
+    assert y.dtype == torch.bfloat16
+    assert torch.equal(y, ternary_matmul_plain(xb, packed, wq))
     with pytest.raises(ValueError):
         ternary_matmul(x[:, :32], packed, wq)
     with pytest.raises(ValueError):
         ternary_matmul(x, packed.cpu(), wq)
+
+
+def _bf16_ulp(y: torch.Tensor) -> torch.Tensor:
+    """One bf16 unit in the last place of |y| (8 significant bits)."""
+    m = y.abs().float().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+
+def _bf16_allowed(y, y_ref, x, packed, wq) -> torch.Tensor:
+    """Per output: one bf16 ulp of the larger result, plus four fp32 ulps
+    of Σ|x·w|·w_q, the fp32 summation-order allowance of two sums of the
+    same exact products, which matters only where the sum cancels to far
+    below its terms (an output of 4e-5 from terms of 400 differs by 7e-7
+    between two fp32 orders, three bf16 ulps of the output)."""
+    from repro_torch.kernels.pack2bit import unpack2bit_plain
+
+    terms = (x.float().abs() @ unpack2bit_plain(packed, torch.float32).abs()) * wq.float().abs()
+    return _bf16_ulp(torch.maximum(y.float().abs(), y_ref.float().abs())) + 2.0 ** -22 * terms
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 2048, 2048), (4, 8192, 2048), (16, 2048, 2048),
+                                   (128, 2048, 8192), (3, 36, 130), (33, 64, 70), (17, 4, 1)])
+def test_ternary_matmul_bf16_matches_plain(cuda_device, m, k, n):
+    """bf16 x: a bf16 result within one bf16 ulp of the plain version (the
+    fp32 sums differ in order only; where a sum cancels, within that
+    order's fp32 allowance, ``_bf16_allowed``), bit for bit on one-hot
+    weights."""
+    gen = torch.Generator(cuda_device).manual_seed(m * 7 + n)
+    x = torch.randn(m, k, generator=gen, device=cuda_device).to(torch.bfloat16)
+    packed = _random_packed(k, n, gen, cuda_device)
+    wq = torch.tensor(0.37, device=cuda_device)
+    before = ternary_matmul.launches
+    y = ternary_matmul(x, packed, wq)
+    assert ternary_matmul.launches == before + 1
+    y_ref = ternary_matmul_plain(x, packed, wq)
+    assert y.dtype == torch.bfloat16 and y_ref.dtype == torch.bfloat16
+    gap = (y.float() - y_ref.float()).abs()
+    assert bool((gap <= _bf16_allowed(y, y_ref, x, packed, wq)).all())
+    codes = torch.ones((k, n), dtype=torch.uint8, device=cuda_device)
+    codes[torch.randint(0, k, (n,), generator=gen, device=cuda_device),
+          torch.arange(n, device=cuda_device)] = 2
+    c = codes.reshape(k // 4, 4, n)
+    onehot = c[:, 0] | (c[:, 1] << 2) | (c[:, 2] << 4) | (c[:, 3] << 6)
+    assert torch.equal(ternary_matmul(x, onehot, wq), ternary_matmul_plain(x, onehot, wq))
+
+
+@pytest.mark.parametrize("sizes", [[5], [33001, 4096, 37, 3], [16 * 2048 * 2048 // 16]])
+def test_quantize_pack_bf16_segments_match_plain(cuda_device, sizes):
+    """bf16 segments in one launch: bytes and counts bit for bit, tile
+    sums and scales within fp32 order (rtol 1e-6)."""
+    gen = torch.Generator(cuda_device).manual_seed(len(sizes))
+    segs = [torch.randn(s, generator=gen, device=cuda_device).to(torch.bfloat16)
+            for s in sizes]
+    scal = torch.cat([leaf_scalars(s, FTTQConfig())[0][None] for s in segs])
+    before = quantize_pack.launches
+    packed, moments, scales = quantize_pack_segments(segs, scal, with_scales=True)
+    assert quantize_pack.launches == before + 1
+    p_ref, m_ref, s_ref = quantize_pack_segments_plain(segs, scal, True)
+    assert torch.equal(packed, p_ref)
+    assert torch.equal(moments[:, 1], m_ref[:, 1])
+    torch.testing.assert_close(moments[:, 0], m_ref[:, 0], rtol=1e-6, atol=0)
+    torch.testing.assert_close(scales, s_ref, rtol=1e-6, atol=0)
+
+
+def test_bf16_tree_encodes_through_the_bf16_kernel(cuda_device):
+    """A bf16 tree's card encode: one quantize_pack launch for its bf16
+    group, the wire bytes of the CPU encode, w_q cast back to bf16."""
+    params = tree_map(lambda t: t.to(torch.bfloat16), init_resnet_cifar(seed=1, device="cpu"))
+    fcfg = FTTQConfig()
+    card = tree_map(lambda t: t.to(cuda_device), params)
+    before = quantize_pack.launches
+    enc_card = server_requantize(card, fcfg)
+    assert quantize_pack.launches == before + 1
+    enc_cpu = server_requantize(params, fcfg)
+    card_leaves = [leaf for _, leaf in flatten_with_path(
+        enc_card, is_leaf=lambda x: isinstance(x, TernaryTensor))]
+    cpu_leaves = [leaf for _, leaf in flatten_with_path(
+        enc_cpu, is_leaf=lambda x: isinstance(x, TernaryTensor))]
+    n_ternary = 0
+    for a, b in zip(card_leaves, cpu_leaves):
+        if isinstance(a, TernaryTensor):
+            n_ternary += 1
+            assert torch.equal(a.packed, b.packed)
+            assert a.w_q.dtype == torch.bfloat16
+            torch.testing.assert_close(a.w_q.float(), b.w_q.float(), rtol=1e-2, atol=0)
+    assert n_ternary > 0
 
 
 def _random_stack(c: int, rows: int, gen: torch.Generator, device) -> torch.Tensor:
@@ -1106,3 +1197,66 @@ def test_ternary_checkpoint_on_the_card(cuda_device, tmp_path):
     for (_, a), (_, c) in zip(flatten_with_path(back), flatten_with_path(back_cpu)):
         assert a.device.type == "cuda"
         torch.testing.assert_close(a.cpu(), c, rtol=1e-6, atol=0)
+
+
+def _tree_of(rng, shapes):
+    if isinstance(shapes, dict):
+        return {k: _tree_of(rng, v) for k, v in shapes.items()}
+    return rng.normal(size=shapes).astype("float32")
+
+
+def test_collective_on_two_gloo_ranks_on_the_card(cuda_device, tmp_path):
+    """``ternary_allreduce(_tree)`` on two gloo ranks sharing cuda:0 (each
+    collective staged through pinned host memory): over three steps of
+    error feedback the kernel path equals the plain version from the same
+    inputs within 1e-6 of each leaf's largest |value|, both ranks alike,
+    and a rank receives 0.25 B per compressed coordinate."""
+    import numpy as np
+
+    from _torch_dist import run_ranks
+
+    rng = np.random.default_rng(0)
+    shapes = {"dense": {"w": (256, 512)}, "conv": {"kernel": (3, 4, 64)}, "bias": (64,)}
+    single = rng.normal(size=(2, 64, 32)).astype("float32")
+    steps = [[_tree_of(rng, shapes) for _ in range(2)] for _ in range(3)]
+    ranks = run_ranks("collectives", 2, tmp_path, timeout=180, single=single, steps=steps,
+                      device="cuda:0")
+    for r in ranks:
+        for got, plain in zip(r["steps"], r["plain"]):
+            for part in ("synced", "res"):
+                for a, b in ((got[part]["bias"], plain[part]["bias"]),
+                             (got[part]["conv"]["kernel"], plain[part]["conv"]["kernel"]),
+                             (got[part]["dense"]["w"], plain[part]["dense"]["w"])):
+                    assert np.abs(a - b).max() <= 1e-6 * max(np.abs(b).max(), 1e-30)
+        n_comp = 256 * 512 + 3 * 4 * 64
+        assert r["steps"][0]["wire"]["all_gather"] == n_comp // 4 + 4 * 2
+    np.testing.assert_array_equal(ranks[0]["single"], ranks[1]["single"])
+
+
+def test_sharded_fold_on_two_gloo_ranks_on_the_card(cuda_device, tmp_path):
+    """The client-sharded fan-in on two gloo ranks sharing cuda:0: one
+    aggregate or vote launch per fold and rank, and the folds equal the
+    CPU's one-process fold of all 16 clients within fp32 order."""
+    import numpy as np
+
+    from _torch_dist import run_ranks
+
+    rng = np.random.default_rng(0)
+    st = rng.integers(0, 256, size=(16, 32, LANES), dtype=np.uint8)
+    co = rng.normal(size=(16,)).astype("float32")
+    nbytes, n_out = [37, 144, 1, 300], [147, 576, 3, 1200]
+    table = fanin_table(nbytes, n_out)
+    staged = rng.integers(0, 256, size=(16, table.row_bytes), dtype=np.uint8)
+    seg_co = rng.normal(size=(16, 4)).astype("float32")
+    ranks = run_ranks("fanin", 2, tmp_path, timeout=180, stacked=st, coeffs=co, staged=staged,
+                      seg_coeffs=seg_co, nbytes=nbytes, n_out=n_out, c_odd=5, device="cuda:0")
+    cst, cco = torch.from_numpy(st), torch.from_numpy(co)
+    want = {"sum": packed_weighted_sum_plain(cst, cco), "vote": packed_vote_counts_plain(cst, cco),
+            "sum_segments": packed_weighted_sum_segments_plain(
+                torch.from_numpy(staged), torch.from_numpy(seg_co), table),
+            "vote_segments": packed_vote_counts_segments_plain(torch.from_numpy(staged), cco,
+                                                               table)}
+    for r in ranks:
+        for k, w in want.items():
+            np.testing.assert_allclose(r[k], w.numpy(), rtol=1e-6, atol=1e-5, err_msg=k)
+        assert r["launches"] == (3, 2)

@@ -53,6 +53,7 @@ from repro_torch.kernels.vote import (
     packed_vote_counts_segments, packed_vote_counts_segments_plain,
 )
 from repro_torch.launch.federated import make_eval_fn
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.paper_models import mlp_mnist
 from repro_torch.optim import adam
 from repro_torch.parallel.fanin import fanin_vote_counts, fanin_vote_counts_segments
@@ -102,8 +103,9 @@ def test_vote_wrapper_takes_plain_version_on_cpu_and_rejects_other_devices():
         packed_vote_counts(stacked.to("meta"), coeffs.to("meta"))
     with pytest.raises(ValueError):
         packed_vote_counts(stacked[:, :, :64], coeffs)
-    with pytest.raises(NotImplementedError):
-        fanin_vote_counts(stacked, coeffs, mesh=object())
+    # a mesh with one rank on the client axis folds on this rank, unsharded
+    one = make_mesh((1,), ("data",), device="cpu")
+    assert torch.equal(fanin_vote_counts(stacked, coeffs, mesh=one), out)
 
 
 # (bytes, elements) per segment: ResNet18*'s stem, conv and head at a
@@ -164,8 +166,9 @@ def test_vote_segments_wrapper_takes_plain_version_on_cpu():
         packed_vote_counts_segments(staged.to("meta"), weights.to("meta"), table)
     with pytest.raises(ValueError):
         packed_vote_counts_segments_plain(staged, weights[:2], table)
-    with pytest.raises(NotImplementedError):
-        fanin_vote_counts_segments(staged, weights, table, mesh=object())
+    # a mesh with one rank on the client axis folds on this rank, unsharded
+    one = make_mesh((1,), ("data",), device="cpu")
+    assert torch.equal(fanin_vote_counts_segments(staged, weights, table, mesh=one), out)
 
 
 def test_majority_from_counts_matches_reference():

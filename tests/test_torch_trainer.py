@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.launch.mesh import MeshSpec
 import repro_torch.configs as TC
 from _torch_train_parity import (
     assert_step_matches, batch_np, both_steps, torch_batch,
@@ -141,16 +142,26 @@ def test_step_leaves_its_input_state_unchanged():
 
 
 def test_multi_device_cases_raise():
-    """A mesh and a multi-pod compressed state are ROADMAP item 14."""
+    """Tensor-parallel compute (a "model" axis of size > 1) is the next
+    slice and raises; a multi-pod compressed state carries the reference's
+    (n_pods, *shape) zero residuals in one process (the multi-rank trainer
+    is ``tests/test_torch_multipod.py``), and none without compression."""
     cfg = TC.get_reduced("olmo-1b")
     opt = adam(1e-3)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        make_train_step(cfg, TrainerConfig(), opt, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 14"):
-        init_train_state(cfg, TrainerConfig(pod_compression=True), opt, device="cpu", n_pods=2)
+    with pytest.raises(NotImplementedError, match="item 14b"):
+        make_train_step(cfg, TrainerConfig(), opt,
+                        mesh=MeshSpec((1, 1, 2), ("pod", "data", "model")))
+    state = init_train_state(cfg, TrainerConfig(pod_compression=True), opt, device="cpu",
+                             n_pods=2)
+    assert state.residuals["embed"]["table"].shape == (2,) + tuple(
+        state.params["embed"]["table"].shape)
+    assert not state.residuals["embed"]["table"].any()
     state = init_train_state(cfg, TrainerConfig(pod_compression=False), opt, device="cpu",
                              n_pods=2)
     assert state.residuals is None
+    with pytest.raises(ValueError, match="pods"):
+        init_train_state(cfg, TrainerConfig(), opt, device="cpu", n_pods=2,
+                         mesh=MeshSpec((1,), ("pod",)))
 
 
 def test_trainer_config_matches_reference():

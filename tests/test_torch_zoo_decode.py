@@ -1,7 +1,9 @@
 """The model zoo's caches at the reduced configs: cached one-token decode
 against the prefill for every causal arch, a cached prefill (SSM states,
 conv windows, shared-attention slots, MoE) and a step from it against the
-reference's, and the multi-device MoE dispatch's refusal."""
+reference's, and the a2a MoE dispatch on one rank."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -97,9 +99,14 @@ def test_cached_prefill_matches_reference(arch):
 
 
 def test_a2a_moe_needs_the_multi_device_slice():
-    cfg, p, toks, _ = port_setup("qwen3-moe-30b-a3b", moe_impl="a2a", mesh_ep_axis="model")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tf.forward(cfg, p, toks)
+    """With an expert axis but no mesh the a2a layers run on this one rank
+    (``tests/test_torch_moe_a2a.py`` runs them over a mesh): at drop-free
+    capacity, the scatter dispatch's logits."""
+    cfg, p, toks, _ = port_setup("qwen3-moe-30b-a3b", moe_impl="a2a", mesh_ep_axis="model",
+                                 capacity_factor=16.0)
+    la, _, _ = tf.forward(cfg, p, toks)
+    lg, _, _ = tf.forward(dataclasses.replace(cfg, moe_impl="gspmd"), p, toks)
+    assert float((la - lg).abs().max()) <= 1e-5 * float(lg.abs().max())
     # without an expert axis the dense dispatch serves, as in the reference
     cfg, p, toks, _ = port_setup("qwen3-moe-30b-a3b", moe_impl="a2a")
     tf.forward(cfg, p, toks)
