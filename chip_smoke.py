@@ -136,6 +136,33 @@ Phases (any failure exits non-zero; no phase is skipped):
                  1e-4, final params 5e-3 in the worst leaf's relative L2),
                  and a planted fault (the pods skip the gradient sync) that
                  must fail both limits;
+  9c. tensor_parallel — in the same spawn, which has four ranks (ranks 2
+                 and 3 wait for the pods x model part): (a) olmo-1b at full
+                 width, all 16 layers, TrainerConfig defaults, adam(3e-4), 3
+                 steps at 8 × 512 of the CLI's token stream over a (1, 2)
+                 data × model mesh on ranks 0 and 1: per step ms, tokens/s
+                 and loss, per rank peak memory, launches and wire bytes; the
+                 seed-0 state's QAT codes on the shards (whole-leaf
+                 statistics) against the whole leaves', differing only at
+                 ties at Δ, those weights then moved off Δ; held on rank 0,
+                 after the ranks free the card, to one process stepping the
+                 same batches from the same state (losses rtol 5e-5, worst
+                 leaf ‖Δparams‖/‖params‖ 5e-3), and
+                 a planted fault (FTTQ statistics per shard) that must
+                 exceed both limits; (b) the trained params saved as a
+                 ternary checkpoint from the shards: one quantize_pack
+                 launch on rank 0, 680,526,658 B, sha256-equal to the
+                 one-process save of the same params; (c) ``launch/steps.py``
+                 with the mesh: prefill 4 × 32 and 8 greedy decode steps on
+                 the shards against one process (logits within 1e-4 of max
+                 |logits|, the same tokens); (d) pods x model on all four
+                 ranks, mesh (2, 1, 2), olmo-1b at its published widths cut
+                 to 4 of 16 layers: the compressed collective on each rank's
+                 shards of a seeded gradient tree (one quantize_pack and two
+                 aggregate launches, all-gather 0.25 B a shard coordinate
+                 plus 4 B a w_q, mean and residuals within 1e-6 of the plain
+                 version, codes equal but at ties) and 2 compressed train
+                 steps with the same launches and bytes per step;
  10. federated — two T-FedAvg sync rounds (paper Algorithm 2) on ResNet18* at
                  full width with the paper's CIFAR setting (FedConfig
                  defaults: 100 clients, λ = 0.1, E = 5, B = 64, adam(1e-3), 500
@@ -243,6 +270,7 @@ The line before the last is the kernel table as JSON; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -3351,7 +3379,8 @@ def bf16_serve_phase(dev, fcfg, fp32: dict) -> dict:
 # Multi-device: two ranks on the one card over gloo.
 # --------------------------------------------------------------------------
 
-MD_RANKS = 2
+MD_RANKS = 2                 # the ranks of (a)-(d) and of the tensor_parallel (a)-(c)
+MD_WORLD = 4                 # the spawn's ranks: four for the pods x model mesh (2, 1, 2)
 MD_TRAIN_LAYERS = 8          # olmo-1b cut in depth so two ranks' training fits 80 GB
 # the two-pod runs against their one-process references: the largest loss
 # gap relative to the loss, and the worst leaf's ‖Δparam‖ / ‖param‖ after
@@ -3453,6 +3482,9 @@ def _md_collective(mesh, dev, cfg, fcfg) -> dict:
                residual_rel_gap=res_gap)
     del synced, res
     _free()
+    if dev.type == "cuda" and me == 0:        # timed on one rank while the other waits
+        out["quantize_pack_alone"] = _md_quantize_pack_alone(dev, cfg, fcfg, items)
+    torch.distributed.barrier(group=group)
     reset_wire_bytes()
     _sync(dev)
     t0 = time.perf_counter()
@@ -3462,6 +3494,43 @@ def _md_collective(mesh, dev, cfg, fcfg) -> dict:
     out["exact_wall_ms"] = (time.perf_counter() - t0) * 1e3
     out["exact_wire"] = wire_bytes()
     del grads, items
+    _free()
+    return out
+
+
+def _md_quantize_pack_alone(dev, cfg, fcfg, items) -> dict:
+    """The collective's one quantize_pack launch timed alone (eager, as the
+    collective calls it) beside its plain version and its bound: on the
+    compressed leaves of ``items`` whole (each a segment), and on one rank's
+    shards of them over a "model" axis of 2 (the tensor-parallel layout)."""
+    from repro_torch.launch.mesh import AXES, MeshSpec
+    from repro_torch.kernels.quantize_pack import (
+        quantize_pack_segments, quantize_pack_segments_plain,
+    )
+    from repro_torch.parallel.collectives import collective_scalars, compressed_leaf
+    from repro_torch.parallel.sharding import model_dims
+    from repro_torch.tree import flatten_with_path
+
+    dims = dict(flatten_with_path(model_dims(cfg, MeshSpec((1, 1, TP_RANKS), AXES))))
+    comp = [(p, g) for p, g in items if compressed_leaf(p, g, fcfg)]
+    layouts = {"whole": [g.reshape(-1) for _, g in comp],
+               "shard": [g.chunk(TP_RANKS, dims[p])[0].contiguous().reshape(-1)
+                         if dims.get(p) is not None else g.reshape(-1) for p, g in comp]}
+    out = {}
+    for name, flat in layouts.items():
+        scal = collective_scalars(flat, fcfg.t_k)
+        n = sum(f.numel() for f in flat)
+        nbytes = sum(4 * f.numel() + (f.numel() + 3) // 4 + 8 * -(-f.numel() // 32768) + 12
+                     for f in flat)
+        b_ms, b_by = bound(nbytes, 4 * n)
+        out[name] = {
+            "segments": len(flat), "elements": n,
+            "ms": time_ms(lambda: quantize_pack_segments(flat, scal, with_scales=True), 5,
+                          graph=False),
+            "plain_ms": time_ms(lambda: quantize_pack_segments_plain(flat, scal, True), 2,
+                                graph=False),
+            "bound_ms": b_ms, "bound_by": b_by}
+    del layouts
     _free()
     return out
 
@@ -3572,7 +3641,7 @@ def _md_train(mesh, dev, cfg, batch: int, seq: int, steps: int) -> dict:
         final[name] = _host_tree(state.params)
         del state, step
         _free()
-    torch.distributed.barrier()
+    torch.distributed.barrier(group=mesh.group("pod"))
     if mesh.index("pod") == 0:
         losses = {k: [r["loss"] for r in out[k]["steps"]] for k in final}
         out["emulation"] = _md_train_emulation(dev, cfg, batches, losses["compressed"],
@@ -3583,7 +3652,7 @@ def _md_train(mesh, dev, cfg, batch: int, seq: int, steps: int) -> dict:
                                        single_params)
         del single_params
     del final
-    torch.distributed.barrier()
+    torch.distributed.barrier(group=mesh.group("pod"))
     return out
 
 
@@ -3706,11 +3775,602 @@ def _md_train_fault(dev, cfg, batches, losses, params) -> dict:
     return {"losses": mean, **_md_gaps(dev, mean, losses, pod0, params)}
 
 
+# --------------------------------------------------------------------------
+# Tensor parallelism: two ranks on the "model" axis, and pods x model on four.
+# --------------------------------------------------------------------------
+
+TP_RANKS = 2                 # the "model" axis of (a)-(c): mesh (1, 2) over (data, model)
+TP_BATCH, TP_SEQ, TP_STEPS = 8, 512, 3
+TP_PROMPTS, TP_PROMPT, TP_GEN = 4, 32, 8
+TP_LOGITS_REL = 1e-4         # prefill and decode logits, of max |logits|
+# the TP run against one process differs only in summation order, and the
+# planted fault (FTTQ statistics per shard) flips ~1e-4 of the codes: the
+# multi-pod loss rtol MD_LOSS_RTOL (1e-4) sits on the fault's own gap
+# (1.008e-4 and 9.79e-5 in runs on an H100 80GB HBM3 at 700 W), so the loss
+# is held tighter, halfway (in log) between the sound runs' 2.4e-5-2.6e-5
+# and the fault's; the params keep MD_PARAM_RTOL_L2
+TP_LOSS_RTOL = 5e-5
+TP_SAVE_BYTES = 680_526_658  # olmo-1b's ternary checkpoint, as the train phase saves it
+TP_PODS_LAYERS = 4           # (d): olmo-1b cut to 4 of 16 layers on mesh (2, 1, 2)
+TP_PODS_STEPS = 2
+
+
+def _peak_gib(dev) -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else float("nan")
+
+
+def _tp_specs(cfg, mesh):
+    from repro_torch.parallel.sharding import model_dims, param_specs
+
+    return param_specs(cfg, mesh), model_dims(cfg, mesh)
+
+
+def _tp_codes(mesh, whole, fcfg, dims) -> tuple[dict, dict]:
+    """The QAT codes of this rank's shards of ``whole`` from the whole
+    leaves' statistics (``leaf_row_stats`` over the "model" group) against
+    the whole leaves' codes cut to the same shard: the differing codes,
+    each counted as a tie where |θ_s| is within 1e-6 of Δ (as
+    ``_code_ties`` counts them), and {param path: mask of the differing
+    codes in the shard}."""
+    from repro_torch.core import fttq
+    from repro_torch.parallel.tensor import model_axis
+    from repro_torch.tree import flatten_with_path
+
+    tp = model_axis(mesh)
+    dmap = dict(flatten_with_path(dims))
+    masks, n_codes, n_diff, n_tie = {}, 0, 0, 0
+    for path, leaf in flatten_with_path(whole):
+        if not fttq.is_quantizable(path, leaf, fcfg) or dmap.get(path) is None:
+            continue
+        d, n_rows = dmap[path], leaf.shape[0] if leaf.ndim >= 3 else 1
+        want = fttq.row_codes(leaf.reshape(n_rows, -1), fcfg.t_k).reshape(leaf.shape)
+        want = want.chunk(tp.size, d)[tp.rank]
+        shard = leaf.chunk(tp.size, d)[tp.rank].contiguous()
+        rows = shard.reshape(n_rows, -1)
+        (denom, delta), = fttq.leaf_row_stats([rows], fcfg.t_k, tp)
+        theta_s = rows / denom
+        diff = fttq.ternarize(theta_s, delta).reshape(shard.shape) != want
+        n_codes += diff.numel()
+        n_diff += int(diff.sum())
+        masks[path] = diff
+        if bool(diff.any()):
+            gap = (theta_s.abs() - delta).abs()
+            n_tie += int((gap <= 1e-6 * delta.expand_as(gap))[diff.reshape(n_rows, -1)].sum())
+        del want, shard, rows, theta_s
+    return {"codes": n_codes, "differing": n_diff, "ties": n_tie}, masks
+
+
+def _tp_detie(mesh, dev, cfg, fcfg) -> tuple[dict, object]:
+    """The seed-0 params with the weights whose shard code differs from the
+    whole leaf's (each a tie at Δ, which the two sum in their own orders)
+    moved to half their value, until no code differs: so the TP run and one
+    process train the same QAT codes (``train_card_vs_cpu`` does the same
+    between the card and the CPU). Returns (the first count of codes,
+    differing codes and ties, plus the weights moved; the whole params)."""
+    import torch
+
+    from repro_torch.models.transformer import init_params
+    from repro_torch.parallel.collectives import all_gather, all_reduce_
+    from repro_torch.parallel.tensor import model_axis
+    from repro_torch.tree import flatten_with_path
+
+    tp = model_axis(mesh)
+    _, dims = _tp_specs(cfg, mesh)
+    dmap = dict(flatten_with_path(dims))
+    whole = init_params(cfg, seed=0, device=dev)
+    report, masks = _tp_codes(mesh, whole, fcfg, dims)
+    leaves, moved = dict(flatten_with_path(whole)), 0
+    for _ in range(10):
+        flips = torch.tensor([float(m.sum()) for m in masks.values()], device=dev)
+        if float(all_reduce_(flips, tp.group).sum()) == 0:
+            break
+        for path, mask in masks.items():
+            full = torch.cat(list(all_gather(mask.to(torch.uint8).contiguous(), tp.group)),
+                             dim=dmap[path]).bool()
+            leaves[path][full] *= 0.5
+            moved += int(full.sum())
+        masks = _tp_codes(mesh, whole, fcfg, dims)[1]
+    report["moved"] = moved
+    report["left"] = int(sum(int(m.sum()) for m in masks.values()))
+    del masks
+    _free()
+    return report, whole
+
+
+@contextlib.contextmanager
+def _gloo_clock():
+    """{"ms": host ms spent inside torch.distributed's all_reduce and
+    all_gather} while the block runs (wrappers around the two calls)."""
+    import torch.distributed as dist
+
+    box = {"ms": 0.0}
+    saved = {name: getattr(dist, name) for name in ("all_reduce", "all_gather")}
+
+    def timed(fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                box["ms"] += (time.perf_counter() - t0) * 1e3
+        return call
+
+    for name, fn in saved.items():
+        setattr(dist, name, timed(fn))
+    try:
+        yield box
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+@contextlib.contextmanager
+def _maybe_profile(dev, on: bool):
+    """torch.profiler over the block where ``on`` (CPU and CUDA activity),
+    else nothing; yields the profiler or None."""
+    if not on:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        yield prof
+
+
+def _tp_train(mesh, dev, cfg, batches, fcfg, params, save_dir: str | None = None
+              ) -> tuple[dict, object]:
+    """TrainerConfig defaults and adam(3e-4) over the mesh's "model" axis
+    from ``params`` (whole leaves, cut to the rank's shards): per step the
+    synchronized ms, tokens/s, loss and the ms the rank spent inside
+    ``gloo``'s all-reduce and all-gather calls (the staging copies to and
+    from pinned memory not included); the last step under torch.profiler
+    for the device's kernel time (its ms is then a traced wall); the rank's
+    peak memory, launches and wire bytes; with ``save_dir`` the trained
+    params saved as a ternary checkpoint from the shards (gathered, written
+    by rank 0: one quantize_pack launch there). Returns (report, the
+    gathered params on the host at model index 0, else None)."""
+    import torch
+
+    from repro_torch.core.compression import CodecSpec
+    from repro_torch.optim import adam
+    from repro_torch.parallel.collectives import reset_wire_bytes, wire_bytes
+    from repro_torch.parallel.tensor import gather_tree
+    from repro_torch.train import TrainerConfig, init_train_state, make_train_step, save_checkpoint
+    from repro_torch.tree import tree_map
+
+    specs, _ = _tp_specs(cfg, mesh)
+    tcfg, opt = TrainerConfig(), adam(TRAIN_LR)
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, tcfg, opt, params=tree_map(lambda t: t.to(dev), params),
+                             device=dev, mesh=mesh)
+    _sync(dev)
+    out = {"init_s": time.perf_counter() - t0}
+    step = make_train_step(cfg, tcfg, opt, mesh=mesh)
+    zero_counters()
+    reset_wire_bytes()
+    rows = []
+    for i, b in enumerate(batches):
+        traced = save_dir is not None and i == len(batches) - 1
+        with _gloo_clock() as gloo, _maybe_profile(dev, traced) as prof:
+            _sync(dev)
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            _sync(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+        rows.append({"ms": ms, "tok_s": b["tokens"].numel() / ms * 1e3,
+                     "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                     "gloo_ms": gloo["ms"], "traced": traced})
+        if traced and prof is not None:
+            rows[-1]["device_ms"] = _md_device_ms(prof)
+        del prof
+    out.update(steps=rows, peak_gib=_peak_gib(dev), launches=read_counters(),
+               wire=wire_bytes())
+    if save_dir is not None:
+        import hashlib
+        import shutil
+
+        shutil.rmtree(save_dir, ignore_errors=True)
+        zero_counters()
+        _sync(dev)
+        t0 = time.perf_counter()
+        path = save_checkpoint(save_dir, 1, state.params,
+                               compression=CodecSpec(kind="ternary", fttq=fcfg),
+                               mesh=mesh, specs=specs)
+        _sync(dev)
+        out["save"] = {"s": time.perf_counter() - t0, "launches": read_counters()}
+        if mesh.rank == mesh.ranks[0]:
+            with open(os.path.join(path, "state.msgpack"), "rb") as f:
+                blob = f.read()
+            out["save"].update(sha256=hashlib.sha256(blob).hexdigest(), bytes=sum(
+                os.path.getsize(os.path.join(path, n)) for n in os.listdir(path)))
+    whole = gather_tree(state.params, specs, mesh)
+    host = _host_tree(whole) if mesh.index("model") == 0 else None
+    del whole, state, step
+    _free()
+    return out, host
+
+
+def _tp_fault(mesh, dev, cfg, batches, fcfg, params) -> tuple[dict, object]:
+    """The planted fault: the same run with FTTQ's statistics per shard
+    (each shard quantized with its own max|θ| and Δ, its g_wq not summed
+    over the "model" group), as a port without leaf-global statistics
+    would train."""
+    from repro_torch.core import fttq
+
+    whole_leaf = fttq.quantize_tree
+    fttq.quantize_tree = lambda params, wq, cfg_, tp=None, dims=None: whole_leaf(params, wq, cfg_)
+    try:
+        return _tp_train(mesh, dev, cfg, batches, fcfg, params)
+    finally:
+        fttq.quantize_tree = whole_leaf
+
+
+def _tp_single(dev, cfg, batches, fcfg, tp_run: dict, tp_params, save_dir: str,
+               start) -> tuple:
+    """On one rank after the others freed the card: the TP run's gathered
+    params saved by one process (sha256 against the TP save), then one
+    process stepping the same batches from the same state (``start``, the
+    whole params on the host), held to the TP run's losses and final
+    params. Returns (report, its params on the host)."""
+    import hashlib
+    import shutil
+
+    from repro_torch.core.compression import CodecSpec
+    from repro_torch.optim import adam
+    from repro_torch.train import TrainerConfig, init_train_state, make_train_step, save_checkpoint
+    from repro_torch.tree import tree_map
+
+    shutil.rmtree(save_dir, ignore_errors=True)
+    params = tree_map(lambda t: t.to(dev), tp_params)
+    path = save_checkpoint(save_dir, 1, params, compression=CodecSpec(kind="ternary", fttq=fcfg))
+    with open(os.path.join(path, "state.msgpack"), "rb") as f:
+        sha = hashlib.sha256(f.read()).hexdigest()
+    shutil.rmtree(save_dir, ignore_errors=True)
+    del params
+    _free()
+    tcfg, opt = TrainerConfig(), adam(TRAIN_LR)
+    state = init_train_state(cfg, tcfg, opt, params=tree_map(lambda t: t.to(dev), start),
+                             device=dev)
+    step = make_train_step(cfg, tcfg, opt)
+    got = []
+    for b in batches:
+        state, m = step(state, b)
+        got.append(float(m["loss"]))
+    tp_losses = [r["loss"] for r in tp_run["steps"]]
+    out = {"losses": got, "save_sha256": sha, **_md_gaps(dev, tp_losses, got, tp_params,
+                                                          state.params)}
+    ref = _host_tree(state.params)
+    del state, step
+    _free()
+    return out, ref
+
+
+def _tp_serve(mesh, dev, cfg) -> dict:
+    """``launch/steps.py`` with the mesh: a prefill of 4 × 32 tokens and 8
+    greedy decode steps on the rank's shards of the seed-0 params; then at
+    model index 0 the same on the whole params in one process: each step's
+    logits against the one-process logits (max |Δ| over max |logits|) and
+    the greedy tokens."""
+    import torch
+
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.transformer import init_params
+
+    prompts = torch.randint(0, cfg.vocab_size, (TP_PROMPTS, TP_PROMPT),
+                            generator=torch.Generator(dev).manual_seed(1), device=dev)
+
+    def run(params, m):
+        prefill = make_prefill_step(cfg, TP_PROMPT + TP_GEN, mesh=m)
+        decode = make_decode_step(cfg, mesh=m)
+        _sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": prompts})
+        _sync(dev)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        steps, tokens = [logits], []
+        t0 = time.perf_counter()
+        for i in range(TP_GEN):
+            tok = torch.argmax(logits, dim=-1)
+            tokens.append(tok)
+            logits, cache = decode(params, {"tokens": tok, "cache": cache,
+                                            "pos": TP_PROMPT + i})
+            steps.append(logits)
+        _sync(dev)
+        decode_s = time.perf_counter() - t0
+        return steps, torch.cat(tokens, dim=1), {
+            "prefill_ms": prefill_ms, "decode_tok_s": TP_PROMPTS * TP_GEN / decode_s,
+            "cache_kv_heads": int(cache["k"].shape[3])}
+
+    shards = init_params(cfg, seed=0, device=dev, mesh=mesh)
+    with torch.no_grad():
+        steps, tokens, out = run(shards, mesh)
+    del shards
+    _free()
+    if mesh.index("model") == 0:
+        whole = init_params(cfg, seed=0, device=dev)
+        with torch.no_grad():
+            ref_steps, ref_tokens, ref = run(whole, None)
+        out["one_process"] = ref
+        out["logits_rel"] = max(float((a - b).abs().max() / b.abs().max())
+                                for a, b in zip(steps, ref_steps))
+        out["tokens_equal"] = bool(torch.equal(tokens, ref_tokens))
+        out["shape"] = list(steps[0].shape)
+        del whole, ref_steps
+    del steps
+    _free()
+    return out
+
+
+def _tp_pods_collective(mesh, dev, cfg, fcfg) -> dict:
+    """(d) a seeded gradient tree of ``cfg`` per pod, cut to this rank's
+    shards, through ``ternary_allreduce_tree`` with whole-leaf scalars:
+    launches and all-gather bytes, and leaf by leaf against the plain
+    version on the same shards (codes equal but at proven ties at Δ; means
+    and residuals within 1e-6 of their largest elsewhere)."""
+    import torch
+
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.parallel.collectives import (
+        all_gather, compressed_leaf, reset_wire_bytes, shard_scalars_plain,
+        ternary_allreduce_tree, ternary_allreduce_tree_plain, wire_bytes,
+    )
+    from repro_torch.parallel.tensor import model_axis, shard_tree
+    from repro_torch.tree import flatten_with_path, tree_map
+
+    tp = model_axis(mesh)
+    specs, dims = _tp_specs(cfg, mesh)
+    dmap = dict(flatten_with_path(dims))
+    group = mesh.group("pod")
+    gen = torch.Generator(dev).manual_seed(200 + mesh.index("pod"))
+    whole = tree_map(lambda s: torch.randn(s, generator=gen, device=dev) * 1e-3,
+                     param_shapes(cfg), is_leaf=lambda x: isinstance(x, tuple))
+    grads = shard_tree(whole, specs, mesh)
+    del whole
+    items = flatten_with_path(grads)
+    whole_shapes = dict(flatten_with_path(param_shapes(cfg),
+                                          is_leaf=lambda x: isinstance(x, tuple)))
+    comp = [compressed_leaf(p, g, fcfg, whole_shapes[p][-1]) for p, g in items]
+    n_comp = sum(g.numel() for (_, g), c in zip(items, comp) if c)
+    _sync(dev)
+    zero_counters()
+    reset_wire_bytes()
+    t0 = time.perf_counter()
+    synced, res = ternary_allreduce_tree(grads, group, cfg=fcfg, tp=tp, dims=dims)
+    _sync(dev)
+    out = {"wall_ms": (time.perf_counter() - t0) * 1e3, "launches": read_counters(),
+           "wire": wire_bytes(), "compressed_elements": n_comp,
+           "want_gather_bytes": n_comp // 4 + 4 * sum(comp)}
+    synced_p, res_p = ternary_allreduce_tree_plain(grads, group, cfg=fcfg, tp=tp, dims=dims)
+    flips = ties = 0
+    mean_gap = res_gap = 0.0
+    for ((path, g), c, s_k, r_k, s_p, r_p) in zip(
+            items, comp, [x for _, x in flatten_with_path(synced)],
+            [x for _, x in flatten_with_path(res)], [x for _, x in flatten_with_path(synced_p)],
+            [x for _, x in flatten_with_path(res_p)]):
+        keep = torch.ones(g.shape, dtype=torch.bool, device=dev)
+        if c:
+            sharded = tp if dmap.get(path) is not None else None
+            if sharded is not None:
+                mx, delta, wq = shard_scalars_plain([g], fcfg.t_k, tp)[0]
+            else:
+                absg = g.abs()
+                mx = absg.max() + 1e-12
+                delta = fcfg.t_k * absg.mean() / mx
+                sel = (g / mx).abs() > delta
+                wq = torch.where(sel, absg, 0.0).sum() / (sel.sum() + 1e-12)
+            xs = g / mx
+            codes_p = torch.where(xs.abs() > delta, torch.sign(xs), 0.0)
+            codes_k = torch.round((g - r_k) / wq)
+            flip = codes_k != codes_p
+            mine = int(flip.sum())
+            if mine:
+                gap = (xs[flip].abs() - delta).abs()
+                ties += int((gap <= 1e-6 * delta).sum())
+            flips += mine
+            keep = ~all_gather(flip.to(torch.uint8), group).any(0).to(torch.bool)
+            res_gap = max(res_gap, float((r_k - r_p)[~flip].abs().max()
+                                         / r_p.abs().max().clamp_min(1e-30)))
+        mean_gap = max(mean_gap, float((s_k - s_p)[keep].abs().max()
+                                       / s_p.abs().max().clamp_min(1e-30)))
+    out.update(code_flips=flips, proven_ties=ties, mean_rel_gap=mean_gap,
+               residual_rel_gap=res_gap)
+    del grads, synced, res, synced_p, res_p
+    _free()
+    return out
+
+
+def _tp_pods_train(mesh, dev, cfg, batches) -> dict:
+    """(d) TP_PODS_STEPS compressed steps over the pods x model mesh from
+    the seed-0 state (TrainerConfig defaults, adam(3e-4)): per step the ms,
+    loss, launches and wire bytes, each step counted on its own."""
+    import torch
+
+    from repro_torch.optim import adam
+    from repro_torch.parallel.collectives import reset_wire_bytes, wire_bytes
+    from repro_torch.train import TrainerConfig, init_train_state, make_train_step
+
+    tcfg, opt = TrainerConfig(), adam(TRAIN_LR)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, tcfg, opt, seed=0, device=dev, n_pods=mesh.size("pod"),
+                             mesh=mesh)
+    step = make_train_step(cfg, tcfg, opt, mesh=mesh)
+    rows = []
+    for b in batches:
+        zero_counters()
+        reset_wire_bytes()
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        _sync(dev)
+        rows.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": float(m["loss"]),
+                     "launches": read_counters(), "wire": wire_bytes()})
+    out = {"steps": rows, "peak_gib": _peak_gib(dev)}
+    del state, step
+    _free()
+    return out
+
+
+def tensor_parallel_rank(rank: int, dev, fcfg, sizes: dict, pair, tp_mesh, pods_mesh,
+                         out_dir: str) -> dict:
+    """The tensor_parallel phase on one rank of the multidevice spawn: (a)
+    olmo-1b at full width over the pair's "model" axis against one process
+    and a planted fault, (b) the ternary save from the shards, (c) prefill
+    and decode; then (d) pods x model on all four ranks."""
+    import torch.distributed as dist
+
+    from repro_torch.data.synthetic import synthetic_tokens, token_batches
+    from repro_torch.launch.train import DATA_SEED
+
+    cfg, out = sizes["tp"], {}
+    if tp_mesh.member:
+        tokens = synthetic_tokens(DATA_SEED, TP_BATCH * (TP_SEQ + 1) * TP_STEPS, cfg.vocab_size)
+        gen = token_batches(tokens, TP_BATCH, TP_SEQ, device=dev)
+        batches = [next(gen)[0] for _ in range(TP_STEPS)]
+        out["codes"], whole = _tp_detie(tp_mesh, dev, cfg, fcfg)
+        start = _host_tree(whole)
+        del whole
+        _free()
+        dist.barrier(group=pair)
+        save_tp = os.path.join(out_dir, "tp_save")
+        out["train"], tp_params = _tp_train(tp_mesh, dev, cfg, batches, fcfg, start,
+                                            save_dir=save_tp)
+        dist.barrier(group=pair)
+        single_params = None
+        if tp_params is not None:
+            out["single"], single_params = _tp_single(
+                dev, cfg, batches, fcfg, out["train"], tp_params,
+                os.path.join(out_dir, "one_save"), start)
+        del tp_params
+        dist.barrier(group=pair)
+        out["fault"], fault_params = _tp_fault(tp_mesh, dev, cfg, batches, fcfg, start)
+        if fault_params is not None:
+            fault_losses = [r["loss"] for r in out["fault"]["steps"]]
+            out["fault"]["gaps"] = _md_gaps(dev, fault_losses, out["single"]["losses"],
+                                            fault_params, single_params)
+        del fault_params, single_params
+        _free()
+        dist.barrier(group=pair)
+        out["serve"] = _tp_serve(tp_mesh, dev, cfg)
+    dist.barrier()
+    pods_cfg = sizes["tp_pods"]
+    out["pods_collective"] = _tp_pods_collective(pods_mesh, dev, pods_cfg, fcfg)
+    dist.barrier()
+    tokens = synthetic_tokens(DATA_SEED, TP_BATCH * (TP_SEQ + 1) * TP_PODS_STEPS,
+                              pods_cfg.vocab_size)
+    gen = token_batches(tokens, TP_BATCH, TP_SEQ, device=dev)
+    out["pods_train"] = _tp_pods_train(pods_mesh, dev, pods_cfg,
+                                       [next(gen)[0] for _ in range(TP_PODS_STEPS)])
+    return out
+
+
+def tensor_parallel_checks(reports: list) -> None:
+    """Print the tensor_parallel phase's numbers and hold them to the
+    contract."""
+    for rep in reports:
+        r, tp = rep["rank"], rep.get("tensor_parallel")
+        if tp is None:
+            continue
+        if "train" in tp:
+            c = tp["codes"]
+            print(f"rank {r}, tensor_parallel (a) QAT codes of the seed-0 shards from whole-leaf "
+                  f"statistics vs the whole leaves: {c['differing']} of {c['codes']} differ, "
+                  f"{c['ties']} of them ties at Δ; {c['moved']} weights of the whole leaves "
+                  f"moved off Δ, {c['left']} codes differing after")
+            check(c["differing"] == c["ties"], "a shard's QAT code differs from the whole "
+                                               "leaf's away from a tie at Δ")
+            check(c["left"] == 0, "the shards' QAT codes still differ after moving the ties "
+                                  "off Δ")
+            for name in ("train", "fault"):
+                run = tp[name]
+                print(f"rank {r}, tensor_parallel (a) olmo-1b 16 of 16 layers at full width, "
+                      f"{TP_BATCH} x {TP_SEQ} over {TP_RANKS} model ranks ({name}): steps "
+                      + "; ".join(f"{s['ms']:.1f} ms{' traced' if s['traced'] else ''} "
+                                  f"({s['tok_s']:.0f} tok/s) loss {s['loss']:.6f}, "
+                                  f"{s['gloo_ms']:.1f} ms in gloo calls"
+                                  + (f", {s['device_ms']:.1f} ms of device kernels"
+                                     if "device_ms" in s else "") for s in run["steps"])
+                      + f"; peak {run['peak_gib']:.2f} GiB; init {run['init_s']:.1f} s; "
+                      f"launches {json.dumps(run['launches'])}; wire {json.dumps(run['wire'])}")
+            sv = tp["train"]["save"]
+            print(f"rank {r}, tensor_parallel (b) ternary save from the shards: "
+                  f"{sv['s']:.2f} s, launches {json.dumps(sv['launches'])}"
+                  + (f", {sv['bytes']} B, sha256 {sv['sha256']}" if "sha256" in sv else ""))
+            if "single" in tp:
+                check(sv["launches"]["quantize_pack"] == 1,
+                      "the ternary save from the shards launched quantize_pack other than once")
+                check(sv["bytes"] == TP_SAVE_BYTES,
+                      f"the ternary save from the shards is {sv['bytes']} B, not {TP_SAVE_BYTES}")
+                check(sv["sha256"] == tp["single"]["save_sha256"],
+                      "the ternary save from the shards differs from the one-process save")
+                for name, what in (("single", "TP run vs one process"),
+                                   ("fault", "planted fault (FTTQ statistics per shard) vs "
+                                             "one process")):
+                    g = tp["single"] if name == "single" else tp["fault"]["gaps"]
+                    print(f"rank {r}: {what}: one-process losses {tp['single']['losses']}; "
+                          f"max loss rel gap {g['loss_rel_gap']:.3e} (limit {TP_LOSS_RTOL:g}); "
+                          f"params worst leaf ‖Δ‖/‖p‖ {g['param_rel_l2']:.3e} (limit "
+                          f"{MD_PARAM_RTOL_L2:g}), max |Δ| / max |p| {g['param_rel_gap']:.3e} "
+                          "(printed, not held)")
+                g = tp["single"]
+                check(g["loss_rel_gap"] <= TP_LOSS_RTOL and g["param_rel_l2"] <= MD_PARAM_RTOL_L2,
+                      "tensor-parallel training disagrees with one process")
+                f = tp["fault"]["gaps"]
+                check(f["loss_rel_gap"] > TP_LOSS_RTOL and f["param_rel_l2"] > MD_PARAM_RTOL_L2,
+                      "a limit of the tensor-parallel checks does not catch the planted fault")
+            s = tp["serve"]
+            print(f"rank {r}, tensor_parallel (c) prefill {TP_PROMPTS} x {TP_PROMPT} "
+                  f"{s['prefill_ms']:.2f} ms, {TP_GEN} greedy steps {s['decode_tok_s']:.1f} tok/s, "
+                  f"{s['cache_kv_heads']} kv heads in the cache"
+                  + (f"; one process prefill {s['one_process']['prefill_ms']:.2f} ms, "
+                     f"{s['one_process']['decode_tok_s']:.1f} tok/s; logits shape {s['shape']}, "
+                     f"max rel gap {s['logits_rel']:.3e} (limit {TP_LOGITS_REL:g}), tokens equal "
+                     f"{s['tokens_equal']}" if "logits_rel" in s else ""))
+            if "logits_rel" in s:
+                check(s["logits_rel"] <= TP_LOGITS_REL and s["tokens_equal"],
+                      "tensor-parallel prefill or decode disagrees with one process")
+        c = tp["pods_collective"]
+        print(f"rank {r}, tensor_parallel (d) pods x model collective on "
+              f"{c['compressed_elements']} compressed shard elements: wall {c['wall_ms']:.1f} ms; "
+              f"launches {json.dumps(c['launches'])}; wire {json.dumps(c['wire'])} (all-gather "
+              f"want {c['want_gather_bytes']}); code flips {c['code_flips']} "
+              f"({c['proven_ties']} proven ties), mean rel gap {c['mean_rel_gap']:.3e}, residual "
+              f"rel gap {c['residual_rel_gap']:.3e}")
+        check(c["launches"]["quantize_pack"] == 1 and c["launches"]["aggregate"] == 2,
+              "the pods x model collective launched other than 1 quantize_pack and 2 aggregate")
+        check(c["wire"].get("all_gather", 0) == c["want_gather_bytes"],
+              "the pods x model all-gather is not 0.25 B a shard coordinate plus w_q")
+        check(c["code_flips"] == c["proven_ties"], "a pods x model code differs from the plain "
+                                                   "version away from a tie at Δ")
+        check(c["mean_rel_gap"] <= 1e-6 and c["residual_rel_gap"] <= 1e-6,
+              "the pods x model collective disagrees with the plain version")
+        t = tp["pods_train"]
+        print(f"rank {r}, tensor_parallel (d) olmo-1b {TP_PODS_LAYERS} of 16 layers, "
+              f"{TP_BATCH} x {TP_SEQ} over mesh (2, 1, 2): steps "
+              + "; ".join(f"{s['ms']:.1f} ms loss {s['loss']:.6f} launches "
+                          f"{json.dumps(s['launches'])} all-gather "
+                          f"{s['wire'].get('all_gather', 0)} B" for s in t["steps"])
+              + f"; peak {t['peak_gib']:.2f} GiB")
+        for s in t["steps"]:
+            check(s["launches"]["quantize_pack"] == 1 and s["launches"]["aggregate"] == 2,
+                  "a pods x model step launched other than 1 quantize_pack and 2 aggregate")
+            check(s["wire"].get("all_gather", 0) == c["want_gather_bytes"],
+                  "a pods x model step's all-gather bytes are not the collective's")
+
+
 def multidevice_rank(rank: int, world: int, rdv: str, out_dir: str, device: str,
                      sizes: dict) -> None:
     """One rank of the multidevice phase (a spawned process): joins the gloo
-    group through ``rdv``, runs (a) the collective, (c) the fan-in, (d) the
-    MoE and (b) training, and writes its report to ``out_dir``."""
+    group through ``rdv``; ranks 0 and 1 run (a) the collective, (c) the
+    fan-in, (d) the MoE and (b) training, then the tensor_parallel phase's
+    (a)-(c) on their "model" axis; all ranks run its (d), pods x model. It
+    writes its report to ``out_dir``."""
     import datetime
 
     import torch
@@ -3726,9 +4386,15 @@ def multidevice_rank(rank: int, world: int, rdv: str, out_dir: str, device: str,
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    mesh = make_mesh((world, 1, 1), AXES, device=device)
-    mesh_data = make_mesh((world,), ("data",), device=device)
-    mesh_ep = make_mesh((1, world), ("data", "model"), device=device)
+    pair_ranks = list(range(MD_RANKS))
+    pair = dist.new_group(pair_ranks)
+    mesh = make_mesh((MD_RANKS, 1, 1), AXES, ranks=pair_ranks, device=device)
+    mesh_data = make_mesh((MD_RANKS,), ("data",), ranks=pair_ranks, device=device)
+    mesh_ep = make_mesh((1, MD_RANKS), ("data", "model"), ranks=pair_ranks, device=device)
+    # (data, model): no "pod" axis, whose compressed sync the reference runs even at size 1
+    tp_mesh = make_mesh((1, TP_RANKS), ("data", "model"), ranks=pair_ranks, device=device)
+    pods_mesh = (make_mesh((2, 1, 2), AXES, device=device) if world == 4 else None)
+    parts = sizes["parts"]
     report = {"rank": rank, "device": str(dev)}
     path = os.path.join(out_dir, f"rank{rank}.json")
 
@@ -3737,29 +4403,39 @@ def multidevice_rank(rank: int, world: int, rdv: str, out_dir: str, device: str,
             json.dump(report, f)
 
     t0 = time.perf_counter()
-    report["collective"] = _md_collective(mesh, dev, sizes["olmo"], FTTQConfig())
-    save()
-    dist.barrier()
-    report["fanin"] = _md_fanin(dev, mesh_data)
-    save()
-    dist.barrier()
-    report["moe"] = _md_moe(dev, mesh_ep, sizes["moe"])
-    save()
-    dist.barrier()
-    report["train"] = _md_train(mesh, dev, sizes["train"], sizes["batch"], sizes["seq"],
-                                sizes["steps"])
+    if mesh.member and "collective" in parts:
+        report["collective"] = _md_collective(mesh, dev, sizes["olmo"], FTTQConfig())
+        save()
+        dist.barrier(group=pair)
+        report["fanin"] = _md_fanin(dev, mesh_data)
+        save()
+        dist.barrier(group=pair)
+        report["moe"] = _md_moe(dev, mesh_ep, sizes["moe"])
+        save()
+        dist.barrier(group=pair)
+        report["train"] = _md_train(mesh, dev, sizes["train"], sizes["batch"], sizes["seq"],
+                                    sizes["steps"])
+        save()
+        dist.barrier(group=pair)
+    if "tensor_parallel" in parts:
+        report["tensor_parallel"] = tensor_parallel_rank(rank, dev, FTTQConfig(), sizes, pair,
+                                                         tp_mesh, pods_mesh, out_dir)
     report["rank_s"] = time.perf_counter() - t0
     save()
     dist.destroy_process_group()
 
 
 def multidevice_phase(device: str = "cuda:0", olmo_cfg=None, moe_cfg=None, train_cfg=None,
-                      batch: int = MD_BATCH, seq: int = MD_SEQ, steps: int = MD_STEPS) -> dict:
-    """Two ranks spawned on the one card over gloo (a file rendezvous in a
-    temporary directory), in one spawn: (a) the collective at full width,
-    (c) the client-sharded fan-in, (d) the expert-parallel MoE, (b)
-    compressed multi-pod training. A rank that fails or does not finish in
-    time fails the phase; both processes are stopped."""
+                      batch: int = MD_BATCH, seq: int = MD_SEQ, steps: int = MD_STEPS,
+                      tp_cfg=None, tp_pods_cfg=None,
+                      parts: tuple = ("collective", "tensor_parallel")) -> dict:
+    """Ranks spawned on the one card over gloo (a file rendezvous in a
+    temporary directory), in one spawn: on two of them (a) the collective at
+    full width, (c) the client-sharded fan-in, (d) the expert-parallel MoE,
+    (b) compressed multi-pod training, then the tensor_parallel phase on the
+    two (its (a)-(c)) and on four (its (d), pods x model). ``parts`` names
+    the halves to run. A rank that fails or does not finish in time fails
+    the phase; every process is stopped."""
     import multiprocessing as mp
     import tempfile
 
@@ -3770,12 +4446,17 @@ def multidevice_phase(device: str = "cuda:0", olmo_cfg=None, moe_cfg=None, train
                                           capacity_factor=16.0, mesh_batch_axes=("data",),
                                           mesh_ep_axis="model"),
              "train": train_cfg or get_config("olmo-1b", n_layers=MD_TRAIN_LAYERS),
-             "batch": batch, "seq": seq, "steps": steps}
+             "tp": tp_cfg or get_config("olmo-1b"),
+             "tp_pods": tp_pods_cfg or get_config("olmo-1b", n_layers=TP_PODS_LAYERS),
+             "batch": batch, "seq": seq, "steps": steps, "parts": tuple(parts)}
+    world = MD_WORLD if "tensor_parallel" in parts else MD_RANKS
     ctx = mp.get_context("spawn")
-    with tempfile.TemporaryDirectory() as tmp:
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    # the ranks write two olmo-1b checkpoints there: keep them in the checkout's build/
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         procs = [ctx.Process(target=multidevice_rank,
-                             args=(r, MD_RANKS, os.path.join(tmp, "rdv"), tmp, device, sizes))
-                 for r in range(MD_RANKS)]
+                             args=(r, world, os.path.join(tmp, "rdv"), tmp, device, sizes))
+                 for r in range(world)]
         t0 = time.perf_counter()
         for p in procs:
             p.start()
@@ -3790,7 +4471,7 @@ def multidevice_phase(device: str = "cuda:0", olmo_cfg=None, moe_cfg=None, train
                     p.kill()
                     p.join()
         reports = []
-        for r in range(MD_RANKS):
+        for r in range(world):
             path = os.path.join(tmp, f"rank{r}.json")
             if os.path.exists(path):
                 with open(path) as f:
@@ -3801,13 +4482,17 @@ def multidevice_phase(device: str = "cuda:0", olmo_cfg=None, moe_cfg=None, train
     wall_s = time.perf_counter() - t0
     return {"reports": reports, "wall_s": wall_s, "sizes": {
         "olmo_layers": sizes["olmo"].n_layers, "train_layers": sizes["train"].n_layers,
-        "moe_layers": sizes["moe"].n_layers, "batch": batch, "seq": seq, "steps": steps}}
+        "moe_layers": sizes["moe"].n_layers, "tp_layers": sizes["tp"].n_layers,
+        "tp_pods_layers": sizes["tp_pods"].n_layers, "batch": batch, "seq": seq,
+        "steps": steps, "world": world}}
 
 
 def multidevice_checks(md: dict) -> None:
     """Print the multidevice phase's numbers and hold them to the contract."""
     reports = md["reports"]
     for rep in reports:
+        if "collective" not in rep:
+            continue
         r, c = rep["rank"], rep["collective"]
         print(f"rank {r} ({rep['device']}), (a) ternary_allreduce_tree over {c['elements']} "
               f"elements ({c['compressed_elements']} compressed in {c['compressed_leaves']} "
@@ -3819,6 +4504,11 @@ def multidevice_checks(md: dict) -> None:
               f"fp32 all-reduce {c['exact_wall_ms']:.1f} ms, {json.dumps(c['exact_wire'])}; "
               f"code flips {c['code_flips']} ({c['proven_ties']} proven ties at Δ), mean rel "
               f"gap {c['mean_rel_gap']:.3e}, residual rel gap {c['residual_rel_gap']:.3e}")
+        for name, q in c.get("quantize_pack_alone", {}).items():
+            print(f"rank {r}, (a) the collective's quantize_pack launch alone, {name} leaves "
+                  f"({q['segments']} segments, {q['elements']} elements): {q['ms']:.4f} ms "
+                  f"eager, plain {q['plain_ms']:.4f} ms, bound {q['bound_ms']:.4f} ms "
+                  f"({q['bound_by']})")
         check(c["launches"]["quantize_pack"] == 1,
               "the collective launched quantize_pack other than once per rank")
         check(c["launches"]["aggregate"] == 2, "the collective launched aggregate other than "
@@ -3877,9 +4567,11 @@ def multidevice_checks(md: dict) -> None:
             f = tr["fault"]
             check(f["loss_rel_gap"] > MD_LOSS_RTOL and f["param_rel_l2"] > MD_PARAM_RTOL_L2,
                   "a limit of the multi-pod checks does not catch the planted fault")
-    check([s["loss"] for s in reports[0]["train"]["compressed"]["steps"]]
-          == [s["loss"] for s in reports[1]["train"]["compressed"]["steps"]],
-          "the two pods logged different losses")
+    if "collective" in reports[0]:
+        check([s["loss"] for s in reports[0]["train"]["compressed"]["steps"]]
+              == [s["loss"] for s in reports[1]["train"]["compressed"]["steps"]],
+              "the two pods logged different losses")
+    tensor_parallel_checks(reports)
     print(f"multidevice phase: {md['wall_s']:.1f} s")
 
 
@@ -4190,11 +4882,23 @@ def main() -> int:
     phase("multidevice: two ranks on the card over gloo (a) ternary_allreduce_tree over "
           "olmo-1b's gradient tree, (c) the sharded fan-in, (d) the a2a MoE on qwen3-moe 2 of "
           f"48 layers, (b) compressed and exact 2-pod training of olmo-1b {MD_TRAIN_LAYERS} of "
-          "16 layers")
+          "16 layers; then tensor_parallel: (a) olmo-1b 16 of 16 layers trained over 2 model "
+          "ranks vs one process and a planted fault, (b) its ternary save, (c) prefill and "
+          f"decode; (d) pods x model on 4 ranks, olmo-1b {TP_PODS_LAYERS} of 16 layers")
     _free()
     md = multidevice_phase(f"cuda:{torch.cuda.current_device()}")
     multidevice_checks(md)
     md_reports = md["reports"]
+
+    def tp_launches(rep: dict, name: str) -> dict:
+        """A rank's launches of ``name`` on each tensor_parallel path."""
+        tp = rep["tensor_parallel"]
+        out = {"pods_model_collective": tp["pods_collective"]["launches"][name],
+               "pods_model_steps": [s["launches"][name] for s in tp["pods_train"]["steps"]]}
+        if "train" in tp:
+            out.update(train=tp["train"]["launches"][name],
+                       ternary_save=tp["train"]["save"]["launches"][name])
+        return out
 
     phase("federated: ResNet18* T-FedAvg sync rounds at full width")
     setup = federated_setup(dev)
@@ -4279,7 +4983,9 @@ def main() -> int:
          "multidevice_launches": {
              f"rank{r['rank']}": {"collective": r["collective"]["launches"]["quantize_pack"],
                                   "train_compressed": r["train"]["compressed"]["launches"][
-                                      "quantize_pack"]} for r in md_reports},
+                                      "quantize_pack"]} for r in md_reports if "collective" in r},
+         "tensor_parallel_launches": {
+             f"rank{r['rank']}": tp_launches(r, "quantize_pack") for r in md_reports},
          "multidevice": md},
         {"name": "ternary_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ternary_matmul.cu",
@@ -4319,7 +5025,9 @@ def main() -> int:
              f"rank{r['rank']}": {"collective": r["collective"]["launches"]["aggregate"],
                                   "fanin": r["fanin"]["launches"]["aggregate"],
                                   "train_compressed": r["train"]["compressed"]["launches"][
-                                      "aggregate"]} for r in md_reports},
+                                      "aggregate"]} for r in md_reports if "collective" in r},
+         "tensor_parallel_launches": {
+             f"rank{r['rank']}": tp_launches(r, "aggregate") for r in md_reports},
          "socket_launches": socket_launches("aggregate"), "socket": sock,
          "controller": {k: ctrl[k] for k in ("per_round", "wall_s", "bytes_by_kind",
                                              "blob_sizes", "fold_vs_cpu_elements",
@@ -4339,7 +5047,7 @@ def main() -> int:
          "launches": robust["launches"]["vote"], "max_abs_err": vote_err,
          "fleet_launches": fleet_launches("vote"), "socket_launches": socket_launches("vote"),
          "multidevice_launches": {f"rank{r['rank']}": r["fanin"]["launches"]["vote"]
-                                  for r in md_reports},
+                                  for r in md_reports if "fanin" in r},
          "ms": vote_t["round_ms"], "plain_ms": vote_t["round_plain_ms"],
          "bound_ms": vote_t["round_bound_ms"], "bound_by": vote_t["round_bound_by"],
          "library_ms": None, "eager_ms": vote_t["eager_ms"],

@@ -26,11 +26,19 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def params_from_jax(tree_of_numpy, device: str | torch.device = "cuda"):
+def params_from_jax(tree_of_numpy, device: str | torch.device = "cuda", *, mesh=None,
+                    specs=None):
     """A nested dict/list of numpy arrays → the same tree of tensors on
-    ``device`` (copied, so the result is writable)."""
+    ``device`` (copied, so the result is writable). With a ``mesh`` whose
+    "model" axis has size > 1 and the tree's ``specs``
+    (``parallel.sharding.param_specs``), this rank's model shards."""
     dev = resolve_device(device)
-    return tree_map(lambda a: _tensor(a).to(dev), tree_of_numpy)
+    tree = tree_map(lambda a: _tensor(a).to(dev), tree_of_numpy)
+    if mesh is None:
+        return tree
+    from repro_torch.parallel.tensor import shard_tree
+
+    return shard_tree(tree, specs, mesh)
 
 
 def train_state_from_jax(state_of_numpy, device: str | torch.device = "cuda"):

@@ -5,20 +5,27 @@
             chunked along the sequence
   decode  → one-token incremental step against a filled cache
 
-Single device; the dry-run that drives them over a mesh is not ported yet
-(ROADMAP).
+With a ``mesh`` whose "model" axis has size > 1 (tensor parallelism), every
+rank of it calls the step with the same batch and its params' shards
+(``init_params(..., mesh=)``); the cache holds the rank's kv heads, and the
+logits are all-gathered over the vocabulary, so each rank returns the
+reference's (B, 1, V). The dry-run that drives the steps over the
+reference's production mesh is not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
 
 from repro_torch.models import transformer as tfm
+from repro_torch.parallel.tensor import model_axis
 
 
-def make_prefill_step(cfg: tfm.ModelConfig, max_seq: int, chunks: int = 1):
+def make_prefill_step(cfg: tfm.ModelConfig, max_seq: int, chunks: int = 1, mesh=None):
     """f(params, batch) → (next-token logits (B, 1, V), cache), or (logits,
     None) for an encoder-only model. ``chunks`` > 1 runs the prompt through
     the cache in that many sequence chunks (chunked prefill), dividing peak
     activation memory by about ``chunks`` for one extra cache pass each."""
+    tfm.check_tensor_parallel(cfg, mesh.size("model") if mesh is not None else 1)
+    tp = model_axis(mesh)
 
     def prefill(params, batch):
         first = batch.get("tokens", batch.get("embeds"))
@@ -26,9 +33,9 @@ def make_prefill_step(cfg: tfm.ModelConfig, max_seq: int, chunks: int = 1):
         if not cfg.causal:
             logits, _, _ = tfm.forward(cfg, params, batch.get("tokens"),
                                        embeds=batch.get("embeds"),
-                                       vision_embeds=batch.get("vision_embeds"))
-            return logits, None
-        cache = tfm.init_cache(cfg, bsz, max_seq, cfg.cdtype(), device=first.device)
+                                       vision_embeds=batch.get("vision_embeds"), tp=tp)
+            return tfm.whole_logits(cfg, logits, tp), None
+        cache = tfm.init_cache(cfg, bsz, max_seq, cfg.cdtype(), device=first.device, mesh=mesh)
         n = max(1, min(chunks, seq))
         clen = seq // n
         logits = None
@@ -37,18 +44,22 @@ def make_prefill_step(cfg: tfm.ModelConfig, max_seq: int, chunks: int = 1):
             logits, cache, _ = tfm.forward(
                 cfg, params, batch["tokens"][:, sl] if "tokens" in batch else None,
                 embeds=batch["embeds"][:, sl] if "embeds" in batch else None,
-                vision_embeds=batch.get("vision_embeds"), cache=cache, pos=i * clen)
-        return logits[:, -1:], cache
+                vision_embeds=batch.get("vision_embeds"), cache=cache, pos=i * clen, tp=tp)
+        return tfm.whole_logits(cfg, logits[:, -1:], tp), cache
 
     return prefill
 
 
-def make_decode_step(cfg: tfm.ModelConfig):
+def make_decode_step(cfg: tfm.ModelConfig, mesh=None):
     """f(params, batch{tokens, cache, pos[, vision_embeds]}) → (logits,
     cache); the cache is written in place."""
+    tfm.check_tensor_parallel(cfg, mesh.size("model") if mesh is not None else 1)
+    tp = model_axis(mesh)
 
     def decode(params, batch):
-        return tfm.decode_step(cfg, params, batch["tokens"], batch["cache"], batch["pos"],
-                               vision_embeds=batch.get("vision_embeds"))
+        logits, cache = tfm.decode_step(cfg, params, batch["tokens"], batch["cache"],
+                                        batch["pos"], vision_embeds=batch.get("vision_embeds"),
+                                        tp=tp)
+        return tfm.whole_logits(cfg, logits, tp), cache
 
     return decode

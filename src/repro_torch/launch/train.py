@@ -7,19 +7,24 @@ with checkpoint and restart, on a synthetic token stream (port of
     torchrun --nproc-per-node 2 -m repro_torch.launch.train --pods 2 --preset 10m
     RANK=r WORLD_SIZE=2 python -m repro_torch.launch.train --pods 2 --backend gloo \
         --init-method file:///tmp/rdv --device cpu --preset 1m      # r = 0 and 1
+    RANK=r WORLD_SIZE=2 python -m repro_torch.launch.train --model 2 --backend gloo \
+        --init-method file:///tmp/rdv --device cpu --preset 1m      # r = 0 and 1
 
-With ``--pods N`` (N > 1) one process runs per rank under
-``torch.distributed``: the rendezvous is ``--init-method`` (``env://``, as
-``torchrun`` sets MASTER_ADDR, MASTER_PORT, RANK and WORLD_SIZE, or
-``file://<path>`` with RANK and WORLD_SIZE in the environment), the mesh
-is (N, WORLD_SIZE / N, 1) over ("pod", "data", "model"), every rank reads
-the same token stream and trains on its rows of each global batch, and the
-pods sync their gradients ternary-compressed with error feedback
-(``--no-pod-compression``: an exact mean; ``--no-error-feedback``). Rank r
-runs on ``cuda:{r % device_count}`` (or the CPU with ``--device cpu``); the
-backend is ``--backend`` (default nccl on cuda, gloo on the CPU; gloo also
-lets several ranks share one GPU). Rank 0 prints and writes checkpoints
-(with every pod's residuals gathered).
+With ``--pods N`` (N > 1) or ``--model M`` (M > 1) one process runs per
+rank under ``torch.distributed``: the rendezvous is ``--init-method``
+(``env://``, as ``torchrun`` sets MASTER_ADDR, MASTER_PORT, RANK and
+WORLD_SIZE, or ``file://<path>`` with RANK and WORLD_SIZE in the
+environment), the mesh is (N, WORLD_SIZE / (N · M), M) over ("pod",
+"data", "model"), every rank reads the same token stream and trains on its
+rows of each global batch, the pods sync their gradients
+ternary-compressed with error feedback (``--no-pod-compression``: an exact
+mean; ``--no-error-feedback``), and the "model" axis is tensor
+parallelism: each rank holds its shards of the params (dense, vlm and
+audio families). Rank r runs on ``cuda:{r % device_count}`` (or the CPU
+with ``--device cpu``); the backend is ``--backend`` (default nccl on
+cuda, gloo on the CPU; gloo also lets several ranks share one GPU). Rank 0
+prints and writes checkpoints (every pod's residuals and every model
+shard gathered: the one-device file).
 
 With ``--ckpt-dir`` a checkpoint (state, data cursor) is written every
 ``--ckpt-every`` steps; ``--resume`` restarts from the newest one and repeats
@@ -44,6 +49,7 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import AXES, make_mesh
 from repro_torch.models.transformer import ModelConfig, param_count
 from repro_torch.optim import adam, warmup_cosine_schedule
+from repro_torch.parallel.sharding import param_specs
 from repro_torch.train import (
     TrainerConfig, init_train_state, latest_step, make_train_step, restore_checkpoint,
     save_checkpoint,
@@ -82,6 +88,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--pods", type=int, default=1,
                     help="pods on the mesh's 'pod' axis; > 1 runs one process per rank")
+    ap.add_argument("--model", type=int, default=1,
+                    help="ranks on the mesh's 'model' axis (tensor parallelism); > 1 runs one "
+                         "process per rank")
     ap.add_argument("--pod-compression", action=argparse.BooleanOptionalAction, default=True,
                     help="ternary-compressed cross-pod gradient sync (else an exact mean)")
     ap.add_argument("--error-feedback", action=argparse.BooleanOptionalAction, default=True)
@@ -94,19 +103,22 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _distributed(args):
     """(rank, mesh, device) of this process: one rank and no mesh for one
-    pod, else the process group and the (pods, data, 1) mesh."""
-    if args.pods <= 1:
+    pod and one model rank, else the process group and the (pods, data,
+    model) mesh."""
+    if args.pods <= 1 and args.model <= 1:
         return 0, None, resolve_device(args.device)
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
-    if world % args.pods:
-        raise SystemExit(f"--pods {args.pods} does not divide WORLD_SIZE {world}")
+    if world % (args.pods * args.model):
+        raise SystemExit(f"--pods {args.pods} x --model {args.model} does not divide "
+                         f"WORLD_SIZE {world}")
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         dev = resolve_device(f"cuda:{rank % torch.cuda.device_count()}")
     backend = args.backend or ("nccl" if dev.type == "cuda" else "gloo")
     dist.init_process_group(backend, init_method=args.init_method, rank=rank,
                             world_size=world)
-    mesh = make_mesh((args.pods, world // args.pods, 1), AXES, device=dev)
+    mesh = make_mesh((args.pods, world // (args.pods * args.model), args.model), AXES,
+                     device=dev)
     return rank, mesh, dev
 
 
@@ -122,14 +134,19 @@ def main(argv=None) -> float:
         cfg = ModelConfig(**PRESETS[args.preset])
     say(f"model={cfg.name} params={param_count(cfg) / 1e6:.1f}M "
         f"qat={not args.no_qat}" + (f" pods={args.pods} ranks={mesh.n_devices} "
-                                    f"compression={args.pod_compression}" if mesh else ""))
+                                    f"model={args.model} "
+                                    f"compression={args.pod_compression and args.pods > 1}"
+                                    if mesh else ""))
 
-    tcfg = TrainerConfig(qat=not args.no_qat, pod_compression=args.pod_compression,
+    # one pod has no cross-pod sync to compress (the mesh's "pod" axis is 1)
+    tcfg = TrainerConfig(qat=not args.no_qat,
+                         pod_compression=args.pod_compression and args.pods > 1,
                          error_feedback=args.error_feedback, microbatches=args.microbatches)
     optimizer = adam(warmup_cosine_schedule(args.lr, 20, args.steps))
     state = init_train_state(cfg, tcfg, optimizer, seed=0, device=dev, n_pods=args.pods,
                              mesh=mesh)
     step_fn = make_train_step(cfg, tcfg, optimizer, mesh=mesh)
+    specs = param_specs(cfg, mesh) if mesh else None
 
     toks = synthetic_tokens(DATA_SEED, max(args.batch * (args.seq + 1) * 64, 200_000),
                             vocab=cfg.vocab_size)
@@ -137,7 +154,8 @@ def main(argv=None) -> float:
     start = 0
     if args.resume and args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
         example = gather_residuals(state, mesh) if mesh else state
-        state, meta = restore_checkpoint(args.ckpt_dir, example_state=example, device=dev)
+        state, meta = restore_checkpoint(args.ckpt_dir, example_state=example, device=dev,
+                                         mesh=mesh, specs=specs)
         cursor = meta.get("data_cursor", 0)
         start = meta["step"]
         say(f"resumed from step {start} (cursor={cursor})")
@@ -157,8 +175,8 @@ def main(argv=None) -> float:
             t0 = time.time()
         if args.ckpt_dir and (i + 1) % args.ckpt_every == 0:
             snap = gather_residuals(state, mesh) if mesh else state
-            if rank == 0:
-                save_checkpoint(args.ckpt_dir, i + 1, snap, metadata={"data_cursor": cursor})
+            save_checkpoint(args.ckpt_dir, i + 1, snap, metadata={"data_cursor": cursor},
+                            mesh=mesh, specs=specs)
             if mesh:
                 dist.barrier()
     final = float(metrics["loss"]) if metrics is not None else float("nan")

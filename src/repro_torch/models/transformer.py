@@ -21,6 +21,14 @@ norms; ``cross`` (vlm) and ``shared_attn`` (hybrid); ``final_norm`` and
 ``lm_head`` unless embeddings are tied. ``forward`` walks the stacked
 layers with a Python loop where the reference scans, and writes a given
 cache in place.
+
+Tensor parallelism (``tp``, a ``parallel.tensor.ModelAxis``; the dense, vlm
+and audio families): the params are this rank's shards
+(``init_params(..., mesh=)``); attention and the MLP are column- then
+row-parallel; ``embed/table`` is split by vocab rows, so the lookup reads
+the rank's rows (zero for ids it does not hold) and sums over the axis, and
+the logits (tied or ``lm_head``) are the rank's vocab columns, which
+``loss_fn`` reduces with a vocab-parallel cross entropy.
 """
 
 from __future__ import annotations
@@ -40,18 +48,22 @@ from repro_torch.device import resolve_device
 from repro_torch.dtypes import torch_dtype
 from repro_torch.kernels.repack import PackedTernary
 from repro_torch.models import mamba2 as mb
-from repro_torch.models.attention import GLOBAL_WINDOW, attention, init_attn
+from repro_torch.models.attention import GLOBAL_WINDOW, attention, head_layout, init_attn
 from repro_torch.models.common import apply_norm, dense_init, embed_init, matmul
 from repro_torch.models.mlp import init_mlp, mlp
 from repro_torch.models.moe import init_moe, moe
 from repro_torch.models.moe_a2a import moe_a2a
 from repro_torch.parallel.collectives import current_mesh
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.parallel.tensor import (
+    copy_to_model, gather_from_model, model_axis, reduce_from_model, vocab_parallel_ce,
+)
+from repro_torch.tree import path_str, tree_leaves, tree_map, tree_map_with_path
 
 Pytree = Any
 BIG_WINDOW = GLOBAL_WINDOW
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 _ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
+TP_FAMILIES = ("dense", "vlm", "audio")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,6 +152,20 @@ def _check_family(cfg: ModelConfig) -> None:
         raise ValueError(f"unknown family {cfg.family!r}")
 
 
+def check_tensor_parallel(cfg: ModelConfig, n_model: int) -> None:
+    """Raise for a "model" axis of ``n_model`` > 1 ranks on a family
+    without tensor parallelism."""
+    if n_model > 1 and cfg.family not in TP_FAMILIES:
+        raise NotImplementedError(
+            f"tensor parallelism over a 'model' axis of {n_model} is not ported for the "
+            f"{cfg.family} family ({cfg.name}): ROADMAP Queue 1, item 14b-ii")
+
+
+def _vocab_tp(cfg: ModelConfig, tp):
+    """``tp`` where the guard splits the vocabulary over it, else None."""
+    return tp if tp is not None and cfg.vocab_size % tp.size == 0 else None
+
+
 # --------------------------------------------------------------------------
 # Per-layer static patterns.
 # --------------------------------------------------------------------------
@@ -216,8 +242,14 @@ def _with_norms(cfg: ModelConfig, block: dict, lead: tuple, names) -> dict:
     return block
 
 
-def param_shapes(cfg: ModelConfig) -> dict:
-    """The parameter tree's shapes, without allocating it."""
+def param_shapes(cfg: ModelConfig, mesh=None) -> dict:
+    """The parameter tree's shapes, without allocating it; with a ``mesh``
+    whose "model" axis has size > 1, the shapes of this rank's shards."""
+    if model_axis(mesh) is not None:
+        from repro_torch.parallel.tensor import local_shape
+
+        return tree_map_with_path(lambda p, shape: local_shape(path_str(p), shape, mesh),
+                                  param_shapes(cfg), is_leaf=lambda x: isinstance(x, tuple))
     _check_family(cfg)
     l = (cfg.n_layers,)
     shapes: dict = {"embed": {"table": (cfg.vocab_size, cfg.d_model)}}
@@ -262,11 +294,20 @@ def _add_norms(cfg: ModelConfig, block: dict, lead: tuple, names, dtype, dev) ->
     return block
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "cuda") -> Pytree:
+def init_params(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "cuda",
+                mesh=None) -> Pytree:
     """Random parameters drawn from a ``torch.Generator`` seeded with
     ``seed`` on ``device``: embeddings N(0, 0.02²), matrices Lecun-normal,
     norm scales and cross-attention gates zero, the SSM's a_log and dt_bias
-    zero and d_skip one (the reference's initializers, not its bits)."""
+    zero and d_skip one (the reference's initializers, not its bits). With
+    a ``mesh`` whose "model" axis has size > 1, this rank's shards of the
+    same draws (``param_shapes(cfg, mesh)``)."""
+    if model_axis(mesh) is not None:
+        from repro_torch.parallel.sharding import param_specs
+        from repro_torch.parallel.tensor import shard_tree
+
+        check_tensor_parallel(cfg, mesh.size("model"))
+        return shard_tree(init_params(cfg, seed, device), param_specs(cfg, mesh), mesh)
     dev = resolve_device(device)
     _check_family(cfg)
     dtype = cfg.pdtype()
@@ -310,18 +351,23 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "c
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
-               device: str | torch.device = "cuda") -> Pytree:
+               device: str | torch.device = "cuda", mesh=None) -> Pytree:
     """Decode cache; its structure depends on the family: stacked
     (L, B, S_max, Hkv, hd) keys and values for attention layers, (L, B,
     W-1, C) conv windows and (L, B, H, P, N) float32 SSD states for Mamba
-    layers, and (A, B, S_max, Hkv, hd) per shared-attention application."""
+    layers, and (A, B, S_max, Hkv, hd) per shared-attention application.
+    With a ``mesh`` whose "model" axis has size > 1, Hkv is this rank's kv
+    heads (``attention.head_layout``)."""
     dev = resolve_device(device)
     _check_family(cfg)
+    check_tensor_parallel(cfg, mesh.size("model") if mesh is not None else 1)
+    tp = model_axis(mesh)
     dtype = dtype or cfg.cdtype()
     hd, nl = cfg.resolved_head_dim, cfg.n_layers
     cache: dict = {}
     if cfg.family in _ATTN_FAMILIES:
-        shape = (nl, batch, max_seq, cfg.n_kv_heads, hd)
+        n_kv = head_layout(cfg.n_heads, cfg.n_kv_heads, hd, tp).n_kv
+        shape = (nl, batch, max_seq, n_kv, hd)
         cache["k"] = _zeros(shape, dtype, dev)
         cache["v"] = _zeros(shape, dtype, dev)
     else:
@@ -354,11 +400,16 @@ def _attn_kwargs(cfg: ModelConfig) -> dict:
                 use_rope=cfg.use_rope, causal=cfg.causal)
 
 
-def _dense_layer(cfg: ModelConfig, bp: dict, x, window: int, kv, pos: int):
+def _mlp_tp(cfg: ModelConfig, tp):
+    """``tp`` where the guard splits the MLP's hidden units over it."""
+    return tp if tp is not None and cfg.d_ff % tp.size == 0 else None
+
+
+def _dense_layer(cfg: ModelConfig, bp: dict, x, window: int, kv, pos: int, tp=None):
     """One dense/moe/vlm/audio layer; kv = (k, v) cache slices or None.
     Returns (x, aux) with aux the MoE loss (0 for the other families)."""
     h = apply_norm(x, bp.get("attn_norm"), cfg.norm)
-    attn_out, _ = attention(bp["attn"], h, window=window, cache=kv, pos=pos,
+    attn_out, _ = attention(bp["attn"], h, window=window, cache=kv, pos=pos, tp=tp,
                             **_attn_kwargs(cfg))
     x = x + attn_out
     h = apply_norm(x, bp.get("mlp_norm"), cfg.norm)
@@ -375,15 +426,16 @@ def _dense_layer(cfg: ModelConfig, bp: dict, x, window: int, kv, pos: int):
             mo, aux = moe(bp["moe"], h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
                           activation=cfg.activation)
         return x + mo, aux
-    return x + mlp(bp["mlp"], h, cfg.activation), None
+    return x + mlp(bp["mlp"], h, cfg.activation, _mlp_tp(cfg, tp)), None
 
 
-def _cross_layer(cfg: ModelConfig, cp: dict, x, vision):
+def _cross_layer(cfg: ModelConfig, cp: dict, x, vision, tp=None):
     h = apply_norm(x, cp.get("attn_norm"), cfg.norm)
-    co, _ = attention(cp["attn"], h, kv_source=vision, **_attn_kwargs(cfg))
+    co, _ = attention(cp["attn"], h, kv_source=vision, tp=tp, **_attn_kwargs(cfg))
     x = x + torch.tanh(cp["gate_attn"]) * co
     h = apply_norm(x, cp.get("mlp_norm"), cfg.norm)
-    return x + torch.tanh(cp["gate_mlp"]) * mlp(cp["mlp"], h, cfg.activation)
+    return x + torch.tanh(cp["gate_mlp"]) * mlp(cp["mlp"], h, cfg.activation,
+                                                _mlp_tp(cfg, tp))
 
 
 def _shared_attn_layer(cfg: ModelConfig, sp: dict, x, kv, pos: int):
@@ -440,16 +492,34 @@ def _remat(cfg: ModelConfig, cache, fn, *args):
 # --------------------------------------------------------------------------
 
 
+def _embed(cfg: ModelConfig, table: torch.Tensor, tokens: torch.Tensor, tp) -> torch.Tensor:
+    vtp = _vocab_tp(cfg, tp)
+    if vtp is None:
+        return table[tokens].to(cfg.cdtype())
+    lo, hi = vtp.share(cfg.vocab_size)
+    own = (tokens >= lo) & (tokens < hi)
+    rows = table[torch.where(own, tokens - lo, 0)].to(cfg.cdtype())
+    return reduce_from_model(torch.where(own[..., None], rows, 0), vtp)
+
+
 def forward(cfg: ModelConfig, params: Pytree, tokens: torch.Tensor | None = None, *,
             embeds: torch.Tensor | None = None,
             vision_embeds: torch.Tensor | None = None,
-            cache: Pytree | None = None, pos: int = 0):
+            cache: Pytree | None = None, pos: int = 0, tp=None):
     """Returns (logits (B, S, V) in the compute dtype, cache or None, aux
     loss: the MoE layers' sum, a float32 scalar). With a cache, each layer's
-    keys, values and SSM states are written into it in place."""
+    keys, values and SSM states are written into it in place. Under ``tp``
+    (params and cache this rank's shards) the logits are this rank's vocab
+    columns (B, S, V / size) where the guard splits the vocabulary."""
     _check_family(cfg)
+    check_tensor_parallel(cfg, tp.size if tp is not None else 1)
+    if tp is not None and any(isinstance(w, PackedTernary) for w in tree_leaves(
+            params, is_leaf=lambda x: isinstance(x, PackedTernary))):
+        raise NotImplementedError("packed ternary weights under tensor parallelism: the "
+                                  "reference runs no kernel on a sharded operand")
     cdt = cfg.cdtype()
-    x = embeds.to(cdt) if embeds is not None else params["embed"]["table"][tokens].to(cdt)
+    x = embeds.to(cdt) if embeds is not None else _embed(cfg, params["embed"]["table"],
+                                                         tokens, tp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     blocks = params["blocks"]
 
@@ -466,9 +536,9 @@ def forward(cfg: ModelConfig, params: Pytree, tokens: torch.Tensor | None = None
 
             # one remat unit per layer: the layer and the cross layer after it
             def body(x, bp, cp, kv=kv, window=window):
-                x, layer_aux = _dense_layer(cfg, bp, x, window, kv, pos)
+                x, layer_aux = _dense_layer(cfg, bp, x, window, kv, pos, tp)
                 if cp is not None:
-                    x = _cross_layer(cfg, cp, x, vis)
+                    x = _cross_layer(cfg, cp, x, vis, tp)
                 return x, layer_aux
 
             x, layer_aux = _remat(cfg, cache, body, x, _layer(blocks, i), cp)
@@ -502,6 +572,9 @@ def forward(cfg: ModelConfig, params: Pytree, tokens: torch.Tensor | None = None
                 cache["ssd"][i] = new_states["ssd"]
 
     x = apply_norm(x, params.get("final_norm"), cfg.norm)
+    vtp = _vocab_tp(cfg, tp)
+    if vtp is not None:
+        x = copy_to_model(x, vtp)
     if cfg.tie_embeddings:
         logits = x @ params["embed"]["table"].T.to(cdt)
     else:
@@ -509,23 +582,37 @@ def forward(cfg: ModelConfig, params: Pytree, tokens: torch.Tensor | None = None
     return logits, cache, aux
 
 
+def whole_logits(cfg: ModelConfig, logits: torch.Tensor, tp) -> torch.Tensor:
+    """(..., V) logits from this rank's vocab columns under ``tp``
+    (all-gathered), or ``logits`` themselves where the vocabulary is whole."""
+    vtp = _vocab_tp(cfg, tp)
+    return logits if vtp is None else gather_from_model(logits, vtp, -1)
+
+
 def decode_step(cfg: ModelConfig, params: Pytree, tokens: torch.Tensor,
-                cache: Pytree, pos: int, *, vision_embeds: torch.Tensor | None = None):
+                cache: Pytree, pos: int, *, vision_embeds: torch.Tensor | None = None,
+                tp=None):
     """One-token incremental decode. tokens: (B, 1); pos: cache fill."""
     logits, cache, _ = forward(cfg, params, tokens, vision_embeds=vision_embeds,
-                               cache=cache, pos=pos)
+                               cache=cache, pos=pos, tp=tp)
     return logits, cache
 
 
-def loss_fn(cfg: ModelConfig, params: Pytree, batch: dict):
+def loss_fn(cfg: ModelConfig, params: Pytree, batch: dict, tp=None):
     """Mean next-token (or per-frame) cross entropy, from an fp32 log-softmax
     of the logits, plus ``aux_loss_coef`` × the MoE aux loss. ``batch`` holds
     ``labels`` and ``tokens`` or ``embeds`` (audio), and ``vision_embeds``
-    for the vlm. Returns (loss, {"ce", "aux"})."""
+    for the vlm. Under ``tp`` with the vocabulary split, the cross entropy
+    is vocab-parallel (``parallel.tensor.vocab_parallel_ce``): no rank
+    holds the whole (B, S, V) logits. Returns (loss, {"ce", "aux"})."""
     logits, _, aux = forward(cfg, params, batch.get("tokens"), embeds=batch.get("embeds"),
-                             vision_embeds=batch.get("vision_embeds"))
+                             vision_embeds=batch.get("vision_embeds"), tp=tp)
     labels = batch["labels"].to(torch.int64)
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    ll = torch.gather(logp, -1, labels[..., None])[..., 0]
-    ce = -torch.mean(ll)
+    vtp = _vocab_tp(cfg, tp)
+    if vtp is not None:
+        ce = torch.mean(vocab_parallel_ce(logits.to(torch.float32), labels, vtp))
+    else:
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+        ce = -torch.mean(ll)
     return ce + cfg.aux_loss_coef * aux, {"ce": ce, "aux": aux}

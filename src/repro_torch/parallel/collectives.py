@@ -46,6 +46,17 @@ counts, a model of the traffic (``gloo`` may move other amounts).
 reads without being handed it (the a2a MoE layer finds its expert-parallel
 and batch subgroups there), as the reference's ``compat.set_mesh`` does.
 
+Under tensor parallelism each rank holds a shard of some leaves (``tp``, a
+``parallel.tensor.ModelAxis``, and ``dims``, each leaf's "model" dim) and
+the pods' ranks of one model index sync the same shards. The scalars stay
+the whole leaf's, as in the reference (its ``jnp.max``/``jnp.mean`` run on
+the GSPMD-sharded leaf): max|x| and Σ|x| are all-reduced over the "model"
+subgroup (MAX, SUM) before the one quantize_pack launch writes them into
+the segment table, and each leaf's w_q is its shards' kernel moments summed
+over the subgroup after it. The compressed-leaf policy reads the whole
+leaf's shape. The launches per rank stay one quantize_pack and two
+aggregate.
+
 ``ternary_allreduce_tree_plain`` is the plain PyTorch version of the whole
 collective, the reference's arithmetic step by step with no kernel;
 ``pods_mean_plain`` is the same over a list of per-pod trees in one process.
@@ -62,7 +73,7 @@ import torch.distributed as dist
 
 from repro_torch.core.fttq import FTTQConfig, is_quantizable
 from repro_torch.kernels.aggregate import fanin_table, packed_weighted_sum_segments
-from repro_torch.kernels.quantize_pack import quantize_pack_segments, segment_layout
+from repro_torch.kernels.quantize_pack import n_tiles, quantize_pack_segments, segment_layout
 from repro_torch.tree import flatten_with_path, tree_leaves, tree_map
 
 Pytree = Any
@@ -128,13 +139,17 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return h.copy_(t)
 
 
-def all_reduce_(t: torch.Tensor, group, *, mean: bool = False) -> torch.Tensor:
-    """In-place sum (or mean) of ``t`` over ``group``."""
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce_(t: torch.Tensor, group, *, mean: bool = False, op: str = "sum") -> torch.Tensor:
+    """In-place sum (or mean, or with ``op="max"`` maximum) of ``t`` over
+    ``group``."""
     p = group_size(group)
     if p == 1:
         return t
     buf = _host(t) if _staged(t, group) else t
-    dist.all_reduce(buf, group=group)
+    dist.all_reduce(buf, group=group, op=_OPS[op])
     if buf is not t:
         t.copy_(buf)
     _WIRE["all_reduce"] += 2 * (p - 1) * t.numel() * t.element_size() // p
@@ -185,20 +200,48 @@ def _restage(gathered: torch.Tensor, offsets: Sequence[int], nbytes: Sequence[in
     return staged
 
 
-def _compressed_mean(xs: Sequence[torch.Tensor], group, t_k: float, recon: bool):
+def _shard_sums(parts: list, at: list, tp, op: str) -> None:
+    """``parts[i]`` for i in ``at`` reduced over the model subgroup, in one
+    all-reduce."""
+    if at:
+        red = all_reduce_(torch.stack([parts[i] for i in at]), tp.group, op=op)
+        for k, i in enumerate(at):
+            parts[i] = red[k]
+
+
+def collective_scalars(flat: Sequence[torch.Tensor], t_k: float, tp=None,
+                 sharded: Sequence[bool] = ()) -> torch.Tensor:
+    """The (S, 2) segment table rows (denom = max|x| + 1e-12, Δ = T_k ·
+    mean|x| / denom) of flat fp32 tensors, each a whole leaf or (where
+    ``sharded``) a model shard whose max and Σ|x| are all-reduced first."""
+    at = [i for i, s in enumerate(sharded) if s] if tp is not None else []
+    mx = [torch.linalg.vector_norm(f, float("inf")) for f in flat]
+    l1 = [torch.linalg.vector_norm(f, 1) for f in flat]
+    _shard_sums(mx, at, tp, "max")
+    _shard_sums(l1, at, tp, "sum")
+    n = [f.numel() * (tp.size if i in at else 1) for i, f in enumerate(flat)]
+    mx = torch.stack(mx) + 1e-12
+    mean_abs = torch.stack([a / k for a, k in zip(l1, n)])
+    return torch.stack([mx, t_k * mean_abs / mx], dim=1).contiguous()
+
+
+def _compressed_mean(xs: Sequence[torch.Tensor], group, t_k: float, recon: bool, tp=None,
+                     sharded: Sequence[bool] = ()):
     """The mean over ``group`` of the ternary codes of every fp32 tensor in
     ``xs`` (each one segment; numel a multiple of 4): one quantize_pack
     launch, one all-gather of the bytes and of the w_q, one aggregate
-    launch. Returns (means, reconstructions w_q·I_t or None), fp32 tensors
-    shaped as ``xs``."""
+    launch. Where ``sharded``, a tensor is a model shard (``tp``) and its
+    (denom, Δ) and w_q are its whole leaf's. Returns (means,
+    reconstructions w_q·I_t or None), fp32 tensors shaped as ``xs``."""
     flat = [x.reshape(-1) for x in xs]
-    mx = torch.stack([torch.linalg.vector_norm(f, float("inf")) for f in flat]) + 1e-12
-    mean_abs = torch.stack([torch.linalg.vector_norm(f, 1) / f.numel() for f in flat])
-    scal = torch.stack([mx, t_k * mean_abs / mx], dim=1).contiguous()
-    packed, _, wq = quantize_pack_segments(flat, scal, with_scales=True)
+    scal = collective_scalars(flat, t_k, tp, sharded)
+    packed, moments, wq = quantize_pack_segments(flat, scal, with_scales=True)
 
     sizes = [f.numel() for f in flat]
     lay = segment_layout(sizes)
+    at = [i for i, s in enumerate(sharded) if s] if tp is not None else []
+    if at:
+        wq = _shard_scales(wq, moments, scal, lay, at, tp)
     nbytes = [n // 4 for n in sizes]
     table = fanin_table(nbytes, sizes, packed.device)
     gathered = all_gather(packed, group)
@@ -213,6 +256,20 @@ def _compressed_mean(xs: Sequence[torch.Tensor], group, t_k: float, recon: bool)
     me = group_rank(group)
     own = packed_weighted_sum_segments(staged[me:me + 1], wq[None], table)
     return means, [own[o:o + n].view(x.shape) for o, n, x in zip(table.out_offsets, sizes, xs)]
+
+
+def _shard_scales(wq, moments, scal, lay, at: list, tp) -> torch.Tensor:
+    """``wq`` with the scales of the segments ``at`` (model shards) made
+    from their kernel moments summed over the model subgroup (Σ|x/denom|
+    and the selected count, in fp64 so the count stays exact)."""
+    part = torch.stack([torch.stack([moments[t:t + n_tiles(n), 0].sum().to(torch.float64),
+                                     moments[t:t + n_tiles(n), 1].sum().to(torch.float64)])
+                        for t, n in ((lay.tile_starts[i], lay.sizes[i]) for i in at)])
+    all_reduce_(part, tp.group)
+    wq = wq.clone()
+    num, cnt = part.to(torch.float32).unbind(1)
+    wq[at] = num / (cnt + 1e-8) * scal[at, 0]
+    return wq
 
 
 def ternary_allreduce(x: torch.Tensor, group, *, t_k: float = 0.7,
@@ -230,25 +287,42 @@ def ternary_allreduce(x: torch.Tensor, group, *, t_k: float = 0.7,
     return mean.to(x.dtype), new_residual
 
 
-def compressed_leaf(path, leaf, cfg: FTTQConfig) -> bool:
+def compressed_leaf(path, leaf, cfg: FTTQConfig, last_dim: int | None = None) -> bool:
     """Whether the tree form compresses this leaf: the FTTQ policy's
-    ``is_quantizable`` and a last dim that is a multiple of 4."""
-    return is_quantizable(path, leaf, cfg) and leaf.ndim > 0 and leaf.shape[-1] % 4 == 0
+    ``is_quantizable`` and a last dim (the whole leaf's, ``last_dim``, for a
+    model shard) that is a multiple of 4."""
+    last = last_dim if last_dim is not None else (leaf.shape[-1] if leaf.ndim else 0)
+    return is_quantizable(path, leaf, cfg) and leaf.ndim > 0 and last % 4 == 0
+
+
+def _model_dims(items, tp, dims) -> list:
+    """Each item's "model" dim (None: whole, or no tensor parallelism)."""
+    by_path = dict(flatten_with_path(dims)) if tp is not None and dims is not None else {}
+    return [by_path.get(path) for path, _ in items]
+
+
+def _whole_last(leaf, d, tp) -> int | None:
+    return None if d is None else leaf.shape[-1] * (tp.size if d == leaf.ndim - 1 else 1)
 
 
 def ternary_allreduce_tree(grads: Pytree, group, *, cfg: FTTQConfig | None = None,
-                           residuals: Pytree | None = None, error_feedback: bool = True):
+                           residuals: Pytree | None = None, error_feedback: bool = True,
+                           tp=None, dims: Pytree | None = None):
     """``ternary_allreduce`` leaf-wise over a gradient tree: quantizable
     leaves whose last dim is a multiple of 4 take the compressed path (all
     of them in one quantize_pack and one aggregate launch), the rest an
-    exact mean (one all-reduce). Returns (synced grads, new residuals):
-    zeros where a leaf has none, as the reference returns them."""
+    exact mean (one all-reduce). Under tensor parallelism the leaves that
+    ``dims`` marks are this rank's shards over ``tp``, quantized with their
+    whole leaf's scalars. Returns (synced grads, new residuals): zeros
+    where a leaf has none, as the reference returns them."""
     cfg = cfg or FTTQConfig()
     items = flatten_with_path(grads)
+    mdims = _model_dims(items, tp, dims)
     res = tree_leaves(residuals) if residuals is not None else [None] * len(items)
     out: list = [None] * len(items)
     new_res: list = [None] * len(items)
-    comp = [i for i, (path, leaf) in enumerate(items) if compressed_leaf(path, leaf, cfg)]
+    comp = [i for i, (path, leaf) in enumerate(items)
+            if compressed_leaf(path, leaf, cfg, _whole_last(leaf, mdims[i], tp))]
     exact = sorted(set(range(len(items))) - set(comp))
 
     if comp:
@@ -260,7 +334,8 @@ def ternary_allreduce_tree(grads: Pytree, group, *, cfg: FTTQConfig | None = Non
                 if error_feedback else None)
             xf = leaf.to(torch.float32)
             xfs.append((xf + r if r is not None else xf).contiguous())
-        means, recons = _compressed_mean(xfs, group, cfg.t_k, error_feedback)
+        means, recons = _compressed_mean(xfs, group, cfg.t_k, error_feedback, tp,
+                                         [mdims[i] is not None for i in comp])
         for k, i in enumerate(comp):
             leaf = items[i][1]
             out[i] = means[k].to(leaf.dtype)
@@ -289,19 +364,39 @@ def _rebuild(tree: Pytree, leaves: list) -> Pytree:
 # --------------------------------------------------------------------------
 
 
-def quantize_lastdim_plain(x: torch.Tensor, t_k: float):
+def quantize_lastdim_plain(x: torch.Tensor, t_k: float, scalars=None):
     """The reference's ``_quantize_lastdim`` on fp32 x: (packed bytes along
-    the last dim, w_q, reconstruction w_q·I_t)."""
+    the last dim, w_q, reconstruction w_q·I_t). ``scalars``: a model
+    shard's whole-leaf (max|x| + 1e-12, Δ, w_q) (``shard_scalars_plain``)."""
     absx = x.abs()
-    mx = absx.max() + 1e-12
-    delta = t_k * absx.mean() / mx
+    if scalars is None:
+        mx = absx.max() + 1e-12
+        delta = t_k * absx.mean() / mx
+    else:
+        mx, delta, w_q = scalars
     xs = x / mx
     sel = xs.abs() > delta
     i_t = torch.where(sel, torch.sign(xs), 0.0)
-    w_q = torch.where(sel, absx, 0.0).sum() / (sel.sum() + 1e-12)
+    if scalars is None:
+        w_q = torch.where(sel, absx, 0.0).sum() / (sel.sum() + 1e-12)
     c = (i_t.to(torch.int8) + 1).to(torch.uint8).reshape(*x.shape[:-1], x.shape[-1] // 4, 4)
     packed = c[..., 0] | (c[..., 1] << 2) | (c[..., 2] << 4) | (c[..., 3] << 6)
     return packed, w_q.to(torch.float32), (w_q * i_t).to(x.dtype)
+
+
+def shard_scalars_plain(xs: Sequence[torch.Tensor], t_k: float, tp) -> list:
+    """(max|x| + 1e-12, Δ, w_q) of every pod's whole leaf, from this rank's
+    model shards ``xs`` (one per pod, fp32) and the other ranks' over
+    ``tp``: the reference's ``_quantize_lastdim`` scalars on the whole leaf."""
+    absx = [x.abs() for x in xs]
+    mx = all_reduce_(torch.stack([a.max() for a in absx]), tp.group, op="max") + 1e-12
+    total = all_reduce_(torch.stack([a.sum() for a in absx]), tp.group)
+    delta = t_k * (total / (xs[0].numel() * tp.size)) / mx
+    sel = [(x / m).abs() > d for x, m, d in zip(xs, mx, delta)]
+    part = torch.stack([torch.stack([torch.where(s, a, 0.0).sum(), s.sum().to(torch.float32)])
+                        for s, a in zip(sel, absx)])
+    num, cnt = all_reduce_(part, tp.group).unbind(1)
+    return list(zip(mx, delta, num / (cnt + 1e-12)))
 
 
 def unpack_lastdim_plain(packed: torch.Tensor) -> torch.Tensor:
@@ -312,12 +407,13 @@ def unpack_lastdim_plain(packed: torch.Tensor) -> torch.Tensor:
 
 
 def leaf_mean_plain(xs: Sequence[torch.Tensor], *, t_k: float, compressed: bool,
-                    residuals: Sequence[torch.Tensor] | None = None):
+                    residuals: Sequence[torch.Tensor] | None = None, tp=None):
     """One leaf's synced value from every pod's copy ``xs`` (pod order), as
     the reference computes it: the compressed mean (a scan over pods from
     zeros, then / P) with the per-pod new residuals, or the exact mean and
-    zero residuals. Returns (mean in the leaf's dtype, new residual per
-    pod)."""
+    zero residuals. With ``tp``, ``xs`` are model shards quantized with
+    their whole leaf's scalars. Returns (mean in the leaf's dtype, new
+    residual per pod)."""
     p = len(xs)
 
     def zeros(x):
@@ -330,11 +426,12 @@ def leaf_mean_plain(xs: Sequence[torch.Tensor], *, t_k: float, compressed: bool,
         return total / p, [zeros(x) for x in xs]
     total = torch.zeros(xs[0].shape, dtype=torch.float32, device=xs[0].device)
     new_res = []
+    xfs = [x.to(torch.float32) + residuals[k] if residuals is not None else x.to(torch.float32)
+           for k, x in enumerate(xs)]
+    scalars = shard_scalars_plain(xfs, t_k, tp) if tp is not None else [None] * p
     for k, x in enumerate(xs):
-        xf = x.to(torch.float32)
-        if residuals is not None:
-            xf = xf + residuals[k]
-        packed, w_q, recon = quantize_lastdim_plain(xf, t_k)
+        xf = xfs[k]
+        packed, w_q, recon = quantize_lastdim_plain(xf, t_k, scalars[k])
         new_res.append(xf - recon if residuals is not None else zeros(x))
         total = total + w_q * unpack_lastdim_plain(packed)
     return (total / p).to(xs[0].dtype), new_res
@@ -368,25 +465,29 @@ def pods_mean_plain(grads_per_pod: Sequence[Pytree], *, cfg: FTTQConfig | None =
 
 def ternary_allreduce_tree_plain(grads: Pytree, group, *, cfg: FTTQConfig | None = None,
                                  residuals: Pytree | None = None,
-                                 error_feedback: bool = True):
+                                 error_feedback: bool = True, tp=None,
+                                 dims: Pytree | None = None):
     """The plain version of ``ternary_allreduce_tree`` across ranks: each
     leaf's fp32 copies (and residuals) gathered from every pod, then
-    ``leaf_mean_plain``; this rank keeps its own pod's new residual.
-    Returns what ``ternary_allreduce_tree`` returns."""
+    ``leaf_mean_plain`` (a model shard's with its whole leaf's scalars);
+    this rank keeps its own pod's new residual. Returns what
+    ``ternary_allreduce_tree`` returns."""
     cfg = cfg or FTTQConfig()
     me = group_rank(group)
     items = flatten_with_path(grads)
+    mdims = _model_dims(items, tp, dims)
     res = tree_leaves(residuals) if residuals is not None else [None] * len(items)
     out, new_res = [], []
-    for (path, leaf), r in zip(items, res):
-        comp = compressed_leaf(path, leaf, cfg)
+    for (path, leaf), r, d in zip(items, res, mdims):
+        comp = compressed_leaf(path, leaf, cfg, _whole_last(leaf, d, tp))
         xs = list(all_gather(leaf, group).unbind(0))
         rs = None
         if comp and error_feedback:
             r = r if r is not None else torch.zeros(leaf.shape, dtype=torch.float32,
                                                     device=leaf.device)
             rs = list(all_gather(r, group).unbind(0))
-        mean, nr = leaf_mean_plain(xs, t_k=cfg.t_k, compressed=comp, residuals=rs)
+        mean, nr = leaf_mean_plain(xs, t_k=cfg.t_k, compressed=comp, residuals=rs,
+                                   tp=tp if d is not None else None)
         out.append(mean)
         new_res.append(nr[me])
         del xs, rs

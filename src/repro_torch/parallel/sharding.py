@@ -19,9 +19,10 @@ rules are path regexes to per-dim logical axes, resolved against the
 actual shapes with the reference's divisibility guard (a dim is sharded
 only where the mesh axis divides it). ``param_shardings`` turns the specs
 into DTensor placements (``Shard(d)`` / ``Replicate()`` per mesh dim) on the
-mesh's ``DeviceMesh``; the trainer itself keeps every parameter whole on
-every rank (its "data" axis is data parallelism) and a "model" axis of size
-> 1 is the next slice (ROADMAP).
+mesh's ``DeviceMesh``. ``model_dim`` / ``model_dims`` read off which dim of
+each leaf the "model" axis shards: the trainer keeps the "data" entries
+whole (its "data" axis is data parallelism) and computes on the "model"
+shards (``parallel.tensor``).
 """
 
 from __future__ import annotations
@@ -116,6 +117,21 @@ def param_specs(cfg: ModelConfig, mesh) -> Pytree:
     sizes = mesh_sizes(mesh)
     return tree_map_with_path(lambda path, shape: spec_for(path_str(path), shape, sizes),
                               param_shapes(cfg), is_leaf=lambda x: isinstance(x, tuple))
+
+
+def model_dim(spec: PartitionSpec) -> int | None:
+    """The tensor dim a spec shards over "model", or None."""
+    for d, entry in enumerate(spec):
+        if entry == "model" or (isinstance(entry, tuple) and "model" in entry):
+            return d
+    return None
+
+
+def model_dims(cfg: ModelConfig, mesh) -> Pytree:
+    """Per leaf of ``init_params(cfg)``, the dim the "model" axis shards
+    (None for a whole leaf): what the divisibility guard decided."""
+    return tree_map_with_path(lambda _, spec: model_dim(spec), param_specs(cfg, mesh),
+                              is_leaf=is_spec)
 
 
 @dataclasses.dataclass(frozen=True)

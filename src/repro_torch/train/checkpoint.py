@@ -20,6 +20,12 @@ Raw records keep numpy's ``dtype.str`` (``'<f4'``, ``'<i4'``), the other
 records the dtype's name. A bfloat16 raw leaf is written as ``'<V2'``, as
 the reference writes it; the port reads ``'<V2'`` back as bfloat16, which
 the reference cannot.
+
+Under tensor parallelism (a mesh whose "model" axis has size > 1, with the
+params' specs) the file is still the one-device file: ``save_checkpoint``
+gathers the model shards into whole leaves first (every rank calls it; the
+mesh's first rank writes), and ``restore_checkpoint`` cuts the whole leaves
+to the rank's shards.
 """
 
 from __future__ import annotations
@@ -217,12 +223,22 @@ def _compress(pairs: list, compression: CodecSpec) -> list:
 
 def save_checkpoint(directory: str, step: int, state: Pytree, *,
                     compression: CodecSpec | None = None, keep: int = 3,
-                    metadata: dict | None = None) -> str:
+                    metadata: dict | None = None, mesh=None, specs: Pytree | None = None) -> str:
     """Atomically persist ``state`` at ``<directory>/step_<step>``.
 
     compression: a codec for the quantizable leaves on disk (ternary: one
     ``quantize_pack`` launch for the whole tree on the card).
-    keep: retain only the newest ``keep`` checkpoints (0 = keep all)."""
+    keep: retain only the newest ``keep`` checkpoints (0 = keep all).
+    mesh, specs: every rank of ``mesh`` calls this and the mesh's first
+    rank writes; a state of model shards (a params tree or a
+    ``TrainState``; ``specs`` the params' ``param_specs``) is gathered into
+    whole leaves first."""
+    if mesh is not None:
+        from repro_torch.parallel.tensor import gather_state
+
+        state = gather_state(state, specs, mesh)
+        if mesh.rank != mesh.ranks[0]:
+            return os.path.join(directory, f"step_{step:012d}")
     os.makedirs(directory, exist_ok=True)
     compressed = compression is not None and not compression.is_identity
     pairs = flatten(state)
@@ -270,12 +286,15 @@ def latest_step(directory: str) -> int | None:
 def restore_checkpoint(directory: str, step: int | None = None, *,
                        example_state: Pytree | None = None,
                        compression: CodecSpec | None = None, sharding: Any | None = None,
-                       device: str | torch.device = "cuda") -> tuple[Pytree, dict]:
+                       device: str | torch.device = "cuda", mesh=None,
+                       specs: Pytree | None = None) -> tuple[Pytree, dict]:
     """Load a checkpoint (the newest if ``step`` is None) into
     ``example_state``'s structure, every leaf on ``device``; a compressed
     checkpoint is decoded to dense tensors. Returns (state, metadata).
     ``sharding`` (a ``NamedSharding`` or a tree of them) then re-places
-    every leaf over its mesh, as ``train.fault.elastic_reshard`` does."""
+    every leaf over its mesh, as ``train.fault.elastic_reshard`` does;
+    ``mesh`` and ``specs`` (as for ``save_checkpoint``) instead cut the
+    whole leaves to this rank's model shards."""
     dev = resolve_device(device)
     if step is None:
         step = latest_step(directory)
@@ -292,6 +311,10 @@ def restore_checkpoint(directory: str, step: int | None = None, *,
     if (compression is not None and not compression.is_identity) or meta.get("compressed"):
         leaves = decompress_pytree(leaves, dev)
     state = unflatten(example_state, leaves)
+    if mesh is not None and mesh.size("model") > 1:
+        from repro_torch.parallel.tensor import shard_state
+
+        state = shard_state(state, specs, mesh)
     if sharding is not None:
         from repro_torch.train.fault import elastic_reshard
 

@@ -10,20 +10,28 @@ w_q by ``wq_lr · g / numel`` and counts the step. With ``microbatches > 1``
 the batch is split on dim 0 and the chunks' gradients are averaged in fp32,
 as the reference's scan does.
 
-Over a mesh (``launch.mesh``) every rank holds the whole state and takes
-its own rows of the global batch (dim 0 sharded over ("pod", "data"), pod
-major). A "data" axis is exact data parallelism: gradients, loss and
-metrics are averaged over its subgroup, which is what GSPMD's automatic
-axis computes. Across pods (a "pod" axis) with ``pod_compression`` the
-parameter gradients are synced by ``parallel.collectives.
-ternary_allreduce_tree`` with error feedback, the w_q gradients, loss and
+Over a mesh (``launch.mesh``) every rank takes its own rows of the global
+batch (dim 0 sharded over ("pod", "data"), pod major). A "data" axis is
+exact data parallelism: every rank of it holds the same state, and
+gradients, loss and metrics are averaged over its subgroup, which is what
+GSPMD's automatic axis computes. A "model" axis of size > 1 is tensor
+parallelism (dense, vlm and audio families; the others raise): each rank
+holds its shards of the "model"-sharded params (``parallel.sharding``) and
+of their Adam moments, and the whole w_q; the forward is column- then
+row-parallel with a vocab-parallel loss (``parallel.tensor``), FTTQ's
+statistics, the clip's global norm and the w_q step (``wq_lr · g /
+numel``) are the whole leaf's. Across pods (a "pod" axis) with
+``pod_compression`` the parameter gradients are synced by
+``parallel.collectives.ternary_allreduce_tree`` with error feedback (on the
+rank's shards, with whole-leaf scalars), the w_q gradients, loss and
 metrics by an exact mean, and every rank applies the same update (the
 reference's ``trainer.py:213–262``); without it the pod sync is an exact
-mean too. Each rank keeps its own pod's residuals as a (1, *shape) block;
-``gather_residuals`` assembles the reference's (n_pods, *shape) tree. A
-"model" axis of size > 1 (tensor-parallel compute) is not ported yet
-(ROADMAP) and raises. The step is eager PyTorch; the backward is autograd
-through plain ops, as the reference's is ``jax.grad`` through plain ``jnp``.
+mean too. Each rank keeps its own pod's residuals of its shards as a (1,
+*shape) block; ``gather_residuals`` assembles the reference's (n_pods,
+*shape) tree over the pods, ``parallel.tensor.gather_state`` the whole
+leaves over "model". The step is eager PyTorch; the backward is autograd
+through plain ops, as the reference's is ``jax.grad`` through plain
+``jnp``.
 """
 
 from __future__ import annotations
@@ -38,13 +46,11 @@ from repro_torch.core import fttq
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import Optimizer, apply_updates, clip_by_global_norm
 from repro_torch.parallel.collectives import all_gather, all_reduce_, ternary_allreduce_tree
-from repro_torch.parallel.sharding import logical_batch_axes
+from repro_torch.parallel.sharding import logical_batch_axes, model_dims, param_specs
+from repro_torch.parallel.tensor import model_axis, shard_tree
 from repro_torch.tree import flatten_with_path, tree_leaves, tree_map
 
 Pytree = Any
-
-_TENSOR_PARALLEL = ("a 'model' axis of size > 1 needs tensor-parallel compute, which is not "
-                    "ported yet (ROADMAP Queue 1, item 14b)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,12 +88,18 @@ def init_train_state(model_cfg: tfm.ModelConfig, tcfg: TrainerConfig, optimizer:
     With compressed pods (``n_pods`` > 1, ``pod_compression`` and
     ``error_feedback``) the residuals start at zero: (n_pods, *shape) per
     leaf, as the reference stacks them, or on a ``mesh`` whose "pod" axis
-    has ``n_pods`` ranks this rank's (1, *shape) block."""
+    has ``n_pods`` ranks this rank's (1, *shape) block. On a mesh whose
+    "model" axis has size > 1 the whole params (given or drawn) are cut to
+    this rank's shards after the w_q are made from them; the Adam moments
+    and residuals follow the shards."""
     if mesh is not None and mesh.size("pod") != n_pods:
         raise ValueError(f"the mesh has {mesh.size('pod')} pods, not n_pods={n_pods}")
+    tfm.check_tensor_parallel(model_cfg, mesh.size("model") if mesh is not None else 1)
     if params is None:
         params = tfm.init_params(model_cfg, seed=seed, device=device)
     wq = fttq.init_wq_tree(params, tcfg.fttq) if tcfg.qat else None
+    if model_axis(mesh) is not None:
+        params = shard_tree(params, param_specs(model_cfg, mesh), mesh)
     step = torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device)
     residuals = None
     if tcfg.pod_compression and n_pods > 1 and tcfg.error_feedback:
@@ -99,9 +111,9 @@ def init_train_state(model_cfg: tfm.ModelConfig, tcfg: TrainerConfig, optimizer:
                       residuals=residuals, step=step)
 
 
-def _loss(model_cfg, tcfg: TrainerConfig, params, wq, batch):
-    qparams = fttq.quantize_tree(params, wq, tcfg.fttq) if tcfg.qat else params
-    return tfm.loss_fn(model_cfg, qparams, batch)
+def _loss(model_cfg, tcfg: TrainerConfig, params, wq, batch, tp=None, dims=None):
+    qparams = fttq.quantize_tree(params, wq, tcfg.fttq, tp, dims) if tcfg.qat else params
+    return tfm.loss_fn(model_cfg, qparams, batch, tp)
 
 
 def _rebuild(tree: Pytree, leaves: list) -> Pytree:
@@ -109,12 +121,12 @@ def _rebuild(tree: Pytree, leaves: list) -> Pytree:
     return tree_map(lambda _: next(it), tree)
 
 
-def _grads_of(model_cfg, tcfg: TrainerConfig, state: TrainState, batch):
+def _grads_of(model_cfg, tcfg: TrainerConfig, state: TrainState, batch, tp=None, dims=None):
     """(loss, metrics, ∂loss/∂params, ∂loss/∂w_q or None) by autograd."""
     params = tree_map(lambda p: p.detach().requires_grad_(True), state.params)
     wq = tree_map(lambda w: w.detach().requires_grad_(True), state.wq) if tcfg.qat else None
     with torch.enable_grad():
-        loss, metrics = _loss(model_cfg, tcfg, params, wq, batch)
+        loss, metrics = _loss(model_cfg, tcfg, params, wq, batch, tp, dims)
         p_leaves = tree_leaves(params)
         w_leaves = tree_leaves(wq) if tcfg.qat else []
         grads = torch.autograd.grad(loss, p_leaves + w_leaves, allow_unused=True)
@@ -126,13 +138,14 @@ def _grads_of(model_cfg, tcfg: TrainerConfig, state: TrainState, batch):
     return loss.detach(), metrics, g_p, g_w
 
 
-def _local_grads(model_cfg, tcfg: TrainerConfig, state: TrainState, batch):
+def _local_grads(model_cfg, tcfg: TrainerConfig, state: TrainState, batch, tp=None,
+                 dims=None):
     """The whole batch's gradients, or with ``microbatches`` = n > 1 the
     mean over n sequential chunks of dim 0, accumulated in fp32 zeros with
     each chunk's gradient divided by n (the reference's scan)."""
     n = tcfg.microbatches
     if n <= 1:
-        return _grads_of(model_cfg, tcfg, state, batch)
+        return _grads_of(model_cfg, tcfg, state, batch, tp, dims)
     chunks = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:]) for k, v in batch.items()}
     dev = state.step.device
     loss = torch.zeros((), dtype=torch.float32, device=dev)
@@ -144,7 +157,7 @@ def _local_grads(model_cfg, tcfg: TrainerConfig, state: TrainState, batch):
                     state.wq) if tcfg.qat else None)
     for i in range(n):
         c_loss, c_metrics, c_p, c_w = _grads_of(
-            model_cfg, tcfg, state, {k: v[i] for k, v in chunks.items()})
+            model_cfg, tcfg, state, {k: v[i] for k, v in chunks.items()}, tp, dims)
         loss = loss + c_loss / n
         metrics = {k: metrics[k] + c_metrics[k] / n for k in metrics}
         for a, g in zip(tree_leaves(g_p), tree_leaves(c_p)):
@@ -157,14 +170,17 @@ def _local_grads(model_cfg, tcfg: TrainerConfig, state: TrainState, batch):
 
 
 def _apply_grads(tcfg: TrainerConfig, optimizer: Optimizer, state: TrainState, loss, metrics,
-                 grads, g_wq, residuals):
-    grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+                 grads, g_wq, residuals, tp=None, dims=None):
+    grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip, tp=tp, dims=dims)
     updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
     params = apply_updates(state.params, updates)
     del updates
     if tcfg.qat:
-        # float(numel): stacked expert weights exceed 2^31 elements
-        sizes = {path: float(p.numel()) for path, p in flatten_with_path(state.params)}
+        # float(numel): stacked expert weights exceed 2^31 elements; a
+        # model shard's factor steps by its whole leaf's count
+        shards = {p for p, _ in flatten_with_path(dims)} if tp is not None and dims else set()
+        sizes = {path: float(p.numel()) * (tp.size if path in shards else 1)
+                 for path, p in flatten_with_path(state.params)}
         wq = _rebuild(state.wq, [
             (w - tcfg.wq_lr * g / sizes[path]).to(w.dtype)
             for (path, w), g in zip(flatten_with_path(state.wq), tree_leaves(g_wq))])
@@ -206,15 +222,33 @@ def _pod_block(residuals: Pytree, mesh) -> Pytree | None:
     return tree_map(lambda r: r[0] if r.shape[0] == 1 else r[i], residuals)
 
 
+def _local(leaf):
+    """A DTensor as the trainer holds it: whole over every mesh dim but
+    "model", where a ``Shard(d)`` placement keeps this rank's chunk of d."""
+    from torch.distributed.tensor import Shard
+
+    whole = leaf.full_tensor()
+    mesh = leaf.device_mesh
+    names = mesh.mesh_dim_names or ()
+    if "model" not in names:
+        return whole
+    place = leaf.placements[names.index("model")]
+    if not isinstance(place, Shard) or mesh.size(names.index("model")) == 1:
+        return whole
+    n, r = mesh.size(names.index("model")), mesh.get_local_rank("model")
+    return whole.chunk(n, place.dim)[r].clone(memory_format=torch.contiguous_format)
+
+
 def local_state(state: TrainState) -> TrainState:
     """``state`` with every DTensor leaf (a state re-placed by
-    ``fault.elastic_reshard``) gathered into a whole tensor on its rank."""
+    ``fault.elastic_reshard``) made a plain tensor on its rank: whole, or
+    this rank's chunk where its placement shards the "model" axis."""
     from repro_torch.train.checkpoint import flatten, unflatten
 
     leaves = [leaf for _, leaf in flatten(state)]
     if not any(hasattr(leaf, "full_tensor") for leaf in leaves):
         return state
-    return unflatten(state, [leaf.full_tensor() if hasattr(leaf, "full_tensor") else leaf
+    return unflatten(state, [_local(leaf) if hasattr(leaf, "full_tensor") else leaf
                              for leaf in leaves])
 
 
@@ -234,9 +268,11 @@ def make_train_step(model_cfg: tfm.ModelConfig, tcfg: TrainerConfig, optimizer: 
     """Returns ``step(state, batch) -> (state, metrics)`` with metrics
     ``loss, grad_norm, ce, aux`` as 0-d tensors on the state's device. The
     input state is not modified. With a ``mesh``, every rank calls the step
-    with the same global batch and the same state."""
-    if mesh is not None and mesh.size("model") > 1:
-        raise NotImplementedError(_TENSOR_PARALLEL)
+    with the same global batch and its state (the same on every rank of a
+    "model" index; the rank's shards under tensor parallelism)."""
+    tfm.check_tensor_parallel(model_cfg, mesh.size("model") if mesh is not None else 1)
+    tp = model_axis(mesh)
+    dims = model_dims(model_cfg, mesh) if tp is not None else None
     # no mesh is one shard with no subgroups: every sync below is the identity
     compressed = mesh is not None and "pod" in mesh.axis_names and tcfg.pod_compression
     batch_axes = logical_batch_axes(mesh) if mesh is not None else ()
@@ -255,13 +291,13 @@ def make_train_step(model_cfg: tfm.ModelConfig, tcfg: TrainerConfig, optimizer: 
                                  f"{n_shards} ranks")
             per = v.shape[0] // n_shards
             rows[k] = v[shard * per:(shard + 1) * per]
-        loss, metrics, g_p, g_w = _local_grads(model_cfg, tcfg, state, rows)
+        loss, metrics, g_p, g_w = _local_grads(model_cfg, tcfg, state, rows, tp, dims)
         loss, metrics, g_p, g_w = _mean_over(data_group, loss, metrics, g_p, g_w)
         if not compressed:
             return (*_mean_over(pod_group, loss, metrics, g_p, g_w), state.residuals)
         g_p, res = ternary_allreduce_tree(
             g_p, pod_group, cfg=tcfg.fttq, residuals=_pod_block(state.residuals, mesh),
-            error_feedback=tcfg.error_feedback)
+            error_feedback=tcfg.error_feedback, tp=tp, dims=dims)
         loss, metrics, _, g_w = _mean_over(pod_group, loss, metrics, None, g_w)
         return loss, metrics, g_p, g_w, tree_map(lambda r: r[None], res)
 
@@ -269,6 +305,6 @@ def make_train_step(model_cfg: tfm.ModelConfig, tcfg: TrainerConfig, optimizer: 
         state = local_state(state)
         with torch.no_grad():
             # no frame here keeps the gradients, so clipping frees them
-            return _apply_grads(tcfg, optimizer, state, *synced_grads(state, batch))
+            return _apply_grads(tcfg, optimizer, state, *synced_grads(state, batch), tp, dims)
 
     return step

@@ -242,8 +242,342 @@ def q8_a2a(rank, world, *, x):
     return {"out": out.numpy(), "q": q.numpy(), "s": s.numpy()}
 
 
+# --------------------------------------------------------------------------
+# Tensor parallelism over the "model" axis.
+# --------------------------------------------------------------------------
+
+
+def tp_basics(rank, world, *, device="cpu"):
+    """On a (1, world) data x model mesh: the four conjugate functions
+    forward and backward; shard/gather round trips of params and of a
+    TrainState; FTTQ's QAT forward, its backward, init_wq_tree and
+    ternary_stats on shards against the whole leaves; the global norm; the
+    vocab-parallel cross entropy against the plain one; and the families
+    that still raise."""
+    from repro_torch.core import fttq
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.optim import global_norm
+    from repro_torch.parallel.sharding import model_dims, param_specs
+    from repro_torch.parallel.tensor import (
+        copy_to_model, gather_from_model, gather_state, gather_tree, model_axis,
+        reduce_from_model, scatter_to_model, shard_state, shard_tree, vocab_parallel_ce,
+    )
+    from repro_torch.train import TrainerConfig, init_train_state, make_train_step
+    from repro_torch.train.checkpoint import flatten
+    from repro_torch.tree import flatten_with_path
+
+    mesh = make_mesh((1, world), ("data", "model"), device=device)
+    dev, tp = mesh.device, model_axis(mesh)
+    out = {}
+    def run(fn, x, upstream):
+        x = x.detach().requires_grad_(True)
+        y = fn(x)
+        y.backward(upstream)
+        return y.detach().cpu().numpy(), x.grad.cpu().numpy()
+
+    x = torch.arange(6.0, device=dev).reshape(2, 3) + 10 * rank
+    g = torch.full((2, 3), float(rank + 1), device=dev)
+    wide = torch.arange(6.0 * world, device=dev).reshape(2, 3 * world)
+    out["copy"] = run(lambda t: copy_to_model(t, tp), x, g)
+    out["reduce"] = run(lambda t: reduce_from_model(t, tp), x, g)
+    out["gather"] = run(lambda t: gather_from_model(t, tp, 1), x, wide)
+    out["scatter"] = run(lambda t: scatter_to_model(t, tp, 1), wide, g)
+
+    out["trees"] = {}
+    for arch in ("olmo-1b", "granite-20b"):
+        cfg = get_reduced(arch)
+        specs = param_specs(cfg, mesh)
+        whole = init_params(cfg, seed=0, device=dev)
+        shards = shard_tree(whole, specs, mesh)
+        back = gather_tree(shards, specs, mesh)
+        state = init_train_state(cfg, TrainerConfig(), adam(1e-3), seed=0, device=dev,
+                                 n_pods=2)
+        state_back = gather_state(shard_state(state, specs, mesh), specs, mesh)
+        out["trees"][arch] = {
+            "round_trip": all(torch.equal(a, b) for (_, a), (_, b) in
+                              zip(flatten_with_path(whole), flatten_with_path(back))),
+            "state_round_trip": all(
+                (a is None and b is None) or torch.equal(a, b)
+                for (_, a), (_, b) in zip(flatten(state), flatten(state_back))),
+            "local_shapes": all(tuple(x.shape) == s for x, s in zip(
+                [x for _, x in flatten_with_path(shards)],
+                [s for _, s in flatten_with_path(param_shapes(cfg, mesh),
+                                                 is_leaf=lambda t: isinstance(t, tuple))])),
+            "shard_shapes": {"/".join(str(k) for _, k in p): tuple(x.shape)
+                             for p, x in flatten_with_path(shards)}}
+
+    # FTTQ on shards vs the whole leaves (granite: wk/wv split mid-head)
+    cfg = get_reduced("granite-20b")
+    specs, dims = param_specs(cfg, mesh), model_dims(cfg, mesh)
+    fcfg = fttq.FTTQConfig()
+    whole = init_params(cfg, seed=3, device=dev)
+    wq = fttq.init_wq_tree(whole, fcfg)
+    gen = torch.Generator(dev).manual_seed(7)
+    up = tree_map(lambda p: torch.randn(p.shape, generator=gen, device=dev), whole)
+    up_sh = shard_tree(up, specs, mesh)
+
+    def qat(params, w, upstream, **kw):
+        ps = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        ws = tree_map(lambda t: t.detach().requires_grad_(True), w)
+        q = fttq.quantize_tree(ps, ws, fcfg, **kw)
+        loss = sum((a * b).sum() for a, b in zip(
+            [t for _, t in flatten_with_path(q)], [t for _, t in flatten_with_path(upstream)]))
+        loss.backward()
+        return (tree_map(lambda t: t.detach(), q), tree_map(lambda t: t.grad, ps),
+                tree_map(lambda t: t.grad, ws))
+
+    q0, gp0, gw0 = qat(whole, wq, up)
+    q1, gp1, gw1 = qat(shard_tree(whole, specs, mesh), wq, up_sh, tp=tp, dims=dims)
+    q1, gp1 = gather_tree(q1, specs, mesh), gather_tree(gp1, specs, mesh)
+    out["fttq"] = {"q": (_np(q0), _np(q1)), "g_theta": (_np(gp0), _np(gp1)),
+                   "g_wq": (_np(gw0), _np(gw1)),
+                   "init_wq": (_np(wq), _np(fttq.init_wq_tree(shard_tree(whole, specs, mesh),
+                                                              fcfg, tp, dims))),
+                   "stats": (fttq.ternary_stats(whole, fcfg),
+                             fttq.ternary_stats(shard_tree(whole, specs, mesh), fcfg, tp, dims)),
+                   "norm": (float(global_norm(up)),
+                            float(global_norm(up_sh, tp=tp, dims=dims)))}
+
+    # the vocab-parallel cross entropy against the plain one
+    v = 128
+    logits = torch.randn(3, 5, v, generator=gen, device=dev) * 3
+    labels = torch.randint(0, v, (3, 5), generator=gen, device=dev)
+    one = torch.ones((), device=dev)
+    ce0, g0 = run(lambda t: -torch.gather(torch.log_softmax(t, -1), -1,
+                                          labels[..., None]).mean(), logits, one)
+    ce1, g1 = run(lambda t: vocab_parallel_ce(t, labels, tp).mean(),
+                  logits.chunk(world, -1)[rank].contiguous(), one)
+    out["ce"] = (float(ce0), float(ce1), g0,
+                 gather_from_model(torch.from_numpy(g1).to(dev), tp, -1).cpu().numpy())
+
+    # wk/wv left whole by the guard (2 kv-head dims of 15 do not split over
+    # 2 ranks) while wq splits by heads: every rank selects its kv head
+    from repro_torch.parallel.tensor import shard_state as _shard_state
+
+    cfg = ModelConfig(name="t", family="dense", n_layers=2, d_model=32, vocab_size=64,
+                      n_heads=2, n_kv_heads=1, head_dim=15, d_ff=64, use_rope=False)
+    tcfg = TrainerConfig(pod_compression=False)
+    state = init_train_state(cfg, tcfg, adam(1e-3), seed=0, device=dev)
+    batch = {"tokens": torch.randint(0, 64, (2, 8), generator=gen, device=dev),
+             "labels": torch.randint(0, 64, (2, 8), generator=gen, device=dev)}
+    specs = param_specs(cfg, mesh)
+    new1, m1 = make_train_step(cfg, tcfg, adam(1e-3), mesh=mesh)(
+        _shard_state(state, specs, mesh), batch)
+    new0, m0 = make_train_step(cfg, tcfg, adam(1e-3))(state, batch)
+    out["whole_kv"] = {"spec_wk": tuple(specs["blocks"]["attn"]["wk"]),
+                       "spec_wq": tuple(specs["blocks"]["attn"]["wq"]),
+                       "loss": (float(m0["loss"]), float(m1["loss"])),
+                       "params": (_np(new0.params), _np(gather_state(new1, specs, mesh).params)),
+                       "m": _np(new0.opt_state["m"])}
+
+    out["raises"] = {}
+    for arch in ("qwen3-moe-30b-a3b", "mamba2-370m", "zamba2-1.2b"):
+        cfg = get_reduced(arch)
+        msgs = []
+        for call in (lambda: make_train_step(cfg, TrainerConfig(), adam(1e-3), mesh=mesh),
+                     lambda: init_params(cfg, seed=0, device=dev, mesh=mesh),
+                     lambda: make_prefill_step(cfg, 8, mesh=mesh)):
+            try:
+                call()
+                msgs.append(None)
+            except NotImplementedError as e:
+                msgs.append(str(e))
+        out["raises"][arch] = msgs
+    return out
+
+
+def _state_np(state) -> dict:
+    return {"params": _np(state.params), "wq": _np(state.wq) if state.wq is not None else None,
+            "opt_state": _np(state.opt_state), "step": int(state.step),
+            "residuals": _np(state.residuals) if state.residuals is not None else None}
+
+
+def tp_steps(rank, world, *, runs, lr):
+    """For each run (arch, (data, model) mesh shape, reference state and
+    batch): one train step on that mesh from the state's shards, gathered
+    into whole leaves, and the port's one-device step from the same state;
+    rank 0 returns both."""
+    from repro_torch.parallel.sharding import param_specs
+    from repro_torch.parallel.tensor import gather_state, shard_state
+    from repro_torch.train import TrainerConfig, make_train_step
+
+    out = []
+    for run in runs:
+        shape = tuple(run["shape"])
+        n = shape[0] * shape[1]
+        mesh = make_mesh(shape, ("data", "model"), ranks=range(n), device="cpu")
+        if not mesh.member:
+            out.append(None)
+            continue
+        cfg = get_reduced(run["arch"])
+        tcfg = TrainerConfig(pod_compression=False)
+        state = _state(run["state"], "cpu")
+        batch = {k: torch.from_numpy(v) for k, v in run["batch"].items()}
+        specs = param_specs(cfg, mesh)
+        new, m = make_train_step(cfg, tcfg, adam(lr), mesh=mesh)(
+            shard_state(state, specs, mesh), batch)
+        new = gather_state(new, specs, mesh)
+        new0, m0 = make_train_step(cfg, tcfg, adam(lr))(state, batch)
+        out.append({"tp": _state_np(new), "tp_metrics": {k: float(v) for k, v in m.items()},
+                    "one": _state_np(new0), "one_metrics": {k: float(v) for k, v in m0.items()}}
+                   if rank == 0 else None)
+    return out
+
+
+def tp_pods(rank, world, *, cfg, state, batch, lr, steps, trees):
+    """On a (2, 1, 2) pod x data x model mesh: (a) the compressed
+    collective with error feedback over ``trees`` (per step, each pod's
+    whole gradient tree) on this rank's shards, kernel path and plain
+    version, gathered over "model"; (b) ``steps`` compressed QAT steps from
+    the reference's state, gathered over "pod" and "model"."""
+    from repro_torch.parallel.collectives import ternary_allreduce_tree_plain
+    from repro_torch.parallel.sharding import model_dims, param_specs
+    from repro_torch.parallel.tensor import (
+        gather_state, gather_tree, model_axis, shard_state, shard_tree,
+    )
+    from repro_torch.train import TrainerConfig, init_train_state, make_train_step
+    from repro_torch.train.trainer import gather_residuals
+
+    cfg = ModelConfig(**cfg)
+    mesh = make_mesh((2, 1, 2), AXES, device="cpu")
+    tp, pod = model_axis(mesh), mesh.index("pod")
+    specs, dims = param_specs(cfg, mesh), model_dims(cfg, mesh)
+    group = mesh.group("pod")
+    out = {"collective": [], "plain": []}
+    res = res_p = None
+    for step in trees:
+        grads = shard_tree(_torch(step[pod], "cpu"), specs, mesh)
+        reset_wire_bytes()
+        synced, res = ternary_allreduce_tree(grads, group, residuals=res, tp=tp, dims=dims)
+        wire = wire_bytes()
+        synced_p, res_p = ternary_allreduce_tree_plain(grads, group, residuals=res_p, tp=tp,
+                                                       dims=dims)
+        out["collective"].append({"synced": _np(gather_tree(synced, specs, mesh)),
+                                  "res": _np(gather_tree(res, specs, mesh)), "wire": wire})
+        out["plain"].append({"synced": _np(gather_tree(synced_p, specs, mesh)),
+                             "res": _np(gather_tree(res_p, specs, mesh))})
+    tcfg, opt = TrainerConfig(qat=True, pod_compression=True, error_feedback=True), adam(lr)
+    s = _state(state, "cpu")
+    fresh = init_train_state(cfg, tcfg, opt, params=s.params, device="cpu", n_pods=2, mesh=mesh)
+    s = dataclasses.replace(shard_state(s, specs, mesh), residuals=fresh.residuals)
+    step_fn = make_train_step(cfg, tcfg, opt, mesh=mesh)
+    b = {k: v.to(torch.int64) for k, v in _torch(batch, "cpu").items()}
+    losses = []
+    for _ in range(steps):
+        s, m = step_fn(s, b)
+        losses.append(float(m["loss"]))
+    s = gather_state(gather_residuals(s, mesh), specs, mesh)
+    out["train"] = {"losses": losses, **_state_np(s)}
+    return out
+
+
+def tp_serve(rank, world, *, params, toks, emb, vis, max_seq, gen, ckpt, lr, batch):
+    """On a (1, world) data x model mesh: (a) each arch's prefill and
+    greedy decode steps (``launch/steps.py`` with the mesh) from the
+    reference's whole ``params`` cut to this rank's shards, beside the
+    one-device steps; (b) a TrainState of olmo-1b saved from its shards,
+    raw and ternary, under ``ckpt``/tp-*, and on rank 0 the one-device
+    saves under ``ckpt``/one-*, then restored to shards; (c) a TP step from
+    the state re-placed as DTensors by ``elastic_reshard`` against the step
+    from ``shard_state``, and the TP result re-placed onto a one-rank mesh
+    against a one-device step."""
+    from repro_torch.core.compression import CodecSpec
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.parallel.sharding import NamedSharding, P, param_shardings, param_specs
+    from repro_torch.parallel.tensor import gather_state, shard_state
+    from repro_torch.train import (
+        TrainerConfig, init_train_state, make_train_step, restore_checkpoint, save_checkpoint,
+    )
+    from repro_torch.train.checkpoint import flatten
+    from repro_torch.train.fault import elastic_reshard
+
+    mesh = make_mesh((1, world), ("data", "model"), device="cpu")
+    out = {"serve": {}}
+    for arch, p_np in params.items():
+        cfg = get_reduced(arch)
+        specs = param_specs(cfg, mesh)
+        whole = _torch(p_np, "cpu")
+        shards = params_from_jax(p_np, "cpu", mesh=mesh, specs=specs)
+        b = ({"embeds": torch.from_numpy(emb)} if cfg.family == "audio"
+             else {"tokens": torch.from_numpy(toks).long()})
+        if cfg.family == "vlm":
+            b["vision_embeds"] = torch.from_numpy(vis)
+        got = {}
+        for name, p, m in (("tp", shards, mesh), ("one", whole, None)):
+            logits, cache = make_prefill_step(cfg, max_seq, mesh=m)(p, b)
+            steps, tokens = [logits.numpy()], []
+            if cache is not None:
+                tok = torch.argmax(logits, -1)
+                decode = make_decode_step(cfg, mesh=m)
+                for i in range(gen):
+                    tokens.append(tok.numpy())
+                    step_b = {"tokens": tok, "cache": cache, "pos": toks.shape[1] + i}
+                    if "vision_embeds" in b:
+                        step_b["vision_embeds"] = b["vision_embeds"]
+                    logits, cache = decode(p, step_b)
+                    steps.append(logits.numpy())
+                    tok = torch.argmax(logits, -1)
+            got[name] = {"logits": steps, "tokens": tokens,
+                         "cache_k": tuple(cache["k"].shape) if cache is not None else None}
+        out["serve"][arch] = got
+
+    cfg = get_reduced("olmo-1b")
+    specs = param_specs(cfg, mesh)
+    tcfg, opt = TrainerConfig(pod_compression=False), adam(lr)
+    state = init_train_state(cfg, tcfg, opt, seed=0, device="cpu")
+    b = {k: torch.from_numpy(v) for k, v in batch.items()}
+    state, _ = make_train_step(cfg, tcfg, opt)(state, b)      # moments that are not zero
+    tp_state = shard_state(state, specs, mesh)
+    tern = CodecSpec(kind="ternary")
+    save_checkpoint(f"{ckpt}/tp-raw", 1, tp_state, mesh=mesh, specs=specs)
+    save_checkpoint(f"{ckpt}/tp-tern", 1, tp_state.params, compression=tern, mesh=mesh,
+                    specs=specs)
+    if rank == 0:
+        save_checkpoint(f"{ckpt}/one-raw", 1, state)
+        save_checkpoint(f"{ckpt}/one-tern", 1, state.params, compression=tern)
+    dist.barrier()
+    back, _ = restore_checkpoint(f"{ckpt}/tp-raw", example_state=tp_state, device="cpu",
+                                 mesh=mesh, specs=specs)
+    out["restored_equal"] = all(
+        (x is None and y is None) or torch.equal(x, y)
+        for (_, x), (_, y) in zip(flatten(back), flatten(tp_state)))
+    out["state"] = {"params": _np(state.params), "opt_state": _np(state.opt_state)}
+
+    step = make_train_step(cfg, tcfg, opt, mesh=mesh)
+    new_tp, m_tp = step(tp_state, b)
+    shard1, repl = param_shardings(cfg, mesh), NamedSharding(mesh, P())
+    placed = dataclasses.replace(
+        state, params=elastic_reshard(state.params, shard1), wq=elastic_reshard(state.wq, repl),
+        opt_state={"step": elastic_reshard(state.opt_state["step"], repl),
+                   "m": elastic_reshard(state.opt_state["m"], shard1),
+                   "v": elastic_reshard(state.opt_state["v"], shard1)},
+        step=elastic_reshard(state.step, repl))
+    new_dt, m_dt = step(placed, b)
+    same = lambda u, v: all((x is None and y is None) or torch.equal(x, y)
+                            for (_, x), (_, y) in zip(flatten(u), flatten(v)))
+    out["dtensor_step_identical"] = same(new_dt, new_tp) and float(m_dt["loss"]) == float(
+        m_tp["loss"])
+    host = gather_state(new_tp, specs, mesh)
+    mesh1 = make_mesh((1, 1), ("data", "model"), ranks=[0], device="cpu")
+    mesh1.device_mesh                       # every rank builds the DeviceMesh together
+    if rank == 0:
+        shard_1 = param_shardings(cfg, mesh1)
+        repl_1 = NamedSharding(mesh1, P())
+        on1 = dataclasses.replace(
+            host, params=elastic_reshard(host.params, shard_1), wq=elastic_reshard(host.wq, repl_1),
+            opt_state={"step": elastic_reshard(host.opt_state["step"], repl_1),
+                       "m": elastic_reshard(host.opt_state["m"], shard_1),
+                       "v": elastic_reshard(host.opt_state["v"], shard_1)},
+            step=elastic_reshard(host.step, repl_1))
+        n1, m1 = make_train_step(cfg, tcfg, opt, mesh=mesh1)(on1, b)
+        n0, m0 = make_train_step(cfg, tcfg, opt)(host, b)
+        out["one_rank_step_identical"] = same(n1, n0) and float(m1["loss"]) == float(m0["loss"])
+    return out
+
+
 CASES = {f.__name__: f for f in (collectives, fanin, trainer, elastic, moe_forward, moe_train,
-                                  q8_a2a)}
+                                  q8_a2a, tp_basics, tp_steps, tp_pods, tp_serve)}
 
 
 def main() -> None:

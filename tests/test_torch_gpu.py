@@ -1260,3 +1260,44 @@ def test_sharded_fold_on_two_gloo_ranks_on_the_card(cuda_device, tmp_path):
         for k, w in want.items():
             np.testing.assert_allclose(r[k], w.numpy(), rtol=1e-6, atol=1e-5, err_msg=k)
         assert r["launches"] == (3, 2)
+
+
+def test_tensor_parallel_on_two_gloo_ranks_on_the_card(cuda_device, tmp_path):
+    """``parallel.tensor`` on two gloo ranks sharing cuda:0 (every
+    collective staged through pinned host memory): the conjugate functions
+    exact; shard and gather round trips bit for bit; FTTQ on shards with
+    whole-leaf statistics against the whole leaves on the card (forward bit
+    for bit, g_θ and g_wq within 1e-6 of their largest, init_wq within rtol
+    1e-6, ternary_stats' counts exact, the global norm within rtol 1e-6);
+    the vocab-parallel cross entropy within rtol 1e-6 (its gradient 1e-6 of
+    the largest)."""
+    import numpy as np
+
+    from _torch_dist import run_ranks
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        return [] if tree is None else [np.asarray(tree)]
+
+    ranks = run_ranks("tp_basics", 2, tmp_path, timeout=180, device="cuda:0")
+    for r, out in enumerate(ranks):
+        x = [np.arange(6.0).reshape(2, 3) + 10 * k for k in range(2)]
+        np.testing.assert_array_equal(out["copy"][1], np.full((2, 3), 3.0))
+        np.testing.assert_array_equal(out["reduce"][0], x[0] + x[1])
+        np.testing.assert_array_equal(out["gather"][0], np.concatenate(x, axis=1))
+        for t in out["trees"].values():
+            assert t["round_trip"] and t["state_round_trip"] and t["local_shapes"]
+        f = out["fttq"]
+        for a, b in zip(leaves(f["q"][0]), leaves(f["q"][1])):
+            np.testing.assert_array_equal(a, b)
+        for key in ("g_theta", "g_wq"):
+            for a, b in zip(leaves(f[key][0]), leaves(f[key][1])):
+                assert np.abs(a - b).max() <= 1e-6 * max(np.abs(a).max(), 1e-30), key
+        for a, b in zip(leaves(f["init_wq"][0]), leaves(f["init_wq"][1])):
+            np.testing.assert_allclose(b, a, rtol=1e-6)
+        assert f["stats"][0] == f["stats"][1]
+        np.testing.assert_allclose(f["norm"][1], f["norm"][0], rtol=1e-6)
+        ce0, ce1, g0, g1 = out["ce"]
+        np.testing.assert_allclose(ce1, ce0, rtol=1e-6)
+        assert np.abs(g1 - g0).max() <= 1e-6 * np.abs(g0).max()

@@ -61,19 +61,22 @@ def test_cli_resumed_at_its_last_step_takes_no_step(tmp_path, capsys):
 
 
 def test_cli_flags_are_the_references_plus_device():
-    """The reference CLI's flags, plus the device and the multi-pod run's
-    (pods, their sync, the rendezvous and the backend), whose defaults are
-    one pod with compression and error feedback."""
+    """The reference CLI's flags, plus the device and the multi-device run's
+    (pods, their sync, the tensor-parallel "model" axis, the rendezvous and
+    the backend), whose defaults are one pod with compression and error
+    feedback on one model rank."""
     import repro.launch.train as ref
 
     assert ref.PRESETS == PRESETS
     dests = {a.dest for a in build_parser()._actions} - {"help"}
     assert dests == {"preset", "arch", "steps", "batch", "seq", "lr", "no_qat", "microbatches",
                      "ckpt_dir", "ckpt_every", "resume", "log_every", "device",
-                     "pods", "pod_compression", "error_feedback", "init_method", "backend"}
+                     "pods", "pod_compression", "error_feedback", "model", "init_method",
+                     "backend"}
     args = build_parser().parse_args([])
     assert args.device == "cuda"
     assert (args.pods, args.pod_compression, args.error_feedback) == (1, True, True)
+    assert args.model == 1
 
 
 @pytest.mark.parametrize("extra", [["--arch", "qwen3-moe-30b-a3b", "--microbatches", "2"],
