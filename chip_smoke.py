@@ -162,7 +162,33 @@ Phases (any failure exits non-zero; no phase is skipped):
                  aggregate launches, all-gather 0.25 B a shard coordinate
                  plus 4 B a w_q, mean and residuals within 1e-6 of the plain
                  version, codes equal but at ties) and 2 compressed train
-                 steps with the same launches and bytes per step;
+                 steps with the same launches and bytes per step; (e)
+                 zamba2-1.2b at its published widths, all 38 layers, remat
+                 "full" (each Mamba2 layer would keep ~1.2 GB of SSD
+                 intermediates), trained as (a): its Mamba2 weights
+                 gathered in each block, the shared attention and MLP block
+                 column/row-parallel; held to one process (losses rtol
+                 5e-5, ‖Δparams‖/‖params‖ 5e-3) and to a planted fault
+                 (FTTQ statistics per shard on the Mamba2 leaves) that must
+                 exceed both; (f) qwen3-moe-30b-a3b at its published widths
+                 cut to 1 of 48 layers (two layers run out of the 80 GB),
+                 trained as (a) with local experts on the replicated
+                 tokens: the model ranks' top-k indices hashed and equal in
+                 every MoE layer of the first step, the same limits, and a
+                 planted fault (the gates enter the combine without
+                 ``copy_to_model``) past both; (g) its ternary save from
+                 the shards: one quantize_pack launch on rank 0,
+                 sha256-equal to the one-process save; (h) zamba2's
+                 prefill 4 × 32 and 8 greedy decode steps through
+                 ``launch/steps.py`` with the mesh, on local attention
+                 caches and whole SSM states, against one process (1e-4 of
+                 max |logits|, the same tokens); (i) pods x model on all
+                 four ranks, mesh (2, 1, 2): the compressed collective on
+                 each rank's shards of a seeded gradient tree of
+                 qwen3-moe-30b-a3b cut to 1 layer (one quantize_pack and
+                 two aggregate launches, the all-gather 0.25 B a shard
+                 coordinate plus 4 B a w_q, mean and residuals within 1e-6
+                 of the plain version, codes equal but at proven ties);
  10. federated — two T-FedAvg sync rounds (paper Algorithm 2) on ResNet18* at
                  full width with the paper's CIFAR setting (FedConfig
                  defaults: 100 clients, λ = 0.1, E = 5, B = 64, adam(1e-3), 500
@@ -3793,6 +3819,13 @@ TP_LOSS_RTOL = 5e-5
 TP_SAVE_BYTES = 680_526_658  # olmo-1b's ternary checkpoint, as the train phase saves it
 TP_PODS_LAYERS = 4           # (d): olmo-1b cut to 4 of 16 layers on mesh (2, 1, 2)
 TP_PODS_STEPS = 2
+# (f) qwen3-moe-30b-a3b cut from 48 layers: at 2 layers (1.87 B params) a TP
+# rank's step peaked past 36 GiB (params, both Adam moments old and new,
+# gradients and updates) and two ranks ran out of the 80 GB; at 1 layer
+# (1.25 B) the ranks and then one process fit
+TP_MOE_LAYERS = 1
+TP_PODS_MOE_LAYERS = 1       # (i): qwen3-moe-30b-a3b's gradient tree on four ranks
+TP_TWIN_NOISE = 1e-7         # the noise twin's relative weight noise (``_tp_twin``)
 
 
 def _peak_gib(dev) -> float:
@@ -3920,18 +3953,43 @@ def _maybe_profile(dev, on: bool):
         yield prof
 
 
-def _tp_train(mesh, dev, cfg, batches, fcfg, params, save_dir: str | None = None
-              ) -> tuple[dict, object]:
+@contextlib.contextmanager
+def _route_hashes():
+    """[sha256 of each MoE layer's top-k expert indices] while the block
+    runs (a wrapper of ``models.moe.route``)."""
+    import hashlib
+
+    from repro_torch.models import moe as moe_mod
+
+    seen, route = [], moe_mod.route
+
+    def recording(probs, k):
+        gates, idx = route(probs, k)
+        seen.append(hashlib.sha256(idx.cpu().numpy().tobytes()).hexdigest())
+        return gates, idx
+
+    moe_mod.route = recording
+    try:
+        yield seen
+    finally:
+        moe_mod.route = route
+
+
+def _tp_train(mesh, dev, cfg, batches, fcfg, params, save_dir: str | None = None,
+              trace: bool = False, route_check: bool = False) -> tuple[dict, object]:
     """TrainerConfig defaults and adam(3e-4) over the mesh's "model" axis
     from ``params`` (whole leaves, cut to the rank's shards): per step the
     synchronized ms, tokens/s, loss and the ms the rank spent inside
     ``gloo``'s all-reduce and all-gather calls (the staging copies to and
-    from pinned memory not included); the last step under torch.profiler
-    for the device's kernel time (its ms is then a traced wall); the rank's
-    peak memory, launches and wire bytes; with ``save_dir`` the trained
-    params saved as a ternary checkpoint from the shards (gathered, written
-    by rank 0: one quantize_pack launch there). Returns (report, the
-    gathered params on the host at model index 0, else None)."""
+    from pinned memory not included); with ``trace`` the last step under
+    torch.profiler for the device's kernel time (its ms is then a traced
+    wall); the rank's peak memory, launches and wire bytes (the modelled
+    bytes it received); with ``route_check`` the MoE layers' routing in the
+    first step, hashed and compared across the model group; with
+    ``save_dir`` the trained params saved as a ternary checkpoint from the
+    shards (gathered, written by rank 0: one quantize_pack launch there).
+    Returns (report, the gathered params on the host at model index 0,
+    else None)."""
     import torch
 
     from repro_torch.core.compression import CodecSpec
@@ -3956,13 +4014,21 @@ def _tp_train(mesh, dev, cfg, batches, fcfg, params, save_dir: str | None = None
     reset_wire_bytes()
     rows = []
     for i, b in enumerate(batches):
-        traced = save_dir is not None and i == len(batches) - 1
-        with _gloo_clock() as gloo, _maybe_profile(dev, traced) as prof:
+        traced = trace and i == len(batches) - 1
+        routes = _route_hashes() if route_check and i == 0 else contextlib.nullcontext([])
+        with _gloo_clock() as gloo, _maybe_profile(dev, traced) as prof, routes as hashes:
             _sync(dev)
             t0 = time.perf_counter()
             state, m = step(state, b)
             _sync(dev)
             ms = (time.perf_counter() - t0) * 1e3
+        if hashes:
+            import torch.distributed as dist
+
+            every = [None] * mesh.size("model")
+            dist.all_gather_object(every, hashes, group=mesh.group("model"))
+            out["routes"] = {"layers": len(hashes), "hashes": list(hashes),
+                             "equal": all(h == hashes for h in every)}
         rows.append({"ms": ms, "tok_s": b["tokens"].numel() / ms * 1e3,
                      "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
                      "gloo_ms": gloo["ms"], "traced": traced})
@@ -3996,28 +4062,52 @@ def _tp_train(mesh, dev, cfg, batches, fcfg, params, save_dir: str | None = None
     return out, host
 
 
-def _tp_fault(mesh, dev, cfg, batches, fcfg, params) -> tuple[dict, object]:
-    """The planted fault: the same run with FTTQ's statistics per shard
-    (each shard quantized with its own max|θ| and Δ, its g_wq not summed
-    over the "model" group), as a port without leaf-global statistics
-    would train."""
+@contextlib.contextmanager
+def _fault_shard_stats(only: str | None = None):
+    """A planted fault: FTTQ's statistics per shard (each shard quantized
+    with its own max|θ| and Δ, its g_wq not summed over the "model" group),
+    as a port without leaf-global statistics would train; on every sharded
+    leaf, or on those with ``only`` in their path."""
     from repro_torch.core import fttq
+    from repro_torch.tree import path_str, tree_map_with_path
 
     whole_leaf = fttq.quantize_tree
-    fttq.quantize_tree = lambda params, wq, cfg_, tp=None, dims=None: whole_leaf(params, wq, cfg_)
+
+    def per_shard(params, wq, cfg_, tp=None, dims=None):
+        if only is None:
+            return whole_leaf(params, wq, cfg_)
+        kept = tree_map_with_path(lambda p, d: None if only in path_str(p) else d, dims)
+        return whole_leaf(params, wq, cfg_, tp, kept)
+
+    fttq.quantize_tree = per_shard
     try:
-        return _tp_train(mesh, dev, cfg, batches, fcfg, params)
+        yield
     finally:
         fttq.quantize_tree = whole_leaf
 
 
+@contextlib.contextmanager
+def _fault_local_gates(top_k: int):
+    """A planted fault: the MoE gates enter the combine without
+    ``copy_to_model``, so the router's gradient through the combine counts
+    only the rank's own experts (the tokens still enter through it)."""
+    from repro_torch.models import moe as moe_mod
+
+    copy = moe_mod.copy_to_model
+    moe_mod.copy_to_model = lambda x, tp: x if x.shape[-1] == top_k else copy(x, tp)
+    try:
+        yield
+    finally:
+        moe_mod.copy_to_model = copy
+
+
 def _tp_single(dev, cfg, batches, fcfg, tp_run: dict, tp_params, save_dir: str,
                start) -> tuple:
-    """On one rank after the others freed the card: the TP run's gathered
-    params saved by one process (sha256 against the TP save), then one
-    process stepping the same batches from the same state (``start``, the
-    whole params on the host), held to the TP run's losses and final
-    params. Returns (report, its params on the host)."""
+    """On one rank after the others freed the card: where the TP run saved,
+    its gathered params saved by one process (sha256 against the TP save),
+    then one process stepping the same batches from the same state
+    (``start``, the whole params on the host), held to the TP run's losses
+    and final params. Returns (report, its params on the host)."""
     import hashlib
     import shutil
 
@@ -4026,14 +4116,17 @@ def _tp_single(dev, cfg, batches, fcfg, tp_run: dict, tp_params, save_dir: str,
     from repro_torch.train import TrainerConfig, init_train_state, make_train_step, save_checkpoint
     from repro_torch.tree import tree_map
 
-    shutil.rmtree(save_dir, ignore_errors=True)
-    params = tree_map(lambda t: t.to(dev), tp_params)
-    path = save_checkpoint(save_dir, 1, params, compression=CodecSpec(kind="ternary", fttq=fcfg))
-    with open(os.path.join(path, "state.msgpack"), "rb") as f:
-        sha = hashlib.sha256(f.read()).hexdigest()
-    shutil.rmtree(save_dir, ignore_errors=True)
-    del params
-    _free()
+    sha = None
+    if "save" in tp_run:
+        shutil.rmtree(save_dir, ignore_errors=True)
+        params = tree_map(lambda t: t.to(dev), tp_params)
+        path = save_checkpoint(save_dir, 1, params,
+                               compression=CodecSpec(kind="ternary", fttq=fcfg))
+        with open(os.path.join(path, "state.msgpack"), "rb") as f:
+            sha = hashlib.sha256(f.read()).hexdigest()
+        shutil.rmtree(save_dir, ignore_errors=True)
+        del params
+        _free()
     tcfg, opt = TrainerConfig(), adam(TRAIN_LR)
     state = init_train_state(cfg, tcfg, opt, params=tree_map(lambda t: t.to(dev), start),
                              device=dev)
@@ -4085,7 +4178,7 @@ def _tp_serve(mesh, dev, cfg) -> dict:
         decode_s = time.perf_counter() - t0
         return steps, torch.cat(tokens, dim=1), {
             "prefill_ms": prefill_ms, "decode_tok_s": TP_PROMPTS * TP_GEN / decode_s,
-            "cache_kv_heads": int(cache["k"].shape[3])}
+            "cache_kv_heads": int(cache["attn_k" if "attn_k" in cache else "k"].shape[3])}
 
     shards = init_params(cfg, seed=0, device=dev, mesh=mesh)
     with torch.no_grad():
@@ -4108,11 +4201,13 @@ def _tp_serve(mesh, dev, cfg) -> dict:
 
 
 def _tp_pods_collective(mesh, dev, cfg, fcfg) -> dict:
-    """(d) a seeded gradient tree of ``cfg`` per pod, cut to this rank's
-    shards, through ``ternary_allreduce_tree`` with whole-leaf scalars:
-    launches and all-gather bytes, and leaf by leaf against the plain
-    version on the same shards (codes equal but at proven ties at Δ; means
-    and residuals within 1e-6 of their largest elsewhere)."""
+    """(d) and (i): a seeded gradient tree of ``cfg`` per pod, each leaf
+    drawn whole and cut to this rank's shard, through
+    ``ternary_allreduce_tree`` with whole-leaf scalars: launches and
+    all-gather bytes, and leaf by leaf against the plain version on the same
+    shards (codes equal but at proven ties at Δ; means and residuals within
+    1e-6 of their largest elsewhere). The kernel path's results wait on the
+    host while the plain version runs (four ranks share the card)."""
     import torch
 
     from repro_torch.models.transformer import param_shapes
@@ -4120,18 +4215,21 @@ def _tp_pods_collective(mesh, dev, cfg, fcfg) -> dict:
         all_gather, compressed_leaf, reset_wire_bytes, shard_scalars_plain,
         ternary_allreduce_tree, ternary_allreduce_tree_plain, wire_bytes,
     )
-    from repro_torch.parallel.tensor import model_axis, shard_tree
-    from repro_torch.tree import flatten_with_path, tree_map
+    from repro_torch.parallel.tensor import model_axis
+    from repro_torch.tree import flatten_with_path, tree_map_with_path
 
     tp = model_axis(mesh)
-    specs, dims = _tp_specs(cfg, mesh)
+    _, dims = _tp_specs(cfg, mesh)
     dmap = dict(flatten_with_path(dims))
     group = mesh.group("pod")
     gen = torch.Generator(dev).manual_seed(200 + mesh.index("pod"))
-    whole = tree_map(lambda s: torch.randn(s, generator=gen, device=dev) * 1e-3,
-                     param_shapes(cfg), is_leaf=lambda x: isinstance(x, tuple))
-    grads = shard_tree(whole, specs, mesh)
-    del whole
+
+    def draw(path, shape):
+        leaf = torch.randn(shape, generator=gen, device=dev) * 1e-3
+        d = dmap.get(path)
+        return leaf if d is None else leaf.chunk(tp.size, d)[tp.rank].clone()
+
+    grads = tree_map_with_path(draw, param_shapes(cfg), is_leaf=lambda x: isinstance(x, tuple))
     items = flatten_with_path(grads)
     whole_shapes = dict(flatten_with_path(param_shapes(cfg),
                                           is_leaf=lambda x: isinstance(x, tuple)))
@@ -4146,6 +4244,8 @@ def _tp_pods_collective(mesh, dev, cfg, fcfg) -> dict:
     out = {"wall_ms": (time.perf_counter() - t0) * 1e3, "launches": read_counters(),
            "wire": wire_bytes(), "compressed_elements": n_comp,
            "want_gather_bytes": n_comp // 4 + 4 * sum(comp)}
+    synced, res = _host_tree(synced), _host_tree(res)
+    _free()
     synced_p, res_p = ternary_allreduce_tree_plain(grads, group, cfg=fcfg, tp=tp, dims=dims)
     flips = ties = 0
     mean_gap = res_gap = 0.0
@@ -4153,6 +4253,7 @@ def _tp_pods_collective(mesh, dev, cfg, fcfg) -> dict:
             items, comp, [x for _, x in flatten_with_path(synced)],
             [x for _, x in flatten_with_path(res)], [x for _, x in flatten_with_path(synced_p)],
             [x for _, x in flatten_with_path(res_p)]):
+        s_k, r_k = s_k.to(dev), r_k.to(dev)
         keep = torch.ones(g.shape, dtype=torch.bool, device=dev)
         if c:
             sharded = tp if dmap.get(path) is not None else None
@@ -4217,139 +4318,344 @@ def _tp_pods_train(mesh, dev, cfg, batches) -> dict:
     return out
 
 
-def tensor_parallel_rank(rank: int, dev, fcfg, sizes: dict, pair, tp_mesh, pods_mesh,
-                         out_dir: str) -> dict:
-    """The tensor_parallel phase on one rank of the multidevice spawn: (a)
-    olmo-1b at full width over the pair's "model" axis against one process
-    and a planted fault, (b) the ternary save from the shards, (c) prefill
-    and decode; then (d) pods x model on all four ranks."""
+def _first_grads(mesh, dev, cfg, batch, fcfg, start, routes: bool = False) -> tuple:
+    """The first step's loss and parameter gradients (TrainerConfig
+    defaults) from ``start``, over the mesh's "model" axis or, with
+    ``mesh`` None, on one process: (loss, the gradients gathered whole on
+    the host at model index 0, else None, the MoE layers' routing hashes
+    where ``routes``)."""
+    from repro_torch.optim import adam
+    from repro_torch.parallel.tensor import gather_tree, model_axis
+    from repro_torch.train import TrainerConfig, init_train_state
+    from repro_torch.train.trainer import _local_grads
+    from repro_torch.tree import tree_map
+
+    tcfg = TrainerConfig()
+    state = init_train_state(cfg, tcfg, adam(TRAIN_LR), params=tree_map(lambda t: t.to(dev), start),
+                             device=dev, mesh=mesh)
+    tp = model_axis(mesh)
+    specs, dims = _tp_specs(cfg, mesh) if tp is not None else (None, None)
+    with _route_hashes() if routes else contextlib.nullcontext([]) as hashes:
+        loss, _, grads, _ = _local_grads(cfg, tcfg, state, batch, tp, dims)
+    del state
+    if tp is not None:
+        grads = gather_tree(grads, specs, mesh)
+    host = _host_tree(grads) if mesh is None or mesh.index("model") == 0 else None
+    del grads
+    _free()
+    return float(loss), host, list(hashes)
+
+
+def _grad_gap(dev, grads, ref) -> dict:
+    """The worst leaf's ‖Δg‖ / ‖g‖ of ``grads`` against ``ref`` (host trees
+    of one layout), and that leaf."""
+    import torch
+
+    from repro_torch.tree import flatten_with_path, path_str
+
+    worst, where = 0.0, ""
+    for (p, a), (_, b) in zip(flatten_with_path(grads), flatten_with_path(ref)):
+        a, b = a.to(dev), b.to(dev)
+        gap = float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp_min(1e-30))
+        if gap > worst:
+            worst, where = gap, path_str(p)
+    return {"rel_l2": worst, "leaf": where}
+
+
+def _tp_twin(dev, cfg, batches, start, ref_losses, ref_params) -> dict:
+    """One process stepping ``batches`` from ``start`` with relative
+    weight noise of TP_TWIN_NOISE (the size of a reordered fp32 sum), held
+    to nothing: its gaps to the unperturbed one-process run are the model's
+    own sensitivity to summation order."""
+    import torch
+
+    from repro_torch.optim import adam
+    from repro_torch.train import TrainerConfig, init_train_state, make_train_step
+    from repro_torch.tree import tree_map
+
+    gen = torch.Generator().manual_seed(5)
+    noisy = tree_map(lambda t: (t * (1 + TP_TWIN_NOISE * torch.randn(t.shape, generator=gen))
+                                ).to(dev), start)
+    tcfg, opt = TrainerConfig(), adam(TRAIN_LR)
+    state = init_train_state(cfg, tcfg, opt, params=noisy, device=dev)
+    del noisy
+    step = make_train_step(cfg, tcfg, opt)
+    losses = []
+    for b in batches:
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+    out = {"losses": losses, **_md_gaps(dev, losses, ref_losses, state.params, ref_params)}
+    del state, step
+    _free()
+    return out
+
+
+def _tp_cell(mesh, pair, dev, cfg, fcfg, out_dir: str, name: str, fault,
+             save: bool = False, route_check: bool = False, first_step: bool = False) -> dict:
+    """One TP train cell on the pair's "model" axis: the seed-0 params with
+    their Δ ties moved (``_tp_detie``), TP_STEPS steps of the CLI's token
+    stream (the last traced), held on rank 0 after the ranks free the card
+    to one process from the same state, and the same run under the planted
+    fault (``fault()``, a context manager) held to the same limits; with
+    ``save`` the trained params' ternary save from the shards. With
+    ``first_step`` the run is held to one process at its first step instead
+    (its loss and its gradients, TP and fault alike), and the trajectories
+    are printed beside a noise twin's (``_tp_twin``): for a model that
+    amplifies a reordered sum past the limits within a few steps."""
     import torch.distributed as dist
 
     from repro_torch.data.synthetic import synthetic_tokens, token_batches
     from repro_torch.launch.train import DATA_SEED
 
-    cfg, out = sizes["tp"], {}
+    t0 = time.perf_counter()
+    tokens = synthetic_tokens(DATA_SEED, TP_BATCH * (TP_SEQ + 1) * TP_STEPS, cfg.vocab_size)
+    gen = token_batches(tokens, TP_BATCH, TP_SEQ, device=dev)
+    batches = [next(gen)[0] for _ in range(TP_STEPS)]
+    out = {"layers": cfg.n_layers}
+    out["codes"], whole = _tp_detie(mesh, dev, cfg, fcfg)
+    start = _host_tree(whole)
+    del whole
+    _free()
+    dist.barrier(group=pair)
+    if first_step:
+        loss_tp, g_tp, _ = _first_grads(mesh, dev, cfg, batches[0], fcfg, start)
+        with fault():
+            loss_f, g_f, _ = _first_grads(mesh, dev, cfg, batches[0], fcfg, start)
+        dist.barrier(group=pair)
+        if g_tp is not None:
+            loss_one, g_one, hashes = _first_grads(None, dev, cfg, batches[0], fcfg, start,
+                                                   routes=route_check)
+            out["first"] = {
+                "loss": loss_one, "loss_rel_gap": abs(loss_tp - loss_one) / abs(loss_one),
+                "grad": _grad_gap(dev, g_tp, g_one),
+                "fault_loss_rel_gap": abs(loss_f - loss_one) / abs(loss_one),
+                "fault_grad": _grad_gap(dev, g_f, g_one), "one_routes": hashes}
+        del g_tp, g_f
+        _free()
+        dist.barrier(group=pair)
+    out["train"], tp_params = _tp_train(
+        mesh, dev, cfg, batches, fcfg, start, trace=True, route_check=route_check,
+        save_dir=os.path.join(out_dir, f"{name}_tp_save") if save else None)
+    dist.barrier(group=pair)
+    single_params = None
+    if tp_params is not None:
+        out["single"], single_params = _tp_single(
+            dev, cfg, batches, fcfg, out["train"], tp_params,
+            os.path.join(out_dir, f"{name}_one_save"), start)
+    del tp_params
+    dist.barrier(group=pair)
+    with fault():
+        out["fault"], fault_params = _tp_train(mesh, dev, cfg, batches, fcfg, start)
+    if fault_params is not None:
+        fault_losses = [r["loss"] for r in out["fault"]["steps"]]
+        out["fault"]["gaps"] = _md_gaps(dev, fault_losses, out["single"]["losses"],
+                                        fault_params, single_params)
+        del fault_params
+        if first_step:
+            out["twin"] = _tp_twin(dev, cfg, batches, start, out["single"]["losses"],
+                                   single_params)
+    del single_params, start
+    _free()
+    dist.barrier(group=pair)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def tensor_parallel_rank(rank: int, dev, fcfg, sizes: dict, pair, tp_mesh, pods_mesh,
+                         out_dir: str, progress=lambda out: None) -> dict:
+    """The tensor_parallel phase on one rank of the multidevice spawn: (a)
+    olmo-1b at full width over the pair's "model" axis against one process
+    and a planted fault, (b) the ternary save from the shards, (c) prefill
+    and decode; (e) zamba2-1.2b and (f) qwen3-moe-30b-a3b trained the same
+    way, each with its own planted fault, (g) the latter's ternary save, (h)
+    zamba2's prefill and decode; then (d) and (i) pods x model on all four
+    ranks (olmo-1b, qwen3-moe). ``progress(out)`` is called after each
+    part with the report so far."""
+    import torch.distributed as dist
+
+    from repro_torch.data.synthetic import synthetic_tokens, token_batches
+    from repro_torch.launch.train import DATA_SEED
+
+    out = {}
     if tp_mesh.member:
-        tokens = synthetic_tokens(DATA_SEED, TP_BATCH * (TP_SEQ + 1) * TP_STEPS, cfg.vocab_size)
-        gen = token_batches(tokens, TP_BATCH, TP_SEQ, device=dev)
-        batches = [next(gen)[0] for _ in range(TP_STEPS)]
-        out["codes"], whole = _tp_detie(tp_mesh, dev, cfg, fcfg)
-        start = _host_tree(whole)
-        del whole
-        _free()
+        cell = _tp_cell(tp_mesh, pair, dev, sizes["tp"], fcfg, out_dir, "olmo",
+                        _fault_shard_stats, save=True)
+        out.update({k: cell[k] for k in ("codes", "train", "single", "fault", "wall_s")
+                    if k in cell})
+        out["serve"] = _tp_serve(tp_mesh, dev, sizes["tp"])
+        progress(out)
         dist.barrier(group=pair)
-        save_tp = os.path.join(out_dir, "tp_save")
-        out["train"], tp_params = _tp_train(tp_mesh, dev, cfg, batches, fcfg, start,
-                                            save_dir=save_tp)
+        out["zamba2"] = _tp_cell(tp_mesh, pair, dev, sizes["tp_zamba"], fcfg, out_dir, "zamba2",
+                                 lambda: _fault_shard_stats(only="mamba"), first_step=True)
+        progress(out)
+        out["zamba2"]["serve"] = _tp_serve(tp_mesh, dev, sizes["tp_zamba"])
+        progress(out)
         dist.barrier(group=pair)
-        single_params = None
-        if tp_params is not None:
-            out["single"], single_params = _tp_single(
-                dev, cfg, batches, fcfg, out["train"], tp_params,
-                os.path.join(out_dir, "one_save"), start)
-        del tp_params
-        dist.barrier(group=pair)
-        out["fault"], fault_params = _tp_fault(tp_mesh, dev, cfg, batches, fcfg, start)
-        if fault_params is not None:
-            fault_losses = [r["loss"] for r in out["fault"]["steps"]]
-            out["fault"]["gaps"] = _md_gaps(dev, fault_losses, out["single"]["losses"],
-                                            fault_params, single_params)
-        del fault_params, single_params
-        _free()
-        dist.barrier(group=pair)
-        out["serve"] = _tp_serve(tp_mesh, dev, cfg)
+        moe_cfg = sizes["tp_moe"]
+        out["moe"] = _tp_cell(tp_mesh, pair, dev, moe_cfg, fcfg, out_dir, "moe",
+                              lambda: _fault_local_gates(moe_cfg.top_k), save=True,
+                              route_check=True, first_step=True)
+        progress(out)
     dist.barrier()
     pods_cfg = sizes["tp_pods"]
     out["pods_collective"] = _tp_pods_collective(pods_mesh, dev, pods_cfg, fcfg)
+    progress(out)
     dist.barrier()
     tokens = synthetic_tokens(DATA_SEED, TP_BATCH * (TP_SEQ + 1) * TP_PODS_STEPS,
                               pods_cfg.vocab_size)
     gen = token_batches(tokens, TP_BATCH, TP_SEQ, device=dev)
     out["pods_train"] = _tp_pods_train(pods_mesh, dev, pods_cfg,
                                        [next(gen)[0] for _ in range(TP_PODS_STEPS)])
+    dist.barrier()
+    out["pods_moe_collective"] = _tp_pods_collective(pods_mesh, dev, sizes["tp_pods_moe"], fcfg)
     return out
 
 
-def tensor_parallel_checks(reports: list) -> None:
+def _tp_cell_checks(r: int, tag: str, label: str, cell: dict, fault_what: str,
+                    save_tag: str = "", save_bytes: int | None = None,
+                    fault_in_forward: bool = True) -> None:
+    """Print one TP train cell's numbers (``_tp_cell``) and hold them to
+    the contract: codes equal but at ties, then none after moving them; on
+    rank 0 the run within TP_LOSS_RTOL and MD_PARAM_RTOL_L2 of one process
+    and the planted fault past both (a first-step cell: its first step's
+    loss and gradients, the fault's gradients past the limit and its loss
+    too where ``fault_in_forward``: a fault only in the backward leaves the
+    first step's loss as it is); a save from the shards one quantize_pack
+    launch and the one-process save's bytes; the ranks' routing equal where
+    checked."""
+    c = cell["codes"]
+    print(f"rank {r}, tensor_parallel ({tag}) {label}: {cell['wall_s']:.1f} s for the cell; "
+          "QAT codes of the seed-0 shards from "
+          f"whole-leaf statistics vs the whole leaves: {c['differing']} of {c['codes']} differ, "
+          f"{c['ties']} of them ties at Δ; {c['moved']} weights of the whole leaves moved off Δ, "
+          f"{c['left']} codes differing after")
+    check(c["differing"] == c["ties"], f"({tag}) a shard's QAT code differs from the whole "
+                                       "leaf's away from a tie at Δ")
+    check(c["left"] == 0, f"({tag}) the shards' QAT codes still differ after moving the ties "
+                          "off Δ")
+    for name in ("train", "fault"):
+        run = cell[name]
+        print(f"rank {r}, tensor_parallel ({tag}) {label}, {TP_BATCH} x {TP_SEQ} over "
+              f"{TP_RANKS} model ranks ({name}): steps "
+              + "; ".join(f"{s['ms']:.1f} ms{' traced' if s['traced'] else ''} "
+                          f"({s['tok_s']:.0f} tok/s) loss {s['loss']:.6f}, "
+                          f"{s['gloo_ms']:.1f} ms in gloo calls"
+                          + (f", {s['device_ms']:.1f} ms of device kernels"
+                             if "device_ms" in s else "") for s in run["steps"])
+              + f"; peak {run['peak_gib']:.2f} GiB; init {run['init_s']:.1f} s; "
+              f"launches {json.dumps(run['launches'])}; wire {json.dumps(run['wire'])}")
+    if "routes" in cell["train"]:
+        ro = cell["train"]["routes"]
+        print(f"rank {r}, tensor_parallel ({tag}) routing of the first step: {ro['layers']} MoE "
+              f"layers, the model ranks' top-k indices equal: {ro['equal']}")
+        check(ro["equal"] and ro["layers"] > 0, f"({tag}) the model ranks routed differently")
+    sv = cell["train"].get("save")
+    if sv is not None:
+        print(f"rank {r}, tensor_parallel ({save_tag}) ternary save from the shards: "
+              f"{sv['s']:.2f} s, launches {json.dumps(sv['launches'])}"
+              + (f", {sv['bytes']} B, sha256 {sv['sha256']}" if "sha256" in sv else ""))
+    if "single" not in cell:
+        return
+    if sv is not None:
+        check(sv["launches"]["quantize_pack"] == 1,
+              f"({save_tag}) the ternary save from the shards launched quantize_pack other than "
+              "once")
+        if save_bytes is not None:
+            check(sv["bytes"] == save_bytes, f"({save_tag}) the ternary save from the shards is "
+                                             f"{sv['bytes']} B, not {save_bytes}")
+        check(sv["sha256"] == cell["single"]["save_sha256"],
+              f"({save_tag}) the ternary save from the shards differs from the one-process save")
+    first = cell.get("first")
+    held = "printed, not held" if first is not None else "held"
+    runs = [("single", "TP run vs one process"),
+            ("fault", f"planted fault ({fault_what}) vs one process")]
+    if "twin" in cell:
+        runs.append(("twin", f"one process with {TP_TWIN_NOISE:g} relative weight noise vs "
+                             "one process"))
+    for name, what in runs:
+        g = {"single": cell["single"], "fault": cell["fault"]["gaps"]}.get(name, cell.get(name))
+        print(f"rank {r}, ({tag}) {what}, {TP_STEPS} steps ({held}): one-process losses "
+              f"{cell['single']['losses']}; max loss rel gap {g['loss_rel_gap']:.3e} (limit "
+              f"{TP_LOSS_RTOL:g}); params worst leaf ‖Δ‖/‖p‖ {g['param_rel_l2']:.3e} (limit "
+              f"{MD_PARAM_RTOL_L2:g}), max |Δ| / max |p| {g['param_rel_gap']:.3e}")
+    if first is not None:
+        print(f"rank {r}, ({tag}) the first step from the same state, TP vs one process: loss "
+              f"rel gap {first['loss_rel_gap']:.3e} (limit {TP_LOSS_RTOL:g}); gradients worst "
+              f"leaf ‖Δg‖/‖g‖ {first['grad']['rel_l2']:.3e} ({first['grad']['leaf']}; limit "
+              f"{MD_PARAM_RTOL_L2:g}); the planted fault: loss {first['fault_loss_rel_gap']:.3e}, "
+              f"gradients {first['fault_grad']['rel_l2']:.3e} ({first['fault_grad']['leaf']})")
+        if first["one_routes"]:
+            print(f"rank {r}, ({tag}) first-step routing of one process equal to the model "
+                  f"ranks': {first['one_routes'] == cell['train']['routes']['hashes']}")
+        check(first["loss_rel_gap"] <= TP_LOSS_RTOL
+              and first["grad"]["rel_l2"] <= MD_PARAM_RTOL_L2,
+              f"({tag}) the first tensor-parallel step disagrees with one process")
+        check(first["fault_grad"]["rel_l2"] > MD_PARAM_RTOL_L2
+              and (first["fault_loss_rel_gap"] > TP_LOSS_RTOL or not fault_in_forward),
+              f"({tag}) a limit of the first-step checks does not catch the planted fault")
+        return
+    g = cell["single"]
+    check(g["loss_rel_gap"] <= TP_LOSS_RTOL and g["param_rel_l2"] <= MD_PARAM_RTOL_L2,
+          f"({tag}) tensor-parallel training disagrees with one process")
+    f = cell["fault"]["gaps"]
+    check(f["loss_rel_gap"] > TP_LOSS_RTOL and f["param_rel_l2"] > MD_PARAM_RTOL_L2,
+          f"({tag}) a limit of the tensor-parallel checks does not catch the planted fault")
+
+
+def _tp_serve_checks(r: int, tag: str, label: str, s: dict) -> None:
+    print(f"rank {r}, tensor_parallel ({tag}) {label} prefill {TP_PROMPTS} x {TP_PROMPT} "
+          f"{s['prefill_ms']:.2f} ms, {TP_GEN} greedy steps {s['decode_tok_s']:.1f} tok/s, "
+          f"{s['cache_kv_heads']} kv heads in the cache"
+          + (f"; one process prefill {s['one_process']['prefill_ms']:.2f} ms, "
+             f"{s['one_process']['decode_tok_s']:.1f} tok/s; logits shape {s['shape']}, "
+             f"max rel gap {s['logits_rel']:.3e} (limit {TP_LOGITS_REL:g}), tokens equal "
+             f"{s['tokens_equal']}" if "logits_rel" in s else ""))
+    if "logits_rel" in s:
+        check(s["logits_rel"] <= TP_LOGITS_REL and s["tokens_equal"],
+              f"({tag}) tensor-parallel prefill or decode disagrees with one process")
+
+
+def _tp_pods_collective_checks(r: int, tag: str, label: str, c: dict) -> None:
+    print(f"rank {r}, tensor_parallel ({tag}) pods x model collective on {label}'s "
+          f"{c['compressed_elements']} compressed shard elements: wall {c['wall_ms']:.1f} ms; "
+          f"launches {json.dumps(c['launches'])}; wire {json.dumps(c['wire'])} (all-gather "
+          f"want {c['want_gather_bytes']}); code flips {c['code_flips']} "
+          f"({c['proven_ties']} proven ties), mean rel gap {c['mean_rel_gap']:.3e}, residual "
+          f"rel gap {c['residual_rel_gap']:.3e}")
+    check(c["launches"]["quantize_pack"] == 1 and c["launches"]["aggregate"] == 2,
+          f"({tag}) the pods x model collective launched other than 1 quantize_pack and 2 "
+          "aggregate")
+    check(c["wire"].get("all_gather", 0) == c["want_gather_bytes"],
+          f"({tag}) the pods x model all-gather is not 0.25 B a shard coordinate plus w_q")
+    check(c["code_flips"] == c["proven_ties"], f"({tag}) a pods x model code differs from the "
+                                               "plain version away from a tie at Δ")
+    check(c["mean_rel_gap"] <= 1e-6 and c["residual_rel_gap"] <= 1e-6,
+          f"({tag}) the pods x model collective disagrees with the plain version")
+
+
+def tensor_parallel_checks(reports: list, sizes: dict | None = None) -> None:
     """Print the tensor_parallel phase's numbers and hold them to the
     contract."""
+    sizes = sizes or {}
     for rep in reports:
         r, tp = rep["rank"], rep.get("tensor_parallel")
         if tp is None:
             continue
         if "train" in tp:
-            c = tp["codes"]
-            print(f"rank {r}, tensor_parallel (a) QAT codes of the seed-0 shards from whole-leaf "
-                  f"statistics vs the whole leaves: {c['differing']} of {c['codes']} differ, "
-                  f"{c['ties']} of them ties at Δ; {c['moved']} weights of the whole leaves "
-                  f"moved off Δ, {c['left']} codes differing after")
-            check(c["differing"] == c["ties"], "a shard's QAT code differs from the whole "
-                                               "leaf's away from a tie at Δ")
-            check(c["left"] == 0, "the shards' QAT codes still differ after moving the ties "
-                                  "off Δ")
-            for name in ("train", "fault"):
-                run = tp[name]
-                print(f"rank {r}, tensor_parallel (a) olmo-1b 16 of 16 layers at full width, "
-                      f"{TP_BATCH} x {TP_SEQ} over {TP_RANKS} model ranks ({name}): steps "
-                      + "; ".join(f"{s['ms']:.1f} ms{' traced' if s['traced'] else ''} "
-                                  f"({s['tok_s']:.0f} tok/s) loss {s['loss']:.6f}, "
-                                  f"{s['gloo_ms']:.1f} ms in gloo calls"
-                                  + (f", {s['device_ms']:.1f} ms of device kernels"
-                                     if "device_ms" in s else "") for s in run["steps"])
-                      + f"; peak {run['peak_gib']:.2f} GiB; init {run['init_s']:.1f} s; "
-                      f"launches {json.dumps(run['launches'])}; wire {json.dumps(run['wire'])}")
-            sv = tp["train"]["save"]
-            print(f"rank {r}, tensor_parallel (b) ternary save from the shards: "
-                  f"{sv['s']:.2f} s, launches {json.dumps(sv['launches'])}"
-                  + (f", {sv['bytes']} B, sha256 {sv['sha256']}" if "sha256" in sv else ""))
-            if "single" in tp:
-                check(sv["launches"]["quantize_pack"] == 1,
-                      "the ternary save from the shards launched quantize_pack other than once")
-                check(sv["bytes"] == TP_SAVE_BYTES,
-                      f"the ternary save from the shards is {sv['bytes']} B, not {TP_SAVE_BYTES}")
-                check(sv["sha256"] == tp["single"]["save_sha256"],
-                      "the ternary save from the shards differs from the one-process save")
-                for name, what in (("single", "TP run vs one process"),
-                                   ("fault", "planted fault (FTTQ statistics per shard) vs "
-                                             "one process")):
-                    g = tp["single"] if name == "single" else tp["fault"]["gaps"]
-                    print(f"rank {r}: {what}: one-process losses {tp['single']['losses']}; "
-                          f"max loss rel gap {g['loss_rel_gap']:.3e} (limit {TP_LOSS_RTOL:g}); "
-                          f"params worst leaf ‖Δ‖/‖p‖ {g['param_rel_l2']:.3e} (limit "
-                          f"{MD_PARAM_RTOL_L2:g}), max |Δ| / max |p| {g['param_rel_gap']:.3e} "
-                          "(printed, not held)")
-                g = tp["single"]
-                check(g["loss_rel_gap"] <= TP_LOSS_RTOL and g["param_rel_l2"] <= MD_PARAM_RTOL_L2,
-                      "tensor-parallel training disagrees with one process")
-                f = tp["fault"]["gaps"]
-                check(f["loss_rel_gap"] > TP_LOSS_RTOL and f["param_rel_l2"] > MD_PARAM_RTOL_L2,
-                      "a limit of the tensor-parallel checks does not catch the planted fault")
-            s = tp["serve"]
-            print(f"rank {r}, tensor_parallel (c) prefill {TP_PROMPTS} x {TP_PROMPT} "
-                  f"{s['prefill_ms']:.2f} ms, {TP_GEN} greedy steps {s['decode_tok_s']:.1f} tok/s, "
-                  f"{s['cache_kv_heads']} kv heads in the cache"
-                  + (f"; one process prefill {s['one_process']['prefill_ms']:.2f} ms, "
-                     f"{s['one_process']['decode_tok_s']:.1f} tok/s; logits shape {s['shape']}, "
-                     f"max rel gap {s['logits_rel']:.3e} (limit {TP_LOGITS_REL:g}), tokens equal "
-                     f"{s['tokens_equal']}" if "logits_rel" in s else ""))
-            if "logits_rel" in s:
-                check(s["logits_rel"] <= TP_LOGITS_REL and s["tokens_equal"],
-                      "tensor-parallel prefill or decode disagrees with one process")
+            _tp_cell_checks(r, "a", "olmo-1b 16 of 16 layers at full width", tp,
+                            "FTTQ statistics per shard", "b", TP_SAVE_BYTES)
+            _tp_serve_checks(r, "c", "olmo-1b", tp["serve"])
+            z = tp["zamba2"]
+            _tp_cell_checks(r, "e", f"zamba2-1.2b {z['layers']} of 38 layers at full width, "
+                            "remat full", z, "FTTQ statistics per shard on the Mamba2 leaves")
+            _tp_serve_checks(r, "h", "zamba2-1.2b", z["serve"])
+            mo = tp["moe"]
+            _tp_cell_checks(r, "f", f"qwen3-moe-30b-a3b {mo['layers']} of 48 layers at full "
+                            "width", mo, "the gates enter the combine without copy_to_model", "g",
+                            fault_in_forward=False)
+        _tp_pods_collective_checks(r, "d", f"olmo-1b {sizes.get('tp_pods_layers', '?')} layers",
+                                   tp["pods_collective"])
         c = tp["pods_collective"]
-        print(f"rank {r}, tensor_parallel (d) pods x model collective on "
-              f"{c['compressed_elements']} compressed shard elements: wall {c['wall_ms']:.1f} ms; "
-              f"launches {json.dumps(c['launches'])}; wire {json.dumps(c['wire'])} (all-gather "
-              f"want {c['want_gather_bytes']}); code flips {c['code_flips']} "
-              f"({c['proven_ties']} proven ties), mean rel gap {c['mean_rel_gap']:.3e}, residual "
-              f"rel gap {c['residual_rel_gap']:.3e}")
-        check(c["launches"]["quantize_pack"] == 1 and c["launches"]["aggregate"] == 2,
-              "the pods x model collective launched other than 1 quantize_pack and 2 aggregate")
-        check(c["wire"].get("all_gather", 0) == c["want_gather_bytes"],
-              "the pods x model all-gather is not 0.25 B a shard coordinate plus w_q")
-        check(c["code_flips"] == c["proven_ties"], "a pods x model code differs from the plain "
-                                                   "version away from a tie at Δ")
-        check(c["mean_rel_gap"] <= 1e-6 and c["residual_rel_gap"] <= 1e-6,
-              "the pods x model collective disagrees with the plain version")
         t = tp["pods_train"]
         print(f"rank {r}, tensor_parallel (d) olmo-1b {TP_PODS_LAYERS} of 16 layers, "
               f"{TP_BATCH} x {TP_SEQ} over mesh (2, 1, 2): steps "
@@ -4362,6 +4668,9 @@ def tensor_parallel_checks(reports: list) -> None:
                   "a pods x model step launched other than 1 quantize_pack and 2 aggregate")
             check(s["wire"].get("all_gather", 0) == c["want_gather_bytes"],
                   "a pods x model step's all-gather bytes are not the collective's")
+        _tp_pods_collective_checks(
+            r, "i", f"qwen3-moe-30b-a3b {sizes.get('tp_pods_moe_layers', '?')} layer(s)",
+            tp["pods_moe_collective"])
 
 
 def multidevice_rank(rank: int, world: int, rdv: str, out_dir: str, device: str,
@@ -4418,8 +4727,12 @@ def multidevice_rank(rank: int, world: int, rdv: str, out_dir: str, device: str,
         save()
         dist.barrier(group=pair)
     if "tensor_parallel" in parts:
+        def progress(tp_out):
+            report["tensor_parallel"] = tp_out
+            save()
+
         report["tensor_parallel"] = tensor_parallel_rank(rank, dev, FTTQConfig(), sizes, pair,
-                                                         tp_mesh, pods_mesh, out_dir)
+                                                         tp_mesh, pods_mesh, out_dir, progress)
     report["rank_s"] = time.perf_counter() - t0
     save()
     dist.destroy_process_group()
@@ -4427,7 +4740,8 @@ def multidevice_rank(rank: int, world: int, rdv: str, out_dir: str, device: str,
 
 def multidevice_phase(device: str = "cuda:0", olmo_cfg=None, moe_cfg=None, train_cfg=None,
                       batch: int = MD_BATCH, seq: int = MD_SEQ, steps: int = MD_STEPS,
-                      tp_cfg=None, tp_pods_cfg=None,
+                      tp_cfg=None, tp_pods_cfg=None, tp_zamba_cfg=None, tp_moe_cfg=None,
+                      tp_pods_moe_cfg=None,
                       parts: tuple = ("collective", "tensor_parallel")) -> dict:
     """Ranks spawned on the one card over gloo (a file rendezvous in a
     temporary directory), in one spawn: on two of them (a) the collective at
@@ -4448,6 +4762,12 @@ def multidevice_phase(device: str = "cuda:0", olmo_cfg=None, moe_cfg=None, train
              "train": train_cfg or get_config("olmo-1b", n_layers=MD_TRAIN_LAYERS),
              "tp": tp_cfg or get_config("olmo-1b"),
              "tp_pods": tp_pods_cfg or get_config("olmo-1b", n_layers=TP_PODS_LAYERS),
+             # remat "full": each Mamba2 layer would keep ~1.2 GB of SSD
+             # intermediates for the backward, ~45 GB over 38 layers
+             "tp_zamba": tp_zamba_cfg or get_config("zamba2-1.2b", remat="full"),
+             "tp_moe": tp_moe_cfg or get_config("qwen3-moe-30b-a3b", n_layers=TP_MOE_LAYERS),
+             "tp_pods_moe": tp_pods_moe_cfg or get_config("qwen3-moe-30b-a3b",
+                                                          n_layers=TP_PODS_MOE_LAYERS),
              "batch": batch, "seq": seq, "steps": steps, "parts": tuple(parts)}
     world = MD_WORLD if "tensor_parallel" in parts else MD_RANKS
     ctx = mp.get_context("spawn")
@@ -4483,7 +4803,9 @@ def multidevice_phase(device: str = "cuda:0", olmo_cfg=None, moe_cfg=None, train
     return {"reports": reports, "wall_s": wall_s, "sizes": {
         "olmo_layers": sizes["olmo"].n_layers, "train_layers": sizes["train"].n_layers,
         "moe_layers": sizes["moe"].n_layers, "tp_layers": sizes["tp"].n_layers,
-        "tp_pods_layers": sizes["tp_pods"].n_layers, "batch": batch, "seq": seq,
+        "tp_pods_layers": sizes["tp_pods"].n_layers, "tp_zamba_layers": sizes["tp_zamba"].n_layers,
+        "tp_moe_layers": sizes["tp_moe"].n_layers,
+        "tp_pods_moe_layers": sizes["tp_pods_moe"].n_layers, "batch": batch, "seq": seq,
         "steps": steps, "world": world}}
 
 
@@ -4571,7 +4893,7 @@ def multidevice_checks(md: dict) -> None:
         check([s["loss"] for s in reports[0]["train"]["compressed"]["steps"]]
               == [s["loss"] for s in reports[1]["train"]["compressed"]["steps"]],
               "the two pods logged different losses")
-    tensor_parallel_checks(reports)
+    tensor_parallel_checks(reports, md["sizes"])
     print(f"multidevice phase: {md['wall_s']:.1f} s")
 
 
@@ -4884,7 +5206,10 @@ def main() -> int:
           f"48 layers, (b) compressed and exact 2-pod training of olmo-1b {MD_TRAIN_LAYERS} of "
           "16 layers; then tensor_parallel: (a) olmo-1b 16 of 16 layers trained over 2 model "
           "ranks vs one process and a planted fault, (b) its ternary save, (c) prefill and "
-          f"decode; (d) pods x model on 4 ranks, olmo-1b {TP_PODS_LAYERS} of 16 layers")
+          "decode; (e) zamba2-1.2b 38 of 38 layers and (f) qwen3-moe-30b-a3b "
+          f"{TP_MOE_LAYERS} of 48 layers trained the same way, (g) the latter's ternary save, "
+          f"(h) zamba2's prefill and decode; (d) pods x model on 4 ranks, olmo-1b "
+          f"{TP_PODS_LAYERS} of 16 layers, (i) qwen3-moe {TP_PODS_MOE_LAYERS} of 48")
     _free()
     md = multidevice_phase(f"cuda:{torch.cuda.current_device()}")
     multidevice_checks(md)
@@ -4894,10 +5219,14 @@ def main() -> int:
         """A rank's launches of ``name`` on each tensor_parallel path."""
         tp = rep["tensor_parallel"]
         out = {"pods_model_collective": tp["pods_collective"]["launches"][name],
-               "pods_model_steps": [s["launches"][name] for s in tp["pods_train"]["steps"]]}
+               "pods_model_steps": [s["launches"][name] for s in tp["pods_train"]["steps"]],
+               "pods_model_moe_collective": tp["pods_moe_collective"]["launches"][name]}
         if "train" in tp:
             out.update(train=tp["train"]["launches"][name],
-                       ternary_save=tp["train"]["save"]["launches"][name])
+                       ternary_save=tp["train"]["save"]["launches"][name],
+                       zamba2_train=tp["zamba2"]["train"]["launches"][name],
+                       moe_train=tp["moe"]["train"]["launches"][name],
+                       moe_ternary_save=tp["moe"]["train"]["save"]["launches"][name])
         return out
 
     phase("federated: ResNet18* T-FedAvg sync rounds at full width")

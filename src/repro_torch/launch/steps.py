@@ -7,10 +7,10 @@
 
 With a ``mesh`` whose "model" axis has size > 1 (tensor parallelism), every
 rank of it calls the step with the same batch and its params' shards
-(``init_params(..., mesh=)``); the cache holds the rank's kv heads, and the
-logits are all-gathered over the vocabulary, so each rank returns the
-reference's (B, 1, V). The dry-run that drives the steps over the
-reference's production mesh is not ported yet (ROADMAP).
+(``init_params(..., mesh=)``); the cache holds the rank's kv heads (the
+SSM states whole), and the logits are all-gathered over the vocabulary, so
+each rank returns the reference's (B, 1, V). The dry-run that drives the
+steps over the reference's production mesh is not ported yet (ROADMAP).
 """
 
 from __future__ import annotations

@@ -19,9 +19,9 @@ environment), the mesh is (N, WORLD_SIZE / (N · M), M) over ("pod",
 rows of each global batch, the pods sync their gradients
 ternary-compressed with error feedback (``--no-pod-compression``: an exact
 mean; ``--no-error-feedback``), and the "model" axis is tensor
-parallelism: each rank holds its shards of the params (dense, vlm and
-audio families). Rank r runs on ``cuda:{r % device_count}`` (or the CPU
-with ``--device cpu``); the backend is ``--backend`` (default nccl on
+parallelism: each rank holds its shards of the params (every family; the
+all-to-all MoE raises). Rank r runs on ``cuda:{r % device_count}`` (or the
+CPU with ``--device cpu``); the backend is ``--backend`` (default nccl on
 cuda, gloo on the CPU; gloo also lets several ranks share one GPU). Rank 0
 prints and writes checkpoints (every pod's residuals and every model
 shard gathered: the one-device file).

@@ -14,6 +14,25 @@ Block layout (d_inner = expand·d_model, P = d_inner/n_heads, N = d_state):
     in_proj : D → [z(d_inner), x(d_inner), B(N), C(N), dt(H)]
     conv1d  : causal depthwise width-W over concat(x, B, C)
     SSD core, gated RMSNorm(y · silu(z)), out_proj : d_inner → D
+
+Under tensor parallelism (``tp``, a ``parallel.tensor.ModelAxis``, with the
+layer's "model" ``dims``) the sharding rules split ``in_proj``'s output
+columns [z | x | B | C | dt] as one flat range, ``conv_w``'s channels
+[x | B | C] likewise, and ``out_proj`` by rows. The cut falls inside x, not
+at a head boundary (zamba2-1.2b at two ranks: column 4,192 of 8,384), so a
+rank's shard is not a set of whole heads. The block therefore gathers the
+WEIGHTS, not the activations: each sharded leaf is all-gathered
+(``gather_from_model``) and the block computes exactly what one device
+computes, on every rank, from the replicated input. Each gathered weight is
+then used alike on every rank, so the gather's backward (this rank's slice
+of the gradient) is the shard's gradient, and the input's gradient needs no
+collective. The per-rank cost is the all-gather, which receives the other
+rank's 34 MB of in_proj and 17 MB of out_proj a layer for zamba2-1.2b in
+fp32 at two ranks, once more under remat; the gain is the params,
+gradients and Adam moments a rank holds: in_proj and out_proj are ~95% of
+a Mamba2 layer's parameters. A leaf the divisibility guard left whole (for
+example in_proj's odd column count with a single SSM head) is used as it
+is. The cache (conv window and SSD state) is whole.
 """
 
 from __future__ import annotations
@@ -22,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import dense_init, rms_norm
+from repro_torch.parallel.tensor import gather_from_model
 
 
 def d_inner_of(d_model: int, expand: int) -> int:
@@ -138,22 +158,33 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def _whole(params: dict, name: str, tp, dims: dict | None) -> torch.Tensor:
+    """The leaf ``name`` whole: all-gathered over ``tp`` where ``dims``
+    shards it, else as held."""
+    d = dims.get(name) if tp is not None and dims is not None else None
+    return params[name] if d is None else gather_from_model(params[name], tp, d)
+
+
 def mamba_block(params, x, *, n_heads: int, d_state: int, expand: int,
-                conv_width: int, chunk: int, cache: dict | None = None):
+                conv_width: int, chunk: int, cache: dict | None = None, tp=None,
+                dims: dict | None = None):
     """x: (B, L, D). cache: {"conv": (B,W-1,C), "ssd": (B,H,P,N)} or None.
     A one-token call with a cache takes the decode update; any other call
     runs the chunked scan from a zero state (the conv still reads the
-    cache's window). Returns (out (B,L,D), new_cache)."""
+    cache's window). ``tp`` and ``dims`` (the layer's "model" dim per leaf,
+    None where whole): the params are this rank's shards, gathered here.
+    Returns (out (B,L,D), new_cache)."""
     bsz, l, d = x.shape
     d_in = d_inner_of(d, expand)
     p = d_in // n_heads
     n = d_state
 
-    zxbcdt = x @ params["in_proj"]
+    zxbcdt = x @ _whole(params, "in_proj", tp, dims)
     z, xin, b, c, dt_raw = torch.split(zxbcdt, [d_in, d_in, n, n, n_heads], dim=-1)
     conv_in = torch.cat([xin, b, c], dim=-1)
     conv_state = cache["conv"] if cache is not None else None
-    conv_out, new_conv = _causal_conv(conv_in, params["conv_w"], conv_state)
+    conv_out, new_conv = _causal_conv(conv_in, _whole(params, "conv_w", tp, dims),
+                                      conv_state)
     conv_out = F.silu(conv_out)
     xin, b, c = torch.split(conv_out, [d_in, n, n], dim=-1)
 
@@ -172,5 +203,5 @@ def mamba_block(params, x, *, n_heads: int, d_state: int, expand: int,
     y = y.reshape(bsz, l, d_in).to(x.dtype)
     y = y * F.silu(z)
     y = rms_norm(y, params["gate_norm"])
-    out = y @ params["out_proj"]
+    out = y @ _whole(params, "out_proj", tp, dims)
     return out, {"conv": new_conv, "ssd": new_ssd.to(torch.float32)}

@@ -22,13 +22,19 @@ norms; ``cross`` (vlm) and ``shared_attn`` (hybrid); ``final_norm`` and
 layers with a Python loop where the reference scans, and writes a given
 cache in place.
 
-Tensor parallelism (``tp``, a ``parallel.tensor.ModelAxis``; the dense, vlm
-and audio families): the params are this rank's shards
-(``init_params(..., mesh=)``); attention and the MLP are column- then
-row-parallel; ``embed/table`` is split by vocab rows, so the lookup reads
-the rank's rows (zero for ids it does not hold) and sums over the axis, and
-the logits (tied or ``lm_head``) are the rank's vocab columns, which
-``loss_fn`` reduces with a vocab-parallel cross entropy.
+Tensor parallelism (``tp``, a ``parallel.tensor.ModelAxis``; every family):
+the params are this rank's shards (``init_params(..., mesh=)``); attention
+and the MLP are column- then row-parallel; ``embed/table`` is split by vocab
+rows, so the lookup reads the rank's rows (zero for ids it does not hold)
+and sums over the axis, and the logits (tied or ``lm_head``) are the rank's
+vocab columns, which ``loss_fn`` reduces with a vocab-parallel cross
+entropy. The MoE layers run the rank's experts on the replicated tokens
+(``models.moe``); the Mamba2 layers gather their sharded weights and compute
+whole (``models.mamba2``); the hybrid's shared block is attention and MLP
+under ``tp``, one set of shards for all its applications. Where the
+divisibility guard leaves a leaf whole, it is computed whole on every rank
+(the per-layer "model" dims come from ``parallel.sharding.model_dims``).
+The all-to-all MoE (``moe_impl="a2a"``) is not ported under a "model" axis.
 """
 
 from __future__ import annotations
@@ -63,7 +69,7 @@ Pytree = Any
 BIG_WINDOW = GLOBAL_WINDOW
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 _ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
-TP_FAMILIES = ("dense", "vlm", "audio")
+TP_FAMILIES = FAMILIES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,12 +159,24 @@ def _check_family(cfg: ModelConfig) -> None:
 
 
 def check_tensor_parallel(cfg: ModelConfig, n_model: int) -> None:
-    """Raise for a "model" axis of ``n_model`` > 1 ranks on a family
-    without tensor parallelism."""
-    if n_model > 1 and cfg.family not in TP_FAMILIES:
+    """Raise for a "model" axis of ``n_model`` > 1 ranks where tensor
+    parallelism is not ported: the all-to-all MoE."""
+    if n_model > 1 and cfg.family == "moe" and cfg.moe_impl == "a2a":
         raise NotImplementedError(
-            f"tensor parallelism over a 'model' axis of {n_model} is not ported for the "
-            f"{cfg.family} family ({cfg.name}): ROADMAP Queue 1, item 14b-ii")
+            f"the all-to-all MoE (moe_impl='a2a') under tensor parallelism over a 'model' axis "
+            f"of {n_model} is not ported ({cfg.name}): ROADMAP Queue 1, item 14b-iv")
+
+
+@functools.lru_cache(maxsize=16)
+def _layer_dims(cfg: ModelConfig, size: int) -> dict:
+    """The "model" dim of each leaf of one layer of ``blocks`` (the stacked
+    layer dim taken off; None where whole) under a "model" axis of
+    ``size``, as ``parallel.sharding.model_dims`` decides it."""
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.parallel.sharding import model_dims
+
+    dims = model_dims(cfg, MeshSpec((size,), ("model",)))["blocks"]
+    return tree_map(lambda d: None if d is None else d - 1, dims)
 
 
 def _vocab_tp(cfg: ModelConfig, tp):
@@ -357,7 +375,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     W-1, C) conv windows and (L, B, H, P, N) float32 SSD states for Mamba
     layers, and (A, B, S_max, Hkv, hd) per shared-attention application.
     With a ``mesh`` whose "model" axis has size > 1, Hkv is this rank's kv
-    heads (``attention.head_layout``)."""
+    heads (``attention.head_layout``); the SSM states stay whole."""
     dev = resolve_device(device)
     _check_family(cfg)
     check_tensor_parallel(cfg, mesh.size("model") if mesh is not None else 1)
@@ -378,7 +396,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
         cache["ssd"] = _zeros((nl, batch, cfg.ssm_heads, p, cfg.ssm_state),
                               torch.float32, dev)
     if cfg.family == "hybrid":
-        shape = (cfg.n_attn_apps, batch, max_seq, cfg.n_kv_heads, hd)
+        n_kv = head_layout(cfg.n_heads, cfg.n_kv_heads, hd, tp).n_kv
+        shape = (cfg.n_attn_apps, batch, max_seq, n_kv, hd)
         cache["attn_k"] = _zeros(shape, dtype, dev)
         cache["attn_v"] = _zeros(shape, dtype, dev)
     return cache
@@ -405,7 +424,8 @@ def _mlp_tp(cfg: ModelConfig, tp):
     return tp if tp is not None and cfg.d_ff % tp.size == 0 else None
 
 
-def _dense_layer(cfg: ModelConfig, bp: dict, x, window: int, kv, pos: int, tp=None):
+def _dense_layer(cfg: ModelConfig, bp: dict, x, window: int, kv, pos: int, tp=None,
+                 dp=None):
     """One dense/moe/vlm/audio layer; kv = (k, v) cache slices or None.
     Returns (x, aux) with aux the MoE loss (0 for the other families)."""
     h = apply_norm(x, bp.get("attn_norm"), cfg.norm)
@@ -423,8 +443,9 @@ def _dense_layer(cfg: ModelConfig, bp: dict, x, window: int, kv, pos: int, tp=No
                               data_groups=tuple(group(a) for a in cfg.mesh_batch_axes),
                               wire_dtype=cfg.moe_wire)
         else:
+            dims = _layer_dims(cfg, tp.size)["moe"] if tp is not None else None
             mo, aux = moe(bp["moe"], h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
-                          activation=cfg.activation)
+                          activation=cfg.activation, tp=tp, dims=dims, dp=dp)
         return x + mo, aux
     return x + mlp(bp["mlp"], h, cfg.activation, _mlp_tp(cfg, tp)), None
 
@@ -438,20 +459,21 @@ def _cross_layer(cfg: ModelConfig, cp: dict, x, vision, tp=None):
                                                 _mlp_tp(cfg, tp))
 
 
-def _shared_attn_layer(cfg: ModelConfig, sp: dict, x, kv, pos: int):
+def _shared_attn_layer(cfg: ModelConfig, sp: dict, x, kv, pos: int, tp=None):
     h = apply_norm(x, sp.get("attn_norm"), cfg.norm)
-    ao, _ = attention(sp["attn"], h, cache=kv, pos=pos, **_attn_kwargs(cfg))
+    ao, _ = attention(sp["attn"], h, cache=kv, pos=pos, tp=tp, **_attn_kwargs(cfg))
     x = x + ao
     h = apply_norm(x, sp.get("mlp_norm"), cfg.norm)
-    return x + mlp(sp["mlp"], h, cfg.activation)
+    return x + mlp(sp["mlp"], h, cfg.activation, _mlp_tp(cfg, tp))
 
 
-def _mamba_layer(cfg: ModelConfig, bp: dict, x, states):
+def _mamba_layer(cfg: ModelConfig, bp: dict, x, states, tp=None):
     h = apply_norm(x, bp.get("norm"), cfg.norm)
+    dims = _layer_dims(cfg, tp.size)["mamba"] if tp is not None else None
     mo, new_states = mb.mamba_block(
         bp["mamba"], h, n_heads=cfg.ssm_heads, d_state=cfg.ssm_state,
         expand=cfg.ssm_expand, conv_width=cfg.conv_width, chunk=cfg.ssm_chunk,
-        cache=states)
+        cache=states, tp=tp, dims=dims)
     return x + mo, new_states
 
 
@@ -505,12 +527,14 @@ def _embed(cfg: ModelConfig, table: torch.Tensor, tokens: torch.Tensor, tp) -> t
 def forward(cfg: ModelConfig, params: Pytree, tokens: torch.Tensor | None = None, *,
             embeds: torch.Tensor | None = None,
             vision_embeds: torch.Tensor | None = None,
-            cache: Pytree | None = None, pos: int = 0, tp=None):
+            cache: Pytree | None = None, pos: int = 0, tp=None, dp=None):
     """Returns (logits (B, S, V) in the compute dtype, cache or None, aux
     loss: the MoE layers' sum, a float32 scalar). With a cache, each layer's
     keys, values and SSM states are written into it in place. Under ``tp``
     (params and cache this rank's shards) the logits are this rank's vocab
-    columns (B, S, V / size) where the guard splits the vocabulary."""
+    columns (B, S, V / size) where the guard splits the vocabulary. ``dp``
+    (``parallel.tensor.BatchAxes``): the ranks whose rows make one batch
+    with these, which the MoE layers route together."""
     _check_family(cfg)
     check_tensor_parallel(cfg, tp.size if tp is not None else 1)
     if tp is not None and any(isinstance(w, PackedTernary) for w in tree_leaves(
@@ -536,7 +560,7 @@ def forward(cfg: ModelConfig, params: Pytree, tokens: torch.Tensor | None = None
 
             # one remat unit per layer: the layer and the cross layer after it
             def body(x, bp, cp, kv=kv, window=window):
-                x, layer_aux = _dense_layer(cfg, bp, x, window, kv, pos, tp)
+                x, layer_aux = _dense_layer(cfg, bp, x, window, kv, pos, tp, dp)
                 if cp is not None:
                     x = _cross_layer(cfg, cp, x, vis, tp)
                 return x, layer_aux
@@ -562,8 +586,8 @@ def forward(cfg: ModelConfig, params: Pytree, tokens: torch.Tensor | None = None
             # one remat unit per layer: the shared block before it, if any
             def body(x, bp, sp, kv=kv, states=states):
                 if sp is not None:
-                    x = _shared_attn_layer(cfg, sp, x, kv, pos)
-                return _mamba_layer(cfg, bp, x, states)
+                    x = _shared_attn_layer(cfg, sp, x, kv, pos, tp)
+                return _mamba_layer(cfg, bp, x, states, tp)
 
             x, new_states = _remat(cfg, cache, body, x, _layer(blocks, i), sp)
             app_idx += int(sp is not None)
@@ -598,15 +622,16 @@ def decode_step(cfg: ModelConfig, params: Pytree, tokens: torch.Tensor,
     return logits, cache
 
 
-def loss_fn(cfg: ModelConfig, params: Pytree, batch: dict, tp=None):
+def loss_fn(cfg: ModelConfig, params: Pytree, batch: dict, tp=None, dp=None):
     """Mean next-token (or per-frame) cross entropy, from an fp32 log-softmax
     of the logits, plus ``aux_loss_coef`` × the MoE aux loss. ``batch`` holds
     ``labels`` and ``tokens`` or ``embeds`` (audio), and ``vision_embeds``
     for the vlm. Under ``tp`` with the vocabulary split, the cross entropy
     is vocab-parallel (``parallel.tensor.vocab_parallel_ce``): no rank
-    holds the whole (B, S, V) logits. Returns (loss, {"ce", "aux"})."""
+    holds the whole (B, S, V) logits. ``dp`` as for ``forward``. Returns
+    (loss, {"ce", "aux"})."""
     logits, _, aux = forward(cfg, params, batch.get("tokens"), embeds=batch.get("embeds"),
-                             vision_embeds=batch.get("vision_embeds"), tp=tp)
+                             vision_embeds=batch.get("vision_embeds"), tp=tp, dp=dp)
     labels = batch["labels"].to(torch.int64)
     vtp = _vocab_tp(cfg, tp)
     if vtp is not None:

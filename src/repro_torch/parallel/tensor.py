@@ -28,16 +28,24 @@ the rank that holds the label, with no collective. No rank holds the whole
 A ``ModelAxis`` (``model_axis(mesh)``) is what the layers are handed: the
 subgroup, its size and this rank's index; None for a mesh without a
 "model" axis of size > 1, and then every layer computes as on one device.
+
+``BatchAxes`` are the mesh axes whose ranks' rows together form one batch,
+as GSPMD's automatic axes do: a layer whose result depends on the whole
+batch (the MoE's capacity, queue slots and load loss) reads it across them.
+``mean_over_batch`` is their mean with an identity backward: the trainer
+averages every rank's gradient over the same axes, which gives the global
+mean's gradient.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
 
-from repro_torch.parallel.collectives import all_gather, all_reduce_
+from repro_torch.parallel.collectives import all_gather, all_reduce_, group_rank, group_size
 from repro_torch.tree import flatten_with_path, path_str, tree_map_with_path
 
 Pytree = Any
@@ -72,6 +80,58 @@ def model_axis(mesh) -> ModelAxis | None:
         raise TypeError("tensor parallelism needs a mesh of processes (launch.mesh.make_mesh), "
                         f"not {mesh!r}")
     return ModelAxis(model_group(mesh), mesh.size("model"), mesh.index("model"))
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchAxes:
+    """Process subgroups (outer axis first) whose ranks hold consecutive
+    rows of one batch, in their linear order."""
+
+    groups: tuple
+
+    @property
+    def size(self) -> int:
+        return math.prod(group_size(g) for g in self.groups)
+
+    @property
+    def index(self) -> int:
+        """This rank's place in the linear (outer-major) order."""
+        i = 0
+        for g in self.groups:
+            i = i * group_size(g) + group_rank(g)
+        return i
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """(size, *t.shape): every rank's ``t`` in linear order."""
+        out = t[None]
+        for g in reversed(self.groups):
+            out = all_gather(out, g).reshape((-1,) + tuple(t.shape))
+        return out
+
+
+def batch_axes(mesh, axes) -> BatchAxes | None:
+    """The ``axes`` of ``mesh`` of size > 1 as ``BatchAxes``, or None."""
+    groups = tuple(mesh.group(a) for a in axes if mesh.size(a) > 1)
+    return BatchAxes(groups) if groups else None
+
+
+class _MeanOverBatch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dp):
+        x = x.contiguous().clone()
+        for g in dp.groups:
+            all_reduce_(x, g, mean=True)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def mean_over_batch(x: torch.Tensor, dp: BatchAxes) -> torch.Tensor:
+    """The mean of ``x`` over ``dp``'s ranks; the gradient passes through
+    unchanged (see the module docstring)."""
+    return _MeanOverBatch.apply(x, dp)
 
 
 # --------------------------------------------------------------------------

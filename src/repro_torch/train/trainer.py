@@ -14,13 +14,18 @@ Over a mesh (``launch.mesh``) every rank takes its own rows of the global
 batch (dim 0 sharded over ("pod", "data"), pod major). A "data" axis is
 exact data parallelism: every rank of it holds the same state, and
 gradients, loss and metrics are averaged over its subgroup, which is what
-GSPMD's automatic axis computes. A "model" axis of size > 1 is tensor
-parallelism (dense, vlm and audio families; the others raise): each rank
-holds its shards of the "model"-sharded params (``parallel.sharding``) and
-of their Adam moments, and the whole w_q; the forward is column- then
-row-parallel with a vocab-parallel loss (``parallel.tensor``), FTTQ's
-statistics, the clip's global norm and the w_q step (``wq_lr · g /
-numel``) are the whole leaf's. Across pods (a "pod" axis) with
+GSPMD's automatic axis computes; the MoE layers route the ranks' rows as
+one batch (``parallel.tensor.BatchAxes``: the global capacity, queue slots
+and load loss), over the pods too where their sync is not the compressed
+per-pod one. A "model" axis of size > 1 is tensor parallelism (every
+family; the all-to-all MoE raises): each rank holds its shards of the
+"model"-sharded params (``parallel.sharding``: attention and MLP columns,
+expert stacks by expert, Mamba2 projections, vocab) and of their Adam
+moments, and the whole w_q; the forward is column- then row-parallel with
+a vocab-parallel loss (``parallel.tensor``; local experts in
+``models.moe``, gathered weights in ``models.mamba2``), FTTQ's statistics,
+the clip's global norm and the w_q step (``wq_lr · g / numel``) are the
+whole leaf's. Across pods (a "pod" axis) with
 ``pod_compression`` the parameter gradients are synced by
 ``parallel.collectives.ternary_allreduce_tree`` with error feedback (on the
 rank's shards, with whole-leaf scalars), the w_q gradients, loss and
@@ -47,7 +52,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.optim import Optimizer, apply_updates, clip_by_global_norm
 from repro_torch.parallel.collectives import all_gather, all_reduce_, ternary_allreduce_tree
 from repro_torch.parallel.sharding import logical_batch_axes, model_dims, param_specs
-from repro_torch.parallel.tensor import model_axis, shard_tree
+from repro_torch.parallel.tensor import batch_axes, model_axis, shard_tree
 from repro_torch.tree import flatten_with_path, tree_leaves, tree_map
 
 Pytree = Any
@@ -111,9 +116,9 @@ def init_train_state(model_cfg: tfm.ModelConfig, tcfg: TrainerConfig, optimizer:
                       residuals=residuals, step=step)
 
 
-def _loss(model_cfg, tcfg: TrainerConfig, params, wq, batch, tp=None, dims=None):
+def _loss(model_cfg, tcfg: TrainerConfig, params, wq, batch, tp=None, dims=None, dp=None):
     qparams = fttq.quantize_tree(params, wq, tcfg.fttq, tp, dims) if tcfg.qat else params
-    return tfm.loss_fn(model_cfg, qparams, batch, tp)
+    return tfm.loss_fn(model_cfg, qparams, batch, tp, dp)
 
 
 def _rebuild(tree: Pytree, leaves: list) -> Pytree:
@@ -121,12 +126,13 @@ def _rebuild(tree: Pytree, leaves: list) -> Pytree:
     return tree_map(lambda _: next(it), tree)
 
 
-def _grads_of(model_cfg, tcfg: TrainerConfig, state: TrainState, batch, tp=None, dims=None):
+def _grads_of(model_cfg, tcfg: TrainerConfig, state: TrainState, batch, tp=None, dims=None,
+              dp=None):
     """(loss, metrics, ∂loss/∂params, ∂loss/∂w_q or None) by autograd."""
     params = tree_map(lambda p: p.detach().requires_grad_(True), state.params)
     wq = tree_map(lambda w: w.detach().requires_grad_(True), state.wq) if tcfg.qat else None
     with torch.enable_grad():
-        loss, metrics = _loss(model_cfg, tcfg, params, wq, batch, tp, dims)
+        loss, metrics = _loss(model_cfg, tcfg, params, wq, batch, tp, dims, dp)
         p_leaves = tree_leaves(params)
         w_leaves = tree_leaves(wq) if tcfg.qat else []
         grads = torch.autograd.grad(loss, p_leaves + w_leaves, allow_unused=True)
@@ -139,13 +145,13 @@ def _grads_of(model_cfg, tcfg: TrainerConfig, state: TrainState, batch, tp=None,
 
 
 def _local_grads(model_cfg, tcfg: TrainerConfig, state: TrainState, batch, tp=None,
-                 dims=None):
+                 dims=None, dp=None):
     """The whole batch's gradients, or with ``microbatches`` = n > 1 the
     mean over n sequential chunks of dim 0, accumulated in fp32 zeros with
     each chunk's gradient divided by n (the reference's scan)."""
     n = tcfg.microbatches
     if n <= 1:
-        return _grads_of(model_cfg, tcfg, state, batch, tp, dims)
+        return _grads_of(model_cfg, tcfg, state, batch, tp, dims, dp)
     chunks = {k: v.reshape(n, v.shape[0] // n, *v.shape[1:]) for k, v in batch.items()}
     dev = state.step.device
     loss = torch.zeros((), dtype=torch.float32, device=dev)
@@ -157,7 +163,7 @@ def _local_grads(model_cfg, tcfg: TrainerConfig, state: TrainState, batch, tp=No
                     state.wq) if tcfg.qat else None)
     for i in range(n):
         c_loss, c_metrics, c_p, c_w = _grads_of(
-            model_cfg, tcfg, state, {k: v[i] for k, v in chunks.items()}, tp, dims)
+            model_cfg, tcfg, state, {k: v[i] for k, v in chunks.items()}, tp, dims, dp)
         loss = loss + c_loss / n
         metrics = {k: metrics[k] + c_metrics[k] / n for k in metrics}
         for a, g in zip(tree_leaves(g_p), tree_leaves(c_p)):
@@ -275,11 +281,15 @@ def make_train_step(model_cfg: tfm.ModelConfig, tcfg: TrainerConfig, optimizer: 
     dims = model_dims(model_cfg, mesh) if tp is not None else None
     # no mesh is one shard with no subgroups: every sync below is the identity
     compressed = mesh is not None and "pod" in mesh.axis_names and tcfg.pod_compression
-    batch_axes = logical_batch_axes(mesh) if mesh is not None else ()
-    n_shards = math.prod(mesh.size(a) for a in batch_axes)
-    shard = mesh.linear_index(batch_axes) if mesh is not None else 0
+    bax = logical_batch_axes(mesh) if mesh is not None else ()
+    n_shards = math.prod(mesh.size(a) for a in bax)
+    shard = mesh.linear_index(bax) if mesh is not None else 0
     data_group = mesh.group("data") if mesh is not None else None
     pod_group = mesh.group("pod") if mesh is not None else None
+    # the ranks whose rows the reference's GSPMD step treats as one batch:
+    # the data axis, and the pods too where their sync is not the compressed
+    # per-pod one (the MoE routes over them together)
+    dp = batch_axes(mesh, ("data",) if compressed else bax) if mesh is not None else None
 
     def synced_grads(state: TrainState, batch: dict):
         """(loss, metrics, g_p, g_w, residuals): this rank's rows' gradients,
@@ -291,7 +301,7 @@ def make_train_step(model_cfg: tfm.ModelConfig, tcfg: TrainerConfig, optimizer: 
                                  f"{n_shards} ranks")
             per = v.shape[0] // n_shards
             rows[k] = v[shard * per:(shard + 1) * per]
-        loss, metrics, g_p, g_w = _local_grads(model_cfg, tcfg, state, rows, tp, dims)
+        loss, metrics, g_p, g_w = _local_grads(model_cfg, tcfg, state, rows, tp, dims, dp)
         loss, metrics, g_p, g_w = _mean_over(data_group, loss, metrics, g_p, g_w)
         if not compressed:
             return (*_mean_over(pod_group, loss, metrics, g_p, g_w), state.residuals)

@@ -252,8 +252,8 @@ def tp_basics(rank, world, *, device="cpu"):
     forward and backward; shard/gather round trips of params and of a
     TrainState; FTTQ's QAT forward, its backward, init_wq_tree and
     ternary_stats on shards against the whole leaves; the global norm; the
-    vocab-parallel cross entropy against the plain one; and the families
-    that still raise."""
+    vocab-parallel cross entropy against the plain one; and one step of the
+    moe, ssm and hybrid families against one device."""
     from repro_torch.core import fttq
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models.transformer import param_shapes
@@ -371,19 +371,21 @@ def tp_basics(rank, world, *, device="cpu"):
                        "params": (_np(new0.params), _np(gather_state(new1, specs, mesh).params)),
                        "m": _np(new0.opt_state["m"])}
 
-    out["raises"] = {}
+    # the families that raised before their tensor parallelism was ported
+    out["steps"] = {}
     for arch in ("qwen3-moe-30b-a3b", "mamba2-370m", "zamba2-1.2b"):
         cfg = get_reduced(arch)
-        msgs = []
-        for call in (lambda: make_train_step(cfg, TrainerConfig(), adam(1e-3), mesh=mesh),
-                     lambda: init_params(cfg, seed=0, device=dev, mesh=mesh),
-                     lambda: make_prefill_step(cfg, 8, mesh=mesh)):
-            try:
-                call()
-                msgs.append(None)
-            except NotImplementedError as e:
-                msgs.append(str(e))
-        out["raises"][arch] = msgs
+        tcfg = TrainerConfig(pod_compression=False)
+        batch = {"tokens": torch.randint(0, 128, (2, 8), generator=gen, device=dev),
+                 "labels": torch.randint(0, 128, (2, 8), generator=gen, device=dev)}
+        state = init_train_state(cfg, tcfg, adam(1e-3), seed=0, device=dev, mesh=mesh)
+        _, m1 = make_train_step(cfg, tcfg, adam(1e-3), mesh=mesh)(state, batch)
+        state = init_train_state(cfg, tcfg, adam(1e-3), seed=0, device=dev)
+        _, m0 = make_train_step(cfg, tcfg, adam(1e-3))(state, batch)
+        logits, _ = make_prefill_step(cfg, 8, mesh=mesh)(
+            init_params(cfg, seed=0, device=dev, mesh=mesh), {"tokens": batch["tokens"]})
+        out["steps"][arch] = {"loss": (float(m0["loss"]), float(m1["loss"])),
+                              "logits_shape": tuple(logits.shape)}
     return out
 
 
@@ -425,12 +427,14 @@ def tp_steps(rank, world, *, runs, lr):
     return out
 
 
-def tp_pods(rank, world, *, cfg, state, batch, lr, steps, trees):
+def tp_pods(rank, world, *, cfg, state, batch, lr, steps, trees, residuals_in=None):
     """On a (2, 1, 2) pod x data x model mesh: (a) the compressed
     collective with error feedback over ``trees`` (per step, each pod's
     whole gradient tree) on this rank's shards, kernel path and plain
-    version, gathered over "model"; (b) ``steps`` compressed QAT steps from
-    the reference's state, gathered over "pod" and "model"."""
+    version, gathered over "model"; each step takes the residuals the last
+    one left, or with ``residuals_in`` (per step, a tree of (n_pods,
+    *shape) leaves) this pod's of those; (b) ``steps`` compressed QAT steps
+    from the reference's state, gathered over "pod" and "model"."""
     from repro_torch.parallel.collectives import ternary_allreduce_tree_plain
     from repro_torch.parallel.sharding import model_dims, param_specs
     from repro_torch.parallel.tensor import (
@@ -446,8 +450,11 @@ def tp_pods(rank, world, *, cfg, state, batch, lr, steps, trees):
     group = mesh.group("pod")
     out = {"collective": [], "plain": []}
     res = res_p = None
-    for step in trees:
+    for k, step in enumerate(trees):
         grads = shard_tree(_torch(step[pod], "cpu"), specs, mesh)
+        if residuals_in is not None:
+            res = res_p = shard_tree(tree_map(lambda a: a[pod], _torch(residuals_in[k], "cpu")),
+                                     specs, mesh)
         reset_wire_bytes()
         synced, res = ternary_allreduce_tree(grads, group, residuals=res, tp=tp, dims=dims)
         wire = wire_bytes()
@@ -576,8 +583,324 @@ def tp_serve(rank, world, *, params, toks, emb, vis, max_seq, gen, ckpt, lr, bat
     return out
 
 
+def _grads(fn, leaves: list, upstream) -> tuple:
+    """(fn(*leaves) detached, the gradient of <fn(...), upstream> for each
+    leaf)."""
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    y = fn(*leaves)
+    g = torch.autograd.grad((y * upstream).sum(), leaves)
+    return y.detach(), list(g)
+
+
+def _count_collectives():
+    """A wrapper of torch.distributed's all_reduce and all_gather that counts
+    the calls into the dict it returns with the restore function."""
+    counts = {"all_reduce": 0, "all_gather": 0}
+    saved = {name: getattr(dist, name) for name in counts}
+
+    def counting(name):
+        def call(*a, **kw):
+            counts[name] += 1
+            return saved[name](*a, **kw)
+        return call
+
+    for name in counts:
+        setattr(dist, name, counting(name))
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+    return counts, restore
+
+
+def tp_families(rank, world, *, ckpt, lr, batch, gen_steps):
+    """On a (1, world) data x model mesh, each against one device: (a) the
+    MoE layer (qwen3-moe; deepseek-moe with shared experts; deepseek-moe
+    with 5 experts, which the guard leaves whole) forward and backward, and
+    the routing every rank computed; (b) the Mamba2 block (mamba2; with one
+    SSM head, which leaves in_proj whole; with d_model 63 and expand 1, which
+    leaves every leaf whole) forward and backward; (c) zamba2's loss forward
+    and backward with its collectives counted, and its shared block on a
+    cache; (d) FTTQ on expert, Mamba and shared-block shards; (e) prefill and
+    greedy decode of mamba2, zamba2 and qwen3-moe on shards that
+    ``params_from_jax`` cut from the whole params; (f) a deepseek-moe
+    TrainState saved from shards, raw and ternary, beside the one-device
+    saves on rank 0, and restored; (g) a TP step of it from the state
+    re-placed by ``elastic_reshard``."""
+    from repro_torch.core import fttq
+    from repro_torch.core.compression import CodecSpec
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.mamba2 import mamba_block
+    from repro_torch.parallel.sharding import NamedSharding, P, param_shardings, param_specs
+    from repro_torch.parallel.sharding import model_dims
+    from repro_torch.parallel.tensor import (
+        gather_from_model, gather_state, gather_tree, model_axis, shard_state,
+    )
+    from repro_torch.train import (
+        TrainerConfig, init_train_state, make_train_step, restore_checkpoint, save_checkpoint,
+    )
+    from repro_torch.train.checkpoint import flatten
+    from repro_torch.train.fault import elastic_reshard
+    from repro_torch.tree import flatten_with_path
+
+    mesh = make_mesh((1, world), ("data", "model"), device="cpu")
+    tp = model_axis(mesh)
+    gen = torch.Generator().manual_seed(11)
+    out = {}
+
+    def layer0(tree):
+        return tree_map(lambda t: t[0], tree)
+
+    def gathered(grads, dims):
+        """The leaves' gradients made whole: gathered where ``dims`` shards
+        them."""
+        return [g if d is None else gather_from_model(g, tp, d) for g, d in zip(grads, dims)]
+
+    # (a) the MoE layer
+    out["moe"] = {}
+    for name, cfg in (("qwen3", get_reduced("qwen3-moe-30b-a3b")),
+                      ("deepseek", get_reduced("deepseek-moe-16b")),
+                      ("deepseek_whole_experts", get_reduced("deepseek-moe-16b", n_experts=5))):
+        whole = layer0(init_params(cfg, seed=1, device="cpu")["blocks"]["moe"])
+        shards = layer0(init_params(cfg, seed=1, device="cpu", mesh=mesh)["blocks"]["moe"])
+        dims = tfm._layer_dims(cfg, world)["moe"]
+        x = torch.randn(2, 8, cfg.d_model, generator=gen)
+        up = torch.randn(2, 8, cfg.d_model, generator=gen)
+        kw = dict(top_k=cfg.top_k, capacity_factor=cfg.capacity_factor)
+        paths = [p for p, _ in flatten_with_path(whole)]
+        seen, route = [], moe_mod.route
+
+        def recording(probs, k):
+            gates, idx = route(probs, k)
+            seen.append(idx.clone())
+            return gates, idx
+
+        def run(params, **extra):
+            leaves = [t for _, t in flatten_with_path(params)]
+
+            def fn(x, *ls):
+                ps = dict(zip(paths, ls))
+                rebuilt = tree_map_paths(params, ps)
+                o, aux = moe_mod.moe(rebuilt, x, **kw, **extra)
+                return o + aux
+            return _grads(fn, [x] + leaves, up)
+
+        moe_mod.route = recording
+        try:
+            y0, g0 = run(whole)
+            y1, g1 = run(shards, tp=tp, dims=dims)
+        finally:
+            moe_mod.route = route
+        dmap = dict(flatten_with_path(dims))
+        leaf_dims = [None] + [dmap.get(p) for p in paths]
+        out["moe"][name] = {
+            "y": (y0.numpy(), y1.numpy()),
+            "grads": ([g.numpy() for g in g0], [g.numpy() for g in gathered(g1, leaf_dims)]),
+            "idx": seen[1].numpy(), "idx_one": seen[0].numpy(),
+            "split": {k: v for k, v in (("experts", dims["w_in"]),
+                                        ("shared", dims.get("shared", {}).get("w_in")))}}
+
+    # (b) the Mamba2 block
+    out["mamba"] = {}
+    for name, cfg in (("mamba2", get_reduced("mamba2-370m")),
+                      ("one_head", get_reduced("mamba2-370m", ssm_heads=1)),
+                      ("odd", get_reduced("mamba2-370m", d_model=63, ssm_expand=1, ssm_heads=3))):
+        whole = layer0(init_params(cfg, seed=1, device="cpu")["blocks"]["mamba"])
+        shards = layer0(init_params(cfg, seed=1, device="cpu", mesh=mesh)["blocks"]["mamba"])
+        dims = tfm._layer_dims(cfg, world)["mamba"]
+        x = torch.randn(2, 8, cfg.d_model, generator=gen)
+        up = torch.randn(2, 8, cfg.d_model, generator=gen)
+        kw = dict(n_heads=cfg.ssm_heads, d_state=cfg.ssm_state, expand=cfg.ssm_expand,
+                  conv_width=cfg.conv_width, chunk=cfg.ssm_chunk)
+        names = sorted(whole)
+
+        def run(params, **extra):
+            def fn(x, *ls):
+                return mamba_block(dict(zip(names, ls)), x, **kw, **extra)[0]
+            return _grads(fn, [x] + [params[k] for k in names], up)
+
+        y0, g0 = run(whole)
+        y1, g1 = run(shards, tp=tp, dims=dims)
+        out["mamba"][name] = {
+            "y": (y0.numpy(), y1.numpy()),
+            "grads": ([g.numpy() for g in g0],
+                      [g.numpy() for g in gathered(g1, [None] + [dims[k] for k in names])]),
+            "dims": {k: dims[k] for k in ("in_proj", "conv_w", "out_proj")}}
+
+    # (c) zamba2: the loss with its collectives counted; the shared block on a cache
+    cfg = get_reduced("zamba2-1.2b")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 8), generator=gen)
+    b = {"tokens": tokens, "labels": torch.randint(0, cfg.vocab_size, (2, 8), generator=gen)}
+    whole = init_params(cfg, seed=2, device="cpu")
+    for leaf in (whole["blocks"]["norm"], whole["shared_attn"]["attn_norm"]):
+        leaf.normal_(generator=gen)            # norms that are not all ones
+    shards = shard_tree_(whole, cfg, mesh)
+
+    def loss_grads(params, tp_):
+        leaves = [t.detach().requires_grad_(True) for _, t in flatten_with_path(params)]
+        rebuilt = tree_map_paths(params, dict(zip([p for p, _ in flatten_with_path(params)],
+                                                  leaves)))
+        loss, _ = tfm.loss_fn(cfg, rebuilt, b, tp_)
+        return float(loss), torch.autograd.grad(loss, leaves)
+
+    l0, g0 = loss_grads(whole, None)
+    counts, restore = _count_collectives()
+    try:
+        l1, g1 = loss_grads(shards, tp)
+    finally:
+        restore()
+    specs = param_specs(cfg, mesh)
+    g1 = gather_tree(tree_map_paths(shards, dict(zip([p for p, _ in flatten_with_path(shards)],
+                                                     g1))), specs, mesh)
+    out["zamba2"] = {"loss": (l0, l1), "grads": ([g.numpy() for g in g0],
+                                                 [t.numpy() for _, t in flatten_with_path(g1)]),
+                     "counts": dict(counts), "apps": cfg.n_attn_apps}
+    hd = cfg.resolved_head_dim
+    kv0 = tuple(torch.zeros(2, 12, cfg.n_kv_heads, hd) for _ in range(2))
+    kv1 = tuple(torch.zeros(2, 12, cfg.n_kv_heads // world, hd) for _ in range(2))
+    x = torch.randn(2, 8, cfg.d_model, generator=gen)
+    with torch.no_grad():
+        y0 = tfm._shared_attn_layer(cfg, whole["shared_attn"], x, kv0, 0)
+        y1 = tfm._shared_attn_layer(cfg, shards["shared_attn"], x, kv1, 0, tp)
+    out["zamba2"]["shared"] = {"y": (y0.numpy(), y1.numpy()),
+                               "k": (kv0[0].numpy(), gather_from_model(kv1[0], tp, 2).numpy())}
+
+    # (d) FTTQ on the new shards against the whole leaves
+    out["fttq"] = {}
+    fcfg = fttq.FTTQConfig()
+    for arch in ("deepseek-moe-16b", "zamba2-1.2b"):
+        cfg = get_reduced(arch)
+        specs, dims = param_specs(cfg, mesh), model_dims(cfg, mesh)
+        whole = init_params(cfg, seed=3, device="cpu")
+        wq = fttq.init_wq_tree(whole, fcfg)
+        q0 = fttq.quantize_tree(whole, wq, fcfg)
+        q1 = gather_tree(fttq.quantize_tree(shard_tree_(whole, cfg, mesh), wq, fcfg, tp, dims),
+                         specs, mesh)
+        out["fttq"][arch] = {
+            "q": (_np(q0), _np(q1)),
+            "init_wq": (_np(wq), _np(fttq.init_wq_tree(shard_tree_(whole, cfg, mesh), fcfg, tp,
+                                                       dims))),
+            "stats": (fttq.ternary_stats(whole, fcfg),
+                      fttq.ternary_stats(shard_tree_(whole, cfg, mesh), fcfg, tp, dims)),
+            "sharded": sorted("/".join(str(k) for _, k in p)
+                              for p, _ in flatten_with_path(dims))}
+
+    # (e) prefill and greedy decode
+    out["serve"] = {}
+    for arch in ("mamba2-370m", "zamba2-1.2b", "qwen3-moe-30b-a3b"):
+        cfg = get_reduced(arch)
+        prompts = torch.randint(0, cfg.vocab_size, (2, 8), generator=gen)
+        whole = init_params(cfg, seed=4, device="cpu")
+        shards = params_from_jax(_np(whole), "cpu", mesh=mesh, specs=param_specs(cfg, mesh))
+        same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            flatten_with_path(shards),
+            flatten_with_path(init_params(cfg, seed=4, device="cpu", mesh=mesh))))
+        got = {"converted_shards_equal": same}
+        for name, params, m in (("tp", shards, mesh), ("one", whole, None)):
+            with torch.no_grad():
+                logits, cache = make_prefill_step(cfg, 8 + gen_steps, mesh=m)(
+                    params, {"tokens": prompts})
+                decode = make_decode_step(cfg, mesh=m)
+                steps, toks = [logits.numpy()], []
+                for i in range(gen_steps):
+                    tok = torch.argmax(logits, -1)
+                    toks.append(tok.numpy())
+                    logits, cache = decode(params, {"tokens": tok, "cache": cache, "pos": 8 + i})
+                    steps.append(logits.numpy())
+            got[name] = {"logits": steps, "tokens": toks,
+                         "cache": {k: tuple(v.shape) for k, v in cache.items()}}
+        out["serve"][arch] = got
+
+    # (f) checkpoints of a deepseek-moe TrainState from its shards; (g) elastic_reshard
+    cfg = get_reduced("deepseek-moe-16b")
+    specs = param_specs(cfg, mesh)
+    tcfg, opt = TrainerConfig(pod_compression=False), adam(lr)
+    state = init_train_state(cfg, tcfg, opt, seed=0, device="cpu")
+    bt = {k: torch.from_numpy(v) for k, v in batch.items()}
+    state, _ = make_train_step(cfg, tcfg, opt)(state, bt)      # moments that are not zero
+    tp_state = shard_state(state, specs, mesh)
+    tern = CodecSpec(kind="ternary")
+    save_checkpoint(f"{ckpt}/tp-raw", 1, tp_state, mesh=mesh, specs=specs)
+    save_checkpoint(f"{ckpt}/tp-tern", 1, tp_state.params, compression=tern, mesh=mesh,
+                    specs=specs)
+    if rank == 0:
+        save_checkpoint(f"{ckpt}/one-raw", 1, state)
+        save_checkpoint(f"{ckpt}/one-tern", 1, state.params, compression=tern)
+    dist.barrier()
+    back, _ = restore_checkpoint(f"{ckpt}/tp-raw", example_state=tp_state, device="cpu",
+                                 mesh=mesh, specs=specs)
+    same = lambda u, v: all((x is None and y is None) or torch.equal(x, y)
+                            for (_, x), (_, y) in zip(flatten(u), flatten(v)))
+    out["restored_equal"] = same(back, tp_state)
+    out["state"] = {"params": _np(state.params), "opt_state": _np(state.opt_state)}
+    step = make_train_step(cfg, tcfg, opt, mesh=mesh)
+    new_tp, m_tp = step(tp_state, bt)
+    shard1, repl = param_shardings(cfg, mesh), NamedSharding(mesh, P())
+    placed = dataclasses.replace(
+        state, params=elastic_reshard(state.params, shard1), wq=elastic_reshard(state.wq, repl),
+        opt_state={"step": elastic_reshard(state.opt_state["step"], repl),
+                   "m": elastic_reshard(state.opt_state["m"], shard1),
+                   "v": elastic_reshard(state.opt_state["v"], shard1)},
+        step=elastic_reshard(state.step, repl))
+    new_dt, m_dt = step(placed, bt)
+    out["dtensor_step_identical"] = same(new_dt, new_tp) and float(m_dt["loss"]) == float(
+        m_tp["loss"])
+    new_one, m_one = make_train_step(cfg, tcfg, opt)(state, bt)
+    out["step_vs_one"] = (float(m_one["loss"]), float(m_tp["loss"]),
+                          _np(new_one.params), _np(gather_state(new_tp, specs, mesh).params))
+    return out
+
+
+def shard_tree_(whole, cfg, mesh):
+    """This rank's shards of a whole params tree of ``cfg``."""
+    from repro_torch.parallel.sharding import param_specs
+    from repro_torch.parallel.tensor import shard_tree
+
+    return shard_tree(whole, param_specs(cfg, mesh), mesh)
+
+
+def tree_map_paths(tree, by_path: dict):
+    """``tree`` with each leaf replaced by ``by_path[its path]``."""
+    from repro_torch.tree import tree_map_with_path
+
+    return tree_map_with_path(lambda p, _: by_path[p], tree)
+
+
+def tp_family_steps(rank, world, *, device="cpu"):
+    """On a (1, world) data x model mesh on ``device``: one TP train step of
+    deepseek-moe (local experts, shared experts split) and zamba2 (gathered
+    Mamba2 weights, the shared block split) from the seed-0 state's shards,
+    gathered, beside the one-device step from the same state."""
+    from repro_torch.parallel.sharding import param_specs
+    from repro_torch.parallel.tensor import gather_state, shard_state
+    from repro_torch.train import TrainerConfig, init_train_state, make_train_step
+
+    mesh = make_mesh((1, world), ("data", "model"), device=device)
+    dev = mesh.device
+    gen = torch.Generator(dev).manual_seed(5)
+    out = {}
+    for arch in ("deepseek-moe-16b", "zamba2-1.2b"):
+        cfg = get_reduced(arch)
+        tcfg, opt = TrainerConfig(pod_compression=False), adam(3e-3)
+        batch = {k: torch.randint(0, cfg.vocab_size, (2, 16), generator=gen, device=dev)
+                 for k in ("tokens", "labels")}
+        state = init_train_state(cfg, tcfg, opt, seed=0, device=dev)
+        specs = param_specs(cfg, mesh)
+        new, m = make_train_step(cfg, tcfg, opt, mesh=mesh)(shard_state(state, specs, mesh),
+                                                              batch)
+        new = gather_state(new, specs, mesh)
+        new0, m0 = make_train_step(cfg, tcfg, opt)(state, batch)
+        out[arch] = {"loss": (float(m0["loss"]), float(m["loss"])),
+                     "params": (_np(new0.params), _np(new.params)),
+                     "m": _np(new0.opt_state["m"])}
+    return out
+
+
 CASES = {f.__name__: f for f in (collectives, fanin, trainer, elastic, moe_forward, moe_train,
-                                  q8_a2a, tp_basics, tp_steps, tp_pods, tp_serve)}
+                                  q8_a2a, tp_basics, tp_steps, tp_pods, tp_serve, tp_families,
+                                  tp_family_steps)}
 
 
 def main() -> None:

@@ -1301,3 +1301,32 @@ def test_tensor_parallel_on_two_gloo_ranks_on_the_card(cuda_device, tmp_path):
         ce0, ce1, g0, g1 = out["ce"]
         np.testing.assert_allclose(ce1, ce0, rtol=1e-6)
         assert np.abs(g1 - g0).max() <= 1e-6 * np.abs(g0).max()
+
+
+def test_tensor_parallel_families_on_two_gloo_ranks_on_the_card(cuda_device, tmp_path):
+    """One TP train step of deepseek-moe (reduced: expert stacks split by
+    expert, shared experts by hidden unit) and zamba2 (reduced: Mamba2
+    weights gathered, the shared block column/row-parallel) on two gloo
+    ranks sharing cuda:0, gathered, against the one-device step on the card
+    from the same state, to ``assert_step_matches``'s rule: loss within
+    rtol 2e-6, params within 1e-6 where |g| ≥ 1e-6 and within Adam's bound
+    2·lr elsewhere (its first step lr · g / (|g| + 1e-8) is ill-conditioned
+    there)."""
+    import numpy as np
+
+    from _torch_dist import run_ranks
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        return [] if tree is None else [np.asarray(tree)]
+
+    ranks = run_ranks("tp_family_steps", 2, tmp_path, timeout=180, device="cuda:0")
+    for out in ranks:
+        for arch, got in out.items():
+            np.testing.assert_allclose(got["loss"][1], got["loss"][0], rtol=2e-6, err_msg=arch)
+            for a, b, m in zip(leaves(got["params"][0]), leaves(got["params"][1]),
+                               leaves(got["m"])):
+                small = np.abs(m) < 1e-7
+                assert np.abs(a - b)[~small].max(initial=0.0) <= 1e-6, arch
+                assert np.abs(a - b)[small].max(initial=0.0) <= 2 * 3e-3, arch
