@@ -127,7 +127,7 @@ Phases (any failure exits non-zero; no phase is skipped):
                  (1e-6); (d) qwen3-moe-30b-a3b at its published widths, 2 of
                  48 layers, EP 2: the a2a forward at capacity 16 against the
                  scatter dispatch (1e-5 of max |logits|), the int8 wire within
-                 5% relative L2; (b) olmo-1b at full width cut to 8 of 16
+                 5% relative L2; (b) olmo-1b at full width cut to 6 of 16
                  layers, TrainerConfig defaults, adam(3e-4), 8 × 512 over 2
                  pods, 3 compressed steps (one quantize_pack launch a step)
                  and 3 exact ones, per step ms, loss and peak memory, held on
@@ -163,7 +163,8 @@ Phases (any failure exits non-zero; no phase is skipped):
                  plus 4 B a w_q, mean and residuals within 1e-6 of the plain
                  version, codes equal but at ties) and 2 compressed train
                  steps with the same launches and bytes per step; (e)
-                 zamba2-1.2b at its published widths, all 38 layers, remat
+                 zamba2-1.2b at its published widths cut to 12 of 38
+                 layers (two applications of the shared block), remat
                  "full" (each Mamba2 layer would keep ~1.2 GB of SSD
                  intermediates), trained as (a): its Mamba2 weights
                  gathered in each block, the shared attention and MLP block
@@ -189,6 +190,36 @@ Phases (any failure exits non-zero; no phase is skipped):
                  two aggregate launches, the all-gather 0.25 B a shard
                  coordinate plus 4 B a w_q, mean and residuals within 1e-6
                  of the plain version, codes equal but at proven ties);
+  9d. fsdp — in the same spawn, FSDP over the "data" axis (params and both
+                 Adam moments cut on each leaf's "data" dim, each layer's
+                 weights all-gathered where it uses them, their gradients
+                 reduce-scattered): (j) olmo-1b at full width, all 16
+                 layers, TrainerConfig defaults, adam(3e-4), 3 steps at 8 ×
+                 512 over a (2, 1) data × model mesh on ranks 0 and 1: per
+                 step ms, tokens/s, loss and the wire bytes, per rank the
+                 bytes of its params and moments (exactly 7,678,722,048),
+                 the all-gather and reduce-scatter bytes a step (exactly
+                 2,147,483,648 each), peak memory and launches; the seed-0
+                 codes on the shards against the whole leaves' (ties moved
+                 off Δ); held on rank 0 to one process stepping the same
+                 batches from the same state (losses rtol 5e-5, worst leaf
+                 ‖Δparams‖/‖params‖ 5e-3) and a planted fault (the gather's
+                 backward keeps its own slice, no reduce-scatter) past
+                 both; (m) the trained data shards' ternary save: one
+                 quantize_pack launch on rank 0, 680,526,658 B,
+                 sha256-equal to the one-process save; (n) prefill 4 × 32
+                 and 8 greedy decode steps on the data shards (each layer
+                 gathered, no autograd) against one process (1e-4 of max
+                 |logits|, the same tokens); (k) olmo-1b cut to 4 of 16
+                 layers over (2, 2) data × model on all four ranks, 2
+                 steps: each rank's state bytes and the run against one
+                 process (the same limits); (l) pods × data, mesh (2, 2,
+                 1), olmo-1b cut to 4 layers: the compressed collective on
+                 each rank's data shards (one quantize_pack and two
+                 aggregate launches, all-gather 0.25 B a shard coordinate
+                 plus 4 B a w_q, mean and residuals within 1e-6 of the plain
+                 version) and 2 compressed steps with the same launches, the
+                 weights' gathers and reduce-scatters counted exactly;
  10. federated — two T-FedAvg sync rounds (paper Algorithm 2) on ResNet18* at
                  full width with the paper's CIFAR setting (FedConfig
                  defaults: 100 clients, λ = 0.1, E = 5, B = 64, adam(1e-3), 500
@@ -296,6 +327,7 @@ The line before the last is the kernel table as JSON; the last line is
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -3407,7 +3439,10 @@ def bf16_serve_phase(dev, fcfg, fp32: dict) -> dict:
 
 MD_RANKS = 2                 # the ranks of (a)-(d) and of the tensor_parallel (a)-(c)
 MD_WORLD = 4                 # the spawn's ranks: four for the pods x model mesh (2, 1, 2)
-MD_TRAIN_LAYERS = 8          # olmo-1b cut in depth so two ranks' training fits 80 GB
+# olmo-1b cut in depth so two ranks' training fits 80 GB: at 8 layers the
+# two ranks' compressed-step peaks reached 33.68 + 38.21 GiB in one run and
+# ran out of the card in the next (an H100 80GB HBM3 at 700 W)
+MD_TRAIN_LAYERS = 6
 # the two-pod runs against their one-process references: the largest loss
 # gap relative to the loss, and the worst leaf's ‖Δparam‖ / ‖param‖ after
 # the last step (a planted fault, no gradient sync, must exceed both)
@@ -3824,6 +3859,10 @@ TP_PODS_STEPS = 2
 # gradients and updates) and two ranks ran out of the 80 GB; at 1 layer
 # (1.25 B) the ranks and then one process fit
 TP_MOE_LAYERS = 1
+# (e) and (h) zamba2-1.2b cut from 38 layers (two applications of the
+# shared block) so that the fsdp part fits the script's limit: at 38 layers
+# the cell took ~194 s of a 922.9 s script (an H100 80GB HBM3 at 700 W)
+TP_ZAMBA_LAYERS = 12
 TP_PODS_MOE_LAYERS = 1       # (i): qwen3-moe-30b-a3b's gradient tree on four ranks
 TP_TWIN_NOISE = 1e-7         # the noise twin's relative weight noise (``_tp_twin``)
 
@@ -3834,35 +3873,32 @@ def _peak_gib(dev) -> float:
     return torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else float("nan")
 
 
-def _tp_specs(cfg, mesh):
-    from repro_torch.parallel.sharding import model_dims, param_specs
-
-    return param_specs(cfg, mesh), model_dims(cfg, mesh)
-
-
-def _tp_codes(mesh, whole, fcfg, dims) -> tuple[dict, dict]:
-    """The QAT codes of this rank's shards of ``whole`` from the whole
-    leaves' statistics (``leaf_row_stats`` over the "model" group) against
-    the whole leaves' codes cut to the same shard: the differing codes,
-    each counted as a tie where |θ_s| is within 1e-6 of Δ (as
+def _tp_codes(whole, fcfg, sh) -> tuple[dict, dict]:
+    """The QAT codes of this rank's shards of ``whole`` (cut as ``sh``, a
+    ``parallel.tensor.Shards``, says: over "model", "data" or both) from
+    the whole leaves' statistics (``leaf_row_stats`` over those axes)
+    against the whole leaves' codes cut to the same shard: the differing
+    codes, each counted as a tie where |θ_s| is within 1e-6 of Δ (as
     ``_code_ties`` counts them), and {param path: mask of the differing
     codes in the shard}."""
     from repro_torch.core import fttq
-    from repro_torch.parallel.tensor import model_axis
-    from repro_torch.tree import flatten_with_path
+    from repro_torch.tree import flatten_with_path, path_str
 
-    tp = model_axis(mesh)
-    dmap = dict(flatten_with_path(dims))
+    def cut(t, c):
+        for ax, d in c:
+            t = t.chunk(ax.size, d)[ax.rank]
+        return t.contiguous()
+
     masks, n_codes, n_diff, n_tie = {}, 0, 0, 0
     for path, leaf in flatten_with_path(whole):
-        if not fttq.is_quantizable(path, leaf, fcfg) or dmap.get(path) is None:
+        c = sh.cuts.get(path_str(path), ())
+        if not fttq.is_quantizable(path, leaf, fcfg) or not c:
             continue
-        d, n_rows = dmap[path], leaf.shape[0] if leaf.ndim >= 3 else 1
-        want = fttq.row_codes(leaf.reshape(n_rows, -1), fcfg.t_k).reshape(leaf.shape)
-        want = want.chunk(tp.size, d)[tp.rank]
-        shard = leaf.chunk(tp.size, d)[tp.rank].contiguous()
+        n_rows = leaf.shape[0] if leaf.ndim >= 3 else 1
+        want = cut(fttq.row_codes(leaf.reshape(n_rows, -1), fcfg.t_k).reshape(leaf.shape), c)
+        shard = cut(leaf, c)
         rows = shard.reshape(n_rows, -1)
-        (denom, delta), = fttq.leaf_row_stats([rows], fcfg.t_k, tp)
+        (denom, delta), = fttq.leaf_row_stats([rows], fcfg.t_k, [sh.axes(path_str(path))])
         theta_s = rows / denom
         diff = fttq.ternarize(theta_s, delta).reshape(shard.shape) != want
         n_codes += diff.numel()
@@ -3878,33 +3914,34 @@ def _tp_codes(mesh, whole, fcfg, dims) -> tuple[dict, dict]:
 def _tp_detie(mesh, dev, cfg, fcfg) -> tuple[dict, object]:
     """The seed-0 params with the weights whose shard code differs from the
     whole leaf's (each a tie at Δ, which the two sum in their own orders)
-    moved to half their value, until no code differs: so the TP run and one
-    process train the same QAT codes (``train_card_vs_cpu`` does the same
-    between the card and the CPU). Returns (the first count of codes,
-    differing codes and ties, plus the weights moved; the whole params)."""
+    moved to half their value, until no code differs: so the sharded run
+    and one process train the same QAT codes (``train_card_vs_cpu`` does
+    the same between the card and the CPU). Returns (the first count of
+    codes, differing codes and ties, plus the weights moved; the whole
+    params)."""
     import torch
 
     from repro_torch.models.transformer import init_params
-    from repro_torch.parallel.collectives import all_gather, all_reduce_
-    from repro_torch.parallel.tensor import model_axis
-    from repro_torch.tree import flatten_with_path
+    from repro_torch.parallel.collectives import all_gather
+    from repro_torch.parallel.tensor import SHARD_AXES, mesh_axis, param_shards, reduce_over
+    from repro_torch.tree import flatten_with_path, path_str
 
-    tp = model_axis(mesh)
-    _, dims = _tp_specs(cfg, mesh)
-    dmap = dict(flatten_with_path(dims))
+    sh = param_shards(cfg, mesh)
+    every = tuple(a for a in (mesh_axis(mesh, n) for n in SHARD_AXES) if a is not None)
     whole = init_params(cfg, seed=0, device=dev)
-    report, masks = _tp_codes(mesh, whole, fcfg, dims)
+    report, masks = _tp_codes(whole, fcfg, sh)
     leaves, moved = dict(flatten_with_path(whole)), 0
     for _ in range(10):
         flips = torch.tensor([float(m.sum()) for m in masks.values()], device=dev)
-        if float(all_reduce_(flips, tp.group).sum()) == 0:
+        if float(reduce_over([flips], [every])[0].sum()) == 0:
             break
         for path, mask in masks.items():
-            full = torch.cat(list(all_gather(mask.to(torch.uint8).contiguous(), tp.group)),
-                             dim=dmap[path]).bool()
-            leaves[path][full] *= 0.5
+            full = mask.to(torch.uint8)
+            for ax, d in reversed(sh.cuts[path_str(path)]):
+                full = torch.cat(list(all_gather(full.contiguous(), ax.group)), dim=d)
+            leaves[path][full.bool()] *= 0.5
             moved += int(full.sum())
-        masks = _tp_codes(mesh, whole, fcfg, dims)[1]
+        masks = _tp_codes(whole, fcfg, sh)[1]
     report["moved"] = moved
     report["left"] = int(sum(int(m.sum()) for m in masks.values()))
     del masks
@@ -3914,12 +3951,14 @@ def _tp_detie(mesh, dev, cfg, fcfg) -> tuple[dict, object]:
 
 @contextlib.contextmanager
 def _gloo_clock():
-    """{"ms": host ms spent inside torch.distributed's all_reduce and
-    all_gather} while the block runs (wrappers around the two calls)."""
+    """{"ms": host ms spent inside torch.distributed's all_reduce,
+    all_gather and all_to_all_single (the reduce-scatter's on gloo)} while
+    the block runs (wrappers around the three calls)."""
     import torch.distributed as dist
 
     box = {"ms": 0.0}
-    saved = {name: getattr(dist, name) for name in ("all_reduce", "all_gather")}
+    saved = {name: getattr(dist, name) for name in ("all_reduce", "all_gather",
+                                                    "all_to_all_single")}
 
     def timed(fn):
         def call(*a, **kw):
@@ -3977,29 +4016,31 @@ def _route_hashes():
 
 def _tp_train(mesh, dev, cfg, batches, fcfg, params, save_dir: str | None = None,
               trace: bool = False, route_check: bool = False) -> tuple[dict, object]:
-    """TrainerConfig defaults and adam(3e-4) over the mesh's "model" axis
-    from ``params`` (whole leaves, cut to the rank's shards): per step the
-    synchronized ms, tokens/s, loss and the ms the rank spent inside
-    ``gloo``'s all-reduce and all-gather calls (the staging copies to and
-    from pinned memory not included); with ``trace`` the last step under
-    torch.profiler for the device's kernel time (its ms is then a traced
-    wall); the rank's peak memory, launches and wire bytes (the modelled
-    bytes it received); with ``route_check`` the MoE layers' routing in the
-    first step, hashed and compared across the model group; with
-    ``save_dir`` the trained params saved as a ternary checkpoint from the
-    shards (gathered, written by rank 0: one quantize_pack launch there).
-    Returns (report, the gathered params on the host at model index 0,
-    else None)."""
+    """TrainerConfig defaults and adam(3e-4) over the mesh's "model" and
+    "data" axes from ``params`` (whole leaves, cut to the rank's shards):
+    the bytes of the rank's params and Adam moments; per step the
+    synchronized ms, tokens/s, loss, the ms the rank spent inside ``gloo``'s
+    collective calls (the staging copies to and from pinned memory not
+    included) and its wire bytes (the modelled bytes it received); with
+    ``trace`` the last step under torch.profiler for the device's kernel
+    time (its ms is then a traced wall); the rank's peak memory, launches
+    and wire bytes over the run; with ``route_check`` the MoE layers'
+    routing in the first step, hashed and compared across the model group;
+    with ``save_dir`` the trained params saved as a ternary checkpoint from
+    the shards (gathered, written by the mesh's first rank: one
+    quantize_pack launch there). Returns (report, the gathered params on the
+    host at the mesh's first rank, else None)."""
     import torch
 
     from repro_torch.core.compression import CodecSpec
     from repro_torch.optim import adam
     from repro_torch.parallel.collectives import reset_wire_bytes, wire_bytes
+    from repro_torch.parallel.sharding import param_specs
     from repro_torch.parallel.tensor import gather_tree
     from repro_torch.train import TrainerConfig, init_train_state, make_train_step, save_checkpoint
-    from repro_torch.tree import tree_map
+    from repro_torch.tree import tree_leaves, tree_map
 
-    specs, _ = _tp_specs(cfg, mesh)
+    specs = param_specs(cfg, mesh)
     tcfg, opt = TrainerConfig(), adam(TRAIN_LR)
     _sync(dev)
     if dev.type == "cuda":
@@ -4008,20 +4049,24 @@ def _tp_train(mesh, dev, cfg, batches, fcfg, params, save_dir: str | None = None
     state = init_train_state(cfg, tcfg, opt, params=tree_map(lambda t: t.to(dev), params),
                              device=dev, mesh=mesh)
     _sync(dev)
-    out = {"init_s": time.perf_counter() - t0}
+    out = {"init_s": time.perf_counter() - t0, "state_bytes": sum(
+        x.numel() * x.element_size() for tree in (state.params, state.opt_state["m"],
+                                                  state.opt_state["v"])
+        for x in tree_leaves(tree))}
     step = make_train_step(cfg, tcfg, opt, mesh=mesh)
     zero_counters()
-    reset_wire_bytes()
-    rows = []
+    rows, total = [], collections.Counter()
     for i, b in enumerate(batches):
         traced = trace and i == len(batches) - 1
         routes = _route_hashes() if route_check and i == 0 else contextlib.nullcontext([])
         with _gloo_clock() as gloo, _maybe_profile(dev, traced) as prof, routes as hashes:
             _sync(dev)
+            reset_wire_bytes()
             t0 = time.perf_counter()
             state, m = step(state, b)
             _sync(dev)
             ms = (time.perf_counter() - t0) * 1e3
+            total.update(wire_bytes())
         if hashes:
             import torch.distributed as dist
 
@@ -4031,12 +4076,11 @@ def _tp_train(mesh, dev, cfg, batches, fcfg, params, save_dir: str | None = None
                              "equal": all(h == hashes for h in every)}
         rows.append({"ms": ms, "tok_s": b["tokens"].numel() / ms * 1e3,
                      "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-                     "gloo_ms": gloo["ms"], "traced": traced})
+                     "gloo_ms": gloo["ms"], "traced": traced, "wire": wire_bytes()})
         if traced and prof is not None:
             rows[-1]["device_ms"] = _md_device_ms(prof)
         del prof
-    out.update(steps=rows, peak_gib=_peak_gib(dev), launches=read_counters(),
-               wire=wire_bytes())
+    out.update(steps=rows, peak_gib=_peak_gib(dev), launches=read_counters(), wire=dict(total))
     if save_dir is not None:
         import hashlib
         import shutil
@@ -4056,7 +4100,7 @@ def _tp_train(mesh, dev, cfg, batches, fcfg, params, save_dir: str | None = None
             out["save"].update(sha256=hashlib.sha256(blob).hexdigest(), bytes=sum(
                 os.path.getsize(os.path.join(path, n)) for n in os.listdir(path)))
     whole = gather_tree(state.params, specs, mesh)
-    host = _host_tree(whole) if mesh.index("model") == 0 else None
+    host = _host_tree(whole) if mesh.rank == mesh.ranks[0] else None
     del whole, state, step
     _free()
     return out, host
@@ -4069,21 +4113,38 @@ def _fault_shard_stats(only: str | None = None):
     as a port without leaf-global statistics would train; on every sharded
     leaf, or on those with ``only`` in their path."""
     from repro_torch.core import fttq
-    from repro_torch.tree import path_str, tree_map_with_path
+    from repro_torch.parallel.tensor import Shards
 
     whole_leaf = fttq.quantize_tree
 
-    def per_shard(params, wq, cfg_, tp=None, dims=None):
-        if only is None:
+    def per_shard(params, wq, cfg_, shards=None):
+        if only is None or shards is None:
             return whole_leaf(params, wq, cfg_)
-        kept = tree_map_with_path(lambda p, d: None if only in path_str(p) else d, dims)
-        return whole_leaf(params, wq, cfg_, tp, kept)
+        return whole_leaf(params, wq, cfg_,
+                          Shards({p: c for p, c in shards.cuts.items() if only not in p}))
 
     fttq.quantize_tree = per_shard
     try:
         yield
     finally:
         fttq.quantize_tree = whole_leaf
+
+
+@contextlib.contextmanager
+def _fault_own_slice():
+    """A planted fault: the FSDP gather's backward keeps this rank's own
+    slice of its local gradient, with no reduce-scatter, so each data
+    shard learns from its own rank's rows alone."""
+    from repro_torch.parallel import tensor as tensor_mod
+
+    cls = tensor_mod._GatherFromData
+    saved = cls.__dict__["backward"]
+    cls.backward = staticmethod(lambda ctx, g: (tensor_mod._slice(g, ctx.ax, ctx.dim), None,
+                                                None))
+    try:
+        yield
+    finally:
+        cls.backward = saved
 
 
 @contextlib.contextmanager
@@ -4146,10 +4207,10 @@ def _tp_single(dev, cfg, batches, fcfg, tp_run: dict, tp_params, save_dir: str,
 
 def _tp_serve(mesh, dev, cfg) -> dict:
     """``launch/steps.py`` with the mesh: a prefill of 4 × 32 tokens and 8
-    greedy decode steps on the rank's shards of the seed-0 params; then at
-    model index 0 the same on the whole params in one process: each step's
-    logits against the one-process logits (max |Δ| over max |logits|) and
-    the greedy tokens."""
+    greedy decode steps on the rank's shards of the seed-0 params; then on
+    the mesh's first rank the same on the whole params in one process: each
+    step's logits against the one-process logits (max |Δ| over max
+    |logits|) and the greedy tokens."""
     import torch
 
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
@@ -4185,7 +4246,7 @@ def _tp_serve(mesh, dev, cfg) -> dict:
         steps, tokens, out = run(shards, mesh)
     del shards
     _free()
-    if mesh.index("model") == 0:
+    if mesh.rank == mesh.ranks[0]:
         whole = init_params(cfg, seed=0, device=dev)
         with torch.no_grad():
             ref_steps, ref_tokens, ref = run(whole, None)
@@ -4215,19 +4276,18 @@ def _tp_pods_collective(mesh, dev, cfg, fcfg) -> dict:
         all_gather, compressed_leaf, reset_wire_bytes, shard_scalars_plain,
         ternary_allreduce_tree, ternary_allreduce_tree_plain, wire_bytes,
     )
-    from repro_torch.parallel.tensor import model_axis
-    from repro_torch.tree import flatten_with_path, tree_map_with_path
+    from repro_torch.parallel.tensor import param_shards
+    from repro_torch.tree import flatten_with_path, path_str, tree_map_with_path
 
-    tp = model_axis(mesh)
-    _, dims = _tp_specs(cfg, mesh)
-    dmap = dict(flatten_with_path(dims))
+    sh = param_shards(cfg, mesh)
     group = mesh.group("pod")
     gen = torch.Generator(dev).manual_seed(200 + mesh.index("pod"))
 
     def draw(path, shape):
         leaf = torch.randn(shape, generator=gen, device=dev) * 1e-3
-        d = dmap.get(path)
-        return leaf if d is None else leaf.chunk(tp.size, d)[tp.rank].clone()
+        for ax, d in sh.cuts.get(path_str(path), ()):
+            leaf = leaf.chunk(ax.size, d)[ax.rank]
+        return leaf.clone()
 
     grads = tree_map_with_path(draw, param_shapes(cfg), is_leaf=lambda x: isinstance(x, tuple))
     items = flatten_with_path(grads)
@@ -4239,14 +4299,14 @@ def _tp_pods_collective(mesh, dev, cfg, fcfg) -> dict:
     zero_counters()
     reset_wire_bytes()
     t0 = time.perf_counter()
-    synced, res = ternary_allreduce_tree(grads, group, cfg=fcfg, tp=tp, dims=dims)
+    synced, res = ternary_allreduce_tree(grads, group, cfg=fcfg, shards=sh)
     _sync(dev)
     out = {"wall_ms": (time.perf_counter() - t0) * 1e3, "launches": read_counters(),
            "wire": wire_bytes(), "compressed_elements": n_comp,
            "want_gather_bytes": n_comp // 4 + 4 * sum(comp)}
     synced, res = _host_tree(synced), _host_tree(res)
     _free()
-    synced_p, res_p = ternary_allreduce_tree_plain(grads, group, cfg=fcfg, tp=tp, dims=dims)
+    synced_p, res_p = ternary_allreduce_tree_plain(grads, group, cfg=fcfg, shards=sh)
     flips = ties = 0
     mean_gap = res_gap = 0.0
     for ((path, g), c, s_k, r_k, s_p, r_p) in zip(
@@ -4256,9 +4316,8 @@ def _tp_pods_collective(mesh, dev, cfg, fcfg) -> dict:
         s_k, r_k = s_k.to(dev), r_k.to(dev)
         keep = torch.ones(g.shape, dtype=torch.bool, device=dev)
         if c:
-            sharded = tp if dmap.get(path) is not None else None
-            if sharded is not None:
-                mx, delta, wq = shard_scalars_plain([g], fcfg.t_k, tp)[0]
+            if path_str(path) in sh.cuts:
+                mx, delta, wq = shard_scalars_plain([g], fcfg.t_k, sh.axes(path_str(path)))[0]
             else:
                 absg = g.abs()
                 mx = absg.max() + 1e-12
@@ -4325,21 +4384,21 @@ def _first_grads(mesh, dev, cfg, batch, fcfg, start, routes: bool = False) -> tu
     the host at model index 0, else None, the MoE layers' routing hashes
     where ``routes``)."""
     from repro_torch.optim import adam
+    from repro_torch.parallel.sharding import param_specs
     from repro_torch.parallel.tensor import gather_tree, model_axis
     from repro_torch.train import TrainerConfig, init_train_state
-    from repro_torch.train.trainer import _local_grads
+    from repro_torch.train.trainer import _local_grads, step_axes
     from repro_torch.tree import tree_map
 
     tcfg = TrainerConfig()
     state = init_train_state(cfg, tcfg, adam(TRAIN_LR), params=tree_map(lambda t: t.to(dev), start),
                              device=dev, mesh=mesh)
     tp = model_axis(mesh)
-    specs, dims = _tp_specs(cfg, mesh) if tp is not None else (None, None)
     with _route_hashes() if routes else contextlib.nullcontext([]) as hashes:
-        loss, _, grads, _ = _local_grads(cfg, tcfg, state, batch, tp, dims)
+        loss, _, grads, _ = _local_grads(cfg, tcfg, state, batch, step_axes(cfg, tcfg, mesh))
     del state
     if tp is not None:
-        grads = gather_tree(grads, specs, mesh)
+        grads = gather_tree(grads, param_specs(cfg, mesh), mesh)
     host = _host_tree(grads) if mesh is None or mesh.index("model") == 0 else None
     del grads
     _free()
@@ -4391,13 +4450,16 @@ def _tp_twin(dev, cfg, batches, start, ref_losses, ref_params) -> dict:
 
 
 def _tp_cell(mesh, pair, dev, cfg, fcfg, out_dir: str, name: str, fault,
-             save: bool = False, route_check: bool = False, first_step: bool = False) -> dict:
-    """One TP train cell on the pair's "model" axis: the seed-0 params with
-    their Δ ties moved (``_tp_detie``), TP_STEPS steps of the CLI's token
-    stream (the last traced), held on rank 0 after the ranks free the card
-    to one process from the same state, and the same run under the planted
-    fault (``fault()``, a context manager) held to the same limits; with
-    ``save`` the trained params' ternary save from the shards. With
+             save: bool = False, route_check: bool = False, first_step: bool = False,
+             steps: int = TP_STEPS) -> dict:
+    """One sharded train cell on ``mesh`` (its ranks the group ``pair``,
+    None for all): the seed-0 params with their Δ ties moved
+    (``_tp_detie``), ``steps`` steps of the CLI's token stream (the last
+    traced), held on the mesh's first rank after the ranks free the card to
+    one process from the same state, and (unless ``fault`` is None) the
+    same run under the planted fault (``fault()``, a context manager) held
+    to the same limits; with ``save`` the trained params' ternary save from
+    the shards. With
     ``first_step`` the run is held to one process at its first step instead
     (its loss and its gradients, TP and fault alike), and the trajectories
     are printed beside a noise twin's (``_tp_twin``): for a model that
@@ -4408,9 +4470,9 @@ def _tp_cell(mesh, pair, dev, cfg, fcfg, out_dir: str, name: str, fault,
     from repro_torch.launch.train import DATA_SEED
 
     t0 = time.perf_counter()
-    tokens = synthetic_tokens(DATA_SEED, TP_BATCH * (TP_SEQ + 1) * TP_STEPS, cfg.vocab_size)
+    tokens = synthetic_tokens(DATA_SEED, TP_BATCH * (TP_SEQ + 1) * steps, cfg.vocab_size)
     gen = token_batches(tokens, TP_BATCH, TP_SEQ, device=dev)
-    batches = [next(gen)[0] for _ in range(TP_STEPS)]
+    batches = [next(gen)[0] for _ in range(steps)]
     out = {"layers": cfg.n_layers}
     out["codes"], whole = _tp_detie(mesh, dev, cfg, fcfg)
     start = _host_tree(whole)
@@ -4444,8 +4506,10 @@ def _tp_cell(mesh, pair, dev, cfg, fcfg, out_dir: str, name: str, fault,
             os.path.join(out_dir, f"{name}_one_save"), start)
     del tp_params
     dist.barrier(group=pair)
-    with fault():
-        out["fault"], fault_params = _tp_train(mesh, dev, cfg, batches, fcfg, start)
+    fault_params = None
+    if fault is not None:
+        with fault():
+            out["fault"], fault_params = _tp_train(mesh, dev, cfg, batches, fcfg, start)
     if fault_params is not None:
         fault_losses = [r["loss"] for r in out["fault"]["steps"]]
         out["fault"]["gaps"] = _md_gaps(dev, fault_losses, out["single"]["losses"],
@@ -4513,7 +4577,8 @@ def tensor_parallel_rank(rank: int, dev, fcfg, sizes: dict, pair, tp_mesh, pods_
 
 def _tp_cell_checks(r: int, tag: str, label: str, cell: dict, fault_what: str,
                     save_tag: str = "", save_bytes: int | None = None,
-                    fault_in_forward: bool = True) -> None:
+                    fault_in_forward: bool = True, part: str = "tensor_parallel",
+                    over: str = f"{TP_RANKS} model ranks") -> None:
     """Print one TP train cell's numbers (``_tp_cell``) and hold them to
     the contract: codes equal but at ties, then none after moving them; on
     rank 0 the run within TP_LOSS_RTOL and MD_PARAM_RTOL_L2 of one process
@@ -4524,7 +4589,7 @@ def _tp_cell_checks(r: int, tag: str, label: str, cell: dict, fault_what: str,
     launch and the one-process save's bytes; the ranks' routing equal where
     checked."""
     c = cell["codes"]
-    print(f"rank {r}, tensor_parallel ({tag}) {label}: {cell['wall_s']:.1f} s for the cell; "
+    print(f"rank {r}, {part} ({tag}) {label}: {cell['wall_s']:.1f} s for the cell; "
           "QAT codes of the seed-0 shards from "
           f"whole-leaf statistics vs the whole leaves: {c['differing']} of {c['codes']} differ, "
           f"{c['ties']} of them ties at Δ; {c['moved']} weights of the whole leaves moved off Δ, "
@@ -4535,8 +4600,8 @@ def _tp_cell_checks(r: int, tag: str, label: str, cell: dict, fault_what: str,
                           "off Δ")
     for name in ("train", "fault"):
         run = cell[name]
-        print(f"rank {r}, tensor_parallel ({tag}) {label}, {TP_BATCH} x {TP_SEQ} over "
-              f"{TP_RANKS} model ranks ({name}): steps "
+        print(f"rank {r}, {part} ({tag}) {label}, {TP_BATCH} x {TP_SEQ} over "
+              f"{over} ({name}): steps "
               + "; ".join(f"{s['ms']:.1f} ms{' traced' if s['traced'] else ''} "
                           f"({s['tok_s']:.0f} tok/s) loss {s['loss']:.6f}, "
                           f"{s['gloo_ms']:.1f} ms in gloo calls"
@@ -4551,7 +4616,7 @@ def _tp_cell_checks(r: int, tag: str, label: str, cell: dict, fault_what: str,
         check(ro["equal"] and ro["layers"] > 0, f"({tag}) the model ranks routed differently")
     sv = cell["train"].get("save")
     if sv is not None:
-        print(f"rank {r}, tensor_parallel ({save_tag}) ternary save from the shards: "
+        print(f"rank {r}, {part} ({save_tag}) ternary save from the shards: "
               f"{sv['s']:.2f} s, launches {json.dumps(sv['launches'])}"
               + (f", {sv['bytes']} B, sha256 {sv['sha256']}" if "sha256" in sv else ""))
     if "single" not in cell:
@@ -4567,7 +4632,7 @@ def _tp_cell_checks(r: int, tag: str, label: str, cell: dict, fault_what: str,
               f"({save_tag}) the ternary save from the shards differs from the one-process save")
     first = cell.get("first")
     held = "printed, not held" if first is not None else "held"
-    runs = [("single", "TP run vs one process"),
+    runs = [("single", "sharded run vs one process"),
             ("fault", f"planted fault ({fault_what}) vs one process")]
     if "twin" in cell:
         runs.append(("twin", f"one process with {TP_TWIN_NOISE:g} relative weight noise vs "
@@ -4602,8 +4667,8 @@ def _tp_cell_checks(r: int, tag: str, label: str, cell: dict, fault_what: str,
           f"({tag}) a limit of the tensor-parallel checks does not catch the planted fault")
 
 
-def _tp_serve_checks(r: int, tag: str, label: str, s: dict) -> None:
-    print(f"rank {r}, tensor_parallel ({tag}) {label} prefill {TP_PROMPTS} x {TP_PROMPT} "
+def _tp_serve_checks(r: int, tag: str, label: str, s: dict, part: str = "tensor_parallel") -> None:
+    print(f"rank {r}, {part} ({tag}) {label} prefill {TP_PROMPTS} x {TP_PROMPT} "
           f"{s['prefill_ms']:.2f} ms, {TP_GEN} greedy steps {s['decode_tok_s']:.1f} tok/s, "
           f"{s['cache_kv_heads']} kv heads in the cache"
           + (f"; one process prefill {s['one_process']['prefill_ms']:.2f} ms, "
@@ -4612,25 +4677,26 @@ def _tp_serve_checks(r: int, tag: str, label: str, s: dict) -> None:
              f"{s['tokens_equal']}" if "logits_rel" in s else ""))
     if "logits_rel" in s:
         check(s["logits_rel"] <= TP_LOGITS_REL and s["tokens_equal"],
-              f"({tag}) tensor-parallel prefill or decode disagrees with one process")
+              f"({tag}) sharded prefill or decode disagrees with one process")
 
 
-def _tp_pods_collective_checks(r: int, tag: str, label: str, c: dict) -> None:
-    print(f"rank {r}, tensor_parallel ({tag}) pods x model collective on {label}'s "
+def _tp_pods_collective_checks(r: int, tag: str, label: str, c: dict,
+                               part: str = "tensor_parallel", what: str = "pods x model") -> None:
+    print(f"rank {r}, {part} ({tag}) {what} collective on {label}'s "
           f"{c['compressed_elements']} compressed shard elements: wall {c['wall_ms']:.1f} ms; "
           f"launches {json.dumps(c['launches'])}; wire {json.dumps(c['wire'])} (all-gather "
           f"want {c['want_gather_bytes']}); code flips {c['code_flips']} "
           f"({c['proven_ties']} proven ties), mean rel gap {c['mean_rel_gap']:.3e}, residual "
           f"rel gap {c['residual_rel_gap']:.3e}")
     check(c["launches"]["quantize_pack"] == 1 and c["launches"]["aggregate"] == 2,
-          f"({tag}) the pods x model collective launched other than 1 quantize_pack and 2 "
+          f"({tag}) the {what} collective launched other than 1 quantize_pack and 2 "
           "aggregate")
     check(c["wire"].get("all_gather", 0) == c["want_gather_bytes"],
-          f"({tag}) the pods x model all-gather is not 0.25 B a shard coordinate plus w_q")
-    check(c["code_flips"] == c["proven_ties"], f"({tag}) a pods x model code differs from the "
+          f"({tag}) the {what} all-gather is not 0.25 B a shard coordinate plus w_q")
+    check(c["code_flips"] == c["proven_ties"], f"({tag}) a {what} code differs from the "
                                                "plain version away from a tie at Δ")
     check(c["mean_rel_gap"] <= 1e-6 and c["residual_rel_gap"] <= 1e-6,
-          f"({tag}) the pods x model collective disagrees with the plain version")
+          f"({tag}) the {what} collective disagrees with the plain version")
 
 
 def tensor_parallel_checks(reports: list, sizes: dict | None = None) -> None:
@@ -4673,13 +4739,167 @@ def tensor_parallel_checks(reports: list, sizes: dict | None = None) -> None:
             tp["pods_moe_collective"])
 
 
+# --------------------------------------------------------------------------
+# FSDP: two ranks on the "data" axis, then FSDP x TP and pods x data on four.
+# --------------------------------------------------------------------------
+
+FSDP_RANKS = 2               # the "data" axis of (j), (m), (n): mesh (2, 1) over (data, model)
+# (j) at full width: a rank's params, m and v, 3 × 4 B × (2^30 / 2 + 103,022,592)
+# (the 112 fsdp matrices halved, the tied embedding whole), and its
+# all-gather and reduce-scatter bytes a step under remat "none" (each layer
+# gathers its weights once; each gradient is reduce-scattered once)
+FSDP_STATE_BYTES = 7_678_722_048
+FSDP_GATHER_BYTES = 2_147_483_648
+FSDP_TP_LAYERS = 4           # (k): olmo-1b cut to 4 of 16 layers on mesh (2, 2)
+FSDP_PODS_LAYERS = 4         # (l): olmo-1b cut to 4 of 16 layers on mesh (2, 2, 1)
+FSDP_TP_STEPS = FSDP_PODS_STEPS = 2
+
+
+def _fsdp_want(cfg, mesh) -> dict:
+    """What a rank of ``mesh`` holds and moves for ``cfg`` (fp32): the bytes
+    of its params and both Adam moments, and the bytes it receives to
+    gather its data-cut weights once, (P−1) × their shards' bytes, which is
+    also its reduce-scatter's count for their gradients."""
+    import math
+
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.parallel.tensor import param_shards
+    from repro_torch.tree import flatten_with_path, path_str
+
+    sh = param_shards(cfg, mesh)
+    shapes = flatten_with_path(param_shapes(cfg, mesh), is_leaf=lambda x: isinstance(x, tuple))
+    cut = sum(math.prod(s) for p, s in shapes
+              if any(a.name == "data" for a in sh.axes(path_str(p))))
+    return {"state_bytes": 3 * 4 * sum(math.prod(s) for _, s in shapes),
+            "gather_bytes": 4 * cut * (mesh.size("data") - 1)}
+
+
+def fsdp_rank(rank: int, dev, fcfg, sizes: dict, pair, fsdp_mesh, fsdp_tp_mesh,
+              pods_data_mesh, out_dir: str, progress=lambda out: None) -> dict:
+    """The fsdp phase on one rank of the multidevice spawn: (j) olmo-1b at
+    full width over the pair's "data" axis (mesh (2, 1)) against one
+    process and a planted fault, (m) the ternary save from its data shards,
+    (n) prefill and decode on them; then on all four ranks (k) olmo-1b cut
+    to 4 layers over (2, 2) data x model against one process and (l) pods x
+    data on (2, 2, 1): the compressed collective on data shards and 2
+    compressed steps. ``progress(out)`` is called after each part."""
+    import torch.distributed as dist
+
+    from repro_torch.data.synthetic import synthetic_tokens, token_batches
+    from repro_torch.launch.train import DATA_SEED
+
+    out = {}
+    if fsdp_mesh.member:
+        cfg = sizes["fsdp"]
+        cell = _tp_cell(fsdp_mesh, pair, dev, cfg, fcfg, out_dir, "fsdp", _fault_own_slice,
+                        save=True)
+        out.update({k: cell[k] for k in ("codes", "train", "single", "fault", "wall_s")
+                    if k in cell}, want=_fsdp_want(cfg, fsdp_mesh))
+        progress(out)
+        out["serve"] = _tp_serve(fsdp_mesh, dev, cfg)
+        progress(out)
+    dist.barrier()
+    cfg = sizes["fsdp_tp"]
+    out["tp"] = _tp_cell(fsdp_tp_mesh, None, dev, cfg, fcfg, out_dir, "fsdp_tp", None,
+                         steps=FSDP_TP_STEPS)
+    out["tp"]["want"] = _fsdp_want(cfg, fsdp_tp_mesh)
+    progress(out)
+    dist.barrier()
+    cfg = sizes["fsdp_pods"]
+    out["pods_collective"] = _tp_pods_collective(pods_data_mesh, dev, cfg, fcfg)
+    progress(out)
+    dist.barrier()
+    tokens = synthetic_tokens(DATA_SEED, TP_BATCH * (TP_SEQ + 1) * FSDP_PODS_STEPS,
+                              cfg.vocab_size)
+    gen = token_batches(tokens, TP_BATCH, TP_SEQ, device=dev)
+    out["pods_train"] = _tp_pods_train(pods_data_mesh, dev, cfg,
+                                       [next(gen)[0] for _ in range(FSDP_PODS_STEPS)])
+    out["pods_train"]["want"] = _fsdp_want(cfg, pods_data_mesh)
+    return out
+
+
+def fsdp_checks(reports: list, sizes: dict | None = None) -> None:
+    """Print the fsdp phase's numbers and hold them to the contract."""
+    sizes = sizes or {}
+    full = sizes.get("fsdp_layers") == 16
+    for rep in reports:
+        r, f = rep["rank"], rep.get("fsdp")
+        if f is None:
+            continue
+        if "train" in f:
+            want = f["want"]
+            _tp_cell_checks(r, "j", "olmo-1b 16 of 16 layers at full width" if full else
+                            "olmo-1b", f, "the gather's backward keeps its own slice, no "
+                            "reduce-scatter", "m", TP_SAVE_BYTES if full else None,
+                            part="fsdp", over=f"{FSDP_RANKS} data ranks")
+            tr = f["train"]
+            print(f"rank {r}, fsdp (j) params, m and v held: {tr['state_bytes']} B (want "
+                  f"{want['state_bytes']}; {FSDP_STATE_BYTES} at full width); per step "
+                  "all-gather / reduce-scatter "
+                  + "; ".join(f"{s['wire'].get('all_gather', 0)} / "
+                              f"{s['wire'].get('reduce_scatter', 0)} B" for s in tr["steps"])
+                  + f" (want {want['gather_bytes']} each; {FSDP_GATHER_BYTES} at full width)")
+            check(tr["state_bytes"] == want["state_bytes"]
+                  and (not full or want["state_bytes"] == FSDP_STATE_BYTES),
+                  "(j) a data rank's params and Adam moments are not its shards' bytes")
+            for s in tr["steps"]:
+                check(s["wire"].get("all_gather", 0) == want["gather_bytes"]
+                      and s["wire"].get("reduce_scatter", 0) == want["gather_bytes"]
+                      and (not full or want["gather_bytes"] == FSDP_GATHER_BYTES),
+                      "(j) a step did not gather each data-cut weight and reduce-scatter "
+                      "its gradient exactly once")
+            _tp_serve_checks(r, "n", "olmo-1b", f["serve"], part="fsdp")
+        t = f["tp"]
+        for s in t["train"]["steps"]:
+            print(f"rank {r}, fsdp (k) olmo-1b {t['layers']} of 16 layers over (2, 2) data x "
+                  f"model, {TP_BATCH} x {TP_SEQ}: {s['ms']:.1f} ms ({s['tok_s']:.0f} tok/s) loss "
+                  f"{s['loss']:.6f}, {s['gloo_ms']:.1f} ms in gloo calls, wire "
+                  f"{json.dumps(s['wire'])}")
+        print(f"rank {r}, fsdp (k) params, m and v held: {t['train']['state_bytes']} B (want "
+              f"{t['want']['state_bytes']}); peak {t['train']['peak_gib']:.2f} GiB; QAT codes "
+              f"of the shards: {t['codes']['differing']} of {t['codes']['codes']} differ, "
+              f"{t['codes']['ties']} ties, {t['codes']['left']} left")
+        check(t["train"]["state_bytes"] == t["want"]["state_bytes"],
+              "(k) an FSDP x TP rank's params and Adam moments are not its shards' bytes")
+        check(t["codes"]["differing"] == t["codes"]["ties"] and t["codes"]["left"] == 0,
+              "(k) a shard's QAT code differs from the whole leaf's away from a tie")
+        if "single" in t:
+            g = t["single"]
+            print(f"rank {r}, fsdp (k) FSDP x TP vs one process, {len(g['losses'])} steps: "
+                  f"one-process losses {g['losses']}; max loss rel gap {g['loss_rel_gap']:.3e} "
+                  f"(limit {TP_LOSS_RTOL:g}); params worst leaf ‖Δ‖/‖p‖ {g['param_rel_l2']:.3e} "
+                  f"(limit {MD_PARAM_RTOL_L2:g})")
+            check(g["loss_rel_gap"] <= TP_LOSS_RTOL and g["param_rel_l2"] <= MD_PARAM_RTOL_L2,
+                  "(k) FSDP x TP training disagrees with one process")
+        c = f["pods_collective"]
+        _tp_pods_collective_checks(r, "l", f"olmo-1b {sizes.get('fsdp_pods_layers', '?')} "
+                                   "layers", c, part="fsdp", what="pods x data")
+        pt = f["pods_train"]
+        w = pt["want"]["gather_bytes"]
+        print(f"rank {r}, fsdp (l) olmo-1b {sizes.get('fsdp_pods_layers', '?')} of 16 layers, "
+              f"{TP_BATCH} x {TP_SEQ} over mesh (2, 2, 1): steps "
+              + "; ".join(f"{s['ms']:.1f} ms loss {s['loss']:.6f} launches "
+                          f"{json.dumps(s['launches'])} wire {json.dumps(s['wire'])}"
+                          for s in pt["steps"])
+              + f"; peak {pt['peak_gib']:.2f} GiB (all-gather want {w} of weights + "
+              f"{c['want_gather_bytes']} of codes and w_q)")
+        for s in pt["steps"]:
+            check(s["launches"]["quantize_pack"] == 1 and s["launches"]["aggregate"] == 2,
+                  "(l) a pods x data step launched other than 1 quantize_pack and 2 aggregate")
+            check(s["wire"].get("all_gather", 0) == w + c["want_gather_bytes"]
+                  and s["wire"].get("reduce_scatter", 0) == w,
+                  "(l) a pods x data step's all-gather or reduce-scatter bytes are not its "
+                  "weights' and the collective's")
+
+
 def multidevice_rank(rank: int, world: int, rdv: str, out_dir: str, device: str,
                      sizes: dict) -> None:
     """One rank of the multidevice phase (a spawned process): joins the gloo
     group through ``rdv``; ranks 0 and 1 run (a) the collective, (c) the
     fan-in, (d) the MoE and (b) training, then the tensor_parallel phase's
-    (a)-(c) on their "model" axis; all ranks run its (d), pods x model. It
-    writes its report to ``out_dir``."""
+    (a)-(c) on their "model" axis; all ranks run its (d), pods x model; then
+    the fsdp phase's (j), (m) and (n) on ranks 0 and 1 and its (k) and (l)
+    on all. It writes its report to ``out_dir``."""
     import datetime
 
     import torch
@@ -4703,6 +4923,9 @@ def multidevice_rank(rank: int, world: int, rdv: str, out_dir: str, device: str,
     # (data, model): no "pod" axis, whose compressed sync the reference runs even at size 1
     tp_mesh = make_mesh((1, TP_RANKS), ("data", "model"), ranks=pair_ranks, device=device)
     pods_mesh = (make_mesh((2, 1, 2), AXES, device=device) if world == 4 else None)
+    fsdp_mesh = make_mesh((FSDP_RANKS, 1), ("data", "model"), ranks=pair_ranks, device=device)
+    fsdp_tp_mesh = (make_mesh((2, 2), ("data", "model"), device=device) if world == 4 else None)
+    pods_data_mesh = (make_mesh((2, 2, 1), AXES, device=device) if world == 4 else None)
     parts = sizes["parts"]
     report = {"rank": rank, "device": str(dev)}
     path = os.path.join(out_dir, f"rank{rank}.json")
@@ -4733,6 +4956,17 @@ def multidevice_rank(rank: int, world: int, rdv: str, out_dir: str, device: str,
 
         report["tensor_parallel"] = tensor_parallel_rank(rank, dev, FTTQConfig(), sizes, pair,
                                                          tp_mesh, pods_mesh, out_dir, progress)
+        save()
+        dist.barrier()
+    if "fsdp" in parts:
+        _free()            # the blocks earlier parts left in every rank's cache
+
+        def fsdp_progress(f_out):
+            report["fsdp"] = f_out
+            save()
+
+        report["fsdp"] = fsdp_rank(rank, dev, FTTQConfig(), sizes, pair, fsdp_mesh,
+                                   fsdp_tp_mesh, pods_data_mesh, out_dir, fsdp_progress)
     report["rank_s"] = time.perf_counter() - t0
     save()
     dist.destroy_process_group()
@@ -4741,15 +4975,16 @@ def multidevice_rank(rank: int, world: int, rdv: str, out_dir: str, device: str,
 def multidevice_phase(device: str = "cuda:0", olmo_cfg=None, moe_cfg=None, train_cfg=None,
                       batch: int = MD_BATCH, seq: int = MD_SEQ, steps: int = MD_STEPS,
                       tp_cfg=None, tp_pods_cfg=None, tp_zamba_cfg=None, tp_moe_cfg=None,
-                      tp_pods_moe_cfg=None,
-                      parts: tuple = ("collective", "tensor_parallel")) -> dict:
+                      tp_pods_moe_cfg=None, fsdp_cfg=None, fsdp_tp_cfg=None, fsdp_pods_cfg=None,
+                      parts: tuple = ("collective", "tensor_parallel", "fsdp")) -> dict:
     """Ranks spawned on the one card over gloo (a file rendezvous in a
     temporary directory), in one spawn: on two of them (a) the collective at
     full width, (c) the client-sharded fan-in, (d) the expert-parallel MoE,
     (b) compressed multi-pod training, then the tensor_parallel phase on the
-    two (its (a)-(c)) and on four (its (d), pods x model). ``parts`` names
-    the halves to run. A rank that fails or does not finish in time fails
-    the phase; every process is stopped."""
+    two (its (a)-(c), (e)-(h)) and on four (its (d), (i)), then the fsdp
+    phase on two (its (j), (m), (n)) and on four (its (k), (l)). ``parts``
+    names the parts to run. A rank that fails or does not finish in time
+    fails the phase; every process is stopped."""
     import multiprocessing as mp
     import tempfile
 
@@ -4764,12 +4999,16 @@ def multidevice_phase(device: str = "cuda:0", olmo_cfg=None, moe_cfg=None, train
              "tp_pods": tp_pods_cfg or get_config("olmo-1b", n_layers=TP_PODS_LAYERS),
              # remat "full": each Mamba2 layer would keep ~1.2 GB of SSD
              # intermediates for the backward, ~45 GB over 38 layers
-             "tp_zamba": tp_zamba_cfg or get_config("zamba2-1.2b", remat="full"),
+             "tp_zamba": tp_zamba_cfg or get_config("zamba2-1.2b", remat="full",
+                                                    n_layers=TP_ZAMBA_LAYERS),
              "tp_moe": tp_moe_cfg or get_config("qwen3-moe-30b-a3b", n_layers=TP_MOE_LAYERS),
              "tp_pods_moe": tp_pods_moe_cfg or get_config("qwen3-moe-30b-a3b",
                                                           n_layers=TP_PODS_MOE_LAYERS),
+             "fsdp": fsdp_cfg or get_config("olmo-1b"),
+             "fsdp_tp": fsdp_tp_cfg or get_config("olmo-1b", n_layers=FSDP_TP_LAYERS),
+             "fsdp_pods": fsdp_pods_cfg or get_config("olmo-1b", n_layers=FSDP_PODS_LAYERS),
              "batch": batch, "seq": seq, "steps": steps, "parts": tuple(parts)}
-    world = MD_WORLD if "tensor_parallel" in parts else MD_RANKS
+    world = MD_WORLD if {"tensor_parallel", "fsdp"} & set(parts) else MD_RANKS
     ctx = mp.get_context("spawn")
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     # the ranks write two olmo-1b checkpoints there: keep them in the checkout's build/
@@ -4805,7 +5044,9 @@ def multidevice_phase(device: str = "cuda:0", olmo_cfg=None, moe_cfg=None, train
         "moe_layers": sizes["moe"].n_layers, "tp_layers": sizes["tp"].n_layers,
         "tp_pods_layers": sizes["tp_pods"].n_layers, "tp_zamba_layers": sizes["tp_zamba"].n_layers,
         "tp_moe_layers": sizes["tp_moe"].n_layers,
-        "tp_pods_moe_layers": sizes["tp_pods_moe"].n_layers, "batch": batch, "seq": seq,
+        "tp_pods_moe_layers": sizes["tp_pods_moe"].n_layers,
+        "fsdp_layers": sizes["fsdp"].n_layers, "fsdp_tp_layers": sizes["fsdp_tp"].n_layers,
+        "fsdp_pods_layers": sizes["fsdp_pods"].n_layers, "batch": batch, "seq": seq,
         "steps": steps, "world": world}}
 
 
@@ -4894,6 +5135,7 @@ def multidevice_checks(md: dict) -> None:
               == [s["loss"] for s in reports[1]["train"]["compressed"]["steps"]],
               "the two pods logged different losses")
     tensor_parallel_checks(reports, md["sizes"])
+    fsdp_checks(reports, md["sizes"])
     print(f"multidevice phase: {md['wall_s']:.1f} s")
 
 
@@ -5206,10 +5448,15 @@ def main() -> int:
           f"48 layers, (b) compressed and exact 2-pod training of olmo-1b {MD_TRAIN_LAYERS} of "
           "16 layers; then tensor_parallel: (a) olmo-1b 16 of 16 layers trained over 2 model "
           "ranks vs one process and a planted fault, (b) its ternary save, (c) prefill and "
-          "decode; (e) zamba2-1.2b 38 of 38 layers and (f) qwen3-moe-30b-a3b "
+          f"decode; (e) zamba2-1.2b {TP_ZAMBA_LAYERS} of 38 layers and (f) qwen3-moe-30b-a3b "
           f"{TP_MOE_LAYERS} of 48 layers trained the same way, (g) the latter's ternary save, "
           f"(h) zamba2's prefill and decode; (d) pods x model on 4 ranks, olmo-1b "
-          f"{TP_PODS_LAYERS} of 16 layers, (i) qwen3-moe {TP_PODS_MOE_LAYERS} of 48")
+          f"{TP_PODS_LAYERS} of 16 layers, (i) qwen3-moe {TP_PODS_MOE_LAYERS} of 48; then fsdp: "
+          "(j) olmo-1b 16 of 16 layers trained over 2 data ranks (params and Adam moments "
+          "cut over 'data', per-layer all-gather, reduce-scattered gradients) vs one process "
+          "and a planted fault, (m) its ternary save, (n) prefill and decode; (k) olmo-1b "
+          f"{FSDP_TP_LAYERS} of 16 layers over (2, 2) data x model vs one process; (l) pods x "
+          f"data on (2, 2, 1), olmo-1b {FSDP_PODS_LAYERS} of 16 layers")
     _free()
     md = multidevice_phase(f"cuda:{torch.cuda.current_device()}")
     multidevice_checks(md)
@@ -5227,6 +5474,17 @@ def main() -> int:
                        zamba2_train=tp["zamba2"]["train"]["launches"][name],
                        moe_train=tp["moe"]["train"]["launches"][name],
                        moe_ternary_save=tp["moe"]["train"]["save"]["launches"][name])
+        return out
+
+    def fsdp_launches(rep: dict, name: str) -> dict:
+        """A rank's launches of ``name`` on each fsdp path."""
+        f = rep["fsdp"]
+        out = {"fsdp_tp_train": f["tp"]["train"]["launches"][name],
+               "pods_data_collective": f["pods_collective"]["launches"][name],
+               "pods_data_steps": [s["launches"][name] for s in f["pods_train"]["steps"]]}
+        if "train" in f:
+            out.update(train=f["train"]["launches"][name],
+                       ternary_save=f["train"]["save"]["launches"][name])
         return out
 
     phase("federated: ResNet18* T-FedAvg sync rounds at full width")
@@ -5315,6 +5573,8 @@ def main() -> int:
                                       "quantize_pack"]} for r in md_reports if "collective" in r},
          "tensor_parallel_launches": {
              f"rank{r['rank']}": tp_launches(r, "quantize_pack") for r in md_reports},
+         "fsdp_launches": {
+             f"rank{r['rank']}": fsdp_launches(r, "quantize_pack") for r in md_reports},
          "multidevice": md},
         {"name": "ternary_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ternary_matmul.cu",
@@ -5357,6 +5617,8 @@ def main() -> int:
                                       "aggregate"]} for r in md_reports if "collective" in r},
          "tensor_parallel_launches": {
              f"rank{r['rank']}": tp_launches(r, "aggregate") for r in md_reports},
+         "fsdp_launches": {
+             f"rank{r['rank']}": fsdp_launches(r, "aggregate") for r in md_reports},
          "socket_launches": socket_launches("aggregate"), "socket": sock,
          "controller": {k: ctrl[k] for k in ("per_round", "wall_s", "bytes_by_kind",
                                              "blob_sizes", "fold_vs_cpu_elements",

@@ -30,8 +30,8 @@ def params_from_jax(tree_of_numpy, device: str | torch.device = "cuda", *, mesh=
                     specs=None):
     """A nested dict/list of numpy arrays → the same tree of tensors on
     ``device`` (copied, so the result is writable). With a ``mesh`` whose
-    "model" axis has size > 1 and the tree's ``specs``
-    (``parallel.sharding.param_specs``), this rank's model shards."""
+    "model" or "data" axis has size > 1 and the tree's ``specs``
+    (``parallel.sharding.param_specs``), this rank's shards."""
     dev = resolve_device(device)
     tree = tree_map(lambda a: _tensor(a).to(dev), tree_of_numpy)
     if mesh is None:

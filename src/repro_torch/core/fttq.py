@@ -18,20 +18,21 @@ Leaves with ndim ≥ 3 are "stacked": one factor per leading index, so an
 HWIO conv weight (3, 3, 64, 64) trains 3 factors of shape (3, 1, 1, 1), one
 per kernel row, as the reference's ``vmap`` does.
 
-Under tensor parallelism (``parallel.tensor``) a rank holds a shard of some
-leaves, and max|θ|, Δ and the w_q gradient Σ g·I_t are still statistics of
-the whole leaf (of each layer of a stacked one), as GSPMD computes them for
-the reference: ``leaf_row_stats`` all-reduces the shards' row maxima (MAX)
-and Σ|θ_s| (SUM, divided by the whole row's count), and the backward sums
-the shards' g_wq over the "model" subgroup. The functions over trees take
-``tp`` (a ``parallel.tensor.ModelAxis``) and ``dims`` (the "model" dim of
-each leaf, ``parallel.sharding.model_dims``); whole leaves take no
-collective.
+Under tensor parallelism and FSDP (``parallel.tensor``) a rank holds a
+shard of some leaves, cut over "model", "data" or both, and max|θ|, Δ and
+the w_q gradient Σ g·I_t are still statistics of the whole leaf (of each
+layer of a stacked one), as GSPMD computes them for the reference:
+``leaf_row_stats`` all-reduces the shards' row maxima (MAX) and Σ|θ_s|
+(SUM, divided by the whole row's count) over every axis that cuts the
+leaf, and the backward sums the shards' g_wq over the same axes. The
+functions over trees take ``shards`` (a ``parallel.tensor.Shards``); whole
+leaves take no collective.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 from typing import Any
 
@@ -158,25 +159,23 @@ def row_codes(rows: torch.Tensor, t_k: float, rule: str = "mean") -> torch.Tenso
     return ternarize(theta_s, row_threshold(theta_s, t_k, rule))
 
 
-def leaf_row_stats(rows: list, t_k: float, tp) -> list:
-    """(denom, Δ), each (L, 1), per row of every (L, m) model shard in
-    ``rows``, from the whole leaf: the row maxima all-reduced (MAX) and
-    Σ|θ_s| all-reduced (SUM) over ``tp``'s subgroup, the mean over the whole
-    row's m · size elements. One all-reduce of each kind for all of them;
-    the sums in fp32, as a one-device mean accumulates."""
-    from repro_torch.parallel.collectives import all_reduce_
+def leaf_row_stats(rows: list, t_k: float, axes: list) -> list:
+    """(denom, Δ), each (L, 1), per row of every (L, m) shard in ``rows``,
+    from the whole leaf: the row maxima all-reduced (MAX) and Σ|θ_s|
+    all-reduced (SUM) over every mesh axis in ``axes[i]`` (the
+    ``MeshAxis`` tuple that cuts ``rows[i]``), the mean over the whole
+    row's m · Π sizes elements. One all-reduce of each kind per axis for
+    all of them; the sums in fp32, as a one-device mean accumulates."""
+    from repro_torch.parallel.tensor import reduce_over
 
-    mx = torch.cat([_row_abs_max(r).reshape(-1).to(torch.float32) for r in rows])
-    all_reduce_(mx, tp.group, op="max")
-    denoms = [part.to(r.dtype).reshape(-1, 1) + _EPS
-              for r, part in zip(rows, mx.split([r.shape[0] for r in rows]))]
-    sums = torch.cat([(r / d).abs().sum(dim=1, dtype=torch.float32)
-                      for r, d in zip(rows, denoms)])
-    all_reduce_(sums, tp.group)
+    mx = reduce_over([_row_abs_max(r).reshape(-1).to(torch.float32) for r in rows], axes, "max")
+    denoms = [part.to(r.dtype).reshape(-1, 1) + _EPS for r, part in zip(rows, mx)]
+    sums = reduce_over([(r / d).abs().sum(dim=1, dtype=torch.float32)
+                        for r, d in zip(rows, denoms)], axes)
     out = []
-    for r, d, part in zip(rows, denoms, sums.split([r.shape[0] for r in rows])):
-        mean = (part / (r.shape[1] * tp.size)).to(r.dtype).reshape(-1, 1)
-        out.append((d, _t(t_k, r) * mean))
+    for r, d, part, ax in zip(rows, denoms, sums, axes):
+        whole = r.shape[1] * math.prod(a.size for a in ax)
+        out.append((d, _t(t_k, r) * (part / whole).to(r.dtype).reshape(-1, 1)))
     return out
 
 
@@ -186,12 +185,12 @@ class FTTQQuantize(torch.autograd.Function):
 
     The forward's Δ always follows eq. (8) (the "mean" rule), whatever the
     config's ``threshold_rule``: the reference's ``fttq_quantize`` calls
-    ``fttq_threshold`` with its default rule. A model shard passes its
-    leaf's ``stats`` ((denom, Δ) from ``leaf_row_stats``) and the ``tp`` it
-    is sharded over, whose ranks' g_wq the backward sums."""
+    ``fttq_threshold`` with its default rule. A shard passes its leaf's
+    ``stats`` ((denom, Δ) from ``leaf_row_stats``) and the ``axes`` it is
+    cut over, whose ranks' g_wq the backward sums."""
 
     @staticmethod
-    def forward(ctx, theta, w_q, t_k, stats=None, tp=None):
+    def forward(ctx, theta, w_q, t_k, stats=None, axes=()):
         n_rows = w_q.numel()
         rows = theta.reshape(n_rows, -1)
         if stats is None:
@@ -201,7 +200,7 @@ class FTTQQuantize(torch.autograd.Function):
             i_t = ternarize(rows / denom, delta)
         w = w_q.reshape(n_rows, 1)
         ctx.save_for_backward(i_t, w_q)
-        ctx.tp = tp
+        ctx.axes = axes
         return (w * i_t).reshape(theta.shape)
 
     @staticmethod
@@ -210,10 +209,10 @@ class FTTQQuantize(torch.autograd.Function):
         n_rows = w_q.numel()
         g_rows = g.reshape(n_rows, -1)
         g_wq = (g_rows * i_t).sum(dim=1).reshape(w_q.shape).to(w_q.dtype)
-        if ctx.tp is not None:
-            from repro_torch.parallel.collectives import all_reduce_
+        if ctx.axes:
+            from repro_torch.parallel.tensor import reduce_over
 
-            all_reduce_(g_wq, ctx.tp.group)
+            (g_wq,) = reduce_over([g_wq], [ctx.axes])
         w = w_q.reshape(n_rows, 1)
         scale = torch.where(i_t != 0, w, torch.ones_like(w))
         g_theta = (g_rows * scale).reshape(g.shape)
@@ -234,36 +233,40 @@ def _factor_rows(leaf) -> int:
     return leaf.shape[0] if leaf.ndim >= 3 else 1
 
 
-def _shards(params: Any, keep, tp, dims) -> dict:
-    """{path: leaf} of the model shards among the leaves ``keep`` accepts."""
-    if tp is None or dims is None:
+def _shards(params: Any, keep, shards) -> dict:
+    """{path: (leaf, the MeshAxis tuple that cuts it)} of the shards among
+    the leaves ``keep`` accepts."""
+    if shards is None:
         return {}
-    sharded = {path for path, _ in flatten_with_path(dims)}      # None leaves vanish
-    return {path: leaf for path, leaf in flatten_with_path(params)
-            if path in sharded and keep(path, leaf)}
+    return {path: (leaf, shards.axes(path_str(path))) for path, leaf in flatten_with_path(params)
+            if path_str(path) in shards.cuts and keep(path, leaf)}
 
 
-def init_wq_tree(params: Any, cfg: FTTQConfig, tp=None, dims=None) -> Any:
+def init_wq_tree(params: Any, cfg: FTTQConfig, shards=None) -> Any:
     """One w_q per quantizable leaf, ``None`` elsewhere. A leaf with
-    ndim ≥ 3 gets a factor per leading index, shaped (L, 1, ..., 1). A model
-    shard (``tp``, ``dims``) gets its whole leaf's factor."""
-    shards = _shards(params, lambda p, x: is_quantizable(p, x, cfg), tp, dims)
-    stats = dict(zip(shards, leaf_row_stats(
-        [x.reshape(_factor_rows(x), -1) for x in shards.values()], cfg.t_k, tp)
-        if shards else []))
+    ndim ≥ 3 gets a factor per leading index, shaped (L, 1, ..., 1). A
+    shard (``shards``, a ``parallel.tensor.Shards``) gets its whole leaf's
+    factor."""
+    from repro_torch.parallel.tensor import reduce_over
+
+    cut = _shards(params, lambda p, x: is_quantizable(p, x, cfg), shards)
+    stats = dict(zip(cut, leaf_row_stats(
+        [x.reshape(_factor_rows(x), -1) for x, _ in cut.values()], cfg.t_k,
+        [ax for _, ax in cut.values()]) if cut else []))
+    sums = {}
+    for path, (leaf, _) in cut.items():
+        denom, delta = stats[path]
+        rows = leaf.reshape(_factor_rows(leaf), -1)
+        sel = (rows / denom).abs() > delta
+        sums[path] = torch.stack([torch.where(sel, rows.abs(), 0.0).sum(dim=1, dtype=torch.float32),
+                                  sel.sum(dim=1).to(torch.float32)])
+    sums = dict(zip(sums, reduce_over(list(sums.values()), [cut[p][1] for p in sums])))
 
     def make(path, leaf):
         if not is_quantizable(path, leaf, cfg):
             return None
-        if path in stats:
-            from repro_torch.parallel.collectives import all_reduce_
-
-            denom, delta = stats[path]
-            rows = leaf.reshape(_factor_rows(leaf), -1)
-            sel = (rows / denom).abs() > delta
-            num = torch.where(sel, rows.abs(), 0.0).sum(dim=1, dtype=torch.float32)
-            num, den = all_reduce_(torch.stack([num, sel.sum(dim=1).to(torch.float32)]),
-                                   tp.group)
+        if path in sums:
+            num, den = sums[path]
             wq = (num / (den + _EPS)).to(leaf.dtype)
             return wq.reshape(((leaf.shape[0],) + (1,) * (leaf.ndim - 1))
                               if leaf.ndim >= 3 else ())
@@ -280,45 +283,46 @@ def init_wq_tree(params: Any, cfg: FTTQConfig, tp=None, dims=None) -> Any:
     return tree_map_with_path(make, params)
 
 
-def quantize_tree(params: Any, wq_tree: Any, cfg: FTTQConfig, tp=None, dims=None) -> Any:
+def quantize_tree(params: Any, wq_tree: Any, cfg: FTTQConfig, shards=None) -> Any:
     """QAT forward over a tree: every leaf with a factor in ``wq_tree``
     (as made by ``init_wq_tree``) is quantized, the rest pass through. A
-    model shard (``tp``, ``dims``) is quantized with its whole leaf's
-    statistics."""
+    shard (``shards``) is quantized with its whole leaf's statistics."""
     wqs = dict(flatten_with_path(wq_tree))
-    shards = _shards(params, lambda p, _: wqs.get(p) is not None, tp, dims)
+    cut = _shards(params, lambda p, _: wqs.get(p) is not None, shards)
     with torch.no_grad():
-        stats = dict(zip(shards, leaf_row_stats(
-            [x.reshape(wqs[p].numel(), -1) for p, x in shards.items()], cfg.t_k, tp)
-            if shards else []))
+        stats = dict(zip(cut, leaf_row_stats(
+            [x.reshape(wqs[p].numel(), -1) for p, (x, _) in cut.items()], cfg.t_k,
+            [ax for _, ax in cut.values()]) if cut else []))
 
     def one(path, leaf):
         wq = wqs.get(path)
         if wq is None:
             return leaf
         if path in stats:
-            return FTTQQuantize.apply(leaf, wq, cfg.t_k, stats[path], tp)
+            return FTTQQuantize.apply(leaf, wq, cfg.t_k, stats[path], cut[path][1])
         return FTTQQuantize.apply(leaf, wq, cfg.t_k)
 
     return tree_map_with_path(one, params)
 
 
-def ternary_stats(params: Any, cfg: FTTQConfig, tp=None, dims=None) -> dict:
+def ternary_stats(params: Any, cfg: FTTQConfig, shards=None) -> dict:
     """Diagnostics: the share of parameters quantized, and the share of
     zero codes among them (each leaf scaled as a whole). The per-leaf zero
     counts stay on the device and cross to the host in one transfer, summed
-    there as int64; a model shard (``tp``, ``dims``) counts its whole
-    leaf."""
-    shards = _shards(params, lambda p, x: True, tp, dims)
-    quant = {p: x for p, x in shards.items() if is_quantizable(p, x, cfg)}
+    there as int64; a shard (``shards``) counts its whole leaf."""
+    from repro_torch.parallel.tensor import reduce_over
+
+    cut = _shards(params, lambda p, x: True, shards)
+    quant = {p: v for p, v in cut.items() if is_quantizable(p, v[0], cfg)}
     if cfg.threshold_rule != "mean" and quant:
-        raise NotImplementedError("ternary_stats on model shards takes the 'mean' rule")
-    stats = dict(zip(quant, leaf_row_stats([x.reshape(1, -1) for x in quant.values()],
-                                           cfg.t_k, tp) if quant else []))
+        raise NotImplementedError("ternary_stats on shards takes the 'mean' rule")
+    stats = dict(zip(quant, leaf_row_stats([x.reshape(1, -1) for x, _ in quant.values()],
+                                           cfg.t_k, [ax for _, ax in quant.values()])
+                     if quant else []))
     total = quantized = 0
     zero_counts, shard_zeros = [], []
     for path, leaf in flatten_with_path(params):
-        n = leaf.numel() * (tp.size if path in shards else 1)
+        n = leaf.numel() * (math.prod(a.size for a in cut[path][1]) if path in cut else 1)
         total += n
         if is_quantizable(path, leaf, cfg):
             quantized += n
@@ -329,10 +333,7 @@ def ternary_stats(params: Any, cfg: FTTQConfig, tp=None, dims=None) -> dict:
             theta_s = scale_layer(leaf)
             delta = fttq_threshold(theta_s, cfg.t_k, cfg.threshold_rule)
             zero_counts.append(torch.sum(torch.abs(theta_s) <= delta))
-    if shard_zeros:
-        from repro_torch.parallel.collectives import all_reduce_
-
-        zero_counts.append(all_reduce_(torch.stack(shard_zeros), tp.group).sum())
+    zero_counts += reduce_over(shard_zeros, [ax for _, ax in quant.values()])
     zeros = int(torch.stack(zero_counts).cpu().sum(dtype=torch.int64)) if zero_counts else 0
     return {"total_params": total, "quantized_params": quantized,
             "quantized_fraction": quantized / max(total, 1),

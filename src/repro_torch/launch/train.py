@@ -9,22 +9,26 @@ with checkpoint and restart, on a synthetic token stream (port of
         --init-method file:///tmp/rdv --device cpu --preset 1m      # r = 0 and 1
     RANK=r WORLD_SIZE=2 python -m repro_torch.launch.train --model 2 --backend gloo \
         --init-method file:///tmp/rdv --device cpu --preset 1m      # r = 0 and 1
+    RANK=r WORLD_SIZE=2 python -m repro_torch.launch.train --model 1 --backend gloo \
+        --init-method file:///tmp/rdv --device cpu --preset 1m      # FSDP over 2 ranks
 
-With ``--pods N`` (N > 1) or ``--model M`` (M > 1) one process runs per
-rank under ``torch.distributed``: the rendezvous is ``--init-method``
+With ``--pods N`` (N > 1), ``--model M`` (M > 1) or ``WORLD_SIZE`` > 1 in
+the environment, one process runs per rank under ``torch.distributed``:
+the rendezvous is ``--init-method``
 (``env://``, as ``torchrun`` sets MASTER_ADDR, MASTER_PORT, RANK and
 WORLD_SIZE, or ``file://<path>`` with RANK and WORLD_SIZE in the
 environment), the mesh is (N, WORLD_SIZE / (N · M), M) over ("pod",
 "data", "model"), every rank reads the same token stream and trains on its
 rows of each global batch, the pods sync their gradients
 ternary-compressed with error feedback (``--no-pod-compression``: an exact
-mean; ``--no-error-feedback``), and the "model" axis is tensor
-parallelism: each rank holds its shards of the params (every family; the
-all-to-all MoE raises). Rank r runs on ``cuda:{r % device_count}`` (or the
+mean; ``--no-error-feedback``), the "model" axis is tensor parallelism
+(every family; the all-to-all MoE raises) and the "data" axis is FSDP as
+well as data parallelism: each rank holds its shards of the params and of
+both Adam moments over both axes. Rank r runs on ``cuda:{r % device_count}`` (or the
 CPU with ``--device cpu``); the backend is ``--backend`` (default nccl on
 cuda, gloo on the CPU; gloo also lets several ranks share one GPU). Rank 0
-prints and writes checkpoints (every pod's residuals and every model
-shard gathered: the one-device file).
+prints and writes checkpoints (every pod's residuals and every shard
+gathered: the one-device file).
 
 With ``--ckpt-dir`` a checkpoint (state, data cursor) is written every
 ``--ckpt-every`` steps; ``--resume`` restarts from the newest one and repeats
@@ -103,11 +107,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _distributed(args):
     """(rank, mesh, device) of this process: one rank and no mesh for one
-    pod and one model rank, else the process group and the (pods, data,
-    model) mesh."""
-    if args.pods <= 1 and args.model <= 1:
+    pod, one model rank and no ``WORLD_SIZE`` > 1, else the process group
+    and the (pods, data, model) mesh, whose "data" axis (FSDP and data
+    parallelism) takes the ranks left over."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.pods <= 1 and args.model <= 1 and world <= 1:
         return 0, None, resolve_device(args.device)
-    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    rank = int(os.environ["RANK"])
     if world % (args.pods * args.model):
         raise SystemExit(f"--pods {args.pods} x --model {args.model} does not divide "
                          f"WORLD_SIZE {world}")

@@ -14,7 +14,7 @@ Two softmax paths, as in the reference:
   exp(0 − m) per padded key to the softmax denominator whenever S_kv is
   not a multiple of 1024. Here the blocked path equals ``_attend_naive``.
 
-Under tensor parallelism (``tp``, a ``parallel.tensor.ModelAxis``) the heads
+Under tensor parallelism (``tp``, a ``parallel.tensor.MeshAxis``) the heads
 are local: ``wq`` is column-parallel over whole query heads, ``wo``
 row-parallel and followed by ``reduce_from_model``. ``head_layout`` says
 which kv heads a rank's query heads use and where it gets them: its own

@@ -15,7 +15,7 @@ Block layout (d_inner = expand·d_model, P = d_inner/n_heads, N = d_state):
     conv1d  : causal depthwise width-W over concat(x, B, C)
     SSD core, gated RMSNorm(y · silu(z)), out_proj : d_inner → D
 
-Under tensor parallelism (``tp``, a ``parallel.tensor.ModelAxis``, with the
+Under tensor parallelism (``tp``, a ``parallel.tensor.MeshAxis``, with the
 layer's "model" ``dims``) the sharding rules split ``in_proj``'s output
 columns [z | x | B | C | dt] as one flat range, ``conv_w``'s channels
 [x | B | C] likewise, and ``out_proj`` by rows. The cut falls inside x, not
@@ -32,7 +32,10 @@ fp32 at two ranks, once more under remat; the gain is the params,
 gradients and Adam moments a rank holds: in_proj and out_proj are ~95% of
 a Mamba2 layer's parameters. A leaf the divisibility guard left whole (for
 example in_proj's odd column count with a single SSM head) is used as it
-is. The cache (conv window and SSD state) is whole.
+is. The cache (conv window and SSD state) is whole. Under FSDP
+``in_proj`` and ``out_proj`` are also cut on D over "data";
+``models.transformer`` gathers them over "data" before the block, which
+then gathers over "model" as above.
 """
 
 from __future__ import annotations

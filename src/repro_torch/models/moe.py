@@ -9,7 +9,7 @@ over the one-hot routing, in token-major order); copies past the capacity
 C are dropped (GShard semantics). Ties in the router probabilities keep the
 lower expert index first, as ``jax.lax.top_k`` does.
 
-Under tensor parallelism (``tp``, a ``parallel.tensor.ModelAxis``, with the
+Under tensor parallelism (``tp``, a ``parallel.tensor.MeshAxis``, with the
 layer's "model" ``dims``) the tokens are whole on every rank of the axis.
 Every rank routes them alike (router, softmax, top-k, the aux loss, the
 capacity and the dispatch are the one device's), then scatters only the
@@ -28,6 +28,11 @@ of all ranks are one batch, as in the reference's GSPMD step: the capacity
 is the global batch's, a copy's slot counts the copies routed to its expert
 by the ranks before it (its rank in the global token-major queue), and the
 load loss takes the global means (``mean_over_batch``).
+
+Under FSDP the router and expert stacks are also cut on D over "data";
+``models.transformer`` gathers them (``parallel.tensor.gather_layer``)
+before the layer, so this module sees them whole over "data" and its
+routing, ``BatchAxes`` and local experts are as above.
 """
 
 from __future__ import annotations

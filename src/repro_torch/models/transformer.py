@@ -22,7 +22,7 @@ norms; ``cross`` (vlm) and ``shared_attn`` (hybrid); ``final_norm`` and
 layers with a Python loop where the reference scans, and writes a given
 cache in place.
 
-Tensor parallelism (``tp``, a ``parallel.tensor.ModelAxis``; every family):
+Tensor parallelism (``tp``, a ``parallel.tensor.MeshAxis``; every family):
 the params are this rank's shards (``init_params(..., mesh=)``); attention
 and the MLP are column- then row-parallel; ``embed/table`` is split by vocab
 rows, so the lookup reads the rank's rows (zero for ids it does not hold)
@@ -35,6 +35,17 @@ under ``tp``, one set of shards for all its applications. Where the
 divisibility guard leaves a leaf whole, it is computed whole on every rank
 (the per-layer "model" dims come from ``parallel.sharding.model_dims``).
 The all-to-all MoE (``moe_impl="a2a"``) is not ported under a "model" axis.
+
+FSDP (``fsdp``, the mesh's "data" axis): the params are also cut over
+"data" where their specs say so, and each remat unit gathers its layer's
+data-sharded leaves (``parallel.tensor.gather_layer``: all-gather forward,
+reduce-scatter backward) before it computes, as do the vlm's cross layer,
+the hybrid's shared block at each application and ``lm_head`` where they
+are used; the layers then see whole leaves over "data" (the MoE's router
+and expert stacks, Mamba2's projections, which gather over "model" after).
+Under remat "full" the backward gathers again, so no rank holds every
+layer's whole weights at once. The batch and the cache stay whole over
+"data" (each rank runs the rows it is given).
 """
 
 from __future__ import annotations
@@ -61,7 +72,8 @@ from repro_torch.models.moe import init_moe, moe
 from repro_torch.models.moe_a2a import moe_a2a
 from repro_torch.parallel.collectives import current_mesh
 from repro_torch.parallel.tensor import (
-    copy_to_model, gather_from_model, model_axis, reduce_from_model, vocab_parallel_ce,
+    copy_to_model, gather_from_data, gather_from_model, gather_layer, model_axis,
+    reduce_from_model, sharded, vocab_parallel_ce,
 )
 from repro_torch.tree import path_str, tree_leaves, tree_map, tree_map_with_path
 
@@ -168,15 +180,25 @@ def check_tensor_parallel(cfg: ModelConfig, n_model: int) -> None:
 
 
 @functools.lru_cache(maxsize=16)
-def _layer_dims(cfg: ModelConfig, size: int) -> dict:
-    """The "model" dim of each leaf of one layer of ``blocks`` (the stacked
-    layer dim taken off; None where whole) under a "model" axis of
-    ``size``, as ``parallel.sharding.model_dims`` decides it."""
+def _axis_dims(cfg: ModelConfig, size: int, axis: str = "model") -> dict:
+    """The dim each leaf of ``init_params(cfg)`` is cut on by a mesh axis
+    ``axis`` of ``size`` (None where whole), as
+    ``parallel.sharding.axis_dims`` decides it, with the stacked layer dim
+    of ``blocks`` and ``cross`` taken off (the dims of one layer)."""
     from repro_torch.launch.mesh import MeshSpec
-    from repro_torch.parallel.sharding import model_dims
+    from repro_torch.parallel.sharding import axis_dims
 
-    dims = model_dims(cfg, MeshSpec((size,), ("model",)))["blocks"]
-    return tree_map(lambda d: None if d is None else d - 1, dims)
+    dims = axis_dims(cfg, MeshSpec((size,), (axis,)), axis)
+    for key in ("blocks", "cross"):
+        if key in dims:
+            dims[key] = tree_map(lambda d: None if d is None else d - 1, dims[key])
+    return dims
+
+
+def _layer_dims(cfg: ModelConfig, size: int) -> dict:
+    """The "model" dim of each leaf of one layer of ``blocks`` under a
+    "model" axis of ``size``."""
+    return _axis_dims(cfg, size)["blocks"]
 
 
 def _vocab_tp(cfg: ModelConfig, tp):
@@ -262,8 +284,9 @@ def _with_norms(cfg: ModelConfig, block: dict, lead: tuple, names) -> dict:
 
 def param_shapes(cfg: ModelConfig, mesh=None) -> dict:
     """The parameter tree's shapes, without allocating it; with a ``mesh``
-    whose "model" axis has size > 1, the shapes of this rank's shards."""
-    if model_axis(mesh) is not None:
+    whose "model" or "data" axis has size > 1, the shapes of this rank's
+    shards."""
+    if sharded(mesh):
         from repro_torch.parallel.tensor import local_shape
 
         return tree_map_with_path(lambda p, shape: local_shape(path_str(p), shape, mesh),
@@ -318,9 +341,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "c
     ``seed`` on ``device``: embeddings N(0, 0.02²), matrices Lecun-normal,
     norm scales and cross-attention gates zero, the SSM's a_log and dt_bias
     zero and d_skip one (the reference's initializers, not its bits). With
-    a ``mesh`` whose "model" axis has size > 1, this rank's shards of the
-    same draws (``param_shapes(cfg, mesh)``)."""
-    if model_axis(mesh) is not None:
+    a ``mesh`` whose "model" or "data" axis has size > 1, this rank's shards
+    of the same draws (``param_shapes(cfg, mesh)``)."""
+    if sharded(mesh):
         from repro_torch.parallel.sharding import param_specs
         from repro_torch.parallel.tensor import shard_tree
 
@@ -375,7 +398,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     W-1, C) conv windows and (L, B, H, P, N) float32 SSD states for Mamba
     layers, and (A, B, S_max, Hkv, hd) per shared-attention application.
     With a ``mesh`` whose "model" axis has size > 1, Hkv is this rank's kv
-    heads (``attention.head_layout``); the SSM states stay whole."""
+    heads (``attention.head_layout``); the SSM states stay whole, and so
+    does everything over a "data" axis (each rank decodes its whole batch:
+    serving rows over "data" is ROADMAP 14b-v)."""
     dev = resolve_device(device)
     _check_family(cfg)
     check_tensor_parallel(cfg, mesh.size("model") if mesh is not None else 1)
@@ -527,20 +552,24 @@ def _embed(cfg: ModelConfig, table: torch.Tensor, tokens: torch.Tensor, tp) -> t
 def forward(cfg: ModelConfig, params: Pytree, tokens: torch.Tensor | None = None, *,
             embeds: torch.Tensor | None = None,
             vision_embeds: torch.Tensor | None = None,
-            cache: Pytree | None = None, pos: int = 0, tp=None, dp=None):
+            cache: Pytree | None = None, pos: int = 0, tp=None, dp=None, fsdp=None):
     """Returns (logits (B, S, V) in the compute dtype, cache or None, aux
     loss: the MoE layers' sum, a float32 scalar). With a cache, each layer's
     keys, values and SSM states are written into it in place. Under ``tp``
     (params and cache this rank's shards) the logits are this rank's vocab
     columns (B, S, V / size) where the guard splits the vocabulary. ``dp``
     (``parallel.tensor.BatchAxes``): the ranks whose rows make one batch
-    with these, which the MoE layers route together."""
+    with these, which the MoE layers route together. ``fsdp`` (the "data"
+    ``MeshAxis``): the params are also cut over it, and each layer gathers
+    its own (see the module docstring)."""
     _check_family(cfg)
     check_tensor_parallel(cfg, tp.size if tp is not None else 1)
-    if tp is not None and any(isinstance(w, PackedTernary) for w in tree_leaves(
-            params, is_leaf=lambda x: isinstance(x, PackedTernary))):
-        raise NotImplementedError("packed ternary weights under tensor parallelism: the "
-                                  "reference runs no kernel on a sharded operand")
+    if (tp is not None or fsdp is not None) and any(isinstance(w, PackedTernary) for w in
+                                                    tree_leaves(params, is_leaf=lambda x:
+                                                                isinstance(x, PackedTernary))):
+        raise NotImplementedError("packed ternary weights on a sharded mesh: the reference "
+                                  "runs no kernel on a sharded operand")
+    fd = _axis_dims(cfg, fsdp.size, "data") if fsdp is not None else {}
     cdt = cfg.cdtype()
     x = embeds.to(cdt) if embeds is not None else _embed(cfg, params["embed"]["table"],
                                                          tokens, tp)
@@ -560,9 +589,10 @@ def forward(cfg: ModelConfig, params: Pytree, tokens: torch.Tensor | None = None
 
             # one remat unit per layer: the layer and the cross layer after it
             def body(x, bp, cp, kv=kv, window=window):
-                x, layer_aux = _dense_layer(cfg, bp, x, window, kv, pos, tp, dp)
+                x, layer_aux = _dense_layer(cfg, gather_layer(bp, fsdp, fd.get("blocks")), x,
+                                            window, kv, pos, tp, dp)
                 if cp is not None:
-                    x = _cross_layer(cfg, cp, x, vis, tp)
+                    x = _cross_layer(cfg, gather_layer(cp, fsdp, fd.get("cross")), x, vis, tp)
                 return x, layer_aux
 
             x, layer_aux = _remat(cfg, cache, body, x, _layer(blocks, i), cp)
@@ -586,8 +616,9 @@ def forward(cfg: ModelConfig, params: Pytree, tokens: torch.Tensor | None = None
             # one remat unit per layer: the shared block before it, if any
             def body(x, bp, sp, kv=kv, states=states):
                 if sp is not None:
-                    x = _shared_attn_layer(cfg, sp, x, kv, pos, tp)
-                return _mamba_layer(cfg, bp, x, states, tp)
+                    x = _shared_attn_layer(cfg, gather_layer(sp, fsdp, fd.get("shared_attn")),
+                                           x, kv, pos, tp)
+                return _mamba_layer(cfg, gather_layer(bp, fsdp, fd.get("blocks")), x, states, tp)
 
             x, new_states = _remat(cfg, cache, body, x, _layer(blocks, i), sp)
             app_idx += int(sp is not None)
@@ -602,7 +633,10 @@ def forward(cfg: ModelConfig, params: Pytree, tokens: torch.Tensor | None = None
     if cfg.tie_embeddings:
         logits = x @ params["embed"]["table"].T.to(cdt)
     else:
-        logits = matmul(x, params["lm_head"])
+        head = params["lm_head"]
+        if fd.get("lm_head") is not None:
+            head = gather_from_data(head, fsdp, fd["lm_head"])
+        logits = matmul(x, head)
     return logits, cache, aux
 
 
@@ -615,23 +649,24 @@ def whole_logits(cfg: ModelConfig, logits: torch.Tensor, tp) -> torch.Tensor:
 
 def decode_step(cfg: ModelConfig, params: Pytree, tokens: torch.Tensor,
                 cache: Pytree, pos: int, *, vision_embeds: torch.Tensor | None = None,
-                tp=None):
+                tp=None, fsdp=None):
     """One-token incremental decode. tokens: (B, 1); pos: cache fill."""
     logits, cache, _ = forward(cfg, params, tokens, vision_embeds=vision_embeds,
-                               cache=cache, pos=pos, tp=tp)
+                               cache=cache, pos=pos, tp=tp, fsdp=fsdp)
     return logits, cache
 
 
-def loss_fn(cfg: ModelConfig, params: Pytree, batch: dict, tp=None, dp=None):
+def loss_fn(cfg: ModelConfig, params: Pytree, batch: dict, tp=None, dp=None, fsdp=None):
     """Mean next-token (or per-frame) cross entropy, from an fp32 log-softmax
     of the logits, plus ``aux_loss_coef`` × the MoE aux loss. ``batch`` holds
     ``labels`` and ``tokens`` or ``embeds`` (audio), and ``vision_embeds``
     for the vlm. Under ``tp`` with the vocabulary split, the cross entropy
     is vocab-parallel (``parallel.tensor.vocab_parallel_ce``): no rank
-    holds the whole (B, S, V) logits. ``dp`` as for ``forward``. Returns
-    (loss, {"ce", "aux"})."""
+    holds the whole (B, S, V) logits. ``dp`` and ``fsdp`` as for
+    ``forward``. Returns (loss, {"ce", "aux"})."""
     logits, _, aux = forward(cfg, params, batch.get("tokens"), embeds=batch.get("embeds"),
-                             vision_embeds=batch.get("vision_embeds"), tp=tp, dp=dp)
+                             vision_embeds=batch.get("vision_embeds"), tp=tp, dp=dp,
+                             fsdp=fsdp)
     labels = batch["labels"].to(torch.int64)
     vtp = _vocab_tp(cfg, tp)
     if vtp is not None:

@@ -17,7 +17,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.tree import flatten_with_path, tree_leaves, tree_map
+from repro_torch.tree import flatten_with_path, path_str, tree_leaves, tree_map
 
 Pytree = Any
 
@@ -125,33 +125,30 @@ def apply_updates(params: Pytree, updates: Pytree) -> Pytree:
     return _map2(lambda p, u: (p.to(torch.float32) + u).to(p.dtype), params, updates)
 
 
-def global_norm(tree: Pytree, *, tp=None, dims: Pytree | None = None) -> torch.Tensor:
+def global_norm(tree: Pytree, *, shards=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in fp32. The leaves' sums
     are added one after another in flatten order, as the reference's
-    Python ``sum`` adds them. Under tensor parallelism (``tp``, a
-    ``parallel.tensor.ModelAxis``) ``dims`` gives each leaf's "model" dim
-    (None for a whole leaf): a shard's sum is all-reduced over the subgroup
-    (one collective for all of them), a whole leaf counted once."""
+    Python ``sum`` adds them. Under tensor parallelism or FSDP ``shards`` (a
+    ``parallel.tensor.Shards``) names the axes that cut each leaf: a
+    shard's sum is all-reduced over them (one collective per axis for all
+    of them), a whole leaf counted once."""
     items = flatten_with_path(tree)
     sums = [torch.sum(torch.square(leaf.to(torch.float32))) for _, leaf in items]
-    sharded = {p for p, _ in flatten_with_path(dims)} if tp is not None and dims else set()
-    at = [i for i, (p, _) in enumerate(items) if p in sharded]
-    if at:
-        from repro_torch.parallel.collectives import all_reduce_
+    if shards is not None:
+        from repro_torch.parallel.tensor import reduce_over
 
-        for i, v in zip(at, all_reduce_(torch.stack([sums[i] for i in at]), tp.group)):
-            sums[i] = v
+        sums = reduce_over(sums, [shards.axes(path_str(p)) for p, _ in items])
     total = 0
     for v in sums:
         total = total + v
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
-def clip_by_global_norm(grads: Pytree, max_norm: float, *, tp=None,
-                        dims: Pytree | None = None) -> tuple[Pytree, torch.Tensor]:
+def clip_by_global_norm(grads: Pytree, max_norm: float, *,
+                        shards=None) -> tuple[Pytree, torch.Tensor]:
     """(grads scaled by min(1, max_norm / (‖grads‖ + 1e-9)), ‖grads‖);
-    ``tp`` and ``dims`` as in ``global_norm``."""
-    gn = global_norm(grads, tp=tp, dims=dims)
+    ``shards`` as in ``global_norm``."""
+    gn = global_norm(grads, shards=shards)
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), gn
 

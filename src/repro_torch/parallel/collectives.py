@@ -39,23 +39,24 @@ back after the collective; every other case hands the tensor to the
 backend as it is. Each collective adds the bytes a rank receives from the
 others to ``wire_bytes()``, counted from its payload, not read from the
 backend: an all-gather (P−1)·n, which is what any algorithm must deliver;
-an all-reduce 2·(P−1)/P·n and an all-to-all (P−1)/P·n, a ring algorithm's
-counts, a model of the traffic (``gloo`` may move other amounts).
+an all-reduce 2·(P−1)/P·n, an all-to-all and a reduce-scatter (P−1)/P·n,
+a ring algorithm's counts, a model of the traffic (``gloo`` may move other
+amounts).
 
 ``set_mesh`` / ``current_mesh`` hold the mesh that code below the trainer
 reads without being handed it (the a2a MoE layer finds its expert-parallel
 and batch subgroups there), as the reference's ``compat.set_mesh`` does.
 
-Under tensor parallelism each rank holds a shard of some leaves (``tp``, a
-``parallel.tensor.ModelAxis``, and ``dims``, each leaf's "model" dim) and
-the pods' ranks of one model index sync the same shards. The scalars stay
-the whole leaf's, as in the reference (its ``jnp.max``/``jnp.mean`` run on
-the GSPMD-sharded leaf): max|x| and Σ|x| are all-reduced over the "model"
-subgroup (MAX, SUM) before the one quantize_pack launch writes them into
-the segment table, and each leaf's w_q is its shards' kernel moments summed
-over the subgroup after it. The compressed-leaf policy reads the whole
-leaf's shape. The launches per rank stay one quantize_pack and two
-aggregate.
+Under tensor parallelism and FSDP each rank holds a shard of some leaves
+(``shards``, a ``parallel.tensor.Shards``: the "model" and "data" axes
+that cut each leaf) and the pods' ranks of one (data, model) index sync
+the same shards. The scalars stay the whole leaf's, as in the reference
+(its ``jnp.max``/``jnp.mean`` run on the GSPMD-sharded leaf): max|x| and
+Σ|x| are all-reduced over every axis that cuts the leaf (MAX, SUM) before
+the one quantize_pack launch writes them into the segment table, and each
+leaf's w_q is its shards' kernel moments summed over those axes after it.
+The compressed-leaf policy reads the whole leaf's shape. The launches per
+rank stay one quantize_pack and two aggregate.
 
 ``ternary_allreduce_tree_plain`` is the plain PyTorch version of the whole
 collective, the reference's arithmetic step by step with no kernel;
@@ -66,6 +67,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import math
 from typing import Any, Sequence
 
 import torch
@@ -74,7 +76,7 @@ import torch.distributed as dist
 from repro_torch.core.fttq import FTTQConfig, is_quantizable
 from repro_torch.kernels.aggregate import fanin_table, packed_weighted_sum_segments
 from repro_torch.kernels.quantize_pack import n_tiles, quantize_pack_segments, segment_layout
-from repro_torch.tree import flatten_with_path, tree_leaves, tree_map
+from repro_torch.tree import flatten_with_path, path_str, tree_leaves, tree_map
 
 Pytree = Any
 
@@ -170,18 +172,50 @@ def all_gather(t: torch.Tensor, group) -> torch.Tensor:
     return out.to(t.device) if staged else out
 
 
+def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """``all_to_all`` without its byte count."""
+    staged = _staged(t, group)
+    src = _host(t) if staged else t.contiguous()
+    out = torch.empty_like(src, pin_memory=staged) if staged else torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    return out.to(t.device) if staged else out
+
+
 def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     """The tiled all-to-all along dim 0: chunk j of this rank's ``t`` goes to
     group rank j, and chunk i of the result came from group rank i."""
     p = group_size(group)
     if p == 1:
         return t
-    staged = _staged(t, group)
-    src = _host(t) if staged else t.contiguous()
-    out = torch.empty_like(src, pin_memory=staged) if staged else torch.empty_like(src)
-    dist.all_to_all_single(out, src, group=group)
+    out = _all_to_all(t, group)
     _WIRE["all_to_all"] += (p - 1) * t.numel() * t.element_size() // p
-    return out.to(t.device) if staged else out
+    return out
+
+
+def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """This rank's chunk along ``dim`` (in group-rank order) of the sum of
+    every rank's ``t`` over ``group``. NCCL has the operation
+    (``reduce_scatter_tensor``); ``gloo`` has none, so there it is the tiled
+    all-to-all (chunk j of every rank to group rank j, staged as
+    ``all_to_all`` stages a CUDA tensor) and a local sum of the P chunks
+    received, added in group-rank order so that every run gives the same
+    bits. Adds (P−1)/P·n bytes to ``wire_bytes()["reduce_scatter"]``, a
+    reduce-scatter's count."""
+    p = group_size(group)
+    if p == 1:
+        return t
+    x = t.movedim(dim, 0).contiguous()
+    if dist.get_backend(group) == "gloo":
+        parts = _all_to_all(x, group).unflatten(0, (p, -1))
+        out = parts[0].clone()
+        for k in range(1, p):
+            out += parts[k]
+    else:
+        out = torch.empty((x.shape[0] // p,) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        dist.reduce_scatter_tensor(out, x, group=group)
+    _WIRE["reduce_scatter"] += (p - 1) * t.numel() * t.element_size() // p
+    return out.movedim(0, dim).contiguous()
 
 
 # --------------------------------------------------------------------------
@@ -200,48 +234,40 @@ def _restage(gathered: torch.Tensor, offsets: Sequence[int], nbytes: Sequence[in
     return staged
 
 
-def _shard_sums(parts: list, at: list, tp, op: str) -> None:
-    """``parts[i]`` for i in ``at`` reduced over the model subgroup, in one
-    all-reduce."""
-    if at:
-        red = all_reduce_(torch.stack([parts[i] for i in at]), tp.group, op=op)
-        for k, i in enumerate(at):
-            parts[i] = red[k]
-
-
-def collective_scalars(flat: Sequence[torch.Tensor], t_k: float, tp=None,
-                 sharded: Sequence[bool] = ()) -> torch.Tensor:
+def collective_scalars(flat: Sequence[torch.Tensor], t_k: float,
+                       axes: Sequence[tuple] = ()) -> torch.Tensor:
     """The (S, 2) segment table rows (denom = max|x| + 1e-12, Δ = T_k ·
     mean|x| / denom) of flat fp32 tensors, each a whole leaf or (where
-    ``sharded``) a model shard whose max and Σ|x| are all-reduced first."""
-    at = [i for i, s in enumerate(sharded) if s] if tp is not None else []
-    mx = [torch.linalg.vector_norm(f, float("inf")) for f in flat]
-    l1 = [torch.linalg.vector_norm(f, 1) for f in flat]
-    _shard_sums(mx, at, tp, "max")
-    _shard_sums(l1, at, tp, "sum")
-    n = [f.numel() * (tp.size if i in at else 1) for i, f in enumerate(flat)]
+    ``axes[i]`` names mesh axes) a shard whose max and Σ|x| are all-reduced
+    over those axes first."""
+    from repro_torch.parallel.tensor import reduce_over
+
+    axes = list(axes) or [()] * len(flat)
+    mx = reduce_over([torch.linalg.vector_norm(f, float("inf")) for f in flat], axes, "max")
+    l1 = reduce_over([torch.linalg.vector_norm(f, 1) for f in flat], axes)
+    n = [f.numel() * math.prod(a.size for a in ax) for f, ax in zip(flat, axes)]
     mx = torch.stack(mx) + 1e-12
     mean_abs = torch.stack([a / k for a, k in zip(l1, n)])
     return torch.stack([mx, t_k * mean_abs / mx], dim=1).contiguous()
 
 
-def _compressed_mean(xs: Sequence[torch.Tensor], group, t_k: float, recon: bool, tp=None,
-                     sharded: Sequence[bool] = ()):
+def _compressed_mean(xs: Sequence[torch.Tensor], group, t_k: float, recon: bool,
+                     axes: Sequence[tuple] = ()):
     """The mean over ``group`` of the ternary codes of every fp32 tensor in
     ``xs`` (each one segment; numel a multiple of 4): one quantize_pack
     launch, one all-gather of the bytes and of the w_q, one aggregate
-    launch. Where ``sharded``, a tensor is a model shard (``tp``) and its
-    (denom, Δ) and w_q are its whole leaf's. Returns (means,
+    launch. Where ``axes[i]`` names mesh axes, a tensor is a shard over
+    them and its (denom, Δ) and w_q are its whole leaf's. Returns (means,
     reconstructions w_q·I_t or None), fp32 tensors shaped as ``xs``."""
     flat = [x.reshape(-1) for x in xs]
-    scal = collective_scalars(flat, t_k, tp, sharded)
+    scal = collective_scalars(flat, t_k, axes)
     packed, moments, wq = quantize_pack_segments(flat, scal, with_scales=True)
 
     sizes = [f.numel() for f in flat]
     lay = segment_layout(sizes)
-    at = [i for i, s in enumerate(sharded) if s] if tp is not None else []
+    at = [i for i, a in enumerate(axes) if a]
     if at:
-        wq = _shard_scales(wq, moments, scal, lay, at, tp)
+        wq = _shard_scales(wq, moments, scal, lay, at, [axes[i] for i in at])
     nbytes = [n // 4 for n in sizes]
     table = fanin_table(nbytes, sizes, packed.device)
     gathered = all_gather(packed, group)
@@ -258,14 +284,17 @@ def _compressed_mean(xs: Sequence[torch.Tensor], group, t_k: float, recon: bool,
     return means, [own[o:o + n].view(x.shape) for o, n, x in zip(table.out_offsets, sizes, xs)]
 
 
-def _shard_scales(wq, moments, scal, lay, at: list, tp) -> torch.Tensor:
-    """``wq`` with the scales of the segments ``at`` (model shards) made
-    from their kernel moments summed over the model subgroup (Σ|x/denom|
-    and the selected count, in fp64 so the count stays exact)."""
-    part = torch.stack([torch.stack([moments[t:t + n_tiles(n), 0].sum().to(torch.float64),
-                                     moments[t:t + n_tiles(n), 1].sum().to(torch.float64)])
-                        for t, n in ((lay.tile_starts[i], lay.sizes[i]) for i in at)])
-    all_reduce_(part, tp.group)
+def _shard_scales(wq, moments, scal, lay, at: list, axes: list) -> torch.Tensor:
+    """``wq`` with the scales of the segments ``at`` (shards over
+    ``axes``, one tuple each) made from their kernel moments summed over
+    those axes (Σ|x/denom| and the selected count, in fp64 so the count
+    stays exact)."""
+    from repro_torch.parallel.tensor import reduce_over
+
+    part = torch.stack(reduce_over(
+        [torch.stack([moments[t:t + n_tiles(n), 0].sum().to(torch.float64),
+                      moments[t:t + n_tiles(n), 1].sum().to(torch.float64)])
+         for t, n in ((lay.tile_starts[i], lay.sizes[i]) for i in at)], axes))
     wq = wq.clone()
     num, cnt = part.to(torch.float32).unbind(1)
     wq[at] = num / (cnt + 1e-8) * scal[at, 0]
@@ -290,39 +319,41 @@ def ternary_allreduce(x: torch.Tensor, group, *, t_k: float = 0.7,
 def compressed_leaf(path, leaf, cfg: FTTQConfig, last_dim: int | None = None) -> bool:
     """Whether the tree form compresses this leaf: the FTTQ policy's
     ``is_quantizable`` and a last dim (the whole leaf's, ``last_dim``, for a
-    model shard) that is a multiple of 4."""
+    shard) that is a multiple of 4."""
     last = last_dim if last_dim is not None else (leaf.shape[-1] if leaf.ndim else 0)
     return is_quantizable(path, leaf, cfg) and leaf.ndim > 0 and last % 4 == 0
 
 
-def _model_dims(items, tp, dims) -> list:
-    """Each item's "model" dim (None: whole, or no tensor parallelism)."""
-    by_path = dict(flatten_with_path(dims)) if tp is not None and dims is not None else {}
-    return [by_path.get(path) for path, _ in items]
+def _leaf_cuts(items, shards) -> list:
+    """Each item's cuts ((MeshAxis, dim), ...): empty where whole."""
+    return [shards.cuts.get(path_str(path), ()) if shards is not None else ()
+            for path, _ in items]
 
 
-def _whole_last(leaf, d, tp) -> int | None:
-    return None if d is None else leaf.shape[-1] * (tp.size if d == leaf.ndim - 1 else 1)
+def _whole_last(leaf, cut) -> int | None:
+    if not cut:
+        return None
+    return leaf.shape[-1] * math.prod(a.size for a, d in cut if d == leaf.ndim - 1)
 
 
 def ternary_allreduce_tree(grads: Pytree, group, *, cfg: FTTQConfig | None = None,
                            residuals: Pytree | None = None, error_feedback: bool = True,
-                           tp=None, dims: Pytree | None = None):
+                           shards=None):
     """``ternary_allreduce`` leaf-wise over a gradient tree: quantizable
     leaves whose last dim is a multiple of 4 take the compressed path (all
     of them in one quantize_pack and one aggregate launch), the rest an
-    exact mean (one all-reduce). Under tensor parallelism the leaves that
-    ``dims`` marks are this rank's shards over ``tp``, quantized with their
-    whole leaf's scalars. Returns (synced grads, new residuals): zeros
-    where a leaf has none, as the reference returns them."""
+    exact mean (one all-reduce). The leaves that ``shards`` (a
+    ``parallel.tensor.Shards``) cuts are this rank's shards, quantized with
+    their whole leaf's scalars. Returns (synced grads, new residuals):
+    zeros where a leaf has none, as the reference returns them."""
     cfg = cfg or FTTQConfig()
     items = flatten_with_path(grads)
-    mdims = _model_dims(items, tp, dims)
+    cuts = _leaf_cuts(items, shards)
     res = tree_leaves(residuals) if residuals is not None else [None] * len(items)
     out: list = [None] * len(items)
     new_res: list = [None] * len(items)
     comp = [i for i, (path, leaf) in enumerate(items)
-            if compressed_leaf(path, leaf, cfg, _whole_last(leaf, mdims[i], tp))]
+            if compressed_leaf(path, leaf, cfg, _whole_last(leaf, cuts[i]))]
     exact = sorted(set(range(len(items))) - set(comp))
 
     if comp:
@@ -334,8 +365,8 @@ def ternary_allreduce_tree(grads: Pytree, group, *, cfg: FTTQConfig | None = Non
                 if error_feedback else None)
             xf = leaf.to(torch.float32)
             xfs.append((xf + r if r is not None else xf).contiguous())
-        means, recons = _compressed_mean(xfs, group, cfg.t_k, error_feedback, tp,
-                                         [mdims[i] is not None for i in comp])
+        means, recons = _compressed_mean(xfs, group, cfg.t_k, error_feedback,
+                                         [tuple(a for a, _ in cuts[i]) for i in comp])
         for k, i in enumerate(comp):
             leaf = items[i][1]
             out[i] = means[k].to(leaf.dtype)
@@ -366,8 +397,8 @@ def _rebuild(tree: Pytree, leaves: list) -> Pytree:
 
 def quantize_lastdim_plain(x: torch.Tensor, t_k: float, scalars=None):
     """The reference's ``_quantize_lastdim`` on fp32 x: (packed bytes along
-    the last dim, w_q, reconstruction w_q·I_t). ``scalars``: a model
-    shard's whole-leaf (max|x| + 1e-12, Δ, w_q) (``shard_scalars_plain``)."""
+    the last dim, w_q, reconstruction w_q·I_t). ``scalars``: a shard's
+    whole-leaf (max|x| + 1e-12, Δ, w_q) (``shard_scalars_plain``)."""
     absx = x.abs()
     if scalars is None:
         mx = absx.max() + 1e-12
@@ -384,18 +415,23 @@ def quantize_lastdim_plain(x: torch.Tensor, t_k: float, scalars=None):
     return packed, w_q.to(torch.float32), (w_q * i_t).to(x.dtype)
 
 
-def shard_scalars_plain(xs: Sequence[torch.Tensor], t_k: float, tp) -> list:
+def shard_scalars_plain(xs: Sequence[torch.Tensor], t_k: float, axes: tuple) -> list:
     """(max|x| + 1e-12, Δ, w_q) of every pod's whole leaf, from this rank's
-    model shards ``xs`` (one per pod, fp32) and the other ranks' over
-    ``tp``: the reference's ``_quantize_lastdim`` scalars on the whole leaf."""
+    shards ``xs`` (one per pod, fp32) and the other ranks' over ``axes``
+    (the ``MeshAxis`` tuple that cuts the leaf): the reference's
+    ``_quantize_lastdim`` scalars on the whole leaf."""
+    from repro_torch.parallel.tensor import reduce_over
+
     absx = [x.abs() for x in xs]
-    mx = all_reduce_(torch.stack([a.max() for a in absx]), tp.group, op="max") + 1e-12
-    total = all_reduce_(torch.stack([a.sum() for a in absx]), tp.group)
-    delta = t_k * (total / (xs[0].numel() * tp.size)) / mx
+    (mx,) = reduce_over([torch.stack([a.max() for a in absx])], [axes], "max")
+    (total,) = reduce_over([torch.stack([a.sum() for a in absx])], [axes])
+    mx = mx + 1e-12
+    delta = t_k * (total / (xs[0].numel() * math.prod(a.size for a in axes))) / mx
     sel = [(x / m).abs() > d for x, m, d in zip(xs, mx, delta)]
     part = torch.stack([torch.stack([torch.where(s, a, 0.0).sum(), s.sum().to(torch.float32)])
                         for s, a in zip(sel, absx)])
-    num, cnt = all_reduce_(part, tp.group).unbind(1)
+    (part,) = reduce_over([part], [axes])
+    num, cnt = part.unbind(1)
     return list(zip(mx, delta, num / (cnt + 1e-12)))
 
 
@@ -407,13 +443,13 @@ def unpack_lastdim_plain(packed: torch.Tensor) -> torch.Tensor:
 
 
 def leaf_mean_plain(xs: Sequence[torch.Tensor], *, t_k: float, compressed: bool,
-                    residuals: Sequence[torch.Tensor] | None = None, tp=None):
+                    residuals: Sequence[torch.Tensor] | None = None, axes: tuple = ()):
     """One leaf's synced value from every pod's copy ``xs`` (pod order), as
     the reference computes it: the compressed mean (a scan over pods from
     zeros, then / P) with the per-pod new residuals, or the exact mean and
-    zero residuals. With ``tp``, ``xs`` are model shards quantized with
-    their whole leaf's scalars. Returns (mean in the leaf's dtype, new
-    residual per pod)."""
+    zero residuals. With ``axes``, ``xs`` are shards over those mesh axes,
+    quantized with their whole leaf's scalars. Returns (mean in the leaf's
+    dtype, new residual per pod)."""
     p = len(xs)
 
     def zeros(x):
@@ -428,7 +464,7 @@ def leaf_mean_plain(xs: Sequence[torch.Tensor], *, t_k: float, compressed: bool,
     new_res = []
     xfs = [x.to(torch.float32) + residuals[k] if residuals is not None else x.to(torch.float32)
            for k, x in enumerate(xs)]
-    scalars = shard_scalars_plain(xfs, t_k, tp) if tp is not None else [None] * p
+    scalars = shard_scalars_plain(xfs, t_k, axes) if axes else [None] * p
     for k, x in enumerate(xs):
         xf = xfs[k]
         packed, w_q, recon = quantize_lastdim_plain(xf, t_k, scalars[k])
@@ -465,21 +501,20 @@ def pods_mean_plain(grads_per_pod: Sequence[Pytree], *, cfg: FTTQConfig | None =
 
 def ternary_allreduce_tree_plain(grads: Pytree, group, *, cfg: FTTQConfig | None = None,
                                  residuals: Pytree | None = None,
-                                 error_feedback: bool = True, tp=None,
-                                 dims: Pytree | None = None):
+                                 error_feedback: bool = True, shards=None):
     """The plain version of ``ternary_allreduce_tree`` across ranks: each
     leaf's fp32 copies (and residuals) gathered from every pod, then
-    ``leaf_mean_plain`` (a model shard's with its whole leaf's scalars);
-    this rank keeps its own pod's new residual. Returns what
+    ``leaf_mean_plain`` (a shard's with its whole leaf's scalars); this
+    rank keeps its own pod's new residual. Returns what
     ``ternary_allreduce_tree`` returns."""
     cfg = cfg or FTTQConfig()
     me = group_rank(group)
     items = flatten_with_path(grads)
-    mdims = _model_dims(items, tp, dims)
+    cuts = _leaf_cuts(items, shards)
     res = tree_leaves(residuals) if residuals is not None else [None] * len(items)
     out, new_res = [], []
-    for (path, leaf), r, d in zip(items, res, mdims):
-        comp = compressed_leaf(path, leaf, cfg, _whole_last(leaf, d, tp))
+    for (path, leaf), r, cut in zip(items, res, cuts):
+        comp = compressed_leaf(path, leaf, cfg, _whole_last(leaf, cut))
         xs = list(all_gather(leaf, group).unbind(0))
         rs = None
         if comp and error_feedback:
@@ -487,7 +522,7 @@ def ternary_allreduce_tree_plain(grads: Pytree, group, *, cfg: FTTQConfig | None
                                                     device=leaf.device)
             rs = list(all_gather(r, group).unbind(0))
         mean, nr = leaf_mean_plain(xs, t_k=cfg.t_k, compressed=comp, residuals=rs,
-                                   tp=tp if d is not None else None)
+                                   axes=tuple(a for a, _ in cut))
         out.append(mean)
         new_res.append(nr[me])
         del xs, rs

@@ -19,10 +19,10 @@ rules are path regexes to per-dim logical axes, resolved against the
 actual shapes with the reference's divisibility guard (a dim is sharded
 only where the mesh axis divides it). ``param_shardings`` turns the specs
 into DTensor placements (``Shard(d)`` / ``Replicate()`` per mesh dim) on the
-mesh's ``DeviceMesh``. ``model_dim`` / ``model_dims`` read off which dim of
-each leaf the "model" axis shards: the trainer keeps the "data" entries
-whole (its "data" axis is data parallelism) and computes on the "model"
-shards (``parallel.tensor``).
+mesh's ``DeviceMesh``. ``axis_dim`` / ``axis_dims`` read off which dim of
+each leaf a mesh axis shards (``model_dims`` for "model"): every rank holds
+its chunk of each dim its spec names, over "model" (tensor parallelism)
+and over "data" (FSDP), and computes on them (``parallel.tensor``).
 """
 
 from __future__ import annotations
@@ -119,19 +119,24 @@ def param_specs(cfg: ModelConfig, mesh) -> Pytree:
                               param_shapes(cfg), is_leaf=lambda x: isinstance(x, tuple))
 
 
-def model_dim(spec: PartitionSpec) -> int | None:
-    """The tensor dim a spec shards over "model", or None."""
+def axis_dim(spec: PartitionSpec, axis: str = "model") -> int | None:
+    """The tensor dim a spec shards over mesh axis ``axis``, or None."""
     for d, entry in enumerate(spec):
-        if entry == "model" or (isinstance(entry, tuple) and "model" in entry):
+        if entry == axis or (isinstance(entry, tuple) and axis in entry):
             return d
     return None
 
 
-def model_dims(cfg: ModelConfig, mesh) -> Pytree:
-    """Per leaf of ``init_params(cfg)``, the dim the "model" axis shards
-    (None for a whole leaf): what the divisibility guard decided."""
-    return tree_map_with_path(lambda _, spec: model_dim(spec), param_specs(cfg, mesh),
+def axis_dims(cfg: ModelConfig, mesh, axis: str) -> Pytree:
+    """Per leaf of ``init_params(cfg)``, the dim mesh axis ``axis`` shards
+    (None for a leaf whole over it): what the divisibility guard decided."""
+    return tree_map_with_path(lambda _, spec: axis_dim(spec, axis), param_specs(cfg, mesh),
                               is_leaf=is_spec)
+
+
+def model_dims(cfg: ModelConfig, mesh) -> Pytree:
+    """``axis_dims`` of the "model" axis."""
+    return axis_dims(cfg, mesh, "model")
 
 
 @dataclasses.dataclass(frozen=True)

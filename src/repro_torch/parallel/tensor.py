@@ -1,15 +1,18 @@
-"""Tensor parallelism over the mesh's "model" axis: the port's counterpart
-of what GSPMD computes for the reference from ``parallel.sharding``'s rules
-(TP over "model": attention QKV output columns, MLP hidden, vocab).
+"""Sharded compute over the mesh's "model" and "data" axes: the port's
+counterpart of what GSPMD computes for the reference from
+``parallel.sharding``'s rules (TP over "model": attention QKV output
+columns, MLP hidden, vocab; FSDP over "data": the other matrix axis of
+every weight).
 
-Each rank of the "model" subgroup holds its shard of every leaf whose spec
-puts "model" on a dim (``shard_tree``: the rank's ``chunk`` of that dim);
-the "data" entries of the specs stay whole (data-parallel ranks hold whole
-copies, as the trainer's "data" axis is data parallelism). The layers
-compute on the shards Megatron-LM's way, column-parallel then
-row-parallel, with four conjugate autograd functions over
-``parallel.collectives`` (so a CUDA tensor on a ``gloo`` group is staged
-through pinned host memory, as every collective of the port is):
+Each rank holds its chunk of every dim a leaf's spec names
+(``shard_tree``): over the "model" subgroup where the spec says "model"
+and over the "data" subgroup where it says "data"; a leaf may carry both
+on different dims (``attn/wq`` (L, D, H·hd) is (None, "data", "model")),
+and where the divisibility guard leaves a dim whole, that axis does not
+cut it. The layers compute on the "model" shards Megatron-LM's way,
+column-parallel then row-parallel, with four conjugate autograd functions
+over ``parallel.collectives`` (so a CUDA tensor on a ``gloo`` group is
+staged through pinned host memory, as every collective of the port is):
 
 - ``copy_to_model``: forward identity, backward all-reduce (sum); where a
   replicated tensor enters computation that differs by rank;
@@ -19,15 +22,32 @@ through pinned host memory, as every collective of the port is):
   rank's slice; where shards become a tensor every rank then uses alike;
 - ``scatter_to_model``: forward this rank's slice, backward all-gather.
 
+The "data" shards are FSDP's (ZeRO-3): params, Adam moments and residuals
+are held cut, and a layer gathers its weights where it uses them.
+``gather_from_data`` all-gathers a leaf over the "data" subgroup along its
+data dim in the forward and reduce-scatters its gradient in the backward
+(``parallel.collectives.reduce_scatter``: the sum over the data ranks,
+which the trainer divides by their count); ``gather_layer`` applies it to
+every data-sharded leaf of a layer's params, and ``models.transformer``
+calls it inside each remat unit, so no rank holds every layer's whole
+weights at once.
+
+``Shards`` (``param_shards(cfg, mesh)``) tells code over whole trees
+(FTTQ's statistics, the clip's global norm, the w_q step, the cross-pod
+sync) which axes cut each leaf: a statistic of the whole leaf is its
+shards' reduced over each of those axes (``reduce_over``, one all-reduce
+per axis for all the leaves it cuts).
+
 ``vocab_parallel_ce`` is the cross entropy over logits split by vocab
 columns: the row max all-reduced (MAX), Σ exp and the label's logit
 all-reduced (SUM); its backward is the local softmax minus the one-hot on
 the rank that holds the label, with no collective. No rank holds the whole
 (B, S, V) logits.
 
-A ``ModelAxis`` (``model_axis(mesh)``) is what the layers are handed: the
-subgroup, its size and this rank's index; None for a mesh without a
-"model" axis of size > 1, and then every layer computes as on one device.
+A ``MeshAxis`` (``model_axis(mesh)``, ``data_axis(mesh)``) is what the
+layers are handed: the subgroup, its size and this rank's index; None for
+a mesh without that axis of size > 1, and then every layer computes as on
+one device.
 
 ``BatchAxes`` are the mesh axes whose ranks' rows together form one batch,
 as GSPMD's automatic axes do: a layer whose result depends on the whole
@@ -45,19 +65,27 @@ from typing import Any
 
 import torch
 
-from repro_torch.parallel.collectives import all_gather, all_reduce_, group_rank, group_size
+from repro_torch.parallel.collectives import (
+    all_gather, all_reduce_, group_rank, group_size, reduce_scatter,
+)
 from repro_torch.tree import flatten_with_path, path_str, tree_map_with_path
 
 Pytree = Any
 
 
+# the mesh axes that cut params, in the order their collectives run
+SHARD_AXES = ("model", "data")
+
+
 @dataclasses.dataclass(frozen=True)
-class ModelAxis:
-    """The "model" subgroup of a mesh, as the layers see it."""
+class MeshAxis:
+    """One axis of a mesh ("model" or "data"), as the layers see it: its
+    subgroup, size and this rank's index."""
 
     group: Any
     size: int
     rank: int
+    name: str = "model"
 
     def share(self, n: int) -> tuple[int, int]:
         """[lo, hi) of this rank's chunk of ``n`` (a multiple of ``size``)."""
@@ -65,21 +93,26 @@ class ModelAxis:
         return self.rank * per, (self.rank + 1) * per
 
 
-def model_group(mesh):
-    """The mesh's "model" subgroup, or None (no such axis, or size 1)."""
-    return None if mesh is None else mesh.group("model")
-
-
-def model_axis(mesh) -> ModelAxis | None:
-    """The mesh's "model" axis as the layers take it, or None where it has
+def mesh_axis(mesh, name: str) -> MeshAxis | None:
+    """The mesh's axis ``name`` as the layers take it, or None where it has
     size 1. A mesh description without processes (``MeshSpec``) cannot
     compute and raises."""
-    if mesh is None or mesh.size("model") <= 1:
+    if mesh is None or mesh.size(name) <= 1:
         return None
     if not hasattr(mesh, "group"):
-        raise TypeError("tensor parallelism needs a mesh of processes (launch.mesh.make_mesh), "
-                        f"not {mesh!r}")
-    return ModelAxis(model_group(mesh), mesh.size("model"), mesh.index("model"))
+        raise TypeError(f"sharding over {name!r} needs a mesh of processes "
+                        f"(launch.mesh.make_mesh), not {mesh!r}")
+    return MeshAxis(mesh.group(name), mesh.size(name), mesh.index(name), name)
+
+
+def model_axis(mesh) -> MeshAxis | None:
+    """The "model" axis (tensor parallelism), or None."""
+    return mesh_axis(mesh, "model")
+
+
+def data_axis(mesh) -> MeshAxis | None:
+    """The "data" axis (FSDP over the params' "data" dims), or None."""
+    return mesh_axis(mesh, "data")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,15 +172,15 @@ def mean_over_batch(x: torch.Tensor, dp: BatchAxes) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def _gather(x: torch.Tensor, tp: ModelAxis, dim: int) -> torch.Tensor:
+def _gather(x: torch.Tensor, tp: MeshAxis, dim: int) -> torch.Tensor:
     return torch.cat(list(all_gather(x.contiguous(), tp.group).unbind(0)), dim=dim)
 
 
-def _slice(x: torch.Tensor, tp: ModelAxis, dim: int) -> torch.Tensor:
+def _slice(x: torch.Tensor, tp: MeshAxis, dim: int) -> torch.Tensor:
     return x.chunk(tp.size, dim)[tp.rank].contiguous()
 
 
-def _own(x: torch.Tensor, tp: ModelAxis, dim: int) -> torch.Tensor:
+def _own(x: torch.Tensor, tp: MeshAxis, dim: int) -> torch.Tensor:
     """A copy of this rank's chunk (no view keeps the whole tensor alive)."""
     return x.chunk(tp.size, dim)[tp.rank].clone(memory_format=torch.contiguous_format)
 
@@ -195,6 +228,17 @@ class _ScatterToModel(torch.autograd.Function):
         return _gather(g, ctx.tp, ctx.dim), None, None
 
 
+class _GatherFromData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim = ax, dim
+        return _gather(x, ax, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.ax.group, ctx.dim), None, None
+
+
 class _VocabParallelCE(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, labels, tp):
@@ -217,27 +261,49 @@ class _VocabParallelCE(torch.autograd.Function):
         return grad, None, None
 
 
-def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor, tp: ModelAxis) -> torch.Tensor:
+def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor, tp: MeshAxis) -> torch.Tensor:
     """−log softmax(logits)[label] per position: ``logits`` (..., V / size)
     fp32, this rank's vocab columns; ``labels`` (...) int64 ids of the
     whole vocabulary."""
     return _VocabParallelCE.apply(logits, labels, tp)
 
 
-def copy_to_model(x: torch.Tensor, tp: ModelAxis) -> torch.Tensor:
+def copy_to_model(x: torch.Tensor, tp: MeshAxis) -> torch.Tensor:
     return _CopyToModel.apply(x, tp)
 
 
-def reduce_from_model(x: torch.Tensor, tp: ModelAxis) -> torch.Tensor:
+def reduce_from_model(x: torch.Tensor, tp: MeshAxis) -> torch.Tensor:
     return _ReduceFromModel.apply(x, tp)
 
 
-def gather_from_model(x: torch.Tensor, tp: ModelAxis, dim: int = -1) -> torch.Tensor:
+def gather_from_model(x: torch.Tensor, tp: MeshAxis, dim: int = -1) -> torch.Tensor:
     return _GatherFromModel.apply(x, tp, dim)
 
 
-def scatter_to_model(x: torch.Tensor, tp: ModelAxis, dim: int = -1) -> torch.Tensor:
+def scatter_to_model(x: torch.Tensor, tp: MeshAxis, dim: int = -1) -> torch.Tensor:
     return _ScatterToModel.apply(x, tp, dim)
+
+
+def gather_from_data(x: torch.Tensor, ax: MeshAxis, dim: int) -> torch.Tensor:
+    """The whole of a leaf cut over ``ax`` along ``dim``: all-gathered in
+    the forward, its gradient reduce-scattered (summed over the axis's
+    ranks) in the backward."""
+    return _GatherFromData.apply(x, ax, dim)
+
+
+def gather_layer(tree: Pytree, ax: MeshAxis | None, dims: Pytree) -> Pytree:
+    """``tree`` (a layer's params) with every leaf that ``dims`` (a tree of
+    the same paths: the dim ``ax`` cuts, or None) marks made whole by
+    ``gather_from_data``; ``tree`` itself where ``ax`` is None."""
+    if ax is None:
+        return tree
+    at = {path_str(p): d for p, d in flatten_with_path(dims)}
+
+    def one(path, leaf):
+        d = at.get(path_str(path))
+        return leaf if d is None else gather_from_data(leaf, ax, d)
+
+    return tree_map_with_path(one, tree)
 
 
 # --------------------------------------------------------------------------
@@ -246,56 +312,113 @@ def scatter_to_model(x: torch.Tensor, tp: ModelAxis, dim: int = -1) -> torch.Ten
 
 
 def local_shape(path: str, shape: tuple, mesh) -> tuple:
-    """The shape of this rank's shard of a leaf at ``path`` (the "model"
-    entry of its spec divides that dim; the "data" entries stay whole)."""
-    from repro_torch.parallel.sharding import mesh_sizes, model_dim, spec_for
+    """The shape of this rank's shard of a leaf at ``path``: every dim its
+    spec gives an axis of size > 1 ("model" or "data") divided by it."""
+    from repro_torch.parallel.sharding import axis_dim, mesh_sizes, spec_for
 
-    d = model_dim(spec_for(path, tuple(shape), mesh_sizes(mesh)))
-    if d is None:
-        return tuple(shape)
-    return tuple(s // mesh.size("model") if i == d else s for i, s in enumerate(shape))
+    spec = spec_for(path, tuple(shape), mesh_sizes(mesh))
+    out = list(shape)
+    for name in SHARD_AXES:
+        d = axis_dim(spec, name)
+        if d is not None:
+            out[d] //= mesh.size(name)
+    return tuple(out)
 
 
-def _dims(specs: Pytree) -> dict:
-    """{param path string: its "model" dim} for the sharded leaves."""
-    from repro_torch.parallel.sharding import is_spec, model_dim
+def sharded(mesh) -> bool:
+    """Whether ``mesh`` has an axis of size > 1 that cuts params."""
+    return mesh is not None and any(mesh.size(a) > 1 for a in SHARD_AXES)
 
+
+def _cuts(specs: Pytree, mesh) -> dict:
+    """{param path string: ((MeshAxis, dim), ...)} for the leaves an axis
+    of size > 1 cuts, "model" first."""
+    from repro_torch.parallel.sharding import axis_dim, is_spec
+
+    axes = [a for a in (mesh_axis(mesh, n) for n in SHARD_AXES) if a is not None]
     out = {}
     for path, spec in flatten_with_path(specs, is_leaf=is_spec):
-        d = model_dim(spec)
-        if d is not None:
-            out[path_str(path)] = d
+        cut = tuple((a, axis_dim(spec, a.name)) for a in axes
+                    if axis_dim(spec, a.name) is not None)
+        if cut:
+            out[path_str(path)] = cut
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Shards:
+    """Which axes cut each leaf of a params tree: ``cuts`` maps a leaf's
+    path string to ((MeshAxis, dim), ...), "model" first; a leaf not in it
+    is whole on every rank."""
+
+    cuts: dict
+
+    def axes(self, path: str) -> tuple:
+        return tuple(a for a, _ in self.cuts.get(path, ()))
+
+    def factor(self, path: str) -> int:
+        """How many shards make the whole leaf."""
+        return math.prod(a.size for a in self.axes(path))
+
+
+def param_shards(cfg, mesh) -> Shards | None:
+    """The ``Shards`` of ``init_params(cfg)`` on ``mesh``, or None where no
+    axis cuts a leaf."""
+    from repro_torch.parallel.sharding import param_specs
+
+    if not sharded(mesh):
+        return None
+    cuts = _cuts(param_specs(cfg, mesh), mesh)
+    return Shards(cuts) if cuts else None
+
+
+def reduce_over(parts: list, axes: list, op: str = "sum") -> list:
+    """``parts[i]`` (tensors of one dtype) reduced over every axis in
+    ``axes[i]`` (a tuple of ``MeshAxis``, empty for a whole leaf): one
+    all-reduce per axis, over the parts it cuts; a statistic of a leaf from
+    its shards. Every rank of a subgroup passes the same cuts."""
+    out = list(parts)
+    for name in SHARD_AXES:
+        at = [i for i, a in enumerate(axes) if any(x.name == name for x in a)]
+        if not at:
+            continue
+        group = next(x for x in axes[at[0]] if x.name == name).group
+        flat = all_reduce_(torch.cat([out[i].reshape(-1) for i in at]), group, op=op)
+        for i, piece in zip(at, flat.split([out[i].numel() for i in at])):
+            out[i] = piece.view(out[i].shape)
+    return out
+
+
+def _cut(leaf: torch.Tensor, cut: tuple) -> torch.Tensor:
+    for ax, d in cut:
+        leaf = _own(leaf, ax, d)
+    return leaf
+
+
+def _whole(leaf: torch.Tensor, cut: tuple) -> torch.Tensor:
+    for ax, d in reversed(cut):
+        leaf = _gather(leaf, ax, d)
+    return leaf
 
 
 def shard_tree(tree: Pytree, specs: Pytree, mesh) -> Pytree:
     """This rank's shards of a tree of whole leaves (a copy of each chunk,
     so the whole leaves can be freed)."""
-    tp = model_axis(mesh)
-    if tp is None:
+    cuts = _cuts(specs, mesh) if sharded(mesh) else {}
+    if not cuts:
         return tree
-    dims = _dims(specs)
-
-    def one(path, leaf):
-        d = dims.get(path_str(path))
-        return leaf if d is None else _own(leaf, tp, d)
-
-    return tree_map_with_path(one, tree)
+    return tree_map_with_path(lambda path, leaf: _cut(leaf, cuts.get(path_str(path), ())),
+                              tree)
 
 
 def gather_tree(tree: Pytree, specs: Pytree, mesh) -> Pytree:
-    """Whole leaves from every rank's shards (every rank of the "model"
-    subgroup calls this together)."""
-    tp = model_axis(mesh)
-    if tp is None:
+    """Whole leaves from every rank's shards (every rank of the subgroups
+    that cut them calls this together)."""
+    cuts = _cuts(specs, mesh) if sharded(mesh) else {}
+    if not cuts:
         return tree
-    dims = _dims(specs)
-
-    def one(path, leaf):
-        d = dims.get(path_str(path))
-        return leaf if d is None else _gather(leaf, tp, d)
-
-    return tree_map_with_path(one, tree)
+    return tree_map_with_path(lambda path, leaf: _whole(leaf, cuts.get(path_str(path), ())),
+                              tree)
 
 
 # the subtrees of a train state laid out as the params, by the prefix of
@@ -303,35 +426,34 @@ def gather_tree(tree: Pytree, specs: Pytree, mesh) -> Pytree:
 _PARAM_LIKE = {".params/": 0, ".opt_state/m/": 0, ".opt_state/v/": 0, ".residuals/": 1}
 
 
-def state_dims(state: Pytree, specs: Pytree) -> list:
-    """The "model" dim of every leaf of ``train.checkpoint.flatten(state)``
-    (None where the leaf is whole): a params tree, or a ``TrainState``
-    whose params, Adam moments and residuals (one leading pod dim) follow
-    the params' specs; w_q, steps and counters are replicated."""
+def state_cuts(state: Pytree, specs: Pytree, mesh) -> list:
+    """The cuts ((MeshAxis, dim), ...) of every leaf of
+    ``train.checkpoint.flatten(state)`` (empty where the leaf is whole): a
+    params tree, or a ``TrainState`` whose params, Adam moments and
+    residuals (one leading pod dim) follow the params' specs; w_q, steps
+    and counters are replicated."""
     from repro_torch.train.checkpoint import flatten
 
-    dims = _dims(specs)
+    cuts = _cuts(specs, mesh)
     out = []
     for name, _ in flatten(state):
-        d = dims.get(name)
+        cut = cuts.get(name, ())
         for prefix, lead in _PARAM_LIKE.items():
-            if name.startswith(prefix) and name[len(prefix):] in dims:
-                d = dims[name[len(prefix):]] + lead
-        out.append(d)
+            if name.startswith(prefix) and name[len(prefix):] in cuts:
+                cut = tuple((a, d + lead) for a, d in cuts[name[len(prefix):]])
+        out.append(cut)
     return out
 
 
 def gather_state(state: Pytree, specs: Pytree, mesh) -> Pytree:
-    """``state`` (a params tree or a ``TrainState``) with every model shard
-    gathered into its whole leaf; every rank of the subgroup calls it."""
+    """``state`` (a params tree or a ``TrainState``) with every shard
+    gathered into its whole leaf; every rank of the mesh calls it."""
     from repro_torch.train.checkpoint import flatten, unflatten
 
-    tp = model_axis(mesh)
-    if tp is None:
+    if not sharded(mesh):
         return state
-    leaves = [leaf if d is None else _gather(leaf, tp, d)
-              for (_, leaf), d in zip(flatten(state), state_dims(state, specs))]
-    return unflatten(state, leaves)
+    return unflatten(state, [_whole(leaf, cut) for (_, leaf), cut in
+                             zip(flatten(state), state_cuts(state, specs, mesh))])
 
 
 def shard_state(state: Pytree, specs: Pytree, mesh) -> Pytree:
@@ -339,9 +461,7 @@ def shard_state(state: Pytree, specs: Pytree, mesh) -> Pytree:
     ``gather_state``'s inverse)."""
     from repro_torch.train.checkpoint import flatten, unflatten
 
-    tp = model_axis(mesh)
-    if tp is None:
+    if not sharded(mesh):
         return state
-    leaves = [leaf if d is None else _own(leaf, tp, d)
-              for (_, leaf), d in zip(flatten(state), state_dims(state, specs))]
-    return unflatten(state, leaves)
+    return unflatten(state, [_cut(leaf, cut) for (_, leaf), cut in
+                             zip(flatten(state), state_cuts(state, specs, mesh))])

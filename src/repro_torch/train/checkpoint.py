@@ -21,11 +21,11 @@ records the dtype's name. A bfloat16 raw leaf is written as ``'<V2'``, as
 the reference writes it; the port reads ``'<V2'`` back as bfloat16, which
 the reference cannot.
 
-Under tensor parallelism (a mesh whose "model" axis has size > 1, with the
-params' specs) the file is still the one-device file: ``save_checkpoint``
-gathers the model shards into whole leaves first (every rank calls it; the
-mesh's first rank writes), and ``restore_checkpoint`` cuts the whole leaves
-to the rank's shards.
+On a sharded mesh (a "model" or "data" axis of size > 1, with the params'
+specs) the file is still the one-device file: ``save_checkpoint`` gathers
+the shards over both axes into whole leaves first (every rank calls it;
+the mesh's first rank writes), and ``restore_checkpoint`` cuts the whole
+leaves to the rank's shards.
 """
 
 from __future__ import annotations
@@ -230,9 +230,9 @@ def save_checkpoint(directory: str, step: int, state: Pytree, *,
     ``quantize_pack`` launch for the whole tree on the card).
     keep: retain only the newest ``keep`` checkpoints (0 = keep all).
     mesh, specs: every rank of ``mesh`` calls this and the mesh's first
-    rank writes; a state of model shards (a params tree or a
-    ``TrainState``; ``specs`` the params' ``param_specs``) is gathered into
-    whole leaves first."""
+    rank writes; a state of shards over "model" and "data" (a params tree
+    or a ``TrainState``; ``specs`` the params' ``param_specs``) is gathered
+    into whole leaves first."""
     if mesh is not None:
         from repro_torch.parallel.tensor import gather_state
 
@@ -294,7 +294,7 @@ def restore_checkpoint(directory: str, step: int | None = None, *,
     ``sharding`` (a ``NamedSharding`` or a tree of them) then re-places
     every leaf over its mesh, as ``train.fault.elastic_reshard`` does;
     ``mesh`` and ``specs`` (as for ``save_checkpoint``) instead cut the
-    whole leaves to this rank's model shards."""
+    whole leaves to this rank's shards over "model" and "data"."""
     dev = resolve_device(device)
     if step is None:
         step = latest_step(directory)
@@ -311,7 +311,7 @@ def restore_checkpoint(directory: str, step: int | None = None, *,
     if (compression is not None and not compression.is_identity) or meta.get("compressed"):
         leaves = decompress_pytree(leaves, dev)
     state = unflatten(example_state, leaves)
-    if mesh is not None and mesh.size("model") > 1:
+    if mesh is not None:
         from repro_torch.parallel.tensor import shard_state
 
         state = shard_state(state, specs, mesh)

@@ -11,8 +11,11 @@ Failure model:
     larger mesh (e.g. 2 pods → 1 pod after a pod outage) with the same
     sharding rules (``parallel.sharding.param_shardings``): every leaf
     becomes a DTensor with the new mesh's placements, the counterpart of
-    the reference's ``device_put`` with new ``NamedSharding``s. Given one
-    device instead, it moves every leaf there.
+    the reference's ``device_put`` with new ``NamedSharding``s; it takes
+    whole leaves (``parallel.tensor.gather_state`` of a sharded state), and
+    the train step keeps each rank's chunk of every "model" and "data"
+    placement (``trainer.local_state``). Given one device instead, it moves
+    every leaf there.
 """
 
 from __future__ import annotations

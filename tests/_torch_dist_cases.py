@@ -211,14 +211,15 @@ def moe_forward(rank, world, *, tokens):
 
 def moe_train(rank, world, *, tokens, labels, steps):
     """QAT steps of deepseek-moe (reduced) with the int8 a2a wire, EP over
-    the "data" axis of a (world, 1) mesh: the step's losses."""
+    the "data" axis of a (world, 1) mesh, the state made on the mesh (its
+    "data" entries cut, FSDP): the step's losses."""
     from repro_torch.train import TrainerConfig, init_train_state, make_train_step
 
     mesh = make_mesh((world, 1), ("data", "model"), device="cpu")
     cfg = get_reduced("deepseek-moe-16b", moe_impl="a2a", moe_wire="int8", capacity_factor=16.0,
                       mesh_batch_axes=("data",), mesh_ep_axis="data")
     tcfg, opt = TrainerConfig(qat=True, pod_compression=False), adam(2e-3)
-    state = init_train_state(cfg, tcfg, opt, seed=0, device="cpu")
+    state = init_train_state(cfg, tcfg, opt, seed=0, device="cpu", mesh=mesh)
     step = make_train_step(cfg, tcfg, opt, mesh=mesh)
     batch = {"tokens": torch.from_numpy(tokens).to(torch.int64),
              "labels": torch.from_numpy(labels).to(torch.int64)}
@@ -258,9 +259,9 @@ def tp_basics(rank, world, *, device="cpu"):
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models.transformer import param_shapes
     from repro_torch.optim import global_norm
-    from repro_torch.parallel.sharding import model_dims, param_specs
+    from repro_torch.parallel.sharding import param_specs
     from repro_torch.parallel.tensor import (
-        copy_to_model, gather_from_model, gather_state, gather_tree, model_axis,
+        copy_to_model, gather_from_model, gather_state, gather_tree, model_axis, param_shards,
         reduce_from_model, scatter_to_model, shard_state, shard_tree, vocab_parallel_ce,
     )
     from repro_torch.train import TrainerConfig, init_train_state, make_train_step
@@ -309,7 +310,7 @@ def tp_basics(rank, world, *, device="cpu"):
 
     # FTTQ on shards vs the whole leaves (granite: wk/wv split mid-head)
     cfg = get_reduced("granite-20b")
-    specs, dims = param_specs(cfg, mesh), model_dims(cfg, mesh)
+    specs, sh = param_specs(cfg, mesh), param_shards(cfg, mesh)
     fcfg = fttq.FTTQConfig()
     whole = init_params(cfg, seed=3, device=dev)
     wq = fttq.init_wq_tree(whole, fcfg)
@@ -328,16 +329,16 @@ def tp_basics(rank, world, *, device="cpu"):
                 tree_map(lambda t: t.grad, ws))
 
     q0, gp0, gw0 = qat(whole, wq, up)
-    q1, gp1, gw1 = qat(shard_tree(whole, specs, mesh), wq, up_sh, tp=tp, dims=dims)
+    q1, gp1, gw1 = qat(shard_tree(whole, specs, mesh), wq, up_sh, shards=sh)
     q1, gp1 = gather_tree(q1, specs, mesh), gather_tree(gp1, specs, mesh)
     out["fttq"] = {"q": (_np(q0), _np(q1)), "g_theta": (_np(gp0), _np(gp1)),
                    "g_wq": (_np(gw0), _np(gw1)),
                    "init_wq": (_np(wq), _np(fttq.init_wq_tree(shard_tree(whole, specs, mesh),
-                                                              fcfg, tp, dims))),
+                                                              fcfg, sh))),
                    "stats": (fttq.ternary_stats(whole, fcfg),
-                             fttq.ternary_stats(shard_tree(whole, specs, mesh), fcfg, tp, dims)),
+                             fttq.ternary_stats(shard_tree(whole, specs, mesh), fcfg, sh)),
                    "norm": (float(global_norm(up)),
-                            float(global_norm(up_sh, tp=tp, dims=dims)))}
+                            float(global_norm(up_sh, shards=sh)))}
 
     # the vocab-parallel cross entropy against the plain one
     v = 128
@@ -396,13 +397,18 @@ def _state_np(state) -> dict:
 
 
 def tp_steps(rank, world, *, runs, lr):
-    """For each run (arch, (data, model) mesh shape, reference state and
-    batch): one train step on that mesh from the state's shards, gathered
-    into whole leaves, and the port's one-device step from the same state;
-    rank 0 returns both."""
+    """For each run (arch, (data, model) mesh shape, TrainerConfig kwargs,
+    ModelConfig overrides, reference state and batch): one train step on
+    that mesh from the state's shards, gathered into whole leaves, and the
+    port's one-device step from the same state; every rank of the mesh
+    reports whether its new leaves had their local shapes, rank 0 also both
+    steps."""
+    from repro_torch.models.transformer import param_shapes
     from repro_torch.parallel.sharding import param_specs
     from repro_torch.parallel.tensor import gather_state, shard_state
     from repro_torch.train import TrainerConfig, make_train_step
+    from repro_torch.train.checkpoint import flatten
+    from repro_torch.tree import flatten_with_path, path_str
 
     out = []
     for run in runs:
@@ -412,41 +418,52 @@ def tp_steps(rank, world, *, runs, lr):
         if not mesh.member:
             out.append(None)
             continue
-        cfg = get_reduced(run["arch"])
-        tcfg = TrainerConfig(pod_compression=False)
+        cfg = get_reduced(run["arch"], **run.get("overrides", {}))
+        tcfg = TrainerConfig(pod_compression=False, **run.get("tcfg", {}))
         state = _state(run["state"], "cpu")
         batch = {k: torch.from_numpy(v) for k, v in run["batch"].items()}
         specs = param_specs(cfg, mesh)
         new, m = make_train_step(cfg, tcfg, adam(lr), mesh=mesh)(
             shard_state(state, specs, mesh), batch)
+        local = {path_str(p): tuple(v) for p, v in flatten_with_path(
+            param_shapes(cfg, mesh), is_leaf=lambda x: isinstance(x, tuple))}
+        shapes_ok = all(tuple(x.shape) == local[name[len(prefix):]]
+                        for name, x in flatten(new)
+                        for prefix in (".params/", ".opt_state/m/", ".opt_state/v/")
+                        if name.startswith(prefix))
         new = gather_state(new, specs, mesh)
+        if rank != 0:
+            out.append({"local_shapes": shapes_ok})
+            continue
         new0, m0 = make_train_step(cfg, tcfg, adam(lr))(state, batch)
-        out.append({"tp": _state_np(new), "tp_metrics": {k: float(v) for k, v in m.items()},
-                    "one": _state_np(new0), "one_metrics": {k: float(v) for k, v in m0.items()}}
-                   if rank == 0 else None)
+        out.append({"local_shapes": shapes_ok, "tp": _state_np(new),
+                    "tp_metrics": {k: float(v) for k, v in m.items()},
+                    "one": _state_np(new0), "one_metrics": {k: float(v) for k, v in m0.items()}})
     return out
 
 
-def tp_pods(rank, world, *, cfg, state, batch, lr, steps, trees, residuals_in=None):
-    """On a (2, 1, 2) pod x data x model mesh: (a) the compressed
-    collective with error feedback over ``trees`` (per step, each pod's
-    whole gradient tree) on this rank's shards, kernel path and plain
-    version, gathered over "model"; each step takes the residuals the last
-    one left, or with ``residuals_in`` (per step, a tree of (n_pods,
-    *shape) leaves) this pod's of those; (b) ``steps`` compressed QAT steps
-    from the reference's state, gathered over "pod" and "model"."""
+def tp_pods(rank, world, *, cfg, state, batch, lr, steps, trees, residuals_in=None,
+            mesh_shape=(2, 1, 2)):
+    """On a pod x data x model mesh of ``mesh_shape`` ((2, 1, 2), or (2,
+    2, 1) for pods x FSDP): (a) the compressed collective with error
+    feedback over ``trees`` (per step, each pod's whole gradient tree) on
+    this rank's shards, kernel path and plain version, gathered over
+    "model" and "data"; each step takes the residuals the last one left, or
+    with ``residuals_in`` (per step, a tree of (n_pods, *shape) leaves) this
+    pod's of those; (b) ``steps`` compressed QAT steps from the reference's
+    state, gathered over "pod", "model" and "data"."""
     from repro_torch.parallel.collectives import ternary_allreduce_tree_plain
-    from repro_torch.parallel.sharding import model_dims, param_specs
+    from repro_torch.parallel.sharding import param_specs
     from repro_torch.parallel.tensor import (
-        gather_state, gather_tree, model_axis, shard_state, shard_tree,
+        gather_state, gather_tree, param_shards, shard_state, shard_tree,
     )
     from repro_torch.train import TrainerConfig, init_train_state, make_train_step
     from repro_torch.train.trainer import gather_residuals
 
     cfg = ModelConfig(**cfg)
-    mesh = make_mesh((2, 1, 2), AXES, device="cpu")
-    tp, pod = model_axis(mesh), mesh.index("pod")
-    specs, dims = param_specs(cfg, mesh), model_dims(cfg, mesh)
+    mesh = make_mesh(tuple(mesh_shape), AXES, device="cpu")
+    pod = mesh.index("pod")
+    specs, sh = param_specs(cfg, mesh), param_shards(cfg, mesh)
     group = mesh.group("pod")
     out = {"collective": [], "plain": []}
     res = res_p = None
@@ -456,10 +473,10 @@ def tp_pods(rank, world, *, cfg, state, batch, lr, steps, trees, residuals_in=No
             res = res_p = shard_tree(tree_map(lambda a: a[pod], _torch(residuals_in[k], "cpu")),
                                      specs, mesh)
         reset_wire_bytes()
-        synced, res = ternary_allreduce_tree(grads, group, residuals=res, tp=tp, dims=dims)
+        synced, res = ternary_allreduce_tree(grads, group, residuals=res, shards=sh)
         wire = wire_bytes()
-        synced_p, res_p = ternary_allreduce_tree_plain(grads, group, residuals=res_p, tp=tp,
-                                                       dims=dims)
+        synced_p, res_p = ternary_allreduce_tree_plain(grads, group, residuals=res_p,
+                                                       shards=sh)
         out["collective"].append({"synced": _np(gather_tree(synced, specs, mesh)),
                                   "res": _np(gather_tree(res, specs, mesh)), "wire": wire})
         out["plain"].append({"synced": _np(gather_tree(synced_p, specs, mesh)),
@@ -636,7 +653,7 @@ def tp_families(rank, world, *, ckpt, lr, batch, gen_steps):
     from repro_torch.parallel.sharding import NamedSharding, P, param_shardings, param_specs
     from repro_torch.parallel.sharding import model_dims
     from repro_torch.parallel.tensor import (
-        gather_from_model, gather_state, gather_tree, model_axis, shard_state,
+        gather_from_model, gather_state, gather_tree, model_axis, param_shards, shard_state,
     )
     from repro_torch.train import (
         TrainerConfig, init_train_state, make_train_step, restore_checkpoint, save_checkpoint,
@@ -772,18 +789,18 @@ def tp_families(rank, world, *, ckpt, lr, batch, gen_steps):
     fcfg = fttq.FTTQConfig()
     for arch in ("deepseek-moe-16b", "zamba2-1.2b"):
         cfg = get_reduced(arch)
-        specs, dims = param_specs(cfg, mesh), model_dims(cfg, mesh)
+        specs, dims, sh = param_specs(cfg, mesh), model_dims(cfg, mesh), param_shards(cfg, mesh)
         whole = init_params(cfg, seed=3, device="cpu")
         wq = fttq.init_wq_tree(whole, fcfg)
         q0 = fttq.quantize_tree(whole, wq, fcfg)
-        q1 = gather_tree(fttq.quantize_tree(shard_tree_(whole, cfg, mesh), wq, fcfg, tp, dims),
+        q1 = gather_tree(fttq.quantize_tree(shard_tree_(whole, cfg, mesh), wq, fcfg, sh),
                          specs, mesh)
         out["fttq"][arch] = {
             "q": (_np(q0), _np(q1)),
-            "init_wq": (_np(wq), _np(fttq.init_wq_tree(shard_tree_(whole, cfg, mesh), fcfg, tp,
-                                                       dims))),
+            "init_wq": (_np(wq), _np(fttq.init_wq_tree(shard_tree_(whole, cfg, mesh), fcfg,
+                                                       sh))),
             "stats": (fttq.ternary_stats(whole, fcfg),
-                      fttq.ternary_stats(shard_tree_(whole, cfg, mesh), fcfg, tp, dims)),
+                      fttq.ternary_stats(shard_tree_(whole, cfg, mesh), fcfg, sh)),
             "sharded": sorted("/".join(str(k) for _, k in p)
                               for p, _ in flatten_with_path(dims))}
 
@@ -898,9 +915,248 @@ def tp_family_steps(rank, world, *, device="cpu"):
     return out
 
 
+# --------------------------------------------------------------------------
+# FSDP over the "data" axis.
+# --------------------------------------------------------------------------
+
+
+def _fttq_vs_whole(arch, mesh, dev, seed=3):
+    """FTTQ on this rank's shards of ``arch``'s seed-``seed`` params on
+    ``mesh`` against the whole leaves: {name: (whole result, shard result
+    gathered or reduced)} for the QAT forward, its backward (θ and w_q),
+    init_wq_tree, ternary_stats and the global norm."""
+    from repro_torch.core import fttq
+    from repro_torch.optim import global_norm
+    from repro_torch.parallel.sharding import param_specs
+    from repro_torch.parallel.tensor import gather_tree, param_shards, shard_tree
+    from repro_torch.tree import flatten_with_path
+
+    cfg = get_reduced(arch)
+    specs, sh = param_specs(cfg, mesh), param_shards(cfg, mesh)
+    fcfg = fttq.FTTQConfig()
+    whole = init_params(cfg, seed=seed, device=dev)
+    wq = fttq.init_wq_tree(whole, fcfg)
+    gen = torch.Generator(dev).manual_seed(7)
+    up = tree_map(lambda p: torch.randn(p.shape, generator=gen, device=dev), whole)
+    up_sh = shard_tree(up, specs, mesh)
+
+    def qat(params, w, upstream, **kw):
+        ps = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        ws = tree_map(lambda t: t.detach().requires_grad_(True), w)
+        q = fttq.quantize_tree(ps, ws, fcfg, **kw)
+        loss = sum((a * b).sum() for a, b in zip(
+            [t for _, t in flatten_with_path(q)], [t for _, t in flatten_with_path(upstream)]))
+        loss.backward()
+        return (tree_map(lambda t: t.detach(), q), tree_map(lambda t: t.grad, ps),
+                tree_map(lambda t: t.grad, ws))
+
+    q0, gp0, gw0 = qat(whole, wq, up)
+    q1, gp1, gw1 = qat(shard_tree(whole, specs, mesh), wq, up_sh, shards=sh)
+    q1, gp1 = gather_tree(q1, specs, mesh), gather_tree(gp1, specs, mesh)
+    return {"q": (_np(q0), _np(q1)), "g_theta": (_np(gp0), _np(gp1)),
+            "g_wq": (_np(gw0), _np(gw1)),
+            "init_wq": (_np(wq), _np(fttq.init_wq_tree(shard_tree(whole, specs, mesh), fcfg,
+                                                       sh))),
+            "stats": (fttq.ternary_stats(whole, fcfg),
+                      fttq.ternary_stats(shard_tree(whole, specs, mesh), fcfg, sh)),
+            "norm": (float(global_norm(up)), float(global_norm(up_sh, shards=sh))),
+            "cut": {p: tuple(a.name for a, _ in c) for p, c in sh.cuts.items()}}
+
+
+def fsdp_basics(rank, world, *, ckpt, batch, lr, max_seq, gen):
+    """On a (world, 1) data x model mesh: (a) the gather / reduce-scatter
+    pair forward and backward; (b) ``reduce_scatter`` against an all-reduce
+    then a slice, and its bytes; (c) FTTQ, ternary_stats and the global
+    norm on data shards against the whole leaves, and on four ranks on
+    (2, 2) data x model shards too; (d) one train step from the seed-0
+    state's shards against one device (the clip's norm, the w_q step);
+    (e) the step's ``ValueError`` for a whole state; with two ranks (f) a
+    TrainState saved from its shards, raw and ternary, under ``ckpt``/fsdp-*
+    and on rank 0 the one-device saves under ``ckpt``/one-*, restored to
+    shards, and (g) prefill and greedy decode on the data shards against one
+    device; with four ranks (h) ``elastic_reshard`` of a (2, 2) state onto
+    (1, 2) and onto (2, 1)."""
+    from repro_torch.core.compression import CodecSpec
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.parallel.collectives import all_reduce_, reduce_scatter
+    from repro_torch.parallel.sharding import NamedSharding, P, param_shardings, param_specs
+    from repro_torch.parallel.tensor import (
+        data_axis, gather_from_data, gather_state, param_shards, shard_state,
+    )
+    from repro_torch.train import (
+        TrainerConfig, init_train_state, make_train_step, restore_checkpoint, save_checkpoint,
+    )
+    from repro_torch.train.checkpoint import flatten
+    from repro_torch.train.fault import elastic_reshard
+
+    mesh = make_mesh((world, 1), ("data", "model"), device="cpu")
+    ax, group = data_axis(mesh), mesh.group("data")
+    out = {}
+    x = torch.arange(6.0).reshape(2, 3) + 10 * rank
+    up = torch.arange(6.0 * world).reshape(2, 3 * world) * (rank + 1)
+    for dim, upstream in ((1, up), (0, up.reshape(2 * world, 3))):
+        xg = x.clone().requires_grad_(True)
+        y = gather_from_data(xg, ax, dim)
+        y.backward(upstream)
+        out[f"pair{dim}"] = (y.detach().numpy(), xg.grad.numpy())
+
+    t = torch.arange(4.0 * world * 3).reshape(4 * world, 3) * (rank + 1) - 5
+    reset_wire_bytes()
+    rs0 = reduce_scatter(t, group, 0)
+    wire = wire_bytes()
+    rs1 = reduce_scatter(t.T.contiguous(), group, 1)
+    want = all_reduce_(t.clone(), group).chunk(world, 0)[rank]
+    out["reduce_scatter"] = {"dim0": (rs0.numpy(), want.numpy()),
+                             "dim1": (rs1.numpy(), want.T.numpy()),
+                             "again": torch.equal(reduce_scatter(t, group, 0), rs0),
+                             "wire": wire, "bytes": t.numel() * 4}
+
+    meshes = [mesh] + ([make_mesh((2, 2), ("data", "model"), device="cpu")] if world == 4 else [])
+    out["fttq"] = {(m.size("data"), m.size("model")): {
+        arch: _fttq_vs_whole(arch, m, "cpu") for arch in ("granite-20b", "qwen3-moe-30b-a3b")}
+        for m in meshes}
+
+    cfg = get_reduced("olmo-1b")
+    specs = param_specs(cfg, mesh)
+    tcfg, opt = TrainerConfig(pod_compression=False), adam(lr)
+    b = {k: torch.from_numpy(v).to(torch.int64) for k, v in batch.items()}
+    state = init_train_state(cfg, tcfg, opt, seed=0, device="cpu")
+    step = make_train_step(cfg, tcfg, opt, mesh=mesh)
+    new, m = step(init_train_state(cfg, tcfg, opt, seed=0, device="cpu", mesh=mesh), b)
+    new0, m0 = make_train_step(cfg, tcfg, opt)(state, b)
+    host = gather_state(new, specs, mesh)
+    out["step"] = {"loss": (float(m0["loss"]), float(m["loss"])),
+                   "grad_norm": (float(m0["grad_norm"]), float(m["grad_norm"])),
+                   "wq": (_np(new0.wq), _np(host.wq)),
+                   "params": (_np(new0.params), _np(host.params)),
+                   "m": _np(new0.opt_state["m"]),
+                   "shards": {p: c for p, c in ((p, tuple(a.name for a, _ in c)) for p, c in
+                                                param_shards(cfg, mesh).cuts.items())}}
+    try:
+        step(state, b)
+        out["layout_error"] = None
+    except ValueError as e:
+        out["layout_error"] = str(e)
+
+    if world == 2:
+        # (f) checkpoints of a state with moments that are not zero
+        fsdp_state = shard_state(new0, specs, mesh)
+        tern = CodecSpec(kind="ternary")
+        save_checkpoint(f"{ckpt}/fsdp-raw", 1, fsdp_state, mesh=mesh, specs=specs)
+        save_checkpoint(f"{ckpt}/fsdp-tern", 1, fsdp_state.params, compression=tern, mesh=mesh,
+                        specs=specs)
+        if rank == 0:
+            save_checkpoint(f"{ckpt}/one-raw", 1, new0)
+            save_checkpoint(f"{ckpt}/one-tern", 1, new0.params, compression=tern)
+        dist.barrier()
+        back, _ = restore_checkpoint(f"{ckpt}/fsdp-raw", example_state=fsdp_state,
+                                     device="cpu", mesh=mesh, specs=specs)
+        out["restored_equal"] = all(
+            (u is None and v is None) or torch.equal(u, v)
+            for (_, u), (_, v) in zip(flatten(back), flatten(fsdp_state)))
+        out["state"] = {"params": _np(new0.params), "opt_state": _np(new0.opt_state)}
+
+        # (g) prefill and decode
+        out["serve"] = {}
+        g = torch.Generator().manual_seed(3)
+        for arch in ("olmo-1b", "qwen3-moe-30b-a3b", "zamba2-1.2b", "llama-3.2-vision-11b"):
+            acfg = get_reduced(arch)
+            whole = init_params(acfg, seed=4, device="cpu")
+            shards = params_from_jax(_np(whole), "cpu", mesh=mesh,
+                                     specs=param_specs(acfg, mesh))
+            same = all(torch.equal(u, v) for (_, u), (_, v) in zip(
+                flatten(shards), flatten(init_params(acfg, seed=4, device="cpu", mesh=mesh))))
+            prompts = torch.randint(0, acfg.vocab_size, (2, 8), generator=g)
+            vis = (torch.randn(2, acfg.n_patches, acfg.d_model, generator=g) * 0.02
+                   if acfg.family == "vlm" else None)
+            got = {"converted_shards_equal": same}
+            for name, p, msh in (("fsdp", shards, mesh), ("one", whole, None)):
+                bb = {"tokens": prompts}
+                if vis is not None:
+                    bb["vision_embeds"] = vis
+                logits, cache = make_prefill_step(acfg, max_seq, mesh=msh)(p, bb)
+                steps, toks = [logits.numpy()], []
+                decode = make_decode_step(acfg, mesh=msh)
+                for i in range(gen):
+                    tok = torch.argmax(logits, -1)
+                    toks.append(tok.numpy())
+                    sb = {"tokens": tok, "cache": cache, "pos": 8 + i}
+                    if vis is not None:
+                        sb["vision_embeds"] = vis
+                    logits, cache = decode(p, sb)
+                    steps.append(logits.numpy())
+                got[name] = {"logits": steps, "tokens": toks}
+            out["serve"][arch] = got
+
+    if world == 4:
+        # (h) a (2, 2) FSDP x TP state re-placed onto (1, 2) and (2, 1)
+        mesh22 = meshes[1]
+        specs22 = param_specs(cfg, mesh22)
+        s22, _ = make_train_step(cfg, tcfg, opt, mesh=mesh22)(shard_state(new0, specs22, mesh22), b)
+        host = gather_state(s22, specs22, mesh22)
+        same = lambda u, v: all((a is None and c is None) or torch.equal(a, c)
+                                for (_, a), (_, c) in zip(flatten(u), flatten(v)))
+        out["elastic"] = {}
+        for shape in ((1, 2), (2, 1)):
+            small = make_mesh(shape, ("data", "model"), ranks=[0, 1], device="cpu")
+            small.device_mesh                 # every rank builds the DeviceMesh together
+            if not small.member:
+                continue
+            sp, shard = param_specs(cfg, small), param_shardings(cfg, small)
+            repl = NamedSharding(small, P())
+            placed = dataclasses.replace(
+                host, params=elastic_reshard(host.params, shard), wq=elastic_reshard(host.wq, repl),
+                opt_state={"step": elastic_reshard(host.opt_state["step"], repl),
+                           "m": elastic_reshard(host.opt_state["m"], shard),
+                           "v": elastic_reshard(host.opt_state["v"], shard)},
+                step=elastic_reshard(host.step, repl))
+            small_step = make_train_step(cfg, tcfg, opt, mesh=small)
+            n_dt, m_dt = small_step(placed, b)
+            n_sh, m_sh = small_step(shard_state(host, sp, small), b)
+            out["elastic"][shape] = same(n_dt, n_sh) and float(m_dt["loss"]) == float(m_sh["loss"])
+    return out
+
+
+def fsdp_step(rank, world, *, device="cpu"):
+    """On a (world, 1) data x model mesh on ``device``: one FSDP train step
+    of olmo-1b and qwen3-moe-30b-a3b (reduced) from the seed-0 state made on
+    the mesh, gathered, beside the one-device step from the same state; the
+    step's all-gather and reduce-scatter bytes."""
+    from repro_torch.parallel.sharding import param_specs
+    from repro_torch.parallel.tensor import gather_state, state_cuts
+    from repro_torch.train import TrainerConfig, init_train_state, make_train_step
+    from repro_torch.train.checkpoint import flatten
+
+    mesh = make_mesh((world, 1), ("data", "model"), device=device)
+    dev = mesh.device
+    gen = torch.Generator(dev).manual_seed(5)
+    out = {}
+    for arch in ("olmo-1b", "qwen3-moe-30b-a3b"):
+        cfg = get_reduced(arch)
+        tcfg, opt = TrainerConfig(pod_compression=False), adam(3e-3)
+        batch = {k: torch.randint(0, cfg.vocab_size, (2 * world, 16), generator=gen,
+                                  device=dev) for k in ("tokens", "labels")}
+        specs = param_specs(cfg, mesh)
+        state = init_train_state(cfg, tcfg, opt, seed=0, device=dev, mesh=mesh)
+        reset_wire_bytes()
+        new, m = make_train_step(cfg, tcfg, opt, mesh=mesh)(state, batch)
+        wire = wire_bytes()
+        new = gather_state(new, specs, mesh)
+        new0, m0 = make_train_step(cfg, tcfg, opt)(
+            init_train_state(cfg, tcfg, opt, seed=0, device=dev), batch)
+        data_cut = [x.numel() for (_, x), cut in zip(flatten(new0.params),
+                                                      state_cuts(new0.params, specs, mesh))
+                    if any(a.name == "data" for a, _ in cut)]
+        out[arch] = {"loss": (float(m0["loss"]), float(m["loss"])),
+                     "params": (_np(new0.params), _np(new.params)),
+                     "m": _np(new0.opt_state["m"]), "wire": wire,
+                     "data_cut_bytes": 4 * sum(data_cut)}
+    return out
+
+
 CASES = {f.__name__: f for f in (collectives, fanin, trainer, elastic, moe_forward, moe_train,
                                   q8_a2a, tp_basics, tp_steps, tp_pods, tp_serve, tp_families,
-                                  tp_family_steps)}
+                                  tp_family_steps, fsdp_basics, fsdp_step)}
 
 
 def main() -> None:

@@ -5,6 +5,7 @@ JAX 0.9 partitions the step), and the port's step on ``gloo`` CPU ranks on
 the same mesh shape from the same state and batch, gathered into whole
 leaves, beside the port's one-device step."""
 
+import concurrent.futures
 import types
 
 import numpy as np
@@ -35,44 +36,57 @@ def as_np(st):
 
 
 out = {}
-for arch in ARCHS:
-    jcfg, cfg, st = T.reference_state(arch)
-    batch = T.batch_np(cfg)
-    step = jax.jit(make_train_step(jcfg, TrainerConfig(pod_compression=False), adam(T.LR)))
-    runs = {}
-    for shape in SHAPES:
-        mesh = jax.make_mesh(shape, ("data", "model"), axis_types=(AxisType.Auto,) * 2)
-        specs = param_specs(jcfg, mesh)
-        put = lambda t, s: tm(lambda x, sp: jax.device_put(x, NamedSharding(mesh, sp)), t, s)
-        rep = lambda t: tm(lambda x: jax.device_put(x, NamedSharding(mesh, P())), t)
-        placed = type(st)(params=put(st.params, specs), wq=rep(st.wq),
-                          opt_state={"step": rep(st.opt_state["step"]),
-                                     "m": put(st.opt_state["m"], specs),
-                                     "v": put(st.opt_state["v"], specs)},
-                          residuals=None, step=rep(st.step))
-        b = {k: jax.device_put(v, NamedSharding(mesh, P("data"))) for k, v in batch.items()}
-        with set_mesh(mesh):
-            new, m = step(placed, b)
-        runs[shape] = {"state": as_np(new), "metrics": {k: float(v) for k, v in m.items()}}
-    out[arch] = {"state": as_np(st), "batch": batch, "runs": runs}
+for key, arch, shape, tkw, ov in RUNS:
+    jcfg, cfg, st = T.reference_state(arch, tkw, **ov)
+    batch = T.batch_np(cfg, ROWS)
+    step = jax.jit(make_train_step(jcfg, TrainerConfig(pod_compression=False, **tkw),
+                                   adam(T.LR)))
+    mesh = jax.make_mesh(shape, ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+    specs = param_specs(jcfg, mesh)
+    put = lambda t, s: tm(lambda x, sp: jax.device_put(x, NamedSharding(mesh, sp)), t, s)
+    rep = lambda t: tm(lambda x: jax.device_put(x, NamedSharding(mesh, P())), t)
+    placed = type(st)(params=put(st.params, specs), wq=rep(st.wq),
+                      opt_state={"step": rep(st.opt_state["step"]),
+                                 "m": put(st.opt_state["m"], specs),
+                                 "v": put(st.opt_state["v"], specs)},
+                      residuals=None, step=rep(st.step))
+    b = {k: jax.device_put(v, NamedSharding(mesh, P("data"))) for k, v in batch.items()}
+    with set_mesh(mesh):
+        new, m = step(placed, b)
+    out[key] = {"state": as_np(st), "batch": batch, "new": as_np(new),
+                "metrics": {k: float(v) for k, v in m.items()}}
 pickle.dump(out, open(OUT, "wb"))
 """
 
 
-def both(archs, tmp):
-    """{(arch, shape): (reference new state, its metrics, port TP new state,
-    its metrics, port one-device new state, its metrics)}."""
-    ref = run_jax(f"REPO = {REPO!r}\nARCHS = {list(archs)!r}\nSHAPES = {SHAPES!r}\n"
-                  + _REFERENCE, 4, tmp)
-    runs = [{"arch": a, "shape": s, "state": ref[a]["state"], "batch": ref[a]["batch"]}
-            for a in archs for s in SHAPES]
-    got = run_ranks("tp_steps", 4, tmp, timeout=150, runs=runs, lr=LR)[0]
+def both(archs, tmp, shapes=SHAPES, rows: int = 2, variants=None, timeout: float = 150):
+    """{(arch, shape): (reference new state, its metrics, port sharded new
+    state, its metrics, port one-device new state, its metrics)} for every
+    arch on every (data, model) mesh shape, from the reference's state and
+    a batch of ``rows`` rows; ``variants`` ({name: (archs, shapes,
+    TrainerConfig kwargs, ModelConfig overrides)}) adds (arch, shape, name)
+    keys. Each value also carries whether every rank's new leaves had their
+    local shapes (``[6]``)."""
+    runs = [((a, s), a, s, {}, {}) for a in archs for s in shapes]
+    for name, (v_archs, v_shapes, tkw, ov) in (variants or {}).items():
+        runs += [((a, s, name), a, s, tkw, ov) for a in v_archs for s in v_shapes]
+    ref = {}
+    # one reference process per arch, side by side: XLA compiles each step
+    # on one core, and the compiles are most of the time
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        for part in pool.map(lambda a: run_jax(
+                f"REPO = {REPO!r}\nRUNS = {[r for r in runs if r[1] == a]!r}\nROWS = {rows}\n"
+                + _REFERENCE, 4, tmp), sorted({r[1] for r in runs})):
+            ref.update(part)
+    args = [{"arch": a, "shape": s, "tcfg": tkw, "overrides": ov, "state": ref[k]["state"],
+             "batch": ref[k]["batch"]} for k, a, s, tkw, ov in runs]
+    got = run_ranks("tp_steps", 4, tmp, timeout=timeout, runs=args, lr=LR)
     out = {}
-    for run, g in zip(runs, got):
-        key = (run["arch"], run["shape"])
-        r = ref[run["arch"]]["runs"][run["shape"]]
-        out[key] = (_ns(r["state"]), r["metrics"], _port(g["tp"]), g["tp_metrics"],
-                    _port(g["one"]), g["one_metrics"])
+    for i, (key, *_rest) in enumerate(runs):
+        r, g = ref[key], got[0][i]
+        shapes_ok = all(rank[i] is None or rank[i]["local_shapes"] for rank in got)
+        out[key] = (_ns(r["new"]), r["metrics"], _port(g["tp"]), g["tp_metrics"],
+                    _port(g["one"]), g["one_metrics"], shapes_ok)
     return out
 
 
@@ -93,17 +107,22 @@ def _port(state: dict):
                       step=torch.tensor(state["step"], dtype=torch.int32))
 
 
-def check_reference(results, arch, shape):
-    """The port's TP step against the reference's GSPMD step on the same
-    mesh shape: ``assert_step_matches``'s tolerances (loss rtol 2e-6)."""
-    jnew, jm, new, m, _, _ = results[(arch, shape)]
+def _key(arch, shape, variant):
+    return (arch, shape) if variant is None else (arch, shape, variant)
+
+
+def check_reference(results, arch, shape, variant=None):
+    """The port's sharded step against the reference's GSPMD step on the
+    same mesh shape: ``assert_step_matches``'s tolerances (loss rtol 2e-6)."""
+    jnew, jm, new, m = results[_key(arch, shape, variant)][:4]
     assert_step_matches(jnew, jm, new, m)
 
 
-def check_one_device(results, arch, shape):
-    """The port's TP step against its own one-device step from the same
-    state, to the same tolerances (the one-device state as the reference)."""
-    _, _, new, m, one, m1 = results[(arch, shape)]
+def check_one_device(results, arch, shape, variant=None):
+    """The port's sharded step against its own one-device step from the
+    same state, to the same tolerances (the one-device state as the
+    reference)."""
+    _, _, new, m, one, m1 = results[_key(arch, shape, variant)][:6]
     ref = types.SimpleNamespace(params=_np(one.params), wq=_np(one.wq),
                                 opt_state=_np(one.opt_state), step=int(one.step))
     assert_step_matches(ref, m1, new, m)

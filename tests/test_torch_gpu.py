@@ -1330,3 +1330,33 @@ def test_tensor_parallel_families_on_two_gloo_ranks_on_the_card(cuda_device, tmp
                 small = np.abs(m) < 1e-7
                 assert np.abs(a - b)[~small].max(initial=0.0) <= 1e-6, arch
                 assert np.abs(a - b)[small].max(initial=0.0) <= 2 * 3e-3, arch
+
+
+def test_fsdp_step_on_two_gloo_ranks_on_the_card(cuda_device, tmp_path):
+    """One FSDP train step of olmo-1b and qwen3-moe-30b-a3b (reduced) over
+    a (2, 1) data x model mesh of two gloo ranks sharing cuda:0 (each layer
+    gathers its data-cut weights, the backward reduce-scatters their
+    gradients through pinned host memory), gathered, against the
+    one-device step on the card from the same state, to
+    ``assert_step_matches``'s rule (loss rtol 2e-6; params 1e-6 where |g| ≥
+    1e-6, Adam's bound 2·lr elsewhere); the reduce-scatter counter is half
+    the data-cut leaves' bytes."""
+    import numpy as np
+
+    from _torch_dist import run_ranks
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        return [] if tree is None else [np.asarray(tree)]
+
+    ranks = run_ranks("fsdp_step", 2, tmp_path, timeout=180, device="cuda:0")
+    for out in ranks:
+        for arch, got in out.items():
+            np.testing.assert_allclose(got["loss"][1], got["loss"][0], rtol=2e-6, err_msg=arch)
+            for a, b, m in zip(leaves(got["params"][0]), leaves(got["params"][1]),
+                               leaves(got["m"])):
+                small = np.abs(m) < 1e-7
+                assert np.abs(a - b)[~small].max(initial=0.0) <= 1e-6, arch
+                assert np.abs(a - b)[small].max(initial=0.0) <= 2 * 3e-3, arch
+            assert got["wire"]["reduce_scatter"] == got["data_cut_bytes"] // 2, arch

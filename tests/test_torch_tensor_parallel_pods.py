@@ -63,7 +63,7 @@ for name, CFG in CFGS.items():
         out["collective"].append({"synced": tm(np.asarray, synced), "res": tm(np.asarray, res)})
 
     # (b) compressed training on (2, 1, 2), params placed by the sharding rules
-    mesh = jax.make_mesh((2, 1, 2), ("pod", "data", "model"), axis_types=auto(3))
+    mesh = jax.make_mesh(MESH, ("pod", "data", "model"), axis_types=auto(3))
     batch = {"tokens": jax.random.randint(jax.random.PRNGKey(1), (8, 16), 0, 128),
              "labels": jax.random.randint(jax.random.PRNGKey(2), (8, 16), 0, 128)}
     tcfg = TrainerConfig(qat=True, pod_compression=True, error_feedback=True)
@@ -95,8 +95,8 @@ pickle.dump(results, open(OUT, "wb"))
 def runs(tmp_path_factory):
     """{config name: (the reference's results, the four ranks' results)}."""
     tmp = tmp_path_factory.mktemp("tp-pods")
-    refs = run_jax(f"CFGS = {CFGS!r}\nSTEPS = {STEPS}\nLR = {LR}\n" + _REFERENCE, 4, tmp,
-                   timeout=300)
+    refs = run_jax(f"CFGS = {CFGS!r}\nSTEPS = {STEPS}\nLR = {LR}\nMESH = (2, 1, 2)\n"
+                   + _REFERENCE, 4, tmp, timeout=300)
     out = {}
     for name, cfg in CFGS.items():
         ref = refs[name]
