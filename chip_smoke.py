@@ -327,6 +327,7 @@ The line before the last is the kernel table as JSON; the last line is
 
 from __future__ import annotations
 
+import atexit
 import collections
 import contextlib
 import json
@@ -2844,6 +2845,7 @@ def train_full_width(dev, cfg, fcfg, runs=TRAIN_RUNS) -> dict:
     from repro_torch.models.transformer import param_count
     from repro_torch.optim import adam
     from repro_torch.train import TrainerConfig, init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
 
     n_params = param_count(cfg)
     tcfg0 = TrainerConfig()
@@ -2877,9 +2879,12 @@ def train_full_width(dev, cfg, fcfg, runs=TRAIN_RUNS) -> dict:
                          "grad_norm": float(m["grad_norm"]), "ce": float(m["ce"])})
         ops = (8 if remat != "none" else 6) * n_params * b * s
         best = min(r["ms"] for r in rows)
+        peak = torch.cuda.max_memory_allocated()
+        held_state = sum(x.numel() * x.element_size() for x in tree_leaves(
+            [state.params, state.opt_state["m"], state.opt_state["v"]]))
         run = {"batch": b, "seq": s, "microbatches": micro, "remat": remat, "steps": rows,
-               "init_s": init_s, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-               "held_gib": held / 2 ** 30,
+               "init_s": init_s, "peak_gib": peak / 2 ** 30, "peak_bytes": peak,
+               "held_gib": held / 2 ** 30, "held_bytes": held, "state_bytes": held_state,
                "bound_ms": ops / PEAK_FP32_S * 1e3, "operations": ops}
         run["bound_share"] = run["bound_ms"] / best
         out["runs"].append(run)
@@ -4205,41 +4210,52 @@ def _tp_single(dev, cfg, batches, fcfg, tp_run: dict, tp_params, save_dir: str,
     return out, ref
 
 
-def _tp_serve(mesh, dev, cfg) -> dict:
-    """``launch/steps.py`` with the mesh: a prefill of 4 × 32 tokens and 8
-    greedy decode steps on the rank's shards of the seed-0 params; then on
+def _tp_serve(mesh, dev, cfg, prompts: int = TP_PROMPTS, prompt: int = TP_PROMPT,
+              gen: int = TP_GEN, max_seq: int | None = None) -> dict:
+    """``launch/steps.py`` with the mesh: a prefill of ``prompts`` ×
+    ``prompt`` tokens into ``max_seq`` slots (default: room for the
+    decode) and ``gen`` greedy decode steps on the rank's shards of the
+    seed-0 params, each rank feeding back its own rows' tokens (its rows of
+    the batch where the batch divides over the mesh's batch axes); then on
     the mesh's first rank the same on the whole params in one process: each
-    step's logits against the one-process logits (max |Δ| over max
-    |logits|) and the greedy tokens."""
+    step's logits gathered over the rows (``gather_rows``) against the
+    one-process logits (max |Δ| over max |logits|), the greedy tokens, each
+    decode step's time and the cache's bytes."""
     import torch
 
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models.transformer import init_params
+    from repro_torch.parallel.tensor import gather_rows
 
-    prompts = torch.randint(0, cfg.vocab_size, (TP_PROMPTS, TP_PROMPT),
-                            generator=torch.Generator(dev).manual_seed(1), device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (prompts, prompt),
+                         generator=torch.Generator(dev).manual_seed(1), device=dev)
+    max_seq = max_seq or prompt + gen
 
     def run(params, m):
-        prefill = make_prefill_step(cfg, TP_PROMPT + TP_GEN, mesh=m)
-        decode = make_decode_step(cfg, mesh=m)
+        prefill = make_prefill_step(cfg, max_seq, mesh=m)
+        decode = make_decode_step(cfg, mesh=m, batch=prompts)
         _sync(dev)
         t0 = time.perf_counter()
-        logits, cache = prefill(params, {"tokens": prompts})
+        logits, cache = prefill(params, {"tokens": toks})
         _sync(dev)
         prefill_ms = (time.perf_counter() - t0) * 1e3
-        steps, tokens = [logits], []
-        t0 = time.perf_counter()
-        for i in range(TP_GEN):
+        steps, tokens, step_ms = [gather_rows(logits, m, prompts)], [], []
+        for i in range(gen):
             tok = torch.argmax(logits, dim=-1)
-            tokens.append(tok)
+            tokens.append(gather_rows(tok, m, prompts))
+            _sync(dev)
+            t0 = time.perf_counter()
             logits, cache = decode(params, {"tokens": tok, "cache": cache,
-                                            "pos": TP_PROMPT + i})
-            steps.append(logits)
-        _sync(dev)
-        decode_s = time.perf_counter() - t0
+                                            "pos": prompt + i})
+            _sync(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            steps.append(gather_rows(logits, m, prompts))
+        kv = cache["attn_k" if "attn_k" in cache else "k"]
         return steps, torch.cat(tokens, dim=1), {
-            "prefill_ms": prefill_ms, "decode_tok_s": TP_PROMPTS * TP_GEN / decode_s,
-            "cache_kv_heads": int(cache["attn_k" if "attn_k" in cache else "k"].shape[3])}
+            "prefill_ms": prefill_ms, "decode_tok_s": prompts * gen / (sum(step_ms) / 1e3),
+            "step_ms": step_ms, "cache_kv_heads": int(kv.shape[3]),
+            "cache_rows": int(kv.shape[1]), "cache_slots": int(kv.shape[2]),
+            "cache_bytes": sum(v.numel() * v.element_size() for v in cache.values())}
 
     shards = init_params(cfg, seed=0, device=dev, mesh=mesh)
     with torch.no_grad():
@@ -4258,6 +4274,7 @@ def _tp_serve(mesh, dev, cfg) -> dict:
         del whole, ref_steps
     del steps
     _free()
+    out.update(prompts=prompts, prompt=prompt, gen=gen, max_seq=max_seq)
     return out
 
 
@@ -4667,17 +4684,26 @@ def _tp_cell_checks(r: int, tag: str, label: str, cell: dict, fault_what: str,
           f"({tag}) a limit of the tensor-parallel checks does not catch the planted fault")
 
 
-def _tp_serve_checks(r: int, tag: str, label: str, s: dict, part: str = "tensor_parallel") -> None:
-    print(f"rank {r}, {part} ({tag}) {label} prefill {TP_PROMPTS} x {TP_PROMPT} "
-          f"{s['prefill_ms']:.2f} ms, {TP_GEN} greedy steps {s['decode_tok_s']:.1f} tok/s, "
-          f"{s['cache_kv_heads']} kv heads in the cache"
+def _tp_serve_checks(r: int, tag: str, label: str, s: dict, part: str = "tensor_parallel",
+                     half_cache: bool = False) -> None:
+    """Print a serving cell's numbers; hold its logits and tokens to one
+    process, and with ``half_cache`` each rank's cache to half of one
+    process's bytes."""
+    print(f"rank {r}, {part} ({tag}) {label} prefill {s['prompts']} x {s['prompt']} into "
+          f"{s['max_seq']} slots {s['prefill_ms']:.2f} ms, {s['gen']} greedy steps "
+          f"{s['decode_tok_s']:.2f} tok/s; the rank's cache {s['cache_rows']} rows x "
+          f"{s['cache_slots']} slots x {s['cache_kv_heads']} kv heads, {s['cache_bytes']} B"
           + (f"; one process prefill {s['one_process']['prefill_ms']:.2f} ms, "
-             f"{s['one_process']['decode_tok_s']:.1f} tok/s; logits shape {s['shape']}, "
-             f"max rel gap {s['logits_rel']:.3e} (limit {TP_LOGITS_REL:g}), tokens equal "
+             f"{s['one_process']['decode_tok_s']:.1f} tok/s, cache "
+             f"{s['one_process']['cache_bytes']} B; logits shape {s['shape']}, max rel gap "
+             f"{s['logits_rel']:.3e} (limit {TP_LOGITS_REL:g}), tokens equal "
              f"{s['tokens_equal']}" if "logits_rel" in s else ""))
     if "logits_rel" in s:
         check(s["logits_rel"] <= TP_LOGITS_REL and s["tokens_equal"],
               f"({tag}) sharded prefill or decode disagrees with one process")
+        if half_cache:
+            check(2 * s["cache_bytes"] == s["one_process"]["cache_bytes"],
+                  f"({tag}) a rank's cache is not half of one process's")
 
 
 def _tp_pods_collective_checks(r: int, tag: str, label: str, c: dict,
@@ -4848,7 +4874,13 @@ def fsdp_checks(reports: list, sizes: dict | None = None) -> None:
                       and (not full or want["gather_bytes"] == FSDP_GATHER_BYTES),
                       "(j) a step did not gather each data-cut weight and reduce-scatter "
                       "its gradient exactly once")
-            _tp_serve_checks(r, "n", "olmo-1b", f["serve"], part="fsdp")
+            # (n) is (o): a batch of 4 over the 2 data ranks, 2 rows each
+            _tp_serve_checks(r, "n/o", "olmo-1b, 2 rows a rank,", f["serve"], part="fsdp",
+                             half_cache=True)
+            one = [q["fsdp"]["serve"]["one_process"]["cache_bytes"] for q in reports
+                   if "one_process" in (q.get("fsdp") or {}).get("serve", {})]
+            check(one and 2 * f["serve"]["cache_bytes"] == one[0],
+                  f"(o) rank {r}'s cache is not half of one process's")
         t = f["tp"]
         for s in t["train"]["steps"]:
             print(f"rank {r}, fsdp (k) olmo-1b {t['layers']} of 16 layers over (2, 2) data x "
@@ -4890,6 +4922,161 @@ def fsdp_checks(reports: list, sizes: dict | None = None) -> None:
                   and s["wire"].get("reduce_scatter", 0) == w,
                   "(l) a pods x data step's all-gather or reduce-scatter bytes are not its "
                   "weights' and the collective's")
+
+
+# --------------------------------------------------------------------------
+# Serving rows and sequence-cut caches over the batch axes.
+# --------------------------------------------------------------------------
+
+# (p): olmo-1b whole, batch 1, its cache's sequence over the 2 data ranks;
+# the 2,040-token prompt fills rank 0's first 2,040 of 2,048 slots and the
+# decode writes cross into rank 1's at position 2,048
+SR_LONG_PROMPT, SR_LONG_GEN, SR_LONG_SLOTS = 2040, 16, 4096
+# (q): granite-20b (MQA) cut to 4 of 52 layers, batch 2 on (1, 2), its
+# cache's sequence over "model"
+SR_MQA_LAYERS = 4
+SR_MQA_PROMPTS, SR_MQA_PROMPT, SR_MQA_GEN = 2, 64, 8
+
+
+def serve_rows_rank(rank: int, dev, sizes: dict, fsdp_mesh, tp_mesh,
+                    progress=lambda out: None) -> dict:
+    """The serve_rows part on ranks 0 and 1 of the spawn: (p) olmo-1b batch 1
+    with its cache's sequence over "data" (mesh (2, 1)), (q) granite-20b's
+    MQA with its cache's sequence over "model" (mesh (1, 2)); each against
+    one process (``_tp_serve``)."""
+    out = {}
+    if fsdp_mesh.member:
+        out["p"] = _tp_serve(fsdp_mesh, dev, sizes["serve_long"], prompts=1,
+                             prompt=SR_LONG_PROMPT, gen=SR_LONG_GEN, max_seq=SR_LONG_SLOTS)
+        progress(out)
+    if tp_mesh.member:
+        out["q"] = _tp_serve(tp_mesh, dev, sizes["serve_mqa"], prompts=SR_MQA_PROMPTS,
+                             prompt=SR_MQA_PROMPT, gen=SR_MQA_GEN)
+        progress(out)
+    return out
+
+
+def serve_rows_checks(reports: list, sizes: dict | None = None) -> None:
+    """Print (p) and (q) and hold them to one process: logits, tokens, and
+    every rank's cache exactly half of one process's."""
+    sizes = sizes or {}
+    one = {}
+    for rep in reports:
+        sr = rep.get("serve_rows") or {}
+        for tag in ("p", "q"):
+            if "one_process" in sr.get(tag, {}):
+                one[tag] = sr[tag]["one_process"]["cache_bytes"]
+    for rep in reports:
+        r, sr = rep["rank"], rep.get("serve_rows") or {}
+        if "p" in sr:
+            p = sr["p"]
+            _tp_serve_checks(r, "p", f"olmo-1b {sizes.get('serve_long_layers', '?')} of 16 "
+                             "layers, batch 1, the cache's sequence over 2 data ranks,", p,
+                             part="serve_rows", half_cache=True)
+            cross = SR_LONG_SLOTS // 2 - SR_LONG_PROMPT     # the first step on rank 1's slots
+            print(f"rank {r}, serve_rows (p) decode step ms: "
+                  + ", ".join(f"{ms:.1f}" + (" [last on rank 0's slots]" if i == cross - 1
+                                             else " [first on rank 1's slots]" if i == cross
+                                             else "") for i, ms in enumerate(p["step_ms"]))
+                  + (", one process: " + ", ".join(f"{ms:.1f}" for ms in
+                                                   p["one_process"]["step_ms"])
+                     if "one_process" in p else ""))
+        if "q" in sr:
+            _tp_serve_checks(r, "q", f"granite-20b {sizes.get('serve_mqa_layers', '?')} of 52 "
+                             "layers (MQA), the cache's sequence over 2 model ranks,", sr["q"],
+                             part="serve_rows", half_cache=True)
+        for tag in ("p", "q"):
+            if tag in sr:
+                check(tag in one and 2 * sr[tag]["cache_bytes"] == one[tag],
+                      f"({tag}) rank {r}'s cache is not half of one process's")
+
+
+# --------------------------------------------------------------------------
+# The dry-run's estimate of two train cells, against their measurement.
+# --------------------------------------------------------------------------
+
+DRYRUN_PEAK_REL = 0.2        # the one-device peak estimate against the measured peak
+
+_DRYRUN_CODE = """
+import json, sys
+sys.path.insert(0, {src!r})
+from repro_torch.configs import get_config
+from repro_torch.launch.dryrun import TrainKind, estimate_step
+from repro_torch.train import TrainerConfig
+out = {{}}
+for name, shape, axes in (("one_device", (1,), ("data",)),
+                          ("fsdp_j", (2, 1), ("data", "model"))):
+    r = estimate_step(get_config("olmo-1b"), TrainKind(TrainerConfig(), lr={lr!r}),
+                      ({b}, {s}), shape, axes)
+    out[name] = {{"memory": r["memory"], "state_parts": r["state_parts"],
+                  "flops": r["hlo"]["flops_per_device"],
+                  "collective": r["hlo"]["collective_breakdown"], "seconds": r["seconds"]}}
+print(json.dumps(out))
+"""
+
+
+def dryrun_start():
+    """Start, in a process of its own (one process holds one default group),
+    ``launch.dryrun.estimate_step`` on olmo-1b's one-device train cell (fp32,
+    8 x 512, remat "none": the train phase's first run) and on the fsdp
+    part's (j) (the same over a (2, 1) data x model mesh of a "fake" group):
+    rank 0's state bytes, peak estimate, FLOPs and collectives. It runs on
+    the CPU beside the card's phases; ``dryrun_finish`` reads it."""
+    import subprocess
+
+    b, s = TRAIN_RUNS[0][:2]
+    code = _DRYRUN_CODE.format(src=SRC, lr=TRAIN_LR, b=b, s=s)
+    return subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+
+
+def dryrun_finish(proc, train: dict, md: dict) -> dict:
+    """The estimates of ``dryrun_start`` against the train phase's first run
+    and (j): the params' and Adam moments' bytes exactly, the one-device
+    peak within ``DRYRUN_PEAK_REL`` of the run's peak over what earlier
+    phases held; (j)'s peak printed beside its measurement, unchecked (two
+    ranks' peaks move by up to 7 GiB between runs)."""
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"the dry-run estimate failed: {stderr[-3000:]}")
+    est = json.loads(stdout.strip().splitlines()[-1])
+    run = train["full_width"]["runs"][0]
+    one = est["one_device"]
+    mine = lambda e: e["state_parts"]["params"] + e["state_parts"]["m"] + e["state_parts"]["v"]
+    measured = run["peak_bytes"] - run["held_bytes"]
+    rel = one["memory"]["peak_estimate_bytes"] / measured - 1
+    print(f"dryrun: olmo-1b one-device train cell ({run['batch']} x {run['seq']}, remat "
+          f"{run['remat']}, fp32): params, m and v {mine(one)} B estimated, "
+          f"{run['state_bytes']} B measured; peak estimate "
+          f"{one['memory']['peak_estimate_bytes'] / 2 ** 30:.2f} GiB (arguments "
+          f"{one['memory']['argument_bytes_per_device'] / 2 ** 30:.2f} + step "
+          f"{one['memory']['temp_bytes_per_device'] / 2 ** 30:.2f}), measured "
+          f"{measured / 2 ** 30:.2f} GiB (max_memory_allocated {run['peak_gib']:.2f} GiB less "
+          f"{run['held_gib']:.2f} GiB earlier phases held): {100 * rel:+.1f}% (limit "
+          f"±{100 * DRYRUN_PEAK_REL:.0f}%); {one['flops']:.4e} FLOPs counted; estimated in "
+          f"{one['seconds']:.1f} s")
+    check(mine(one) == run["state_bytes"],
+          "the dry-run's one-device state bytes are not the measured ones")
+    check(abs(rel) <= DRYRUN_PEAK_REL,
+          "the dry-run's one-device peak estimate is off the measured peak")
+    j = est["fsdp_j"]
+    got = [rep["fsdp"]["train"] for rep in md["reports"]
+           if "train" in (rep.get("fsdp") or {})]
+    for r, tr in enumerate(got):
+        print(f"dryrun: fsdp (j) rank {r}: params, m and v {mine(j)} B estimated, "
+              f"{tr['state_bytes']} B measured ({FSDP_STATE_BYTES} at full width); peak "
+              f"estimate {j['memory']['peak_estimate_bytes'] / 2 ** 30:.2f} GiB, measured "
+              f"{tr['peak_gib']:.2f} GiB (not held: two ranks' peaks move between runs); "
+              f"collectives {json.dumps(j['collective'])}; estimated in {j['seconds']:.1f} s")
+        check(mine(j) == tr["state_bytes"] == FSDP_STATE_BYTES,
+              "the dry-run's (j) state bytes are not the measured ones")
+    check(len(got) == FSDP_RANKS, "the fsdp part's (j) reports are missing")
+    return est
 
 
 def multidevice_rank(rank: int, world: int, rdv: str, out_dir: str, device: str,
@@ -4967,6 +5154,17 @@ def multidevice_rank(rank: int, world: int, rdv: str, out_dir: str, device: str,
 
         report["fsdp"] = fsdp_rank(rank, dev, FTTQConfig(), sizes, pair, fsdp_mesh,
                                    fsdp_tp_mesh, pods_data_mesh, out_dir, fsdp_progress)
+        save()
+        dist.barrier()
+    if "serve_rows" in parts:
+        _free()
+
+        def rows_progress(sr_out):
+            report["serve_rows"] = sr_out
+            save()
+
+        report["serve_rows"] = serve_rows_rank(rank, dev, sizes, fsdp_mesh, tp_mesh,
+                                               rows_progress)
     report["rank_s"] = time.perf_counter() - t0
     save()
     dist.destroy_process_group()
@@ -4976,7 +5174,9 @@ def multidevice_phase(device: str = "cuda:0", olmo_cfg=None, moe_cfg=None, train
                       batch: int = MD_BATCH, seq: int = MD_SEQ, steps: int = MD_STEPS,
                       tp_cfg=None, tp_pods_cfg=None, tp_zamba_cfg=None, tp_moe_cfg=None,
                       tp_pods_moe_cfg=None, fsdp_cfg=None, fsdp_tp_cfg=None, fsdp_pods_cfg=None,
-                      parts: tuple = ("collective", "tensor_parallel", "fsdp")) -> dict:
+                      serve_long_cfg=None, serve_mqa_cfg=None,
+                      parts: tuple = ("collective", "tensor_parallel", "fsdp",
+                                      "serve_rows")) -> dict:
     """Ranks spawned on the one card over gloo (a file rendezvous in a
     temporary directory), in one spawn: on two of them (a) the collective at
     full width, (c) the client-sharded fan-in, (d) the expert-parallel MoE,
@@ -5007,8 +5207,10 @@ def multidevice_phase(device: str = "cuda:0", olmo_cfg=None, moe_cfg=None, train
              "fsdp": fsdp_cfg or get_config("olmo-1b"),
              "fsdp_tp": fsdp_tp_cfg or get_config("olmo-1b", n_layers=FSDP_TP_LAYERS),
              "fsdp_pods": fsdp_pods_cfg or get_config("olmo-1b", n_layers=FSDP_PODS_LAYERS),
+             "serve_long": serve_long_cfg or get_config("olmo-1b"),
+             "serve_mqa": serve_mqa_cfg or get_config("granite-20b", n_layers=SR_MQA_LAYERS),
              "batch": batch, "seq": seq, "steps": steps, "parts": tuple(parts)}
-    world = MD_WORLD if {"tensor_parallel", "fsdp"} & set(parts) else MD_RANKS
+    world = MD_WORLD if {"tensor_parallel", "fsdp", "serve_rows"} & set(parts) else MD_RANKS
     ctx = mp.get_context("spawn")
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     # the ranks write two olmo-1b checkpoints there: keep them in the checkout's build/
@@ -5046,7 +5248,9 @@ def multidevice_phase(device: str = "cuda:0", olmo_cfg=None, moe_cfg=None, train
         "tp_moe_layers": sizes["tp_moe"].n_layers,
         "tp_pods_moe_layers": sizes["tp_pods_moe"].n_layers,
         "fsdp_layers": sizes["fsdp"].n_layers, "fsdp_tp_layers": sizes["fsdp_tp"].n_layers,
-        "fsdp_pods_layers": sizes["fsdp_pods"].n_layers, "batch": batch, "seq": seq,
+        "fsdp_pods_layers": sizes["fsdp_pods"].n_layers,
+        "serve_long_layers": sizes["serve_long"].n_layers,
+        "serve_mqa_layers": sizes["serve_mqa"].n_layers, "batch": batch, "seq": seq,
         "steps": steps, "world": world}}
 
 
@@ -5136,6 +5340,7 @@ def multidevice_checks(md: dict) -> None:
               "the two pods logged different losses")
     tensor_parallel_checks(reports, md["sizes"])
     fsdp_checks(reports, md["sizes"])
+    serve_rows_checks(reports, md["sizes"])
     print(f"multidevice phase: {md['wall_s']:.1f} s")
 
 
@@ -5180,6 +5385,9 @@ def main() -> int:
           f"{torch.cuda.device_count()} device(s)")
 
     phase("build")
+    # the dry-run's estimates run on the CPU beside the card's phases
+    dry = dryrun_start()
+    atexit.register(lambda: dry.poll() is None and dry.kill())
     t0 = time.perf_counter()
     logs = _build.build_all()
     print(f"nvcc sm_90a build of {list(logs)} in {time.perf_counter() - t0:.1f} s")
@@ -5456,11 +5664,19 @@ def main() -> int:
           "cut over 'data', per-layer all-gather, reduce-scattered gradients) vs one process "
           "and a planted fault, (m) its ternary save, (n) prefill and decode; (k) olmo-1b "
           f"{FSDP_TP_LAYERS} of 16 layers over (2, 2) data x model vs one process; (l) pods x "
-          f"data on (2, 2, 1), olmo-1b {FSDP_PODS_LAYERS} of 16 layers")
+          f"data on (2, 2, 1), olmo-1b {FSDP_PODS_LAYERS} of 16 layers; then serve_rows: (o) "
+          "is (n), 2 rows a rank; (p) olmo-1b 16 of 16 layers, batch 1, a "
+          f"{SR_LONG_SLOTS}-slot cache's sequence over 2 data ranks, a {SR_LONG_PROMPT}-token "
+          f"prompt and {SR_LONG_GEN} steps; (q) granite-20b {SR_MQA_LAYERS} of 52 layers (MQA), "
+          "the cache's sequence over 2 model ranks")
     _free()
     md = multidevice_phase(f"cuda:{torch.cuda.current_device()}")
     multidevice_checks(md)
     md_reports = md["reports"]
+
+    phase("dryrun: launch/dryrun.py's estimate of the one-device olmo-1b train cell and of "
+          "fsdp (j), against their measurements")
+    dryrun_finish(dry, train, md)
 
     def tp_launches(rep: dict, name: str) -> dict:
         """A rank's launches of ``name`` on each tensor_parallel path."""

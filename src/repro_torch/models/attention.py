@@ -33,7 +33,9 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import apply_rope, dense_init, matmul
-from repro_torch.parallel.tensor import copy_to_model, gather_from_model, reduce_from_model
+from repro_torch.parallel.tensor import (
+    combine_softmax, copy_to_model, gather_from_model, linear_rank, reduce_from_model,
+)
 
 NEG_INF = -1e30
 FLASH_THRESHOLD = 2048
@@ -124,6 +126,37 @@ def _attend_flash(q, k, v, q_pos, k_pos, *, causal, window, k_len=None,
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)  # (B,Sq,Hkv,G,hd)
 
 
+def _partial(q, k, v, q_pos, k_pos, *, causal, window, k_len, block: int = FLASH_BLOCK):
+    """The blocked softmax's partial over these keys: (m, l, acc) with m
+    (B,Hkv,G,Sq) the row max of the valid scores (``NEG_INF`` where none
+    is valid), l = Σ exp(score − m) and acc (B,Hkv,G,Sq,hd) = Σ exp(score −
+    m)·v over the valid keys, in blocks of ``block`` keys; every key is
+    masked by its position (``k_pos``, global), so an invalid key adds
+    exactly nothing."""
+    b, sq, hkv, g, hd = q.shape
+    sk = k.shape[1]
+    scale = _scale(hd)
+    qf = q.to(torch.float32)
+    m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, g, sq, hd), dtype=torch.float32, device=q.device)
+    for lo in range(0, sk, block):
+        hi = min(lo + block, sk)
+        pc = k_pos[lo:hi]
+        ok = _mask_bias(q_pos, pc, causal=causal, window=window) == 0
+        ok = ok & (pc[None, :] < k_len)
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qf, k[:, lo:hi].to(torch.float32)) * scale
+        scores = torch.where(ok, scores, NEG_INF)
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        p = torch.where(ok, torch.exp(scores - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p,
+                                                   v[:, lo:hi].to(torch.float32))
+        m = m_new
+    return m, l, acc
+
+
 @dataclasses.dataclass(frozen=True)
 class HeadLayout:
     """A rank's share of the heads: query heads [q_lo, q_hi) on kv heads
@@ -171,24 +204,31 @@ def head_layout(n_heads: int, n_kv_heads: int, head_dim: int, tp=None) -> HeadLa
     return HeadLayout(q_lo, q_hi, kv_lo, kv_hi, kv, True)
 
 
-def _project_kv(w, src, src_tp, lay: HeadLayout, tp, head_dim: int, n_kv_heads: int):
-    """This rank's kv heads of ``src @ w``, (B, S, n_kv, hd). ``src_tp`` is
-    ``src`` entered into per-rank computation (``copy_to_model``)."""
+def _project_kv(w, src, src_tp, lay: HeadLayout, tp, head_dim: int, n_kv_heads: int,
+                every_head: bool = False):
+    """This rank's kv heads of ``src @ w``, (B, S, n_kv, hd), or with
+    ``every_head`` all n_kv_heads of them (the guard split ``wk``/``wv``
+    mid-head or left them whole). ``src_tp`` is ``src`` entered into
+    per-rank computation (``copy_to_model``)."""
     b, s = src.shape[:2]
     if lay.kv == "local":
+        if every_head and lay.n_kv != n_kv_heads:
+            raise NotImplementedError("a cache cut over 'model' by its sequence with the kv "
+                                      "heads cut over 'model' as well")
         return matmul(src_tp if lay.sharded else src, w).reshape(b, s, lay.n_kv, head_dim)
     if lay.kv == "gather":
         whole = copy_to_model(gather_from_model(matmul(src_tp, w), tp), tp)
     else:
         whole = copy_to_model(matmul(src, w), tp)
-    return whole.reshape(b, s, n_kv_heads, head_dim)[:, :, lay.kv_lo:lay.kv_hi]
+    whole = whole.reshape(b, s, n_kv_heads, head_dim)
+    return whole if every_head else whole[:, :, lay.kv_lo:lay.kv_hi]
 
 
 def attention(params: dict, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
               head_dim: int, rope_theta: float = 10000.0, use_rope: bool = True,
               causal: bool = True, window: int | None = None,
               kv_source: torch.Tensor | None = None,
-              cache: tuple | None = None, pos: int = 0, tp=None):
+              cache: tuple | None = None, pos: int = 0, tp=None, seq: tuple = ()):
     """Attention block (no norm/residual — the caller owns those).
 
     cache: (k_cache, v_cache) each (B, S_max, Hkv, hd); pos = current fill.
@@ -198,18 +238,23 @@ def attention(params: dict, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
     causal mask, no RoPE, no cache write.
     tp: the "model" axis the projections are sharded over (``head_layout``;
     a cache then holds the local kv heads).
+    seq: the ``MeshAxis`` list (outer first) that cuts the cache's sequence
+    (``parallel.tensor.ServeLayout.seq``; see the module docstring); the
+    cache then holds this rank's S_max / p slots, and every kv head where
+    "model" is among them.
     Returns (out, cache)."""
     b, sq, _ = x.shape
     lay = head_layout(n_heads, n_kv_heads, head_dim, tp)
-    g = lay.n_q // lay.n_kv
+    every_head = cache is not None and any(a.name == "model" for a in seq)
     src = kv_source if kv_source is not None else x
     s_src = src.shape[1]
     x_tp = copy_to_model(x, tp) if lay.sharded else x
     src_tp = x_tp if kv_source is None else (
         copy_to_model(src, tp) if lay.sharded else src)
-    q = matmul(x_tp, params["wq"]).reshape(b, sq, lay.n_kv, g, head_dim)
-    k = _project_kv(params["wk"], src, src_tp, lay, tp, head_dim, n_kv_heads)
-    v = _project_kv(params["wv"], src, src_tp, lay, tp, head_dim, n_kv_heads)
+    q = matmul(x_tp, params["wq"]).reshape(b, sq, lay.n_q, head_dim)
+    k = _project_kv(params["wk"], src, src_tp, lay, tp, head_dim, n_kv_heads, every_head)
+    v = _project_kv(params["wv"], src, src_tp, lay, tp, head_dim, n_kv_heads, every_head)
+    n_kv = k.shape[2]
 
     q_pos = pos + torch.arange(sq, device=x.device)
     if kv_source is not None:
@@ -219,25 +264,42 @@ def attention(params: dict, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
     else:
         k_pos = q_pos
     if use_rope:
-        qr = apply_rope(q.reshape(b, sq, lay.n_q, head_dim), q_pos.expand(b, sq), rope_theta)
-        q = qr.reshape(b, sq, lay.n_kv, g, head_dim)
+        q = apply_rope(q, q_pos.expand(b, sq), rope_theta)
         k = apply_rope(k, k_pos.expand(b, s_src), rope_theta)
+    gathered = every_head and lay.sharded
+    if gathered:  # every query head, for the partials over this rank's slots
+        q = gather_from_model(q.reshape(b, sq, lay.n_q * head_dim), tp).reshape(
+            b, sq, n_heads, head_dim)
+    q = q.reshape(b, sq, n_kv, q.shape[2] // n_kv, head_dim)
 
     k_len = None
     if cache is not None:
         k_cache, v_cache = cache
-        if pos + sq > k_cache.shape[1]:
-            raise ValueError(f"cache of {k_cache.shape[1]} slots cannot hold "
+        s_own = k_cache.shape[1]
+        j, p = linear_rank(seq)
+        if pos + sq > s_own * p:
+            raise ValueError(f"cache of {s_own * p} slots cannot hold "
                              f"positions up to {pos + sq}")
-        k_cache[:, pos:pos + sq] = k
-        v_cache[:, pos:pos + sq] = v
+        lo = j * s_own
+        # the new positions this rank's slots [lo, lo + s_own) own
+        w0, w1 = max(pos, lo), min(pos + sq, lo + s_own)
+        if w0 < w1:
+            k_cache[:, w0 - lo:w1 - lo] = k[:, w0 - pos:w1 - pos]
+            v_cache[:, w0 - lo:w1 - lo] = v[:, w0 - pos:w1 - pos]
         k, v = k_cache, v_cache
-        k_pos = torch.arange(k.shape[1], device=x.device)
+        k_pos = lo + torch.arange(s_own, device=x.device)
         k_len = pos + sq
 
     if window is None:
         window = GLOBAL_WINDOW
-    attend = _attend_flash if k.shape[1] > FLASH_THRESHOLD and sq > 1 else _attend_naive
-    out = attend(q, k, v, q_pos, k_pos, causal=causal, window=window, k_len=k_len)
-    out = matmul(out.reshape(b, sq, lay.n_q * head_dim), params["wo"])
+    if seq and cache is not None:
+        m, l, acc = _partial(q, k, v, q_pos, k_pos, causal=causal, window=window, k_len=k_len)
+        out = combine_softmax(m, l, acc, seq).permute(0, 3, 1, 2, 4).to(q.dtype)
+    else:
+        attend = _attend_flash if k.shape[1] > FLASH_THRESHOLD and sq > 1 else _attend_naive
+        out = attend(q, k, v, q_pos, k_pos, causal=causal, window=window, k_len=k_len)
+    out = out.reshape(b, sq, -1)
+    if gathered:  # this rank's query heads, for the row-parallel wo
+        out = out[..., lay.q_lo * head_dim:lay.q_hi * head_dim]
+    out = matmul(out, params["wo"])
     return (reduce_from_model(out, tp) if lay.sharded else out), cache

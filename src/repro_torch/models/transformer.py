@@ -44,8 +44,10 @@ the hybrid's shared block at each application and ``lm_head`` where they
 are used; the layers then see whole leaves over "data" (the MoE's router
 and expert stacks, Mamba2's projections, which gather over "model" after).
 Under remat "full" the backward gathers again, so no rank holds every
-layer's whole weights at once. The batch and the cache stay whole over
-"data" (each rank runs the rows it is given).
+layer's whole weights at once. Each rank runs the rows it is given; a
+serving step (``launch.steps``) gives it its block of the batch's rows and
+a cache cut as ``init_cache`` says (``seq``: the axes that cut its
+sequence, over which attention combines its partial softmax).
 """
 
 from __future__ import annotations
@@ -65,7 +67,7 @@ from repro_torch.device import resolve_device
 from repro_torch.dtypes import torch_dtype
 from repro_torch.kernels.repack import PackedTernary
 from repro_torch.models import mamba2 as mb
-from repro_torch.models.attention import GLOBAL_WINDOW, attention, head_layout, init_attn
+from repro_torch.models.attention import GLOBAL_WINDOW, attention, init_attn
 from repro_torch.models.common import apply_norm, dense_init, embed_init, matmul
 from repro_torch.models.mlp import init_mlp, mlp
 from repro_torch.models.moe import init_moe, moe
@@ -393,36 +395,47 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "c
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device: str | torch.device = "cuda", mesh=None) -> Pytree:
-    """Decode cache; its structure depends on the family: stacked
-    (L, B, S_max, Hkv, hd) keys and values for attention layers, (L, B,
-    W-1, C) conv windows and (L, B, H, P, N) float32 SSD states for Mamba
-    layers, and (A, B, S_max, Hkv, hd) per shared-attention application.
-    With a ``mesh`` whose "model" axis has size > 1, Hkv is this rank's kv
-    heads (``attention.head_layout``); the SSM states stay whole, and so
-    does everything over a "data" axis (each rank decodes its whole batch:
-    serving rows over "data" is ROADMAP 14b-v)."""
+    """Decode cache for a global batch of ``batch`` rows; its structure
+    depends on the family: stacked (L, B, S_max, Hkv, hd) keys and values
+    for attention layers, (L, B, W-1, C) conv windows and (L, B, H, P, N)
+    float32 SSD states for Mamba layers, and (A, B, S_max, Hkv, hd) per
+    shared-attention application. With a ``mesh``, this rank's part as
+    ``parallel.sharding.cache_specs`` places it
+    (``parallel.tensor.serve_layout``): B is the rank's rows where the batch
+    divides over ("pod", "data"); Hkv its kv heads where they divide over
+    "model"; S_max its slots where "model" (fewer kv heads than ranks) or
+    "data" (a batch that does not divide) cuts the sequence. The SSM states
+    are cut by rows only: the port's Mamba2 computes whole heads under
+    tensor parallelism, so they stay whole over "model"."""
+    from repro_torch.parallel.tensor import linear_rank, serve_layout
+
     dev = resolve_device(device)
     _check_family(cfg)
     check_tensor_parallel(cfg, mesh.size("model") if mesh is not None else 1)
-    tp = model_axis(mesh)
+    lay = serve_layout(cfg, mesh, batch)
+    rows = batch // lay.n_rows
+    _, n_seq = linear_rank(lay.seq)
+    if max_seq % n_seq:
+        raise ValueError(f"a cache of {max_seq} slots does not divide over the "
+                         f"{n_seq} ranks that cut its sequence")
+    slots = max_seq // n_seq
     dtype = dtype or cfg.cdtype()
     hd, nl = cfg.resolved_head_dim, cfg.n_layers
+    n_kv = cfg.n_kv_heads // mesh.size("model") if lay.heads else cfg.n_kv_heads
     cache: dict = {}
     if cfg.family in _ATTN_FAMILIES:
-        n_kv = head_layout(cfg.n_heads, cfg.n_kv_heads, hd, tp).n_kv
-        shape = (nl, batch, max_seq, n_kv, hd)
+        shape = (nl, rows, slots, n_kv, hd)
         cache["k"] = _zeros(shape, dtype, dev)
         cache["v"] = _zeros(shape, dtype, dev)
     else:
         d_in = mb.d_inner_of(cfg.d_model, cfg.ssm_expand)
         p = d_in // cfg.ssm_heads
-        cache["conv"] = _zeros((nl, batch, cfg.conv_width - 1, d_in + 2 * cfg.ssm_state),
+        cache["conv"] = _zeros((nl, rows, cfg.conv_width - 1, d_in + 2 * cfg.ssm_state),
                                dtype, dev)
-        cache["ssd"] = _zeros((nl, batch, cfg.ssm_heads, p, cfg.ssm_state),
+        cache["ssd"] = _zeros((nl, rows, cfg.ssm_heads, p, cfg.ssm_state),
                               torch.float32, dev)
     if cfg.family == "hybrid":
-        n_kv = head_layout(cfg.n_heads, cfg.n_kv_heads, hd, tp).n_kv
-        shape = (cfg.n_attn_apps, batch, max_seq, n_kv, hd)
+        shape = (cfg.n_attn_apps, rows, slots, n_kv, hd)
         cache["attn_k"] = _zeros(shape, dtype, dev)
         cache["attn_v"] = _zeros(shape, dtype, dev)
     return cache
@@ -450,11 +463,11 @@ def _mlp_tp(cfg: ModelConfig, tp):
 
 
 def _dense_layer(cfg: ModelConfig, bp: dict, x, window: int, kv, pos: int, tp=None,
-                 dp=None):
+                 dp=None, seq: tuple = ()):
     """One dense/moe/vlm/audio layer; kv = (k, v) cache slices or None.
     Returns (x, aux) with aux the MoE loss (0 for the other families)."""
     h = apply_norm(x, bp.get("attn_norm"), cfg.norm)
-    attn_out, _ = attention(bp["attn"], h, window=window, cache=kv, pos=pos, tp=tp,
+    attn_out, _ = attention(bp["attn"], h, window=window, cache=kv, pos=pos, tp=tp, seq=seq,
                             **_attn_kwargs(cfg))
     x = x + attn_out
     h = apply_norm(x, bp.get("mlp_norm"), cfg.norm)
@@ -484,9 +497,10 @@ def _cross_layer(cfg: ModelConfig, cp: dict, x, vision, tp=None):
                                                 _mlp_tp(cfg, tp))
 
 
-def _shared_attn_layer(cfg: ModelConfig, sp: dict, x, kv, pos: int, tp=None):
+def _shared_attn_layer(cfg: ModelConfig, sp: dict, x, kv, pos: int, tp=None,
+                       seq: tuple = ()):
     h = apply_norm(x, sp.get("attn_norm"), cfg.norm)
-    ao, _ = attention(sp["attn"], h, cache=kv, pos=pos, tp=tp, **_attn_kwargs(cfg))
+    ao, _ = attention(sp["attn"], h, cache=kv, pos=pos, tp=tp, seq=seq, **_attn_kwargs(cfg))
     x = x + ao
     h = apply_norm(x, sp.get("mlp_norm"), cfg.norm)
     return x + mlp(sp["mlp"], h, cfg.activation, _mlp_tp(cfg, tp))
@@ -552,7 +566,8 @@ def _embed(cfg: ModelConfig, table: torch.Tensor, tokens: torch.Tensor, tp) -> t
 def forward(cfg: ModelConfig, params: Pytree, tokens: torch.Tensor | None = None, *,
             embeds: torch.Tensor | None = None,
             vision_embeds: torch.Tensor | None = None,
-            cache: Pytree | None = None, pos: int = 0, tp=None, dp=None, fsdp=None):
+            cache: Pytree | None = None, pos: int = 0, tp=None, dp=None, fsdp=None,
+            seq: tuple = ()):
     """Returns (logits (B, S, V) in the compute dtype, cache or None, aux
     loss: the MoE layers' sum, a float32 scalar). With a cache, each layer's
     keys, values and SSM states are written into it in place. Under ``tp``
@@ -561,7 +576,8 @@ def forward(cfg: ModelConfig, params: Pytree, tokens: torch.Tensor | None = None
     (``parallel.tensor.BatchAxes``): the ranks whose rows make one batch
     with these, which the MoE layers route together. ``fsdp`` (the "data"
     ``MeshAxis``): the params are also cut over it, and each layer gathers
-    its own (see the module docstring)."""
+    its own (see the module docstring). ``seq``: the mesh axes that cut the
+    cache's sequence (``parallel.tensor.ServeLayout``)."""
     _check_family(cfg)
     check_tensor_parallel(cfg, tp.size if tp is not None else 1)
     if (tp is not None or fsdp is not None) and any(isinstance(w, PackedTernary) for w in
@@ -590,7 +606,7 @@ def forward(cfg: ModelConfig, params: Pytree, tokens: torch.Tensor | None = None
             # one remat unit per layer: the layer and the cross layer after it
             def body(x, bp, cp, kv=kv, window=window):
                 x, layer_aux = _dense_layer(cfg, gather_layer(bp, fsdp, fd.get("blocks")), x,
-                                            window, kv, pos, tp, dp)
+                                            window, kv, pos, tp, dp, seq)
                 if cp is not None:
                     x = _cross_layer(cfg, gather_layer(cp, fsdp, fd.get("cross")), x, vis, tp)
                 return x, layer_aux
@@ -617,7 +633,7 @@ def forward(cfg: ModelConfig, params: Pytree, tokens: torch.Tensor | None = None
             def body(x, bp, sp, kv=kv, states=states):
                 if sp is not None:
                     x = _shared_attn_layer(cfg, gather_layer(sp, fsdp, fd.get("shared_attn")),
-                                           x, kv, pos, tp)
+                                           x, kv, pos, tp, seq)
                 return _mamba_layer(cfg, gather_layer(bp, fsdp, fd.get("blocks")), x, states, tp)
 
             x, new_states = _remat(cfg, cache, body, x, _layer(blocks, i), sp)
@@ -649,10 +665,11 @@ def whole_logits(cfg: ModelConfig, logits: torch.Tensor, tp) -> torch.Tensor:
 
 def decode_step(cfg: ModelConfig, params: Pytree, tokens: torch.Tensor,
                 cache: Pytree, pos: int, *, vision_embeds: torch.Tensor | None = None,
-                tp=None, fsdp=None):
-    """One-token incremental decode. tokens: (B, 1); pos: cache fill."""
+                tp=None, dp=None, fsdp=None, seq: tuple = ()):
+    """One-token incremental decode. tokens: (B, 1); pos: cache fill;
+    ``tp``, ``dp``, ``fsdp`` and ``seq`` as for ``forward``."""
     logits, cache, _ = forward(cfg, params, tokens, vision_embeds=vision_embeds,
-                               cache=cache, pos=pos, tp=tp, fsdp=fsdp)
+                               cache=cache, pos=pos, tp=tp, dp=dp, fsdp=fsdp, seq=seq)
     return logits, cache
 
 

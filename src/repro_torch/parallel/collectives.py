@@ -81,6 +81,18 @@ from repro_torch.tree import flatten_with_path, path_str, tree_leaves, tree_map
 Pytree = Any
 
 _WIRE: collections.Counter = collections.Counter()
+_CALLS: collections.Counter = collections.Counter()
+
+
+def _count(kind: str, nbytes: int) -> None:
+    _WIRE[kind] += nbytes
+    _CALLS[kind] += 1
+
+
+def wire_calls() -> dict:
+    """Calls of each collective over a group of size > 1 since the last
+    ``reset_wire_bytes``."""
+    return dict(_CALLS)
 
 
 def wire_bytes() -> dict:
@@ -93,6 +105,7 @@ def wire_bytes() -> dict:
 
 def reset_wire_bytes() -> None:
     _WIRE.clear()
+    _CALLS.clear()
 
 
 def compressed_bytes_per_element(n_pods: int) -> float:
@@ -154,7 +167,7 @@ def all_reduce_(t: torch.Tensor, group, *, mean: bool = False, op: str = "sum") 
     dist.all_reduce(buf, group=group, op=_OPS[op])
     if buf is not t:
         t.copy_(buf)
-    _WIRE["all_reduce"] += 2 * (p - 1) * t.numel() * t.element_size() // p
+    _count("all_reduce", 2 * (p - 1) * t.numel() * t.element_size() // p)
     return t.div_(p) if mean else t
 
 
@@ -168,7 +181,7 @@ def all_gather(t: torch.Tensor, group) -> torch.Tensor:
     out = torch.empty((p,) + tuple(t.shape), dtype=t.dtype, device=src.device,
                       pin_memory=staged)
     dist.all_gather(list(out.unbind(0)), src, group=group)
-    _WIRE["all_gather"] += (p - 1) * t.numel() * t.element_size()
+    _count("all_gather", (p - 1) * t.numel() * t.element_size())
     return out.to(t.device) if staged else out
 
 
@@ -188,7 +201,7 @@ def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     if p == 1:
         return t
     out = _all_to_all(t, group)
-    _WIRE["all_to_all"] += (p - 1) * t.numel() * t.element_size() // p
+    _count("all_to_all", (p - 1) * t.numel() * t.element_size() // p)
     return out
 
 
@@ -214,7 +227,7 @@ def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
         out = torch.empty((x.shape[0] // p,) + tuple(x.shape[1:]), dtype=x.dtype,
                           device=x.device)
         dist.reduce_scatter_tensor(out, x, group=group)
-    _WIRE["reduce_scatter"] += (p - 1) * t.numel() * t.element_size() // p
+    _count("reduce_scatter", (p - 1) * t.numel() * t.element_size() // p)
     return out.movedim(0, dim).contiguous()
 
 

@@ -55,6 +55,16 @@ batch (the MoE's capacity, queue slots and load loss) reads it across them.
 ``mean_over_batch`` is their mean with an identity backward: the trainer
 averages every rank's gradient over the same axes, which gives the global
 mean's gradient.
+
+Serving (``serve_layout``) follows ``parallel.sharding.batch_specs`` and
+``cache_specs``: where the global batch divides over ("pod", "data") each
+rank serves its block of rows (``gather_rows`` rebuilds the reference's
+global tensor), else every rank serves the whole batch; the KV cache's
+sequence dim is cut over "model" where the kv heads do not divide over
+it, and over "data" where the rows are not cut. Attention over a
+sequence-cut cache (``models.attention``) computes each rank's partial
+blocked softmax over its own slots and ``combine_softmax`` merges them
+exactly, as flash-decode does.
 """
 
 from __future__ import annotations
@@ -146,6 +156,123 @@ def batch_axes(mesh, axes) -> BatchAxes | None:
     """The ``axes`` of ``mesh`` of size > 1 as ``BatchAxes``, or None."""
     groups = tuple(mesh.group(a) for a in axes if mesh.size(a) > 1)
     return BatchAxes(groups) if groups else None
+
+
+# --------------------------------------------------------------------------
+# Serving: rows over the batch axes, the KV cache's sequence over the mesh.
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeLayout:
+    """How a serving step's batch and cache lie on the mesh. ``rows``: the
+    ``BatchAxes`` the global batch's rows are cut over (None: every rank
+    has the whole batch), this rank holding block ``rows.index`` of
+    ``rows.size``; ``seq``: the ``MeshAxis`` list (outer first) that cut
+    the KV cache's sequence dim (``linear_rank``); ``heads``: whether
+    "model" cuts the cache's kv heads."""
+
+    rows: BatchAxes | None = None
+    seq: tuple = ()
+    heads: bool = False
+
+    @property
+    def n_rows(self) -> int:
+        return self.rows.size if self.rows is not None else 1
+
+    def take(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of rows of a global (B, ...) tensor."""
+        if self.rows is None:
+            return x
+        per = x.shape[0] // self.rows.size
+        return x[self.rows.index * per:(self.rows.index + 1) * per]
+
+
+def linear_rank(axes) -> tuple[int, int]:
+    """(this rank's row-major index, the count of ranks) over a list of
+    ``MeshAxis``, outer first: a sequence cut over them gives this rank the
+    global slots [index·S/count, (index + 1)·S/count)."""
+    index, count = 0, 1
+    for a in axes:
+        index, count = index * a.size + a.rank, count * a.size
+    return index, count
+
+
+def _serve_rows(mesh, batch: int | None) -> BatchAxes | None:
+    """The batch axes ("pod", "data") a global batch of ``batch`` rows is
+    cut over (None where it does not divide over them, or they have one
+    rank): the rule of ``parallel.sharding.batch_specs``. ``batch`` None:
+    cut wherever the axes have more than one rank."""
+    from repro_torch.parallel.sharding import logical_batch_axes
+
+    rows = batch_axes(mesh, logical_batch_axes(mesh)) if mesh is not None else None
+    if rows is None or batch is None:
+        return rows
+    return rows if batch % rows.size == 0 and batch >= rows.size else None
+
+
+def batch_ranks(mesh) -> int:
+    """The ranks of the mesh's batch axes ("pod", "data"); 1 without a mesh."""
+    rows = _serve_rows(mesh, None)
+    return rows.size if rows is not None else 1
+
+
+def _entry_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def serve_layout(cfg, mesh, batch: int) -> ServeLayout:
+    """The ``ServeLayout`` of a global batch of ``batch`` rows on ``mesh``:
+    the rows cut over ("pod", "data") where ``batch`` divides over them (the
+    rule of ``parallel.sharding.batch_specs``), and the KV cache's sequence
+    and heads as ``cache_specs`` places them."""
+    from repro_torch.parallel.sharding import cache_specs
+
+    if mesh is None:
+        return ServeLayout()
+    rows = _serve_rows(mesh, batch)
+    cut = rows is not None or batch_ranks(mesh) == 1
+    specs = cache_specs(cfg, mesh, batch_sharded=cut)
+    kv = specs.get("k", specs.get("attn_k"))
+    if kv is None:
+        return ServeLayout(rows=rows)
+    seq = tuple(a for a in (mesh_axis(mesh, name) for name in _entry_axes(kv[2]))
+                if a is not None)
+    return ServeLayout(rows=rows, seq=seq, heads=kv[3] == "model" and mesh.size("model") > 1)
+
+
+def gather_rows(x: torch.Tensor, mesh, batch: int | None = None) -> torch.Tensor:
+    """The reference's global (B, ...) tensor from every rank's rows ``x``
+    (a serving step's logits): all-gathered over the batch axes in their
+    linear order where a global batch of ``batch`` rows is cut over them
+    (without ``batch``: wherever they have more than one rank), else ``x``
+    itself, whole on every rank already. Every rank of the batch axes
+    calls it together."""
+    rows = _serve_rows(mesh, batch)
+    if rows is None:
+        return x
+    return rows.gather(x).reshape((-1,) + tuple(x.shape[1:]))
+
+
+def combine_softmax(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                    axes) -> torch.Tensor:
+    """Attention's output from every rank's partial blocked softmax over its
+    own keys: ``m`` (...) the row max of its scores (``NEG_INF`` where it
+    has no valid key), ``l`` (...) Σ exp(score − m), ``acc`` (..., hd)
+    Σ exp(score − m)·v. Over each ``MeshAxis`` of ``axes`` in turn: M = max
+    of m, l = Σ l·e^(m−M), acc = Σ acc·e^(m−M) (one MAX and one SUM
+    all-reduce); returns acc / l. A rank with no valid key (l = 0) adds
+    nothing; no autograd."""
+    for ax in axes:
+        big = all_reduce_(m.clone(), ax.group, op="max")
+        w = torch.exp(m - big)
+        parts = torch.cat([(l * w).reshape(-1), (acc * w[..., None]).reshape(-1)])
+        all_reduce_(parts, ax.group)
+        l, acc = parts[:l.numel()].view(l.shape), parts[l.numel():].view(acc.shape)
+        m = big
+    return acc / torch.clamp(l, min=1e-30)[..., None]
 
 
 class _MeanOverBatch(torch.autograd.Function):

@@ -77,20 +77,33 @@ def _children(node) -> list | None:
     return None
 
 
+def _flatten_into(out: list, node, name: str) -> None:
+    kids = _children(node)
+    if kids is None:
+        out.append((name, node))
+        return
+    for key, child in kids:
+        _flatten_into(out, child, f"{name}/{key}" if name else key)
+
+
 def flatten(tree: Pytree) -> list[tuple[str, Any]]:
     """(path name, leaf) pairs in JAX's flatten order, ``None`` included."""
-    out = []
-
-    def walk(node, name):
-        kids = _children(node)
-        if kids is None:
-            out.append((name, node))
-            return
-        for key, child in kids:
-            walk(child, f"{name}/{key}" if name else key)
-
-    walk(tree, "")
+    out: list = []
+    _flatten_into(out, tree, "")
     return out
+
+
+def _build(node, it):
+    kids = _children(node)
+    if kids is None:
+        return next(it)
+    if dataclasses.is_dataclass(node):
+        return dataclasses.replace(
+            node, **{f.name: _build(getattr(node, f.name), it) for f in dataclasses.fields(node)})
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    items = [_build(v, it) for v in node]
+    return type(node)(items) if isinstance(node, tuple) else items
 
 
 def unflatten(example: Pytree, leaves: list) -> Pytree:
@@ -98,21 +111,7 @@ def unflatten(example: Pytree, leaves: list) -> Pytree:
     n = len(flatten(example))
     if len(leaves) != n:
         raise ValueError(f"{len(leaves)} leaves for a structure of {n}")
-    it = iter(leaves)
-
-    def build(node):
-        kids = _children(node)
-        if kids is None:
-            return next(it)
-        if dataclasses.is_dataclass(node):
-            return dataclasses.replace(
-                node, **{f.name: build(getattr(node, f.name)) for f in dataclasses.fields(node)})
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        items = [build(v) for v in node]
-        return type(node)(items) if isinstance(node, tuple) else items
-
-    return build(example)
+    return _build(example, iter(leaves))
 
 
 def _describe(node) -> str:

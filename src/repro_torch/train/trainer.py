@@ -11,7 +11,9 @@ the batch is split on dim 0 and the chunks' gradients are averaged in fp32,
 as the reference's scan does.
 
 Over a mesh (``launch.mesh``) every rank takes its own rows of the global
-batch (dim 0 sharded over ("pod", "data"), pod major), and holds its
+batch (dim 0 sharded over ("pod", "data"), pod major; with microbatches,
+its share of each of the reference's global microbatches, ``_rank_rows``),
+and holds its
 shards of the state as the specs (``parallel.sharding``) place it:
 
 - A "model" axis of size > 1 is tensor parallelism (every family; the
@@ -341,6 +343,24 @@ def check_layout(state: TrainState, layout: dict, mesh) -> None:
                     "or cut it (parallel.tensor.shard_state)")
 
 
+def _rank_rows(v: torch.Tensor, n_shards: int, shard: int, n_micro: int,
+               micro_shards: int) -> torch.Tensor:
+    """Rank ``shard``'s rows of the global batch ``v``, in the order
+    ``_local_grads`` splits them: its microbatch i is its share of the
+    reference's microbatch i. The reference cuts the global rows (or, with
+    ``micro_shards`` < ``n_shards``, each block of ``n_shards //
+    micro_shards`` ranks' rows: a pod's) into ``n_micro`` chunks and places
+    each chunk's rows over the ``micro_shards`` ranks of the block."""
+    blocks = n_shards // micro_shards
+    per_block = v.shape[0] // blocks
+    b, j = divmod(shard, micro_shards)
+    block = v[b * per_block:(b + 1) * per_block]
+    chunk = per_block // n_micro
+    per = chunk // micro_shards
+    mine = block.reshape(n_micro, chunk, *v.shape[1:])[:, j * per:(j + 1) * per]
+    return mine.reshape(n_micro * per, *v.shape[1:])
+
+
 def make_train_step(model_cfg: tfm.ModelConfig, tcfg: TrainerConfig, optimizer: Optimizer,
                     mesh=None):
     """Returns ``step(state, batch) -> (state, metrics)`` with metrics
@@ -359,6 +379,9 @@ def make_train_step(model_cfg: tfm.ModelConfig, tcfg: TrainerConfig, optimizer: 
     bax = logical_batch_axes(mesh) if mesh is not None else ()
     n_shards = math.prod(mesh.size(a) for a in bax)
     shard = mesh.linear_index(bax) if mesh is not None else 0
+    # the reference's microbatch split is over the global rows, or a pod's
+    # rows where the compressed step's body is manual over "pod"
+    micro_shards = mesh.size("data") if compressed else n_shards
     data_group = mesh.group("data") if mesh is not None else None
     pod_group = mesh.group("pod") if mesh is not None else None
 
@@ -367,11 +390,10 @@ def make_train_step(model_cfg: tfm.ModelConfig, tcfg: TrainerConfig, optimizer: 
         synced over the data and pod subgroups."""
         rows = {}
         for k, v in batch.items():
-            if v.shape[0] % n_shards:
+            if v.shape[0] % (n_shards * tcfg.microbatches):
                 raise ValueError(f"batch {k!r} of {v.shape[0]} rows does not split over "
-                                 f"{n_shards} ranks")
-            per = v.shape[0] // n_shards
-            rows[k] = v[shard * per:(shard + 1) * per]
+                                 f"{n_shards} ranks and {tcfg.microbatches} microbatches")
+            rows[k] = _rank_rows(v, n_shards, shard, tcfg.microbatches, micro_shards)
         loss, metrics, g_p, g_w = _local_grads(model_cfg, tcfg, state, rows, ax)
         loss, metrics, g_p, g_w = _mean_over(data_group, loss, metrics, g_p, g_w, summed)
         if not compressed:

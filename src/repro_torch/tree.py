@@ -24,28 +24,41 @@ def _children(node):
     return None
 
 
+def _flatten_into(out: list, node, path: Path, is_leaf) -> None:
+    if node is None:
+        return
+    kids = None if (is_leaf is not None and is_leaf(node)) else _children(node)
+    if kids is None:
+        out.append((path, node))
+        return
+    for entry, child in kids:
+        _flatten_into(out, child, path + (entry,), is_leaf)
+
+
 def flatten_with_path(
     tree: Pytree, is_leaf: Callable[[Any], bool] | None = None
 ) -> list[tuple[Path, Any]]:
     """(path, leaf) pairs in JAX flatten order; ``None`` subtrees vanish."""
     out: list[tuple[Path, Any]] = []
-
-    def walk(node, path):
-        if node is None:
-            return
-        kids = None if (is_leaf is not None and is_leaf(node)) else _children(node)
-        if kids is None:
-            out.append((path, node))
-            return
-        for entry, child in kids:
-            walk(child, path + (entry,))
-
-    walk(tree, ())
+    _flatten_into(out, tree, (), is_leaf)
     return out
 
 
 def tree_leaves(tree: Pytree, is_leaf: Callable[[Any], bool] | None = None) -> list:
     return [leaf for _, leaf in flatten_with_path(tree, is_leaf)]
+
+
+def _map(fn, node, path: Path, is_leaf):
+    if node is None:
+        return None
+    if is_leaf is not None and is_leaf(node):
+        return fn(path, node)
+    if isinstance(node, dict):
+        return {k: _map(fn, node[k], path + (("d", k),), is_leaf) for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        items = [_map(fn, v, path + (("i", i),), is_leaf) for i, v in enumerate(node)]
+        return type(node)(items) if isinstance(node, tuple) else items
+    return fn(path, node)
 
 
 def tree_map_with_path(
@@ -54,21 +67,11 @@ def tree_map_with_path(
     is_leaf: Callable[[Any], bool] | None = None,
 ) -> Pytree:
     """Rebuild ``tree`` with ``fn(path, leaf)`` at every leaf; dicts keep
-    their keys, lists and tuples their type, ``None`` stays ``None``."""
-
-    def walk(node, path):
-        if node is None:
-            return None
-        if is_leaf is not None and is_leaf(node):
-            return fn(path, node)
-        if isinstance(node, dict):
-            return {k: walk(node[k], path + (("d", k),)) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            items = [walk(v, path + (("i", i),)) for i, v in enumerate(node)]
-            return type(node)(items) if isinstance(node, tuple) else items
-        return fn(path, node)
-
-    return walk(tree, ())
+    their keys, lists and tuples their type, ``None`` stays ``None``. (The
+    walkers are module functions, not recursive closures: a closure that
+    calls itself is a reference cycle, which would keep whatever ``fn``
+    holds, such as tensors, alive until the garbage collector runs.)"""
+    return _map(fn, tree, (), is_leaf)
 
 
 def tree_map(

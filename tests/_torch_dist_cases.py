@@ -25,7 +25,7 @@ from repro_torch.parallel.collectives import (
     reset_wire_bytes, ternary_allreduce, ternary_allreduce_tree, ternary_allreduce_tree_plain,
     wire_bytes,
 )
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def _np(tree):
@@ -443,15 +443,16 @@ def tp_steps(rank, world, *, runs, lr):
 
 
 def tp_pods(rank, world, *, cfg, state, batch, lr, steps, trees, residuals_in=None,
-            mesh_shape=(2, 1, 2)):
+            mesh_shape=(2, 1, 2), tcfg=None):
     """On a pod x data x model mesh of ``mesh_shape`` ((2, 1, 2), or (2,
     2, 1) for pods x FSDP): (a) the compressed collective with error
     feedback over ``trees`` (per step, each pod's whole gradient tree) on
     this rank's shards, kernel path and plain version, gathered over
     "model" and "data"; each step takes the residuals the last one left, or
     with ``residuals_in`` (per step, a tree of (n_pods, *shape) leaves) this
-    pod's of those; (b) ``steps`` compressed QAT steps from the reference's
-    state, gathered over "pod", "model" and "data"."""
+    pod's of those; (b) ``steps`` compressed QAT steps (``tcfg``: more
+    TrainerConfig kwargs) from the reference's state, gathered over "pod",
+    "model" and "data"."""
     from repro_torch.parallel.collectives import ternary_allreduce_tree_plain
     from repro_torch.parallel.sharding import param_specs
     from repro_torch.parallel.tensor import (
@@ -481,18 +482,33 @@ def tp_pods(rank, world, *, cfg, state, batch, lr, steps, trees, residuals_in=No
                                   "res": _np(gather_tree(res, specs, mesh)), "wire": wire})
         out["plain"].append({"synced": _np(gather_tree(synced_p, specs, mesh)),
                              "res": _np(gather_tree(res_p, specs, mesh))})
-    tcfg, opt = TrainerConfig(qat=True, pod_compression=True, error_feedback=True), adam(lr)
+    tcfg, opt = TrainerConfig(qat=True, pod_compression=True, error_feedback=True,
+                              **(tcfg or {})), adam(lr)
     s = _state(state, "cpu")
     fresh = init_train_state(cfg, tcfg, opt, params=s.params, device="cpu", n_pods=2, mesh=mesh)
     s = dataclasses.replace(shard_state(s, specs, mesh), residuals=fresh.residuals)
+    # each step's compressed input (gradient plus residual) of this rank's
+    # pod, gathered over "data" and "model": where a code sits at Δ
+    import repro_torch.train.trainer as trainer_mod
+
+    synced_inputs, sync = [], trainer_mod.ternary_allreduce_tree
+
+    def recorded(g_p, grp, *, residuals=None, **kw):
+        res = iter(tree_leaves(residuals))
+        x = tree_map(lambda g: g.to(torch.float32) + next(res), g_p)
+        synced_inputs.append(_np(gather_tree(x, specs, mesh)))
+        return sync(g_p, grp, residuals=residuals, **kw)
+
+    trainer_mod.ternary_allreduce_tree = recorded
     step_fn = make_train_step(cfg, tcfg, opt, mesh=mesh)
     b = {k: v.to(torch.int64) for k, v in _torch(batch, "cpu").items()}
     losses = []
     for _ in range(steps):
         s, m = step_fn(s, b)
         losses.append(float(m["loss"]))
+    trainer_mod.ternary_allreduce_tree = sync
     s = gather_state(gather_residuals(s, mesh), specs, mesh)
-    out["train"] = {"losses": losses, **_state_np(s)}
+    out["train"] = {"losses": losses, **_state_np(s), "synced_inputs": synced_inputs}
     return out
 
 
@@ -981,7 +997,7 @@ def fsdp_basics(rank, world, *, ckpt, batch, lr, max_seq, gen):
     from repro_torch.parallel.collectives import all_reduce_, reduce_scatter
     from repro_torch.parallel.sharding import NamedSharding, P, param_shardings, param_specs
     from repro_torch.parallel.tensor import (
-        data_axis, gather_from_data, gather_state, param_shards, shard_state,
+        data_axis, gather_from_data, gather_rows, gather_state, param_shards, shard_state,
     )
     from repro_torch.train import (
         TrainerConfig, init_train_state, make_train_step, restore_checkpoint, save_checkpoint,
@@ -1074,18 +1090,20 @@ def fsdp_basics(rank, world, *, ckpt, batch, lr, max_seq, gen):
                 bb = {"tokens": prompts}
                 if vis is not None:
                     bb["vision_embeds"] = vis
+                # each rank serves its row of the two; gathered for the check
                 logits, cache = make_prefill_step(acfg, max_seq, mesh=msh)(p, bb)
-                steps, toks = [logits.numpy()], []
+                steps, toks = [gather_rows(logits, msh).numpy()], []
                 decode = make_decode_step(acfg, mesh=msh)
                 for i in range(gen):
                     tok = torch.argmax(logits, -1)
-                    toks.append(tok.numpy())
+                    toks.append(gather_rows(tok, msh).numpy())
                     sb = {"tokens": tok, "cache": cache, "pos": 8 + i}
                     if vis is not None:
                         sb["vision_embeds"] = vis
                     logits, cache = decode(p, sb)
-                    steps.append(logits.numpy())
-                got[name] = {"logits": steps, "tokens": toks}
+                    steps.append(gather_rows(logits, msh).numpy())
+                got[name] = {"logits": steps, "tokens": toks,
+                             "cache_rows": next(iter(cache.values())).shape[1]}
             out["serve"][arch] = got
 
     if world == 4:
@@ -1154,9 +1172,111 @@ def fsdp_step(rank, world, *, device="cpu"):
     return out
 
 
+def serve_rows(rank, world, *, runs, params, prompts, max_seq, gen, chunks):
+    """For each run (arch, (data, model) mesh shape, global batch): the
+    prefill (in ``chunks`` chunks) and ``gen`` greedy decode steps on that
+    mesh from the arch's whole params' shards, each rank feeding back its
+    own rows' tokens; the logits gathered over the rows
+    (``gather_rows``), the greedy tokens and this rank's cache leaf shapes.
+    None on a rank off the mesh."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.parallel.sharding import param_specs
+    from repro_torch.parallel.tensor import gather_rows
+
+    out = []
+    for run in runs:
+        shape, b = tuple(run["shape"]), run["batch"]
+        mesh = make_mesh(shape, ("data", "model"), ranks=range(shape[0] * shape[1]),
+                         device="cpu")
+        if not mesh.member:
+            out.append(None)
+            continue
+        cfg = get_reduced(run["arch"])
+        p = params_from_jax(params[run["arch"]], "cpu", mesh=mesh,
+                            specs=param_specs(cfg, mesh))
+        toks = torch.from_numpy(prompts[run["arch"]][:b]).long()
+        with torch.no_grad():
+            logits, cache = make_prefill_step(cfg, max_seq, chunks=chunks, mesh=mesh)(
+                p, {"tokens": toks})
+            decode = make_decode_step(cfg, mesh=mesh, batch=b)
+            steps, tokens = [gather_rows(logits, mesh, b).numpy()], []
+            for i in range(gen):
+                tok = torch.argmax(logits, -1)
+                tokens.append(gather_rows(tok, mesh, b).numpy())
+                logits, cache = decode(p, {"tokens": tok, "cache": cache,
+                                           "pos": toks.shape[1] + i})
+                steps.append(gather_rows(logits, mesh, b).numpy())
+        out.append({"logits": steps, "tokens": tokens,
+                    "cache": {k: tuple(v.shape) for k, v in cache.items()}})
+    return out
+
+
+def combine(rank, world, *, q, k, v, k_len, window, device="cpu"):
+    """``combine_softmax`` over a (2, 2) data x model mesh: this rank's
+    quarter of the keys (rank-major slots, as a cache cut over ("data",
+    "model") holds them) as a partial (``attention._partial``, masked by
+    global position and by ``k_len``), combined over "data" then "model",
+    against one softmax over every key on this rank."""
+    from repro_torch.models.attention import GLOBAL_WINDOW, _mask_bias, _partial
+    from repro_torch.parallel.tensor import combine_softmax, data_axis, model_axis
+
+    mesh = make_mesh((2, 2), ("data", "model"), device=device)
+    q, k, v = (torch.from_numpy(a).to(device) for a in (q, k, v))
+    sq, sk = q.shape[1], k.shape[1]
+    per = sk // 4
+    q_pos = (k_len - sq) + torch.arange(sq, device=device)
+    k_pos = torch.arange(sk, device=device)
+    win = window or GLOBAL_WINDOW
+    own = slice(rank * per, (rank + 1) * per)
+    m, l, acc = _partial(q, k[:, own], v[:, own], q_pos, k_pos[own], causal=True, window=win,
+                         k_len=k_len)
+    got = combine_softmax(m, l, acc, (data_axis(mesh), model_axis(mesh)))
+    bias = _mask_bias(q_pos, k_pos, causal=True, window=win) + torch.where(
+        k_pos[None, :] < k_len, 0.0, -1e30)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", q, k) * (q.shape[-1] ** -0.5) + bias
+    want = torch.einsum("bhgqk,bkhd->bhgqd", torch.softmax(scores, -1), v)
+    return {"got": got.cpu().numpy(), "want": want.cpu().numpy(),
+            "empty": bool((l == 0).all())}
+
+
+def seq_attention(rank, world, *, device):
+    """Batch-1 prefill and greedy decode of granite-20b (MQA) and gemma3-4b
+    (sliding window), reduced, from the seed-0 params, with the cache's
+    sequence cut over two ranks: "model" on a (1, 2) mesh (granite) and
+    "data" on a (2, 1) mesh (both); on ``device`` and on the CPU, the
+    logits of each step, from the same seed-0 params drawn on the CPU."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.parallel.sharding import param_specs
+    from repro_torch.parallel.tensor import shard_tree
+
+    out = {}
+    for arch, shape in (("granite-20b", (1, 2)), ("granite-20b", (2, 1)),
+                        ("gemma3-4b", (2, 1))):
+        cfg = get_reduced(arch)
+        whole = init_params(cfg, seed=0, device="cpu")
+        got = {}
+        for dev in (device, "cpu"):
+            mesh = make_mesh(shape, ("data", "model"), device=dev)
+            p = tree_map(lambda t: t.to(dev), shard_tree(whole, param_specs(cfg, mesh), mesh))
+            toks = torch.arange(6, device=dev)[None] % cfg.vocab_size
+            with torch.no_grad():
+                logits, cache = make_prefill_step(cfg, 16, chunks=2, mesh=mesh)(
+                    p, {"tokens": toks})
+                decode = make_decode_step(cfg, mesh=mesh, batch=1)
+                steps = [logits.cpu().numpy()]
+                for i in range(7):
+                    logits, cache = decode(p, {"tokens": torch.argmax(logits, -1),
+                                               "cache": cache, "pos": 6 + i})
+                    steps.append(logits.cpu().numpy())
+            got[dev] = {"logits": steps, "slots": cache["k"].shape[2]}
+        out[f"{arch}-{shape}"] = got
+    return out
+
+
 CASES = {f.__name__: f for f in (collectives, fanin, trainer, elastic, moe_forward, moe_train,
                                   q8_a2a, tp_basics, tp_steps, tp_pods, tp_serve, tp_families,
-                                  tp_family_steps, fsdp_basics, fsdp_step)}
+                                  tp_family_steps, fsdp_basics, fsdp_step, serve_rows, combine,
+                                  seq_attention)}
 
 
 def main() -> None:

@@ -205,13 +205,15 @@ def test_elastic_reshard_of_an_fsdp_state(four, shape):
                                   "llama-3.2-vision-11b"])
 def test_prefill_and_decode_on_data_shards_match_one_device(two, arch):
     """Prefill and greedy decode on (2, 1) data shards (each layer gathers
-    its weights, the batch and cache whole): logits within 1e-5 of max
-    |logits| of one device, the same greedy tokens, both ranks alike; the
-    converted shards equal ``init_params(..., mesh=)``'s."""
+    its weights; each rank serves its row of the batch of 2, its cache that
+    row): logits gathered over the rows within 1e-5 of max |logits| of one
+    device, the same greedy tokens, both ranks alike; the converted shards
+    equal ``init_params(..., mesh=)``'s."""
     ranks, _ = two
     for r in ranks:
         got = r["serve"][arch]
         assert got["converted_shards_equal"]
+        assert got["fsdp"]["cache_rows"] == 1 and got["one"]["cache_rows"] == 2
         for a, b in zip(got["fsdp"]["logits"], got["one"]["logits"]):
             assert a.shape == b.shape
             assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max()

@@ -1360,3 +1360,22 @@ def test_fsdp_step_on_two_gloo_ranks_on_the_card(cuda_device, tmp_path):
                 assert np.abs(a - b)[~small].max(initial=0.0) <= 1e-6, arch
                 assert np.abs(a - b)[small].max(initial=0.0) <= 2 * 3e-3, arch
             assert got["wire"]["reduce_scatter"] == got["data_cut_bytes"] // 2, arch
+
+
+def test_sequence_cut_attention_on_two_gloo_ranks_on_the_card(cuda_device, tmp_path):
+    """Batch-1 prefill (two chunks) and 7 greedy decode steps with the
+    cache's sequence cut over two gloo ranks sharing cuda:0 (granite-20b's
+    MQA over "model" and over "data", gemma3-4b's sliding window over
+    "data"; reduced, 16 slots, 8 a rank): each step's logits within 1e-4 of
+    max |logits| of the same ranks' CPU run, every write crossing from
+    rank 0's slots into rank 1's."""
+    import numpy as np
+
+    from _torch_dist import run_ranks
+
+    ranks = run_ranks("seq_attention", 2, tmp_path, timeout=180, device="cuda:0")
+    for out in ranks:
+        for name, got in out.items():
+            assert got["cuda:0"]["slots"] == got["cpu"]["slots"] == 8, name
+            for a, b in zip(got["cuda:0"]["logits"], got["cpu"]["logits"]):
+                assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max(), name

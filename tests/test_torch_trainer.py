@@ -3,9 +3,10 @@ and a microbatched step against the reference's jitted step, remat ``"full"`` an
 against ``"none"``, the counterparts of
 ``test_models_smoke::test_train_step_decreases_loss`` and
 ``test_system::test_qat_lm_training_learns``, and the multi-device cases
-that raise."""
+that raise, and that a step leaves no reference cycles."""
 
 import dataclasses
+import gc
 
 import jax
 import numpy as np
@@ -139,6 +140,33 @@ def test_step_leaves_its_input_state_unchanged():
     after = tree_leaves(state.params) + tree_leaves(state.wq)
     assert all(torch.equal(a, b) for a, b in zip(before, after))
     assert int(state.step) == 0 and int(new.step) == 1
+
+
+def test_a_step_leaves_no_reference_cycles():
+    """Nothing a step made waits for the garbage collector: the tree walkers
+    are no recursive closures (a closure that calls itself is a cycle that
+    keeps every tensor its mapped function holds, such as the gradients and
+    the old state, alive until a collection)."""
+    cfg = TC.get_reduced("olmo-1b")
+    tcfg, opt = TrainerConfig(), adam(3e-3)
+    state = init_train_state(cfg, tcfg, opt, seed=0, device="cpu")
+    batch = torch_batch(batch_np(cfg, b=2))
+    step = make_train_step(cfg, tcfg, opt)
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        state, _ = step(state, batch)
+        state, _ = step(state, batch)
+        gc.set_debug(gc.DEBUG_SAVEALL)
+        gc.collect()
+        tensors = [o for o in gc.garbage if isinstance(o, torch.Tensor)]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        if enabled:
+            gc.enable()
+    assert tensors == []
 
 
 def test_multi_device_cases_raise():
