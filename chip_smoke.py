@@ -163,7 +163,7 @@ Phases (any failure exits non-zero; no phase is skipped):
                  plus 4 B a w_q, mean and residuals within 1e-6 of the plain
                  version, codes equal but at ties) and 2 compressed train
                  steps with the same launches and bytes per step; (e)
-                 zamba2-1.2b at its published widths cut to 12 of 38
+                 zamba2-1.2b at its published widths cut to 7 of 38
                  layers (two applications of the shared block), remat
                  "full" (each Mamba2 layer would keep ~1.2 GB of SSD
                  intermediates), trained as (a): its Mamba2 weights
@@ -189,7 +189,18 @@ Phases (any failure exits non-zero; no phase is skipped):
                  qwen3-moe-30b-a3b cut to 1 layer (one quantize_pack and
                  two aggregate launches, the all-gather 0.25 B a shard
                  coordinate plus 4 B a w_q, mean and residuals within 1e-6
-                 of the plain version, codes equal but at proven ties);
+                 of the plain version, codes equal but at proven ties); (r)
+                 qwen3-moe-30b-a3b cut to 1 of 48 layers on the pair with
+                 the all-to-all MoE under "model" (EP over it, each rank's
+                 own 64 experts, capacity 16, 2 × 128 tokens): the first QAT
+                 step's loss (rtol 5e-5) and every leaf's ‖Δg‖/‖g‖ (5e-3;
+                 the expert stacks and the router named) against the
+                 scatter dispatch from the same state, a planted fault (no
+                 1/n_ep scale on the returned copies' gradient) past the
+                 limit on every expert stack, the all-to-all's bytes and
+                 calls a rank against their closed form, the buffers'
+                 bytes, one step of each timed, and the int8 wire's
+                 forward within 5% relative L2 of the plain wire's;
   9d. fsdp — in the same spawn, FSDP over the "data" axis (params and both
                  Adam moments cut on each leaf's "data" dim, each layer's
                  weights all-gathered where it uses them, their gradients
@@ -220,6 +231,26 @@ Phases (any failure exits non-zero; no phase is skipped):
                  plus 4 B a w_q, mean and residuals within 1e-6 of the plain
                  version) and 2 compressed steps with the same launches, the
                  weights' gathers and reduce-scatters counted exactly;
+  9e. serve_rows — in the same spawn: (o) is (n), 2 rows a rank, 4 greedy
+                 steps; (p) olmo-1b whole, batch 1, a 4,096-slot cache's
+                 sequence over the two data ranks, a 2,044-token prompt and
+                 8 steps, the fifth writing rank 1's first slot; (q)
+                 granite-20b (MQA) cut to 4 of 52 layers, batch 2, its
+                 cache's sequence over 2 model ranks; each against one
+                 process (1e-4 of max |logits|, the same tokens, every
+                 rank's cache exactly half);
+  9f. midhead — sixteen ranks spawned on the card over gloo, a (1, 16) data
+                 × model mesh: (s) gemma3-4b at its published widths cut to
+                 6 of 34 layers (five sliding-window layers, then the global
+                 one), 8 query heads, so each rank's wq columns are half a
+                 head; its seed-0 params drawn once by the first rank and
+                 handed out as shards; the shards' QAT codes against the
+                 whole leaves' (differing only at ties at Δ); prefill 2 × 64
+                 and 8 greedy steps with the cache's sequence over "model"
+                 against one process (1e-4 of max |logits|, the same
+                 tokens, each rank's cache exactly 1/16 of its bytes); the
+                 first QAT step's loss (rtol 5e-5) and worst leaf ‖Δg‖/‖g‖
+                 (5e-3) against one process from the same params;
  10. federated — two T-FedAvg sync rounds (paper Algorithm 2) on ResNet18* at
                  full width with the paper's CIFAR setting (FedConfig
                  defaults: 100 clients, λ = 0.1, E = 5, B = 64, adam(1e-3), 500
@@ -3864,12 +3895,23 @@ TP_PODS_STEPS = 2
 # gradients and updates) and two ranks ran out of the 80 GB; at 1 layer
 # (1.25 B) the ranks and then one process fit
 TP_MOE_LAYERS = 1
-# (e) and (h) zamba2-1.2b cut from 38 layers (two applications of the
-# shared block) so that the fsdp part fits the script's limit: at 38 layers
-# the cell took ~194 s of a 922.9 s script (an H100 80GB HBM3 at 700 W)
-TP_ZAMBA_LAYERS = 12
+# (e) and (h) zamba2-1.2b cut from 38 layers so that the script fits its
+# limit, keeping two applications of the shared block (layers 0 and 6): at
+# 38 layers the cell took ~194 s of a 922.9 s script, at 12 layers 90.3 s of
+# a 1,129.6 s one (an H100 80GB HBM3 at 700 W)
+TP_ZAMBA_LAYERS = 7
 TP_PODS_MOE_LAYERS = 1       # (i): qwen3-moe-30b-a3b's gradient tree on four ranks
 TP_TWIN_NOISE = 1e-7         # the noise twin's relative weight noise (``_tp_twin``)
+# (r) qwen3-moe-30b-a3b cut to 1 of 48 layers as (f), the all-to-all MoE
+# with EP over "model": at capacity 16 a queue of C_send = T·k / 2 · 16 and a
+# local expert's C_loc = 2·C_send / 64 = 2·T slots hold every copy (E_loc =
+# 64, k = 8), so the a2a step computes the scatter dispatch's function
+TP_A2A_LAYERS = 1
+TP_A2A_TOKENS = (2, 128)
+TP_A2A_CF = 16.0
+TP_A2A_INT8_REL_L2 = 0.05    # the int8 wire's forward against the plain wire's
+TP_A2A_LEAVES = ("blocks/moe/w_in", "blocks/moe/w_gate", "blocks/moe/w_out",
+                 "blocks/moe/router")
 
 
 def _peak_gib(dev) -> float:
@@ -4211,7 +4253,7 @@ def _tp_single(dev, cfg, batches, fcfg, tp_run: dict, tp_params, save_dir: str,
 
 
 def _tp_serve(mesh, dev, cfg, prompts: int = TP_PROMPTS, prompt: int = TP_PROMPT,
-              gen: int = TP_GEN, max_seq: int | None = None) -> dict:
+              gen: int = TP_GEN, max_seq: int | None = None, shards=None) -> dict:
     """``launch/steps.py`` with the mesh: a prefill of ``prompts`` ×
     ``prompt`` tokens into ``max_seq`` slots (default: room for the
     decode) and ``gen`` greedy decode steps on the rank's shards of the
@@ -4220,7 +4262,8 @@ def _tp_serve(mesh, dev, cfg, prompts: int = TP_PROMPTS, prompt: int = TP_PROMPT
     the mesh's first rank the same on the whole params in one process: each
     step's logits gathered over the rows (``gather_rows``) against the
     one-process logits (max |Δ| over max |logits|), the greedy tokens, each
-    decode step's time and the cache's bytes."""
+    decode step's time and the cache's bytes. ``shards``: the rank's shards
+    of those params, where the caller made them."""
     import torch
 
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
@@ -4257,7 +4300,8 @@ def _tp_serve(mesh, dev, cfg, prompts: int = TP_PROMPTS, prompt: int = TP_PROMPT
             "cache_rows": int(kv.shape[1]), "cache_slots": int(kv.shape[2]),
             "cache_bytes": sum(v.numel() * v.element_size() for v in cache.values())}
 
-    shards = init_params(cfg, seed=0, device=dev, mesh=mesh)
+    if shards is None:
+        shards = init_params(cfg, seed=0, device=dev, mesh=mesh)
     with torch.no_grad():
         steps, tokens, out = run(shards, mesh)
     del shards
@@ -4542,6 +4586,130 @@ def _tp_cell(mesh, pair, dev, cfg, fcfg, out_dir: str, name: str, fault,
     return out
 
 
+def _leaf_gaps(got, ref, sh) -> dict:
+    """{leaf: ‖got − ref‖ / ‖ref‖ of the whole leaf} from this rank's
+    shards of two trees of one layout (``sh``: the ``Shards`` that cut
+    them; the squared sums reduced over each cutting axis, in float64)."""
+    import torch
+
+    from repro_torch.parallel.tensor import reduce_over
+    from repro_torch.tree import flatten_with_path, path_str
+
+    names, parts = [], []
+    for (p, a), (_, b) in zip(flatten_with_path(got), flatten_with_path(ref)):
+        a, b = a.to(torch.float64), b.to(a.device, torch.float64)
+        names.append(path_str(p))
+        parts.append(torch.stack([((a - b) ** 2).sum(), (b ** 2).sum()]).cpu())
+    sums = reduce_over(parts, [sh.axes(n) if sh is not None else () for n in names])
+    return {n: float(x[0].sqrt() / x[1].sqrt().clamp_min(1e-300)) for n, x in zip(names, sums)}
+
+
+@contextlib.contextmanager
+def _fault_no_grad_scale():
+    """A planted fault: the all-to-all MoE's returned copies keep their
+    whole gradient, so every expert's owner, which computed each copy once
+    per source rank, gets n_ep times its gradient."""
+    from repro_torch.models import moe_a2a
+
+    saved = moe_a2a._ScaleGrad.apply
+    moe_a2a._ScaleGrad.apply = lambda x, scale: x
+    try:
+        yield
+    finally:
+        moe_a2a._ScaleGrad.apply = saved
+
+
+def _tp_a2a(mesh, dev, cfg, fcfg) -> dict:
+    """(r) qwen3-moe-30b-a3b over the pair's "model" axis with the
+    all-to-all MoE (EP over "model", each rank's own experts, the replicated
+    tokens): from one seed-0 state and one batch, the QAT step's loss and
+    gradients (``train.make_grad_fn``) with the plain wire, with the
+    scatter dispatch and under the planted fault (no 1/n_ep scale), each
+    leaf's ‖Δg‖/‖g‖ over the whole leaf; the all-to-all's bytes and calls a
+    rank, its buffers' bytes; one whole train step of each dispatch timed;
+    and the int8 wire's forward logits against the plain wire's."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.moe_a2a import _up8
+    from repro_torch.models.transformer import forward
+    from repro_torch.optim import adam
+    from repro_torch.parallel.collectives import reset_wire_bytes, wire_bytes, wire_calls
+    from repro_torch.parallel.tensor import model_axis, param_shards, reduce_over
+    from repro_torch.train import TrainerConfig, init_train_state, make_grad_fn, make_train_step
+
+    t_start = time.perf_counter()
+    cfg_g = dataclasses.replace(cfg, moe_impl="gspmd", capacity_factor=TP_A2A_CF)
+    cfg_a = dataclasses.replace(cfg_g, moe_impl="a2a", moe_wire="bf16", mesh_ep_axis="model")
+    cfg_q = dataclasses.replace(cfg_a, moe_wire="int8")
+    tcfg, opt = TrainerConfig(fttq=fcfg), adam(TRAIN_LR)
+    state = init_train_state(cfg_g, tcfg, opt, seed=0, device=dev, mesh=mesh)
+    _free()
+    b, s = TP_A2A_TOKENS
+    toks = torch.randint(0, cfg.vocab_size, (b, s + 1),
+                         generator=torch.Generator(dev).manual_seed(3), device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    n_ep, t, k = mesh.size("model"), b * s, cfg.top_k
+    c_send = _up8(max(int(t * k / n_ep * TP_A2A_CF), k))
+    e_loc = cfg.n_experts // n_ep
+    c_loc = min(_up8(max(int(n_ep * c_send / e_loc), 8)), n_ep * c_send)
+    d = cfg.d_model
+    out = {"tokens": [b, s], "c_send": c_send, "c_loc": c_loc,
+           "send_buffer_bytes": n_ep * c_send * d * 4, "expert_buffer_bytes": e_loc * c_loc * d * 4,
+           # a layer's forward: the send buffer, its int32 expert index and the
+           # return trip; its backward: both trips again; a rank receives
+           # (n_ep − 1)/n_ep of each
+           "want_a2a_bytes": cfg.n_layers * (n_ep - 1) * c_send * (4 * d * 4 + 4),
+           "want_a2a_calls": cfg.n_layers * 5}
+    grads = {}
+    for name, c, fault in (("gspmd", cfg_g, False), ("a2a", cfg_a, False),
+                           ("fault", cfg_a, True)):
+        reset_wire_bytes()
+        _sync(dev)
+        t0 = time.perf_counter()
+        with _fault_no_grad_scale() if fault else contextlib.nullcontext():
+            loss, _, g, _ = make_grad_fn(c, tcfg, mesh)(state, batch)
+        _sync(dev)
+        out[name] = {"loss": float(loss), "grad_ms": (time.perf_counter() - t0) * 1e3,
+                     "wire": wire_bytes(), "calls": wire_calls()}
+        grads[name] = g
+        del g
+    sh = param_shards(cfg_g, mesh)
+    for name in ("a2a", "fault"):
+        gaps = _leaf_gaps(grads[name], grads["gspmd"], sh)
+        worst = max(gaps, key=gaps.get)
+        out[name].update(loss_rel_gap=abs(out[name]["loss"] - out["gspmd"]["loss"])
+                         / abs(out["gspmd"]["loss"]),
+                         worst_leaf=worst, worst_rel_l2=gaps[worst],
+                         named={n: gaps[n] for n in TP_A2A_LEAVES})
+    del grads
+    _free()
+    for name, c in (("gspmd", cfg_g), ("a2a", cfg_a)):
+        _sync(dev)
+        t0 = time.perf_counter()
+        new, m = make_train_step(c, tcfg, opt, mesh=mesh)(state, batch)
+        _sync(dev)
+        out[name].update(step_ms=(time.perf_counter() - t0) * 1e3, step_loss=float(m["loss"]))
+        del new, m
+        _free()
+    tp = model_axis(mesh)
+    logits = {}
+    with torch.no_grad():
+        for name, c in (("bf16", cfg_a), ("int8", cfg_q)):
+            reset_wire_bytes()
+            logits[name], _, _ = forward(c, state.params, batch["tokens"], tp=tp)
+            out[f"{name}_forward_a2a_bytes"] = wire_bytes().get("all_to_all", 0)
+    d2, n2 = reduce_over([torch.stack([((logits["int8"] - logits["bf16"]).double() ** 2).sum(),
+                                       (logits["bf16"].double() ** 2).sum()]).cpu()],
+                         [(tp,)])[0]
+    out["int8_rel_l2"] = float(d2.sqrt() / n2.sqrt())
+    del state, logits
+    _free()
+    out["wall_s"] = time.perf_counter() - t_start
+    return out
+
+
 def tensor_parallel_rank(rank: int, dev, fcfg, sizes: dict, pair, tp_mesh, pods_mesh,
                          out_dir: str, progress=lambda out: None) -> dict:
     """The tensor_parallel phase on one rank of the multidevice spawn: (a)
@@ -4549,7 +4717,8 @@ def tensor_parallel_rank(rank: int, dev, fcfg, sizes: dict, pair, tp_mesh, pods_
     and a planted fault, (b) the ternary save from the shards, (c) prefill
     and decode; (e) zamba2-1.2b and (f) qwen3-moe-30b-a3b trained the same
     way, each with its own planted fault, (g) the latter's ternary save, (h)
-    zamba2's prefill and decode; then (d) and (i) pods x model on all four
+    zamba2's prefill and decode, (r) qwen3-moe's all-to-all MoE against the
+    scatter dispatch and a planted fault; then (d) and (i) pods x model on all four
     ranks (olmo-1b, qwen3-moe). ``progress(out)`` is called after each
     part with the report so far."""
     import torch.distributed as dist
@@ -4576,6 +4745,9 @@ def tensor_parallel_rank(rank: int, dev, fcfg, sizes: dict, pair, tp_mesh, pods_
         out["moe"] = _tp_cell(tp_mesh, pair, dev, moe_cfg, fcfg, out_dir, "moe",
                               lambda: _fault_local_gates(moe_cfg.top_k), save=True,
                               route_check=True, first_step=True)
+        progress(out)
+        dist.barrier(group=pair)
+        out["a2a"] = _tp_a2a(tp_mesh, dev, sizes["tp_a2a"], fcfg)
         progress(out)
     dist.barrier()
     pods_cfg = sizes["tp_pods"]
@@ -4725,6 +4897,48 @@ def _tp_pods_collective_checks(r: int, tag: str, label: str, c: dict,
           f"({tag}) the {what} collective disagrees with the plain version")
 
 
+def _tp_a2a_checks(r: int, a: dict, layers) -> None:
+    """Print (r) and hold it: the a2a step's loss within TP_LOSS_RTOL and
+    every leaf's ‖Δg‖/‖g‖ within MD_PARAM_RTOL_L2 of the scatter
+    dispatch's, the planted fault past the gradient limit on every expert
+    stack, the all-to-all's bytes and calls their closed form, and the int8
+    wire's forward within TP_A2A_INT8_REL_L2 of the plain wire's."""
+    b, s = a["tokens"]
+    print(f"rank {r}, tensor_parallel (r) qwen3-moe-30b-a3b {layers} of 48 layers at full "
+          f"width, {b} x {s} over {TP_RANKS} model ranks, the all-to-all MoE (EP over "
+          f"'model', capacity {TP_A2A_CF:g}): C_send {a['c_send']}, C_loc {a['c_loc']}; send "
+          f"buffer {a['send_buffer_bytes']} B, expert buffer {a['expert_buffer_bytes']} B; "
+          f"{a['wall_s']:.1f} s for the cell")
+    for name in ("gspmd", "a2a", "fault"):
+        x = a[name]
+        print(f"rank {r}, (r) {name}: loss {x['loss']:.7f}, gradients {x['grad_ms']:.1f} ms"
+              + (f", one step {x['step_ms']:.1f} ms (loss {x['step_loss']:.7f})"
+                 if "step_ms" in x else "")
+              + f"; all_to_all {x['wire'].get('all_to_all', 0)} B in "
+              f"{x['calls'].get('all_to_all', 0)} calls a rank; wire {json.dumps(x['wire'])}")
+    for name, what in (("a2a", "a2a vs the scatter dispatch"),
+                       ("fault", "planted fault (no 1/n_ep scale) vs the scatter dispatch")):
+        x = a[name]
+        print(f"rank {r}, (r) {what}: loss rel gap {x['loss_rel_gap']:.3e} (limit "
+              f"{TP_LOSS_RTOL:g}); worst leaf ‖Δg‖/‖g‖ {x['worst_rel_l2']:.3e} "
+              f"({x['worst_leaf']}; limit {MD_PARAM_RTOL_L2:g}); "
+              + ", ".join(f"{n} {v:.3e}" for n, v in x["named"].items()))
+    print(f"rank {r}, (r) the all_to_all a rank receives: {a['a2a']['wire'].get('all_to_all', 0)}"
+          f" B in {a['a2a']['calls'].get('all_to_all', 0)} calls (want {a['want_a2a_bytes']} B "
+          f"in {a['want_a2a_calls']}); the int8 wire's forward logits rel L2 "
+          f"{a['int8_rel_l2']:.3e} of the plain wire's (limit {TP_A2A_INT8_REL_L2:g}; "
+          f"all_to_all {a['int8_forward_a2a_bytes']} B against {a['bf16_forward_a2a_bytes']})")
+    check(a["a2a"]["loss_rel_gap"] <= TP_LOSS_RTOL
+          and a["a2a"]["worst_rel_l2"] <= MD_PARAM_RTOL_L2,
+          "(r) the all-to-all MoE's step disagrees with the scatter dispatch's")
+    check(all(a["fault"]["named"][n] > MD_PARAM_RTOL_L2 for n in TP_A2A_LEAVES[:3]),
+          "(r) the gradient limit does not catch the missing 1/n_ep scale on the expert stacks")
+    check(a["a2a"]["wire"].get("all_to_all", 0) == a["want_a2a_bytes"]
+          and a["a2a"]["calls"].get("all_to_all", 0) == a["want_a2a_calls"],
+          "(r) the all-to-all's bytes or calls are not the closed form's")
+    check(a["int8_rel_l2"] < TP_A2A_INT8_REL_L2, "(r) the int8 wire is off by 5% or more")
+
+
 def tensor_parallel_checks(reports: list, sizes: dict | None = None) -> None:
     """Print the tensor_parallel phase's numbers and hold them to the
     contract."""
@@ -4745,6 +4959,7 @@ def tensor_parallel_checks(reports: list, sizes: dict | None = None) -> None:
             _tp_cell_checks(r, "f", f"qwen3-moe-30b-a3b {mo['layers']} of 48 layers at full "
                             "width", mo, "the gates enter the combine without copy_to_model", "g",
                             fault_in_forward=False)
+            _tp_a2a_checks(r, tp["a2a"], sizes.get("tp_a2a_layers", "?"))
         _tp_pods_collective_checks(r, "d", f"olmo-1b {sizes.get('tp_pods_layers', '?')} layers",
                                    tp["pods_collective"])
         c = tp["pods_collective"]
@@ -4822,7 +5037,7 @@ def fsdp_rank(rank: int, dev, fcfg, sizes: dict, pair, fsdp_mesh, fsdp_tp_mesh,
         out.update({k: cell[k] for k in ("codes", "train", "single", "fault", "wall_s")
                     if k in cell}, want=_fsdp_want(cfg, fsdp_mesh))
         progress(out)
-        out["serve"] = _tp_serve(fsdp_mesh, dev, cfg)
+        out["serve"] = _tp_serve(fsdp_mesh, dev, cfg, gen=SR_ROWS_GEN)
         progress(out)
     dist.barrier()
     cfg = sizes["fsdp_tp"]
@@ -4929,9 +5144,12 @@ def fsdp_checks(reports: list, sizes: dict | None = None) -> None:
 # --------------------------------------------------------------------------
 
 # (p): olmo-1b whole, batch 1, its cache's sequence over the 2 data ranks;
-# the 2,040-token prompt fills rank 0's first 2,040 of 2,048 slots and the
-# decode writes cross into rank 1's at position 2,048
-SR_LONG_PROMPT, SR_LONG_GEN, SR_LONG_SLOTS = 2040, 16, 4096
+# the 2,044-token prompt fills rank 0's first 2,044 of 2,048 slots and the
+# decode's fifth step writes rank 1's first slot, position 2,048 (8 steps, cut
+# from 16 to make room for (r) and (s) in the script's time)
+SR_LONG_PROMPT, SR_LONG_GEN, SR_LONG_SLOTS = 2044, 8, 4096
+# (o) = the fsdp part's (n): 4 decode steps (cut from 8 for the same reason)
+SR_ROWS_GEN = 4
 # (q): granite-20b (MQA) cut to 4 of 52 layers, batch 2 on (1, 2), its
 # cache's sequence over "model"
 SR_MQA_LAYERS = 4
@@ -4989,6 +5207,264 @@ def serve_rows_checks(reports: list, sizes: dict | None = None) -> None:
             if tag in sr:
                 check(tag in one and 2 * sr[tag]["cache_bytes"] == one[tag],
                       f"({tag}) rank {r}'s cache is not half of one process's")
+
+
+# --------------------------------------------------------------------------
+# More "model" ranks than query heads: sixteen ranks on the card.
+# --------------------------------------------------------------------------
+
+# (s) gemma3-4b at its published widths (d 2,560, 8 query and 4 kv heads of
+# width 256, vocab 262,144) cut to 6 of 34 layers, so that its one global
+# layer (index 5) follows five sliding-window ones, over a (1, 16) data x
+# model mesh: each rank's wq columns are half a query head, its wk/wv
+# columns a quarter of a kv head, and the cache's sequence is cut over
+# "model" (4 kv heads for 16 ranks)
+MH_RANKS = 16
+MH_LAYERS = 6
+MH_PROMPTS, MH_PROMPT, MH_GEN, MH_SLOTS = 2, 64, 8, 128
+MH_TIMEOUT_S = 600
+
+
+def _scatter_tree(whole, cfg, mesh, dev):
+    """This rank's shards of a params-shaped tree of ``cfg`` that the
+    mesh's first rank holds whole (``whole``; None on the others), in
+    ``param_shapes``' order: one gloo scatter of host copies per leaf cut
+    over "model", one broadcast per whole leaf. No rank but the first ever
+    holds a whole leaf."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.parallel.tensor import param_shards
+    from repro_torch.tree import flatten_with_path, path_str, tree_map_with_path
+
+    sh = param_shards(cfg, mesh)
+    src = {path_str(p): t for p, t in flatten_with_path(whole)} if whole is not None else {}
+    group, root = mesh.group("model"), mesh.ranks[0]
+
+    def one(path, shape):
+        name = path_str(path)
+        buf = torch.empty(shape, dtype=cfg.pdtype())
+        cut = sh.cuts.get(name, ())
+        if cut:
+            (ax, d), = cut
+            parts = ([c.contiguous().cpu() for c in src[name].chunk(ax.size, d)]
+                     if name in src else None)
+            dist.scatter(buf, parts, src=root, group=group)
+        else:
+            if name in src:
+                buf.copy_(src[name])
+            dist.broadcast(buf, src=root, group=group)
+        return buf.to(dev)
+
+    return tree_map_with_path(one, param_shapes(cfg, mesh), is_leaf=lambda x: isinstance(x, tuple))
+
+
+def _shard_code_flips(whole, shards, cfg, fcfg, mesh) -> dict:
+    """The QAT codes of this rank's shards from the statistics the shards
+    reduce over "model" against those from the whole leaves' (the first
+    rank's, ``whole``, broadcast), over every quantizable leaf that "model"
+    cuts: the codes, the differing ones, and how many of those are ties
+    (|θ_s| within 1e-6 of Δ); summed over the ranks on the first rank."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import fttq
+    from repro_torch.parallel.tensor import param_shards
+    from repro_torch.tree import flatten_with_path, path_str
+
+    sh = param_shards(cfg, mesh)
+    src = {path_str(p): t for p, t in flatten_with_path(whole)} if whole is not None else {}
+    group, root = mesh.group("model"), mesh.ranks[0]
+    counts = torch.zeros(3, dtype=torch.float64)
+    for path, shard in flatten_with_path(shards):
+        name = path_str(path)
+        if not fttq.is_quantizable(path, shard, fcfg) or name not in sh.cuts:
+            continue
+        n_rows = shard.shape[0] if shard.ndim >= 3 else 1
+        rows = shard.reshape(n_rows, -1)
+        (denom, delta), = fttq.leaf_row_stats([rows], fcfg.t_k, [sh.axes(name)])
+        stats = torch.empty((2, n_rows, 1), dtype=rows.dtype)
+        if name in src:
+            (d_w, t_w), = fttq.leaf_row_stats([src[name].reshape(n_rows, -1)], fcfg.t_k, [()])
+            stats.copy_(torch.stack([d_w, t_w]))
+        dist.broadcast(stats, src=root, group=group)
+        d_w, t_w = stats.to(rows.device)
+        diff = fttq.ternarize(rows / denom, delta) != fttq.ternarize(rows / d_w, t_w)
+        gap = ((rows / d_w).abs() - t_w).abs()
+        counts += torch.tensor([diff.numel(), int(diff.sum()),
+                                int((gap <= 1e-6 * t_w.expand_as(gap))[diff].sum())],
+                               dtype=torch.float64)
+    dist.reduce(counts, dst=root, group=group)
+    return dict(zip(("codes", "differing", "ties"), (int(x) for x in counts)))
+
+
+def midhead_rank(rank: int, world: int, rdv: str, out_dir: str, device: str, cfg,
+                 spawned: float) -> None:
+    """One of the sixteen ranks of (s): joins the gloo group; the first
+    rank draws gemma3-4b's seed-0 params once, on the card, and hands every
+    rank its shards; then (a) ``launch/steps.py``'s prefill and decode with
+    the cache's sequence over "model", against one process on the first
+    rank (``_tp_serve``), and (b) the QAT step's first gradients over the
+    mesh, each rank's moved to the host, the card freed, then one process's
+    on the first rank from the same params, scattered as shards and held
+    leaf by leaf over the whole leaves. Writes its report to ``out_dir``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.fttq import FTTQConfig, init_wq_tree
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adam
+    from repro_torch.parallel.tensor import param_shards
+    from repro_torch.train import TrainerConfig, init_train_state, make_grad_fn
+
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=MH_TIMEOUT_S))
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.empty(1, device=dev)
+    dist.barrier()
+    report = {"rank": rank, "ready_s": time.time() - spawned}
+    mesh = make_mesh((1, world), ("data", "model"), device=device)
+    first = rank == mesh.ranks[0]
+    fcfg = FTTQConfig()
+    t0 = time.perf_counter()
+    whole = init_params(cfg, seed=0, device=dev) if first else None
+    shards = _scatter_tree(whole, cfg, mesh, dev)
+    report["handout_s"] = time.perf_counter() - t0
+    report["codes"] = _shard_code_flips(whole, shards, cfg, fcfg, mesh)
+    del whole
+    _free()
+    report["serve"] = _tp_serve(mesh, dev, cfg, prompts=MH_PROMPTS, prompt=MH_PROMPT,
+                                gen=MH_GEN, max_seq=MH_SLOTS, shards=shards)
+    _free()
+    toks = torch.randint(0, cfg.vocab_size, (MH_PROMPTS, MH_PROMPT + 1),
+                         generator=torch.Generator(dev).manual_seed(3), device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    tcfg = TrainerConfig(fttq=fcfg)
+    sh = param_shards(cfg, mesh)
+    state = init_train_state(cfg, tcfg, adam(TRAIN_LR), params=shards, device=dev)
+    state.wq = init_wq_tree(shards, fcfg, sh)
+    _sync(dev)
+    t0 = time.perf_counter()
+    loss, _, grads, _ = make_grad_fn(cfg, tcfg, mesh)(state, batch)
+    _sync(dev)
+    report["grad_ms"] = (time.perf_counter() - t0) * 1e3
+    report["loss"] = float(loss)
+    grads = _host_tree(grads)
+    del state, shards
+    _free()
+    dist.barrier()
+    ref = None
+    if first:
+        whole = init_params(cfg, seed=0, device=dev)
+        state = init_train_state(cfg, tcfg, adam(TRAIN_LR), params=whole, device=dev)
+        del whole
+        _sync(dev)
+        t0 = time.perf_counter()
+        loss1, _, ref, _ = make_grad_fn(cfg, tcfg)(state, batch)
+        _sync(dev)
+        report["one_process"] = {"grad_ms": (time.perf_counter() - t0) * 1e3,
+                                 "loss": float(loss1)}
+        del state
+    ref_shards = _scatter_tree(ref, cfg, mesh, torch.device("cpu"))
+    del ref
+    _free()
+    gaps = _leaf_gaps(grads, ref_shards, sh)
+    if first:
+        worst = max(gaps, key=gaps.get)
+        report["one_process"].update(
+            loss_rel_gap=abs(report["loss"] - report["one_process"]["loss"])
+            / abs(report["one_process"]["loss"]), worst_leaf=worst, worst_rel_l2=gaps[worst])
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+
+
+def midhead_phase(device: str = "cuda:0", cfg=None, world: int = MH_RANKS) -> dict:
+    """(s): ``world`` ranks spawned on the one card over gloo (a file
+    rendezvous in a temporary directory), each running ``midhead_rank``. A
+    rank that fails or does not finish in time fails the phase; every
+    process is stopped."""
+    import multiprocessing as mp
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    cfg = cfg or get_config("gemma3-4b", n_layers=MH_LAYERS)
+    ctx = mp.get_context("spawn")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        spawned = time.time()
+        procs = [ctx.Process(target=midhead_rank,
+                             args=(r, world, os.path.join(tmp, "rdv"), tmp, device, cfg,
+                                   spawned)) for r in range(world)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            deadline = time.monotonic() + MH_TIMEOUT_S
+            for p in procs:
+                p.join(max(1.0, deadline - time.monotonic()))
+            codes = [p.exitcode for p in procs]
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        reports = []
+        for r in range(world):
+            path = os.path.join(tmp, f"rank{r}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    reports.append(json.load(f))
+        check(all(c == 0 for c in codes), f"a midhead rank failed or hung: exit codes {codes}")
+    return {"reports": reports, "wall_s": time.perf_counter() - t0, "world": world,
+            "layers": cfg.n_layers}
+
+
+def midhead_checks(mh: dict) -> None:
+    """Print (s) and hold it: every rank's logits within TP_LOGITS_REL of
+    one process's, the same tokens, each rank's cache 1/world of one
+    process's bytes; the first step's loss within TP_LOSS_RTOL and worst
+    leaf ‖Δg‖/‖g‖ within MD_PARAM_RTOL_L2 of one process."""
+    reports, world = mh["reports"], mh["world"]
+    check(len(reports) == world, f"(s) {len(reports)} of {world} ranks reported")
+    first = reports[0]
+    one = first["serve"]["one_process"]
+    print(f"midhead (s) gemma3-4b {mh['layers']} of 34 layers at full width over {world} model "
+          f"ranks: {mh['wall_s']:.1f} s for the spawn; ranks ready "
+          f"{min(r['ready_s'] for r in reports):.1f}-{max(r['ready_s'] for r in reports):.1f} s "
+          f"after the spawn; params drawn once and handed out in {first['handout_s']:.1f} s")
+    _tp_serve_checks(0, "s", f"gemma3-4b {mh['layers']} of 34 layers over {world} model ranks "
+                     "(half a query head a rank), the cache's sequence over 'model',",
+                     first["serve"], part="midhead")
+    for r in reports:
+        print(f"rank {r['rank']}, midhead (s) cache {r['serve']['cache_bytes']} B, prefill "
+              f"{r['serve']['prefill_ms']:.1f} ms, decode steps "
+              + ", ".join(f"{ms:.1f}" for ms in r["serve"]["step_ms"])
+              + f" ms; first gradients {r['grad_ms']:.1f} ms, loss {r['loss']:.7f}")
+        check(world * r["serve"]["cache_bytes"] == one["cache_bytes"],
+              f"(s) rank {r['rank']}'s cache is not 1/{world} of one process's")
+    c = first["codes"]
+    print(f"midhead (s) QAT codes of the seed-0 shards from the statistics the shards reduce "
+          f"vs the whole leaves': {c['differing']} of {c['codes']} differ, {c['ties']} of them "
+          "ties at Δ (left in place)")
+    check(c["differing"] == c["ties"], "(s) a shard's QAT code differs from the whole leaf's "
+                                       "away from a tie at Δ")
+    g = first["one_process"]
+    print(f"midhead (s) the first QAT step's gradients over {world} ranks vs one process "
+          f"({g['grad_ms']:.1f} ms): loss {first['loss']:.7f} vs {g['loss']:.7f}, rel gap "
+          f"{g['loss_rel_gap']:.3e} (limit {TP_LOSS_RTOL:g}); worst leaf ‖Δg‖/‖g‖ "
+          f"{g['worst_rel_l2']:.3e} ({g['worst_leaf']}; limit {MD_PARAM_RTOL_L2:g})")
+    check(g["loss_rel_gap"] <= TP_LOSS_RTOL and g["worst_rel_l2"] <= MD_PARAM_RTOL_L2,
+          "(s) the mid-head tensor-parallel step disagrees with one process")
 
 
 # --------------------------------------------------------------------------
@@ -5173,7 +5649,8 @@ def multidevice_rank(rank: int, world: int, rdv: str, out_dir: str, device: str,
 def multidevice_phase(device: str = "cuda:0", olmo_cfg=None, moe_cfg=None, train_cfg=None,
                       batch: int = MD_BATCH, seq: int = MD_SEQ, steps: int = MD_STEPS,
                       tp_cfg=None, tp_pods_cfg=None, tp_zamba_cfg=None, tp_moe_cfg=None,
-                      tp_pods_moe_cfg=None, fsdp_cfg=None, fsdp_tp_cfg=None, fsdp_pods_cfg=None,
+                      tp_pods_moe_cfg=None, tp_a2a_cfg=None, fsdp_cfg=None, fsdp_tp_cfg=None,
+                      fsdp_pods_cfg=None,
                       serve_long_cfg=None, serve_mqa_cfg=None,
                       parts: tuple = ("collective", "tensor_parallel", "fsdp",
                                       "serve_rows")) -> dict:
@@ -5204,6 +5681,7 @@ def multidevice_phase(device: str = "cuda:0", olmo_cfg=None, moe_cfg=None, train
              "tp_moe": tp_moe_cfg or get_config("qwen3-moe-30b-a3b", n_layers=TP_MOE_LAYERS),
              "tp_pods_moe": tp_pods_moe_cfg or get_config("qwen3-moe-30b-a3b",
                                                           n_layers=TP_PODS_MOE_LAYERS),
+             "tp_a2a": tp_a2a_cfg or get_config("qwen3-moe-30b-a3b", n_layers=TP_A2A_LAYERS),
              "fsdp": fsdp_cfg or get_config("olmo-1b"),
              "fsdp_tp": fsdp_tp_cfg or get_config("olmo-1b", n_layers=FSDP_TP_LAYERS),
              "fsdp_pods": fsdp_pods_cfg or get_config("olmo-1b", n_layers=FSDP_PODS_LAYERS),
@@ -5247,6 +5725,7 @@ def multidevice_phase(device: str = "cuda:0", olmo_cfg=None, moe_cfg=None, train
         "tp_pods_layers": sizes["tp_pods"].n_layers, "tp_zamba_layers": sizes["tp_zamba"].n_layers,
         "tp_moe_layers": sizes["tp_moe"].n_layers,
         "tp_pods_moe_layers": sizes["tp_pods_moe"].n_layers,
+        "tp_a2a_layers": sizes["tp_a2a"].n_layers,
         "fsdp_layers": sizes["fsdp"].n_layers, "fsdp_tp_layers": sizes["fsdp_tp"].n_layers,
         "fsdp_pods_layers": sizes["fsdp_pods"].n_layers,
         "serve_long_layers": sizes["serve_long"].n_layers,
@@ -5668,11 +6147,22 @@ def main() -> int:
           "is (n), 2 rows a rank; (p) olmo-1b 16 of 16 layers, batch 1, a "
           f"{SR_LONG_SLOTS}-slot cache's sequence over 2 data ranks, a {SR_LONG_PROMPT}-token "
           f"prompt and {SR_LONG_GEN} steps; (q) granite-20b {SR_MQA_LAYERS} of 52 layers (MQA), "
-          "the cache's sequence over 2 model ranks")
+          "the cache's sequence over 2 model ranks; (r) qwen3-moe-30b-a3b "
+          f"{TP_A2A_LAYERS} of 48 layers, the all-to-all MoE under 'model' vs the scatter "
+          "dispatch and a planted fault")
     _free()
     md = multidevice_phase(f"cuda:{torch.cuda.current_device()}")
     multidevice_checks(md)
     md_reports = md["reports"]
+
+    phase(f"midhead: (s) gemma3-4b {MH_LAYERS} of 34 layers at full width over {MH_RANKS} "
+          "model ranks on the card over gloo (half a query head a rank): prefill and decode "
+          "with the cache's sequence over 'model', and the first QAT step's gradients, "
+          "against one process")
+    _free()
+    mh = midhead_phase(f"cuda:{torch.cuda.current_device()}")
+    midhead_checks(mh)
+    md["midhead"] = mh
 
     phase("dryrun: launch/dryrun.py's estimate of the one-device olmo-1b train cell and of "
           "fsdp (j), against their measurements")

@@ -42,11 +42,12 @@ tensor-core rate), ``HBM_BW`` (HBM3 bandwidth) and ``LINK_BW`` (one 400
 Gb/s NDR InfiniBand link a GPU: the (16, 16) mesh leaves an 8-GPU NVLink
 domain on every axis, so every collective crosses it). Cells whose step
 fails record ``status: "error"`` with the traceback, as the reference
-records its failures: the default variant's all-to-all MoE under a
-"model" axis is not ported (ROADMAP 14b-iv); ``moe_gspmd`` runs those
-cells. Records go to ``artifacts/dryrun_torch/`` in the reference's schema
-(keys with no torch meaning, ``while_trip_counts`` and
-``xla_cost_analysis_flops``, are null).
+records its failures. The default variant runs the MoE cells through the
+all-to-all dispatch with an int8 wire (EP over "model"); ``moe_gspmd``
+runs the scatter dispatch instead. Records go to
+``artifacts/dryrun_torch/`` in the reference's schema (keys with no torch
+meaning, ``while_trip_counts`` and ``xla_cost_analysis_flops``, are
+null).
 """
 
 from __future__ import annotations

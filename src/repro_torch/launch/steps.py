@@ -41,7 +41,6 @@ def make_prefill_step(cfg: tfm.ModelConfig, max_seq: int, chunks: int = 1, mesh=
     ``chunks`` > 1 runs the prompt through the cache in that many sequence
     chunks (chunked prefill), dividing peak activation memory by about
     ``chunks`` for one extra cache pass each."""
-    tfm.check_tensor_parallel(cfg, mesh.size("model") if mesh is not None else 1)
     tp, fsdp = model_axis(mesh), data_axis(mesh)
 
     def prefill(params, batch):
@@ -80,7 +79,6 @@ def make_decode_step(cfg: tfm.ModelConfig, mesh=None, batch: int | None = None):
     be this rank's rows (the rows its cache holds, as the prefill's and the
     last decode's logits are) or the global batch, of which the step takes
     its block; the logits are this rank's rows."""
-    tfm.check_tensor_parallel(cfg, mesh.size("model") if mesh is not None else 1)
     tp, fsdp = model_axis(mesh), data_axis(mesh)
 
     def decode(params, step_batch):

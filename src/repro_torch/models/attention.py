@@ -15,14 +15,22 @@ Two softmax paths, as in the reference:
   not a multiple of 1024. Here the blocked path equals ``_attend_naive``.
 
 Under tensor parallelism (``tp``, a ``parallel.tensor.MeshAxis``) the heads
-are local: ``wq`` is column-parallel over whole query heads, ``wo``
-row-parallel and followed by ``reduce_from_model``. ``head_layout`` says
-which kv heads a rank's query heads use and where it gets them: its own
-columns of ``wk``/``wv`` where those hold whole kv heads; where the guard
-split them mid-head (MQA at any tp > 1), gathered with
-``gather_from_model`` so every rank attends with whole heads; or selected
-from a ``wk``/``wv`` the guard left whole. A decode cache holds the local
-kv heads.
+are local: ``wq`` is column-parallel, ``wo`` row-parallel over the same
+H·hd columns and followed by ``reduce_from_model``. Where the rank's
+columns hold whole query heads it computes those; where they cut a head
+(fewer query heads than ranks, as gemma3-4b's 8 over 16), q is gathered
+over "model" (``copy_to_model(gather_from_model(·))``, so the backward sums
+the ranks' partial gradients), the rank computes the whole heads its
+columns touch and keeps its own output columns for ``wo``. RoPE pairs dim
+i with i + hd/2, so it runs on whole heads only, after the gather.
+``head_layout`` says which kv heads a rank's query heads use and where it
+gets them: its own columns of ``wk``/``wv`` where those hold whole kv
+heads; where the guard split them mid-head (MQA at any tp > 1), gathered
+with ``gather_from_model`` so every rank attends with whole heads; or
+selected from a ``wk``/``wv`` the guard left whole. A decode cache holds
+the local kv heads, or every kv head where "model" cuts its sequence;
+then every rank computes every query head's partial softmax over its own
+slots and keeps its output columns.
 """
 
 from __future__ import annotations
@@ -159,11 +167,14 @@ def _partial(q, k, v, q_pos, k_pos, *, causal, window, k_len, block: int = FLASH
 
 @dataclasses.dataclass(frozen=True)
 class HeadLayout:
-    """A rank's share of the heads: query heads [q_lo, q_hi) on kv heads
-    [kv_lo, kv_hi); ``kv`` says where its keys and values come from:
-    "local" (its own whole-head columns of wk/wv, or every head on one
-    device), "gather" (wk/wv split mid-head: all-gathered) or "whole" (wk/wv
-    left whole by the guard: its heads selected)."""
+    """A rank's share of the heads: its ``wq`` columns and ``wo`` rows
+    [col_lo, col_hi) of H·hd, the whole query heads [q_lo, q_hi) they touch
+    and the kv heads [kv_lo, kv_hi) those read; ``split`` where the columns
+    cut a query head (q is then gathered over "model"). ``kv`` says where
+    its keys and values come from: "local" (its own whole-head columns of
+    wk/wv, or every head on one device), "gather" (wk/wv split mid-head:
+    all-gathered) or "whole" (wk/wv left whole by the guard: its heads
+    selected)."""
 
     q_lo: int
     q_hi: int
@@ -171,10 +182,9 @@ class HeadLayout:
     kv_hi: int
     kv: str
     sharded: bool
-
-    @property
-    def n_q(self) -> int:
-        return self.q_hi - self.q_lo
+    col_lo: int
+    col_hi: int
+    split: bool
 
     @property
     def n_kv(self) -> int:
@@ -184,24 +194,25 @@ class HeadLayout:
 def head_layout(n_heads: int, n_kv_heads: int, head_dim: int, tp=None) -> HeadLayout:
     """The heads this rank computes under ``tp``: all of them where the
     guard leaves ``wq`` whole (n_heads · head_dim not a multiple of the
-    axis), else n_heads / size query heads and the kv heads they read."""
+    axis), else its n_heads · head_dim / size columns and the whole query
+    heads they touch, with the kv heads those read."""
     if tp is None or (n_heads * head_dim) % tp.size:
-        return HeadLayout(0, n_heads, 0, n_kv_heads, "local", False)
-    if n_heads % tp.size:
-        raise NotImplementedError(f"tensor parallelism over {tp.size} ranks would split "
-                                  f"{n_heads} query heads mid-head")
-    q_lo, q_hi = tp.share(n_heads)
+        return HeadLayout(0, n_heads, 0, n_kv_heads, "local", False, 0, n_heads * head_dim, False)
+    col_lo, col_hi = tp.share(n_heads * head_dim)
+    q_lo, q_hi = col_lo // head_dim, (col_hi - 1) // head_dim + 1
     g = n_heads // n_kv_heads
     kv_lo, kv_hi = q_lo // g, (q_hi - 1) // g + 1
-    n_q = q_hi - q_lo
-    if n_q % g and g % n_q:
-        raise NotImplementedError(f"{n_q} local query heads do not group evenly onto "
-                                  f"{n_kv_heads} kv heads")
+    per_kv = {min(q_hi, (h + 1) * g) - max(q_lo, h * g) for h in range(kv_lo, kv_hi)}
+    if len(per_kv) > 1:
+        raise NotImplementedError(f"query heads [{q_lo}, {q_hi}) do not group evenly onto kv "
+                                  f"heads [{kv_lo}, {kv_hi}) ({n_heads} query and "
+                                  f"{n_kv_heads} kv heads over {tp.size} ranks)")
     if (n_kv_heads * head_dim) % tp.size:
         kv = "whole"
     else:
         kv = "local" if n_kv_heads % tp.size == 0 else "gather"
-    return HeadLayout(q_lo, q_hi, kv_lo, kv_hi, kv, True)
+    return HeadLayout(q_lo, q_hi, kv_lo, kv_hi, kv, True, col_lo, col_hi,
+                      n_heads % tp.size != 0)
 
 
 def _project_kv(w, src, src_tp, lay: HeadLayout, tp, head_dim: int, n_kv_heads: int,
@@ -251,7 +262,16 @@ def attention(params: dict, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
     x_tp = copy_to_model(x, tp) if lay.sharded else x
     src_tp = x_tp if kv_source is None else (
         copy_to_model(src, tp) if lay.sharded else src)
-    q = matmul(x_tp, params["wq"]).reshape(b, sq, lay.n_q, head_dim)
+    q = matmul(x_tp, params["wq"])
+    gathered = every_head and lay.sharded
+    # q's first column: every query head for the partials over this rank's
+    # slots, the whole heads its columns touch where they cut one, else its
+    # own columns
+    first = 0 if gathered else lay.q_lo * head_dim
+    if gathered or lay.split:
+        q = copy_to_model(gather_from_model(q, tp), tp)
+        q = q[..., first:n_heads * head_dim if gathered else lay.q_hi * head_dim]
+    q = q.reshape(b, sq, -1, head_dim)
     k = _project_kv(params["wk"], src, src_tp, lay, tp, head_dim, n_kv_heads, every_head)
     v = _project_kv(params["wv"], src, src_tp, lay, tp, head_dim, n_kv_heads, every_head)
     n_kv = k.shape[2]
@@ -266,10 +286,6 @@ def attention(params: dict, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
     if use_rope:
         q = apply_rope(q, q_pos.expand(b, sq), rope_theta)
         k = apply_rope(k, k_pos.expand(b, s_src), rope_theta)
-    gathered = every_head and lay.sharded
-    if gathered:  # every query head, for the partials over this rank's slots
-        q = gather_from_model(q.reshape(b, sq, lay.n_q * head_dim), tp).reshape(
-            b, sq, n_heads, head_dim)
     q = q.reshape(b, sq, n_kv, q.shape[2] // n_kv, head_dim)
 
     k_len = None
@@ -299,7 +315,7 @@ def attention(params: dict, x: torch.Tensor, *, n_heads: int, n_kv_heads: int,
         attend = _attend_flash if k.shape[1] > FLASH_THRESHOLD and sq > 1 else _attend_naive
         out = attend(q, k, v, q_pos, k_pos, causal=causal, window=window, k_len=k_len)
     out = out.reshape(b, sq, -1)
-    if gathered:  # this rank's query heads, for the row-parallel wo
-        out = out[..., lay.q_lo * head_dim:lay.q_hi * head_dim]
+    if gathered or lay.split:  # this rank's columns, for the row-parallel wo
+        out = out[..., lay.col_lo - first:lay.col_hi - first]
     out = matmul(out, params["wo"])
     return (reduce_from_model(out, tp) if lay.sharded else out), cache

@@ -94,7 +94,7 @@ def dispatch(idx: torch.Tensor, n_experts: int, capacity: int, dp=None):
     return flat_e, pos, pos < capacity
 
 
-def _split(tp, dims, *keys):
+def split_axis(tp, dims, *keys):
     """``tp`` where ``dims`` (a layer's "model" dims) shards the leaf at
     ``keys``, else None."""
     for k in keys:
@@ -114,8 +114,8 @@ def moe(params: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1
     e = params["router"].shape[-1]
     t = b * s
     xt = x.reshape(t, d)
-    ep = _split(tp, dims, "w_in")
-    stp = _split(tp, dims, "shared", "w_in")
+    ep = split_axis(tp, dims, "w_in")
+    stp = split_axis(tp, dims, "shared", "w_in")
     # the tokens as the per-rank experts take them
     xs = copy_to_model(xt, tp) if ep is not None or stp is not None else xt
 

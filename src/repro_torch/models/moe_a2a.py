@@ -21,10 +21,28 @@ way); "bf16" sends the activations as they are, in their own dtype, as the
 reference does.
 
 Each rank calls the layer with its own tokens (its rows of the batch) and
-the whole expert stacks; it computes the experts of its EP index. The
-load-balancing loss is averaged over the batch subgroups (``data_groups``);
-its backward passes the gradient through unchanged, since every rank's
-loss is its own rows' and the trainer averages the ranks' gradients. The
+the expert stacks, whole or already cut to its own experts
+(``expert_lo``: the first expert a stack holds); it computes the experts of
+its EP index. The load-balancing loss is the global batch's, as the
+scatter dispatch's is: the router's mean probabilities and top-1 fractions
+are averaged over the batch subgroups (``data_groups``) before their
+product (the reference averages each rank's product instead, which differs
+wherever the ranks' routing does); the mean's backward passes the gradient
+through unchanged, since the trainer averages the ranks' gradients.
+
+Under tensor parallelism with the EP group the "model" axis (``tp``), every
+rank of the group holds the same replicated tokens, routes them alike and
+sends its copies, so an expert's owner computes each copy once per source,
+as the reference's dispatch does. The output is then whole on every rank.
+In the Megatron convention each rank's dL/dout is the whole gradient, so a
+plain backward would give every expert weight n_ep times its gradient: the
+returned copies' gradient is scaled by 1/n_ep (``_ScaleGrad``, the
+identity forward), and the dispatched tokens enter through
+``copy_to_model``, so the ranks' n_ep partial gradients of x sum to the
+whole one. The router and gates take their gradients from the combine,
+unscaled, complete and equal on every rank. The shared experts are column-
+then row-parallel over "model" where their specs cut them (``shared_tp``),
+as in ``models.moe``. The
 collectives are ``parallel.collectives``'s (``dist.all_to_all_single`` over
 the EP subgroup, staged through host memory for ``gloo`` on a GPU); with
 no subgroup (one rank) they are the identity.
@@ -38,6 +56,7 @@ import torch.nn.functional as F
 from repro_torch.models.common import act_fn
 from repro_torch.models.moe import route
 from repro_torch.parallel.collectives import all_reduce_, all_to_all, group_rank, group_size
+from repro_torch.parallel.tensor import copy_to_model, reduce_from_model
 
 
 _INV_127 = torch.tensor(1.0 / 127.0, dtype=torch.float32).item()
@@ -93,6 +112,17 @@ class _AllToAll(torch.autograd.Function):
         return all_to_all(g.contiguous(), ctx.group), None
 
 
+class _ScaleGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
 class _BatchMean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -136,10 +166,14 @@ def _up8(n: int) -> int:
 
 def moe_a2a(params: dict, x: torch.Tensor, *, top_k: int, n_experts: int,
             capacity_factor: float = 1.25, activation: str = "silu", ep_group=None,
-            data_groups: tuple = (), wire_dtype: str = "bf16"):
+            data_groups: tuple = (), wire_dtype: str = "bf16", expert_lo: int = 0,
+            tp=None, shared_tp=None):
     """x: (B_loc, S, D) this rank's tokens → (out, aux loss). ``params``
-    holds the layer's whole expert stacks; this rank computes experts
-    [i·E_loc, (i + 1)·E_loc) of its EP index i."""
+    holds the layer's expert stacks from expert ``expert_lo`` on (0: whole
+    stacks); this rank computes experts [i·E_loc, (i + 1)·E_loc) of its EP
+    index i. ``tp``: the "model" ``MeshAxis`` where it is the EP group (the
+    tokens replicated over it; see the module docstring); ``shared_tp``: the
+    axis the shared experts are column/row-parallel over, or None."""
     if wire_dtype not in ("bf16", "int8"):
         raise ValueError(f"moe_a2a: wire_dtype {wire_dtype!r} is not 'bf16' or 'int8'")
     act = act_fn(activation)
@@ -150,27 +184,32 @@ def moe_a2a(params: dict, x: torch.Tensor, *, top_k: int, n_experts: int,
     if n_experts % n_ep:
         raise ValueError(f"moe_a2a: {n_experts} experts do not split over {n_ep} ranks")
     e_loc = n_experts // n_ep
-    e0 = group_rank(ep_group) * e_loc
+    e0 = group_rank(ep_group) * e_loc - expert_lo
+    if e0 < 0 or e0 + e_loc > params["w_in"].shape[-3]:
+        raise ValueError(f"moe_a2a: experts [{e0 + expert_lo}, {e0 + expert_lo + e_loc}) of "
+                         f"EP rank {group_rank(ep_group)} are not in the stacks, which hold "
+                         f"[{expert_lo}, {expert_lo + params['w_in'].shape[-3]})")
 
     # 1. local routing (the router is replicated)
     logits = (xt @ params["router"]).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     gates, idx = route(probs, top_k)
     gates = gates / gates.sum(dim=-1, keepdim=True)
-    me = probs.mean(dim=0)
-    ce = F.one_hot(idx[:, 0], n_experts).to(torch.float32).mean(dim=0)
-    aux = n_experts * torch.sum(me * ce)
+    means = torch.stack([probs.mean(dim=0),
+                         F.one_hot(idx[:, 0], n_experts).to(torch.float32).mean(dim=0)])
     for g in data_groups:
         if g is not None:
-            aux = _BatchMean.apply(aux, g)
+            means = _BatchMean.apply(means, g)
+    aux = n_experts * torch.sum(means[0] * means[1])
 
     # 2. per-destination send queues
     flat_e = idx.reshape(-1)
     tok_id = torch.arange(t, device=x.device).repeat_interleave(top_k)
     dest = flat_e // e_loc
     c_send = _up8(max(int(t * top_k / n_ep * capacity_factor), top_k))
+    xd = copy_to_model(xt, tp) if tp is not None else xt
     send, send_e, pos_send, keep = _fill_queue(
-        xt[tok_id], dest, torch.ones_like(dest, dtype=torch.bool), n_ep, c_send,
+        xd[tok_id], dest, torch.ones_like(dest, dtype=torch.bool), n_ep, c_send,
         extra=flat_e % e_loc + 1)
 
     # 3. the all-to-all over the EP subgroup (the only cross-rank traffic)
@@ -194,6 +233,8 @@ def moe_a2a(params: dict, x: torch.Tensor, *, top_k: int, n_experts: int,
     gathered = out_e[safe_e, torch.where(keep_loc, pos_loc, 0)]
     back = torch.where(keep_loc[:, None], gathered, 0).reshape(n_ep, c_send, d)
     res = exchange(back, ep_group)
+    if tp is not None:  # each copy came from n_ep sources: see the module docstring
+        res = _ScaleGrad.apply(res, 1.0 / n_ep)
     per_copy = res[torch.where(keep, dest, 0), torch.where(keep, pos_send, 0)]
     per_copy = torch.where(keep[:, None], per_copy, 0)
     combined = torch.zeros((t, d), dtype=x.dtype, device=x.device).index_add(
@@ -201,6 +242,8 @@ def moe_a2a(params: dict, x: torch.Tensor, *, top_k: int, n_experts: int,
 
     if "shared" in params:
         sp = params["shared"]
-        hs = act(xt @ sp["w_gate"]) * (xt @ sp["w_in"])
-        combined = combined + hs @ sp["w_out"]
+        xs = copy_to_model(xt, shared_tp) if shared_tp is not None else xt
+        shared = (act(xs @ sp["w_gate"]) * (xs @ sp["w_in"])) @ sp["w_out"]
+        combined = combined + (reduce_from_model(shared, shared_tp) if shared_tp is not None
+                               else shared)
     return combined.reshape(b, s, d), aux.to(torch.float32)

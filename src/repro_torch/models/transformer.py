@@ -34,7 +34,8 @@ whole (``models.mamba2``); the hybrid's shared block is attention and MLP
 under ``tp``, one set of shards for all its applications. Where the
 divisibility guard leaves a leaf whole, it is computed whole on every rank
 (the per-layer "model" dims come from ``parallel.sharding.model_dims``).
-The all-to-all MoE (``moe_impl="a2a"``) is not ported under a "model" axis.
+The all-to-all MoE (``moe_impl="a2a"``) with EP over "model" runs on the
+rank's own expert stacks and the replicated tokens (``models.moe_a2a``).
 
 FSDP (``fsdp``, the mesh's "data" axis): the params are also cut over
 "data" where their specs say so, and each remat unit gathers its layer's
@@ -70,7 +71,7 @@ from repro_torch.models import mamba2 as mb
 from repro_torch.models.attention import GLOBAL_WINDOW, attention, init_attn
 from repro_torch.models.common import apply_norm, dense_init, embed_init, matmul
 from repro_torch.models.mlp import init_mlp, mlp
-from repro_torch.models.moe import init_moe, moe
+from repro_torch.models.moe import init_moe, moe, split_axis
 from repro_torch.models.moe_a2a import moe_a2a
 from repro_torch.parallel.collectives import current_mesh
 from repro_torch.parallel.tensor import (
@@ -94,10 +95,12 @@ class ModelConfig:
     keeps only the layer's inputs, ``"dots"`` also keeps its matmul
     outputs; both give the numbers of ``"none"``. ``moe_impl="a2a"`` with
     ``mesh_ep_axis`` set runs the MoE layers through ``models.moe_a2a``
-    over the EP subgroup of the mesh made current by
-    ``parallel.collectives.set_mesh`` (each rank passing its own rows of the
-    batch; the load loss is averaged over ``mesh_batch_axes``); with no mesh
-    it runs on the one rank. The scatter dispatch ignores the mesh fields."""
+    over the EP subgroup: the "model" axis a tensor-parallel forward is
+    given where ``mesh_ep_axis`` is "model", else that axis of the mesh made
+    current by ``parallel.collectives.set_mesh`` (each rank passing its own
+    rows of the batch; the load loss is averaged over the forward's batch
+    axes, or ``mesh_batch_axes``); with neither it runs on the one rank.
+    The scatter dispatch ignores the mesh fields."""
 
     name: str
     family: str                      # dense|moe|ssm|hybrid|vlm|audio
@@ -170,15 +173,6 @@ class ModelConfig:
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
-
-
-def check_tensor_parallel(cfg: ModelConfig, n_model: int) -> None:
-    """Raise for a "model" axis of ``n_model`` > 1 ranks where tensor
-    parallelism is not ported: the all-to-all MoE."""
-    if n_model > 1 and cfg.family == "moe" and cfg.moe_impl == "a2a":
-        raise NotImplementedError(
-            f"the all-to-all MoE (moe_impl='a2a') under tensor parallelism over a 'model' axis "
-            f"of {n_model} is not ported ({cfg.name}): ROADMAP Queue 1, item 14b-iv")
 
 
 @functools.lru_cache(maxsize=16)
@@ -349,7 +343,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "c
         from repro_torch.parallel.sharding import param_specs
         from repro_torch.parallel.tensor import shard_tree
 
-        check_tensor_parallel(cfg, mesh.size("model"))
         return shard_tree(init_params(cfg, seed, device), param_specs(cfg, mesh), mesh)
     dev = resolve_device(device)
     _check_family(cfg)
@@ -411,7 +404,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 
     dev = resolve_device(device)
     _check_family(cfg)
-    check_tensor_parallel(cfg, mesh.size("model") if mesh is not None else 1)
     lay = serve_layout(cfg, mesh, batch)
     rows = batch // lay.n_rows
     _, n_seq = linear_rank(lay.seq)
@@ -462,6 +454,26 @@ def _mlp_tp(cfg: ModelConfig, tp):
     return tp if tp is not None and cfg.d_ff % tp.size == 0 else None
 
 
+def _moe_a2a(cfg: ModelConfig, p: dict, h, tp, dims, dp):
+    """The all-to-all MoE over the EP axis ``cfg.mesh_ep_axis``: the
+    "model" axis ``tp`` where that is it (the stacks then the rank's own
+    experts), else that axis of the mesh made current by
+    ``parallel.collectives.set_mesh`` (none: one rank). The load loss is
+    averaged over ``dp``'s groups, else over ``cfg.mesh_batch_axes`` of the
+    current mesh."""
+    mesh = current_mesh()
+    group = mesh.group if mesh is not None else (lambda _: None)
+    ep = tp if tp is not None and cfg.mesh_ep_axis == "model" else None
+    cut = ep is not None and dims["w_in"] is not None
+    data = dp.groups if dp is not None else tuple(group(a) for a in cfg.mesh_batch_axes)
+    return moe_a2a(p, h, top_k=cfg.top_k, n_experts=cfg.n_experts,
+                   capacity_factor=cfg.capacity_factor, activation=cfg.activation,
+                   ep_group=ep.group if ep is not None else group(cfg.mesh_ep_axis),
+                   data_groups=data, wire_dtype=cfg.moe_wire,
+                   expert_lo=ep.share(cfg.n_experts)[0] if cut else 0, tp=ep,
+                   shared_tp=split_axis(tp, dims, "shared", "w_in"))
+
+
 def _dense_layer(cfg: ModelConfig, bp: dict, x, window: int, kv, pos: int, tp=None,
                  dp=None, seq: tuple = ()):
     """One dense/moe/vlm/audio layer; kv = (k, v) cache slices or None.
@@ -472,16 +484,10 @@ def _dense_layer(cfg: ModelConfig, bp: dict, x, window: int, kv, pos: int, tp=No
     x = x + attn_out
     h = apply_norm(x, bp.get("mlp_norm"), cfg.norm)
     if cfg.family == "moe":
+        dims = _layer_dims(cfg, tp.size)["moe"] if tp is not None else None
         if cfg.moe_impl == "a2a" and cfg.mesh_ep_axis:
-            mesh = current_mesh()
-            group = mesh.group if mesh is not None else (lambda _: None)
-            mo, aux = moe_a2a(bp["moe"], h, top_k=cfg.top_k, n_experts=cfg.n_experts,
-                              capacity_factor=cfg.capacity_factor, activation=cfg.activation,
-                              ep_group=group(cfg.mesh_ep_axis),
-                              data_groups=tuple(group(a) for a in cfg.mesh_batch_axes),
-                              wire_dtype=cfg.moe_wire)
+            mo, aux = _moe_a2a(cfg, bp["moe"], h, tp, dims, dp)
         else:
-            dims = _layer_dims(cfg, tp.size)["moe"] if tp is not None else None
             mo, aux = moe(bp["moe"], h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
                           activation=cfg.activation, tp=tp, dims=dims, dp=dp)
         return x + mo, aux
@@ -579,7 +585,6 @@ def forward(cfg: ModelConfig, params: Pytree, tokens: torch.Tensor | None = None
     its own (see the module docstring). ``seq``: the mesh axes that cut the
     cache's sequence (``parallel.tensor.ServeLayout``)."""
     _check_family(cfg)
-    check_tensor_parallel(cfg, tp.size if tp is not None else 1)
     if (tp is not None or fsdp is not None) and any(isinstance(w, PackedTernary) for w in
                                                     tree_leaves(params, is_leaf=lambda x:
                                                                 isinstance(x, PackedTernary))):

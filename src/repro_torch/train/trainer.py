@@ -16,13 +16,13 @@ its share of each of the reference's global microbatches, ``_rank_rows``),
 and holds its
 shards of the state as the specs (``parallel.sharding``) place it:
 
-- A "model" axis of size > 1 is tensor parallelism (every family; the
-  all-to-all MoE raises): each rank holds its chunk of the
-  "model"-sharded params (attention and MLP columns, expert stacks by
-  expert, Mamba2 projections, vocab) and of their Adam moments; the
-  forward is column- then row-parallel with a vocab-parallel loss
-  (``parallel.tensor``; local experts in ``models.moe``, gathered weights
-  in ``models.mamba2``).
+- A "model" axis of size > 1 is tensor parallelism (every family): each
+  rank holds its chunk of the "model"-sharded params (attention and MLP
+  columns, expert stacks by expert, Mamba2 projections, vocab) and of
+  their Adam moments; the forward is column- then row-parallel with a
+  vocab-parallel loss (``parallel.tensor``; local experts in
+  ``models.moe`` or over the all-to-all of ``models.moe_a2a``, gathered
+  weights in ``models.mamba2``).
 - A "data" axis of size > 1 is FSDP (ZeRO-3) as well as data parallelism:
   each rank holds its chunk of every leaf whose spec puts "data" on a dim
   (params, both Adam moments and the pods' residuals), each layer gathers
@@ -116,7 +116,6 @@ def init_train_state(model_cfg: tfm.ModelConfig, tcfg: TrainerConfig, optimizer:
     Adam moments and residuals follow the shards."""
     if mesh is not None and mesh.size("pod") != n_pods:
         raise ValueError(f"the mesh has {mesh.size('pod')} pods, not n_pods={n_pods}")
-    tfm.check_tensor_parallel(model_cfg, mesh.size("model") if mesh is not None else 1)
     if params is None:
         params = tfm.init_params(model_cfg, seed=seed, device=device)
     wq = fttq.init_wq_tree(params, tcfg.fttq) if tcfg.qat else None
@@ -361,20 +360,15 @@ def _rank_rows(v: torch.Tensor, n_shards: int, shard: int, n_micro: int,
     return mine.reshape(n_micro * per, *v.shape[1:])
 
 
-def make_train_step(model_cfg: tfm.ModelConfig, tcfg: TrainerConfig, optimizer: Optimizer,
-                    mesh=None):
-    """Returns ``step(state, batch) -> (state, metrics)`` with metrics
-    ``loss, grad_norm, ce, aux`` as 0-d tensors on the state's device. The
-    input state is not modified. With a ``mesh``, every rank calls the step
-    with the same global batch and its state (its shards over "model" and
-    "data"; a leaf of another shape raises ``ValueError``)."""
-    tfm.check_tensor_parallel(model_cfg, mesh.size("model") if mesh is not None else 1)
+def make_grad_fn(model_cfg: tfm.ModelConfig, tcfg: TrainerConfig, mesh=None):
+    """Returns ``grads(state, batch) -> (loss, metrics, g_p, g_w)``: the
+    gradients the train step takes from this rank's rows of the global
+    ``batch`` (its shards' over "model" and "data"), averaged over the data
+    subgroup, before any cross-pod sync; ``make_train_step`` calls it."""
     ax = step_axes(model_cfg, tcfg, mesh)
-    layout = _layout(model_cfg, mesh) if mesh is not None else None
     # the data shards, whose gradients arrive summed over the data ranks
     summed = frozenset(p for p, cut in ax.shards.cuts.items()
                        if any(a.name == "data" for a, _ in cut)) if ax.shards else frozenset()
-    # no mesh is one shard with no subgroups: every sync below is the identity
     compressed = mesh is not None and "pod" in mesh.axis_names and tcfg.pod_compression
     bax = logical_batch_axes(mesh) if mesh is not None else ()
     n_shards = math.prod(mesh.size(a) for a in bax)
@@ -383,11 +377,8 @@ def make_train_step(model_cfg: tfm.ModelConfig, tcfg: TrainerConfig, optimizer: 
     # rows where the compressed step's body is manual over "pod"
     micro_shards = mesh.size("data") if compressed else n_shards
     data_group = mesh.group("data") if mesh is not None else None
-    pod_group = mesh.group("pod") if mesh is not None else None
 
-    def synced_grads(state: TrainState, batch: dict):
-        """(loss, metrics, g_p, g_w, residuals): this rank's rows' gradients,
-        synced over the data and pod subgroups."""
+    def grads(state: TrainState, batch: dict):
         rows = {}
         for k, v in batch.items():
             if v.shape[0] % (n_shards * tcfg.microbatches):
@@ -395,7 +386,29 @@ def make_train_step(model_cfg: tfm.ModelConfig, tcfg: TrainerConfig, optimizer: 
                                  f"{n_shards} ranks and {tcfg.microbatches} microbatches")
             rows[k] = _rank_rows(v, n_shards, shard, tcfg.microbatches, micro_shards)
         loss, metrics, g_p, g_w = _local_grads(model_cfg, tcfg, state, rows, ax)
-        loss, metrics, g_p, g_w = _mean_over(data_group, loss, metrics, g_p, g_w, summed)
+        return _mean_over(data_group, loss, metrics, g_p, g_w, summed)
+
+    return grads
+
+
+def make_train_step(model_cfg: tfm.ModelConfig, tcfg: TrainerConfig, optimizer: Optimizer,
+                    mesh=None):
+    """Returns ``step(state, batch) -> (state, metrics)`` with metrics
+    ``loss, grad_norm, ce, aux`` as 0-d tensors on the state's device. The
+    input state is not modified. With a ``mesh``, every rank calls the step
+    with the same global batch and its state (its shards over "model" and
+    "data"; a leaf of another shape raises ``ValueError``)."""
+    ax = step_axes(model_cfg, tcfg, mesh)
+    layout = _layout(model_cfg, mesh) if mesh is not None else None
+    grads = make_grad_fn(model_cfg, tcfg, mesh)
+    # no mesh is one shard with no subgroups: every sync below is the identity
+    compressed = mesh is not None and "pod" in mesh.axis_names and tcfg.pod_compression
+    pod_group = mesh.group("pod") if mesh is not None else None
+
+    def synced_grads(state: TrainState, batch: dict):
+        """(loss, metrics, g_p, g_w, residuals): this rank's rows' gradients,
+        synced over the data and pod subgroups."""
+        loss, metrics, g_p, g_w = grads(state, batch)
         if not compressed:
             return (*_mean_over(pod_group, loss, metrics, g_p, g_w), state.residuals)
         g_p, res = ternary_allreduce_tree(

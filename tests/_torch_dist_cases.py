@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
 import pickle
 import sys
@@ -418,7 +419,7 @@ def tp_steps(rank, world, *, runs, lr):
         if not mesh.member:
             out.append(None)
             continue
-        cfg = get_reduced(run["arch"], **run.get("overrides", {}))
+        cfg = get_reduced(run["arch"], **run.get("overrides", {}), **run.get("port", {}))
         tcfg = TrainerConfig(pod_compression=False, **run.get("tcfg", {}))
         state = _state(run["state"], "cpu")
         batch = {k: torch.from_numpy(v) for k, v in run["batch"].items()}
@@ -443,7 +444,7 @@ def tp_steps(rank, world, *, runs, lr):
 
 
 def tp_pods(rank, world, *, cfg, state, batch, lr, steps, trees, residuals_in=None,
-            mesh_shape=(2, 1, 2), tcfg=None):
+            mesh_shape=(2, 1, 2), tcfg=None, port=None):
     """On a pod x data x model mesh of ``mesh_shape`` ((2, 1, 2), or (2,
     2, 1) for pods x FSDP): (a) the compressed collective with error
     feedback over ``trees`` (per step, each pod's whole gradient tree) on
@@ -452,7 +453,8 @@ def tp_pods(rank, world, *, cfg, state, batch, lr, steps, trees, residuals_in=No
     with ``residuals_in`` (per step, a tree of (n_pods, *shape) leaves) this
     pod's of those; (b) ``steps`` compressed QAT steps (``tcfg``: more
     TrainerConfig kwargs) from the reference's state, gathered over "pod",
-    "model" and "data"."""
+    "model" and "data"; ``port``: ModelConfig fields the port's config sets
+    beside ``cfg``."""
     from repro_torch.parallel.collectives import ternary_allreduce_tree_plain
     from repro_torch.parallel.sharding import param_specs
     from repro_torch.parallel.tensor import (
@@ -461,7 +463,7 @@ def tp_pods(rank, world, *, cfg, state, batch, lr, steps, trees, residuals_in=No
     from repro_torch.train import TrainerConfig, init_train_state, make_train_step
     from repro_torch.train.trainer import gather_residuals
 
-    cfg = ModelConfig(**cfg)
+    cfg = dataclasses.replace(ModelConfig(**cfg), **(port or {}))
     mesh = make_mesh(tuple(mesh_shape), AXES, device="cpu")
     pod = mesh.index("pod")
     specs, sh = param_specs(cfg, mesh), param_shards(cfg, mesh)
@@ -1173,9 +1175,11 @@ def fsdp_step(rank, world, *, device="cpu"):
 
 
 def serve_rows(rank, world, *, runs, params, prompts, max_seq, gen, chunks):
-    """For each run (arch, (data, model) mesh shape, global batch): the
-    prefill (in ``chunks`` chunks) and ``gen`` greedy decode steps on that
-    mesh from the arch's whole params' shards, each rank feeding back its
+    """For each run (arch, its ModelConfig overrides and the key of its
+    params and prompts where given, (data, model) mesh shape, global
+    batch): the prefill (in ``chunks`` chunks) and ``gen`` greedy decode
+    steps on that mesh from the arch's whole params' shards, each rank
+    feeding back its
     own rows' tokens; the logits gathered over the rows
     (``gather_rows``), the greedy tokens and this rank's cache leaf shapes.
     None on a rank off the mesh."""
@@ -1191,10 +1195,10 @@ def serve_rows(rank, world, *, runs, params, prompts, max_seq, gen, chunks):
         if not mesh.member:
             out.append(None)
             continue
-        cfg = get_reduced(run["arch"])
-        p = params_from_jax(params[run["arch"]], "cpu", mesh=mesh,
-                            specs=param_specs(cfg, mesh))
-        toks = torch.from_numpy(prompts[run["arch"]][:b]).long()
+        cfg = get_reduced(run["arch"], **run.get("overrides", {}))
+        key = run.get("key", run["arch"])
+        p = params_from_jax(params[key], "cpu", mesh=mesh, specs=param_specs(cfg, mesh))
+        toks = torch.from_numpy(prompts[key][:b]).long()
         with torch.no_grad():
             logits, cache = make_prefill_step(cfg, max_seq, chunks=chunks, mesh=mesh)(
                 p, {"tokens": toks})
@@ -1208,6 +1212,100 @@ def serve_rows(rank, world, *, runs, params, prompts, max_seq, gen, chunks):
                 steps.append(gather_rows(logits, mesh, b).numpy())
         out.append({"logits": steps, "tokens": tokens,
                     "cache": {k: tuple(v.shape) for k, v in cache.items()}})
+    return out
+
+
+def tp_grads(rank, world, *, runs, tokens, labels):
+    """For each run (arch, mesh shape over ``axes``, ModelConfig
+    ``overrides``, and ``variants``: {name: (more overrides, planted
+    fault)}): each variant's first-step loss and gradients
+    (``train.make_grad_fn``, QAT, from the seed-0 params: this rank's rows
+    of ``tokens``/``labels``, averaged over "data", before any pod sync),
+    gathered whole over "model" and "data", from every rank of the mesh;
+    and on rank 0 the port's one-process loss and gradients on the whole
+    batch. The planted fault is the all-to-all MoE without its 1/n_ep
+    gradient scale."""
+    import repro_torch.models.moe_a2a as moe_a2a
+    from repro_torch.parallel.sharding import param_specs
+    from repro_torch.parallel.tensor import gather_tree
+    from repro_torch.train import TrainerConfig, init_train_state, make_grad_fn
+    from repro_torch.tree import flatten_with_path, path_str
+
+    def named(loss, grads):
+        return float(loss), {path_str(p): t.detach().numpy() for p, t in flatten_with_path(grads)}
+
+    batch = {"tokens": torch.from_numpy(tokens).long(), "labels": torch.from_numpy(labels).long()}
+    scale = moe_a2a._ScaleGrad.apply
+    out = []
+    for run in runs:
+        shape, axes = tuple(run["shape"]), tuple(run["axes"])
+        mesh = make_mesh(shape, axes, ranks=range(math.prod(shape)), device="cpu")
+        if not mesh.member:
+            out.append(None)
+            continue
+        tcfg = TrainerConfig(pod_compression="pod" in axes)
+        got = {}
+        for name, (extra, fault) in run["variants"].items():
+            cfg = get_reduced(run["arch"], **run["overrides"], **extra)
+            state = init_train_state(cfg, tcfg, adam(1e-3),
+                                     params=init_params(cfg, seed=0, device="cpu"),
+                                     device="cpu", n_pods=mesh.size("pod"), mesh=mesh)
+            if fault:
+                moe_a2a._ScaleGrad.apply = lambda x, s: x
+            try:
+                loss, _, g_p, _ = make_grad_fn(cfg, tcfg, mesh)(state, batch)
+            finally:
+                moe_a2a._ScaleGrad.apply = scale
+            got[name] = named(loss, gather_tree(g_p, param_specs(cfg, mesh), mesh))
+        if rank == 0:
+            cfg = get_reduced(run["arch"], **run["overrides"])
+            state = init_train_state(cfg, tcfg, adam(1e-3),
+                                     params=init_params(cfg, seed=0, device="cpu"), device="cpu")
+            loss, _, g_p, _ = make_grad_fn(cfg, tcfg)(state, batch)
+            got["one"] = named(loss, g_p)
+        out.append(got)
+    return out
+
+
+def a2a_serve(rank, world, *, runs, prompts, max_seq, gen, chunks):
+    """For each run (arch, ModelConfig overrides, (data, model) mesh shape,
+    global batch): the all-to-all MoE's prefill and ``gen`` greedy decode
+    steps through ``launch.steps`` on that mesh from the seed-0 params'
+    shards (logits gathered over the rows, tokens), and on rank 0 the same
+    on one process with the scatter dispatch."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.parallel.tensor import gather_rows
+
+    def serve(cfg, mesh, b):
+        p = init_params(cfg, seed=0, device="cpu", mesh=mesh)
+        toks = torch.from_numpy(prompts[:b]).long()
+        with torch.no_grad():
+            logits, cache = make_prefill_step(cfg, max_seq, chunks=chunks, mesh=mesh)(
+                p, {"tokens": toks})
+            decode = make_decode_step(cfg, mesh=mesh, batch=b)
+            steps, tokens = [gather_rows(logits, mesh, b).numpy()], []
+            for i in range(gen):
+                tok = torch.argmax(logits, -1)
+                tokens.append(gather_rows(tok, mesh, b).numpy())
+                logits, cache = decode(p, {"tokens": tok, "cache": cache,
+                                           "pos": toks.shape[1] + i})
+                steps.append(gather_rows(logits, mesh, b).numpy())
+        return {"logits": steps, "tokens": tokens}
+
+    out = []
+    for run in runs:
+        shape, b = tuple(run["shape"]), run["batch"]
+        mesh = make_mesh(shape, ("data", "model"), ranks=range(shape[0] * shape[1]),
+                         device="cpu")
+        if not mesh.member:
+            out.append(None)
+            continue
+        cfg = get_reduced(run["arch"], **run["overrides"])
+        got = {"a2a": serve(dataclasses.replace(cfg, moe_impl="a2a", mesh_ep_axis="model"),
+                            mesh, b)}
+        if rank == 0:
+            got["one"] = serve(cfg, None, b)
+        out.append(got)
     return out
 
 
@@ -1276,7 +1374,7 @@ def seq_attention(rank, world, *, device):
 CASES = {f.__name__: f for f in (collectives, fanin, trainer, elastic, moe_forward, moe_train,
                                   q8_a2a, tp_basics, tp_steps, tp_pods, tp_serve, tp_families,
                                   tp_family_steps, fsdp_basics, fsdp_step, serve_rows, combine,
-                                  seq_attention)}
+                                  seq_attention, tp_grads, a2a_serve)}
 
 
 def main() -> None:

@@ -32,13 +32,13 @@ from repro.parallel.sharding import cache_specs, param_specs
 
 tm = jax.tree_util.tree_map
 out = {}
-for arch in ARCHS:
-    cfg = JC.get_reduced(arch)
+for key, (arch, ov) in ARCHS.items():
+    cfg = JC.get_reduced(arch, **ov)
     params = init_params(cfg, jax.random.PRNGKey(0))
-    out[arch] = {"params": tm(np.asarray, params)}
+    out[key] = {"params": tm(np.asarray, params)}
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size, (max(BATCHES), S)).astype(np.int32)
-    out[arch]["prompts"] = prompts
+    out[key]["prompts"] = prompts
     for shape in SHAPES:
         mesh = jax.make_mesh(shape, ("data", "model"), axis_types=(AxisType.Auto,) * 2)
         placed = tm(lambda x, sp: jax.device_put(x, NamedSharding(mesh, sp)), params,
@@ -61,7 +61,7 @@ for arch in ARCHS:
                     logits, cache = dec(placed, {"tokens": tok, "cache": cache,
                                                  "pos": jnp.int32(S + i)})
                     steps.append(np.asarray(logits))
-            out[arch][(shape, b)] = {
+            out[key][(shape, b)] = {
                 "logits": steps, "tokens": tokens,
                 "shard_shapes": {k: tuple(csh[k].shard_shape(v.shape))
                                  for k, v in cache.items()}}
@@ -69,26 +69,32 @@ pickle.dump(out, open(OUT, "wb"))
 """
 
 
-def both(archs, tmp, timeout: float = 150):
-    """{(arch, shape, batch): (the reference's {logits, tokens,
+def both(archs, tmp, timeout: float = 150, shapes=SHAPES, batches=BATCHES,
+         overrides: dict | None = None):
+    """{(key, shape, batch): (the reference's {logits, tokens,
     shard_shapes}, the port's ranks' results in rank order: None off the
-    mesh, else {logits (rank 0: gathered), tokens, cache shapes})}."""
+    mesh, else {logits (rank 0: gathered), tokens, cache shapes})} for
+    every key of ``archs`` on every (data, model) mesh shape of ``shapes``
+    and batch of ``batches``: a key is an arch, or with ``overrides``
+    ({key: (arch, ModelConfig overrides)}) that arch's reduced config with
+    those fields."""
+    configs = {a: (overrides or {}).get(a, (a, {})) for a in archs}
     ref = {}
     # one reference process per arch, side by side: XLA compiles on one core
     with concurrent.futures.ThreadPoolExecutor() as pool:
         for part in pool.map(lambda a: run_jax(
-                f"ARCHS = [{a!r}]\nSHAPES = {SHAPES!r}\nBATCHES = {BATCHES!r}\nS = {S}\n"
-                f"MAX = {MAX}\nGEN = {GEN}\nCHUNKS = {CHUNKS}\n" + _REFERENCE, 4, tmp),
-                archs):
+                f"ARCHS = {{{a!r}: {configs[a]!r}}}\nSHAPES = {shapes!r}\n"
+                f"BATCHES = {batches!r}\nS = {S}\nMAX = {MAX}\nGEN = {GEN}\n"
+                f"CHUNKS = {CHUNKS}\n" + _REFERENCE, 4, tmp), archs):
             ref.update(part)
-    runs = [{"arch": a, "shape": shape, "batch": b} for a in archs for shape in SHAPES
-            for b in BATCHES]
+    runs = [{"key": a, "arch": configs[a][0], "overrides": configs[a][1], "shape": shape,
+             "batch": b} for a in archs for shape in shapes for b in batches]
     got = run_ranks("serve_rows", 4, tmp, timeout=timeout, runs=runs,
                     params={a: ref[a]["params"] for a in archs},
                     prompts={a: ref[a]["prompts"] for a in archs},
                     max_seq=MAX, gen=GEN, chunks=CHUNKS)
-    return {(r["arch"], r["shape"], r["batch"]): (ref[r["arch"]][(r["shape"], r["batch"])],
-                                                  [rank[i] for rank in got])
+    return {(r["key"], r["shape"], r["batch"]): (ref[r["key"]][(r["shape"], r["batch"])],
+                                                 [rank[i] for rank in got])
             for i, r in enumerate(runs)}
 
 

@@ -64,22 +64,24 @@ def both(archs, tmp, shapes=SHAPES, rows: int = 2, variants=None, timeout: float
     state, its metrics, port one-device new state, its metrics)} for every
     arch on every (data, model) mesh shape, from the reference's state and
     a batch of ``rows`` rows; ``variants`` ({name: (archs, shapes,
-    TrainerConfig kwargs, ModelConfig overrides)}) adds (arch, shape, name)
-    keys. Each value also carries whether every rank's new leaves had their
-    local shapes (``[6]``)."""
-    runs = [((a, s), a, s, {}, {}) for a in archs for s in shapes]
-    for name, (v_archs, v_shapes, tkw, ov) in (variants or {}).items():
-        runs += [((a, s, name), a, s, tkw, ov) for a in v_archs for s in v_shapes]
+    TrainerConfig kwargs, ModelConfig overrides[, the port's own
+    overrides])}) adds (arch, shape, name) keys. Each value also carries
+    whether every rank's new leaves had their local shapes (``[6]``)."""
+    runs = [((a, s), a, s, {}, {}, {}) for a in archs for s in shapes]
+    for name, (v_archs, v_shapes, tkw, ov, *port) in (variants or {}).items():
+        runs += [((a, s, name), a, s, tkw, ov, port[0] if port else {})
+                 for a in v_archs for s in v_shapes]
     ref = {}
     # one reference process per arch, side by side: XLA compiles each step
     # on one core, and the compiles are most of the time
     with concurrent.futures.ThreadPoolExecutor() as pool:
         for part in pool.map(lambda a: run_jax(
-                f"REPO = {REPO!r}\nRUNS = {[r for r in runs if r[1] == a]!r}\nROWS = {rows}\n"
-                + _REFERENCE, 4, tmp), sorted({r[1] for r in runs})):
+                f"REPO = {REPO!r}\nRUNS = {[r[:5] for r in runs if r[1] == a]!r}\n"
+                f"ROWS = {rows}\n" + _REFERENCE, 4, tmp), sorted({r[1] for r in runs})):
             ref.update(part)
-    args = [{"arch": a, "shape": s, "tcfg": tkw, "overrides": ov, "state": ref[k]["state"],
-             "batch": ref[k]["batch"]} for k, a, s, tkw, ov in runs]
+    args = [{"arch": a, "shape": s, "tcfg": tkw, "overrides": ov, "port": port,
+             "state": ref[k]["state"], "batch": ref[k]["batch"]}
+            for k, a, s, tkw, ov, port in runs]
     got = run_ranks("tp_steps", 4, tmp, timeout=timeout, runs=args, lr=LR)
     out = {}
     for i, (key, *_rest) in enumerate(runs):

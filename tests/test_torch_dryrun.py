@@ -7,8 +7,9 @@ reference's from ``NamedSharding.shard_shape`` of its state's specs in one
 subprocess whose JAX sees 512 forced host devices (nothing compiled), the
 port's from its fake shards in one subprocess on a one-process "fake"
 group. Then the FLOP count of a reduced olmo-1b prefill against its
-closed form, one full-width cell's record, and the recorded 14b-iv error
-of a default-variant MoE cell."""
+closed form, one full-width cell's record, a default-variant MoE cell's
+all-to-all bytes against their closed form, and a cell whose "model" ranks
+cut query heads."""
 
 import json
 import os
@@ -155,9 +156,34 @@ def test_full_width_decode_cell_writes_its_record(tmp_path):
     assert np.isfinite(rf["mfu_upper_bound"]) and 0 < rf["useful_flops_ratio"] <= 1
 
 
-def test_default_variant_moe_cell_records_the_missing_port(tmp_path):
-    """The reference's default variant routes the MoE all-to-all under
-    "model": the port records the cell's error, naming ROADMAP 14b-iv."""
+def test_default_variant_moe_cell_runs_the_all_to_all(tmp_path):
+    """qwen3-moe-30b-a3b × decode_32k × single, the reference's default
+    variant (the all-to-all MoE with an int8 wire, EP over "model"):
+    status ok. A rank's 8 rows make T_loc = 8 tokens, so each of its n_ep
+    = 16 send queues holds C_send = 8 slots (⌊8·8/16·1.25⌋ = 5, at least
+    k = 8, rounded up to 8). Per layer the dispatch moves the int8 slots
+    (D bytes), their fp32 scales and the int32 expert index, and the return
+    trip the int8 slots and scales again: 5 all-to-alls, of which a rank
+    receives (n_ep − 1)/n_ep under the counters' ring model."""
     r = _cell(tmp_path, "--arch", "qwen3-moe-30b-a3b", "--shape", "decode_32k", "--mesh",
               "single")
-    assert r["status"] == "error" and "14b-iv" in r["error"]
+    assert r["status"] == "ok", r.get("traceback")
+    n_ep, c_send, d, layers = 16, 8, 2048, 48
+    per_layer = (n_ep - 1) * c_send * (d + 4 + 4 + d + 4)
+    assert r["hlo"]["collective_breakdown"]["all_to_all"] == layers * per_layer
+    assert r["hlo"]["collective_calls"]["all_to_all"] == layers * 5
+
+
+def test_gemma3_decode_cell_cuts_query_heads(tmp_path):
+    """gemma3-4b × decode_32k × single: 8 query heads over 16 "model"
+    ranks, so each rank's wq columns are half a head (q gathered over
+    "model"), and 4 kv heads, so the cache's sequence is cut over "model":
+    status ok, a rank's cache its 8 rows × 2,048 of the 32,768 slots of
+    every kv head (1/256 of the whole)."""
+    r = _cell(tmp_path, "--arch", "gemma3-4b", "--shape", "decode_32k", "--mesh", "single")
+    assert r["status"] == "ok", r.get("traceback")
+    whole_cache = 2 * 34 * 128 * 32768 * 4 * 256 * 2         # k, v; bf16
+    params = r["state_bytes_per_device"]
+    assert r["memory"]["argument_bytes_per_device"] == params + whole_cache // 256 + 8 * 8
+    assert r["memory"]["alias_bytes_per_device"] == whole_cache // 256
+    assert r["hlo"]["collective_calls"]["all_gather"] > 0

@@ -170,22 +170,20 @@ def test_a_step_leaves_no_reference_cycles():
 
 
 def test_multi_device_cases_raise():
-    """Tensor-parallel compute (a "model" axis of size > 1) raises for the
-    all-to-all MoE (``moe_impl="a2a"``, ROADMAP item 14b-iv), and needs a
-    mesh of processes for every family (its trainer is
-    ``tests/test_torch_tensor_parallel_step_*.py``);
+    """Tensor-parallel compute (a "model" axis of size > 1) needs a mesh of
+    processes for every family, the all-to-all MoE (``moe_impl="a2a"``)
+    among them (its trainer is ``tests/test_torch_tensor_parallel_step_*.py``);
     a multi-pod compressed state carries the reference's (n_pods, *shape)
     zero residuals in one process (the multi-rank trainer is
     ``tests/test_torch_multipod.py``), and none without compression."""
     cfg = TC.get_reduced("olmo-1b")
     opt = adam(1e-3)
     tp_mesh = MeshSpec((1, 1, 2), ("pod", "data", "model"))
-    with pytest.raises(NotImplementedError, match="item 14b-iv"):
-        make_train_step(TC.get_reduced("qwen3-moe-30b-a3b", moe_impl="a2a"), TrainerConfig(), opt,
-                        mesh=tp_mesh)
-    for arch in ("olmo-1b", "qwen3-moe-30b-a3b", "mamba2-370m", "zamba2-1.2b"):
+    a2a = TC.get_reduced("qwen3-moe-30b-a3b", moe_impl="a2a", mesh_ep_axis="model")
+    for cfg_ in (a2a, *(TC.get_reduced(a) for a in ("olmo-1b", "qwen3-moe-30b-a3b",
+                                                    "mamba2-370m", "zamba2-1.2b"))):
         with pytest.raises(TypeError, match="mesh of processes"):
-            make_train_step(TC.get_reduced(arch), TrainerConfig(), opt, mesh=tp_mesh)
+            make_train_step(cfg_, TrainerConfig(), opt, mesh=tp_mesh)
     state = init_train_state(cfg, TrainerConfig(pod_compression=True), opt, device="cpu",
                              n_pods=2)
     assert state.residuals["embed"]["table"].shape == (2,) + tuple(
