@@ -38,11 +38,16 @@ Phases (any failure exits non-zero; no phase is skipped):
                  greedy steps (112 ternary_matmul launches per forward), beside
                  the fp32 phase's numbers; the bf16 quantize_pack on the
                  deploy's 7 segments (bytes and counts bit for bit, sums and
-                 scales within 1e-6) and the bf16 ternary_matmul at every
-                 layer shape at M = 4 and 128 (within one bf16 ulp, one-hot
-                 bit for bit) against their plain versions; their times
-                 beside the bounds, the plain versions and torch.matmul on
-                 the dequantized bf16 weights;
+                 scales within 1e-6) and the bf16 ternary_matmul (its own
+                 kernels, ternary_matmul_bf16.cu) at every layer shape at
+                 M = 4, 128 and 2,048 (within one bf16 ulp, the same bits
+                 from a second call, one-hot bit for bit) against their
+                 plain versions; their times beside the bounds, the plain
+                 versions and torch.matmul on the dequantized bf16 weights;
+                 one decode step's and one prefill forward's 112 bf16
+                 matmuls traced with torch.profiler: one device kernel a
+                 call, and the device time a call takes at each layer shape
+                 beside its bound;
   5. serve_loop — ``launch.serve_loop.ServeEngine`` on olmo-1b at full width
                  (max_batch 8, fp16 residuals) at two dequant-cache
                  capacities, 16 MiB and 1 GiB, each under ``run_closed_loop``
@@ -379,6 +384,7 @@ RAGGED_MATMUL_SHAPES = [(3, 36, 130), (1, 8, 4), (1, 2048, 2048), (8, 2048, 2048
                         (16, 2048, 2048), (33, 64, 70), (40, 1024, 260), (17, 4, 1)]
 BATCH, PROMPT, GEN = 4, 32, 16
 LAYER_MATMULS = 7
+BF16_LONG_ROWS = 2048       # the bf16 matmul checks' long prompt, beside decode and prefill rows
 
 
 class SmokeFailure(Exception):
@@ -3272,15 +3278,18 @@ def bf16_kernel_checks(dev, rows, scal, served) -> dict:
     inputs: quantize_pack_segments over the deploy's 7 bf16 segments in one
     launch (bytes and counts bit for bit, sums and scales within 1e-6
     relative: fp32 order); ternary_matmul on bf16 x at every served layer's
-    shape at decode (M = 4) and prefill (M = 128) rows, within one bf16 ulp
-    of the plain version (plus the fp32 summation-order allowance where a
-    sum cancels), and bit for bit on one-hot weights."""
+    shape at decode (M = 4), prefill (M = 128) and long-prompt (M = 2,048)
+    rows, within one bf16 ulp of the plain version (plus the fp32
+    summation-order allowance where a sum cancels), the same bits from a
+    second call, and bit for bit on one-hot weights."""
     import torch
 
     from repro_torch.kernels.quantize_pack import (
         quantize_pack, quantize_pack_segments, quantize_pack_segments_plain,
     )
-    from repro_torch.kernels.ternary_matmul import ternary_matmul, ternary_matmul_plain
+    from repro_torch.kernels.ternary_matmul import (
+        launch_shape_bf16, ternary_matmul, ternary_matmul_plain,
+    )
 
     before = quantize_pack.launches
     packed, moments, scales = quantize_pack_segments(rows, scal, with_scales=True)
@@ -3299,8 +3308,9 @@ def bf16_kernel_checks(dev, rows, scal, served) -> dict:
           and scale_rel <= 1e-6, "bf16 quantize_pack_segments disagrees with its plain version")
     gen = torch.Generator(dev).manual_seed(17)
     shapes = sorted({(w.k, w.packed.shape[1]) for w in _packed_layers(served)})
-    worst, bad_ulp, over_ulp, n_out, bad_onehot = 0.0, 0, 0, 0, 0
-    for m in (BATCH, BATCH * PROMPT):
+    worst = 0.0
+    for m in (BATCH, BATCH * PROMPT, BF16_LONG_ROWS):
+        bad_ulp, over_ulp, n_out, bad_onehot, unequal = 0, 0, 0, 0, 0
         for k, n in shapes:
             x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
             c = torch.randint(0, 3, (k // 4, 4, n), generator=gen, device=dev,
@@ -3309,6 +3319,7 @@ def bf16_kernel_checks(dev, rows, scal, served) -> dict:
             wq = torch.tensor(0.02, device=dev)
             y, y_ref = ternary_matmul(x, packed_w, wq), ternary_matmul_plain(x, packed_w, wq)
             check(y.dtype == torch.bfloat16, "bf16 ternary_matmul returned another dtype")
+            unequal += int((ternary_matmul(x, packed_w, wq) != y).sum())
             bad, over = bf16_ulps_apart(y, y_ref, x, packed_w, wq)
             bad_ulp, over_ulp, n_out = bad_ulp + bad, over_ulp + over, n_out + y.numel()
             worst = max(worst, float((y.float() - y_ref.float()).abs().max()))
@@ -3319,13 +3330,16 @@ def bf16_kernel_checks(dev, rows, scal, served) -> dict:
             onehot = c[:, 0] | (c[:, 1] << 2) | (c[:, 2] << 4) | (c[:, 3] << 6)
             bad_onehot += int((ternary_matmul(x, onehot, wq)
                                != ternary_matmul_plain(x, onehot, wq)).sum())
-    torch.cuda.synchronize()
-    print(f"  ternary_matmul bf16 at {len(shapes)} layer shapes x M = {BATCH}, "
-          f"{BATCH * PROMPT}: {bad_ulp} of {n_out} outputs more than 1 bf16 ulp from the "
-          f"plain version beyond the fp32-order allowance ({over_ulp} beyond 1 ulp alone; "
-          f"max abs err {worst:.3e}); one-hot weights: {bad_onehot} outputs differ")
-    check(bad_ulp == 0 and bad_onehot == 0, "bf16 ternary_matmul disagrees with its plain "
-                                            "version")
+            del x, c, packed_w, y, y_ref, codes, onehot
+        torch.cuda.synchronize()
+        print(f"  ternary_matmul bf16 at {len(shapes)} layer shapes x M = {m} (launch shapes "
+              f"{[launch_shape_bf16(m, k // 4, n) for k, n in shapes]}): {bad_ulp} of {n_out} "
+              f"outputs more than 1 bf16 ulp from the plain version beyond the fp32-order "
+              f"allowance ({over_ulp} beyond 1 ulp alone); a second call: {unequal} differ; "
+              f"one-hot weights: {bad_onehot} differ")
+        check(bad_ulp == 0 and bad_onehot == 0 and unequal == 0,
+              f"bf16 ternary_matmul disagrees with its plain version or itself at M = {m}")
+    print(f"  ternary_matmul bf16 max abs err {worst:.3e}")
     return {"quantize_pack_sum_rel": sum_rel, "quantize_pack_scale_rel": scale_rel,
             "matmul_max_abs_err": worst, "packed": packed, "scales": scales}
 
@@ -3338,12 +3352,47 @@ def _packed_layers(served):
     return [s.layer(0) for s in stacks if isinstance(s, PackedTernary)]
 
 
+def bf16_forward_trace(calls) -> dict:
+    """One forward's bf16 ternary_matmul calls, eagerly, under torch.profiler:
+    the device kernels they launch (one a call: no split-K reduce, no
+    workspace, no memset), and the device time a call takes at each layer
+    shape beside that call's bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.ternary_matmul import ternary_matmul
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for x, p, s, _ in calls:
+            ternary_matmul(x, p, s)
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    names = {e.name.split("(")[0] for e in kernels}
+    per_call = {}
+    if len(kernels) == len(calls):
+        for e, (x, p, _, _) in zip(kernels, calls):
+            row = per_call.setdefault(f"K={x.shape[1]} N={p.shape[1]}",
+                                      {"k": x.shape[1], "n": p.shape[1], "calls": 0,
+                                       "device_us": 0.0})
+            row["calls"] += 1
+            row["device_us"] += getattr(e, "device_time_total", None) or e.cuda_time_total
+        for row in per_call.values():
+            row["device_us"] /= row["calls"]
+            b_ms, b_by, _, _ = bf16_matmul_bound(calls[0][0].shape[0], row["k"], row["n"])
+            row["bound_us"], row["bound_by"] = b_ms * 1e3, b_by
+    return {"device_kernels": len(kernels), "kernel_names": sorted(names),
+            "per_call": per_call}
+
+
 def bf16_timings(dev, cfg, served, dense, rows, scal, checked) -> dict:
     """The bf16 kernels' times on the card (CUDA events): the deploy's
     quantize_pack over the 7 bf16 segments eagerly as the encode calls it;
     one decode step's and one prefill forward's 112 ternary matmuls on bf16
     x as graph replays, beside their plain versions and ``torch.matmul`` of
-    bf16 x with the dequantized bf16 weights; each beside its bound."""
+    bf16 x with the dequantized bf16 weights; each beside its bound; and
+    each forward traced once (``bf16_forward_trace``)."""
     import torch
 
     from repro_torch.kernels.quantize_pack import (
@@ -3385,11 +3434,20 @@ def bf16_timings(dev, cfg, served, dense, rows, scal, checked) -> dict:
         shapes = [bf16_matmul_bound(x.shape[0], x.shape[1], p.shape[1]) for x, p, _, _ in calls]
         t["bytes"], t["flops"] = sum(b[2] for b in shapes), sum(b[3] for b in shapes)
         t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["flops"], PEAK_BF16_S)
+        t.update(bf16_forward_trace(calls))
         out[f"ternary_matmul_{label}"] = t
         print(f"ternary_matmul bf16, one {label} forward's {len(calls)} matmuls at M={m}: "
               f"kernel {t['ms']:.4f} ms (eager {t['eager_ms']:.4f} ms), plain "
               f"{t['plain_ms']:.4f} ms, torch.matmul on the dequantized bf16 weights "
-              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+              f"{t['library_ms']:.4f} ms ({t['library_ms'] / t['ms']:.2f}x the kernel), bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}); traced eagerly: "
+              f"{t['device_kernels']} device kernels for {len(calls)} calls")
+        for key, row in t["per_call"].items():
+            print(f"  {key}: {row['calls']} calls, {row['device_us']:.2f} us of device "
+                  f"time a call, bound {row['bound_us']:.3f} us ({row['bound_by']})")
+        check(t["device_kernels"] == len(calls),
+              f"one bf16 {label} forward launched {t['device_kernels']} device kernels for "
+              f"{len(calls)} ternary_matmul calls (want one each)")
     q = out["quantize_pack"]
     print(f"quantize_pack bf16, the deploy's {len(rows)} segments ({n} weights), eager: "
           f"{q['ms']:.4f} ms, plain {q['plain_ms']:.4f} ms, bound {q['bound_ms']:.4f} ms "
@@ -6251,6 +6309,7 @@ def main() -> int:
     phase("fed trace: one round of 1 client at E = 5, B = 64 under torch.profiler")
     federated_trace(dev, setup)
 
+    bf16_decode = bf16["timings"]["ternary_matmul_decode"]
     table = {"kernels": [
         {"name": "quantize_pack", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/quantize_pack.cu",
@@ -6293,14 +6352,19 @@ def main() -> int:
                                        for qps, run in row["runs"].items()}
                                  for cap, row in sloop["engines"].items()},
          "zoo_launches": {arch: row["launches"]["ternary_matmul"] for arch, row in zoo.items()},
-         "serve_loop": sloop, "zoo": zoo,
-         "bf16": {"launches": bf16["launches"]["ternary_matmul"],
-                  "per_forward": bf16["ternary_matmul_per_forward"],
-                  "max_abs_err": bf16["checks"]["matmul_max_abs_err"],
-                  "decode": bf16["timings"]["ternary_matmul_decode"],
-                  "prefill": bf16["timings"]["ternary_matmul_prefill"],
-                  "serve": {k: bf16[k] for k in ("wire_bytes", "deploy_s", "logits_ratio",
-                                                 "prefill_ms", "decode_tok_s")}}},
+         "serve_loop": sloop, "zoo": zoo},
+        {"name": "ternary_matmul_bf16", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ternary_matmul_bf16.cu",
+         "replaces": "src/repro/kernels/ternary_matmul.py:34",
+         "launches": bf16["launches"]["ternary_matmul"],
+         "max_abs_err": bf16["checks"]["matmul_max_abs_err"],
+         "ms": bf16_decode["ms"], "plain_ms": bf16_decode["plain_ms"],
+         "bound_ms": bf16_decode["bound_ms"], "bound_by": bf16_decode["bound_by"],
+         "library_ms": bf16_decode["library_ms"], "eager_ms": bf16_decode["eager_ms"],
+         "per_forward": bf16["ternary_matmul_per_forward"], "decode": bf16_decode,
+         "prefill": bf16["timings"]["ternary_matmul_prefill"],
+         "serve": {k: bf16[k] for k in ("wire_bytes", "deploy_s", "logits_ratio",
+                                        "prefill_ms", "decode_tok_s")}},
         {"name": "aggregate", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/aggregate.cu",
          "replaces": "src/repro/kernels/aggregate.py:51",

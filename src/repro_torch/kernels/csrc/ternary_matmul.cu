@@ -4,7 +4,7 @@
 // Replaces the TPU kernel src/repro/kernels/ternary_matmul.py::_kernel
 // (launched by ternary_matmul). Computes
 //
-//   out = (x @ (code(W) - 1)) * w_q        x (M, K) fp32 or bf16, out (M, N) x's type
+//   out = (x @ (code(W) - 1)) * w_q        x (M, K) fp32, out (M, N) fp32
 //
 // where W is (K/4, N) uint8 and byte W[r, n] holds the codes of rows
 // 4r..4r+3 of column n (2 bits each, little-endian). Sums accumulate in fp32
@@ -18,14 +18,8 @@
 // own accumulator; the result is ((lo + mid) + hi) * w_q. One bf16 part (or
 // TF32) would keep about 3 decimal digits.
 //
-// bf16 x (ternary_matmul_bf16). A bf16 x is its own hi part (mid = lo = 0),
-// so the split reduces to one term: one bf16 x exact-weight product per
-// output with fp32 accumulation, times w_q in fp32, rounded to bf16 (to
-// nearest, ties to even) as the reference's (acc * w_q).astype(x.dtype).
-// The same two kernels serve it, templated on x's type: one part per row of
-// x instead of three (mma.sync: 4 pairs padded to 8 at decode, 16 at BM =
-// 16; wgmma.m64n32k16 for the 32 rows of a warpgroup block), x staged as
-// bf16 (8 bytes per packed row) and copied, not split, into the MMA layout.
+// bf16 x has kernels of their own, designed for one bf16 part of x:
+// ternary_matmul_bf16.cu. The kernels here stay templated on x's type.
 //
 // Bound: bytes at decode, operations at prefill. The tensor cores do
 // 3 * 2 * M * K * N bf16 operations (989 TFLOP/s dense); the kernel reads
@@ -238,15 +232,10 @@ __device__ __forceinline__ void split4(const float4 v, uint2 (&p)[3]) {
   p[2] = make_uint2(bf16x2(r0, r1), bf16x2(r2, r3));
 }
 
-// Four staged values of x (one packed row's K range) as their bf16 parts,
-// each as two bf16x2 registers (values 0, 1 and 2, 3): the three parts of
-// fp32 x, or bf16 x itself.
+// Four staged values of x (one packed row's K range) as their three bf16
+// parts, each as two bf16x2 registers (values 0, 1 and 2, 3).
 __device__ __forceinline__ void parts4(const float* xf, uint2 (&p)[3]) {
   split4(*reinterpret_cast<const float4*>(xf), p);
-}
-
-__device__ __forceinline__ void parts4(const bf16_t* xf, uint2 (&p)[3]) {
-  p[0] = *reinterpret_cast<const uint2*>(xf);
 }
 
 // The staged x of one stage into its bf16 parts: pair p * BM + m holds part
@@ -265,11 +254,8 @@ __device__ __forceinline__ void split_stage(const XT* xf, uint8_t* xb) {
   }
 }
 
-// One output: the rounded product for bf16 (to nearest even), as is for fp32.
+// One output.
 __device__ __forceinline__ void store_out(float* out, size_t i, float y) { out[i] = y; }
-__device__ __forceinline__ void store_out(bf16_t* out, size_t i, float y) {
-  out[i] = (bf16_t)(bf16x2(y, 0.f) & 0xFFFFu);
-}
 
 // The finished sum of row m, column c from the epilogue's pair rows:
 // (lo + mid) + hi for fp32 x, the one part for bf16.
@@ -401,9 +387,8 @@ ternary_matmul_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// The warpgroup kernel, for M > 16: wgmma.m64n96k16 (fp32 x) or m64n32k16
-// (bf16 x), A (the weights) from registers, B (the 96 or 32 (part, row)
-// pairs of 32 rows of x) from shared memory. The same exact split, K
+// The warpgroup kernel, for M > 16: wgmma.m64n96k16, A (the weights) from
+// registers, B (the 96 (part, row) pairs of 32 rows of x) from shared memory. The same exact split, K
 // permutation, unpack and split-K as above; each of its two warpgroups owns
 // 64 output columns, and one instruction does a whole 64 x pairs x 16 step,
 // so no B fragment passes through registers.
@@ -453,23 +438,8 @@ __device__ __forceinline__ void wgmma_m64n96k16(float (&d)[48], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], const uint32_t (&a)[4],
-                                                uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
 __device__ __forceinline__ void wgmma_step(float (&d)[48], const uint32_t (&a)[4], uint64_t desc) {
   wgmma_m64n96k16(d, a, desc);
-}
-
-__device__ __forceinline__ void wgmma_step(float (&d)[16], const uint32_t (&a)[4], uint64_t desc) {
-  wgmma_m64n32k16(d, a, desc);
 }
 
 // The staged x of one stage into its bf16 parts in the core-matrix layout,
@@ -688,12 +658,4 @@ extern "C" int ternary_matmul_f32(const float* x, const uint8_t* w,
                                   int K4, int N, int bm, int split, int wvec,
                                   void* stream) {
   return run<float>(x, w, wq, out, ws, M, K4, N, bm, split, wvec, (cudaStream_t)stream);
-}
-
-// The same for bf16 x and a bf16 out (raw 16-bit values); ws stays fp32.
-extern "C" int ternary_matmul_bf16(const uint16_t* x, const uint8_t* w,
-                                   const float* wq, uint16_t* out, float* ws, int M,
-                                   int K4, int N, int bm, int split, int wvec,
-                                   void* stream) {
-  return run<bf16_t>(x, w, wq, out, ws, M, K4, N, bm, split, wvec, (cudaStream_t)stream);
 }

@@ -1,4 +1,5 @@
-"""Ternary-weight matmul on 2-bit packed weights: ``csrc/ternary_matmul.cu``.
+"""Ternary-weight matmul on 2-bit packed weights: ``csrc/ternary_matmul.cu``
+(fp32 x) and ``csrc/ternary_matmul_bf16.cu`` (bf16 x).
 
 Replaces the TPU kernel ``repro/kernels/ternary_matmul.py::_kernel``:
 y = x @ (w_q · unpack(W)) with W the ``(K//4, N)`` uint8 layout of
@@ -18,12 +19,22 @@ each 16-deep step so a thread unpacks whole bytes, a cp.async ring of
 shared-memory stages, and K split across blocks when M and N alone give
 too few blocks to fill 132 SMs.
 
-bf16 x takes the same kernels through ``ternary_matmul_bf16``: a bf16 x is
-its own hi part, so each output is one bf16 × exact-weight product summed in
-fp32, times w_q in fp32, rounded to bf16 (to nearest, ties to even) and
-returned as bf16, as the reference kernel returns ``x.dtype``. Its bound is
-bytes at decode as well (x and the output are half as wide) and 2MKN bf16
-operations at prefill.
+bf16 x has kernels of its own (``ternary_matmul_bf16``): each output is one
+bf16 × exact-weight product summed in fp32, times w_q in fp32, rounded to
+bf16 (to nearest, ties to even) and returned as bf16, as the reference
+kernel returns ``x.dtype``. Its bound is bytes at decode and 2MKN bf16
+operations at prefill. One launch a call and no workspace: at decode
+(M ≤ 16) an ``mma.sync`` kernel of 64 output columns a block whose 8 warps
+each stream their own K stages through a cp.async ring; above, a ``wgmma``
+kernel of 128 columns a block (a producer warp loading the weights by
+cp.async and x by TMA, two consumer warpgroups taking turns at the tensor
+cores) that spreads each unpacked weight byte over a 64-, 128- or 256-row
+tile of x. Where the output tiles are too few for 132 SMs, K is split
+across the blocks of a thread-block cluster, and each block adds its share
+of the partial tiles, stored into it through distributed shared memory, in
+split order, so results are deterministic. Both launch with programmatic
+dependent launch: they stream their weights before the kernel ahead of
+them ends. ``launch_shape_bf16`` is the launch rule.
 
 ``ternary_matmul`` dispatches on the tensor's device: the plain PyTorch
 version for CPU tensors, the CUDA kernel for CUDA tensors (or it raises).
@@ -33,14 +44,19 @@ version for CPU tensors, the CUDA kernel for CUDA tensors (or it raises).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels.pack2bit import unpack2bit_plain
 
-BN = 128           # output columns per block
+BN = 128           # output columns per block (the bf16 wgmma kernel's too)
 KC4 = 32           # packed rows per pipeline stage: the least K work of a split
 SM_COUNT = 132     # streaming multiprocessors of an H100 SXM
+MAX_SPLIT = 8      # bf16 K splits: the blocks of a portable thread-block cluster
+BF16_STAGE4 = 16   # packed rows per stage of the bf16 kernels (64 K)
+BF16_DECODE_BN = 64     # output columns per block of the bf16 mma.sync kernel
+BF16_DECODE_WARPS = 8   # its warps, each a K slot
 
 
 def ternary_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
@@ -90,16 +106,53 @@ def launch_shape(m: int, k4: int, n: int) -> tuple[int, int]:
     return bm, max(1, -(-k4 // per))
 
 
-_ENTRIES = {torch.float32: "ternary_matmul_f32", torch.bfloat16: "ternary_matmul_bf16"}
+@functools.lru_cache(maxsize=1024)
+def launch_shape_bf16(m: int, k4: int, n: int) -> tuple[int, int]:
+    """(rows of x per block, K splits) of the bf16 kernels for an
+    (m, 4·k4) @ (4·k4, n) product. Rows 8 or 16 select the ``mma.sync``
+    kernel (blocks of ``BF16_DECODE_BN`` columns): decode-sized m, and any K
+    that is not a multiple of 8, whose rows of x the TMA cannot address.
+    Rows 64, 128 or 256 select the ``wgmma`` kernel (blocks of ``BN``
+    columns), 256 only where its tiles alone fill half the card. K is split
+    in powers of two across a thread-block cluster while the blocks stay
+    within two per SM at decode (bound by bytes: blocks keep reads in
+    flight) and one per SM above (bound by operations), and while every
+    split keeps a stage for each of the decode kernel's warps, or two
+    stages above: up to ``MAX_SPLIT`` splits at decode and half as many
+    above, where a block has its SM to itself and clusters of 8 do not all
+    fit the GPCs at once. Each split is a whole number of 64-K stages (the
+    kernels round the same way)."""
+    stage = BF16_STAGE4
+    if m > 16 and k4 % 2 == 0 and k4 >= stage:
+        bm = 64 if m <= 64 else 128
+        if m > 192 and 2 * -(-n // BN) * -(-m // 256) > SM_COUNT:
+            bm = 256                      # enough tiles unsplit: its K is never split
+        bn, target, most, least = BN, SM_COUNT, MAX_SPLIT // 2, 2 * stage
+    else:
+        bm = 8 if m <= 8 else 16
+        bn, target, most = BF16_DECODE_BN, 2 * SM_COUNT, MAX_SPLIT
+        least = BF16_DECODE_WARPS * stage
+    tiles = -(-n // bn) * -(-m // bm)
+    split = 1
+    while split < most and 2 * split * tiles <= target and k4 >= 2 * split * least:
+        split *= 2
+    per = -(-(-(-k4 // split)) // stage) * stage
+    return bm, max(1, -(-k4 // per))
+
+
+_ENTRIES = {torch.float32: ("ternary_matmul", "ternary_matmul_f32"),
+            torch.bfloat16: ("ternary_matmul_bf16", "ternary_matmul_bf16")}
 
 
 def _lib(dtype: torch.dtype):
     from repro_torch.kernels import _build
 
-    fn = getattr(_build.load("ternary_matmul"), _ENTRIES[dtype])
+    lib, entry = _ENTRIES[dtype]
+    fn = getattr(_build.load(lib), entry)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+        ws = [p] if dtype == torch.float32 else []      # the fp32 entry's split-K workspace
+        fn.argtypes = [p, p, p, p, *ws, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -132,15 +185,21 @@ def ternary_matmul(x: torch.Tensor, packed: torch.Tensor,
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    bm, split = launch_shape(m, k4, n)
-    ws = (torch.empty((split, m, n), dtype=torch.float32, device=x.device)
-          if split > 1 else out)
-    wvec = next(v for v in (16, 4, 1) if n % v == 0 and packed.data_ptr() % v == 0)
     fn = _lib(x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), packed.data_ptr(), w_q.data_ptr(), out.data_ptr(),
-                 ws.data_ptr(), m, k4, n, bm, split, wvec, stream)
+        if x.dtype == torch.bfloat16:
+            bm, split = launch_shape_bf16(m, k4, n)
+            wvec = 16 if n % 16 == 0 and packed.data_ptr() % 16 == 0 else 1
+            err = fn(x.data_ptr(), packed.data_ptr(), w_q.data_ptr(), out.data_ptr(),
+                     m, k4, n, bm, split, wvec, stream)
+        else:
+            bm, split = launch_shape(m, k4, n)
+            ws = (torch.empty((split, m, n), dtype=torch.float32, device=x.device)
+                  if split > 1 else out)
+            wvec = next(v for v in (16, 4, 1) if n % v == 0 and packed.data_ptr() % v == 0)
+            err = fn(x.data_ptr(), packed.data_ptr(), w_q.data_ptr(), out.data_ptr(),
+                     ws.data_ptr(), m, k4, n, bm, split, wvec, stream)
     if err != 0:
         raise RuntimeError(f"ternary_matmul kernel launch failed: CUDA error {err}")
     ternary_matmul.launches += 1

@@ -54,7 +54,8 @@ def setup():
     return jcfg, jparams, dataclasses.replace(get_reduced("olmo-1b"), **BF16), params, tokens
 
 
-@pytest.mark.parametrize("m,k,n", [(4, 64, 48), (5, 32, 37), (1, 8, 3), (17, 128, 130)])
+@pytest.mark.parametrize("m,k,n", [(4, 64, 48), (5, 32, 37), (1, 8, 3), (17, 128, 130),
+                                   (17, 64, 48), (129, 64, 40), (129, 128, 300), (31, 36, 70)])
 def test_plain_bf16_matches_pallas_kernel(m, k, n):
     """bf16 x → bf16 out, within one bf16 ulp of the Pallas kernel (the
     fp32 accumulation order may differ and move a rounding)."""

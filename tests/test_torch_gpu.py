@@ -310,8 +310,15 @@ def _bf16_allowed(y, y_ref, x, packed, wq) -> torch.Tensor:
     return _bf16_ulp(torch.maximum(y.float().abs(), y_ref.float().abs())) + 2.0 ** -22 * terms
 
 
+OLMO_1B_LAYERS = [(2048, 2048), (2048, 8192), (8192, 2048)]   # (K, N)
+
+
 @pytest.mark.parametrize("m,k,n", [(4, 2048, 2048), (4, 8192, 2048), (16, 2048, 2048),
-                                   (128, 2048, 8192), (3, 36, 130), (33, 64, 70), (17, 4, 1)])
+                                   (128, 2048, 8192), (3, 36, 130), (33, 64, 70), (17, 4, 1),
+                                   (4, 2048, 8192), (128, 2048, 2048), (128, 8192, 2048)]
+                         + [(m, k, n) for m in (17, 31, 64, 127, 129, 256, 2048)
+                            for k, n in OLMO_1B_LAYERS]
+                         + [(129, 2048, 2050), (64, 1024, 260), (2048, 512, 136)])
 def test_ternary_matmul_bf16_matches_plain(cuda_device, m, k, n):
     """bf16 x: a bf16 result within one bf16 ulp of the plain version (the
     fp32 sums differ in order only; where a sum cancels, within that
@@ -334,6 +341,55 @@ def test_ternary_matmul_bf16_matches_plain(cuda_device, m, k, n):
     c = codes.reshape(k // 4, 4, n)
     onehot = c[:, 0] | (c[:, 1] << 2) | (c[:, 2] << 4) | (c[:, 3] << 6)
     assert torch.equal(ternary_matmul(x, onehot, wq), ternary_matmul_plain(x, onehot, wq))
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 2048, 2048), (16, 8192, 2048), (128, 8192, 2048),
+                                   (2048, 2048, 8192), (3, 36, 130), (129, 2048, 2050)])
+def test_ternary_matmul_bf16_repeats_and_replays_in_a_cuda_graph(cuda_device, m, k, n):
+    """bf16 x: two calls give the same bits (the K splits are added in a
+    fixed order, with no atomics), and a CUDA graph of the call replayed on
+    new inputs gives what an eager call gives."""
+    gen = torch.Generator(cuda_device).manual_seed(m + 3 * n)
+    x = torch.randn(m, k, generator=gen, device=cuda_device).to(torch.bfloat16)
+    packed = _random_packed(k, n, gen, cuda_device)
+    wq = torch.tensor(0.21, device=cuda_device)
+    first = ternary_matmul(x, packed, wq)
+    assert torch.equal(first, ternary_matmul(x, packed, wq))
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y = ternary_matmul(x, packed, wq)
+    for _ in range(2):
+        x.copy_(torch.randn(m, k, generator=gen, device=cuda_device).to(torch.bfloat16))
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, ternary_matmul(x, packed, wq))
+
+
+@pytest.mark.parametrize("m", [4, 128])
+def test_ternary_matmul_bf16_launches_one_kernel_per_call(cuda_device, m):
+    """bf16 x: each call at decode (M = 4) and prefill (M = 128) rows, at
+    every olmo-1b layer shape, is one device kernel: no split-K reduce, no
+    workspace memset, no other launch (counted with torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(cuda_device).manual_seed(m)
+    calls = []
+    for k, n in OLMO_1B_LAYERS:
+        x = torch.randn(m, k, generator=gen, device=cuda_device).to(torch.bfloat16)
+        calls.append((x, _random_packed(k, n, gen, cuda_device), torch.tensor(0.5, device=cuda_device)))
+    for x, packed, wq in calls:                   # build and warm up outside the trace
+        ternary_matmul(x, packed, wq)
+    torch.cuda.synchronize()
+    before = ternary_matmul.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for x, packed, wq in calls:
+            ternary_matmul(x, packed, wq)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert ternary_matmul.launches == before + len(calls)
+    assert len(kernels) == len(calls), kernels
+    assert all(("decode_kernel" if m <= 16 else "prefill_kernel") in name for name in kernels)
 
 
 @pytest.mark.parametrize("sizes", [[5], [33001, 4096, 37, 3], [16 * 2048 * 2048 // 16]])

@@ -16,8 +16,8 @@ from repro_torch.kernels.repack import (
     packed_matmul, packed_params_from_wire, repack_to_kernel_layout,
 )
 from repro_torch.kernels.ternary_matmul import (
-    BN, KC4, SM_COUNT, launch_shape, split_bf16x3, ternary_matmul, ternary_matmul_plain,
-    ternary_matmul_split,
+    BF16_DECODE_BN, BF16_DECODE_WARPS, BF16_STAGE4, BN, KC4, MAX_SPLIT, SM_COUNT, launch_shape,
+    launch_shape_bf16, split_bf16x3, ternary_matmul, ternary_matmul_plain, ternary_matmul_split,
 )
 
 torch.set_num_threads(1)
@@ -105,6 +105,45 @@ def test_launch_shape_fills_the_card_and_covers_k():
         blocks = -(-n // BN) * -(-m // bm) * split
         target = 2 * SM_COUNT if bm == 4 else SM_COUNT
         assert blocks >= target or split == max(1, k4 // KC4)
+
+
+OLMO_1B_LAYERS = [(2048, 2048), (2048, 8192), (8192, 2048)]   # (K, N): wq/wk/wv/wo, w_in/w_gate, w_out
+
+
+@pytest.mark.parametrize("m,k,n", [(m, k, n) for m in (1, 4, 8, 16, 17, 64, 128, 129, 256, 2048)
+                                   for k, n in OLMO_1B_LAYERS]
+                         + [(3, 36, 130), (33, 64, 70), (17, 4, 1), (40, 1024, 260),
+                            (300, 512, 136), (5, 256, 131), (2044, 2048, 8192)])
+def test_launch_shape_bf16_covers_k_and_fills_the_card(m, k, n):
+    """The bf16 rule: the mma.sync kernel (8 or 16 rows) at decode-sized m
+    and wherever K is no multiple of 8 (the TMA's 16-byte rows), else the
+    wgmma kernel (64, 128 or 256 rows, 256 unsplit only). K splits are
+    powers of two within the portable cluster (8 at decode, 4 above, where a
+    block has its SM to itself), each a whole number of 64-K stages with no
+    empty split; the split grows until the blocks reach the target (two per
+    SM at decode, one above) or a limit stops it: the cluster, or K too
+    short for a stage per decode warp (two stages above)."""
+    k4 = k // 4
+    bm, split = launch_shape_bf16(m, k4, n)
+    wgmma = m > 16 and k % 8 == 0 and k4 >= BF16_STAGE4
+    if wgmma:
+        assert bm == (64 if m <= 64 else 128 if bm != 256 else 256) and bm >= min(m, 64)
+        most, bn, target, least = MAX_SPLIT // 2, BN, SM_COUNT, 2 * BF16_STAGE4
+    else:
+        assert bm == (8 if m <= 8 else 16)
+        most, bn = MAX_SPLIT, BF16_DECODE_BN
+        target, least = 2 * SM_COUNT, BF16_DECODE_WARPS * BF16_STAGE4
+    assert split & (split - 1) == 0 and 1 <= split <= most
+    assert bm != 256 or split == 1
+    per = -(-(-(-k4 // split)) // BF16_STAGE4) * BF16_STAGE4
+    assert per * split >= k4 and per * (split - 1) < k4       # K covered, no empty split
+    assert split == 1 or per % BF16_STAGE4 == 0
+    blocks = -(-n // bn) * -(-m // bm) * split
+    assert (2 * blocks > target or split == most or k4 < 2 * split * least)
+    if m in (4, 128) and (k, n) in OLMO_1B_LAYERS:
+        assert blocks >= SM_COUNT // 3 and split > 1          # olmo-1b's calls spread over the card
+    if bm == 256:
+        assert 2 * -(-n // BN) * -(-m // 256) > SM_COUNT     # its tiles alone fill half the card
 
 
 def test_split_bf16x3_is_exact():
