@@ -36,14 +36,25 @@ Phases (any failure exits non-zero; no phase is skipped):
                  bf16 quantize_pack launch each), the packed-vs-dequantized
                  logits probe (≤ 5e-2 of max |logits|), prefill 4 × 32 and 15
                  greedy steps (112 ternary_matmul launches per forward), beside
-                 the fp32 phase's numbers; the bf16 quantize_pack on the
-                 deploy's 7 segments (bytes and counts bit for bit, sums and
-                 scales within 1e-6) and the bf16 ternary_matmul (its own
+                 the fp32 phase's numbers; the bf16 quantize_pack (its own
+                 kernel, quantize_pack_bf16.cu) on the deploy's 7 segments
+                 (bytes and counts bit for bit, sums and scales within 1e-6,
+                 a second call the same), on every bf16 bit pattern in one
+                 launch of 4,883 segments (a denom in every bf16 binade,
+                 deltas of 0, a subnormal, 0.05, 0.3, 0.7, 1 and their bf16
+                 neighbours; the threshold path and the exact division), off
+                 its whole-tile path (ragged, unaligned, odd byte offsets);
+                 XLA's subnormal rule in the fp32 quantize_pack on a sample
+                 of fp32 patterns and in ternary_quantize; the bf16
+                 ternary_matmul (its own
                  kernels, ternary_matmul_bf16.cu) at every layer shape at
                  M = 4, 128 and 2,048 (within one bf16 ulp, the same bits
                  from a second call, one-hot bit for bit) against their
                  plain versions; their times beside the bounds, the plain
-                 versions and torch.matmul on the dequantized bf16 weights;
+                 versions and torch.matmul on the dequantized bf16 weights
+                 (the bf16 deploy encode traced with torch.profiler: its one
+                 device kernel's time, the eager time and the host time of
+                 the segment table);
                  one decode step's and one prefill forward's 112 bf16
                  matmuls traced with torch.profiler: one device kernel a
                  call, and the device time a call takes at each layer shape
@@ -59,7 +70,8 @@ Phases (any failure exits non-zero; no phase is skipped):
                  deploy (rtol 1e-5, atol 1e-5);
   6. timings   — quantize_pack, eagerly as core.encode calls it (the
                  deploy's one call over olmo-1b's 7 leaves beside 7
-                 one-segment calls; one ResNet18* encode as 52 one-segment
+                 one-segment calls, and that call traced with torch.profiler
+                 for its device time; one ResNet18* encode as 52 one-segment
                  calls and as one call, per encode and per round),
                  ternary_matmul (one decode step's and one prefill forward's
                  112 matmuls beside torch.matmul on the dequantized weights,
@@ -3273,11 +3285,279 @@ def bf16_matmul_bound(m: int, k: int, n: int) -> tuple[float, str, int, int]:
     return (*bound(nbytes, flops, PEAK_BF16_S), nbytes, flops)
 
 
+BF16_DELTAS = (0.05, 0.3, 0.7, 1.0)    # deltas of the pattern table, each with its bf16 neighbours
+
+
+def bf16_patterns(dev):
+    """Every bf16 bit pattern once (65,536 values: ±0, subnormals, ±inf and
+    NaNs among them) and the same with the non-finite patterns set to 0, on
+    the card."""
+    import torch
+
+    every = torch.arange(65536, dtype=torch.int32, device=dev).to(torch.int16)
+    every = every.view(torch.bfloat16)
+    return every, torch.where(torch.isfinite(every), every, torch.zeros_like(every))
+
+
+def bf16_pattern_scalars(dev):
+    """(denom, Δ) rows that reach every branch of the bf16 encode: a denom in
+    every bf16 binade (a seeded significand each) and 0 and two subnormals,
+    against Δ of 0, a subnormal, and each of ``BF16_DELTAS`` with the bf16
+    values next to it below and above."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(29)
+    denoms = [float(np.ldexp(1.0 + rng.integers(0, 128) / 128.0, e)) for e in range(-126, 128)]
+    denoms += [0.0, 2.0 ** -133, 7.1e-39]
+    deltas = [0.0, 1e-39]
+    for d in BF16_DELTAS:
+        b = torch.tensor(d).to(torch.bfloat16).view(torch.int16)
+        deltas += [float((b - 1).view(torch.bfloat16)), d, float((b + 1).view(torch.bfloat16))]
+    return torch.tensor([[dn, dl] for dn in denoms for dl in deltas], dtype=torch.float32,
+                        device=dev)
+
+
+def _same_or_within(got, want) -> float:
+    """The largest relative error of ``got`` where ``want`` is finite, or
+    inf where ``want`` is not finite and ``got`` is not the same (NaN
+    matching NaN)."""
+    import torch
+
+    fin = torch.isfinite(want)
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    if not bool(same[~fin].all()):
+        return float("inf")
+    if not bool(fin.any()):
+        return 0.0
+    return float(((got[fin] - want[fin]).abs() / want[fin].abs().clamp_min(1e-30)).max())
+
+
+def quantize_pack_pattern_checks(dev) -> dict:
+    """The bf16 quantize_pack kernel on every bf16 bit pattern: one launch
+    whose segment table points every row at the same 65,536-value tensor,
+    each row with its own (denom, Δ) (``bf16_pattern_scalars``), over all
+    patterns and (at the exact deltas) over the finite ones, against the
+    plain version: bytes and counts bit for bit, tile sums and scales within
+    1e-6 relative where finite and equal where not; then a second call, the
+    same bytes and scales. The rows reach the kernel's threshold path
+    (normal denom and Δ) and its exact division (Δ of 0 or subnormal, a
+    subnormal, zero or huge denom)."""
+    import torch
+
+    from repro_torch.kernels.quantize_pack import (
+        quantize_pack, quantize_pack_segments, quantize_pack_segments_plain,
+    )
+
+    every, finite = bf16_patterns(dev)
+    rows = bf16_pattern_scalars(dev)
+    # the finite tensor (for the sums) at Δ of 0 and each of BF16_DELTAS, not
+    # their neighbours: the codes at the neighbours are the all-pattern rows'
+    per_denom = 2 + 3 * len(BF16_DELTAS)
+    fin_rows = rows.reshape(-1, per_denom, 2)[:, [0] + [3 + 3 * i for i in range(
+        len(BF16_DELTAS))]].reshape(-1, 2)
+    segs = [every] * rows.shape[0] + [finite] * fin_rows.shape[0]
+    scal = torch.cat([rows, fin_rows])
+    before = quantize_pack.launches
+    packed, moments, scales = quantize_pack_segments(segs, scal, with_scales=True)
+    launched = quantize_pack.launches - before
+    again = quantize_pack_segments(segs, scal, with_scales=True)
+    p_ref, m_ref, s_ref = quantize_pack_segments_plain(segs, scal, True)
+    torch.cuda.synchronize()
+    out = {"segments": len(segs), "elements": 65536 * len(segs), "launches": launched,
+           "bytes_differ": int((packed != p_ref).sum()),
+           "counts_differ": int((moments[:, 1] != m_ref[:, 1]).sum()),
+           "sum_rel": _same_or_within(moments[:, 0], m_ref[:, 0]),
+           "scale_rel": _same_or_within(scales, s_ref),
+           "second_call_bytes_differ": int((again[0] != packed).sum()),
+           "second_call_scales_same": bool(((again[2] == scales)
+                                            | (torch.isnan(again[2]) & torch.isnan(scales)))
+                                           .all())}
+    print(f"  quantize_pack bf16 on every bf16 bit pattern: {rows.shape[0]} (denom, delta) rows, "
+          f"and {fin_rows.shape[0]} of them on the finite patterns: {len(segs)} segments "
+          f"({out['elements']} elements) in {launched} "
+          f"launch: {out['bytes_differ']} bytes and {out['counts_differ']} counts differ from "
+          f"the plain version, sums max rel err {out['sum_rel']:.3e}, scales "
+          f"{out['scale_rel']:.3e}; a second call: {out['second_call_bytes_differ']} bytes "
+          f"differ, scales the same: {out['second_call_scales_same']}")
+    check(launched == 1 and out["bytes_differ"] == 0 and out["counts_differ"] == 0
+          and out["sum_rel"] <= 1e-6 and out["scale_rel"] <= 1e-6
+          and out["second_call_bytes_differ"] == 0 and out["second_call_scales_same"],
+          "bf16 quantize_pack disagrees with its plain version on the bit-pattern table")
+    return out
+
+
+def fp32_subnormal_sample(dev):
+    """A seeded sample of fp32 bit patterns: 2^20 drawn from all 2^32, and
+    2^16 subnormals of every magnitude from 2^-149 to 2^-127 (both signs)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(2029)
+    any_bits = rng.integers(0, 2 ** 32, 2 ** 20, dtype=np.uint64).astype(np.uint32)
+    mant = (np.uint32(1) << rng.integers(0, 23, 2 ** 16).astype(np.uint32))
+    mant = mant | (rng.integers(0, 2 ** 23, 2 ** 16, dtype=np.uint64).astype(np.uint32)
+                   & (mant - np.uint32(1)))
+    sub = mant | (rng.integers(0, 2, 2 ** 16).astype(np.uint32) << np.uint32(31))
+    return torch.from_numpy(np.concatenate([any_bits, sub]).view(np.float32)).to(dev)
+
+
+def subnormal_checks(dev) -> dict:
+    """XLA's subnormal rule on the card: the fp32 quantize_pack on the fp32
+    sample at (denom, Δ) pairs with a zero or subnormal Δ or denom and
+    normal ones, in one launch, bytes and counts bit for bit against the
+    plain version; ternary_quantize on subnormal θ (and the bf16 bit
+    patterns) at Δ = 0 and a subnormal inverse scale and w_q, fp32 and bf16,
+    codes and θ_t bit for bit."""
+    import torch
+
+    from repro_torch.kernels.quantize_pack import (
+        quantize_pack, quantize_pack_segments, quantize_pack_segments_plain,
+    )
+    from repro_torch.kernels.ternary_quantize import ternary_quantize, ternary_quantize_plain
+
+    x = fp32_subnormal_sample(dev)
+    pairs = [(0.8125, 0.0), (7.1e-39, 0.5), (1.0, 0.05), (1.7e38, 0.01), (1.0, 1e-39),
+             (2.0 ** -126 - 2.0 ** -149, 2.0 ** 100)]
+    scal = torch.tensor(pairs, dtype=torch.float32, device=dev)
+    before = quantize_pack.launches
+    packed, moments, scales = quantize_pack_segments([x] * len(pairs), scal, with_scales=True)
+    launched = quantize_pack.launches - before
+    p_ref, m_ref, s_ref = quantize_pack_segments_plain([x] * len(pairs), scal, True)
+    out = {"fp32_launches": launched, "fp32_bytes_differ": int((packed != p_ref).sum()),
+           "fp32_counts_differ": int((moments[:, 1] != m_ref[:, 1]).sum()),
+           "fp32_sum_rel": _same_or_within(moments[:, 0], m_ref[:, 0]),
+           "fp32_scale_rel": _same_or_within(scales, s_ref)}
+    tiny = x[-2 ** 16:].reshape(256, 256)
+    every, _ = bf16_patterns(dev)
+    bad = 0
+    for theta in (tiny, tiny.to(torch.bfloat16), every.reshape(256, 256)):
+        for inv, delta, wq in ((1.0, 0.0, 0.5), (3.0, 0.0, 1e-39), (1e-39, 0.0, 0.5),
+                               (2.0 ** -100, 0.0, 1.0)):
+            it, tt = ternary_quantize(theta, inv, delta, wq)
+            it_ref, tt_ref = ternary_quantize_plain(theta, inv, delta, wq)
+            bad += int((it != it_ref).sum()) + int((tt.view(torch.uint8)
+                                                    != tt_ref.view(torch.uint8)).sum())
+    torch.cuda.synchronize()
+    out["ternary_quantize_differ"] = bad
+    print(f"  subnormals: quantize_pack fp32 on {x.numel()} sampled patterns at {len(pairs)} "
+          f"(denom, delta) pairs in {launched} launch: {out['fp32_bytes_differ']} bytes and "
+          f"{out['fp32_counts_differ']} counts differ, sums max rel err "
+          f"{out['fp32_sum_rel']:.3e}, scales {out['fp32_scale_rel']:.3e}; ternary_quantize on "
+          f"subnormal theta (fp32, bf16) and the bf16 patterns: {bad} codes or theta_t bytes "
+          "differ")
+    check(launched == 1 and out["fp32_bytes_differ"] == 0 and out["fp32_counts_differ"] == 0
+          and out["fp32_sum_rel"] <= 1e-6 and out["fp32_scale_rel"] <= 1e-6 and bad == 0,
+          "the kernels' subnormal rule disagrees with their plain versions")
+    return out
+
+
+def quantize_pack_bf16_layout_checks(dev) -> dict:
+    """The bf16 quantize_pack on the layouts that leave its whole-tile path:
+    a ragged tail, a source aligned to 2 bytes but not to 16, wire bytes at
+    an odd offset, and many small segments, in one launch each, against the
+    plain version (bytes and counts bit for bit, sums and scales within
+    1e-6)."""
+    import torch
+
+    from repro_torch.core.encode import leaf_scalars
+    from repro_torch.core.fttq import FTTQConfig
+    from repro_torch.kernels.quantize_pack import (
+        quantize_pack_segments, quantize_pack_segments_plain,
+    )
+
+    gen = torch.Generator(dev).manual_seed(31)
+    base = torch.randn(3 * 32768 + 1001, generator=gen, device=dev).to(torch.bfloat16)
+    cases = {"ragged": [base[:2 * 32768 + 777]], "unaligned": [base[1:]],
+             "odd_offset": [base[:9], base[8:8 + 32768 * 2], base[3:40003]],
+             "small": [base[i:i + n] for i, n in ((0, 1), (16, 3), (64, 8), (128, 37),
+                                                  (256, 4096), (8192, 32768))]}
+    worst = {}
+    for name, segs in cases.items():
+        scal = torch.cat([leaf_scalars(x, FTTQConfig())[0][None] for x in segs])
+        packed, moments, scales = quantize_pack_segments(segs, scal, with_scales=True)
+        p_ref, m_ref, s_ref = quantize_pack_segments_plain(segs, scal, True)
+        bad = int((packed != p_ref).sum()) + int((moments[:, 1] != m_ref[:, 1]).sum())
+        rel = max(_same_or_within(moments[:, 0], m_ref[:, 0]),
+                  _same_or_within(scales, s_ref))
+        worst[name] = {"differ": bad, "rel": rel}
+        check(bad == 0 and rel <= 1e-6, f"bf16 quantize_pack disagrees on the {name} layout")
+    print(f"  quantize_pack bf16 off the whole-tile path: {json.dumps(worst)}")
+    return worst
+
+
+@contextlib.contextmanager
+def device_trace():
+    """torch.profiler over the card's activity, opened by one small fill
+    kernel that ``traced_kernels`` leaves out: on an H100 a session begun
+    after the bit-pattern checks lost its first device event (my chip call
+    3), so the fill is that event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").fill_(2.0)
+        torch.cuda.synchronize()
+        yield prof
+        torch.cuda.synchronize()
+
+
+def traced_kernels(prof, keep=lambda name: True) -> list:
+    """The device events of a ``device_trace`` session in launch order,
+    without its opening fill, those whose name ``keep`` takes."""
+    import torch
+
+    return sorted((e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "FillFunctor" not in e.name and keep(e.name)),
+                  key=lambda e: e.time_range.start)
+
+
+def kernel_name(name: str) -> str:
+    """A device kernel's name without its namespace, template and arguments."""
+    return name.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+
+
+def device_us(e) -> float:
+    return getattr(e, "device_time_total", None) or e.cuda_time_total
+
+
+def encode_trace(rows, scal, reps: int = 5) -> dict:
+    """One deploy encode (``quantize_pack_segments`` over ``rows`` with
+    scales, the segment table built and copied inside, as ``core.encode``
+    calls it): its eager ms by CUDA events, the device kernels of one call
+    under torch.profiler with their device ms, and the host ms of building
+    the segment table alone (``segment_table``: the rows, then the copy to
+    the card)."""
+    import torch
+
+    from repro_torch.kernels.quantize_pack import quantize_pack_segments, segment_table
+
+    out = {"eager_ms": time_ms(lambda: quantize_pack_segments(rows, scal, with_scales=True),
+                               reps, graph=False)}
+    host = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        segment_table(rows)
+        host.append((time.perf_counter() - t0) * 1e3)
+    out["table_host_ms"] = sum(host) / reps
+    with device_trace() as prof:
+        quantize_pack_segments(rows, scal, with_scales=True)
+    kernels = traced_kernels(prof, keep=lambda name: "Memcpy" not in name)
+    out["device_kernels"] = len(kernels)
+    out["kernel_names"] = sorted({kernel_name(e.name) for e in kernels})
+    out["device_ms"] = sum(device_us(e) for e in kernels) / 1e3
+    return out
+
+
 def bf16_kernel_checks(dev, rows, scal, served) -> dict:
     """The bf16 kernels against their plain versions on the bf16 model's own
     inputs: quantize_pack_segments over the deploy's 7 bf16 segments in one
     launch (bytes and counts bit for bit, sums and scales within 1e-6
-    relative: fp32 order); ternary_matmul on bf16 x at every served layer's
+    relative: fp32 order; a second call the same bytes and scales);
+    ternary_matmul on bf16 x at every served layer's
     shape at decode (M = 4), prefill (M = 128) and long-prompt (M = 2,048)
     rows, within one bf16 ulp of the plain version (plus the fp32
     summation-order allowance where a sum cancels), the same bits from a
@@ -3304,8 +3584,13 @@ def bf16_kernel_checks(dev, rows, scal, served) -> dict:
     print(f"  quantize_pack bf16: {len(rows)} segments ({sum(r.numel() for r in rows)} "
           f"elements) in {launched} launch: {bad_bytes} bytes and {bad_counts} counts differ "
           f"from the plain version, sums max rel err {sum_rel:.3e}, scales {scale_rel:.3e}")
+    again = quantize_pack_segments(rows, scal, with_scales=True)
+    same_again = bool(torch.equal(again[0], packed) and torch.equal(again[2], scales))
+    print(f"  quantize_pack bf16: a second call gives the same bytes and scales: {same_again}")
     check(launched == 1 and bad_bytes == 0 and bad_counts == 0 and sum_rel <= 1e-6
-          and scale_rel <= 1e-6, "bf16 quantize_pack_segments disagrees with its plain version")
+          and scale_rel <= 1e-6 and same_again,
+          "bf16 quantize_pack_segments disagrees with its plain version or itself")
+    del again
     gen = torch.Generator(dev).manual_seed(17)
     shapes = sorted({(w.k, w.packed.shape[1]) for w in _packed_layers(served)})
     worst = 0.0
@@ -3341,6 +3626,7 @@ def bf16_kernel_checks(dev, rows, scal, served) -> dict:
               f"bf16 ternary_matmul disagrees with its plain version or itself at M = {m}")
     print(f"  ternary_matmul bf16 max abs err {worst:.3e}")
     return {"quantize_pack_sum_rel": sum_rel, "quantize_pack_scale_rel": scale_rel,
+            "quantize_pack_max_abs_err": float((moments[:, 0] - m_ref[:, 0]).abs().max()),
             "matmul_max_abs_err": worst, "packed": packed, "scales": scales}
 
 
@@ -3357,19 +3643,13 @@ def bf16_forward_trace(calls) -> dict:
     the device kernels they launch (one a call: no split-K reduce, no
     workspace, no memset), and the device time a call takes at each layer
     shape beside that call's bound."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.kernels.ternary_matmul import ternary_matmul
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         for x, p, s, _ in calls:
             ternary_matmul(x, p, s)
-        torch.cuda.synchronize()
-    kernels = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
-    names = {e.name.split("(")[0] for e in kernels}
+    kernels = traced_kernels(prof)
+    names = {kernel_name(e.name) for e in kernels}
     per_call = {}
     if len(kernels) == len(calls):
         for e, (x, p, _, _) in zip(kernels, calls):
@@ -3377,7 +3657,7 @@ def bf16_forward_trace(calls) -> dict:
                                       {"k": x.shape[1], "n": p.shape[1], "calls": 0,
                                        "device_us": 0.0})
             row["calls"] += 1
-            row["device_us"] += getattr(e, "device_time_total", None) or e.cuda_time_total
+            row["device_us"] += device_us(e)
         for row in per_call.values():
             row["device_us"] /= row["calls"]
             b_ms, b_by, _, _ = bf16_matmul_bound(calls[0][0].shape[0], row["k"], row["n"])
@@ -3387,8 +3667,10 @@ def bf16_forward_trace(calls) -> dict:
 
 
 def bf16_timings(dev, cfg, served, dense, rows, scal, checked) -> dict:
-    """The bf16 kernels' times on the card (CUDA events): the deploy's
-    quantize_pack over the 7 bf16 segments eagerly as the encode calls it;
+    """The bf16 kernels' times on the card: the deploy's quantize_pack over
+    the 7 bf16 segments as the encode calls it (``encode_trace``: its
+    device time by torch.profiler, eager time by CUDA events, the host time
+    of the segment table);
     one decode step's and one prefill forward's 112 ternary matmuls on bf16
     x as graph replays, beside their plain versions and ``torch.matmul`` of
     bf16 x with the dequantized bf16 weights; each beside its bound; and
@@ -3400,13 +3682,14 @@ def bf16_timings(dev, cfg, served, dense, rows, scal, checked) -> dict:
     )
     from repro_torch.kernels.ternary_matmul import ternary_matmul, ternary_matmul_plain
 
-    box = {}
-
-    def encode():
-        box["out"] = quantize_pack_segments(rows, scal, with_scales=True)
-
-    out = {"quantize_pack": {"ms": time_ms(encode, 5, graph=False)}}
-    check(torch.equal(box["out"][0], checked["packed"]), "the timed bf16 encode differs")
+    trace = encode_trace(rows, scal)
+    check(trace["device_kernels"] == 1, f"one bf16 deploy encode launched "
+          f"{trace['device_kernels']} quantize_pack device kernels (want one)")
+    timed, _, timed_scales = quantize_pack_segments(rows, scal, with_scales=True)
+    check(torch.equal(timed, checked["packed"]) and torch.equal(timed_scales, checked["scales"]),
+          "the timed bf16 encode differs")
+    del timed, timed_scales
+    out = {"quantize_pack": {"ms": trace["device_ms"], **trace}}
     out["quantize_pack"]["plain_ms"] = time_ms(
         lambda: quantize_pack_segments_plain(rows, scal, True), 2, graph=False)
     n = sum(r.numel() for r in rows)
@@ -3449,9 +3732,12 @@ def bf16_timings(dev, cfg, served, dense, rows, scal, checked) -> dict:
               f"one bf16 {label} forward launched {t['device_kernels']} device kernels for "
               f"{len(calls)} ternary_matmul calls (want one each)")
     q = out["quantize_pack"]
-    print(f"quantize_pack bf16, the deploy's {len(rows)} segments ({n} weights), eager: "
-          f"{q['ms']:.4f} ms, plain {q['plain_ms']:.4f} ms, bound {q['bound_ms']:.4f} ms "
-          f"({q['bound_by']}, {nbytes} B)")
+    print(f"quantize_pack bf16, the deploy's {len(rows)} segments ({n} weights): device "
+          f"{q['device_ms']:.4f} ms ({q['device_kernels']} kernel {q['kernel_names']}, "
+          f"profiler), eager {q['eager_ms']:.4f} ms (the "
+          f"segment table alone {q['table_host_ms']:.4f} ms of host time), plain "
+          f"{q['plain_ms']:.4f} ms, bound {q['bound_ms']:.4f} ms ({q['bound_by']}, {nbytes} B, "
+          f"{q['bound_ms'] / max(q['device_ms'], 1e-9):.1%} of it)")
     return out
 
 
@@ -3522,6 +3808,11 @@ def bf16_serve_phase(dev, fcfg, fp32: dict) -> dict:
     out["checks"] = {k: v for k, v in checked.items() if k not in ("packed", "scales")}
     phase("timings: the bf16 kernels")
     out["timings"] = bf16_timings(dev, cfg, served, dense, rows, scal, checked)
+    phase("checks: the bf16 quantize_pack on every bf16 bit pattern and off its whole-tile "
+          "path; the subnormal rule of the fp32 quantize_pack and ternary_quantize")
+    out["checks"].update(quantize_pack_patterns=quantize_pack_pattern_checks(dev),
+                         quantize_pack_layouts=quantize_pack_bf16_layout_checks(dev),
+                         subnormals=subnormal_checks(dev))
     del params, served, dense, rows, scal, checked, quantizable, leaves
     _free()
     return out
@@ -6110,9 +6401,15 @@ def main() -> int:
     qp_bytes = sum(4 * n.numel() + (n.numel() + 3) // 4 + 8 * -(-n.numel() // 32768) + 12
                    for n in qp_rows)
     qp_bound, qp_by = bound(qp_bytes, 4 * n_quant)
+    qp_trace = encode_trace(qp_rows, qp_scal)
+    check(qp_trace["device_kernels"] == 1, "one deploy encode launched "
+          f"{qp_trace['device_kernels']} quantize_pack device kernels (want one)")
     print(f"quantize_pack, all {len(qp_rows)} quantized leaves ({n_quant} weights), eager: one "
           f"call {qp_ms:.4f} ms ({len(qp_rows)} one-segment calls: {qp_old_ms:.4f} ms), plain "
-          f"{qp_plain_ms:.4f} ms, bound {qp_bound:.4f} ms ({qp_by}, {qp_bytes} B)")
+          f"{qp_plain_ms:.4f} ms, bound {qp_bound:.4f} ms ({qp_by}, {qp_bytes} B); traced: "
+          f"device {qp_trace['device_ms']:.4f} ms ({qp_trace['kernel_names']}), eager "
+          f"{qp_trace['eager_ms']:.4f} ms, the segment table alone "
+          f"{qp_trace['table_host_ms']:.4f} ms of host time")
     qp_fed = quantize_pack_fed_timings(dev, FED_UPLOADS)
 
     ops_t = ops_timings(layers, served)
@@ -6310,6 +6607,7 @@ def main() -> int:
     federated_trace(dev, setup)
 
     bf16_decode = bf16["timings"]["ternary_matmul_decode"]
+    bf16_qp = bf16["timings"]["quantize_pack"]
     table = {"kernels": [
         {"name": "quantize_pack", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/quantize_pack.cu",
@@ -6329,9 +6627,7 @@ def main() -> int:
          "train_launches": {"ternary_save":
                             train["full_width"]["ternary_checkpoint"]["launches"]["quantize_pack"]},
          "train": train,
-         "bf16": {"launches": bf16["launches"]["quantize_pack"],
-                  **bf16["timings"]["quantize_pack"],
-                  "max_abs_err_rel": bf16["checks"]["quantize_pack_sum_rel"]},
+         "device_ms": qp_trace["device_ms"], "trace": qp_trace,
          "multidevice_launches": {
              f"rank{r['rank']}": {"collective": r["collective"]["launches"]["quantize_pack"],
                                   "train_compressed": r["train"]["compressed"]["launches"][
@@ -6341,6 +6637,20 @@ def main() -> int:
          "fsdp_launches": {
              f"rank{r['rank']}": fsdp_launches(r, "quantize_pack") for r in md_reports},
          "multidevice": md},
+        {"name": "quantize_pack_bf16", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/quantize_pack_bf16.cu",
+         "replaces": "src/repro/kernels/quantize_pack.py:83",
+         "launches": bf16["launches"]["quantize_pack"],
+         "max_abs_err": bf16["checks"]["quantize_pack_max_abs_err"],
+         "ms": bf16_qp["device_ms"], "plain_ms": bf16_qp["plain_ms"],
+         "bound_ms": bf16_qp["bound_ms"], "bound_by": bf16_qp["bound_by"],
+         "library_ms": None, "eager_ms": bf16_qp["eager_ms"],
+         "table_host_ms": bf16_qp["table_host_ms"], "bytes": bf16_qp["bytes"],
+         "sum_rel": bf16["checks"]["quantize_pack_sum_rel"],
+         "scale_rel": bf16["checks"]["quantize_pack_scale_rel"],
+         "patterns": bf16["checks"]["quantize_pack_patterns"],
+         "layouts": bf16["checks"]["quantize_pack_layouts"],
+         "subnormals": bf16["checks"]["subnormals"]},
         {"name": "ternary_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ternary_matmul.cu",
          "replaces": "src/repro/kernels/ternary_matmul.py:34",

@@ -69,3 +69,18 @@ def is_floating(x) -> bool:
     if isinstance(x, torch.Tensor):
         return x.is_floating_point()
     return np.issubdtype(np.asarray(x).dtype, np.floating)
+
+
+# fp32's least normal magnitude, which bf16 shares
+TINY = 2.0 ** -126
+
+
+def flush_subnormal(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with every subnormal value replaced by a zero of its sign.
+
+    XLA computes fp32 and bf16 on the CPU with denormals flushed, as the TPU
+    does: a subnormal operand enters the arithmetic as zero, and a subnormal
+    result comes out as zero (bf16 arithmetic runs in fp32 and is rounded
+    after). The plain versions of the kernels apply this where the reference
+    reads an operand or forms a result; normal values pass unchanged."""
+    return torch.where(t.abs() < TINY, t * 0, t)

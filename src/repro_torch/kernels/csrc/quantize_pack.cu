@@ -1,9 +1,10 @@
-// Fused ternarize + 2-bit wire pack + per-tile moments over many segments in
-// one launch, for Hopper (sm_90a).
+// Fused ternarize + 2-bit wire pack + per-tile moments over many fp32
+// segments in one launch, for Hopper (sm_90a). bf16 segments have a kernel of
+// their own (quantize_pack_bf16.cu), which shares the segment table.
 //
 // Replaces the TPU kernel src/repro/kernels/quantize_pack.py::_kernel
 // (launched by quantize_pack_segments). For every segment s of a table (a
-// flat fp32 or bf16 source of n elements, its (denom, delta) row, the byte offset of
+// flat fp32 source of n elements, its (denom, delta) row, the byte offset of
 // its wire bytes and the index of its first moment tile) it computes
 //
 //   xs   = x / denom
@@ -21,6 +22,11 @@
 //
 // with the count summed as an integer, as the reference's scale_from_moments
 // does.
+//
+// Subnormals as XLA computes on the CPU and the TPU: a subnormal x, denom or
+// delta enters as a zero of its sign, and a subnormal quotient (or scale) is
+// flushed to zero before it is compared or summed. Normal values give the
+// bits they gave without the flush.
 //
 // Bound: bytes. Each element is read once (4 B) and each wire byte written
 // once (0.25 B per element); the arithmetic is a division and two compares.
@@ -41,16 +47,6 @@
 // a freshly built table), and the last block of a segment adds the
 // segment's moments (in fp64, in a fixed order, so the result does not
 // depend on which block came last) and writes the scale.
-//
-// bf16 segments (quantize_pack_bf16): the same kernel reads bf16 sources
-// (four values as one 8-byte load) and computes in bf16 as the reference
-// kernel computes in x's dtype: denom and delta are rounded to bf16, xs =
-// x / denom is rounded to bf16 (the fp32 quotient of two bf16 values,
-// rounded to nearest even, is the correctly rounded bf16 quotient), the
-// compares are between bf16 values, and |xs| is widened to fp32 for the
-// moments. The scale multiplies by the table's fp32 denom, as
-// scale_from_moments does. One launch covers one dtype group: a table holds
-// segments of one type.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,7 +59,7 @@ constexpr int kQuadsPerThread = kTile / 4 / kThreads;   // 32
 
 // One row of the segment table (int64 fields, as the wrapper writes them).
 struct Segment {
-  long long x;          // address of the source (fp32 or bf16)
+  long long x;          // address of the fp32 source
   long long n;          // elements
   long long out_off;    // byte offset of its wire bytes in the output
   long long tile0;      // index of its first moment tile
@@ -87,47 +83,32 @@ __device__ __forceinline__ int find_segment(const Segment* table, int n_seg, lon
   return lo;
 }
 
-// fp32 rounded to the nearest bf16 (ties to even), returned widened.
-__device__ __forceinline__ float round_bf16(float v) {
-  unsigned short h;
-  asm("cvt.rn.bf16.f32 %0, %1;\n" : "=h"(h) : "f"(v));
-  return __uint_as_float((uint32_t)h << 16);
+// A subnormal as a zero of its sign (XLA's flush of denormals).
+__device__ __forceinline__ float ftz(float v) {
+  return fabsf(v) < 1.17549435e-38f ? copysignf(0.f, v) : v;
 }
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(uint16_t v) { return __uint_as_float((uint32_t)v << 16); }
-
-// The values of the source type: fp32 as they are, bf16 rounded.
-__device__ __forceinline__ float as_type(float v, float) { return v; }
-__device__ __forceinline__ float as_type(float v, uint16_t) { return round_bf16(v); }
-
-// Four consecutive source values from one aligned 16-byte (fp32) or 8-byte
-// (bf16) load.
-__device__ __forceinline__ void load4(const float* x, long long q, float (&v)[4]) {
-  const float4 f = __ldg(reinterpret_cast<const float4*>(x) + q);
-  v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+// x / d rounded to nearest, with subnormal operands and a subnormal result
+// flushed to zeros of their signs: ftz(ftz(x) / ftz(d)) in one instruction
+// sequence (the .ftz division, also cheaper than the one that keeps them).
+__device__ __forceinline__ float div_ftz(float x, float d) {
+  float q;
+  asm("div.rn.ftz.f32 %0, %1, %2;\n" : "=f"(q) : "f"(x), "f"(d));
+  return q;
 }
 
-__device__ __forceinline__ void load4(const uint16_t* x, long long q, float (&v)[4]) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(x) + q);
-  v[0] = __uint_as_float(u.x << 16); v[1] = __uint_as_float(u.x & 0xFFFF0000u);
-  v[2] = __uint_as_float(u.y << 16); v[3] = __uint_as_float(u.y & 0xFFFF0000u);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
 quantize_pack_kernel(Segment* table, int n_seg, const float* __restrict__ scal,
                      uint8_t* __restrict__ out, float* __restrict__ moments,
                      float* __restrict__ scales) {
   const int s = find_segment(table, n_seg, blockIdx.x);
   const Segment seg = table[s];
-  const T* x = reinterpret_cast<const T*>(seg.x);
+  const float* x = reinterpret_cast<const float*>(seg.x);
   const long long n = seg.n;
-  const bool vec = (seg.x & (4 * sizeof(T) - 1)) == 0;
+  const bool vec = (seg.x & 15) == 0;
   uint8_t* dst = out + seg.out_off;
-  const float denom_f32 = scal[2 * s];
-  const float denom = as_type(denom_f32, T());
-  const float delta = as_type(scal[2 * s + 1], T());
+  const float denom = ftz(scal[2 * s]);
+  const float delta = ftz(scal[2 * s + 1]);
   const long long n_bytes = (n + 3) / 4;
   const long long q_base = ((long long)blockIdx.x - seg.tile0) * (kTile / 4);
   float sum = 0.f;
@@ -140,19 +121,20 @@ quantize_pack_kernel(Segment* table, int n_seg, const float* __restrict__ scal,
     float v[4];
     bool in[4];
     if (vec && e + 4 <= n) {
-      load4(x, q, v);
+      const float4 f = __ldg(reinterpret_cast<const float4*>(x) + q);
+      v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
       in[0] = in[1] = in[2] = in[3] = true;
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         in[j] = e + j < n;
-        v[j] = in[j] ? widen(x[e + j]) : 0.f;
+        v[j] = in[j] ? x[e + j] : 0.f;
       }
     }
     uint32_t byte = 0;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float xs = as_type(v[j] / denom, T());
+      const float xs = div_ftz(v[j], denom);
       const int pos = in[j] && xs > delta;
       const int neg = in[j] && xs < -delta;
       byte |= (uint32_t)(1 + pos - neg) << (2 * j);
@@ -229,7 +211,7 @@ quantize_pack_kernel(Segment* table, int n_seg, const float* __restrict__ scal,
       total += red_sum[w];
       c += red_count[w];
     }
-    scales[s] = (float)total / ((float)c + 1e-8f) * denom_f32;
+    scales[s] = ftz(ftz((float)total / ((float)c + 1e-8f)) * denom);
   }
 }
 
@@ -238,19 +220,11 @@ quantize_pack_kernel(Segment* table, int n_seg, const float* __restrict__ scal,
 // One launch over a segment table of n_seg rows in device memory. scal
 // holds n_seg fp32 (denom, delta) rows; moments n_tiles (sum, count) rows;
 // scales, when not null, receives each segment's scale (the table's done
-// column must then be 0). Every source of a table has the entry's type.
+// column must then be 0). Every source of a table is fp32.
 extern "C" int quantize_pack_f32(void* table, int n_seg, const float* scal, uint8_t* out,
                                  float* moments, float* scales, long long n_tiles,
                                  void* stream) {
-  quantize_pack_kernel<float><<<(unsigned)n_tiles, kThreads, 0, (cudaStream_t)stream>>>(
-      reinterpret_cast<Segment*>(table), n_seg, scal, out, moments, scales);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int quantize_pack_bf16(void* table, int n_seg, const float* scal, uint8_t* out,
-                                  float* moments, float* scales, long long n_tiles,
-                                  void* stream) {
-  quantize_pack_kernel<uint16_t><<<(unsigned)n_tiles, kThreads, 0, (cudaStream_t)stream>>>(
+  quantize_pack_kernel<<<(unsigned)n_tiles, kThreads, 0, (cudaStream_t)stream>>>(
       reinterpret_cast<Segment*>(table), n_seg, scal, out, moments, scales);
   return (int)cudaGetLastError();
 }

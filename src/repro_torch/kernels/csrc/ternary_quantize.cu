@@ -12,7 +12,10 @@
 // with T the dtype of theta and each scalar rounded to T once. In bf16 the
 // product of two bf16 values is exact in fp32, so one rounding of it to bf16
 // (__float2bfloat16_rn) gives the bf16 product; the compare and the output
-// product are exact. Both dtypes are bit-identical to the plain PyTorch
+// product are exact. Subnormals as XLA computes on the CPU and the TPU: a
+// subnormal theta or scalar (after its rounding to T) enters as a zero of its
+// sign, and a subnormal product theta * inv_scale is flushed before it is
+// rounded and compared. Both dtypes are bit-identical to the plain PyTorch
 // version and to the Pallas kernel.
 //
 // Bound: bytes. One read of theta and two writes: 4 + 1 + 4 bytes per fp32
@@ -41,11 +44,25 @@ struct BF16 {
   __device__ static __nv_bfloat16 from_f(float x) { return __float2bfloat16_rn(x); }
 };
 
-// one element: the code and theta_t, with inv, delta and wq already in T (as floats)
+// A subnormal as a zero of its sign (XLA's flush of denormals).
+__device__ __forceinline__ float ftz(float v) {
+  return fabsf(v) < 1.17549435e-38f ? copysignf(0.f, v) : v;
+}
+
+// x * s rounded to nearest, with subnormal operands and a subnormal product
+// flushed to zeros of their signs: ftz(ftz(x) * ftz(s)).
+__device__ __forceinline__ float mul_ftz(float x, float s) {
+  float p;
+  asm("mul.rn.ftz.f32 %0, %1, %2;\n" : "=f"(p) : "f"(x), "f"(s));
+  return p;
+}
+
+// one element: the code and theta_t, with inv, delta and wq already in T (as
+// floats) and flushed
 template <class D>
 __device__ __forceinline__ void apply_one(typename D::T x, float inv, float delta, float wq,
                                           int8_t* it, typename D::T* qt) {
-  const float xs = D::to_f(D::from_f(D::to_f(x) * inv));
+  const float xs = D::to_f(D::from_f(mul_ftz(D::to_f(x), inv)));
   // sign(xs) where |xs| > Delta, else +0; sign keeps a signed zero (Delta < 0)
   float s = 0.0f;
   if (fabsf(xs) > delta) s = xs > 0.0f ? 1.0f : (xs < 0.0f ? -1.0f : xs);
@@ -60,10 +77,10 @@ ternary_quantize_kernel(const typename D::T* __restrict__ theta, long long n,
                         int8_t* __restrict__ it, typename D::T* __restrict__ qt) {
   using T = typename D::T;
   // the fp32 scalars (1/max|theta|, Delta, w_q) in theta's dtype, as the
-  // reference casts them
-  const float inv = D::to_f(D::from_f(__ldg(scal)));
-  const float d = D::to_f(D::from_f(__ldg(scal + 1)));
-  const float wq = D::to_f(D::from_f(__ldg(scal + 2)));
+  // reference casts them, then flushed
+  const float inv = ftz(D::to_f(D::from_f(__ldg(scal))));
+  const float d = ftz(D::to_f(D::from_f(__ldg(scal + 1))));
+  const float wq = ftz(D::to_f(D::from_f(__ldg(scal + 2))));
   const long long stride = (long long)gridDim.x * kThreads;
   const long long n4 = vec ? n / 4 : 0;
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n4; i += stride) {

@@ -1,8 +1,9 @@
-"""Fused quantize→pack for client egress: ``csrc/quantize_pack.cu``.
+"""Fused quantize→pack for client egress: ``csrc/quantize_pack.cu`` (fp32)
+and ``csrc/quantize_pack_bf16.cu`` (bf16).
 
 Replaces the TPU kernel ``repro/kernels/quantize_pack.py::_kernel``
-(``quantize_pack_segments``). One pass over flat fp32 segments turns them
-into wire bytes (4 consecutive flat codes per byte, ``core.ternary.pack2bit``
+(``quantize_pack_segments``). One pass over flat segments turns them into
+wire bytes (4 consecutive flat codes per byte, ``core.ternary.pack2bit``
 layout) and emits per-tile moments (Σ masked |θ_s|, selected count) from
 which ``scale_from_moments`` forms the trained scale w_q.
 
@@ -16,19 +17,25 @@ case: a one-row table.
 Segments are fp32 or bf16, one dtype per launch (the reference drives one
 launch per dtype group). A bf16 segment is computed in bf16, as the
 reference kernel computes in x's dtype: xs = x / denom rounded to bf16,
-compared with Δ rounded to bf16, |xs| widened to fp32 for the moments.
+compared with Δ rounded to bf16, |xs| widened to fp32 for the moments. The
+bf16 entry has a kernel of its own, which reaches the same codes without a
+division (see its source).
 
-Bound on the H100: bytes — 4 B read and 0.25 B written per fp32 element.
-The TPU kernel read a staged transpose of the leaf (``stage_encode``) so its
-pack was a sublane shuffle; the CUDA kernel reads each segment in place, one
-float4 per thread and one wire byte out, so no staging copy is built. A
-moment tile is the reference's 32,768 contiguous flat elements
-(``BLOCK_S · LANES``), restarting at every segment: codes and counts match
-the reference exactly and only the float sum's reduction order differs.
+Subnormals are treated as XLA treats them (``dtypes.flush_subnormal``): a
+subnormal weight, denom or Δ enters the arithmetic as a zero of its sign,
+and a subnormal quotient is flushed before the compare and the moments.
+
+Bound on the H100: bytes — 4 B (fp32) or 2 B (bf16) read and 0.25 B written
+per element. The TPU kernel read a staged transpose of the leaf
+(``stage_encode``) so its pack was a sublane shuffle; the CUDA kernels read
+each segment in place, so no staging copy is built. A moment tile is the
+reference's 32,768 contiguous flat elements (``BLOCK_S · LANES``),
+restarting at every segment: codes and counts match the reference exactly
+and only the float sum's reduction order differs.
 
 Both wrappers dispatch on the tensor's device: the plain PyTorch version for
 a CPU tensor, the CUDA kernel for a CUDA tensor (or they raise). Both count
-their launches of the one kernel in ``quantize_pack.launches``.
+their launches of either kernel in ``quantize_pack.launches``.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.ternary import packed_nbytes
+from repro_torch.dtypes import flush_subnormal
 
 TILE = 32768          # elements per moment tile (BLOCK_S · LANES of the TPU kernel)
 
@@ -49,16 +57,27 @@ def n_tiles(n_elements: int) -> int:
     return max(1, -(-n_elements // TILE))
 
 
+def _scaled(x: torch.Tensor, scal: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """xs = x / denom in x's dtype, read flat, and Δ in x's dtype, as the
+    reference kernel forms them under XLA's subnormal rule: denom and Δ are
+    rounded to x's dtype and then flushed, x is flushed, the quotient is
+    formed in fp32 (bf16 arithmetic runs in fp32) and flushed before it is
+    rounded to x's dtype."""
+    dt = x.dtype
+    wide = torch.promote_types(dt, torch.float32)
+    denom = flush_subnormal(scal[0].to(dt)).to(wide)
+    q = flush_subnormal(flush_subnormal(x.reshape(-1)).to(wide) / denom)
+    return q.to(dt), flush_subnormal(scal[1].to(dt))
+
+
 def quantize_pack_plain(x: torch.Tensor, scal: torch.Tensor
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version (``quantize_pack_ref`` + ``moments_ref``).
 
     x: any-shape float tensor, read flat. scal: (2,) fp32 (denom, Δ).
     Returns (wire bytes (packed_nbytes(n),) uint8, moments (G, 2) fp32)."""
-    flat = x.reshape(-1)
-    n = flat.numel()
-    xs = flat / scal[0].to(x.dtype)
-    d = scal[1].to(x.dtype)
+    xs, d = _scaled(x, scal)
+    n = xs.numel()
     pos, neg = xs > d, xs < -d
     codes = (1 + pos.to(torch.uint8) - neg.to(torch.uint8))
     pad = (-n) % 4
@@ -72,8 +91,7 @@ def quantize_pack_plain(x: torch.Tensor, scal: torch.Tensor
 def moments_plain(x: torch.Tensor, scal: torch.Tensor) -> torch.Tensor:
     """The tile moments alone (the reference's ``moments_ref``): (G, 2)
     fp32 per-tile [Σ masked |θ_s|, selected count]."""
-    xs = x.reshape(-1) / scal[0].to(x.dtype)
-    d = scal[1].to(x.dtype)
+    xs, d = _scaled(x, scal)
     return _tile_moments(xs, (xs > d) | (xs < -d))
 
 
@@ -147,13 +165,16 @@ def quantize_pack_segments_plain(segments: Sequence[torch.Tensor], scal: torch.T
     return packed, moments, scales
 
 
-_ENTRIES = {torch.float32: "quantize_pack_f32", torch.bfloat16: "quantize_pack_bf16"}
+# the kernel library and entry of each segment dtype
+_ENTRIES = {torch.float32: ("quantize_pack", "quantize_pack_f32"),
+            torch.bfloat16: ("quantize_pack_bf16", "quantize_pack_bf16")}
 
 
 def _lib(dtype: torch.dtype):
     from repro_torch.kernels import _build
 
-    fn = getattr(_build.load("quantize_pack"), _ENTRIES[dtype])
+    lib, entry = _ENTRIES[dtype]
+    fn = getattr(_build.load(lib), entry)
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = [p, i, p, p, p, p, ll, p]
@@ -235,7 +256,8 @@ quantize_pack.launches = 0
 def scale_from_moments(moments: torch.Tensor, denom: torch.Tensor) -> torch.Tensor:
     """The Prop-4.1 trained scale in ORIGINAL units:
     (Σ masked |θ_s| / (count + 1e-8)) · denom, with the count summed as an
-    integer first, as the reference does."""
+    integer first, as the reference does; a subnormal denom, quotient or
+    scale is a zero, as XLA computes them."""
     num = moments[:, 0].sum()
     den = moments[:, 1].to(torch.int64).sum().to(torch.float32)
-    return num / (den + 1e-8) * denom
+    return flush_subnormal(flush_subnormal(num / (den + 1e-8)) * flush_subnormal(denom))

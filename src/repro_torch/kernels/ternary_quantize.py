@@ -12,7 +12,9 @@ rounded to that dtype once, θ·s is rounded to it before the compare, and
 I_t = sign(θ·s) where |θ·s| > Δ, else 0. In bf16 the product of two bf16
 values is exact in fp32, so one rounding gives the bf16 product, and the
 compare and w_q·I_t are exact: fp32 and bf16 are both bit-identical to the
-Pallas kernel.
+Pallas kernel. Subnormals are treated as XLA treats them
+(``dtypes.flush_subnormal``): a subnormal θ or scalar enters as a zero of
+its sign, and a subnormal product θ·s is flushed before the compare.
 
 Bound on the H100: bytes — one read and two writes per weight (9 B in
 fp32, 5 B in bf16). Each thread takes 4 consecutive elements with one
@@ -29,6 +31,8 @@ import ctypes
 
 import torch
 
+from repro_torch.dtypes import flush_subnormal
+
 _THREADS = 256
 _MAX_BLOCKS = 132 * 16
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -36,8 +40,8 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 def _scalar(s, dtype: torch.dtype, device) -> torch.Tensor:
     """A layer scalar as fp32 (the reference stacks them in fp32), then in
-    θ's dtype."""
-    return torch.as_tensor(s, dtype=torch.float32).to(device=device).to(dtype)
+    θ's dtype, flushed if subnormal there."""
+    return flush_subnormal(torch.as_tensor(s, dtype=torch.float32).to(device=device).to(dtype))
 
 
 def ternary_quantize_plain(theta: torch.Tensor, inv_scale, delta, w_q
@@ -45,7 +49,9 @@ def ternary_quantize_plain(theta: torch.Tensor, inv_scale, delta, w_q
     """Plain PyTorch version (``repro.kernels.ref.ternary_quantize_ref``):
     (I_t int8, θ_t in θ's dtype), same shape as θ."""
     dt = theta.dtype
-    xs = theta * _scalar(inv_scale, dt, theta.device)
+    wide = torch.promote_types(dt, torch.float32)
+    prod = flush_subnormal(theta).to(wide) * _scalar(inv_scale, dt, theta.device).to(wide)
+    xs = flush_subnormal(prod).to(dt)
     mask = xs.abs() > _scalar(delta, dt, theta.device)
     sign = torch.where(xs > 0, 1.0, torch.where(xs < 0, -1.0, xs)).to(dt)
     i_t = torch.where(mask, sign, torch.zeros((), dtype=dt, device=theta.device))

@@ -410,6 +410,145 @@ def test_quantize_pack_bf16_segments_match_plain(cuda_device, sizes):
     torch.testing.assert_close(scales, s_ref, rtol=1e-6, atol=0)
 
 
+def _bf16_every_pattern(dev) -> torch.Tensor:
+    """All 65,536 bf16 bit patterns (±0, subnormals, ±inf, NaNs among them)."""
+    return torch.arange(65536, dtype=torch.int32, device=dev).to(torch.int16).view(torch.bfloat16)
+
+
+def _pattern_rows(dev) -> torch.Tensor:
+    """(denom, Δ) rows: a denom in every bf16 binade (a seeded significand
+    each), 0 and two subnormals; Δ of 0, a subnormal, and 0.05, 0.3, 0.7 and
+    1 each with its bf16 neighbours below and above."""
+    gen = torch.Generator().manual_seed(29)
+    sig = 1.0 + torch.randint(0, 128, (254,), generator=gen).double() / 128.0
+    denoms = (sig * torch.exp2(torch.arange(-126, 128).double())).tolist()
+    denoms += [0.0, 2.0 ** -133, 7.1e-39]
+    deltas = [0.0, 1e-39]
+    for d in (0.05, 0.3, 0.7, 1.0):
+        b = torch.tensor(d).to(torch.bfloat16).view(torch.int16)
+        deltas += [float((b - 1).view(torch.bfloat16)), d, float((b + 1).view(torch.bfloat16))]
+    return torch.tensor([[dn, dl] for dn in denoms for dl in deltas], dtype=torch.float32,
+                        device=dev)
+
+
+def _assert_close_or_same(got, want):
+    """Within rtol 1e-6 where ``want`` is finite, identical where not."""
+    fin = torch.isfinite(want)
+    assert bool(((got == want) | (torch.isnan(got) & torch.isnan(want)))[~fin].all())
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("finite", [False, True])
+def test_quantize_pack_bf16_every_bit_pattern(cuda_device, finite):
+    """One launch whose segment table points every row at the same tensor of
+    all bf16 bit patterns (non-finite ones set to 0 with ``finite``), each
+    row with its own (denom, Δ): the kernel's threshold path and its exact
+    division, bit for bit on bytes and counts, sums and scales within 1e-6
+    (non-finite ones identical); a second call gives the same bytes and
+    scales."""
+    x = _bf16_every_pattern(cuda_device)
+    if finite:
+        x = torch.where(torch.isfinite(x), x, torch.zeros_like(x))
+    scal = _pattern_rows(cuda_device)
+    segs = [x] * scal.shape[0]
+    before = quantize_pack.launches
+    packed, moments, scales = quantize_pack_segments(segs, scal, with_scales=True)
+    assert quantize_pack.launches == before + 1
+    again = quantize_pack_segments(segs, scal, with_scales=True)
+    p_ref, m_ref, s_ref = quantize_pack_segments_plain(segs, scal, True)
+    assert torch.equal(packed, p_ref)
+    assert torch.equal(moments[:, 1], m_ref[:, 1])
+    _assert_close_or_same(moments[:, 0], m_ref[:, 0])
+    _assert_close_or_same(scales, s_ref)
+    assert torch.equal(again[0], packed)
+    assert bool(((again[2] == scales) | (torch.isnan(again[2]) & torch.isnan(scales))).all())
+
+
+@pytest.mark.parametrize("layout", ["unaligned", "odd_offset", "ragged_then_whole"])
+def test_quantize_pack_bf16_off_the_whole_tile_path(cuda_device, layout):
+    """A source aligned to 2 bytes but not 16, wire bytes at an odd offset,
+    and a ragged segment before whole tiles, in one launch each: bytes and
+    counts bit for bit, sums and scales within 1e-6."""
+    base = torch.randn(3 * 32768 + 1001, generator=torch.Generator(cuda_device).manual_seed(3),
+                       device=cuda_device).to(torch.bfloat16)
+    segs = {"unaligned": [base[1:]],
+            "odd_offset": [base[:9], base[8:8 + 2 * 32768], base[3:40003]],
+            "ragged_then_whole": [base[:40001], base[40008:40008 + 32768], base[:5]]}[layout]
+    scal = torch.cat([leaf_scalars(s, FTTQConfig())[0][None] for s in segs])
+    packed, moments, scales = quantize_pack_segments(segs, scal, with_scales=True)
+    p_ref, m_ref, s_ref = quantize_pack_segments_plain(segs, scal, True)
+    assert torch.equal(packed, p_ref)
+    assert torch.equal(moments[:, 1], m_ref[:, 1])
+    torch.testing.assert_close(moments[:, 0], m_ref[:, 0], rtol=1e-6, atol=0)
+    torch.testing.assert_close(scales, s_ref, rtol=1e-6, atol=0)
+
+
+def test_quantize_pack_bf16_encode_is_one_device_kernel(cuda_device):
+    """A bf16 encode of many segments launches one device kernel
+    (torch.profiler), the bf16 entry's own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    segs = [torch.randn(n, generator=gen, device=cuda_device).to(torch.bfloat16)
+            for n in (2 ** 20, 33001, 4 * 32768)]
+    scal = torch.cat([leaf_scalars(s, FTTQConfig())[0][None] for s in segs])
+    quantize_pack_segments(segs, scal, with_scales=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        quantize_pack_segments(segs, scal, with_scales=True)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and "quantize_pack" in e.name]
+    assert len(kernels) == 1 and "quantize_pack_bf16_kernel" in kernels[0], kernels
+
+
+def _fp32_subnormal_sample(dev) -> torch.Tensor:
+    """2^18 fp32 patterns drawn from all 2^32 and 2^14 subnormals of every
+    magnitude 2^-149 … 2^-127, both signs."""
+    gen = torch.Generator().manual_seed(2029)
+    any_bits = torch.randint(-2 ** 31, 2 ** 31, (2 ** 18,), generator=gen, dtype=torch.int64)
+    top = torch.arange(2 ** 14) % 23
+    low = torch.randint(0, 2 ** 23, (2 ** 14,), generator=gen) & ((1 << top) - 1)
+    sign = torch.randint(0, 2, (2 ** 14,), generator=gen) << 31
+    sub = ((1 << top) | low | sign).to(torch.int64)
+    bits = torch.cat([any_bits, sub])
+    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32)
+    return bits.view(torch.float32).to(dev)
+
+
+def test_quantize_pack_fp32_subnormal_rule(cuda_device):
+    """The fp32 kernel with XLA's subnormal rule: the sample at a zero Δ, a
+    subnormal Δ or denom and normal pairs, in one launch: bytes and counts
+    bit for bit, sums and scales within 1e-6 (non-finite ones identical)."""
+    x = _fp32_subnormal_sample(cuda_device)
+    pairs = [(0.8125, 0.0), (7.1e-39, 0.5), (1.0, 0.05), (1.7e38, 0.01), (1.0, 1e-39),
+             (2.0 ** -126 - 2.0 ** -149, 2.0 ** 100)]
+    scal = torch.tensor(pairs, dtype=torch.float32, device=cuda_device)
+    packed, moments, scales = quantize_pack_segments([x] * len(pairs), scal, with_scales=True)
+    p_ref, m_ref, s_ref = quantize_pack_segments_plain([x] * len(pairs), scal, True)
+    assert torch.equal(packed, p_ref)
+    assert torch.equal(moments[:, 1], m_ref[:, 1])
+    _assert_close_or_same(moments[:, 0], m_ref[:, 0])
+    _assert_close_or_same(scales, s_ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("inv,delta,wq", [(1.0, 0.0, 0.5), (3.0, 0.0, 1e-39),
+                                          (1e-39, 0.0, 0.5), (2.0 ** -100, 0.0, 1.0)])
+def test_ternary_quantize_subnormal_rule(cuda_device, dtype, inv, delta, wq):
+    """ternary_quantize on subnormal θ (and every bf16 bit pattern) at Δ = 0
+    and subnormal scalars: codes and θ_t bit for bit with the plain
+    version."""
+    thetas = [_fp32_subnormal_sample(cuda_device)[-2 ** 14:].reshape(64, 256).to(dtype)]
+    if dtype == torch.bfloat16:
+        thetas.append(_bf16_every_pattern(cuda_device).reshape(256, 256))
+    for theta in thetas:
+        it, tt = ternary_quantize(theta, inv, delta, wq)
+        it_ref, tt_ref = ternary_quantize_plain(theta, inv, delta, wq)
+        assert torch.equal(it, it_ref)
+        assert torch.equal(tt.view(torch.uint8), tt_ref.view(torch.uint8))
+
+
 def test_bf16_tree_encodes_through_the_bf16_kernel(cuda_device):
     """A bf16 tree's card encode: one quantize_pack launch for its bf16
     group, the wire bytes of the CPU encode, w_q cast back to bf16."""
