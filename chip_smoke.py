@@ -24,6 +24,13 @@ Phases (any failure exits non-zero; no phase is skipped):
                  and 144 bytes at C = 1, 3, 17, and 16 clients × 2^26 elements
                  (a one-row table); ternary_quantize bit for bit
                  on all 112 2-D layers of olmo-1b (and one in bf16);
+                 XLA's subnormal rule in the FTTQ statistics and the
+                 error-feedback residuals: core.fttq and ops.fttq_apply on
+                 subnormal leaves (fp32 and bf16), compress_pytree with
+                 error feedback for every codec pair over three encodes
+                 and the one-pod compressed sync (quantize_pack and
+                 aggregate on the card), the card's bits against the
+                 CPU's;
   4. serve     — olmo-1b at full width (16 layers, d_model 2048, 2^30 quantized
                  weights, random weights from a seed) deployed through the TFW1
                  wire and served 2-bit: packed-vs-dequantized logits check,
@@ -408,8 +415,11 @@ def check(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+_START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _START:.1f} s)", flush=True)
 
 
 def card_line() -> str:
@@ -1147,6 +1157,179 @@ def _max_abs_diff(a, b) -> float:
     import torch
 
     return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
+
+
+def _subnormal_inputs():
+    """Seeded fp32 leaves that hold subnormals (numpy): all subnormal, the
+    same with a tiny normal (2e-38) as the maximum, and values within six
+    steps of 2^-126 on either side; and an error-feedback tree: a weight
+    whose first 16 rows are subnormal, an all-subnormal bias and weight,
+    and such an edge weight."""
+    import numpy as np
+
+    tiny = 2.0 ** -126
+    base = np.random.default_rng(0).normal(size=(64, 32)).astype(np.float32)
+    sub = (base * 1e-39).astype(np.float32)
+    tiny_max = sub.copy()
+    tiny_max.reshape(-1)[5] = np.float32(2e-38)
+    rng = np.random.default_rng(1)
+    edge = (rng.choice([-1.0, 1.0], size=(64, 32))
+            * (tiny + rng.integers(-6, 7, size=(64, 32)) * 2.0 ** -149)).astype(np.float32)
+    w = base.copy()
+    w[:16] *= np.float32(1e-39)
+    tree = {"layer": {"w": w, "bias": sub[0].copy()}, "sub": {"w": sub[:16].copy()},
+            "edge": {"w": edge[:16].copy()}}
+    return {"subnormal": sub, "tiny_max": tiny_max, "edge": edge}, tree
+
+
+def subnormal_rule_checks(dev) -> dict:
+    """XLA's subnormal rule in the FTTQ statistics and the error-feedback
+    residuals, the card against the CPU on the same inputs: on each leaf of
+    ``_subnormal_inputs`` in fp32 and bf16, ``core.fttq``'s θ_s, Δ (both
+    rules), codes, init_wq, QAT forward and backward, row codes and row
+    statistics, and ``ops.fttq_apply`` (the QAT step at the CPU's
+    init_wq on both devices); over three encodes of the tree,
+    ``compress_pytree`` with error feedback for every pair of registered
+    codecs (kind, residual); and three steps of the one-pod compressed sync
+    (``ternary_allreduce_tree``, the quantize_pack and aggregate kernels on
+    the card). Every output bit for bit, except a sum over many normal
+    terms, which each device runs in its own order (the edge leaf's Δ, w_q
+    and g_wq; a ternary scale from tile moments where a code is nonzero,
+    and the residual where a code was): those within rtol 1e-6 (bf16:
+    2^-8). Fails on any other difference."""
+    import torch
+
+    from repro_torch.core import fttq
+    from repro_torch.comm.wire import encode_update
+    from repro_torch.core.compression import (
+        CodecSpec, available_codecs, compress_pytree, is_wire_leaf,
+    )
+    from repro_torch.core.ternary import TernaryTensor
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.collectives import ternary_allreduce_tree
+    from repro_torch.tree import flatten_with_path, tree_map
+
+    def bits(t):
+        t = t.detach().cpu().contiguous().reshape(-1)
+        return t.view(torch.uint8)
+
+    def fttq_outputs(x, cot, wq, d):
+        x, cot = x.to(d), cot.to(d)
+        out = {}
+        ts = fttq.scale_layer(x)
+        out["theta_s"] = (ts, True)
+        for rule in ("mean", "max"):
+            delta = fttq.fttq_threshold(ts, 0.7, rule)
+            out[f"delta_{rule}"] = (delta, rule == "max")
+            out[f"codes_{rule}"] = (fttq.ternarize(ts, delta), True)
+            out[f"init_wq_{rule}"] = (fttq.init_wq(x, fttq.FTTQConfig(threshold_rule=rule)),
+                                      False)
+        rows = x.reshape(4, -1)
+        out["row_codes"] = (fttq.row_codes(rows, 0.7), True)
+        denom, delta = fttq.leaf_row_stats([rows], 0.7, [()])[0]
+        out["row_denom"], out["row_delta"] = (denom, True), (delta, False)
+        theta = x.clone().requires_grad_()
+        wq = wq.to(d).clone().requires_grad_()
+        y = fttq.FTTQQuantize.apply(theta, wq, 0.7)
+        y.backward(cot.to(x.dtype))
+        out["qat_forward"], out["qat_g_theta"], out["qat_g_wq"] = (y, True), \
+            (theta.grad, True), (wq.grad, False)
+        i_t, theta_t, w_q = ops.fttq_apply(x, 0.7)
+        out["apply_codes"], out["apply_theta_t"], out["apply_wq"] = (i_t, True), \
+            (theta_t, False), (w_q, False)
+        return out
+
+    t0 = time.perf_counter()
+    leaves, tree_np = _subnormal_inputs()
+    cot = torch.from_numpy(leaves["edge"]) * 2.0 ** 126     # normal cotangents near ±1
+    n_outputs = n_exact = bad = 0
+    worst = 0.0
+    for name, leaf in leaves.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(leaf).to(dtype)
+            wq = fttq.init_wq(x, fttq.FTTQConfig())     # one factor for both devices
+            cpu, card = fttq_outputs(x, cot, wq, "cpu"), fttq_outputs(x, cot, wq, dev)
+            for key, (want, exact) in cpu.items():
+                got = card[key][0]
+                n_outputs += 1
+                if exact or name != "edge":
+                    n_exact += 1
+                    if not torch.equal(bits(got), bits(want)):
+                        bad += 1
+                        print(f"  {name} {dtype} {key}: the card's bits differ from the CPU's")
+                else:
+                    g, w = got.detach().cpu().double(), want.detach().double()
+                    rel = float(((g - w).abs() / w.abs().clamp_min(1e-300)).max())
+                    worst = max(worst, rel)
+                    if rel > (1e-6 if dtype == torch.float32 else 2 ** -8):
+                        bad += 1
+                        print(f"  {name} {dtype} {key}: rtol {rel:.2e}")
+    tree = tree_map(torch.from_numpy, tree_np)
+    card_tree = tree_map(lambda t: t.to(dev), tree)
+    pairs = [(k, r) for k in available_codecs() for r in available_codecs()
+             if (k, r) != ("none", "none")]
+    n_leaves = n_res_exact = 0
+    for kind, residual in pairs:
+        spec = CodecSpec(kind=kind, residual=residual, topk_fraction=0.3, error_feedback=True)
+        r_cpu = r_card = None
+        exact = {}
+        for step in range(3):
+            w_cpu, r_cpu = compress_pytree(tree, spec, residual=r_cpu)
+            w_card, r_card = compress_pytree(card_tree, spec, residual=r_card)
+            for ((path, a), (_, b)), (_, ra), (_, rb) in zip(
+                    zip(flatten_with_path(w_card, is_leaf=is_wire_leaf),
+                        flatten_with_path(w_cpu, is_leaf=is_wire_leaf)),
+                    flatten_with_path(r_card), flatten_with_path(r_cpu)):
+                n_leaves += 1
+                ra, rb = ra.detach().cpu().reshape(-1), rb.reshape(-1)
+                if not isinstance(b, TernaryTensor):
+                    n_res_exact += 1
+                    if encode_update({"x": a}) != encode_update({"x": b}) or not torch.equal(
+                            bits(ra), bits(rb)):
+                        bad += 1
+                        print(f"  {kind}/{residual} {path}: the card's wire or residual bits "
+                              "differ from the CPU's")
+                    continue
+                p = b.packed.reshape(-1)
+                codes = torch.stack([(p >> k) & 3 for k in (0, 2, 4, 6)], 1).reshape(-1)
+                zero = codes[: rb.numel()] == 1
+                ok = exact[path] = zero & exact.get(path, torch.ones_like(zero))
+                scale = float(b.w_q.abs().max())
+                w_gap = float((a.w_q.cpu() - b.w_q).abs().max())
+                if not torch.equal(bits(a.packed), bits(b.packed)) \
+                        or (bool(zero.all()) and not torch.equal(bits(a.w_q), bits(b.w_q))) \
+                        or w_gap > 1e-6 * scale or not torch.equal(bits(ra[ok]), bits(rb[ok])) \
+                        or float(torch.cat([(ra[~ok] - rb[~ok]).abs(), torch.zeros(1)]).max()) \
+                        > 1e-6 * (step + 1) * scale:
+                    bad += 1
+                    print(f"  {kind}/{residual} {path}: the card's ternary leaf differs from "
+                          "the CPU's")
+    s_cpu = s_card = None
+    for _ in range(3):
+        sync_cpu, s_cpu = ternary_allreduce_tree(tree, None, residuals=s_cpu)
+        sync_card, s_card = ternary_allreduce_tree(card_tree, None, residuals=s_card)
+        for (path, a), (_, b) in zip(flatten_with_path([sync_card, s_card]),
+                                     flatten_with_path([sync_cpu, s_cpu])):
+            n_leaves += 1
+            if "sub" in str(path) or "bias" in str(path):
+                n_res_exact += 1
+                if not torch.equal(bits(a), bits(b)):
+                    bad += 1
+                    print(f"  sync {path}: the card's bits differ from the CPU's")
+            elif float((a.cpu() - b).abs().max()) > 1e-6 * float(b.abs().max()):
+                bad += 1
+                print(f"  sync {path}: beyond 1e-6 of the largest |value|")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"  FTTQ statistics on {len(leaves)} subnormal leaves x 2 dtypes: {n_outputs} "
+          f"outputs, {n_exact} held bit for bit, the rest within rtol {worst:.2e}; "
+          f"compress_pytree with error feedback, {len(pairs)} codec pairs x 3 encodes, and "
+          f"3 steps of the one-pod sync: {n_leaves} leaves, {n_res_exact} of them bit for bit "
+          f"(wire and residual), the ternary ones as the docstring holds them; {bad} "
+          f"differences; {secs:.2f} s")
+    check(bad == 0, "the card breaks XLA's subnormal rule where the CPU keeps it")
+    return {"outputs": n_outputs, "exact": n_exact, "leaves": n_leaves,
+            "leaves_exact": n_res_exact, "worst_rtol": worst, "differences": bad, "s": secs}
 
 
 def ternary_quantize_checks(layers) -> float:
@@ -3066,8 +3249,9 @@ def _code_ties(state, fcfg, dev) -> tuple[dict, int, int, int]:
         n_diff += int(diff.sum())
         if bool(diff.any()):
             masks[path] = diff.reshape(theta.shape)
-            theta_s = rows / fttq.row_denom(rows)
-            delta = fttq.row_threshold(theta_s, fcfg.t_k).expand_as(theta_s)
+            denom = fttq.row_denom(rows)
+            theta_s = rows / denom
+            delta = fttq.row_threshold(fttq.scaled_abs(rows, denom), fcfg.t_k).expand_as(theta_s)
             gap = (theta_s.abs() - delta).abs()[diff]
             n_tie += int((gap <= 1e-6 * delta[diff]).sum())
     return masks, n_codes, n_diff, n_tie
@@ -4296,7 +4480,7 @@ def _tp_codes(whole, fcfg, sh) -> tuple[dict, dict]:
         rows = shard.reshape(n_rows, -1)
         (denom, delta), = fttq.leaf_row_stats([rows], fcfg.t_k, [sh.axes(path_str(path))])
         theta_s = rows / denom
-        diff = fttq.ternarize(theta_s, delta).reshape(shard.shape) != want
+        diff = fttq.scaled_codes(rows, denom, delta).reshape(shard.shape) != want
         n_codes += diff.numel()
         n_diff += int(diff.sum())
         masks[path] = diff
@@ -5639,7 +5823,7 @@ def _shard_code_flips(whole, shards, cfg, fcfg, mesh) -> dict:
             stats.copy_(torch.stack([d_w, t_w]))
         dist.broadcast(stats, src=root, group=group)
         d_w, t_w = stats.to(rows.device)
-        diff = fttq.ternarize(rows / denom, delta) != fttq.ternarize(rows / d_w, t_w)
+        diff = fttq.scaled_codes(rows, denom, delta) != fttq.scaled_codes(rows, d_w, t_w)
         gap = ((rows / d_w).abs() - t_w).abs()
         counts += torch.tensor([diff.numel(), int(diff.sum()),
                                 int((gap <= 1e-6 * t_w.expand_as(gap))[diff].sum())],
@@ -6323,6 +6507,10 @@ def main() -> int:
     layers = [params["blocks"][a][b][i] for i in range(cfg.n_layers) for a, b in names]
     phase("checks: ternary_quantize vs plain on every 2-D layer of olmo-1b (bit-identical)")
     tq_err = ternary_quantize_checks(layers)
+
+    phase("checks: XLA's subnormal rule in the FTTQ statistics and error-feedback residuals "
+          "(the card's bits against the CPU's)")
+    subnormal_rule_checks(dev)
 
     phase("serve: olmo-1b --ternary --packed at full width")
     zero_counters()

@@ -32,7 +32,7 @@ import torch
 
 from repro_torch.core import fttq
 from repro_torch.core.ternary import TernaryTensor, _as_tensor
-from repro_torch.dtypes import dtype_name, is_floating, torch_dtype
+from repro_torch.dtypes import dtype_name, is_floating, torch_dtype, xla_op
 from repro_torch.tree import flatten_with_path, tree_leaves, tree_map
 
 Pytree = Any
@@ -355,7 +355,10 @@ def compress_pytree(tree: Pytree, spec: CodecSpec, residual: Pytree | None = Non
     their residual is a scalar zero, so the residual tree stays aligned).
     With ``spec.error_feedback`` each leaf is first corrected by its
     residual and the new residual is corrected − decode(wire), on the
-    leaf's device; otherwise the residual returned is None. A kind codec
+    leaf's device, both as XLA forms them (``dtypes.xla_op``: a subnormal
+    operand or result is a zero), so that the residual carried from round
+    to round holds the reference's bits; otherwise the residual returned is
+    None. A kind codec
     with ``encode_leaves_batch`` encodes all its raw leaves in one call."""
     if spec.is_identity:
         return tree, residual
@@ -368,7 +371,7 @@ def compress_pytree(tree: Pytree, spec: CodecSpec, residual: Pytree | None = Non
         if not ef:
             return leaf
         leaf = leaf if isinstance(leaf, torch.Tensor) else torch.as_tensor(leaf)
-        return leaf if res is None else leaf + res
+        return leaf if res is None else xla_op(torch.add, leaf, res)
 
     # the batched pre-pass: every raw quantizable leaf in one call
     pre: dict[int, tuple] = {}
@@ -401,7 +404,7 @@ def compress_pytree(tree: Pytree, spec: CodecSpec, residual: Pytree | None = Non
             x = corrected(leaf, res)
             wire = codec.encode_leaf(x, spec)
         out_wire.append(wire)
-        out_res.append(x - codec.decode_leaf(wire, _device_of(x)) if ef else None)
+        out_res.append(xla_op(torch.sub, x, codec.decode_leaf(wire, _device_of(x))) if ef else None)
     wire_it, res_it = iter(out_wire), iter(out_res)
     wire_tree = tree_map(lambda _: next(wire_it), tree, is_leaf=is_wire_leaf)
     res_tree = tree_map(lambda _: next(res_it), tree, is_leaf=is_wire_leaf) if ef else None

@@ -66,7 +66,7 @@ def segment_scalars(rows: torch.Tensor, mode: str, cfg: fttq.FTTQConfig
     if mode == "server":
         delta = torch.full_like(denom, cfg.server_delta)
     else:
-        delta = fttq.row_threshold(rows / denom, cfg.t_k, cfg.threshold_rule)
+        delta = fttq.row_threshold(fttq.scaled_abs(rows, denom), cfg.t_k, cfg.threshold_rule)
     return denom, delta
 
 

@@ -55,7 +55,7 @@ def reference_leaf(leaf: torch.Tensor, mode: str, cfg: fttq.FTTQConfig, wq=None,
     n_seg = leaf.shape[0] if stacked else 1
     rows = leaf.reshape(n_seg, -1)
     denom, delta = segment_scalars(rows, mode, cfg)
-    i_t = fttq.ternarize(rows / denom, delta).reshape(leaf.shape)
+    i_t = fttq.scaled_codes(rows, denom, delta).reshape(leaf.shape)
     if mode == "payload":
         w_q = wq.detach()
     else:

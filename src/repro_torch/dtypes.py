@@ -73,6 +73,9 @@ def is_floating(x) -> bool:
 
 # fp32's least normal magnitude, which bf16 shares
 TINY = 2.0 ** -126
+# the dtypes XLA computes in fp32 with the rule below (fp16's own subnormals
+# are normal in fp32)
+_XLA_FLUSHED = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def flush_subnormal(t: torch.Tensor) -> torch.Tensor:
@@ -82,5 +85,50 @@ def flush_subnormal(t: torch.Tensor) -> torch.Tensor:
     does: a subnormal operand enters the arithmetic as zero, and a subnormal
     result comes out as zero (bf16 arithmetic runs in fp32 and is rounded
     after). The plain versions of the kernels apply this where the reference
-    reads an operand or forms a result; normal values pass unchanged."""
-    return torch.where(t.abs() < TINY, t * 0, t)
+    reads an operand or forms a result; normal values pass unchanged.
+    t · [|t| ≥ TINY] is t where the test holds and t · 0, a zero of t's
+    sign (NaN for NaN), where it fails."""
+    return t * (t.abs() >= TINY)
+
+
+def flush_subnormal_(t: torch.Tensor) -> torch.Tensor:
+    """``flush_subnormal`` in place."""
+    return t.mul_(t.abs() >= TINY)
+
+
+def largest_subnormal(dtype: torch.dtype) -> float:
+    """The value just below TINY in ``dtype`` (fp32 or bf16): for x of that
+    dtype, |x| > it exactly when x is normal or infinite."""
+    return TINY * (1.0 - torch.finfo(dtype).eps)
+
+
+def flushed_abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| as XLA reads it, a subnormal as a zero: one pass over a new
+    tensor. Normal values and their order are untouched, so a sum, mean or
+    norm over it has the bits it has over |x| wherever x holds no
+    subnormal."""
+    a = x.abs()
+    if a.dtype not in _XLA_FLUSHED:
+        return a
+    return torch.nn.functional.threshold_(a, largest_subnormal(a.dtype), 0.0)
+
+
+def xla_op(op, *xs: torch.Tensor) -> torch.Tensor:
+    """``op(*xs)`` as XLA forms one elementwise step: the operands flushed,
+    the step computed in fp32 and flushed, the result rounded to the
+    operands' promoted dtype. For normal operands and result this is
+    ``op(*xs)`` bit for bit (PyTorch also computes a bf16 or fp16 step in
+    fp32 and rounds once). Other dtypes (integers, fp64) pass through
+    ``op``. The flush follows the rounding, as ``flush_subnormal`` states
+    the rule; XLA on the CPU tests the 24-bit result before it is placed on
+    the subnormal grid, so an exact product or quotient in [2^-126 − 2^-150,
+    2^-126 − 2^-151), which rounds up to 2^-126, is kept here and flushed
+    there. A sum or difference of fp32 values, a multiple of 2^-149, never
+    falls in that window."""
+    dt = xs[0].dtype
+    for x in xs[1:]:
+        dt = torch.promote_types(dt, x.dtype)
+    if dt not in _XLA_FLUSHED:
+        return op(*xs)
+    return flush_subnormal(op(*(flush_subnormal(x).to(torch.float32) for x in xs))).to(dt)
+

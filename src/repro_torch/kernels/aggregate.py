@@ -36,8 +36,10 @@ elements. What the TPU kernel's design cost here, and what this one does:
 
 Summation order: every element sums clients c = 0..C−1 in order from +0.0,
 as the Pallas kernel's ``fori_loop`` does. Each term coeff·(code−1) is
-exact, so the kernel, the plain version and the Pallas kernel agree bit for
-bit; only the numpy oracle ``packed_weighted_sum_ref`` (a ``tensordot``)
+exact, and a subnormal coefficient or partial sum is a zero, as XLA
+computes the Pallas kernel's adds (``dtypes.flush_subnormal``), so the
+kernel, the plain version and the Pallas kernel agree bit for bit; only
+the numpy oracle ``packed_weighted_sum_ref`` (a ``tensordot``)
 sums in another order.
 
 ``packed_weighted_sum(stacked (C, R, LANES), coeffs (C,))``, the reference's
@@ -55,6 +57,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.dtypes import flush_subnormal, flush_subnormal_
 
 LANES = 128
 ALIGN = 4             # staged segment offsets: the kernel loads 32-bit words
@@ -139,11 +143,11 @@ def packed_weighted_sum_segments_plain(staged: torch.Tensor, coeffs: torch.Tenso
     if coeffs.shape != (c, table.n_segments):
         raise ValueError(f"coeffs must be ({c}, {table.n_segments}), got {tuple(coeffs.shape)}")
     seg, byte, shift, valid = _element_map(table, staged.device)
-    w = coeffs.to(torch.float32)
+    w = flush_subnormal(coeffs.to(torch.float32))
     acc = torch.zeros(table.n_total, dtype=torch.float32, device=staged.device)
     for i in range(c):
         u = ((staged[i, byte] >> shift) & 3).to(torch.float32) - 1.0
-        acc = acc + w[i, seg] * u
+        acc = flush_subnormal_(acc.add_(w[i, seg] * u))
     return torch.where(valid, acc, 0.0)
 
 

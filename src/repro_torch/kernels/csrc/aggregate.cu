@@ -17,7 +17,8 @@
 // the Pallas kernel's fori_loop does. Each term coeff * u with u in
 // {-1, 0, +1, +2} is exact, so a fused multiply-add rounds exactly as the
 // Pallas kernel's multiply then add, and the result is bit-identical to the
-// plain PyTorch version and to the Pallas kernel.
+// plain PyTorch version and to the Pallas kernel, subnormal coefficients and
+// partial sums included (fma_ftz).
 //
 // Bound: bytes. Each staged client byte is read once (C * nbytes) and each
 // fp32 output written once (16 * nbytes); the arithmetic is one FMA per client
@@ -82,12 +83,23 @@ __device__ __forceinline__ float code_minus_one(uint32_t m, int k) {
   return __int_as_float((int)bits) - 12582913.0f;
 }
 
+// acc + w * u under XLA's subnormal rule, which the Pallas kernel follows on
+// the TPU and on the CPU: a subnormal coefficient or partial sum reads as a
+// zero and a subnormal sum comes out as one (.ftz). With u exact in {-1, 0, 1,
+// 2} the product is exact, so this is XLA's multiply then add; it is fmaf
+// bit for bit wherever no operand or result is subnormal.
+__device__ __forceinline__ float fma_ftz(float w, float u, float acc) {
+  float d;
+  asm("fma.rn.ftz.f32 %0, %1, %2, %3;" : "=f"(d) : "f"(w), "f"(u), "f"(acc));
+  return d;
+}
+
 __device__ __forceinline__ void accumulate(uint32_t word, float w, float (&acc)[16]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const uint32_t m = (word >> (2 * j)) & 0x03030303u;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) acc[4 * k + j] = fmaf(w, code_minus_one(m, k), acc[4 * k + j]);
+    for (int k = 0; k < 4; ++k) acc[4 * k + j] = fma_ftz(w, code_minus_one(m, k), acc[4 * k + j]);
   }
 }
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.dtypes import flush_subnormal, flushed_abs, xla_op
 from repro_torch.kernels.pack2bit import pack2bit, unpack2bit
 from repro_torch.kernels.ternary_matmul import ternary_matmul
 from repro_torch.kernels.ternary_quantize import ternary_quantize
@@ -21,13 +22,17 @@ def fttq_scalars(theta: torch.Tensor, t_k: float
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One layer's statistics (1/max|θ|, Δ, w_q) in θ's dtype, on its
     device: Δ over the scaled weights (eq. 8), w_q at the Prop-4.1 optimum
-    over θ/max|θ|."""
-    absw = theta.abs()
-    inv_scale = 1.0 / (absw.max() + 1e-8)
-    delta = t_k * absw.mean() * inv_scale
-    scaled = absw * inv_scale
+    over θ/max|θ|. Each step follows XLA's subnormal rule: |θ| is read with
+    subnormals as zeros (so its maximum and mean are the flushed ones), and
+    every scalar and the scaled weights are flushed where they form, in
+    fp32 before a bf16 result is rounded."""
+    absw = flushed_abs(theta)
+    inv_scale = flush_subnormal(1.0 / (absw.max() + 1e-8))
+    mean = flush_subnormal(absw.mean(dtype=torch.float32)).to(absw.dtype)
+    delta = xla_op(torch.mul, xla_op(lambda m: t_k * m, mean), inv_scale)
+    scaled = xla_op(torch.mul, absw, inv_scale)
     sel = scaled > delta
-    w_q = torch.where(sel, scaled, 0.0).sum() / (sel.sum() + 1e-8)
+    w_q = flush_subnormal(torch.where(sel, scaled, 0.0).sum() / (sel.sum() + 1e-8))
     return inv_scale, delta, w_q
 
 

@@ -74,6 +74,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.fttq import FTTQConfig, is_quantizable
+from repro_torch.dtypes import flush_subnormal, flush_subnormal_, flushed_abs, xla_op
 from repro_torch.kernels.aggregate import fanin_table, packed_weighted_sum_segments
 from repro_torch.kernels.quantize_pack import n_tiles, quantize_pack_segments, segment_layout
 from repro_torch.tree import flatten_with_path, path_str, tree_leaves, tree_map
@@ -256,12 +257,29 @@ def collective_scalars(flat: Sequence[torch.Tensor], t_k: float,
     from repro_torch.parallel.tensor import reduce_over
 
     axes = list(axes) or [()] * len(flat)
-    mx = reduce_over([torch.linalg.vector_norm(f, float("inf")) for f in flat], axes, "max")
-    l1 = reduce_over([torch.linalg.vector_norm(f, 1) for f in flat], axes)
+    absx = [flushed_abs(f) for f in flat]
+    mx = reduce_over([torch.linalg.vector_norm(a, float("inf")) for a in absx], axes, "max")
+    l1 = reduce_over([torch.linalg.vector_norm(a, 1) for a in absx], axes)
+    del absx
     n = [f.numel() * math.prod(a.size for a in ax) for f, ax in zip(flat, axes)]
     mx = torch.stack(mx) + 1e-12
-    mean_abs = torch.stack([a / k for a, k in zip(l1, n)])
-    return torch.stack([mx, t_k * mean_abs / mx], dim=1).contiguous()
+    mean_abs = flush_subnormal(torch.stack([a / k for a, k in zip(l1, n)]))
+    delta = xla_op(torch.div, xla_op(lambda m: t_k * m, mean_abs), mx)
+    return torch.stack([mx, delta], dim=1).contiguous()
+
+
+def _corrected(x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+    """x + residual as XLA adds them (operands and sum flushed), in a new
+    tensor."""
+    return flush_subnormal_(flush_subnormal(x).add_(flush_subnormal(residual)))
+
+
+def _new_residual_(xf: torch.Tensor, recon: torch.Tensor) -> torch.Tensor:
+    """xf − recon as XLA subtracts them, in xf's memory. xf is a corrected
+    input (``_corrected``), already flushed, and recon = w_q · (code − 1)
+    with w_q flushed, so no operand holds a subnormal: only the
+    difference is flushed."""
+    return flush_subnormal_(xf.sub_(recon))
 
 
 def _compressed_mean(xs: Sequence[torch.Tensor], group, t_k: float, recon: bool,
@@ -288,7 +306,9 @@ def _compressed_mean(xs: Sequence[torch.Tensor], group, t_k: float, recon: bool,
     staged = (gathered if tuple(lay.byte_offsets) == table.byte_offsets
               and lay.n_bytes == table.row_bytes
               else _restage(gathered, lay.byte_offsets, nbytes, table))
-    total = packed_weighted_sum_segments(staged, wqs, table).div_(group_size(group))
+    # the fold's sum is flushed as XLA's scan adds; so is the division by P
+    total = flush_subnormal_(packed_weighted_sum_segments(staged, wqs, table)
+                             .div_(group_size(group)))
     means = [total[o:o + n].view(x.shape) for o, n, x in zip(table.out_offsets, sizes, xs)]
     if not recon:
         return means, None
@@ -310,7 +330,7 @@ def _shard_scales(wq, moments, scal, lay, at: list, axes: list) -> torch.Tensor:
          for t, n in ((lay.tile_starts[i], lay.sizes[i]) for i in at)], axes))
     wq = wq.clone()
     num, cnt = part.to(torch.float32).unbind(1)
-    wq[at] = num / (cnt + 1e-8) * scal[at, 0]
+    wq[at] = xla_op(torch.mul, xla_op(torch.div, num, cnt + 1e-8), scal[at, 0])
     return wq
 
 
@@ -323,9 +343,9 @@ def ternary_allreduce(x: torch.Tensor, group, *, t_k: float = 0.7,
         raise ValueError(f"ternary_allreduce: last dim {x.shape[-1]} is not a multiple of 4")
     xf = x.to(torch.float32)
     if residual is not None:
-        xf = xf + residual
+        xf = _corrected(xf, residual)
     (mean,), recon = _compressed_mean([xf.contiguous()], group, t_k, residual is not None)
-    new_residual = xf.sub_(recon[0]) if residual is not None else None
+    new_residual = _new_residual_(xf, recon[0]) if residual is not None else None
     return mean.to(x.dtype), new_residual
 
 
@@ -377,18 +397,20 @@ def ternary_allreduce_tree(grads: Pytree, group, *, cfg: FTTQConfig | None = Non
                 torch.zeros(leaf.shape, dtype=torch.float32, device=leaf.device)
                 if error_feedback else None)
             xf = leaf.to(torch.float32)
-            xfs.append((xf + r if r is not None else xf).contiguous())
+            xfs.append((_corrected(xf, r) if r is not None else xf).contiguous())
         means, recons = _compressed_mean(xfs, group, cfg.t_k, error_feedback,
                                          [tuple(a for a, _ in cuts[i]) for i in comp])
         for k, i in enumerate(comp):
             leaf = items[i][1]
             out[i] = means[k].to(leaf.dtype)
-            new_res[i] = (xfs[k].sub_(recons[k]) if error_feedback else
+            new_res[i] = (_new_residual_(xfs[k], recons[k]) if error_feedback else
                           torch.zeros(leaf.shape, dtype=torch.float32, device=leaf.device))
         del xfs, means, recons
     if exact:
-        flat = torch.cat([items[i][1].reshape(-1).to(torch.float32) for i in exact])
-        all_reduce_(flat, group, mean=True)
+        flat = flush_subnormal_(torch.cat([items[i][1].reshape(-1).to(torch.float32)
+                                           for i in exact]))
+        # pmean as XLA forms it: the flushed sum, then the flushed quotient
+        flush_subnormal_(flush_subnormal_(all_reduce_(flat, group)).div_(group_size(group)))
         at = 0
         for i in exact:
             leaf = items[i][1]
@@ -412,17 +434,17 @@ def quantize_lastdim_plain(x: torch.Tensor, t_k: float, scalars=None):
     """The reference's ``_quantize_lastdim`` on fp32 x: (packed bytes along
     the last dim, w_q, reconstruction w_q·I_t). ``scalars``: a shard's
     whole-leaf (max|x| + 1e-12, Δ, w_q) (``shard_scalars_plain``)."""
-    absx = x.abs()
+    absx = flushed_abs(x)
     if scalars is None:
         mx = absx.max() + 1e-12
-        delta = t_k * absx.mean() / mx
+        delta = xla_op(torch.div, xla_op(lambda m: t_k * m, flush_subnormal(absx.mean())), mx)
     else:
         mx, delta, w_q = scalars
-    xs = x / mx
+    xs = xla_op(torch.div, x, mx)
     sel = xs.abs() > delta
     i_t = torch.where(sel, torch.sign(xs), 0.0)
     if scalars is None:
-        w_q = torch.where(sel, absx, 0.0).sum() / (sel.sum() + 1e-12)
+        w_q = flush_subnormal(torch.where(sel, absx, 0.0).sum() / (sel.sum() + 1e-12))
     c = (i_t.to(torch.int8) + 1).to(torch.uint8).reshape(*x.shape[:-1], x.shape[-1] // 4, 4)
     packed = c[..., 0] | (c[..., 1] << 2) | (c[..., 2] << 4) | (c[..., 3] << 6)
     return packed, w_q.to(torch.float32), (w_q * i_t).to(x.dtype)
@@ -435,17 +457,18 @@ def shard_scalars_plain(xs: Sequence[torch.Tensor], t_k: float, axes: tuple) -> 
     ``_quantize_lastdim`` scalars on the whole leaf."""
     from repro_torch.parallel.tensor import reduce_over
 
-    absx = [x.abs() for x in xs]
+    absx = [flushed_abs(x) for x in xs]
     (mx,) = reduce_over([torch.stack([a.max() for a in absx])], [axes], "max")
     (total,) = reduce_over([torch.stack([a.sum() for a in absx])], [axes])
     mx = mx + 1e-12
-    delta = t_k * (total / (xs[0].numel() * math.prod(a.size for a in axes))) / mx
-    sel = [(x / m).abs() > d for x, m, d in zip(xs, mx, delta)]
+    mean = flush_subnormal(total / (xs[0].numel() * math.prod(a.size for a in axes)))
+    delta = xla_op(torch.div, xla_op(lambda m: t_k * m, mean), mx)
+    sel = [xla_op(torch.div, x, m).abs() > d for x, m, d in zip(xs, mx, delta)]
     part = torch.stack([torch.stack([torch.where(s, a, 0.0).sum(), s.sum().to(torch.float32)])
                         for s, a in zip(sel, absx)])
     (part,) = reduce_over([part], [axes])
     num, cnt = part.unbind(1)
-    return list(zip(mx, delta, num / (cnt + 1e-12)))
+    return list(zip(mx, delta, flush_subnormal(num / (cnt + 1e-12))))
 
 
 def unpack_lastdim_plain(packed: torch.Tensor) -> torch.Tensor:
@@ -471,19 +494,19 @@ def leaf_mean_plain(xs: Sequence[torch.Tensor], *, t_k: float, compressed: bool,
     if not compressed:
         total = xs[0]
         for x in xs[1:]:
-            total = total + x
-        return total / p, [zeros(x) for x in xs]
+            total = xla_op(torch.add, total, x)
+        return xla_op(lambda t: t / p, total), [zeros(x) for x in xs]
     total = torch.zeros(xs[0].shape, dtype=torch.float32, device=xs[0].device)
     new_res = []
-    xfs = [x.to(torch.float32) + residuals[k] if residuals is not None else x.to(torch.float32)
-           for k, x in enumerate(xs)]
+    xfs = [_corrected(x.to(torch.float32), residuals[k]) if residuals is not None
+           else x.to(torch.float32) for k, x in enumerate(xs)]
     scalars = shard_scalars_plain(xfs, t_k, axes) if axes else [None] * p
     for k, x in enumerate(xs):
         xf = xfs[k]
         packed, w_q, recon = quantize_lastdim_plain(xf, t_k, scalars[k])
-        new_res.append(xf - recon if residuals is not None else zeros(x))
-        total = total + w_q * unpack_lastdim_plain(packed)
-    return (total / p).to(xs[0].dtype), new_res
+        new_res.append(_new_residual_(xf, recon) if residuals is not None else zeros(x))
+        total = xla_op(torch.add, total, w_q * unpack_lastdim_plain(packed))
+    return xla_op(lambda t: t / p, total).to(xs[0].dtype), new_res
 
 
 def pods_mean_plain(grads_per_pod: Sequence[Pytree], *, cfg: FTTQConfig | None = None,

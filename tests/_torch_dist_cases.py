@@ -58,6 +58,78 @@ def collectives(rank, world, *, single, steps, device="cpu"):
     return out
 
 
+def subnormal_sync(rank, world, *, steps, device="cpu"):
+    """``ternary_allreduce_tree`` with error feedback over ``steps`` (each a
+    list of per-pod gradient trees), recording the packed bytes this pod
+    all-gathers, cut into its compressed leaves (in tree order, each of
+    last dim a multiple of 4, so its flat packing is the reference's
+    last-dim packing)."""
+    from repro_torch.kernels.quantize_pack import segment_layout
+    from repro_torch.parallel import collectives as coll
+
+    mesh = make_mesh((world,), ("pod",), device=device)
+    group = mesh.group("pod")
+    gathered, gather = [], coll.all_gather
+
+    def recording(t, grp):
+        if t.dtype == torch.uint8:
+            gathered.append(t.detach().cpu().clone())
+        return gather(t, grp)
+
+    coll.all_gather = recording
+    out, res = [], None
+    try:
+        for step in steps:
+            grads = _torch(step[rank], mesh.device)
+            gathered.clear()
+            synced, res = ternary_allreduce_tree(grads, group, residuals=res)
+            names = ["edge", "layer", "sub"]
+            leaves = [grads[n]["w"] for n in names]
+            lay = segment_layout([x.numel() for x in leaves])
+            (packed,) = gathered
+            out.append({"synced": _np(synced), "res": _np(res), "packed": {
+                f"{n}/w": packed[o:o + x.numel() // 4].numpy().reshape(
+                    *x.shape[:-1], x.shape[-1] // 4)
+                for n, x, o in zip(names, leaves, lay.byte_offsets)}})
+    finally:
+        coll.all_gather = gather
+    return out
+
+
+def subnormal_shard_stats(rank, world, *, leaves, cot):
+    """On a (1, world) data x model mesh, each leaf of ``leaves`` ((L, m)
+    fp32 or bf16-as-int16 numpy rows) cut over "model" along its columns:
+    ``leaf_row_stats`` of this rank's shard (the whole leaf's (denom, Δ)),
+    its QAT forward and backward with those statistics (w_q 0.3 a row,
+    ``cot`` the whole leaf's cotangent) and ``ternary_stats`` on the shard of
+    each one-row leaf."""
+    from repro_torch.core import fttq
+    from repro_torch.parallel.tensor import Shards, model_axis
+
+    mesh = make_mesh((1, world), ("data", "model"), device="cpu")
+    tp = model_axis(mesh)
+    out = {}
+    for name, (rows_np, bf16) in leaves.items():
+        rows = torch.from_numpy(rows_np)
+        if bf16:
+            rows = rows.view(torch.bfloat16)
+        cut = rows.shape[1] // world
+        shard = rows[:, rank * cut:(rank + 1) * cut].contiguous()
+        (denom, delta), = fttq.leaf_row_stats([shard], 0.7, [(tp,)])
+        theta = shard.clone().requires_grad_()
+        wq = torch.full((rows.shape[0],), 0.3, dtype=rows.dtype).requires_grad_()
+        y = fttq.FTTQQuantize.apply(theta, wq, 0.7, (denom, delta), (tp,))
+        g = torch.from_numpy(cot[:rows.shape[0], rank * cut:(rank + 1) * cut].copy())
+        y.backward(g.to(rows.dtype))
+        item = {"denom": denom.float().numpy(), "delta": delta.float().numpy(),
+                "codes": y.detach().float().numpy(), "g_wq": wq.grad.float().numpy()}
+        if rows.shape[0] == 1:
+            sh = Shards({"w": ((tp, 1),)})
+            item["stats"] = fttq.ternary_stats({"w": shard}, fttq.FTTQConfig(), sh)
+        out[name] = item
+    return out
+
+
 def fanin(rank, world, *, stacked, coeffs, staged, seg_coeffs, nbytes, n_out, c_odd,
           device="cpu"):
     """The sharded folds (sum and vote; stacked and segment forms) and a
@@ -1371,7 +1443,8 @@ def seq_attention(rank, world, *, device):
     return out
 
 
-CASES = {f.__name__: f for f in (collectives, fanin, trainer, elastic, moe_forward, moe_train,
+CASES = {f.__name__: f for f in (collectives, subnormal_sync, subnormal_shard_stats, fanin,
+                                  trainer, elastic, moe_forward, moe_train,
                                   q8_a2a, tp_basics, tp_steps, tp_pods, tp_serve, tp_families,
                                   tp_family_steps, fsdp_basics, fsdp_step, serve_rows, combine,
                                   seq_attention, tp_grads, a2a_serve)}

@@ -1,0 +1,48 @@
+"""Seeded inputs that hold subnormals, shared by the port's subnormal tests
+on the CPU (against the reference) and on the card (against the CPU).
+numpy only."""
+
+from __future__ import annotations
+
+import numpy as np
+
+TINY = 2.0 ** -126
+LEAVES = ("subnormal", "tiny_max", "edge", "rows", "tiny")
+# leaves whose sums (Δ, w_q, g_wq) have at most one nonzero term, so that
+# they are exact in any order
+EXACT_SUMS = ("subnormal", "tiny_max")
+
+
+def subnormal_leaves(shape=(64, 32)) -> dict:
+    """fp32 leaves of ``shape``: all subnormal (normals × 1e-39, seed 0);
+    the same with one tiny normal (2e-38) as its maximum; values within six
+    fp32 steps of 2^-126 on either side, of random sign; normals whose first
+    quarter of rows is subnormal; and tiny normals (normals × 1e-36)."""
+    base = np.random.default_rng(0).normal(size=shape).astype(np.float32)
+    sub = (base * 1e-39).astype(np.float32)
+    tiny_max = sub.copy()
+    tiny_max.reshape(-1)[5] = np.float32(2e-38)
+    rng = np.random.default_rng(1)
+    steps = rng.integers(-6, 7, size=shape)
+    sign = rng.choice([-1.0, 1.0], size=shape)
+    edge = (sign * (TINY + steps * 2.0 ** -149)).astype(np.float32)
+    rows = base.copy()
+    rows[: shape[0] // 4] *= np.float32(1e-39)
+    return {"subnormal": sub, "tiny_max": tiny_max, "edge": edge, "rows": rows,
+            "tiny": (base * 1e-36).astype(np.float32)}
+
+
+def feedback_tree(seed: int = 1) -> dict:
+    """A (64, 32) weight whose first 16 rows are subnormal and an
+    all-subnormal bias (the weight and bias of one layer), an all-subnormal
+    (16, 32) weight, and a (16, 32) weight of values within six fp32 steps
+    of 2^-126 on either side."""
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=(64, 32)).astype(np.float32)
+    w[:16] *= np.float32(1e-39)
+    bias = (rng.normal(size=(32,)) * 1e-39).astype(np.float32)
+    sub = (rng.normal(size=(16, 32)) * 1e-39).astype(np.float32)
+    steps = rng.integers(-6, 7, size=(16, 32))
+    sign = rng.choice([-1.0, 1.0], size=(16, 32))
+    edge = (sign * (TINY + steps * 2.0 ** -149)).astype(np.float32)
+    return {"layer": {"w": w, "bias": bias}, "sub": {"w": sub}, "edge": {"w": edge}}

@@ -1574,3 +1574,217 @@ def test_sequence_cut_attention_on_two_gloo_ranks_on_the_card(cuda_device, tmp_p
             assert got["cuda:0"]["slots"] == got["cpu"]["slots"] == 8, name
             for a, b in zip(got["cuda:0"]["logits"], got["cpu"]["logits"]):
                 assert np.abs(a - b).max() <= 1e-4 * np.abs(b).max(), name
+
+
+# --------------------------------------------------------------------------
+# XLA's subnormal rule in the FTTQ statistics and the error-feedback
+# residuals: the card's bits against the CPU's on the same inputs.
+# --------------------------------------------------------------------------
+
+
+def _same_bits(got, want, what):
+    got, want = got.detach().cpu(), want.detach().cpu()
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    assert torch.equal(got.reshape(-1).view(torch.uint8), want.reshape(-1).view(torch.uint8)), what
+
+
+def _close(got, want, what, rtol=1e-6):
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    assert got.shape == want.shape, what
+    assert bool(((got - want).abs() <= rtol * want.abs()).all()), what
+
+
+def _fttq_outputs(x, stacked, cot, w, dev) -> dict:
+    """The FTTQ statistics and codes of one leaf ``x`` and of a stacked
+    leaf (one row per layer) on ``dev``, the leaf's QAT forward and
+    backward at the factor ``w``: {name: (tensor, elementwise?)}.
+    Elementwise results are exact on any device; sums are exact where each
+    has at most one nonzero term."""
+    from repro_torch.core import fttq
+
+    x, stacked, cot, w = x.to(dev), stacked.to(dev), cot.to(dev), w.to(dev)
+    out = {}
+    ts = fttq.scale_layer(x)
+    out["theta_s"] = (ts, True)
+    for rule in ("mean", "max"):
+        d = fttq.fttq_threshold(ts, 0.7, rule)
+        out[f"delta_{rule}"] = (d, rule == "max")
+        out[f"codes_{rule}"] = (fttq.ternarize(ts, d), True)
+        out[f"init_wq_{rule}"] = (fttq.init_wq(x, FTTQConfig(threshold_rule=rule)), False)
+    rows = stacked.reshape(stacked.shape[0], -1)
+    out["row_codes"] = (fttq.row_codes(rows, 0.7), True)
+    denom, delta = fttq.leaf_row_stats([rows], 0.7, [()])[0]
+    out["row_denom"], out["row_delta"] = (denom, True), (delta, False)
+    for name, theta, wq in (("leaf", x, w), ("stacked", stacked,
+                                             torch.full((stacked.shape[0],), 0.3,
+                                                        dtype=stacked.dtype, device=dev))):
+        theta = theta.clone().requires_grad_()
+        wq = wq.clone().requires_grad_()
+        y = fttq.FTTQQuantize.apply(theta, wq, 0.7)
+        y.backward(cot.to(theta.dtype).reshape(-1)[: y.numel()].reshape(y.shape))
+        out[f"{name}_forward"] = (y, True)
+        out[f"{name}_g_theta"] = (theta.grad, True)
+        out[f"{name}_g_wq"] = (wq.grad, False)
+    i_t, theta_t, w_q = ops.fttq_apply(x, 0.7)
+    out["apply_codes"], out["apply_theta_t"], out["apply_wq"] = (i_t, True), (theta_t, False), \
+        (w_q, False)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["subnormal", "tiny_max", "edge", "rows", "tiny"])
+def test_fttq_statistics_card_equals_cpu_on_subnormal_leaves(cuda_device, name, dtype):
+    """``core.fttq`` (one-leaf and row statistics, codes, init_wq, the QAT
+    forward and backward) and ``ops.fttq_apply`` on a leaf holding
+    subnormals, on the card and on the CPU: every output bit for bit,
+    except that a sum over many normal terms (Δ, w_q, g_wq) on the edge,
+    rows and tiny leaves runs in another order on each device and is held
+    within rtol 1e-6 (and θ_t = w_q · I_t with it). The QAT forward and
+    backward take the CPU's init_wq on both devices."""
+    import numpy as np
+
+    from _torch_subnormal_cases import EXACT_SUMS, LEAVES, subnormal_leaves
+
+    leaves = {k: torch.from_numpy(v).to(dtype) for k, v in subnormal_leaves().items()}
+    stacked = torch.stack([leaves[k] for k in LEAVES])
+    cot = torch.from_numpy(np.random.default_rng(5).normal(size=stacked.numel())
+                           .astype(np.float32))
+    from repro_torch.core.fttq import init_wq
+
+    w = init_wq(leaves[name], FTTQConfig())
+    cpu = _fttq_outputs(leaves[name], stacked, cot, w, "cpu")
+    card = _fttq_outputs(leaves[name], stacked, cot, w, cuda_device)
+    for key, (want, exact) in cpu.items():
+        got = card[key][0]
+        if exact or (name in EXACT_SUMS and not key.startswith(("row_delta", "stacked_g_wq"))):
+            _same_bits(got, want, f"{name} {key}")
+        else:
+            _close(got.float(), want.float(), f"{name} {key}",
+                   rtol=1e-6 if dtype == torch.float32 else 2 ** -8)
+
+
+def _feedback_pairs():
+    names = ("none", "ternary", "fp16", "bf16", "topk", "topk16")
+    return [(k, r) for k in names for r in names if (k, r) != ("none", "none")]
+
+
+@pytest.mark.parametrize("kind,residual", _feedback_pairs())
+def test_compress_error_feedback_card_equals_cpu_on_subnormal_tree(cuda_device, kind,
+                                                                   residual):
+    """``compress_pytree`` with error feedback, three encodes carrying the
+    residual, on the card and on the CPU: every wire leaf and residual bit
+    for bit, except a ternary leaf's scale (the card's kernel sums its tile
+    moments in another order than the plain version), held within rtol 1e-6
+    where any code is nonzero, with its residual exact wherever its codes
+    have all been 0 and within 1e-6 of the scale a step elsewhere."""
+    from _torch_subnormal_cases import feedback_tree
+    from repro_torch.core.compression import CodecSpec, compress_pytree, is_wire_leaf
+
+    tree = tree_map(torch.from_numpy, feedback_tree())
+    spec = CodecSpec(kind=kind, residual=residual, topk_fraction=0.3, error_feedback=True)
+    res_cpu = res_card = None
+    exact = {}
+    for step in range(3):
+        wire_cpu, res_cpu = compress_pytree(tree, spec, residual=res_cpu)
+        wire_card, res_card = compress_pytree(tree_map(lambda t: t.to(cuda_device), tree), spec,
+                                              residual=res_card)
+        got_w = flatten_with_path(wire_card, is_leaf=is_wire_leaf)
+        want_w = flatten_with_path(wire_cpu, is_leaf=is_wire_leaf)
+        for ((path, g), (_, w)), (_, gr), (_, wr) in zip(zip(got_w, want_w),
+                                                         flatten_with_path(res_card),
+                                                         flatten_with_path(res_cpu)):
+            what = f"{kind}/{residual} step {step} {path}"
+            if isinstance(w, TernaryTensor):
+                _same_bits(g.packed, w.packed, what)
+                p = w.packed.reshape(-1)
+                codes = torch.stack([(p >> k) & 3 for k in (0, 2, 4, 6)], 1).reshape(-1)
+                zero = codes[: gr.numel()] == 1
+                ok = exact[path] = zero & exact.get(path, torch.ones_like(zero))
+                if bool(zero.all()):
+                    _same_bits(g.w_q, w.w_q, what)
+                else:
+                    _close(g.w_q, w.w_q, what)
+                _same_bits(gr.reshape(-1)[ok], wr.reshape(-1)[ok], what)
+                gap = (gr.cpu().reshape(-1)[~ok] - wr.reshape(-1)[~ok]).abs()
+                assert bool((gap <= 1e-6 * (step + 1) * w.w_q.abs().max()).all()), what
+            else:
+                assert encode_update({"x": g}) == encode_update({"x": w}), what
+                _same_bits(gr, wr, what)
+
+
+def test_ternary_allreduce_tree_card_equals_cpu_on_subnormal_tree(cuda_device):
+    """The one-pod compressed sync with error feedback, three steps, on the
+    card (quantize_pack and aggregate launches) and on the CPU (their plain
+    versions): the subnormal leaves' synced values and residuals bit for
+    bit (zeros), the rest within 1e-6 of the largest |value| (the card's
+    moments sum in another order)."""
+    from _torch_subnormal_cases import feedback_tree
+    from repro_torch.parallel.collectives import ternary_allreduce_tree
+
+    tree = tree_map(torch.from_numpy, feedback_tree())
+    res_cpu = res_card = None
+    for step in range(3):
+        s_cpu, res_cpu = ternary_allreduce_tree(tree, None, residuals=res_cpu)
+        s_card, res_card = ternary_allreduce_tree(tree_map(lambda t: t.to(cuda_device), tree),
+                                                  None, residuals=res_card)
+        for (path, g), (_, w) in zip(flatten_with_path([s_card, res_card]),
+                                     flatten_with_path([s_cpu, res_cpu])):
+            if "sub" in str(path) or "bias" in str(path):
+                _same_bits(g, w, f"step {step} {path}")
+            else:
+                scale = float(w.abs().max())
+                assert float((g.cpu() - w).abs().max()) <= 1e-6 * scale, (step, path)
+
+
+def test_aggregate_flushes_subnormal_partial_sums(cuda_device):
+    """The fold under XLA's rule: subnormal coefficients, and codes of
+    opposite sign whose coefficients differ by a subnormal, so a partial
+    sum is subnormal (the plain version flushes it, the kernel's
+    fma.rn.ftz does): kernel and plain version bit for bit."""
+    gen = torch.Generator().manual_seed(3)
+    c, n = 6, 4096
+    stacked = torch.randint(0, 256, (c, n // (4 * LANES), LANES), generator=gen,
+                            dtype=torch.uint8)
+    t = 2.0 ** -126
+    coeffs = torch.tensor([t * (1 + 2 ** -20), t, 1e-39, -3e-39, t * 1.5, 0.25],
+                          dtype=torch.float32)
+    want = packed_weighted_sum_plain(stacked, coeffs)
+    got = packed_weighted_sum(stacked.to(cuda_device), coeffs.to(cuda_device))
+    _same_bits(got, want, "fold")
+    assert bool(((want != 0) & (want.abs() < t)).sum() == 0)
+    # without the rule some sums would differ: the case is not vacuous
+    codes = torch.stack([(stacked.reshape(c, -1) >> k) & 3 for k in (0, 2, 4, 6)], 2)
+    naive = torch.zeros(n)
+    for i in range(c):
+        naive = naive + coeffs[i] * (codes[i].reshape(-1).float() - 1)
+    assert bool((naive != want).any())
+
+
+def test_fttq_card_equals_cpu_on_olmo_shaped_normal_leaves(cuda_device):
+    """Normal weights of olmo-1b's shapes (seeded, 0.02 · N(0, 1)): the QAT
+    codes, one-leaf codes and ``fttq_apply``'s codes on the card equal the
+    CPU's except at ties of |θ_s| with Δ (within 1e-6 of it: each device
+    sums |θ_s| in its own order), and Δ and w_q within rtol 1e-6."""
+    from repro_torch.core import fttq
+
+    gen = torch.Generator().manual_seed(4)
+    for shape in [(2048, 2048), (2048, 8192), (2, 2048, 8192)]:
+        x = 0.02 * torch.randn(shape, generator=gen)
+        rows = x.reshape(shape[0] if len(shape) == 3 else 1, -1)
+        denom = fttq.row_denom(rows)
+        abs_s = fttq.scaled_abs(rows, denom)
+        delta = fttq.row_threshold(abs_s, 0.7)
+        card = fttq.row_codes(rows.to(cuda_device), 0.7).cpu()
+        diff = card != fttq.row_codes(rows, 0.7)
+        gap = (abs_s - delta).abs()[diff]
+        assert bool((gap <= 1e-6 * delta.expand_as(abs_s)[diff]).all()), shape
+        _close(fttq.row_threshold(fttq.scaled_abs(rows.to(cuda_device), denom.to(cuda_device)),
+                                  0.7), delta, f"{shape} delta")
+        if len(shape) == 2:
+            i_card, _, w_card = ops.fttq_apply(x.to(cuda_device), 0.7)
+            i_cpu, _, w_cpu = ops.fttq_apply(x, 0.7)
+            inv, d, _ = ops.fttq_scalars(x, 0.7)
+            diff = i_card.cpu() != i_cpu
+            gap = (x.abs() * inv - d).abs()[diff]
+            assert bool((gap <= 1e-6 * float(d)).all()), shape
+            _close(w_card, w_cpu, f"{shape} fttq_apply w_q")
