@@ -32,6 +32,7 @@ leaves take no collective.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import re
 from typing import Any
@@ -39,8 +40,10 @@ from typing import Any
 import torch
 
 from repro_torch.dtypes import (
-    TINY, flush_subnormal, flushed_abs, is_floating, largest_subnormal, xla_op,
+    TINY, flush_plus, flush_subnormal, flushed_abs, flushed_op, flushed_product, is_floating,
+    keep_cut, largest_subnormal, xla_op,
 )
+from repro_torch.kernels.qat_backward import qat_backward
 from repro_torch.tree import Path, flatten_with_path, path_str, tree_map_with_path
 
 _EPS = 1e-8
@@ -87,17 +90,28 @@ def _times_tk(t_k: float, stat: torch.Tensor, dtype: torch.dtype) -> torch.Tenso
     divided in fp32, or a maximum): stat flushed and rounded to ``dtype``,
     T_k rounded to ``dtype`` first (JAX rounds a Python scalar to the
     array's dtype before it multiplies, so a bf16 Δ would round once more
-    otherwise), the product in fp32, flushed, then rounded to ``dtype``.
-    For 0 ≤ T_k < 1 one ``hardshrink`` of the product does it all: a
-    subnormal stat rounds to at most 2^-126, so its product is below 2^-126
-    and flushed, as XLA's product of the flushed stat is; the zero is +0 on
-    both sides (stat ≥ 0). Each op on these (L, 1) tensors is a launch, and
-    the eager QAT of a model of small leaves pays for every one."""
+    otherwise), the product in fp32, flushed by its exact value
+    (``dtypes.flushed_op``), then rounded to ``dtype``. Each op on these
+    (L, 1) tensors is a launch, and the eager QAT of a model of small
+    leaves pays for every one, so for 0 ≤ T_k < 1 two do it: XLA keeps the
+    product of a stat ≥ 0 exactly where stat ≥ c, c the least fp32 whose
+    exact product with T_k is at least ``dtypes.KEEP`` (found on the host,
+    once a T_k), so a ``threshold`` at the fp32 below c (which passes NaN)
+    and the product: a subnormal stat lies below c, the product of a kept
+    one is normal, and the zero is +0 on both sides."""
     t = float(torch.tensor(t_k, dtype=dtype))
     stat = stat.to(dtype).to(torch.float32)
     if 0.0 <= t < 1.0:
-        return _flushed(stat * t).to(dtype)
-    return flush_subnormal(flush_subnormal(stat) * t).to(dtype)
+        return (torch.nn.functional.threshold(stat, _below_kept(t), 0.0) * t).to(dtype)
+    return flushed_op(torch.mul, stat, t).to(dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _below_kept(t: float) -> float:
+    """The fp32 value just below the least stat ≥ 0 whose product with the
+    fp32 factor t XLA keeps (``dtypes.flushed_op``'s cut)."""
+    cut = keep_cut(torch.tensor(t, dtype=torch.float32), torch.mul)
+    return float(torch.nextafter(cut, torch.zeros_like(cut)))
 
 
 def fttq_threshold(theta_s: torch.Tensor, t_k: float, rule: str = "mean") -> torch.Tensor:
@@ -149,7 +163,7 @@ def init_wq(theta: torch.Tensor, cfg: FTTQConfig) -> torch.Tensor:
     sel = _selected(theta_s, delta)
     num = torch.sum(torch.where(sel, torch.abs(theta), 0.0))
     den = torch.sum(sel).to(torch.float32) + _EPS
-    return flush_subnormal(num / den).to(theta.dtype)
+    return flushed_op(torch.div, num, den).to(theta.dtype)
 
 
 _BUILTIN_EXCLUDES = ("norm", "bias", "scale", "ln_", "layernorm", "a_log", "dt_")
@@ -188,40 +202,60 @@ def row_denom(rows: torch.Tensor) -> torch.Tensor:
     return _row_abs_max(rows) + _EPS
 
 
-def scaled_abs(rows: torch.Tensor, denom: torch.Tensor,
-               theta_s: torch.Tensor | None = None) -> torch.Tensor:
-    """|θ_s| = |rows / denom| of a (L, m) weight and its (L, 1) denom as XLA
-    reads it: zero where θ or the quotient is subnormal (which makes θ_s a
-    zero of its sign there), |θ_s| elsewhere. ``theta_s`` is rows / denom if
-    the caller has it. The weights are read once more, with a per-row cut:
+def _quotient_cut(rows: torch.Tensor, denom: torch.Tensor) -> torch.Tensor | None:
+    """The per-row cut on |θ| of a (L, m) weight and its (L, 1) denom (d >
+    0): XLA keeps θ_s = θ / d (reads it as other than a zero) exactly where
+    |θ| ≥ TINY · max(d, 1); None for a dtype XLA never flushes there.
 
-    fp32: θ_s is kept exactly when |θ_s| > c = fl(s / min(d, 1)), s the
-      largest subnormal. For d ≥ 1, c = s and |θ| ≥ |θ_s| ≥ TINY. For d < 1,
-      |θ_s| ≥ |θ| is normal when θ is, and division by d is monotone, so
-      |θ| ≤ s gives |θ_s| ≤ c while |θ| ≥ TINY gives |θ_s| ≥ fl(TINY / d),
-      which exceeds c: the reals TINY/d and s/d lie TINY/d · 2^-23 apart,
-      at least one step of fp32's grid there, and where the gap is exactly
-      one step (TINY/d a power of two) s/d is itself on the grid.
+    fp32: θ is read as a zero unless normal, and the quotient is flushed
+      unless its exact value is at least KEEP (``dtypes.KEEP``). For d ≤ 1
+      a normal θ has a quotient at least as large, so the cut is TINY. For
+      d > 1 the cut is the least fp32 ≥ KEEP·d = TINY·d·(1 − 2^-25), which
+      is TINY·d itself (exact): the fp32 below it lies at least 2^-24 of it
+      lower.
     bf16: θ_s = bf16(fl32(θ / d)) rounds an fp32 quotient that XLA flushes
       first, and a flushed quotient just below TINY rounds up to TINY in
-      bf16, so the cut is on θ: kept exactly when |θ| ≥ B = TINY · max(d, 1).
-      For d < 1 the quotient of a normal θ is normal. For d ≥ 1, |θ| ≥ B
-      gives |θ|/d ≥ TINY; the next bf16 below B is at most TINY·d·(1 − 2^-8),
-      and its fp32 quotient, at most TINY·(1 − 2^-8), an fp32 subnormal on
-      the grid, stays below TINY.
-    Other dtypes hold no value XLA would flush. (As ``dtypes.xla_op`` says,
-    XLA on the CPU also flushes an fp32 quotient in [2^-126 − 2^-150,
-    2^-126 − 2^-151), which rounds up to 2^-126 and is kept here: it needs
-    d > 1 and a weight within half an fp32 step of 2^-126 · d.)"""
-    if theta_s is None:
-        theta_s = rows / denom
-    a = theta_s.abs()
-    if rows.dtype == torch.float32:
-        lsub = torch.full_like(denom, largest_subnormal(torch.float32))
-        return a.mul_(a > lsub.div_(denom.clamp(max=1.0)))
-    if rows.dtype == torch.bfloat16:
-        return a.mul_(rows.abs() >= TINY * denom.clamp(min=1.0))
-    return a
+      bf16, so the cut is on θ too. For d < 1 the quotient of a normal θ is
+      normal. For d ≥ 1, |θ| ≥ TINY·d gives |θ|/d ≥ TINY; the next bf16
+      below is at most TINY·d·(1 − 2^-8), and its fp32 quotient, at most
+      TINY·(1 − 2^-8), an fp32 subnormal on the grid, stays below TINY.
+    A NaN d cuts everything (its quotient is NaN all the same)."""
+    if rows.dtype in (torch.float32, torch.bfloat16):
+        return TINY * denom.clamp(min=1.0)
+    return None
+
+
+def _signed_abs(rows: torch.Tensor, denom: torch.Tensor, sign: int) -> torch.Tensor:
+    """sign · |θ_s| of a (L, m) weight as XLA reads it (``scaled_abs``),
+    for sign ±1: |θ| / (sign · d), exactly sign · |θ / d|, times the mask
+    of the kept weights, in three passes over a new tensor. Where XLA reads
+    a zero it is a zero; where θ_s is NaN (a NaN θ or d, or inf / inf) it
+    is NaN."""
+    a = rows.abs()
+    cut = _quotient_cut(rows, denom)
+    keep = None if cut is None else a >= cut
+    a = a.div_(denom if sign > 0 else -denom)
+    return a if keep is None else a.mul_(keep)
+
+
+def scaled_abs(rows: torch.Tensor, denom: torch.Tensor) -> torch.Tensor:
+    """|θ_s| = |rows / denom| of a (L, m) weight and its (L, 1) denom as XLA
+    reads it: zero where θ or the quotient is flushed (which makes θ_s a
+    zero of θ's sign there), |θ_s| elsewhere. The cut is on |θ|, per row
+    (``_quotient_cut``), so the quotient itself is never tested: an exact
+    quotient just below KEEP that rounds up to TINY is a zero, as XLA's
+    is."""
+    return _signed_abs(rows, denom, 1)
+
+
+def _row_stat(signed: torch.Tensor, rule: str) -> torch.Tensor:
+    """The mean or max of |θ_s| per row, as (L, 1), from ``_signed_abs``'s
+    −|θ_s| (negation commutes with both, bit for bit)."""
+    if rule == "mean":
+        return -signed.mean(dim=1, keepdim=True, dtype=torch.float32)
+    if rule == "max":
+        return -signed.amin(dim=1, keepdim=True)
+    raise ValueError(f"unknown threshold rule: {rule!r}")
 
 
 def row_threshold(abs_s: torch.Tensor, t_k: float, rule: str = "mean") -> torch.Tensor:
@@ -242,32 +276,35 @@ def _above(abs_s: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     return abs_s > flush_subnormal(delta)
 
 
-def _codes(theta_s: torch.Tensor, abs_s: torch.Tensor, cut: torch.Tensor) -> torch.Tensor:
+def _codes(rows: torch.Tensor, neg: torch.Tensor, cut: torch.Tensor) -> torch.Tensor:
     """I_t = sign(flush(θ_s)) · [flush(|θ_s|) > Δ'] for Δ' = flush(Δ), given
-    cut = max(Δ', 0): ±1 where abs_s > cut, a zero of θ_s's sign elsewhere.
-    A kept |θ_s| is normal and Δ' is 0 or normal, so this is the mask
+    neg = −|θ_s| as ``_signed_abs`` reads it and cut = max(Δ', 0): ±1 where
+    |θ_s| > cut, a zero of θ's sign elsewhere, NaN where θ_s is NaN. A
+    kept |θ_s| is normal and Δ' is 0 or normal, so this is the mask
     wherever Δ ≥ 0; where a negative Δ selects a flushed θ_s, XLA's code is
-    sign(±0) · 1 = ±0, as here. θ_s is the unflushed quotient, so a flushed
-    one keeps its sign. A NaN θ_s gets a zero where XLA's code is NaN
-    (ROADMAP Queue 3): the one case that would cost another pass."""
-    return (abs_s > cut).to(theta_s.dtype).copysign_(theta_s)
+    sign(±0) · 1 = ±0, as here. max(mask, −|θ_s|) is the mask (−|θ_s| ≤ 0)
+    but NaN where |θ_s| is, which XLA's sign(NaN) · 0 is; the sign is θ's,
+    which is θ_s's for d > 0."""
+    return torch.maximum(neg < -cut, neg).copysign_(rows)
 
 
 def scaled_codes(rows: torch.Tensor, denom: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     """I_t = ternarize(rows / denom, Δ) of a (L, m) weight with (L, 1)
-    scalars, as XLA forms it (a subnormal θ, θ_s or Δ is a zero)."""
-    theta_s = rows / denom
+    scalars, as XLA forms it (a subnormal θ, θ_s or Δ is a zero; a NaN θ_s
+    gives a NaN code)."""
     cut = flush_subnormal(delta).clamp_min(0.0)
-    return _codes(theta_s, scaled_abs(rows, denom, theta_s), cut)
+    return _codes(rows, _signed_abs(rows, denom, -1), cut)
 
 
 def row_codes(rows: torch.Tensor, t_k: float, rule: str = "mean") -> torch.Tensor:
-    """I_t of a (L, m) weight, each row with its own scale and threshold."""
+    """I_t of a (L, m) weight, each row with its own scale and threshold.
+    A row with a NaN weight has a NaN denom, so every θ_s and code of it is
+    NaN; a ±inf weight has the code NaN (inf / inf) and its row's others
+    ±0 (their Δ is NaN), as the reference's."""
     denom = row_denom(rows)
-    theta_s = rows / denom
-    abs_s = scaled_abs(rows, denom, theta_s)
-    delta = row_threshold(abs_s, t_k, rule)          # flushed, and ≥ 0 (or NaN) for T_k ≥ 0
-    return _codes(theta_s, abs_s, delta if t_k >= 0 else delta.clamp_min(0.0))
+    neg = _signed_abs(rows, denom, -1)
+    delta = _times_tk(t_k, _row_stat(neg, rule), rows.dtype)   # ≥ 0 (or NaN) for T_k ≥ 0
+    return _codes(rows, neg, delta if t_k >= 0 else delta.clamp_min(0.0))
 
 
 def leaf_row_stats(rows: list, t_k: float, axes: list) -> list:
@@ -279,10 +316,18 @@ def leaf_row_stats(rows: list, t_k: float, axes: list) -> list:
     all of them; the sums in fp32, as a one-device mean accumulates. Each
     term is |θ_s| as ``scaled_abs`` reads it, 0 or at least TINY, so no
     partial sum is subnormal and a shard's flushed sum is its exact one;
-    the mean and Δ of the whole row are flushed as one device's are."""
+    the mean and Δ of the whole row are flushed as one device's are. A
+    shard's NaN row maximum travels as a flag beside the maxima in the same
+    all-reduce, since ``gloo``'s MAX keeps a NaN only from its first
+    operand; the whole row's maximum is then NaN, as XLA's is."""
     from repro_torch.parallel.tensor import reduce_over
 
-    mx = reduce_over([_row_abs_max(r).reshape(-1).to(torch.float32) for r in rows], axes, "max")
+    parts = []
+    for r in rows:
+        m = _row_abs_max(r).reshape(-1).to(torch.float32)
+        parts.append(torch.cat([m, torch.isnan(m).to(torch.float32)]))
+    mx = [torch.where(flag > 0, torch.nan, m) for m, flag in
+          (p.chunk(2) for p in reduce_over(parts, axes, "max"))]
     denoms = [part.to(r.dtype).reshape(-1, 1) + _EPS for r, part in zip(rows, mx)]
     sums = reduce_over([scaled_abs(r, d).sum(dim=1, dtype=torch.float32)
                         for r, d in zip(rows, denoms)], axes)
@@ -301,10 +346,12 @@ class FTTQQuantize(torch.autograd.Function):
     config's ``threshold_rule``: the reference's ``fttq_quantize`` calls
     ``fttq_threshold`` with its default rule. A shard passes its leaf's
     ``stats`` ((denom, Δ) from ``leaf_row_stats``) and the ``axes`` it is
-    cut over, whose ranks' g_wq the backward sums."""
+    cut over, whose ranks' g_wq the backward sums. ``cut``: the (L, 1)
+    cut of fp32 w_q's backward product (``backward_cuts``), made here where
+    the caller has not made it for many factors at once."""
 
     @staticmethod
-    def forward(ctx, theta, w_q, t_k, stats=None, axes=()):
+    def forward(ctx, theta, w_q, t_k, stats=None, axes=(), cut=None):
         n_rows = w_q.numel()
         rows = theta.reshape(n_rows, -1)
         if stats is None:
@@ -315,9 +362,9 @@ class FTTQQuantize(torch.autograd.Function):
         # XLA reads a subnormal w_q as a zero of its sign; w_q · (±1 or ±0)
         # is exact
         w = w_q.reshape(n_rows, 1)
-        w = _flushed(w).copysign_(w)
+        w = flush_plus(w).copysign_(w)
         ctx.save_for_backward(i_t, w_q)
-        ctx.axes = axes
+        ctx.axes, ctx.cut = axes, cut
         return (w * i_t).reshape(theta.shape)
 
     @staticmethod
@@ -325,48 +372,39 @@ class FTTQQuantize(torch.autograd.Function):
         i_t, w_q = ctx.saved_tensors
         n_rows = w_q.numel()
         g_rows = g.reshape(n_rows, -1)
+        w = w_q.reshape(n_rows, 1)
+        # XLA reads a subnormal cotangent as a zero: so does each term of
+        # Σ g·I_t (I_t is ±1 or ±0) and the product g · w_q, which is also
+        # flushed by its exact value (``dtypes.flushed_product``)
+        if g.dtype == torch.float32:
+            cut = ctx.cut if ctx.cut is not None else backward_cuts([w_q])[0]
+            g_theta, g_it = qat_backward(g_rows, i_t, flush_plus(w), cut)
+        else:
+            sel = i_t != 0
+            g_it = g_rows * i_t
+            if g_it.dtype == torch.bfloat16:
+                g_it = flush_plus(g_it)
+            g_theta = flushed_product(
+                g_rows, torch.where(sel, w if w.dtype == torch.bfloat16 else flush_plus(w), 1.0))
         # a flushed g_wq is +0 where XLA's zero keeps the sum's sign: Adam's
-        # m and v cannot tell them apart (``_flushed_product``)
-        g_wq = _flushed((g_rows * i_t).sum(dim=1)).reshape(w_q.shape).to(w_q.dtype)
+        # m and v cannot tell them apart
+        g_wq = flush_plus(g_it.sum(dim=1)).reshape(w_q.shape).to(w_q.dtype)
         if ctx.axes:
             from repro_torch.parallel.tensor import reduce_over
 
             (g_wq,) = reduce_over([g_wq], [ctx.axes])
-            g_wq = _flushed(g_wq)
-        w = w_q.reshape(n_rows, 1)
-        scale = torch.where(i_t != 0, w if w.dtype == torch.bfloat16 else _flushed(w), 1.0)
-        g_theta = _flushed_product(g_rows, scale).reshape(g.shape)
-        return g_theta, g_wq, None, None, None
+            g_wq = flush_plus(g_wq)
+        return g_theta.reshape(g.shape), g_wq, None, None, None, None
 
 
-def _flushed(t: torch.Tensor) -> torch.Tensor:
-    """t with every |t| ≤ the largest subnormal of its dtype made +0, in
-    one op (``flush_subnormal`` keeps the zero's sign in three)."""
-    return torch.nn.functional.hardshrink(t, largest_subnormal(t.dtype))
-
-
-def _flushed_product(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """g · scale as XLA forms it for the backward's scale (1 or w_q; in
-    fp32 a flushed w_q, of either zero sign, as the product's zero is +0
-    whatever it is). bf16: every operand and the fp32 product flushed, then
-    rounded.
-    fp32: the product, with every |r| ≤ s (the largest subnormal) made +0
-    by ``hardshrink``, one pass. That is XLA's value wherever |scale| ≤ 1
-    (a subnormal g gives |r| ≤ |g| < TINY, so reading g as a zero and
-    flushing r agree) and wherever g is normal (r is then XLA's product,
-    unflushed or flushed). It differs from XLA for a subnormal g times a
-    w_q above 1 in magnitude, where XLA reads g as zero and this keeps a
-    normal product (ROADMAP Queue 3); XLA's own cotangents come out of
-    flushed arithmetic and are never subnormal. A flushed product is +0
-    where XLA's zero has the product's sign: no later value can tell them
-    apart, since the trainer only scales g, squares it and adds it to
-    Adam's m, which starts at +0 and never holds -0 (a sum that cancels
-    rounds to +0). Restoring the sign, or reading g as well, would cost
-    another pass over every quantized weight."""
-    if g.dtype == torch.bfloat16:
-        return xla_op(torch.mul, g, scale)
-    r = g * scale
-    return _flushed(r) if r.dtype == torch.float32 else r
+def backward_cuts(wqs: list) -> list:
+    """For each fp32 factor in ``wqs``, the (L, 1) cut on |g| of the QAT
+    backward's g · w_q (``dtypes.flushed_op``'s, of the flushed w_q): all
+    of them in one batch of small ops, since the eager QAT of a model of
+    small leaves pays for every launch."""
+    flat = torch.cat([w.detach().reshape(-1) for w in wqs])
+    cut = keep_cut(flush_plus(flat), torch.mul)
+    return [c.reshape(-1, 1) for c in cut.split([w.numel() for w in wqs])]
 
 
 def fttq_quantize(theta: torch.Tensor, w_q: torch.Tensor, t_k: float) -> torch.Tensor:
@@ -417,7 +455,7 @@ def init_wq_tree(params: Any, cfg: FTTQConfig, shards=None) -> Any:
             return None
         if path in sums:
             num, den = sums[path]
-            wq = flush_subnormal(num / (den + _EPS)).to(leaf.dtype)
+            wq = flushed_op(torch.div, num, den + _EPS).to(leaf.dtype)
             return wq.reshape(((leaf.shape[0],) + (1,) * (leaf.ndim - 1))
                               if leaf.ndim >= 3 else ())
         if leaf.ndim >= 3:
@@ -426,7 +464,7 @@ def init_wq_tree(params: Any, cfg: FTTQConfig, shards=None) -> Any:
             sel = _above(abs_s, row_threshold(abs_s, cfg.t_k, cfg.threshold_rule))
             num = torch.where(sel, rows.abs(), 0.0).sum(dim=1)
             den = sel.sum(dim=1).to(torch.float32) + _EPS
-            return flush_subnormal(num / den).to(leaf.dtype).reshape(
+            return flushed_op(torch.div, num, den).to(leaf.dtype).reshape(
                 (leaf.shape[0],) + (1,) * (leaf.ndim - 1))
         return init_wq(leaf, cfg)
 
@@ -439,18 +477,21 @@ def quantize_tree(params: Any, wq_tree: Any, cfg: FTTQConfig, shards=None) -> An
     shard (``shards``) is quantized with its whole leaf's statistics."""
     wqs = dict(flatten_with_path(wq_tree))
     cut = _shards(params, lambda p, _: wqs.get(p) is not None, shards)
+    fp32 = [p for p, w in wqs.items() if w is not None and w.dtype == torch.float32]
     with torch.no_grad():
         stats = dict(zip(cut, leaf_row_stats(
             [x.reshape(wqs[p].numel(), -1) for p, (x, _) in cut.items()], cfg.t_k,
             [ax for _, ax in cut.values()]) if cut else []))
+        cuts = dict(zip(fp32, backward_cuts([wqs[p] for p in fp32]) if fp32 else []))
 
     def one(path, leaf):
         wq = wqs.get(path)
         if wq is None:
             return leaf
         if path in stats:
-            return FTTQQuantize.apply(leaf, wq, cfg.t_k, stats[path], cut[path][1])
-        return FTTQQuantize.apply(leaf, wq, cfg.t_k)
+            return FTTQQuantize.apply(leaf, wq, cfg.t_k, stats[path], cut[path][1],
+                                      cuts.get(path))
+        return FTTQQuantize.apply(leaf, wq, cfg.t_k, None, (), cuts.get(path))
 
     return tree_map_with_path(one, params)
 

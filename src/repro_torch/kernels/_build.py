@@ -21,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("quantize_pack", "quantize_pack_bf16", "ternary_matmul", "ternary_matmul_bf16",
-           "aggregate", "vote", "ternary_quantize", "pack2bit")
+           "aggregate", "vote", "ternary_quantize", "pack2bit", "qat_backward")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

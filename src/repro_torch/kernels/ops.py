@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.dtypes import flush_subnormal, flushed_abs, xla_op
+from repro_torch.dtypes import flush_subnormal, flushed_abs, flushed_op, xla_op
 from repro_torch.kernels.pack2bit import pack2bit, unpack2bit
 from repro_torch.kernels.ternary_matmul import ternary_matmul
 from repro_torch.kernels.ternary_quantize import ternary_quantize
@@ -27,12 +27,13 @@ def fttq_scalars(theta: torch.Tensor, t_k: float
     every scalar and the scaled weights are flushed where they form, in
     fp32 before a bf16 result is rounded."""
     absw = flushed_abs(theta)
-    inv_scale = flush_subnormal(1.0 / (absw.max() + 1e-8))
+    inv_scale = xla_op(torch.div, 1.0, absw.max() + 1e-8)
     mean = flush_subnormal(absw.mean(dtype=torch.float32)).to(absw.dtype)
-    delta = xla_op(torch.mul, xla_op(lambda m: t_k * m, mean), inv_scale)
+    delta = xla_op(torch.mul, xla_op(torch.mul, t_k, mean), inv_scale)
     scaled = xla_op(torch.mul, absw, inv_scale)
     sel = scaled > delta
-    w_q = flush_subnormal(torch.where(sel, scaled, 0.0).sum() / (sel.sum() + 1e-8))
+    w_q = flushed_op(torch.div, torch.where(sel, scaled, 0.0).sum().to(torch.float32),
+                     sel.sum() + 1e-8)
     return inv_scale, delta, w_q
 
 

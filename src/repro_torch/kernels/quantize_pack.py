@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.ternary import packed_nbytes
-from repro_torch.dtypes import flush_subnormal
+from repro_torch.dtypes import flush_subnormal, flushed_op
 
 TILE = 32768          # elements per moment tile (BLOCK_S · LANES of the TPU kernel)
 
@@ -61,12 +61,12 @@ def _scaled(x: torch.Tensor, scal: torch.Tensor) -> tuple[torch.Tensor, torch.Te
     """xs = x / denom in x's dtype, read flat, and Δ in x's dtype, as the
     reference kernel forms them under XLA's subnormal rule: denom and Δ are
     rounded to x's dtype and then flushed, x is flushed, the quotient is
-    formed in fp32 (bf16 arithmetic runs in fp32) and flushed before it is
-    rounded to x's dtype."""
+    formed in fp32 (bf16 arithmetic runs in fp32) and flushed by its exact
+    value (``dtypes.flushed_op``) before it is rounded to x's dtype."""
     dt = x.dtype
     wide = torch.promote_types(dt, torch.float32)
     denom = flush_subnormal(scal[0].to(dt)).to(wide)
-    q = flush_subnormal(flush_subnormal(x.reshape(-1)).to(wide) / denom)
+    q = flushed_op(torch.div, x.reshape(-1).to(wide), denom)
     return q.to(dt), flush_subnormal(scal[1].to(dt))
 
 
@@ -257,7 +257,8 @@ def scale_from_moments(moments: torch.Tensor, denom: torch.Tensor) -> torch.Tens
     """The Prop-4.1 trained scale in ORIGINAL units:
     (Σ masked |θ_s| / (count + 1e-8)) · denom, with the count summed as an
     integer first, as the reference does; a subnormal denom, quotient or
-    scale is a zero, as XLA computes them."""
+    scale is a zero, as XLA computes them (``dtypes.flushed_op``)."""
     num = moments[:, 0].sum()
     den = moments[:, 1].to(torch.int64).sum().to(torch.float32)
-    return flush_subnormal(flush_subnormal(num / (den + 1e-8)) * flush_subnormal(denom))
+    return flushed_op(torch.mul, flushed_op(torch.div, num, den + 1e-8),
+                      flush_subnormal(denom.to(torch.float32)))

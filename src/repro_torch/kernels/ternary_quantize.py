@@ -31,7 +31,7 @@ import ctypes
 
 import torch
 
-from repro_torch.dtypes import flush_subnormal
+from repro_torch.dtypes import flush_subnormal, flushed_op
 
 _THREADS = 256
 _MAX_BLOCKS = 132 * 16
@@ -50,8 +50,8 @@ def ternary_quantize_plain(theta: torch.Tensor, inv_scale, delta, w_q
     (I_t int8, θ_t in θ's dtype), same shape as θ."""
     dt = theta.dtype
     wide = torch.promote_types(dt, torch.float32)
-    prod = flush_subnormal(theta).to(wide) * _scalar(inv_scale, dt, theta.device).to(wide)
-    xs = flush_subnormal(prod).to(dt)
+    xs = flushed_op(torch.mul, theta.to(wide), _scalar(inv_scale, dt, theta.device).to(wide)
+                    ).to(dt)
     mask = xs.abs() > _scalar(delta, dt, theta.device)
     sign = torch.where(xs > 0, 1.0, torch.where(xs < 0, -1.0, xs)).to(dt)
     i_t = torch.where(mask, sign, torch.zeros((), dtype=dt, device=theta.device))

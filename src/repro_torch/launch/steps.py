@@ -18,7 +18,9 @@ follow ``parallel.sharding.batch_specs`` and ``cache_specs``
   divide (batch 1), every rank serves the whole batch.
 - The cache: kv heads over "model" where they divide; else its sequence
   over "model"; with a batch that does not divide, its sequence over
-  "data" (or ("data", "model")). Attention over a sequence-cut cache
+  "data" (or ("data", "model")). The SSM states: conv channels and SSD
+  heads over "model" where they divide, and the Mamba2 decode runs on the
+  rank's heads. Attention over a sequence-cut cache
   combines each rank's partial softmax (``models.attention``); prefill
   writes each chunk into the owning ranks' slots, so no rank holds the
   prompt's whole cache.

@@ -18,10 +18,14 @@ def matmul(x: torch.Tensor, w) -> torch.Tensor:
     return x @ w
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor | None, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm; scale=None gives the non-parametric variant."""
+def rms_norm(x: torch.Tensor, scale: torch.Tensor | None, eps: float = 1e-6,
+             mean_sq=None) -> torch.Tensor:
+    """RMSNorm; scale=None gives the non-parametric variant. ``mean_sq``
+    maps the (…, m) squares to the (…, 1) mean they enter with (default: the
+    mean over the last axis); a row cut over ranks gives the whole row's."""
     xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    sq = xf * xf
+    var = torch.mean(sq, dim=-1, keepdim=True) if mean_sq is None else mean_sq(sq)
     y = xf * torch.rsqrt(var + eps)
     if scale is not None:
         y = y * (1.0 + scale.to(torch.float32))

@@ -18,24 +18,53 @@ Block layout (d_inner = expand·d_model, P = d_inner/n_heads, N = d_state):
 Under tensor parallelism (``tp``, a ``parallel.tensor.MeshAxis``, with the
 layer's "model" ``dims``) the sharding rules split ``in_proj``'s output
 columns [z | x | B | C | dt] as one flat range, ``conv_w``'s channels
-[x | B | C] likewise, and ``out_proj`` by rows. The cut falls inside x, not
-at a head boundary (zamba2-1.2b at two ranks: column 4,192 of 8,384), so a
-rank's shard is not a set of whole heads. The block therefore gathers the
-WEIGHTS, not the activations: each sharded leaf is all-gathered
-(``gather_from_model``) and the block computes exactly what one device
-computes, on every rank, from the replicated input. Each gathered weight is
-then used alike on every rank, so the gather's backward (this rank's slice
-of the gradient) is the shard's gradient, and the input's gradient needs no
-collective. The per-rank cost is the all-gather, which receives the other
-rank's 34 MB of in_proj and 17 MB of out_proj a layer for zamba2-1.2b in
-fp32 at two ranks, once more under remat; the gain is the params,
-gradients and Adam moments a rank holds: in_proj and out_proj are ~95% of
-a Mamba2 layer's parameters. A leaf the divisibility guard left whole (for
-example in_proj's odd column count with a single SSM head) is used as it
-is. The cache (conv window and SSD state) is whole. Under FSDP
-``in_proj`` and ``out_proj`` are also cut on D over "data";
+[x | B | C] likewise, and ``out_proj`` by rows; the serving cache
+(``models.transformer.init_cache``) holds the rank's contiguous block of
+the conv window's channels and of the SSD state's heads, each where it
+divides over "model", as the reference's ``cache_specs`` places them. The
+block computes two ways:
+
+- Decode (every one-token call with a cache; on one device the same steps
+  on the whole leaves): from the rank's shards and its cache part, with no
+  weight all-gather where the cache is cut. ``in_proj`` is
+  column-parallel on the rank's shard and its (B, 1, 2·d_in + 2N + H)
+  output all-gathered (the cut falls inside x, not at a head boundary:
+  zamba2-1.2b at two ranks, column 4,192 of 8,384); the depthwise conv
+  runs on the rank's channel range with its ``conv_w`` shard and window,
+  and its (B, 1, d_in + 2N) output is all-gathered (the conv cut, channel
+  2,112 of 4,224 there, also falls inside x; B and C sit on the last
+  rank); the SSD update runs on the rank's heads and state; y · silu(z)
+  on those heads, whose gated RMSNorm over all of d_in all-reduces Σy²
+  (a (B, 1) sum) and takes the replicated ``gate_norm``'s columns; and
+  ``out_proj`` is row-parallel on whole heads, then one all-reduce of
+  (B, 1, D). Per layer a rank moves two activation gathers, 33.5 KB and
+  16.9 KB a row for zamba2-1.2b in fp32, where the weight path gathers
+  51 MB. A stage whose cache leaf the guard left whole computes whole:
+  a whole conv window takes the gathered ``conv_w``, whole heads the
+  gathered ``out_proj`` (``in_proj`` stays column-parallel wherever it is
+  cut). This path is not differentiated (serving runs without
+  autograd): its gathers' backward is the conjugate functions' slice.
+- Every other call (prefill, and training without a cache): the block
+  gathers the WEIGHTS, not the activations: each sharded leaf is
+  all-gathered (``gather_from_model``) and the block computes exactly
+  what one device computes, on every rank, from the replicated input. At
+  a prefill of 32k tokens or a training batch the gathered activations
+  would outweigh the 51 MB of weights a zamba2-1.2b layer gathers. Each
+  gathered weight is then used alike on every rank, so the gather's
+  backward (this rank's slice of the gradient) is the shard's gradient,
+  and the input's gradient needs no collective. The per-rank cost is the
+  all-gather, which receives the other rank's 34 MB of in_proj and 17 MB
+  of out_proj a layer for zamba2-1.2b in fp32 at two ranks, once more
+  under remat; the gain is the params, gradients and Adam moments a rank
+  holds: in_proj and out_proj are ~95% of a Mamba2 layer's parameters. A
+  prefill reads the whole conv window (gathered from the ranks' parts)
+  and writes only the rank's slices of the new window and final state. A
+  leaf the divisibility guard left whole (for example in_proj's odd
+  column count with a single SSM head) is used as it is.
+
+Under FSDP ``in_proj`` and ``out_proj`` are also cut on D over "data";
 ``models.transformer`` gathers them over "data" before the block, which
-then gathers over "model" as above.
+then works over "model" as above.
 """
 
 from __future__ import annotations
@@ -44,7 +73,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import dense_init, rms_norm
-from repro_torch.parallel.tensor import gather_from_model
+from repro_torch.parallel.tensor import (
+    copy_to_model, gather_from_model, reduce_from_model, scatter_to_model,
+)
 
 
 def d_inner_of(d_model: int, expand: int) -> int:
@@ -168,24 +199,88 @@ def _whole(params: dict, name: str, tp, dims: dict | None) -> torch.Tensor:
     return params[name] if d is None else gather_from_model(params[name], tp, d)
 
 
+def _rank_cols(params: dict, name: str, tp, dims: dict | None, lo: int, hi: int,
+               dim: int) -> torch.Tensor:
+    """This rank's [lo, hi) of leaf ``name`` along ``dim``: its shard where
+    ``dims`` cuts it there, else that slice of the whole leaf."""
+    if dims is not None and dims.get(name) is not None:
+        return params[name]
+    return params[name].narrow(dim, lo, hi - lo)
+
+
+def _decode(params, x, cache, tp, dims, *, n_heads: int, d_state: int, d_in: int,
+            conv_cut: bool, heads_cut: bool):
+    """One token with a cache (the module docstring's decode path), from the
+    rank's shards and cache part under ``tp``, else from the whole leaves.
+    Returns (out (B, 1, D), new cache part)."""
+    bsz, n = x.shape[0], d_state
+    p, conv_ch = d_in // n_heads, d_in + 2 * d_state
+    if tp is not None and dims is not None and dims.get("in_proj") is not None:
+        zxbcdt = gather_from_model(copy_to_model(x, tp) @ params["in_proj"], tp, -1)
+    else:
+        zxbcdt = x @ params["in_proj"]
+    z, conv_in, dt_raw = torch.split(zxbcdt, [d_in, conv_ch, n_heads], dim=-1)
+    if conv_cut:
+        lo, hi = tp.share(conv_ch)
+        conv_out, new_conv = _causal_conv(conv_in[..., lo:hi],
+                                          _rank_cols(params, "conv_w", tp, dims, lo, hi, 1),
+                                          cache["conv"])
+        conv_out = gather_from_model(F.silu(conv_out), tp, -1)
+    else:
+        conv_out, new_conv = _causal_conv(conv_in, _whole(params, "conv_w", tp, dims),
+                                          cache["conv"])
+        conv_out = F.silu(conv_out)
+    xin, b, c = torch.split(conv_out, [d_in, n, n], dim=-1)
+
+    h0, h1 = tp.share(n_heads) if heads_cut else (0, n_heads)
+    a = -torch.exp(params["a_log"][h0:h1])                 # (H,) < 0
+    dt = softplus(dt_raw[..., h0:h1].to(torch.float32) + params["dt_bias"][h0:h1])
+    xh = xin.reshape(bsz, 1, n_heads, p)[:, :, h0:h1]
+    y, new_ssd = ssd_decode(xh[:, 0], dt[:, 0], a, b[:, 0], c[:, 0],
+                            cache["ssd"].to(torch.float32))
+    y = y[:, None] + xh.to(torch.float32) * params["d_skip"][h0:h1][None, None, :, None]
+    y = y.reshape(bsz, 1, (h1 - h0) * p).to(x.dtype)
+    y = y * F.silu(z[..., h0 * p:h1 * p])
+    if not heads_cut:
+        out = rms_norm(y, params["gate_norm"]) @ _whole(params, "out_proj", tp, dims)
+        return out, {"conv": new_conv, "ssd": new_ssd}
+
+    def mean_sq(sq):                                       # over all of d_in
+        return reduce_from_model(torch.sum(sq, dim=-1, keepdim=True), tp) / d_in
+
+    y = rms_norm(y, params["gate_norm"][h0 * p:h1 * p], mean_sq=mean_sq)
+    w_out = _rank_cols(params, "out_proj", tp, dims, h0 * p, h1 * p, 0)
+    return reduce_from_model(y @ w_out, tp), {"conv": new_conv, "ssd": new_ssd}
+
+
 def mamba_block(params, x, *, n_heads: int, d_state: int, expand: int,
                 conv_width: int, chunk: int, cache: dict | None = None, tp=None,
                 dims: dict | None = None):
-    """x: (B, L, D). cache: {"conv": (B,W-1,C), "ssd": (B,H,P,N)} or None.
-    A one-token call with a cache takes the decode update; any other call
-    runs the chunked scan from a zero state (the conv still reads the
-    cache's window). ``tp`` and ``dims`` (the layer's "model" dim per leaf,
-    None where whole): the params are this rank's shards, gathered here.
-    Returns (out (B,L,D), new_cache)."""
+    """x: (B, L, D). cache: {"conv": (B,W-1,C), "ssd": (B,H,P,N)} or None,
+    or under ``tp`` the rank's part of it (C and H cut over "model" where
+    they divide). A one-token call with a cache takes the decode update;
+    any other call runs the chunked scan from a zero state (the conv still
+    reads the cache's window). ``tp`` and ``dims`` (the layer's "model" dim
+    per leaf, None where whole): the params are this rank's shards (see
+    the module docstring for the two paths). Returns (out (B,L,D),
+    new_cache), the cache in the given one's shapes."""
     bsz, l, d = x.shape
     d_in = d_inner_of(d, expand)
     p = d_in // n_heads
     n = d_state
+    # a cache part cut over "model" (``init_cache`` with a mesh)
+    conv_cut = tp is not None and cache is not None and cache["conv"].shape[-1] != d_in + 2 * n
+    heads_cut = tp is not None and cache is not None and cache["ssd"].shape[1] != n_heads
+    if cache is not None and l == 1:
+        return _decode(params, x, cache, tp, dims, n_heads=n_heads, d_state=d_state,
+                       d_in=d_in, conv_cut=conv_cut, heads_cut=heads_cut)
 
     zxbcdt = x @ _whole(params, "in_proj", tp, dims)
     z, xin, b, c, dt_raw = torch.split(zxbcdt, [d_in, d_in, n, n, n_heads], dim=-1)
     conv_in = torch.cat([xin, b, c], dim=-1)
     conv_state = cache["conv"] if cache is not None else None
+    if conv_cut:
+        conv_state = gather_from_model(conv_state, tp, -1)
     conv_out, new_conv = _causal_conv(conv_in, _whole(params, "conv_w", tp, dims),
                                       conv_state)
     conv_out = F.silu(conv_out)
@@ -195,16 +290,14 @@ def mamba_block(params, x, *, n_heads: int, d_state: int, expand: int,
     dt = softplus(dt_raw.to(torch.float32) + params["dt_bias"])
 
     xh = xin.reshape(bsz, l, n_heads, p)
-    if cache is not None and l == 1:
-        y, new_ssd = ssd_decode(xh[:, 0], dt[:, 0], a, b[:, 0], c[:, 0],
-                                cache["ssd"].to(torch.float32))
-        y = y[:, None]
-    else:
-        y, new_ssd = ssd_chunked(xh, dt, a, b, c, chunk)
-
+    y, new_ssd = ssd_chunked(xh, dt, a, b, c, chunk)
     y = y + xh.to(torch.float32) * params["d_skip"][None, None, :, None]
     y = y.reshape(bsz, l, d_in).to(x.dtype)
     y = y * F.silu(z)
     y = rms_norm(y, params["gate_norm"])
     out = y @ _whole(params, "out_proj", tp, dims)
-    return out, {"conv": new_conv, "ssd": new_ssd.to(torch.float32)}
+    if conv_cut:
+        new_conv = scatter_to_model(new_conv, tp, -1)
+    if heads_cut:
+        new_ssd = scatter_to_model(new_ssd, tp, 1)
+    return out, {"conv": new_conv, "ssd": new_ssd}

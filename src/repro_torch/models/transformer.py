@@ -30,7 +30,8 @@ and sums over the axis, and the logits (tied or ``lm_head``) are the rank's
 vocab columns, which ``loss_fn`` reduces with a vocab-parallel cross
 entropy. The MoE layers run the rank's experts on the replicated tokens
 (``models.moe``); the Mamba2 layers gather their sharded weights and compute
-whole (``models.mamba2``); the hybrid's shared block is attention and MLP
+whole, but decode on the rank's own heads from a cache cut over "model"
+(``models.mamba2``); the hybrid's shared block is attention and MLP
 under ``tp``, one set of shards for all its applications. Where the
 divisibility guard leaves a leaf whole, it is computed whole on every rank
 (the per-layer "model" dims come from ``parallel.sharding.model_dims``).
@@ -397,9 +398,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     (``parallel.tensor.serve_layout``): B is the rank's rows where the batch
     divides over ("pod", "data"); Hkv its kv heads where they divide over
     "model"; S_max its slots where "model" (fewer kv heads than ranks) or
-    "data" (a batch that does not divide) cuts the sequence. The SSM states
-    are cut by rows only: the port's Mamba2 computes whole heads under
-    tensor parallelism, so they stay whole over "model"."""
+    "data" (a batch that does not divide) cuts the sequence; the conv
+    window's d_in + 2N channels and the SSD state's heads their contiguous
+    block, each where it divides over "model" (the reference's
+    ``shard_shape``; ``models.mamba2`` decodes on them)."""
     from repro_torch.parallel.tensor import linear_rank, serve_layout
 
     dev = resolve_device(device)
@@ -422,10 +424,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     else:
         d_in = mb.d_inner_of(cfg.d_model, cfg.ssm_expand)
         p = d_in // cfg.ssm_heads
-        cache["conv"] = _zeros((nl, rows, cfg.conv_width - 1, d_in + 2 * cfg.ssm_state),
-                               dtype, dev)
-        cache["ssd"] = _zeros((nl, rows, cfg.ssm_heads, p, cfg.ssm_state),
-                              torch.float32, dev)
+        tp = mesh.size("model") if mesh is not None else 1
+        conv_ch = (d_in + 2 * cfg.ssm_state) // (tp if lay.conv else 1)
+        cache["conv"] = _zeros((nl, rows, cfg.conv_width - 1, conv_ch), dtype, dev)
+        cache["ssd"] = _zeros((nl, rows, cfg.ssm_heads // (tp if lay.ssd else 1), p,
+                               cfg.ssm_state), torch.float32, dev)
     if cfg.family == "hybrid":
         shape = (cfg.n_attn_apps, rows, slots, n_kv, hd)
         cache["attn_k"] = _zeros(shape, dtype, dev)

@@ -74,7 +74,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.fttq import FTTQConfig, is_quantizable
-from repro_torch.dtypes import flush_subnormal, flush_subnormal_, flushed_abs, xla_op
+from repro_torch.dtypes import flush_subnormal, flush_subnormal_, flushed_abs, flushed_op, xla_op
 from repro_torch.kernels.aggregate import fanin_table, packed_weighted_sum_segments
 from repro_torch.kernels.quantize_pack import n_tiles, quantize_pack_segments, segment_layout
 from repro_torch.tree import flatten_with_path, path_str, tree_leaves, tree_map
@@ -263,8 +263,9 @@ def collective_scalars(flat: Sequence[torch.Tensor], t_k: float,
     del absx
     n = [f.numel() * math.prod(a.size for a in ax) for f, ax in zip(flat, axes)]
     mx = torch.stack(mx) + 1e-12
-    mean_abs = flush_subnormal(torch.stack([a / k for a, k in zip(l1, n)]))
-    delta = xla_op(torch.div, xla_op(lambda m: t_k * m, mean_abs), mx)
+    mean_abs = flushed_op(torch.div, torch.stack(l1),
+                          torch.tensor(n, dtype=torch.float32, device=mx.device))
+    delta = xla_op(torch.div, xla_op(torch.mul, t_k, mean_abs), mx)
     return torch.stack([mx, delta], dim=1).contiguous()
 
 
@@ -437,14 +438,14 @@ def quantize_lastdim_plain(x: torch.Tensor, t_k: float, scalars=None):
     absx = flushed_abs(x)
     if scalars is None:
         mx = absx.max() + 1e-12
-        delta = xla_op(torch.div, xla_op(lambda m: t_k * m, flush_subnormal(absx.mean())), mx)
+        delta = xla_op(torch.div, xla_op(torch.mul, t_k, flush_subnormal(absx.mean())), mx)
     else:
         mx, delta, w_q = scalars
     xs = xla_op(torch.div, x, mx)
     sel = xs.abs() > delta
     i_t = torch.where(sel, torch.sign(xs), 0.0)
     if scalars is None:
-        w_q = flush_subnormal(torch.where(sel, absx, 0.0).sum() / (sel.sum() + 1e-12))
+        w_q = flushed_op(torch.div, torch.where(sel, absx, 0.0).sum(), sel.sum() + 1e-12)
     c = (i_t.to(torch.int8) + 1).to(torch.uint8).reshape(*x.shape[:-1], x.shape[-1] // 4, 4)
     packed = c[..., 0] | (c[..., 1] << 2) | (c[..., 2] << 4) | (c[..., 3] << 6)
     return packed, w_q.to(torch.float32), (w_q * i_t).to(x.dtype)
@@ -461,14 +462,14 @@ def shard_scalars_plain(xs: Sequence[torch.Tensor], t_k: float, axes: tuple) -> 
     (mx,) = reduce_over([torch.stack([a.max() for a in absx])], [axes], "max")
     (total,) = reduce_over([torch.stack([a.sum() for a in absx])], [axes])
     mx = mx + 1e-12
-    mean = flush_subnormal(total / (xs[0].numel() * math.prod(a.size for a in axes)))
-    delta = xla_op(torch.div, xla_op(lambda m: t_k * m, mean), mx)
+    mean = flushed_op(torch.div, total, xs[0].numel() * math.prod(a.size for a in axes))
+    delta = xla_op(torch.div, xla_op(torch.mul, t_k, mean), mx)
     sel = [xla_op(torch.div, x, m).abs() > d for x, m, d in zip(xs, mx, delta)]
     part = torch.stack([torch.stack([torch.where(s, a, 0.0).sum(), s.sum().to(torch.float32)])
                         for s, a in zip(sel, absx)])
     (part,) = reduce_over([part], [axes])
     num, cnt = part.unbind(1)
-    return list(zip(mx, delta, flush_subnormal(num / (cnt + 1e-12))))
+    return list(zip(mx, delta, flushed_op(torch.div, num, cnt + 1e-12)))
 
 
 def unpack_lastdim_plain(packed: torch.Tensor) -> torch.Tensor:
@@ -495,7 +496,7 @@ def leaf_mean_plain(xs: Sequence[torch.Tensor], *, t_k: float, compressed: bool,
         total = xs[0]
         for x in xs[1:]:
             total = xla_op(torch.add, total, x)
-        return xla_op(lambda t: t / p, total), [zeros(x) for x in xs]
+        return xla_op(torch.div, total, p), [zeros(x) for x in xs]
     total = torch.zeros(xs[0].shape, dtype=torch.float32, device=xs[0].device)
     new_res = []
     xfs = [_corrected(x.to(torch.float32), residuals[k]) if residuals is not None
@@ -506,7 +507,7 @@ def leaf_mean_plain(xs: Sequence[torch.Tensor], *, t_k: float, compressed: bool,
         packed, w_q, recon = quantize_lastdim_plain(xf, t_k, scalars[k])
         new_res.append(_new_residual_(xf, recon) if residuals is not None else zeros(x))
         total = xla_op(torch.add, total, w_q * unpack_lastdim_plain(packed))
-    return xla_op(lambda t: t / p, total).to(xs[0].dtype), new_res
+    return xla_op(torch.div, total, p).to(xs[0].dtype), new_res
 
 
 def pods_mean_plain(grads_per_pod: Sequence[Pytree], *, cfg: FTTQConfig | None = None,

@@ -61,10 +61,11 @@ Serving (``serve_layout``) follows ``parallel.sharding.batch_specs`` and
 rank serves its block of rows (``gather_rows`` rebuilds the reference's
 global tensor), else every rank serves the whole batch; the KV cache's
 sequence dim is cut over "model" where the kv heads do not divide over
-it, and over "data" where the rows are not cut. Attention over a
-sequence-cut cache (``models.attention``) computes each rank's partial
-blocked softmax over its own slots and ``combine_softmax`` merges them
-exactly, as flash-decode does.
+it, and over "data" where the rows are not cut; the Mamba2 cache's conv
+channels and SSD heads are cut over "model" where they divide over it.
+Attention over a sequence-cut cache (``models.attention``) computes each
+rank's partial blocked softmax over its own slots and ``combine_softmax``
+merges them exactly, as flash-decode does.
 """
 
 from __future__ import annotations
@@ -170,11 +171,14 @@ class ServeLayout:
     has the whole batch), this rank holding block ``rows.index`` of
     ``rows.size``; ``seq``: the ``MeshAxis`` list (outer first) that cut
     the KV cache's sequence dim (``linear_rank``); ``heads``: whether
-    "model" cuts the cache's kv heads."""
+    "model" cuts the cache's kv heads; ``conv`` and ``ssd``: whether it
+    cuts the Mamba2 cache's conv channels and SSD heads."""
 
     rows: BatchAxes | None = None
     seq: tuple = ()
     heads: bool = False
+    conv: bool = False
+    ssd: bool = False
 
     @property
     def n_rows(self) -> int:
@@ -226,8 +230,10 @@ def _entry_axes(entry) -> tuple:
 def serve_layout(cfg, mesh, batch: int) -> ServeLayout:
     """The ``ServeLayout`` of a global batch of ``batch`` rows on ``mesh``:
     the rows cut over ("pod", "data") where ``batch`` divides over them (the
-    rule of ``parallel.sharding.batch_specs``), and the KV cache's sequence
-    and heads as ``cache_specs`` places them."""
+    rule of ``parallel.sharding.batch_specs``), the KV cache's sequence
+    and heads and the SSM cache's conv channels and SSD heads as
+    ``cache_specs`` places them (each over "model" where its guard lets
+    it)."""
     from repro_torch.parallel.sharding import cache_specs
 
     if mesh is None:
@@ -235,12 +241,15 @@ def serve_layout(cfg, mesh, batch: int) -> ServeLayout:
     rows = _serve_rows(mesh, batch)
     cut = rows is not None or batch_ranks(mesh) == 1
     specs = cache_specs(cfg, mesh, batch_sharded=cut)
+    tp = mesh.size("model") > 1
+    ssm = {"conv": tp and specs.get("conv", (None,) * 4)[3] == "model",
+           "ssd": tp and specs.get("ssd", (None,) * 5)[2] == "model"}
     kv = specs.get("k", specs.get("attn_k"))
     if kv is None:
-        return ServeLayout(rows=rows)
+        return ServeLayout(rows=rows, **ssm)
     seq = tuple(a for a in (mesh_axis(mesh, name) for name in _entry_axes(kv[2]))
                 if a is not None)
-    return ServeLayout(rows=rows, seq=seq, heads=kv[3] == "model" and mesh.size("model") > 1)
+    return ServeLayout(rows=rows, seq=seq, heads=kv[3] == "model" and tp, **ssm)
 
 
 def gather_rows(x: torch.Tensor, mesh, batch: int | None = None) -> torch.Tensor:

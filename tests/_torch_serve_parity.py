@@ -116,14 +116,10 @@ def check_logits(result):
                 np.testing.assert_array_equal(a, b)
 
 
-WHOLE_OVER_MODEL = ("conv", "ssd")
-
-
 def check_cache(result, shape):
-    """Every rank's cache leaf shapes equal the reference's shard shapes,
-    except the SSM states (``WHOLE_OVER_MODEL``), which the port keeps
-    whole over "model" (its Mamba2 computes whole heads) and cuts by rows
-    only."""
+    """Every rank's cache leaf shapes equal the reference's shard shapes:
+    the KV caches and the SSM states (conv window and SSD state), which
+    "model" cuts by channels and heads where they divide."""
     want, ranks = result
     for r in ranks:
         if r is None:
@@ -131,7 +127,4 @@ def check_cache(result, shape):
         assert set(r["cache"]) == set(want["shard_shapes"])
         for k, got in r["cache"].items():
             ref = want["shard_shapes"][k]
-            if k in WHOLE_OVER_MODEL and shape[1] > 1:
-                assert got[:2] == ref[:2]        # stacked layers, rows
-            else:
-                assert got == ref, (k, got, ref)
+            assert got == ref, (k, got, ref, shape)

@@ -1,10 +1,13 @@
 """Seeded inputs that hold subnormals, shared by the port's subnormal tests
 on the CPU (against the reference) and on the card (against the CPU).
-numpy only."""
+The window below 2^-126 is enumerated by ``repro_torch.dtypes``
+(``window_operands``, ``window_pairs``), which ``chip_smoke.py`` shares."""
 
 from __future__ import annotations
 
 import numpy as np
+
+from repro_torch.dtypes import WINDOW_LO, window_operands, window_pairs  # noqa: F401
 
 TINY = 2.0 ** -126
 LEAVES = ("subnormal", "tiny_max", "edge", "rows", "tiny")
@@ -46,3 +49,29 @@ def feedback_tree(seed: int = 1) -> dict:
     sign = rng.choice([-1.0, 1.0], size=(16, 32))
     edge = (sign * (TINY + steps * 2.0 ** -149)).astype(np.float32)
     return {"layer": {"w": w, "bias": bias}, "sub": {"w": sub}, "edge": {"w": edge}}
+
+
+QAT_FACTORS = [0.3, 1.0, 1.0 - 2 ** -24, 4.0, 2.0 ** 100, 1e-39, -0.7]
+
+
+def qat_backward_rows(seed: int = 3):
+    """(g, codes, w) for the QAT backward's elementwise step: a
+    (len(QAT_FACTORS), m) fp32 cotangent and codes (±1, ±0 and NaN) and the
+    rows' factors (below, at and above 1, subnormal, negative, 2^100). Each
+    row's cotangents are a seeded fp32 sample, the fp32 values about the
+    window below 2^-126 for its factor, the mul window's operands, and
+    NaN, ±inf, ±0 and subnormals, with their negatives."""
+    rng = np.random.default_rng(seed)
+    a, _ = window_operands("mul")
+    rows = []
+    for f in QAT_FACTORS:
+        base = rng.integers(0, 2 ** 32, 2048, dtype=np.uint64).astype(np.uint32).view(np.float32)
+        near = np.float32(WINDOW_LO / abs(f)) if f != 1e-39 else np.float32(1)
+        steps = [np.nextafter(near, np.float32(0)), near, np.nextafter(near, np.float32(1))]
+        extra = np.array(steps + [np.nan, np.inf, -np.inf, 0.0, -0.0, 1e-39, -2e-38]
+                         + list(a[:64]), np.float32)
+        rows.append(np.concatenate([base, extra, -extra]))
+    g = np.stack(rows).astype(np.float32)
+    codes = rng.choice(np.array([1.0, -1.0, 0.0, -0.0, np.nan], np.float32), size=g.shape,
+                       p=[0.35, 0.35, 0.13, 0.13, 0.04]).astype(np.float32)
+    return g, codes, np.array(QAT_FACTORS, np.float32)

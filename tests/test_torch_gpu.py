@@ -549,6 +549,166 @@ def test_ternary_quantize_subnormal_rule(cuda_device, dtype, inv, delta, wq):
         assert torch.equal(tt.view(torch.uint8), tt_ref.view(torch.uint8))
 
 
+def _window_segments(dtype, dev):
+    """The numerators whose quotient by 2^k lies in the window below 2^-126
+    (``window_pairs``: XLA flushes them, IEEE rounding gives 2^-126) and
+    their neighbours, one segment per k with its (2^k, Δ = 0) row, so that
+    a kept quotient codes ±1 and a flushed one 0; in ``dtype``."""
+    import numpy as np
+
+    from _torch_subnormal_cases import window_pairs
+
+    a, b = window_pairs("div")
+    segs, rows = [], []
+    for k in range(1, 128):
+        x = a[np.abs(b) == np.float32(2.0 ** k)]
+        segs.append(torch.from_numpy(x).to(dtype).to(dev))
+        rows.append((2.0 ** k, 0.0))
+    return segs, torch.tensor(rows, dtype=torch.float32, device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_pack_on_the_window_matches_plain(cuda_device, dtype):
+    """quantize_pack (fp32 and bf16 entries) on the quotients of the window
+    below 2^-126, 127 segments in one launch: bytes, counts and sums bit
+    for bit against the plain version, which flushes them as XLA does (the
+    fp32 window codes 0 there)."""
+    segs, scal = _window_segments(dtype, cuda_device)
+    packed, moments, _ = quantize_pack_segments(segs, scal)
+    p_ref, m_ref, _ = quantize_pack_segments_plain(segs, scal)
+    assert torch.equal(packed, p_ref)
+    assert torch.equal(moments.view(torch.uint8), m_ref.view(torch.uint8))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ternary_quantize_on_the_window_matches_plain(cuda_device, dtype):
+    """ternary_quantize on the products of the window below 2^-126 (one
+    call per scale, 64 of the enumerated scales, each with its operand
+    and neighbours) at Δ = 0: codes and θ_t bit for bit against the plain
+    version."""
+    import numpy as np
+
+    from _torch_subnormal_cases import window_operands, window_pairs
+
+    g, s = window_pairs("mul")
+    n = len(window_operands("mul")[0])
+    for i in range(0, n, max(1, n // 64)):
+        theta = torch.tensor([g[i], g[i + n], g[i + 2 * n], -g[i]] * 64,
+                             dtype=torch.float32).to(dtype).reshape(4, 64).to(cuda_device)
+        it, tt = ternary_quantize(theta, float(s[i]), 0.0, 0.5)
+        it_ref, tt_ref = ternary_quantize_plain(theta, float(s[i]), 0.0, 0.5)
+        assert torch.equal(it, it_ref), float(s[i])
+        assert torch.equal(tt.view(torch.uint8), tt_ref.view(torch.uint8)), float(s[i])
+    assert np.isfinite(s).all()
+
+
+@pytest.mark.parametrize("value", [float("nan"), float("inf"), -float("inf")],
+                         ids=["nan", "inf", "-inf"])
+def test_qat_codes_of_non_finite_weights_card_equals_cpu(cuda_device, value):
+    """A NaN or ±inf weight at x[1, 3] of a (4, 16) fp32 leaf with a factor
+    a row: the row codes, the QAT forward and its gradients on the card
+    equal the CPU's, NaN where the CPU's are NaN and bit for bit elsewhere,
+    but g_wq, a sum of 16 normal terms that each device adds in its own
+    order (within rtol 1e-6)."""
+    import numpy as np
+
+    from repro_torch.core import fttq
+
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(4, 16)).astype(np.float32)
+    x[1, 3] = np.float32(value)
+    w = np.abs(rng.normal(size=(4,))).astype(np.float32)
+    coeff = rng.normal(size=(4, 16)).astype(np.float32)
+
+    def run(dev):
+        theta = torch.from_numpy(x).to(dev).requires_grad_()
+        wq = torch.from_numpy(w).to(dev).requires_grad_()
+        q = fttq.FTTQQuantize.apply(theta, wq, 0.7)
+        (q * torch.from_numpy(coeff).to(dev)).sum().backward()
+        return [fttq.row_codes(theta.detach(), 0.7), q.detach(), theta.grad, wq.grad]
+
+    for i, (got, want) in enumerate(zip(run(cuda_device), run("cpu"))):
+        got = got.cpu()
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        keep = ~torch.isnan(want)
+        if i == 3:
+            _close(got[keep], want[keep], "g_wq")
+        else:
+            _same_bits(got[keep], want[keep], ("codes", "θ_t", "g_θ")[i])
+
+
+def test_qat_backward_kernel_matches_plain(cuda_device):
+    """The QAT backward's kernel against its plain version, bit for bit
+    (NaNs as NaNs):
+    on rows of every kind of cotangent (a seeded fp32 sample, the window
+    below 2^-126, subnormals, NaN, ±inf) with codes ±1, ±0 and NaN at
+    factors below, at and above 1 (row length not a multiple of 4: the
+    one-element path), and on an olmo-1b-shaped leaf of 16 rows of 2048 ×
+    8192 (the vector path), one launch each."""
+    import numpy as np
+
+    from _torch_subnormal_cases import qat_backward_rows
+    from repro_torch.core.fttq import backward_cuts
+    from repro_torch.dtypes import flush_plus
+    from repro_torch.kernels.qat_backward import qat_backward, qat_backward_plain
+
+    g, codes, w = qat_backward_rows()
+    gen = torch.Generator(device=cuda_device).manual_seed(31)
+    big = torch.randn(16, 2048 * 8192, generator=gen, device=cuda_device) * 1e-3
+    big_codes = torch.randint(-1, 2, big.shape, generator=gen, device=cuda_device).float()
+    big_w = torch.rand(16, 1, generator=gen, device=cuda_device) * 0.05
+    cases = [(torch.from_numpy(g[:, :-1].copy()), torch.from_numpy(codes[:, :-1].copy()),
+              flush_plus(torch.from_numpy(w).reshape(-1, 1))), (big, big_codes, big_w)]
+    assert (g.shape[1] - 1) % 4 != 0
+    for gt, ct, wt in cases:
+        (cut,) = backward_cuts([wt])
+        want = qat_backward_plain(gt.cpu(), ct.cpu(), wt.cpu(), cut.cpu())
+        before = qat_backward.launches
+        got = qat_backward(gt.to(cuda_device), ct.to(cuda_device), wt.to(cuda_device),
+                           cut.to(cuda_device))
+        assert qat_backward.launches == before + 1
+        for a, b in zip(got, want):
+            a = a.cpu()
+            # the card writes its own NaN payload (the CPU keeps the input's)
+            same = (a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())
+            assert bool(same.all())
+
+
+def test_qat_step_launches_the_backward_kernel_once_a_leaf(cuda_device):
+    """``quantize_tree``'s QAT forward and backward on the card launch the
+    backward's kernel once for each quantized fp32 leaf, and give the CPU's
+    g_θ bit for bit and g_wq within rtol 1e-6 (a sum in each device's
+    order)."""
+    from repro_torch.core.fttq import FTTQConfig, init_wq_tree, quantize_tree
+    from repro_torch.kernels.qat_backward import qat_backward
+
+    gen = torch.Generator().manual_seed(5)
+    tree = {"a": {"w": torch.randn(3, 64, 32, generator=gen)},
+            "b": {"w": torch.randn(48, 33, generator=gen)},
+            "n": {"scale": torch.ones(33)}}
+    cot = {k: torch.randn(v["w"].shape if "w" in v else v["scale"].shape, generator=gen)
+           for k, v in tree.items()}
+    cfg = FTTQConfig()
+    wq = init_wq_tree(tree, cfg)
+
+    def run(dev):
+        params = {k: {n: t.to(dev).requires_grad_() for n, t in d.items()} for k, d in tree.items()}
+        factors = {k: {n: (t.to(dev).requires_grad_() if t is not None else None)
+                       for n, t in d.items()} for k, d in wq.items()}
+        out = quantize_tree(params, factors, cfg)
+        loss = sum((out[k][n] * cot[k].to(dev)).sum() for k, d in out.items() for n in d)
+        loss.backward()
+        return params, factors
+
+    before = qat_backward.launches
+    card = run(cuda_device)
+    assert qat_backward.launches == before + 2
+    cpu = run("cpu")
+    for k in ("a", "b"):
+        _same_bits(card[0][k]["w"].grad, cpu[0][k]["w"].grad, f"g_θ {k}")
+        _close(card[1][k]["w"].grad, cpu[1][k]["w"].grad, f"g_wq {k}")
+
+
 def test_bf16_tree_encodes_through_the_bf16_kernel(cuda_device):
     """A bf16 tree's card encode: one quantize_pack launch for its bf16
     group, the wire bytes of the CPU encode, w_q cast back to bf16."""

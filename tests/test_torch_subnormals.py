@@ -11,9 +11,10 @@ subnormals, so the port applies the rule itself (``dtypes.flush_subnormal``).
 
 Also here: the bf16 kernel's division-free rule (a threshold on x and a
 reciprocal product for |xs|), modelled in PyTorch's fp32 arithmetic, against
-the plain version's division on every bf16 bit pattern; and the one place
-found where the port's statistics still differ from the reference's on
-subnormal weights (ROADMAP Queue 3, open).
+the plain version's division on every bf16 bit pattern; the window below
+2^-126 where XLA flushes an exact product or quotient that IEEE rounding
+takes up to 2^-126, enumerated through every function that forms one; and
+NaN and ±inf weights through the QAT forward, whole and on two ranks.
 """
 
 import jax
@@ -29,9 +30,13 @@ from repro.kernels.quantize_pack import BLOCK_S, quantize_pack_segments, stage_e
 from repro.kernels.quantize_pack import quantize_pack as jquantize_pack
 from repro.kernels.quantize_pack import scale_from_moments as jscale_from_moments
 from repro.kernels.ternary_quantize import ternary_quantize as jternary_quantize
-from _torch_subnormal_cases import EXACT_SUMS, LEAVES, subnormal_leaves
+from _torch_subnormal_cases import (
+    EXACT_SUMS, LEAVES, subnormal_leaves, window_operands, window_pairs,
+)
 from repro_torch.core import fttq
-from repro_torch.dtypes import TINY, flush_subnormal, flushed_abs, xla_op
+from repro_torch.dtypes import (
+    TINY, flush_subnormal, flushed_abs, flushed_op, flushed_product, xla_op,
+)
 from repro_torch.kernels import ops
 from repro_torch.kernels.quantize_pack import (
     _scaled, n_tiles, quantize_pack_plain, quantize_pack_segments_plain, scale_from_moments,
@@ -298,36 +303,6 @@ def _same_or_both_nan(got, want, what=""):
     assert ok.all(), f"{what}: {int((~ok).sum())} of {ok.size} differ"
 
 
-# XLA on the CPU detects an underflow on the 24-bit result before it is
-# placed on the subnormal grid: an exact product or quotient in
-# [2^-126 − 2^-150, 2^-126 − 2^-151) is flushed to zero, where IEEE rounding
-# gives 2^-126 and the rule as ``dtypes.flush_subnormal`` states it (flush
-# after rounding) keeps it. Sums of fp32 values are multiples of 2^-149 and
-# never fall there. ROADMAP Queue 3 holds the case; these helpers allow it
-# and nothing else.
-WINDOW = (TINY - 2.0 ** -150, TINY - 2.0 ** -151)
-
-
-def _in_window(exact: np.ndarray) -> np.ndarray:
-    a = np.abs(exact)
-    return (a >= WINDOW[0]) & (a < WINDOW[1])
-
-
-def _same_but_window(got, want, exact, what=""):
-    """Bit for bit (NaNs as NaNs), except where the exact result lies in
-    ``WINDOW``: there the port holds ±2^-126 and XLA ±0."""
-    g, w = _raw(got), _raw(want)
-    gf = _as_f32(g)
-    wf = _as_f32(w)
-    exact = np.asarray(exact, np.float64).reshape(-1)
-    assert exact.shape == gf.shape, what
-    ok = (g == w) | (np.isnan(gf) & np.isnan(wf))
-    win = ~ok & _in_window(exact) & (np.abs(gf) == TINY) & (wf == 0) \
-        & (np.signbit(gf) == np.signbit(wf))
-    assert (ok | win).all(), f"{what}: {int((~(ok | win)).sum())} of {ok.size} differ"
-    return int(win.sum())
-
-
 def _as_f32(bits: np.ndarray) -> np.ndarray:
     if bits.dtype == np.uint16:
         return torch.from_numpy(bits.view(np.int16).copy()).view(torch.bfloat16).float().numpy()
@@ -336,7 +311,7 @@ def _as_f32(bits: np.ndarray) -> np.ndarray:
 
 def _same_up_to_zero_sign(got, want, what=""):
     """Bit for bit, except that a zero may have either sign (the fp32
-    backward's flushed products; see ``fttq._flushed_product``)."""
+    backward's flushed products; see ``dtypes.flushed_product``)."""
     g, w = _as_f32(_raw(got)), _as_f32(_raw(want))
     ok = (_raw(got) == _raw(want)) | ((g == 0) & (w == 0))
     assert ok.all(), f"{what}: {int((~ok).sum())} of {ok.size} differ"
@@ -459,7 +434,7 @@ def test_fttq_quantize_forward_and_backward_match_jax_vjp(name, dtype):
     """``FTTQQuantize`` (whole leaf) against ``jax.vjp`` of the reference's
     ``fttq_quantize`` at the reference's init_wq, with a cotangent that
     holds subnormals where the code is 0: θ_t bit for bit, g_θ bit for bit
-    but the sign of a zero (``fttq._flushed_product``); g_wq bit for bit
+    but the sign of a zero (``dtypes.flushed_product``); g_wq bit for bit
     where the sum has one nonzero term at most, within its rounding
     elsewhere."""
     x, jx, jw, g, jg = _vjp_case(name, dtype)
@@ -477,14 +452,11 @@ def test_fttq_quantize_forward_and_backward_match_jax_vjp(name, dtype):
         _close(w.grad, g_wq_ref, dtype, "g_wq")
 
 
-def test_fttq_backward_of_a_subnormal_cotangent_beyond_a_unit_scale_still_differs():
-    """Open (ROADMAP Queue 3): the backward's g·w_q flushes the product
-    (one pass) instead of also reading a subnormal cotangent as zero, which
-    is the same wherever |w_q| ≤ 1 or the cotangent is normal. Where a
-    subnormal cotangent meets a selected weight and |w_q| > 1, XLA gives 0
-    and the port w_q·g. XLA's own cotangents come out of flushed arithmetic
-    and are never subnormal. This pins the case; when the backward reads
-    the cotangent as XLA does, it fails and becomes a parity test."""
+def test_fttq_backward_of_a_subnormal_cotangent_beyond_a_unit_scale():
+    """The backward reads a subnormal cotangent as XLA does, a zero, before
+    its product with w_q: where one meets a selected weight and |w_q| > 1,
+    XLA gives 0 (not the normal w_q·g), in g_θ and in g_wq's terms. Against
+    the reference's vjp at w_q = 4: g_θ and g_wq bit for bit."""
     x = np.random.default_rng(8).normal(size=(16, 32)).astype(np.float32)
     jx = jnp.asarray(x)
     codes = np.asarray(jfttq.ternarize(jfttq.scale_layer(jx),
@@ -494,13 +466,13 @@ def test_fttq_backward_of_a_subnormal_cotangent_beyond_a_unit_scale_still_differ
     cot.reshape(-1)[sel] = np.float32(1e-38)          # subnormal; 4e-38 is normal
     w = np.float32(4.0)
     _, vjp = jax.vjp(lambda t, s: jfttq.fttq_quantize(t, s, 0.7), jx, jnp.asarray(w))
-    g_ref = np.asarray(vjp(jnp.asarray(cot))[0]).reshape(-1)
+    g_ref, gw_ref = vjp(jnp.asarray(cot))
     theta = torch.from_numpy(x).requires_grad_()
-    fttq.FTTQQuantize.apply(theta, torch.tensor(w), 0.7).backward(torch.from_numpy(cot))
-    got = theta.grad.numpy().reshape(-1)
-    assert (g_ref[sel] == 0).all() and (got[sel] == 4 * cot.reshape(-1)[sel]).all()
-    rest = np.setdiff1d(np.arange(got.size), sel)
-    np.testing.assert_array_equal(got[rest].view(np.uint32), g_ref[rest].view(np.uint32))
+    wq = torch.tensor(w).requires_grad_()
+    fttq.FTTQQuantize.apply(theta, wq, 0.7).backward(torch.from_numpy(cot))
+    assert (np.asarray(g_ref).reshape(-1)[sel] == 0).all()
+    _same_bits(theta.grad, g_ref, "g_θ")
+    _same_bits(wq.grad, gw_ref, "g_wq")
 
 
 def _subnormal_tree(dtype: str):
@@ -573,25 +545,33 @@ def shard_stats(tmp_path_factory):
     held[1, 40] = np.float32(2e-38)            # the global max, on rank 1
     held[0, 7] = np.float32(-3e-38)            # and on rank 0 for the first row
     one = held[1:].copy()
+    # a NaN or +inf weight on rank 1's half: gloo's MAX drops a NaN that
+    # meets rank 0's finite maximum second
+    nan = rng.normal(size=(2, 64)).astype(np.float32)
+    inf = nan.copy()
+    nan[1, 40] = np.nan
+    inf[1, 40] = np.inf
     cases = {}
-    for name, rows in (("beside", beside), ("held", held), ("one_row", one)):
+    for name, rows in (("beside", beside), ("held", held), ("one_row", one), ("nan", nan),
+                       ("inf", inf)):
         for dtype in DTYPES:
             b = rows.astype(ml_dtypes.bfloat16).view(np.int16) if dtype == "bfloat16" else rows
             cases[f"{name}-{dtype}"] = (b.copy(), dtype == "bfloat16")
     cot = rng.normal(size=(2, 64)).astype(np.float32)
     ranks = run_ranks("subnormal_shard_stats", 2, tmp_path_factory.mktemp("shard_stats"),
                       leaves=cases, cot=cot)
-    return {"beside": beside, "held": held, "one_row": one}, cot, ranks
+    return {"beside": beside, "held": held, "one_row": one, "nan": nan, "inf": inf}, cot, ranks
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("name", ["beside", "held", "one_row"])
+@pytest.mark.parametrize("name", ["beside", "held", "one_row", "nan", "inf"])
 def test_sharded_statistics_follow_the_rule_as_one_array(shard_stats, name, dtype):
     """``leaf_row_stats`` over a "model" axis of two ranks, a leaf cut along
     its columns: a shard that is all subnormal beside a shard of tiny
     normals; a leaf whose global maximum is a tiny normal on one rank (and
     a one-row leaf, whose ``ternary_stats`` on the shards count the whole
-    leaf). Each rank's (denom, Δ) is the reference's of the whole row
+    leaf); a NaN or +inf weight on rank 1 (the whole row's maximum NaN or
+    inf on both ranks, the codes NaN where the reference's are). Each rank's (denom, Δ) is the reference's of the whole row
     computed as one array (denom bit for bit; Δ bit for bit where its sum
     has one nonzero term, within the sums' rounding otherwise), the QAT
     codes on the shards are the whole leaf's, g_wq the reference's
@@ -665,12 +645,11 @@ def _f64(x: torch.Tensor) -> np.ndarray:
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_scaled_abs_fold_on_bit_patterns(dtype):
     """``fttq.scaled_abs`` (|θ_s| read as XLA reads it, by a per-row cut on
-    |θ_s| in fp32 and on |θ| in bf16; proof in its docstring) equals
-    |θ / d| as XLA divides it, for every input pattern and every denom of
-    ``_denoms`` (but ``WINDOW``); and ``scaled_codes`` equals the
-    reference's ternarize of that quotient at a zero, a subnormal, a
-    negative, a normal and a NaN Δ, bit for bit, for every input but NaN
-    (pinned below)."""
+    |θ|; proof beside ``_quotient_cut``) equals |θ / d| as XLA divides it, for
+    every input pattern and every denom of ``_denoms`` (NaNs as NaNs); and
+    ``scaled_codes`` equals the reference's ternarize of that quotient at
+    a zero, a subnormal, a negative, a normal and a NaN Δ, bit for bit, NaN
+    codes of NaN inputs included."""
     bits = _fold_inputs(dtype)
     x = _torch_x(bits, DTYPES[dtype])
     jx = _jax_from_bits(bits, dtype)
@@ -678,32 +657,78 @@ def test_scaled_abs_fold_on_bit_patterns(dtype):
     rows = x.reshape(1, -1).expand(len(denoms), -1)
     d = torch.tensor(denoms, dtype=torch.float32).to(x.dtype).reshape(-1, 1)
     jd = jnp.asarray(np.asarray(denoms, np.float32)).astype(jx.dtype).reshape(-1, 1)
-    exact = _f64(rows) / _f64(d)
-    _same_but_window(fttq.scaled_abs(rows, d), jnp.abs(jx[None, :] / jd), exact, "scaled_abs")
-    number = ~np.isnan(_f64(rows).reshape(-1))
+    _same_or_both_nan(fttq.scaled_abs(rows, d), jnp.abs(jx[None, :] / jd), "scaled_abs")
     for delta in (0.0, 1e-39, -0.25, 0.05, float("nan")):
         dl = torch.full((len(denoms), 1), delta).to(x.dtype)
-        got = fttq.scaled_codes(rows, d, dl).reshape(-1)[torch.from_numpy(number)]
         ref = jfttq.ternarize(jx[None, :] / jd, jnp.asarray(dl.float().numpy()).astype(jx.dtype))
-        _same_but_window(got, np.asarray(ref).reshape(-1)[number], exact.reshape(-1)[number],
-                         f"codes at Δ {delta}")
+        _same_or_both_nan(fttq.scaled_codes(rows, d, dl), ref, f"codes at Δ {delta}")
 
 
-def test_qat_code_of_a_nan_weight_still_differs():
-    """Open (ROADMAP Queue 3): XLA's code for a NaN θ_s is sign(NaN) · 0 =
-    NaN, so the reference's QAT forward of a leaf with a NaN weight is NaN
-    everywhere (its denom is NaN); the port's row codes write a zero of
-    the NaN's sign there (one pass over the weights fewer). The one-leaf
-    ``ternarize`` gives NaN as XLA does. This pins the row path's case."""
-    x = np.random.default_rng(9).normal(size=(4, 16)).astype(np.float32)
-    x[1, 3] = np.nan
-    jcodes = np.asarray(jax.vmap(lambda t: jfttq.ternarize(
-        jfttq.scale_layer(t), jfttq.fttq_threshold(jfttq.scale_layer(t), 0.7)))(jnp.asarray(x)))
-    codes = fttq.row_codes(torch.from_numpy(x), 0.7).numpy()
-    assert np.isnan(jcodes[1]).all() and not np.isnan(codes[1]).any() and (codes[1] == 0).all()
-    np.testing.assert_array_equal(codes[[0, 2, 3]], jcodes[[0, 2, 3]])
+def _qat_rows_reference(x: np.ndarray, w: np.ndarray, coeff: np.ndarray):
+    """The reference's codes, θ_t, loss Σ θ_t · coeff and its gradients of
+    a (L, m) fp32 leaf quantized per row (one factor a row, vmapped as its
+    ``quantize_tree`` does a stacked leaf)."""
+    def codes(t):
+        ts = jfttq.scale_layer(t)
+        return jfttq.ternarize(ts, jfttq.fttq_threshold(ts, 0.7))
+
+    def loss(t, s):
+        q = jax.vmap(lambda r, f: jfttq.fttq_quantize(r, f, 0.7))(t, s)
+        return jnp.sum(q * coeff), q
+
+    (val, q), grads = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(x), jnp.asarray(w))
+    return (np.asarray(jax.vmap(codes)(jnp.asarray(x))), np.asarray(q), float(val),
+            [np.asarray(g) for g in grads])
+
+
+def _qat_rows_port(x: np.ndarray, w: np.ndarray, coeff: np.ndarray):
+    theta = torch.from_numpy(x.copy()).requires_grad_()
+    wq = torch.from_numpy(w.copy()).requires_grad_()
+    q = fttq.FTTQQuantize.apply(theta, wq, 0.7)
+    loss = (q * torch.from_numpy(coeff)).sum()
+    loss.backward()
+    return (fttq.row_codes(torch.from_numpy(x), 0.7), q.detach(), float(loss.detach()),
+            [theta.grad, wq.grad])
+
+
+@pytest.mark.parametrize("value", [float("nan"), float("inf"), -float("inf")],
+                         ids=["nan", "inf", "-inf"])
+def test_qat_code_of_a_nan_weight(value):
+    """A NaN or ±inf weight at x[1, 3] of a (4, 16) fp32 leaf trained with a
+    factor a row: XLA's code is sign(θ_s) · 0 = NaN wherever θ_s is NaN,
+    which for a NaN weight is its whole row (the row's denom is NaN) and
+    for ±inf that element (inf / inf). The port's row codes, θ_t, loss
+    and gradients are NaN exactly where the reference's are; elsewhere the
+    codes, θ_t and g_θ equal the reference's bit for bit (the ±inf row's
+    other codes are zeros of their weights' signs, its Δ being NaN) and
+    g_wq, a sum of 16 terms in another order, is within ``_close``'s
+    rtol; the one-leaf ``ternarize`` agrees."""
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(4, 16)).astype(np.float32)
+    x[1, 3] = np.float32(value)
+    w = np.abs(rng.normal(size=(4,))).astype(np.float32)
+    coeff = rng.normal(size=(4, 16)).astype(np.float32)
+    jcodes, jq, jloss, jgrads = _qat_rows_reference(x, w, coeff)
+    codes, q, loss, grads = _qat_rows_port(x, w, coeff)
+    if np.isnan(value):
+        assert np.isnan(jcodes[1]).all()
+    else:
+        assert np.isnan(jcodes[1, 3]) and not np.isnan(np.delete(jcodes[1], 3)).any()
+    assert not np.isnan(jcodes[[0, 2, 3]]).any()
+    _same_or_both_nan(codes, jcodes, "codes")
+    np.testing.assert_array_equal(np.isnan(codes.numpy()), np.isnan(jcodes))
+    np.testing.assert_array_equal(_raw(codes)[~np.isnan(jcodes).reshape(-1)],
+                                  _raw(jcodes)[~np.isnan(jcodes).reshape(-1)])
+    _same_or_both_nan(q, jq, "θ_t")
+    np.testing.assert_array_equal(np.isnan(q.numpy()), np.isnan(jq))
+    assert np.isnan(jloss) and np.isnan(loss)
+    for got, want, what in zip(grads, jgrads, ("g_θ", "g_wq")):
+        np.testing.assert_array_equal(np.isnan(got.numpy()), np.isnan(want), err_msg=what)
+    _same_or_both_nan(grads[0], jgrads[0], "g_θ")
+    _close(grads[1], jgrads[1], "float32", "g_wq")
     ts = fttq.scale_layer(torch.from_numpy(x[1]))
-    assert np.isnan(fttq.ternarize(ts, fttq.fttq_threshold(ts, 0.7)).numpy()).all()
+    _same_or_both_nan(fttq.ternarize(ts, fttq.fttq_threshold(ts, 0.7)), jcodes[1], "ternarize")
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -725,35 +750,20 @@ def test_ternarize_cut_on_bit_patterns(dtype):
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_backward_product_fold_on_bit_patterns(dtype):
-    """The backward's g · scale (``fttq._flushed_product``, the scale 1 or
+    """The backward's g · scale (``dtypes.flushed_product``, the scale 1 or
     a flushed w_q): bf16 computes XLA's step (operands flushed, fp32
-    product flushed, rounded); fp32 flushes the product with
-    ``hardshrink``. Against XLA's g · scale on every input pattern, bit for
-    bit (NaNs as NaNs; but ``WINDOW``; fp32's flushed zeros are +0 where
-    XLA's have the product's sign), at scales 1, 0.3, 2^-126, a subnormal,
-    −0.7, 1 − ulp and 0; bf16 also at 4 and 2^100, where fp32's fold is
-    exact only for a normal g (pinned above)."""
+    product flushed, rounded); fp32 keeps the product where |g| reaches the
+    scale's cut (g normal and the exact product at least KEEP). Against
+    XLA's g · scale on every input pattern, bit for bit (NaNs as NaNs), at
+    scales 1, 0.3, 2^-126, a subnormal, −0.7, 1 − ulp, 0, 4 and 2^100."""
     bits = _fold_inputs(dtype)
     g = _torch_x(bits, DTYPES[dtype])
     jg = _jax_from_bits(bits, dtype)
-    scales = [1.0, 0.3, 2.0 ** -126, 1e-39, -0.7, 1.0 - 2 ** -24, 0.0]
-    if dtype == "bfloat16":
-        scales += [4.0, 2.0 ** 100]
-    for s in scales:
+    for s in [1.0, 0.3, 2.0 ** -126, 1e-39, -0.7, 1.0 - 2 ** -24, 0.0, 4.0, 2.0 ** 100]:
         # the caller passes 1 or a flushed w_q
         st = flush_subnormal(torch.tensor(s, dtype=torch.float32).to(g.dtype))
         js = jnp.asarray(np.float32(s)).astype(jg.dtype)
-        got, want = fttq._flushed_product(g, st), jg * js
-        if dtype == "float32":     # a flushed product is +0 (see the fold's docstring)
-            zero = (got == 0).numpy()
-            assert (np.asarray(want)[zero] == 0).all(), s
-            got, want = got[torch.from_numpy(~zero)], np.asarray(want)[~zero]
-            g_kept = g[torch.from_numpy(~zero)]
-        else:
-            g_kept = g
-        with np.errstate(invalid="ignore"):        # inf · 0
-            exact = _f64(g_kept) * float(st.float())
-        _same_but_window(got, want, exact, f"scale {s}")
+        _same_or_both_nan(flushed_product(g, st), jg * js, f"scale {s}")
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -761,11 +771,12 @@ def test_xla_op_and_the_abs_read_on_bit_patterns(dtype):
     """``dtypes.xla_op`` (the residuals' add and subtract, the statistics'
     products and quotients) against XLA's add, subtract, multiply and
     divide of every input pattern with a shuffled partner and with 2^-126 ·
-    (1 ± ulp) (NaNs as NaNs; sums bit for bit, products and quotients but
-    ``WINDOW``); and ``dtypes.flushed_abs`` (|x| with subnormals as zeros,
-    the read of the means and maxima in ``fttq``, ``fttq_scalars`` and the
-    collectives) against XLA's |x| · 1, which reads |x| through the
-    flush."""
+    (1 ± ulp) and 1 − 2^-25 (NaNs as NaNs; bit for bit, the products and
+    quotients that IEEE rounding takes up to 2^-126 and XLA flushes
+    included, and the fp32 edges do reach them); and ``dtypes.flushed_abs``
+    (|x| with subnormals as zeros, the read of the means and maxima in
+    ``fttq``, ``fttq_scalars`` and the collectives) against XLA's |x| · 1,
+    which reads |x| through the flush."""
     bits = _fold_inputs(dtype)
     x = _torch_x(bits, DTYPES[dtype])
     jx = _jax_from_bits(bits, dtype)
@@ -776,14 +787,98 @@ def test_xla_op_and_the_abs_read_on_bit_patterns(dtype):
         partners.append((t, jnp.asarray(t.float().numpy()).astype(jx.dtype)))
     windows = 0
     for y, jy in partners:
-        for op, jop, exact in ((torch.add, jnp.add, np.add), (torch.sub, jnp.subtract,
-                                                                 np.subtract),
-                               (torch.mul, jnp.multiply, np.multiply),
-                               (torch.div, jnp.divide, np.divide)):
-            with np.errstate(all="ignore"):
-                e = exact(_f64(x), _f64(y))
-            n = _same_but_window(xla_op(op, x, y), jop(jx, jy), e, op.__name__)
-            assert n == 0 or op in (torch.mul, torch.div), op
-            windows += n
+        for op, jop in ((torch.add, jnp.add), (torch.sub, jnp.subtract),
+                        (torch.mul, jnp.multiply), (torch.div, jnp.divide)):
+            want = jop(jx, jy)
+            _same_or_both_nan(xla_op(op, x, y), want, op.__name__)
+            ieee = flush_subnormal(op(flush_subnormal(x).float(), flush_subnormal(y).float()))
+            windows += int(((ieee.abs() == TINY) & torch.from_numpy(
+                np.asarray(want, np.float32) == 0)).sum())
     assert dtype == "bfloat16" or windows > 0     # the fp32 edges reach the window
     _same_or_both_nan(flushed_abs(x), jnp.abs(jx) * jnp.ones_like(jx), "|x| read")
+
+
+# --------------------------------------------------------------------------
+# The window: an exact product or quotient in [2^-126 − 2^-150, KEEP), which
+# IEEE rounding takes up to 2^-126 and XLA flushes, through every function of
+# the port that forms one.
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("op", ["mul", "div"])
+def test_flushed_op_and_xla_op_on_the_window(op):
+    """Every pair of ``window_pairs`` (the enumerated window and its fp32
+    neighbours): ``xla_op`` and ``flushed_op`` (elementwise partner, and one
+    scalar partner at a time for a few of them) equal XLA bit for bit; in
+    the window IEEE gives ±2^-126 and XLA ±0."""
+    a, b = window_pairs(op)
+    n = len(window_operands(op)[0])
+    top, jop = (torch.mul, jnp.multiply) if op == "mul" else (torch.div, jnp.divide)
+    want = np.asarray(jop(jnp.asarray(a), jnp.asarray(b)))
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    assert (np.abs(top(ta, tb).numpy()[:n]) == TINY).all() and (want[:n] == 0).all()
+    _same_bits(xla_op(top, ta, tb), want, "xla_op")
+    _same_bits(flushed_op(top, ta, tb), want, "flushed_op")
+    for i in range(0, n, max(1, n // 16)):
+        _same_bits(flushed_op(top, ta[i::n], float(b[i])), want[i::n], f"scalar {b[i]}")
+
+
+def test_statistics_and_codes_on_the_window():
+    """The FTTQ functions that divide by a denom or multiply by a scale, on
+    the window: ``scaled_abs`` and ``scaled_codes`` (Δ = 0) of weights whose
+    quotient by d = 2^k lies in it, ``_flushed_product`` of cotangents whose
+    product with a scale < 1 does, and ``_times_tk``'s product of a
+    statistic with T_k, against the reference's quotient, ternarize and
+    product, bit for bit."""
+    a, b = window_pairs("div")
+    rows, d = torch.from_numpy(a).reshape(-1, 1), torch.from_numpy(b).abs().reshape(-1, 1)
+    ja, jd = jnp.asarray(a).reshape(-1, 1), jnp.asarray(np.abs(b)).reshape(-1, 1)
+    _same_bits(fttq.scaled_abs(rows, d), jnp.abs(ja / jd), "scaled_abs")
+    zero = torch.zeros_like(d)
+    _same_bits(fttq.scaled_codes(rows, d, zero), jfttq.ternarize(ja / jd, jnp.zeros_like(jd)),
+               "scaled_codes")
+    g, s = window_pairs("mul")
+    _same_bits(flushed_product(torch.from_numpy(g), torch.from_numpy(s)),
+               jnp.asarray(g) * jnp.asarray(s), "flushed_product")
+    a, t = window_pairs("mul")
+    n = len(window_operands("mul")[0])
+    for i in range(0, n // 2, max(1, n // 32)):     # T_k < 1 on a statistic ≥ 0
+        stat = np.abs(np.array([a[i], a[i + n], a[i + 2 * n], TINY, 0.0, np.nan], np.float32))
+        got = fttq._times_tk(float(t[i]), torch.from_numpy(stat), torch.float32)
+        _same_or_both_nan(got, float(t[i]) * jnp.asarray(stat), f"_times_tk at {t[i]}")
+    stat = np.array([TINY, 2 * TINY, 3e-38, 1e-39, 0.0], np.float32)
+    _same_bits(fttq._times_tk(0.7, torch.from_numpy(stat), torch.float32),
+               0.7 * jnp.asarray(stat), "_times_tk at 0.7")
+
+
+@pytest.mark.parametrize("kernel", ["quantize_pack", "ternary_quantize"])
+def test_kernel_plain_versions_on_the_window(kernel):
+    """The plain versions of ``quantize_pack`` (x / denom) and
+    ``ternary_quantize`` (x · 1/max) against the Pallas kernels in
+    interpret mode at Δ = 0, so that a quotient or product kept at 2^-126
+    would code ±1 where XLA's flushed one codes 0: quantize_pack at denoms
+    2^k (k = 1, 40, 90, 127) on the weights whose quotient lies in the
+    window, and their neighbours; ternary_quantize at 16 of the enumerated
+    scales on theirs. Bytes, tile counts, codes and θ_t bit for bit."""
+    if kernel == "quantize_pack":
+        a, b = window_pairs("div")
+        for k in (1, 40, 90, 127):
+            x = a[np.abs(b) == np.float32(2.0 ** k)]
+            x = np.concatenate([x, np.zeros((-x.size) % 8, np.float32)])
+            jpacked, jmoments, n = jquantize_pack(jnp.asarray(x), jnp.float32(2.0 ** k),
+                                                  jnp.float32(0.0), interpret=True)
+            packed, moments = quantize_pack_plain(torch.from_numpy(x),
+                                                  torch.tensor([2.0 ** k, 0.0]))
+            np.testing.assert_array_equal(packed.numpy(),
+                                          np.asarray(jpacked).reshape(-1)[: (n + 3) // 4])
+            np.testing.assert_array_equal(moments[:, 1].numpy(), np.asarray(jmoments)[:, 1])
+        return
+    g, s = window_pairs("mul")
+    n = len(window_operands("mul")[0])
+    for i in range(0, n // 2, max(1, n // 32)):
+        x = np.array([g[i], -g[i], g[i + n], g[i + 2 * n]] * 64, np.float32).reshape(-1, 256)
+        ji, jt = jternary_quantize(jnp.asarray(x), jnp.float32(s[i]), jnp.float32(0.0),
+                                   jnp.float32(0.5), interpret=True)
+        it, tt = ternary_quantize_plain(torch.from_numpy(x), float(s[i]), 0.0, 0.5)
+        np.testing.assert_array_equal(it.numpy(), np.asarray(ji))
+        _same_bits(tt, jt, f"θ_t at {s[i]}")
