@@ -42,7 +42,7 @@ Phases (any failure exits non-zero; no phase is skipped):
   4b. bf16_serve — olmo-1b at full width with bf16 weights and activations
                  (``launch.serve --dtype bfloat16``), seed 0: two deploys (one
                  bf16 quantize_pack launch each), the packed-vs-dequantized
-                 logits probe (≤ 5e-2 of max |logits|), prefill 4 × 32 and 15
+                 logits probe (≤ 3.5e-2 of max |logits|), prefill 4 × 32 and 15
                  greedy steps (112 ternary_matmul launches per forward), beside
                  the fp32 phase's numbers; the bf16 quantize_pack (its own
                  kernel, quantize_pack_bf16.cu) on the deploy's 7 segments
@@ -122,7 +122,7 @@ Phases (any failure exits non-zero; no phase is skipped):
                  logged loss must fall; (b) olmo-1b at full width (random
                  weights from seed 0) through ``init_train_state`` and
                  ``make_train_step`` with the defaults (QAT, grad clip 1, w_q
-                 lr 0.05), 3 steps at 8 × 512 and 2 steps at 8 × 4,096 with
+                 lr 0.05), 3 steps at 8 × 512 and 1 step at 8 × 4,096 with
                  microbatches 4 and remat "full" (configs/shapes.py's train_4k
                  sequence, its batch of 256 cut to 8): per step the
                  synchronized ms, tokens/s, loss and grad norm, per run the
@@ -142,8 +142,26 @@ Phases (any failure exits non-zero; no phase is skipped):
                  (loss rtol 1e-5; Adam's m, w_q and params within 1e-5 of
                  their largest, params where |g| ≥ 1e-6; differing QAT codes
                  counted, each a tie at Δ); (d) each of the ten reduced archs
-                 3 steps on the card and the CPU (losses within 1e-4; the MoE
+                 2 steps on the card and the CPU (losses within 1e-4; the MoE
                  archs microbatched, gemma3 with remat "dots");
+  9a. bf16_train — the reference's production train cell as launch/dryrun.py
+                 builds it for one card: olmo-1b at full width, bf16 params
+                 and compute, remat "full", QAT, adam(1e-4), 2 microbatches,
+                 8 × 4,096 (train_4k's batch of 256 cut to 8), 2 steps through
+                 ``make_train_step``: every leaf's dtype, finite losses, step
+                 ms, tokens/s and the share of the bf16 bound (8·N·tokens over
+                 989 TFLOP/s), exactly one bf16 ``qat_backward`` launch per
+                 quantized leaf per microbatch and no fp32 one, the bf16
+                 kernel against its plain version on the last step's own
+                 cotangents bit for bit, the peak (held in the dryrun phase
+                 to the dry-run's estimate of the same cell, within 20%); a
+                 ternary save (one quantize_pack launch, its code bytes
+                 equal to the plain version's on the same segments, scales
+                 within rtol 1e-6); one step of the cell cut to 2 layers at
+                 2 × 128, card against CPU (loss rtol 2^-14, Adam's m 2^-5 and
+                 params 2^-7 of their largest, w_q 2^-7); the bf16 entry of
+                 the QAT backward's kernel on olmo-1b's 7 leaves in bf16,
+                 timed beside its plain version and bound;
   9b. multidevice — two ranks spawned on the one card, joined over gloo
                  through a file rendezvous (NCCL will not put two ranks on one
                  device; every collective stages through pinned host memory),
@@ -171,7 +189,7 @@ Phases (any failure exits non-zero; no phase is skipped):
                  must fail both limits;
   9c. tensor_parallel — in the same spawn, which has four ranks (ranks 2
                  and 3 wait for the pods x model part): (a) olmo-1b at full
-                 width, all 16 layers, TrainerConfig defaults, adam(3e-4), 2
+                 width cut to 8 of 16 layers, TrainerConfig defaults, adam(3e-4), 2
                  steps at 8 × 512 of the CLI's token stream over a (1, 2)
                  data × model mesh on ranks 0 and 1: per step ms, tokens/s
                  and loss, per rank peak memory, launches and wire bytes; the
@@ -184,8 +202,8 @@ Phases (any failure exits non-zero; no phase is skipped):
                  a planted fault (FTTQ statistics per shard) that must
                  exceed both limits; (b) the trained params saved as a
                  ternary checkpoint from the shards: one quantize_pack
-                 launch on rank 0, 680,526,658 B, sha256-equal to the
-                 one-process save of the same params; (c) ``launch/steps.py``
+                 launch on rank 0, sha256-equal to the one-process save of
+                 the same params (680,526,658 B at 16 layers); (c) ``launch/steps.py``
                  with the mesh: prefill 4 × 32 and 8 greedy decode steps on
                  the shards against one process (logits within 1e-4 of max
                  |logits|, the same tokens); (d) pods x model on all four
@@ -239,21 +257,22 @@ Phases (any failure exits non-zero; no phase is skipped):
   9d. fsdp — in the same spawn, FSDP over the "data" axis (params and both
                  Adam moments cut on each leaf's "data" dim, each layer's
                  weights all-gathered where it uses them, their gradients
-                 reduce-scattered): (j) olmo-1b at full width, all 16
-                 layers, TrainerConfig defaults, adam(3e-4), 2 steps at 8 ×
+                 reduce-scattered): (j) olmo-1b at full width cut to 8 of
+                 16 layers, TrainerConfig defaults, adam(3e-4), 2 steps at 8 ×
                  512 over a (2, 1) data × model mesh on ranks 0 and 1: per
                  step ms, tokens/s, loss and the wire bytes, per rank the
-                 bytes of its params and moments (exactly 7,678,722,048),
-                 the all-gather and reduce-scatter bytes a step (exactly
-                 2,147,483,648 each), peak memory and launches; the seed-0
+                 bytes of its params and moments and the all-gather and
+                 reduce-scatter bytes a step, each exactly its shards'
+                 (7,678,722,048 and 2,147,483,648 at 16 layers), peak
+                 memory and launches; the seed-0
                  codes on the shards against the whole leaves' (ties moved
                  off Δ); held on rank 0 to one process stepping the same
                  batches from the same state (losses rtol 5e-5, worst leaf
                  ‖Δparams‖/‖params‖ 5e-3) and a planted fault (the gather's
                  backward keeps its own slice, no reduce-scatter) past
                  both; (m) the trained data shards' ternary save: one
-                 quantize_pack launch on rank 0, 680,526,658 B,
-                 sha256-equal to the one-process save; (n) prefill 4 × 32
+                 quantize_pack launch on rank 0, sha256-equal to the
+                 one-process save; (n) prefill 4 × 32
                  and 8 greedy decode steps on the data shards (each layer
                  gathered, no autograd) against one process (1e-4 of max
                  |logits|, the same tokens); (k) olmo-1b cut to 4 of 16
@@ -267,9 +286,9 @@ Phases (any failure exits non-zero; no phase is skipped):
                  version) and 2 compressed steps with the same launches, the
                  weights' gathers and reduce-scatters counted exactly;
   9e. serve_rows — in the same spawn: (o) is (n), 2 rows a rank, 4 greedy
-                 steps; (p) olmo-1b whole, batch 1, a 4,096-slot cache's
+                 steps; (p) olmo-1b 8 of 16 layers, batch 1, a 4,096-slot cache's
                  sequence over the two data ranks, a 2,044-token prompt and
-                 8 steps, the fifth writing rank 1's first slot; (q)
+                 6 steps, the fifth writing rank 1's first slot; (q)
                  granite-20b (MQA) cut to 4 of 52 layers, batch 2, its
                  cache's sequence over 2 model ranks; each against one
                  process (1e-4 of max |logits|, the same tokens, every
@@ -281,7 +300,7 @@ Phases (any failure exits non-zero; no phase is skipped):
                  head; its seed-0 params drawn once by the first rank and
                  handed out as shards; the shards' QAT codes against the
                  whole leaves' (differing only at ties at Δ); prefill 2 × 64
-                 and 8 greedy steps with the cache's sequence over "model"
+                 and 2 greedy steps with the cache's sequence over "model"
                  against one process (1e-4 of max |logits|, the same
                  tokens, each rank's cache exactly 1/16 of its bytes); the
                  first QAT step's loss (rtol 5e-5) and worst leaf ‖Δg‖/‖g‖
@@ -308,7 +327,7 @@ Phases (any failure exits non-zero; no phase is skipped):
  12. async     — the buffered-async T-FedAvg server (``mode="async"``) on
                  ResNet18* at full width, FedConfig defaults (10 clients in
                  flight), buffer_k 4, staleness exponent 0.5, η 1, staleness
-                 cap 1 with the drop policy, 3 mixes: per mix the simulated
+                 cap 1 with the drop policy, 2 mixes: per mix the simulated
                  time, wall seconds per phase, bytes, dispatches, staleness,
                  drops and accuracy; launches (one quantize_pack per dispatch
                  and per broadcast version, one aggregate per mix on the run's
@@ -379,7 +398,7 @@ Phases (any failure exits non-zero; no phase is skipped):
  19. fan-in trace — the aggregate phase of one mean and one majority round
                  on the last round's uploads under torch.profiler, with the
                  Aggregator's host ranges (add, stage, copy, launch, finalize);
- 20. fed trace — one round of one client at E = 5, B = 64, timed untraced
+ 20. fed trace — one round of one client at E = 1, B = 64, timed untraced
                  and then run under torch.profiler.
 Before each driven path (serve, each serve-loop engine and closed-loop run,
 each zoo arch, the train phase's ternary save, federated, robust, async,
@@ -493,7 +512,11 @@ FANIN_C = 16              # FedConfig.agg_chunk_c: one flush per round at λN = 
 FED_UPLOADS = 10          # λN = 10 clients encode an upload each round
 STRESS_ELEMENTS = 2 ** 26  # per client: 16 MB of wire codes
 ROBUST_ATTACKERS = 30      # sign-flip attackers of the 100 clients
-ASYNC_MIXES = 3            # buffered mixes of the async server
+# the async server's buffered mixes, and the fed trace's local epochs (the
+# paper's E is 5), cut from 3 and 5 to make room for the bf16_train phase in
+# the script's time
+ASYNC_MIXES = 2
+FED_TRACE_EPOCHS = 1
 HIER_EDGES = 3             # edge aggregators of the hierarchical round
 CTRL_CLIENTS = 20          # the controller rounds' fleet (the paper's 100, cut)
 CTRL_LAMBDA = 0.5          # 10 uploads a round, as the federated phase
@@ -517,7 +540,7 @@ def kernel_counters() -> dict:
     """Every kernel wrapper of the port, by kernel name."""
     from repro_torch.kernels.aggregate import packed_weighted_sum
     from repro_torch.kernels.pack2bit import pack2bit, unpack2bit
-    from repro_torch.kernels.qat_backward import qat_backward
+    from repro_torch.kernels.qat_backward import qat_backward, qat_backward_bf16
     from repro_torch.kernels.quantize_pack import quantize_pack
     from repro_torch.kernels.ternary_matmul import ternary_matmul
     from repro_torch.kernels.ternary_quantize import ternary_quantize
@@ -526,7 +549,8 @@ def kernel_counters() -> dict:
     return {"quantize_pack": quantize_pack, "ternary_matmul": ternary_matmul,
             "aggregate": packed_weighted_sum, "vote": packed_vote_counts,
             "ternary_quantize": ternary_quantize, "pack2bit": pack2bit,
-            "unpack2bit": unpack2bit, "qat_backward": qat_backward}
+            "unpack2bit": unpack2bit, "qat_backward": qat_backward,
+            "qat_backward_bf16": qat_backward_bf16}
 
 
 def zero_counters() -> None:
@@ -2618,10 +2642,11 @@ def ops_timings(layers, served) -> dict:
 
 def federated_trace(dev, setup) -> None:
     """A window of the federated configuration: one round of one client at
-    E = 5, B = 64 (35 QAT steps, with the broadcast, encode, fan-in and
-    eval around them), run once untraced and timed, then again under
-    torch.profiler. The idle share is the device time against the untraced
-    wall of the same window, since the profiler slows the host."""
+    E = FED_TRACE_EPOCHS, B = 64 (7 QAT steps an epoch, with the broadcast,
+    encode, fan-in and eval around them), run once untraced and timed, then
+    again under torch.profiler. The idle share is the device time against
+    the untraced wall of the same window, since the profiler slows the
+    host."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2630,7 +2655,8 @@ def federated_trace(dev, setup) -> None:
     from repro_torch.optim import adam
 
     clients, params, eval_fn = setup
-    cfg = FedConfig(rounds=1, n_clients=len(clients), participation=1 / len(clients))
+    cfg = FedConfig(rounds=1, n_clients=len(clients), participation=1 / len(clients),
+                    local_epochs=FED_TRACE_EPOCHS)
 
     def one_round():
         run_federated(resnet_cifar, params, clients, cfg, adam(1e-3), eval_fn, device=dev)
@@ -3093,11 +3119,12 @@ TRAIN_CLI = ["--preset", "10m", "--steps", "60", "--batch", "8", "--seq", "128",
              "--ckpt-every", "30"]
 # (batch, seq, steps, microbatches, remat): configs/shapes.py's train_4k
 # sequence, its global batch of 256 cut to 8 for one card
-TRAIN_RUNS = [(8, 512, 3, 1, "none"), (8, 4096, 2, 4, "full")]
+# (the 8 x 4,096 run takes one step, to make room for the bf16_train phase)
+TRAIN_RUNS = [(8, 512, 3, 1, "none"), (8, 4096, 1, 4, "full")]
 TRAIN_LR = 3e-4             # the CLI's default learning rate
 TRAIN_CHECK_LAYERS = 2      # olmo-1b cut for the card-vs-CPU step
 TRAIN_CHECK_BATCH = (2, 128)
-TRAIN_ZOO_STEPS = 3
+TRAIN_ZOO_STEPS = 2          # cut from 3 to make room for the bf16_train phase
 TRAIN_ZOO_DOTS = "gemma3-4b"  # the arch that trains with remat "dots"
 
 
@@ -3367,8 +3394,12 @@ def _update_gaps(new_cpu, new_card) -> dict:
     """One step's results, card against CPU: Adam's m relative to each
     leaf's largest |m|; params relative to each leaf's largest |param|
     where |g| ≥ 1e-6 (|m| ≥ 1e-7), and absolute where |g| < 1e-6, where
-    Adam's first update lr·g/(|g| + 1e-8) is ill-conditioned (bound 2·lr);
-    and the three leaves with the largest m gaps."""
+    Adam's first update lr·g/(|g| + 1e-8) is ill-conditioned (bound 2·lr;
+    a bf16 param's gap there is counted beyond one bf16 ulp of it, the
+    rounding of p + u on each device); and the three leaves with the
+    largest m gaps."""
+    import torch
+
     from repro_torch.tree import flatten_with_path, path_str
 
     out = {"m": 0.0, "params": 0.0, "params_small_g": 0.0, "n_small_g": 0}
@@ -3386,20 +3417,31 @@ def _update_gaps(new_cpu, new_card) -> dict:
         if bool((~small).any()):
             out["params"] = max(out["params"], float(d[~small].max()) / float(p0.abs().max()))
         if bool(small.any()):
-            out["params_small_g"] = max(out["params_small_g"], float(d[small].max()))
+            d_small = d[small].float()
+            if p0.dtype == torch.bfloat16:
+                # p + u rounds to bf16 on each device: one bf16 ulp of p beyond 2·lr
+                ulp = torch.exp2(torch.floor(torch.log2(p0[small].float().abs()
+                                                        .clamp_min(2.0 ** -126))) - 7)
+                d_small = (d_small - ulp).clamp_min(0)
+            out["params_small_g"] = max(out["params_small_g"], float(d_small.max()))
             out["n_small_g"] += int(small.sum())
     out["worst"] = [f"{name} {gap:.1e}" for gap, name in sorted(per_leaf, reverse=True)[:3]]
     return out
 
 
-def train_card_vs_cpu(dev, cfg, fcfg) -> dict:
-    """One default train step of ``cfg`` at 2 x 128 from the same seed-0
-    state on the card (TF32 off) and through the port's CPU path. The QAT
-    codes of the state are counted where the two devices differ, each a tie
-    of |θ_s| with Δ; those weights are moved off Δ, and from that state:
-    loss within rtol 1e-5, Adam's m within 1e-5 of each leaf's largest,
-    params within 1e-5 of each leaf's largest where |g| ≥ 1e-6 (elsewhere
-    within 2·lr), w_q within 1e-5."""
+TRAIN_CHECK_LIMITS = {"loss": 1e-5, "m": 1e-5, "params": 1e-5, "wq": 1e-5}
+
+
+def train_card_vs_cpu(dev, cfg, fcfg, tcfg=None, lr: float = TRAIN_LR,
+                      limits: dict = TRAIN_CHECK_LIMITS) -> dict:
+    """One train step of ``cfg`` at 2 x 128 (``tcfg``, default the
+    defaults, adam(``lr``)) from the same seed-0 state on the card (TF32
+    off) and through the port's CPU path. The QAT codes of the state are
+    counted where the two devices differ, each a tie of |θ_s| with Δ; those
+    weights are moved off Δ, and from that state (``limits``, fp32's by
+    default): loss within rtol 1e-5, Adam's m within 1e-5 of each leaf's
+    largest, params within 1e-5 of each leaf's largest where |g| ≥ 1e-6
+    (elsewhere within 2·lr), w_q within 1e-5."""
     import torch
 
     from repro_torch.data.synthetic import synthetic_tokens, token_batches
@@ -3411,8 +3453,8 @@ def train_card_vs_cpu(dev, cfg, fcfg) -> dict:
     from repro_torch.tree import flatten_with_path, tree_leaves
 
     b, s = TRAIN_CHECK_BATCH
-    tcfg = TrainerConfig()
-    opt = adam(TRAIN_LR)
+    tcfg = tcfg or TrainerConfig()
+    opt = adam(lr)
     cpu = torch.device("cpu")
     state = init_train_state(cfg, tcfg, opt, params=init_params(cfg, seed=0, device=cpu),
                              device=cpu)
@@ -3444,19 +3486,21 @@ def train_card_vs_cpu(dev, cfg, fcfg) -> dict:
     loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
     wq_gap = max(float((a.cpu() - c).abs().max()) / float(c.abs().max())
                  for a, c in zip(tree_leaves(new_card.wq), tree_leaves(new_cpu.wq)))
-    print(f"{cfg.name} cut to {cfg.n_layers} layers, one step at {b} x {s}, card vs CPU: loss "
-          f"{float(m_card['loss']):.7f} vs {float(m_cpu['loss']):.7f} (rel {loss_rel:.2e}, limit "
-          f"1e-5); QAT codes of the seed-0 state differing {n_diff} of {n_codes}, {n_tie} of "
-          f"them ties at Delta (within 1e-6 of it), {detied} weights moved off Delta; then Adam "
-          f"m gap {gaps['m']:.2e} of max (1e-5), params gap {gaps['params']:.2e} of max (1e-5) "
+    lim = limits
+    print(f"{cfg.name} ({cfg.param_dtype}) cut to {cfg.n_layers} layers, one step at {b} x {s}, "
+          f"card vs CPU: loss {float(m_card['loss']):.7f} vs {float(m_cpu['loss']):.7f} (rel "
+          f"{loss_rel:.2e}, limit {lim['loss']:.1e}); QAT codes of the seed-0 state differing "
+          f"{n_diff} of {n_codes}, {n_tie} of them ties at Delta (within 1e-6 of it), {detied} "
+          f"weights moved off Delta; then Adam m gap {gaps['m']:.2e} of max "
+          f"({lim['m']:.1e}), params gap {gaps['params']:.2e} of max ({lim['params']:.1e}) "
           f"where |g| >= 1e-6 and {gaps['params_small_g']:.2e} abs over the "
-          f"{gaps['n_small_g']} elements below (limit {2 * TRAIN_LR:.0e}); w_q gap "
-          f"{wq_gap:.2e} of max (1e-5); worst leaves {gaps['worst']}; card step "
+          f"{gaps['n_small_g']} elements below (limit {2 * lr:.0e}); w_q gap "
+          f"{wq_gap:.2e} of max ({lim['wq']:.1e}); worst leaves {gaps['worst']}; card step "
           f"{card_s * 1e3:.1f} ms, CPU step {cpu_s * 1e3:.1f} ms")
-    check(loss_rel <= 1e-5, "the card's train step loss differs from the CPU's")
+    check(loss_rel <= lim["loss"], "the card's train step loss differs from the CPU's")
     check(n_tie == n_diff, "a code differs between the card and the CPU away from a tie")
-    check(gaps["m"] <= 1e-5 and gaps["params"] <= 1e-5 and wq_gap <= 1e-5
-          and gaps["params_small_g"] <= 2 * TRAIN_LR,
+    check(gaps["m"] <= lim["m"] and gaps["params"] <= lim["params"] and wq_gap <= lim["wq"]
+          and gaps["params_small_g"] <= 2 * lr,
           "the card's train step update differs from the CPU's")
     return {"loss_card": float(m_card["loss"]), "loss_cpu": float(m_cpu["loss"]),
             "loss_rel": loss_rel, "wq_gap": wq_gap, "codes": n_codes,
@@ -3545,6 +3589,279 @@ def train_phase(dev, fcfg, cfg=None, check_cfg=None, runs=TRAIN_RUNS,
 
 
 # --------------------------------------------------------------------------
+# bf16 training: the reference's production train cell on one card.
+# --------------------------------------------------------------------------
+
+# configs/shapes.py's train_4k sequence, its batch of 256 cut to 8
+BF16_TRAIN_BATCH, BF16_TRAIN_SEQ = 8, 4096
+BF16_TRAIN_STEPS = 2
+BF16_TRAIN_LR = 1e-4          # launch/dryrun.py's TrainKind: adam(1e-4)
+# card vs CPU, one bf16 step of olmo-1b at 2 layers: each device rounds its
+# bf16 matmuls' fp32 sums in its own order, one bf16 ulp (2^-8 to 2^-7) apart
+# where they differ, and the clip's bf16 scale can round one ulp apart with
+# the grad norm. Measured on an H100 80GB HBM3 at 700 W: loss 1.20e-5, m
+# 1.38e-2 of a leaf's largest, params 3.65e-3 of a leaf's largest, w_q 0.
+BF16_CHECK_LIMITS = {"loss": 2.0 ** -14, "m": 2.0 ** -5, "params": 2.0 ** -7, "wq": 2.0 ** -7}
+
+
+def bf16_train_cell(n_layers: int | None = None):
+    """olmo-1b's train cell as ``launch.dryrun.build_cell`` builds it for
+    one device: bf16 params and compute, remat "full", QAT, the arch's
+    microbatches (2), adam(1e-4). Returns (cfg, tcfg)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import MICROBATCHES
+    from repro_torch.train import TrainerConfig
+
+    cut = {} if n_layers is None else {"n_layers": n_layers}
+    cfg = get_config("olmo-1b", param_dtype="bfloat16", compute_dtype="bfloat16", remat="full",
+                     **cut)
+    return cfg, TrainerConfig(qat=True, microbatches=MICROBATCHES["olmo-1b"])
+
+
+@contextlib.contextmanager
+def _recording(module, name: str, keep, limit: int | None = None):
+    """Within the block, ``module.name`` records the arguments and result
+    of each call (of the first ``limit``) into ``keep`` (a list) while
+    calling through."""
+    orig = getattr(module, name)
+
+    def rec(*args, **kw):
+        out = orig(*args, **kw)
+        if limit is None or len(keep) < limit:
+            keep.append((args, kw, out))
+        return out
+
+    setattr(module, name, rec)
+    try:
+        yield keep
+    finally:
+        setattr(module, name, orig)
+
+
+def bf16_train_full_width(dev, fcfg, card: str) -> dict:
+    """``bf16_train_cell`` at full width, BF16_TRAIN_BATCH x BF16_TRAIN_SEQ,
+    BF16_TRAIN_STEPS steps through ``make_train_step`` from the seed-0 state:
+    every leaf's dtype; finite losses; exactly one bf16 ``qat_backward``
+    launch per quantized leaf per microbatch and no fp32 one; the peak over
+    the steps before the last (which records its first microbatch's QAT
+    cotangents); the bf16 kernel against its plain version on those
+    cotangents, bit for bit (NaNs as NaNs); then a ternary save of the
+    params: one quantize_pack launch, its code bytes equal to the plain
+    version's on the same segments, its scales within rtol 1e-6."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import encode, fttq
+    from repro_torch.core.compression import CodecSpec
+    from repro_torch.data.synthetic import synthetic_tokens, token_batches
+    from repro_torch.kernels.qat_backward import qat_backward_bf16, qat_backward_bf16_plain
+    from repro_torch.kernels.quantize_pack import quantize_pack_segments_plain
+    from repro_torch.launch.train import DATA_SEED
+    from repro_torch.models.transformer import param_count
+    from repro_torch.optim import adam
+    from repro_torch.train import init_train_state, make_train_step, save_checkpoint
+    from repro_torch.tree import tree_leaves
+
+    cfg, tcfg = bf16_train_cell()
+    b, s, n_steps = BF16_TRAIN_BATCH, BF16_TRAIN_SEQ, BF16_TRAIN_STEPS
+    n_params = param_count(cfg)
+    opt = adam(BF16_TRAIN_LR)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, tcfg, opt, seed=0, device=dev)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    dtypes = {name: sorted({str(x.dtype) for x in tree_leaves(tree) if x is not None})
+              for name, tree in (("params", state.params), ("wq", state.wq),
+                                 ("m", state.opt_state["m"]), ("v", state.opt_state["v"]))}
+    n_quant = sum(1 for w in tree_leaves(state.wq) if w is not None)
+    step = make_train_step(cfg, tcfg, opt)
+    batches = token_batches(synthetic_tokens(DATA_SEED, b * (s + 1) * n_steps, cfg.vocab_size),
+                            b, s, device=dev)
+    rows, cot = [], []
+    zero_counters()
+    peak = None
+    for i in range(n_steps):
+        batch, _ = next(batches)
+        last = i == n_steps - 1
+        if last:
+            _sync(dev)
+            peak = torch.cuda.max_memory_allocated()
+        with (_recording(fttq, "qat_backward_bf16", cot, n_quant) if last
+              else contextlib.nullcontext()):
+            _sync(dev)
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            _sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        rows.append({"ms": ms, "tok_s": b * s / ms * 1e3, "loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"])})
+    launches = read_counters()
+    ops = 8 * n_params * b * s
+    best = min(r["ms"] for r in rows)
+    run = {"batch": b, "seq": s, "microbatches": tcfg.microbatches, "remat": cfg.remat,
+           "steps": rows, "init_s": init_s, "dtypes": dtypes, "quantized_leaves": n_quant,
+           "launches": launches, "peak_bytes": peak, "held_bytes": held,
+           "peak_gib": peak / 2 ** 30, "held_gib": held / 2 ** 30,
+           "state_bytes": sum(x.numel() * x.element_size() for x in tree_leaves(
+               [state.params, state.opt_state["m"], state.opt_state["v"]])),
+           "bound_ms": ops / PEAK_BF16_S * 1e3, "operations": ops}
+    run["bound_share"] = run["bound_ms"] / best
+    want = n_quant * tcfg.microbatches * n_steps
+    print(f"{cfg.name} at full width ({n_params} params), bf16 params and compute, remat "
+          f"{cfg.remat}, QAT, adam({BF16_TRAIN_LR}), {b} x {s}, microbatches "
+          f"{tcfg.microbatches} (card {card}): steps " + "; ".join(
+              f"{r['ms']:.1f} ms ({r['tok_s']:.0f} tok/s) loss {r['loss']:.5f} gnorm "
+              f"{r['grad_norm']:.4f}" for r in rows)
+          + f"; bf16 bound {run['bound_ms']:.1f} ms ({ops:.3e} operations over 989 TFLOP/s), "
+          f"{100 * run['bound_share']:.1f}% of it at the best step; peak before the last step "
+          f"{run['peak_gib']:.2f} GiB ({run['held_gib']:.2f} GiB held before); leaf dtypes "
+          f"{json.dumps(dtypes)}; launches {json.dumps(launches)} (qat_backward_bf16 want "
+          f"{want}: {n_quant} quantized leaves x {tcfg.microbatches} microbatches x {n_steps} "
+          f"steps)")
+    check(dtypes == {"params": ["torch.bfloat16"], "wq": ["torch.bfloat16"],
+                     "m": ["torch.float32"], "v": ["torch.float32"]},
+          f"the bf16 train state's leaf dtypes are {dtypes}")
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows),
+          "a bf16 train step gave a non-finite loss or grad norm")
+    check(int(state.step) == n_steps, f"state.step {int(state.step)} after {n_steps} steps")
+    check(launches["qat_backward_bf16"] == want and launches["qat_backward"] == 0,
+          f"the bf16 steps launched qat_backward_bf16 {launches['qat_backward_bf16']} times "
+          f"(want {want}) and the fp32 entry {launches['qat_backward']} times (want 0)")
+    # the kernel against its plain version on the last step's cotangents
+    check(len(cot) == n_quant, "the last step's QAT cotangents are missing")
+    bad = n = 0
+    worst = 0.0
+    with torch.no_grad():
+        for args, _, got in cot:
+            want_out = qat_backward_bf16_plain(*args)
+            for a, c in zip(got, want_out):
+                bad += _bf16_differing(a, c)
+                worst = max(worst, _max_abs_diff(a, c))
+            n += args[0].numel()
+            del want_out
+    del cot
+    _free()
+    run["cotangent_check"] = {"weights": n, "differ": bad, "max_abs_err": worst}
+    print(f"qat_backward_bf16 on the last step's first microbatch ({n_quant} leaves, {n} "
+          f"weights): {bad} outputs differ from the plain version")
+    check(bad == 0, "qat_backward_bf16 differs from its plain version on the step's cotangents")
+    # the ternary save, its one launch held to the plain version
+    d = os.path.join(ROOT, "build", "train_smoke_bf16_tern")
+    shutil.rmtree(d, ignore_errors=True)
+    calls = []
+    zero_counters()
+    t0 = time.perf_counter()
+    with _recording(encode, "quantize_pack_segments", calls):
+        save_checkpoint(d, n_steps, state.params,
+                        compression=CodecSpec(kind="ternary", fttq=fcfg))
+    save_s = time.perf_counter() - t0
+    save_launches = read_counters()["quantize_pack"]
+    shutil.rmtree(d, ignore_errors=True)
+    byte_diff = n_bytes = 0
+    scale_rel = 0.0
+    for (rows_, scal), kw, (packed, _, scales) in calls:
+        p_packed, _, p_scales = quantize_pack_segments_plain(rows_, scal,
+                                                             kw.get("with_scales", False))
+        byte_diff += int((packed != p_packed).sum())
+        n_bytes += packed.numel()
+        if scales is not None:
+            scale_rel = max(scale_rel, float(((scales - p_scales).abs()
+                                              / p_scales.abs().clamp_min(1e-30)).max()))
+        seg_dtype = str(rows_[0].dtype)
+    del calls
+    run["save"] = {"launches": save_launches, "save_s": save_s, "bytes": n_bytes,
+                   "bytes_differing": byte_diff, "scale_rtol": scale_rel}
+    print(f"ternary save of the bf16 params ({seg_dtype} segments): {save_launches} "
+          f"quantize_pack launch(es) in {save_s:.2f} s; {byte_diff} of {n_bytes} code bytes "
+          f"differ from the plain version on the same segments, its scales within rtol "
+          f"{scale_rel:.2e} (limit 1e-6: fp32 sums of the tiles' moments in another order)")
+    check(save_launches == 1, f"the bf16 ternary save launched quantize_pack {save_launches} "
+          "times, want 1")
+    check(byte_diff == 0 and scale_rel <= 1e-6,
+          "the bf16 ternary save's codes or scales differ from the plain version's")
+    del state
+    _free()
+    return run
+
+
+def _bf16_differing(a, b) -> int:
+    """Elements of two bf16 tensors whose bits differ, a NaN of any bits
+    matching a NaN (PyTorch writes a NaN's bits by path and device)."""
+    import torch
+
+    return int(((a.view(torch.int16) != b.view(torch.int16)) & ~(a.isnan() & b.isnan())).sum())
+
+
+def qat_backward_bf16_timings(dev) -> dict:
+    """The bf16 entry of the QAT backward's kernel on olmo-1b's quantized
+    leaves in bf16 (7 stacked leaves, 2^30 weights), a seeded cotangent,
+    codes and per-layer factors: timed by CUDA-graph replay beside the
+    plain version and its bytes bound (two reads, two writes of 2 B a
+    weight); outputs against the plain version leaf by leaf."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.fttq import FTTQConfig, is_quantizable
+    from repro_torch.kernels.qat_backward import qat_backward_bf16, qat_backward_bf16_plain
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.tree import flatten_with_path
+
+    fcfg = FTTQConfig()
+    shapes = [shape for path, shape in flatten_with_path(
+        param_shapes(get_config("olmo-1b")), is_leaf=lambda x: isinstance(x, tuple))
+        if is_quantizable(path, torch.empty(shape, device="meta"), fcfg)]
+    gen = torch.Generator(device=dev).manual_seed(43)
+    args, bad, worst = [], 0, 0.0
+    for shape in shapes:
+        rows = shape[0] if len(shape) >= 3 else 1
+        g = (torch.randn(rows, math.prod(shape) // rows, generator=gen, device=dev)
+             * 1e-3).bfloat16()
+        codes = torch.randint(-1, 2, g.shape, generator=gen, device=dev).bfloat16()
+        w = (torch.rand(rows, 1, generator=gen, device=dev) * 0.05).bfloat16()
+        args.append((g, codes, w))
+        for a, c in zip(qat_backward_bf16(g, codes, w), qat_backward_bf16_plain(g, codes, w)):
+            bad += _bf16_differing(a, c)
+            worst = max(worst, _max_abs_diff(a, c))
+        torch.cuda.empty_cache()
+    n = sum(a[0].numel() for a in args)
+    out = {"leaves": len(args), "weights": n, "differ": bad, "max_abs_err": worst}
+    out["ms"] = time_ms(lambda: [qat_backward_bf16(*a) for a in args], 5)
+    out["plain_ms"] = time_ms(lambda: [qat_backward_bf16_plain(*a) for a in args], 2)
+    nbytes = 8 * n + 2 * sum(a[2].numel() for a in args)
+    out["bound_ms"], out["bound_by"] = bound(nbytes, 3 * n)
+    del args
+    torch.cuda.empty_cache()
+    print(f"qat_backward_bf16, {out['leaves']} leaves ({n} bf16 weights): {bad} outputs differ "
+          f"from the plain version; kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
+          f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}, {nbytes} B); library: none")
+    check(bad == 0, "qat_backward_bf16 differs from its plain version")
+    return out
+
+
+def bf16_train_phase(dev, fcfg, card: str) -> dict:
+    """(a) ``bf16_train_full_width``; (b) one step of its cell cut to
+    TRAIN_CHECK_LAYERS layers, card against the port's CPU path, within
+    BF16_CHECK_LIMITS; (c) the bf16 QAT backward's timings. The peak is
+    held to the dry-run's estimate of the same cell in ``dryrun_finish``."""
+    t0 = time.perf_counter()
+    out = {"full_width": bf16_train_full_width(dev, fcfg, card)}
+    cfg2, tcfg = bf16_train_cell(TRAIN_CHECK_LAYERS)
+    out["card_vs_cpu"] = train_card_vs_cpu(dev, cfg2, fcfg, tcfg, BF16_TRAIN_LR,
+                                           BF16_CHECK_LIMITS)
+    out["qat_backward_bf16"] = qat_backward_bf16_timings(dev)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"bf16_train phase: {out['phase_s']:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------------------
 # bf16 activations: olmo-1b served with bf16 weights and activations.
 # --------------------------------------------------------------------------
 
@@ -3575,6 +3892,9 @@ def bf16_matmul_bound(m: int, k: int, n: int) -> tuple[float, str, int, int]:
     return (*bound(nbytes, flops, PEAK_BF16_S), nbytes, flops)
 
 
+# the bf16 packed-vs-dequantized logits: 1.606e-2 measured on an H100 80GB
+# HBM3 at 700 W, a 2.2x margin
+BF16_LOGITS_RTOL = 3.5e-2
 BF16_DELTAS = (0.05, 0.3, 0.7, 1.0)    # deltas of the pattern table, each with its bf16 neighbours
 
 
@@ -4144,14 +4464,16 @@ def bf16_serve_phase(dev, fcfg, fp32: dict) -> dict:
     print(f"bf16 edge checkpoint: {wire_bytes} B on the wire (fp32 model: {fp32['wire_bytes']} "
           f"B); deploy {t_deploy:.2f} s (fp32 {fp32['deploy_s']:.2f} s)")
     print(f"bf16 packed-vs-dequant logits: max |d| = {diff:.3e}, max |logits_ref| = "
-          f"{ref_max:.3e}, ratio {diff / ref_max:.3e} (limit 5e-2: bf16 rounds the products "
-          "and sums of the two paths at other places)")
+          f"{ref_max:.3e}, ratio {diff / ref_max:.3e} (limit {BF16_LOGITS_RTOL:.1e}: the two "
+          "paths' bf16 matmul outputs round one ulp apart where their fp32 sums' order "
+          "differs, over 16 layers)")
     print(f"bf16 prefill {BATCH}x{PROMPT}: {out['prefill_ms']:.2f} ms (fp32 "
           f"{fp32['prefill_ms']:.2f} ms); decode {out['decode_tok_s']:.1f} tok/s at batch "
           f"{BATCH} (fp32 {fp32['decode_tok_s']:.1f}); ternary_matmul {per_forward:.0f} "
           f"launches per forward (fp32 {fp32['per_forward']}), quantize_pack "
           f"{launches['quantize_pack']} in two deploys")
-    check(diff / ref_max <= 5e-2, "bf16 packed logits disagree with the dequantized path")
+    check(diff / ref_max <= BF16_LOGITS_RTOL,
+          "bf16 packed logits disagree with the dequantized path")
     check(tuple(tokens.shape) == (BATCH, GEN)
           and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
           "bf16 serving produced bad tokens")
@@ -4595,6 +4917,12 @@ TP_LOGITS_REL = 1e-4         # prefill and decode logits, of max |logits|
 # and the fault's; the params keep MD_PARAM_RTOL_L2
 TP_LOSS_RTOL = 5e-5
 TP_SAVE_BYTES = 680_526_658  # olmo-1b's ternary checkpoint, as the train phase saves it
+# (a)-(c) and the fsdp part's (j), (m), (n): olmo-1b at its published widths
+# cut to 8 of 16 layers, to make room for the bf16_train phase in the
+# script's time; at 16 layers they are also held to the full-width bytes
+# TP_SAVE_BYTES, FSDP_STATE_BYTES and FSDP_GATHER_BYTES
+TP_OLMO_LAYERS = 8
+FSDP_OLMO_LAYERS = 8
 TP_PODS_LAYERS = 4           # (d): olmo-1b cut to 4 of 16 layers on mesh (2, 1, 2)
 TP_PODS_STEPS = 2
 # (f) qwen3-moe-30b-a3b cut from 48 layers: at 2 layers (1.87 B params) a TP
@@ -5657,8 +5985,10 @@ def tensor_parallel_checks(reports: list, sizes: dict | None = None) -> None:
         if tp is None:
             continue
         if "train" in tp:
-            _tp_cell_checks(r, "a", "olmo-1b 16 of 16 layers at full width", tp,
-                            "FTTQ statistics per shard", "b", TP_SAVE_BYTES)
+            layers = sizes.get("tp_layers")
+            _tp_cell_checks(r, "a", f"olmo-1b {layers} of 16 layers at full width", tp,
+                            "FTTQ statistics per shard", "b",
+                            TP_SAVE_BYTES if layers == 16 else None)
             _tp_serve_checks(r, "c", "olmo-1b", tp["serve"])
             z = tp["zamba2"]
             _tp_cell_checks(r, "e", f"zamba2-1.2b {z['layers']} of 38 layers at full width, "
@@ -5778,17 +6108,17 @@ def fsdp_checks(reports: list, sizes: dict | None = None) -> None:
             continue
         if "train" in f:
             want = f["want"]
-            _tp_cell_checks(r, "j", "olmo-1b 16 of 16 layers at full width" if full else
-                            "olmo-1b", f, "the gather's backward keeps its own slice, no "
+            _tp_cell_checks(r, "j", f"olmo-1b {sizes.get('fsdp_layers')} of 16 layers at full "
+                            "width", f, "the gather's backward keeps its own slice, no "
                             "reduce-scatter", "m", TP_SAVE_BYTES if full else None,
                             part="fsdp", over=f"{FSDP_RANKS} data ranks")
             tr = f["train"]
             print(f"rank {r}, fsdp (j) params, m and v held: {tr['state_bytes']} B (want "
-                  f"{want['state_bytes']}; {FSDP_STATE_BYTES} at full width); per step "
+                  f"{want['state_bytes']}; {FSDP_STATE_BYTES} at 16 layers); per step "
                   "all-gather / reduce-scatter "
                   + "; ".join(f"{s['wire'].get('all_gather', 0)} / "
                               f"{s['wire'].get('reduce_scatter', 0)} B" for s in tr["steps"])
-                  + f" (want {want['gather_bytes']} each; {FSDP_GATHER_BYTES} at full width)")
+                  + f" (want {want['gather_bytes']} each; {FSDP_GATHER_BYTES} at 16 layers)")
             check(tr["state_bytes"] == want["state_bytes"]
                   and (not full or want["state_bytes"] == FSDP_STATE_BYTES),
                   "(j) a data rank's params and Adam moments are not its shards' bytes")
@@ -5852,11 +6182,14 @@ def fsdp_checks(reports: list, sizes: dict | None = None) -> None:
 # Serving rows and sequence-cut caches over the batch axes.
 # --------------------------------------------------------------------------
 
-# (p): olmo-1b whole, batch 1, its cache's sequence over the 2 data ranks;
-# the 2,044-token prompt fills rank 0's first 2,044 of 2,048 slots and the
-# decode's fifth step writes rank 1's first slot, position 2,048 (8 steps, cut
-# from 16 to make room for (r) and (s) in the script's time)
-SR_LONG_PROMPT, SR_LONG_GEN, SR_LONG_SLOTS = 2044, 8, 4096
+# (p): olmo-1b at its published widths cut to SR_LONG_LAYERS of 16 layers,
+# batch 1, its cache's sequence over the 2 data ranks; the 2,044-token
+# prompt fills rank 0's first 2,044 of 2,048 slots and the decode's fifth
+# step writes rank 1's first slot, position 2,048 (6 steps: the depth and
+# the steps cut from 16 to make room for (r), (s) and the bf16_train phase
+# in the script's time)
+SR_LONG_PROMPT, SR_LONG_GEN, SR_LONG_SLOTS = 2044, 6, 4096
+SR_LONG_LAYERS = 8
 # (o) = the fsdp part's (n): 4 decode steps (cut from 8 for the same reason)
 SR_ROWS_GEN = 4
 # (q): granite-20b (MQA) cut to 4 of 52 layers, batch 2 on (1, 2), its
@@ -5930,7 +6263,8 @@ def serve_rows_checks(reports: list, sizes: dict | None = None) -> None:
 # "model" (4 kv heads for 16 ranks)
 MH_RANKS = 16
 MH_LAYERS = 6
-MH_PROMPTS, MH_PROMPT, MH_GEN, MH_SLOTS = 2, 64, 8, 128
+# 2 decode steps, cut from 8 to make room for the bf16_train phase
+MH_PROMPTS, MH_PROMPT, MH_GEN, MH_SLOTS = 2, 64, 2, 128
 MH_TIMEOUT_S = 600
 
 
@@ -6177,7 +6511,7 @@ def midhead_checks(mh: dict) -> None:
 
 
 # --------------------------------------------------------------------------
-# The dry-run's estimate of two train cells, against their measurement.
+# The dry-run's estimate of three train cells, against their measurement.
 # --------------------------------------------------------------------------
 
 DRYRUN_PEAK_REL = 0.2        # the one-device peak estimate against the measured peak
@@ -6188,11 +6522,17 @@ sys.path.insert(0, {src!r})
 from repro_torch.configs import get_config
 from repro_torch.launch.dryrun import TrainKind, estimate_step
 from repro_torch.train import TrainerConfig
+from repro_torch.launch.dryrun import MICROBATCHES
 out = {{}}
-for name, shape, axes in (("one_device", (1,), ("data",)),
-                          ("fsdp_j", (2, 1), ("data", "model"))):
-    r = estimate_step(get_config("olmo-1b"), TrainKind(TrainerConfig(), lr={lr!r}),
-                      ({b}, {s}), shape, axes)
+fp32 = (get_config("olmo-1b"), TrainKind(TrainerConfig(), lr={lr!r}), ({b}, {s}))
+bf16 = (get_config("olmo-1b", param_dtype="bfloat16", compute_dtype="bfloat16", remat="full"),
+        TrainKind(TrainerConfig(qat=True, microbatches=MICROBATCHES["olmo-1b"]), lr={bf16_lr!r}),
+        ({bf16_b}, {bf16_s}))
+for name, (cfg, kind, shape_bs), shape, axes in (
+        ("one_device", fp32, (1,), ("data",)), ("bf16_train", bf16, (1,), ("data",)),
+        ("fsdp_j", (get_config("olmo-1b", n_layers={fsdp_layers}),) + fp32[1:], (2, 1),
+         ("data", "model"))):
+    r = estimate_step(cfg, kind, shape_bs, shape, axes)
     out[name] = {{"memory": r["memory"], "state_parts": r["state_parts"],
                   "flops": r["hlo"]["flops_per_device"],
                   "collective": r["hlo"]["collective_breakdown"], "seconds": r["seconds"]}}
@@ -6210,18 +6550,21 @@ def dryrun_start():
     import subprocess
 
     b, s = TRAIN_RUNS[0][:2]
-    code = _DRYRUN_CODE.format(src=SRC, lr=TRAIN_LR, b=b, s=s)
+    code = _DRYRUN_CODE.format(src=SRC, lr=TRAIN_LR, b=b, s=s, bf16_lr=BF16_TRAIN_LR,
+                               bf16_b=BF16_TRAIN_BATCH, bf16_s=BF16_TRAIN_SEQ,
+                               fsdp_layers=FSDP_OLMO_LAYERS)
     return subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True,
                             env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
 
 
-def dryrun_finish(proc, train: dict, md: dict) -> dict:
-    """The estimates of ``dryrun_start`` against the train phase's first run
-    and (j): the params' and Adam moments' bytes exactly, the one-device
-    peak within ``DRYRUN_PEAK_REL`` of the run's peak over what earlier
-    phases held; (j)'s peak printed beside its measurement, unchecked (two
-    ranks' peaks move by up to 7 GiB between runs)."""
+def dryrun_finish(proc, train: dict, md: dict, bf16_train: dict) -> dict:
+    """The estimates of ``dryrun_start`` against the train phase's first run,
+    the bf16_train phase's run and (j): the params' and Adam moments' bytes
+    exactly, each one-device peak within ``DRYRUN_PEAK_REL`` of the run's
+    peak over what earlier phases held; (j)'s peak printed beside its
+    measurement, unchecked (two ranks' peaks move by up to 7 GiB between
+    runs)."""
     try:
         stdout, stderr = proc.communicate(timeout=600)
     finally:
@@ -6249,16 +6592,33 @@ def dryrun_finish(proc, train: dict, md: dict) -> dict:
           "the dry-run's one-device state bytes are not the measured ones")
     check(abs(rel) <= DRYRUN_PEAK_REL,
           "the dry-run's one-device peak estimate is off the measured peak")
+    run, one = bf16_train["full_width"], est["bf16_train"]
+    measured = run["peak_bytes"] - run["held_bytes"]
+    rel = one["memory"]["peak_estimate_bytes"] / measured - 1
+    print(f"dryrun: olmo-1b bf16 train cell ({run['batch']} x {run['seq']}, microbatches "
+          f"{run['microbatches']}, remat {run['remat']}): params, m and v {mine(one)} B "
+          f"estimated, {run['state_bytes']} B measured; peak estimate "
+          f"{one['memory']['peak_estimate_bytes'] / 2 ** 30:.2f} GiB (arguments "
+          f"{one['memory']['argument_bytes_per_device'] / 2 ** 30:.2f} + step "
+          f"{one['memory']['temp_bytes_per_device'] / 2 ** 30:.2f}), measured "
+          f"{measured / 2 ** 30:.2f} GiB: {100 * rel:+.1f}% (limit "
+          f"±{100 * DRYRUN_PEAK_REL:.0f}%); {one['flops']:.4e} FLOPs counted; estimated in "
+          f"{one['seconds']:.1f} s")
+    check(mine(one) == run["state_bytes"],
+          "the dry-run's bf16 state bytes are not the measured ones")
+    check(abs(rel) <= DRYRUN_PEAK_REL,
+          "the dry-run's bf16 train cell's peak estimate is off the measured peak")
     j = est["fsdp_j"]
     got = [rep["fsdp"]["train"] for rep in md["reports"]
            if "train" in (rep.get("fsdp") or {})]
     for r, tr in enumerate(got):
         print(f"dryrun: fsdp (j) rank {r}: params, m and v {mine(j)} B estimated, "
-              f"{tr['state_bytes']} B measured ({FSDP_STATE_BYTES} at full width); peak "
+              f"{tr['state_bytes']} B measured ({FSDP_STATE_BYTES} at 16 layers); peak "
               f"estimate {j['memory']['peak_estimate_bytes'] / 2 ** 30:.2f} GiB, measured "
               f"{tr['peak_gib']:.2f} GiB (not held: two ranks' peaks move between runs); "
               f"collectives {json.dumps(j['collective'])}; estimated in {j['seconds']:.1f} s")
-        check(mine(j) == tr["state_bytes"] == FSDP_STATE_BYTES,
+        check(mine(j) == tr["state_bytes"]
+              and (FSDP_OLMO_LAYERS != 16 or tr["state_bytes"] == FSDP_STATE_BYTES),
               "the dry-run's (j) state bytes are not the measured ones")
     check(len(got) == FSDP_RANKS, "the fsdp part's (j) reports are missing")
     return est
@@ -6381,7 +6741,7 @@ def multidevice_phase(device: str = "cuda:0", olmo_cfg=None, moe_cfg=None, train
                                           capacity_factor=16.0, mesh_batch_axes=("data",),
                                           mesh_ep_axis="model"),
              "train": train_cfg or get_config("olmo-1b", n_layers=MD_TRAIN_LAYERS),
-             "tp": tp_cfg or get_config("olmo-1b"),
+             "tp": tp_cfg or get_config("olmo-1b", n_layers=TP_OLMO_LAYERS),
              "tp_pods": tp_pods_cfg or get_config("olmo-1b", n_layers=TP_PODS_LAYERS),
              # remat "full": each Mamba2 layer would keep ~1.2 GB of SSD
              # intermediates for the backward, ~45 GB over 38 layers
@@ -6391,10 +6751,10 @@ def multidevice_phase(device: str = "cuda:0", olmo_cfg=None, moe_cfg=None, train
              "tp_pods_moe": tp_pods_moe_cfg or get_config("qwen3-moe-30b-a3b",
                                                           n_layers=TP_PODS_MOE_LAYERS),
              "tp_a2a": tp_a2a_cfg or get_config("qwen3-moe-30b-a3b", n_layers=TP_A2A_LAYERS),
-             "fsdp": fsdp_cfg or get_config("olmo-1b"),
+             "fsdp": fsdp_cfg or get_config("olmo-1b", n_layers=FSDP_OLMO_LAYERS),
              "fsdp_tp": fsdp_tp_cfg or get_config("olmo-1b", n_layers=FSDP_TP_LAYERS),
              "fsdp_pods": fsdp_pods_cfg or get_config("olmo-1b", n_layers=FSDP_PODS_LAYERS),
-             "serve_long": serve_long_cfg or get_config("olmo-1b"),
+             "serve_long": serve_long_cfg or get_config("olmo-1b", n_layers=SR_LONG_LAYERS),
              "serve_mqa": serve_mqa_cfg or get_config("granite-20b", n_layers=SR_MQA_LAYERS),
              "batch": batch, "seq": seq, "steps": steps, "parts": tuple(parts)}
     world = MD_WORLD if {"tensor_parallel", "fsdp", "serve_rows"} & set(parts) else MD_RANKS
@@ -6850,21 +7210,28 @@ def main() -> int:
     train = train_phase(dev, fcfg)
     qat_t = qat_backward_checks(dev)
 
+    phase("bf16_train: the reference's production train cell on one card, olmo-1b at full "
+          f"width (bf16 params and compute, remat full, QAT, adam(1e-4), microbatches 2, "
+          f"{BF16_TRAIN_BATCH} x {BF16_TRAIN_SEQ}, {BF16_TRAIN_STEPS} steps), its ternary save, "
+          f"card vs CPU at {TRAIN_CHECK_LAYERS} layers, the bf16 QAT backward's kernel")
+    _free()
+    bf16_train = bf16_train_phase(dev, fcfg, card)
+
     phase("multidevice: two ranks on the card over gloo (a) ternary_allreduce_tree over "
           "olmo-1b's gradient tree, (c) the sharded fan-in, (d) the a2a MoE on qwen3-moe 2 of "
           f"48 layers, (b) compressed and exact 2-pod training of olmo-1b {MD_TRAIN_LAYERS} of "
-          "16 layers; then tensor_parallel: (a) olmo-1b 16 of 16 layers trained over 2 model "
+          f"16 layers; then tensor_parallel: (a) olmo-1b {TP_OLMO_LAYERS} of 16 layers trained over 2 model "
           "ranks vs one process and a planted fault, (b) its ternary save, (c) prefill and "
           f"decode; (e) zamba2-1.2b {TP_ZAMBA_LAYERS} of 38 layers and (f) qwen3-moe-30b-a3b "
           f"{TP_MOE_LAYERS} of 48 layers trained the same way, (g) the latter's ternary save, "
           f"(h) zamba2's prefill and decode; (d) pods x model on 4 ranks, olmo-1b "
           f"{TP_PODS_LAYERS} of 16 layers, (i) qwen3-moe {TP_PODS_MOE_LAYERS} of 48; then fsdp: "
-          "(j) olmo-1b 16 of 16 layers trained over 2 data ranks (params and Adam moments "
+          f"(j) olmo-1b {FSDP_OLMO_LAYERS} of 16 layers trained over 2 data ranks (params and Adam moments "
           "cut over 'data', per-layer all-gather, reduce-scattered gradients) vs one process "
           "and a planted fault, (m) its ternary save, (n) prefill and decode; (k) olmo-1b "
           f"{FSDP_TP_LAYERS} of 16 layers over (2, 2) data x model vs one process; (l) pods x "
           f"data on (2, 2, 1), olmo-1b {FSDP_PODS_LAYERS} of 16 layers; then serve_rows: (o) "
-          "is (n), 2 rows a rank; (p) olmo-1b 16 of 16 layers, batch 1, a "
+          f"is (n), 2 rows a rank; (p) olmo-1b {SR_LONG_LAYERS} of 16 layers, batch 1, a "
           f"{SR_LONG_SLOTS}-slot cache's sequence over 2 data ranks, a {SR_LONG_PROMPT}-token "
           f"prompt and {SR_LONG_GEN} steps; (q) granite-20b {SR_MQA_LAYERS} of 52 layers (MQA), "
           "the cache's sequence over 2 model ranks; (r) qwen3-moe-30b-a3b "
@@ -6884,9 +7251,9 @@ def main() -> int:
     midhead_checks(mh)
     md["midhead"] = mh
 
-    phase("dryrun: launch/dryrun.py's estimate of the one-device olmo-1b train cell and of "
-          "fsdp (j), against their measurements")
-    dryrun_finish(dry, train, md)
+    phase("dryrun: launch/dryrun.py's estimate of the one-device olmo-1b train cell, of the "
+          "bf16 train cell and of fsdp (j), against their measurements")
+    dryrun_finish(dry, train, md, bf16_train)
 
     def tp_launches(rep: dict, name: str) -> dict:
         """A rank's launches of ``name`` on each tensor_parallel path."""
@@ -6968,7 +7335,8 @@ def main() -> int:
           "torch.profiler")
     fanin_trace_t = fanin_trace(dev, fed["last_uploads"])
 
-    phase("fed trace: one round of 1 client at E = 5, B = 64 under torch.profiler")
+    phase(f"fed trace: one round of 1 client at E = {FED_TRACE_EPOCHS}, B = 64 under "
+          "torch.profiler")
     federated_trace(dev, setup)
 
     bf16_decode = bf16["timings"]["ternary_matmul_decode"]
@@ -7121,6 +7489,17 @@ def main() -> int:
          "launches": train["full_width"]["qat_backward_launches"],
          "max_abs_err": qat_t["max_abs_err"], "ms": qat_t["ms"], "plain_ms": qat_t["plain_ms"],
          "bound_ms": qat_t["bound_ms"], "bound_by": qat_t["bound_by"], "library_ms": None},
+        {"name": "qat_backward_bf16", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/qat_backward.cu",
+         "replaces": "src/repro/core/fttq.py:136",
+         "launches": bf16_train["full_width"]["launches"]["qat_backward_bf16"],
+         "max_abs_err": max(bf16_train["qat_backward_bf16"]["max_abs_err"],
+                            bf16_train["full_width"]["cotangent_check"]["max_abs_err"]),
+         "ms": bf16_train["qat_backward_bf16"]["ms"],
+         "plain_ms": bf16_train["qat_backward_bf16"]["plain_ms"],
+         "bound_ms": bf16_train["qat_backward_bf16"]["bound_ms"],
+         "bound_by": bf16_train["qat_backward_bf16"]["bound_by"], "library_ms": None,
+         "bf16_train": bf16_train},
     ]}
     print(card)
     print(json.dumps(table))

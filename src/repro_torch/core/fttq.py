@@ -40,10 +40,10 @@ from typing import Any
 import torch
 
 from repro_torch.dtypes import (
-    TINY, flush_plus, flush_subnormal, flushed_abs, flushed_op, flushed_product, is_floating,
+    TINY, flush_plus, flush_subnormal, flushed_abs, flushed_op, is_floating,
     keep_cut, largest_subnormal, xla_op,
 )
-from repro_torch.kernels.qat_backward import qat_backward
+from repro_torch.kernels.qat_backward import qat_backward, qat_backward_bf16
 from repro_torch.tree import Path, flatten_with_path, path_str, tree_map_with_path
 
 _EPS = 1e-8
@@ -380,12 +380,7 @@ class FTTQQuantize(torch.autograd.Function):
             cut = ctx.cut if ctx.cut is not None else backward_cuts([w_q])[0]
             g_theta, g_it = qat_backward(g_rows, i_t, flush_plus(w), cut)
         else:
-            sel = i_t != 0
-            g_it = g_rows * i_t
-            if g_it.dtype == torch.bfloat16:
-                g_it = flush_plus(g_it)
-            g_theta = flushed_product(
-                g_rows, torch.where(sel, w if w.dtype == torch.bfloat16 else flush_plus(w), 1.0))
+            g_theta, g_it = qat_backward_bf16(g_rows, i_t, w)
         # a flushed g_wq is +0 where XLA's zero keeps the sum's sign: Adam's
         # m and v cannot tell them apart
         g_wq = flush_plus(g_it.sum(dim=1)).reshape(w_q.shape).to(w_q.dtype)

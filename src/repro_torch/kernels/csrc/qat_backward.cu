@@ -1,5 +1,5 @@
-// The QAT backward's elementwise step for a (L, m) fp32 weight, for Hopper
-// (sm_90a).
+// The QAT backward's elementwise step for a (L, m) fp32 or bf16 weight, for
+// Hopper (sm_90a).
 //
 // Not a port of a TPU kernel: the reference's straight-through backward
 // (src/repro/core/fttq.py::_fttq_bwd) is elementwise arithmetic that XLA
@@ -27,6 +27,7 @@
 // thread takes 4 consecutive elements with 16-byte loads and stores where the
 // row's length is a multiple of 4, else one at a time.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -72,6 +73,78 @@ qat_backward_kernel(const float* __restrict__ g, const float* __restrict__ it,
   }
 }
 
+
+// The bf16 entry (a bf16 weight, its bf16 w_q and cotangent): for each
+// element, in fp32 from the bf16 bits,
+//
+//   g_it     = g * I_t, +0 where its magnitude is below 2^-126
+//   g_theta  = bf16(flush(flush(g) * flush(s)))     s = I_t != 0 ? w_q : 1
+//
+// where flush(x) is x * [|x| >= 2^-126] (a zero of x's sign; NaN stays NaN):
+// XLA's bf16 multiply (an exact fp32 product of two 8-bit significands,
+// flushed, rounded once to bf16), and the flushed terms of sum g * I_t. The
+// rounding is round-to-nearest-even, as PyTorch converts fp32 to bf16: bit
+// for bit the plain version's (the bf16 branch of
+// repro_torch.core.fttq.FTTQQuantize.backward), but for a NaN's bits, which
+// PyTorch writes as 0x7FC0, 0x7FFF or 0xFFFF by path and device, and the
+// kernel as 0x7FC0.
+//
+// Bound: bytes. Two reads and two writes of 2 bytes per weight; a row runs
+// over blockIdx.y as above, each thread taking 8 consecutive elements with
+// 16-byte loads and stores where the row's length is a multiple of 8.
+
+__device__ __forceinline__ float flush(float x) {
+  return fabsf(x) >= kTiny ? x : __fmul_rn(x, 0.0f);
+}
+
+__device__ __forceinline__ uint16_t to_bf16(float x) {
+  const uint32_t u = __float_as_uint(x);
+  if (x != x) return 0x7FC0u;
+  return (uint16_t)((u + 0x7FFFu + ((u >> 16) & 1u)) >> 16);
+}
+
+__device__ __forceinline__ float from_bf16(uint16_t b) {
+  return __uint_as_float((uint32_t)b << 16);
+}
+
+__device__ __forceinline__ void one_bf16(uint16_t gb, uint16_t ib, float s1, uint16_t* gt,
+                                         uint16_t* gi) {
+  const float g = from_bf16(gb), it = from_bf16(ib);
+  const float q = __fmul_rn(g, it);
+  *gi = fabsf(q) < kTiny ? (uint16_t)0 : to_bf16(q);
+  const float s = it != 0.0f ? s1 : 1.0f;
+  *gt = to_bf16(flush(__fmul_rn(flush(g), s)));
+}
+
+__global__ void __launch_bounds__(kThreads)
+qat_backward_bf16_kernel(const uint16_t* __restrict__ g, const uint16_t* __restrict__ it,
+                         const uint16_t* __restrict__ w, long long rows, long long m, int vec,
+                         uint16_t* __restrict__ g_theta, uint16_t* __restrict__ g_it) {
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long r = blockIdx.y; r < rows; r += gridDim.y) {
+    const float wr = flush(from_bf16(__ldg(w + r)));
+    const long long base = r * m;
+    const long long m8 = vec ? m / 8 : 0;
+    for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < m8; i += stride) {
+      const uint4 gv = reinterpret_cast<const uint4*>(g + base)[i];
+      const uint4 iv = reinterpret_cast<const uint4*>(it + base)[i];
+      const uint16_t* ga = reinterpret_cast<const uint16_t*>(&gv);
+      const uint16_t* ia = reinterpret_cast<const uint16_t*>(&iv);
+      uint4 a, b;
+      uint16_t* aa = reinterpret_cast<uint16_t*>(&a);
+      uint16_t* ba = reinterpret_cast<uint16_t*>(&b);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) one_bf16(ga[k], ia[k], wr, aa + k, ba + k);
+      reinterpret_cast<uint4*>(g_theta + base)[i] = a;
+      reinterpret_cast<uint4*>(g_it + base)[i] = b;
+    }
+    for (long long e = 8 * m8 + (long long)blockIdx.x * kThreads + threadIdx.x; e < m;
+         e += stride) {
+      one_bf16(g[base + e], it[base + e], wr, g_theta + base + e, g_it + base + e);
+    }
+  }
+}
+
 }  // namespace
 
 // g, it, g_theta, g_it: rows x m fp32, contiguous; w, cut: rows fp32. vec = 1
@@ -83,5 +156,16 @@ extern "C" int qat_backward_apply(const float* g, const float* it, const float* 
                                   void* stream) {
   qat_backward_kernel<<<dim3((unsigned)x_blocks, (unsigned)y_blocks), kThreads, 0,
                         (cudaStream_t)stream>>>(g, it, w, cut, rows, m, vec, g_theta, g_it);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 entry: g, it, g_theta, g_it rows x m bf16 bits, contiguous; w:
+// rows bf16. vec = 1 when m is a multiple of 8 and the four pointers are
+// 16-byte aligned. Returns the launch's cudaError_t.
+extern "C" int qat_backward_bf16_apply(const uint16_t* g, const uint16_t* it, const uint16_t* w,
+                                       long long rows, long long m, int vec, uint16_t* g_theta,
+                                       uint16_t* g_it, int x_blocks, int y_blocks, void* stream) {
+  qat_backward_bf16_kernel<<<dim3((unsigned)x_blocks, (unsigned)y_blocks), kThreads, 0,
+                             (cudaStream_t)stream>>>(g, it, w, rows, m, vec, g_theta, g_it);
   return (int)cudaGetLastError();
 }

@@ -90,7 +90,10 @@ def _attend_naive(q, k, v, q_pos, k_pos, *, causal, window, k_len=None):
     if k_len is not None:  # decode: mask unwritten cache slots
         bias = bias + torch.where(k_pos[None, :] < k_len, 0.0, NEG_INF)
     probs = torch.softmax(logits + bias, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(torch.float32))
+    # the reference rounds the probabilities to v's dtype before the product
+    # (fp32 accumulation); at bf16 its cotangent is rounded so too
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype).to(torch.float32),
+                       v.to(torch.float32))
     return out.to(q.dtype)
 
 

@@ -5,7 +5,8 @@ weights without touching the layer code (port of ``repro.models.common``)."""
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
+
+from repro_torch.models import elementwise
 
 
 def matmul(x: torch.Tensor, w) -> torch.Tensor:
@@ -72,11 +73,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
 
 
 def act_fn(name: str):
-    return {
-        "gelu": lambda x: F.gelu(x, approximate="tanh"),   # jax.nn.gelu's default
-        "silu": F.silu,
-        "relu": F.relu,
-    }[name]
+    """The activation ``name`` as the reference's ``jax.nn`` computes it
+    (``models.elementwise``: XLA's bf16 steps at bf16, PyTorch's function
+    at other dtypes)."""
+    return {"gelu": elementwise.gelu, "silu": elementwise.silu, "relu": elementwise.relu}[name]
 
 
 def dense_init(gen: torch.Generator, shape, dtype, in_axis: int = -2) -> torch.Tensor:

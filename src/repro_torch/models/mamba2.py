@@ -73,6 +73,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import dense_init, rms_norm
+from repro_torch.models.elementwise import silu
 from repro_torch.parallel.tensor import (
     copy_to_model, gather_from_model, reduce_from_model, scatter_to_model,
 )
@@ -225,11 +226,11 @@ def _decode(params, x, cache, tp, dims, *, n_heads: int, d_state: int, d_in: int
         conv_out, new_conv = _causal_conv(conv_in[..., lo:hi],
                                           _rank_cols(params, "conv_w", tp, dims, lo, hi, 1),
                                           cache["conv"])
-        conv_out = gather_from_model(F.silu(conv_out), tp, -1)
+        conv_out = gather_from_model(silu(conv_out), tp, -1)
     else:
         conv_out, new_conv = _causal_conv(conv_in, _whole(params, "conv_w", tp, dims),
                                           cache["conv"])
-        conv_out = F.silu(conv_out)
+        conv_out = silu(conv_out)
     xin, b, c = torch.split(conv_out, [d_in, n, n], dim=-1)
 
     h0, h1 = tp.share(n_heads) if heads_cut else (0, n_heads)
@@ -240,7 +241,7 @@ def _decode(params, x, cache, tp, dims, *, n_heads: int, d_state: int, d_in: int
                             cache["ssd"].to(torch.float32))
     y = y[:, None] + xh.to(torch.float32) * params["d_skip"][h0:h1][None, None, :, None]
     y = y.reshape(bsz, 1, (h1 - h0) * p).to(x.dtype)
-    y = y * F.silu(z[..., h0 * p:h1 * p])
+    y = y * silu(z[..., h0 * p:h1 * p])
     if not heads_cut:
         out = rms_norm(y, params["gate_norm"]) @ _whole(params, "out_proj", tp, dims)
         return out, {"conv": new_conv, "ssd": new_ssd}
@@ -283,7 +284,7 @@ def mamba_block(params, x, *, n_heads: int, d_state: int, expand: int,
         conv_state = gather_from_model(conv_state, tp, -1)
     conv_out, new_conv = _causal_conv(conv_in, _whole(params, "conv_w", tp, dims),
                                       conv_state)
-    conv_out = F.silu(conv_out)
+    conv_out = silu(conv_out)
     xin, b, c = torch.split(conv_out, [d_in, n, n], dim=-1)
 
     a = -torch.exp(params["a_log"])                        # (H,) < 0
@@ -293,7 +294,7 @@ def mamba_block(params, x, *, n_heads: int, d_state: int, expand: int,
     y, new_ssd = ssd_chunked(xh, dt, a, b, c, chunk)
     y = y + xh.to(torch.float32) * params["d_skip"][None, None, :, None]
     y = y.reshape(bsz, l, d_in).to(x.dtype)
-    y = y * F.silu(z)
+    y = y * silu(z)
     y = rms_norm(y, params["gate_norm"])
     out = y @ _whole(params, "out_proj", tp, dims)
     if conv_cut:

@@ -71,6 +71,7 @@ from repro_torch.kernels.repack import PackedTernary
 from repro_torch.models import mamba2 as mb
 from repro_torch.models.attention import GLOBAL_WINDOW, attention, init_attn
 from repro_torch.models.common import apply_norm, dense_init, embed_init, matmul
+from repro_torch.models.elementwise import residual_add, tanh
 from repro_torch.models.mlp import init_mlp, mlp
 from repro_torch.models.moe import init_moe, moe, split_axis
 from repro_torch.models.moe_a2a import moe_a2a
@@ -484,7 +485,7 @@ def _dense_layer(cfg: ModelConfig, bp: dict, x, window: int, kv, pos: int, tp=No
     h = apply_norm(x, bp.get("attn_norm"), cfg.norm)
     attn_out, _ = attention(bp["attn"], h, window=window, cache=kv, pos=pos, tp=tp, seq=seq,
                             **_attn_kwargs(cfg))
-    x = x + attn_out
+    x = residual_add(x, attn_out)
     h = apply_norm(x, bp.get("mlp_norm"), cfg.norm)
     if cfg.family == "moe":
         dims = _layer_dims(cfg, tp.size)["moe"] if tp is not None else None
@@ -493,26 +494,26 @@ def _dense_layer(cfg: ModelConfig, bp: dict, x, window: int, kv, pos: int, tp=No
         else:
             mo, aux = moe(bp["moe"], h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
                           activation=cfg.activation, tp=tp, dims=dims, dp=dp)
-        return x + mo, aux
-    return x + mlp(bp["mlp"], h, cfg.activation, _mlp_tp(cfg, tp)), None
+        return residual_add(x, mo), aux
+    return residual_add(x, mlp(bp["mlp"], h, cfg.activation, _mlp_tp(cfg, tp))), None
 
 
 def _cross_layer(cfg: ModelConfig, cp: dict, x, vision, tp=None):
     h = apply_norm(x, cp.get("attn_norm"), cfg.norm)
     co, _ = attention(cp["attn"], h, kv_source=vision, tp=tp, **_attn_kwargs(cfg))
-    x = x + torch.tanh(cp["gate_attn"]) * co
+    x = residual_add(x, tanh(cp["gate_attn"]) * co)
     h = apply_norm(x, cp.get("mlp_norm"), cfg.norm)
-    return x + torch.tanh(cp["gate_mlp"]) * mlp(cp["mlp"], h, cfg.activation,
-                                                _mlp_tp(cfg, tp))
+    return residual_add(x, tanh(cp["gate_mlp"]) * mlp(cp["mlp"], h, cfg.activation,
+                                                       _mlp_tp(cfg, tp)))
 
 
 def _shared_attn_layer(cfg: ModelConfig, sp: dict, x, kv, pos: int, tp=None,
                        seq: tuple = ()):
     h = apply_norm(x, sp.get("attn_norm"), cfg.norm)
     ao, _ = attention(sp["attn"], h, cache=kv, pos=pos, tp=tp, seq=seq, **_attn_kwargs(cfg))
-    x = x + ao
+    x = residual_add(x, ao)
     h = apply_norm(x, sp.get("mlp_norm"), cfg.norm)
-    return x + mlp(sp["mlp"], h, cfg.activation, _mlp_tp(cfg, tp))
+    return residual_add(x, mlp(sp["mlp"], h, cfg.activation, _mlp_tp(cfg, tp)))
 
 
 def _mamba_layer(cfg: ModelConfig, bp: dict, x, states, tp=None):
@@ -522,7 +523,7 @@ def _mamba_layer(cfg: ModelConfig, bp: dict, x, states, tp=None):
         bp["mamba"], h, n_heads=cfg.ssm_heads, d_state=cfg.ssm_state,
         expand=cfg.ssm_expand, conv_width=cfg.conv_width, chunk=cfg.ssm_chunk,
         cache=states, tp=tp, dims=dims)
-    return x + mo, new_states
+    return residual_add(x, mo), new_states
 
 
 # --------------------------------------------------------------------------

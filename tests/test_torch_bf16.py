@@ -91,8 +91,12 @@ def test_bf16_tree_encode_bytes_match_reference(setup):
 def test_packed_bf16_serve_matches_reference(setup):
     """Deploy → packed prefill of 2 × 8 → 4 greedy decode steps, bf16
     weights and activations in both packages: the same wire bytes, logits
-    within 2e-2 of max |logits| at every step (bf16 rounds at other places
-    in the two frameworks; measured 0.7–1.2%) and the same greedy tokens."""
+    within 2e-2 of max |logits| at every step (measured 0.6–0.9%, about one
+    bf16 ulp of the largest logit, since the activations and the attention
+    probabilities round as the reference's do, 0.6–1.2% before: what is
+    left is the packed matmuls' bf16 outputs, within one ulp of the
+    reference kernel's where their fp32 sums' order differs) and the same
+    greedy tokens."""
     jcfg, jparams, cfg, params, tokens = setup
     jserved, jbytes, _, _ = jternary_deploy(jparams, JFTTQConfig(), packed=True)
     served, nbytes, _, _ = serve.ternary_deploy(params, FTTQConfig(), packed=True, device="cpu")

@@ -709,6 +709,134 @@ def test_qat_step_launches_the_backward_kernel_once_a_leaf(cuda_device):
         _close(card[1][k]["w"].grad, cpu[1][k]["w"].grad, f"g_wq {k}")
 
 
+def _same_bits_or_nan(a, b):
+    a, b = a.cpu(), b.cpu()
+    same = (a.view(torch.int16) == b.view(torch.int16)) | (a.isnan() & b.isnan())
+    assert bool(same.all()), f"{int((~same).sum())} of {same.numel()} differ"
+
+
+def _bf16_backward_rows():
+    """(g, codes, w) for the bf16 QAT backward: every bf16 bit pattern of g
+    (finite, ±0, subnormal, ±inf, NaN) in each of 20 rows, the codes of a
+    row all +1, −1, +0, −0 or NaN, at the factors 0.37, 1, 2^100 and a
+    subnormal one (5 codes × 4 factors)."""
+    bits = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    codes = torch.tensor([1.0, -1.0, 0.0, -0.0, float("nan")], dtype=torch.bfloat16)
+    factors = torch.tensor([0.37, 1.0, 2.0 ** 100, 3e-39], dtype=torch.bfloat16)
+    g = bits.repeat(20, 1)
+    c = codes.repeat_interleave(4)[:, None].expand(20, bits.numel()).contiguous()
+    w = factors.repeat(5)[:, None].contiguous()
+    return g, c, w
+
+
+@pytest.mark.parametrize("cut", [0, 3])
+def test_qat_backward_bf16_kernel_matches_plain(cuda_device, cut):
+    """The bf16 entry against its plain version, bit for bit, NaNs as NaNs
+    (PyTorch writes a NaN's bits by path and device): every bf16 pattern of g with codes of
+    each sign, zero and NaN at normal and subnormal factors, on rows of
+    65,536 (the 16-byte path) and of 65,533 (the one-element path), one
+    launch each; and an olmo-1b-shaped leaf of 16 rows of 2048 × 8192."""
+    from repro_torch.kernels.qat_backward import qat_backward_bf16, qat_backward_bf16_plain
+
+    g, c, w = _bf16_backward_rows()
+    if cut:
+        g, c = g[:, :-cut].contiguous(), c[:, :-cut].contiguous()
+    gen = torch.Generator(device=cuda_device).manual_seed(32)
+    big = (torch.randn(16, 2048 * 8192, generator=gen, device=cuda_device) * 1e-3).bfloat16()
+    big_c = torch.randint(-1, 2, big.shape, generator=gen, device=cuda_device).bfloat16()
+    big_w = (torch.rand(16, 1, generator=gen, device=cuda_device) * 0.05).bfloat16()
+    for gt, ct, wt in ((g, c, w), (big, big_c, big_w)):
+        want = qat_backward_bf16_plain(gt.cpu(), ct.cpu(), wt.cpu())
+        before = qat_backward_bf16.launches
+        got = qat_backward_bf16(gt.to(cuda_device), ct.to(cuda_device), wt.to(cuda_device))
+        assert qat_backward_bf16.launches == before + 1
+        for a, b in zip(got, want):
+            assert a.dtype == torch.bfloat16
+            _same_bits_or_nan(a, b)
+
+
+def test_qat_backward_bf16_plain_on_the_card_is_the_kernel(cuda_device):
+    """The plain version run on CUDA tensors (PyTorch's own CUDA ops) gives
+    the kernel's bits too, NaNs as NaNs: the rounding is PyTorch's on both
+    devices."""
+    from repro_torch.kernels.qat_backward import qat_backward_bf16, qat_backward_bf16_plain
+
+    g, c, w = (t.to(cuda_device) for t in _bf16_backward_rows())
+    for a, b in zip(qat_backward_bf16(g, c, w), qat_backward_bf16_plain(g, c, w)):
+        _same_bits_or_nan(a, b)
+
+
+def test_qat_backward_bf16_rejects_what_it_cannot_take(cuda_device):
+    from repro_torch.kernels.qat_backward import qat_backward_bf16
+
+    g = torch.ones(2, 8, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(TypeError):
+        qat_backward_bf16(g.float(), g.float(), g[:, :1].float())
+    with pytest.raises(ValueError):
+        qat_backward_bf16(g, g, g)
+
+
+def test_bf16_qat_step_launches_the_bf16_backward_once_a_leaf(cuda_device):
+    """A bf16 tree's QAT forward and backward on the card launch the bf16
+    entry once for each quantized leaf and none of the fp32 entry, and give
+    the CPU's g_θ bit for bit and g_wq within one bf16 ulp (a bf16 sum in
+    each device's order)."""
+    from repro_torch.core.fttq import FTTQConfig, init_wq_tree, quantize_tree
+    from repro_torch.kernels.qat_backward import qat_backward, qat_backward_bf16
+
+    gen = torch.Generator().manual_seed(6)
+    tree = {"a": {"w": torch.randn(3, 64, 32, generator=gen).bfloat16()},
+            "b": {"w": torch.randn(48, 40, generator=gen).bfloat16()}}
+    cot = {k: torch.randn(v["w"].shape, generator=gen).bfloat16() for k, v in tree.items()}
+    cfg = FTTQConfig()
+    wq = init_wq_tree(tree, cfg)
+
+    def run(dev):
+        params = {k: {n: t.to(dev).requires_grad_() for n, t in d.items()} for k, d in tree.items()}
+        factors = {k: {n: t.to(dev).requires_grad_() for n, t in d.items()} for k, d in wq.items()}
+        out = quantize_tree(params, factors, cfg)
+        sum((out[k]["w"].float() * cot[k].to(dev).float()).sum() for k in out).backward()
+        return params, factors
+
+    before, before32 = qat_backward_bf16.launches, qat_backward.launches
+    card = run(cuda_device)
+    assert qat_backward_bf16.launches == before + 2 and qat_backward.launches == before32
+    cpu = run("cpu")
+    for k in ("a", "b"):
+        _same_bits(card[0][k]["w"].grad, cpu[0][k]["w"].grad, f"g_θ {k}")
+        a, b = card[1][k]["w"].grad.cpu().float(), cpu[1][k]["w"].grad.float()
+        assert bool(((a - b).abs() <= b.abs() * 2.0 ** -7).all())
+
+
+@pytest.mark.parametrize("name", ["silu", "gelu", "relu"])
+def test_bf16_activations_on_the_card_match_the_cpu(cuda_device, name):
+    """The bf16 activations (``models.elementwise``, XLA's op order) on the
+    card, forward and VJP at a seeded cotangent, on every bf16 pattern:
+    within one bf16 ulp of the CPU's, NaN where it is NaN (the card's fp32
+    exp and tanh are not the CPU's, and the bf16 rounding hides their last
+    bits only where no result lies on a rounding boundary)."""
+    from repro_torch.models.common import act_fn
+
+    bits = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    gen = torch.Generator().manual_seed(9)
+    cot = (torch.randn(bits.shape, generator=gen)
+           * torch.exp2(torch.randint(-20, 20, bits.shape, generator=gen).float())).bfloat16()
+    outs = []
+    for dev in (torch.device("cpu"), cuda_device):
+        x = bits.to(dev).detach().clone().requires_grad_(True)
+        y = act_fn(name)(x)
+        y.backward(cot.to(dev))
+        outs.append((y.detach().cpu(), x.grad.cpu()))
+    for a, b in zip(*outs):
+        both_nan = a.isnan() & b.isnan()
+        assert bool((a.isnan() == b.isnan()).all())
+        af, bf = a.float(), b.float()
+        ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(af.abs(), bf.abs())
+                                                .clamp_min(2.0 ** -126))) - 7)
+        ok = both_nan | (af == bf) | ((af - bf).abs() <= ulp)
+        assert bool(ok.all())
+
+
 def test_bf16_tree_encodes_through_the_bf16_kernel(cuda_device):
     """A bf16 tree's card encode: one quantize_pack launch for its bf16
     group, the wire bytes of the CPU encode, w_q cast back to bf16."""

@@ -66,3 +66,65 @@ def test_wrapper_on_the_cpu_is_its_plain_version(shape):
     for a, b in zip(got, want):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     assert qat_backward.launches == before
+
+
+def _bf16_rows():
+    """Every bf16 bit pattern of g in each of 20 rows whose codes are all
+    +1, −1, +0, −0 or NaN, at the factors 0.37, 1, 2^100 and a subnormal
+    one, as bf16 numpy bits: (g, codes, w)."""
+    import ml_dtypes
+
+    g = np.tile(np.arange(1 << 16, dtype=np.uint16).view(ml_dtypes.bfloat16), (20, 1))
+    codes = np.array([1.0, -1.0, 0.0, -0.0, np.nan], np.float32).astype(ml_dtypes.bfloat16)
+    c = np.repeat(codes, 4)[:, None] * np.ones((1, g.shape[1]), ml_dtypes.bfloat16)
+    w = np.tile(np.array([0.37, 1.0, 2.0 ** 100, 3e-39], np.float32), 5).astype(
+        ml_dtypes.bfloat16)
+    return g, c.astype(ml_dtypes.bfloat16), w
+
+
+def _t16(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
+
+
+def test_bf16_plain_version_is_xla_arithmetic():
+    """The bf16 entry's plain version against XLA's bf16 arithmetic for
+    ``_fttq_bwd`` (g · where(I_t ≠ 0, w_q, 1) and g · I_t): bit for bit on
+    every bf16 pattern of g, NaNs as NaNs, but where XLA's g · I_t is a
+    zero or subnormal: the plain version's +0 (a sum cannot tell them
+    apart)."""
+    from repro_torch.kernels.qat_backward import qat_backward_bf16
+
+    g, c, w = _bf16_rows()
+    jg, jc, jw = jnp.asarray(g), jnp.asarray(c), jnp.asarray(w).reshape(-1, 1)
+    want_theta = np.asarray(jg * jnp.where(jc != 0, jw, jnp.ones_like(jw)))
+    want_it = np.asarray(jg * jc)
+    g_theta, g_it = qat_backward_bf16(_t16(g), _t16(c), _t16(w).reshape(-1, 1))
+    assert g_theta.dtype == g_it.dtype == torch.bfloat16
+
+    def check(got, want, keep, what):
+        got = got.view(torch.int16).numpy().view(np.uint16)[keep]
+        nan = np.isnan(want.astype(np.float32))[keep]
+        same = (got == want.view(np.uint16)[keep]) | (nan & ((got & 0x7FFF) > 0x7F80))
+        assert same.all(), f"{what}: {int((~same).sum())} differ"
+
+    check(g_theta, want_theta, np.ones(g.shape, bool), "g_θ")
+    tiny = np.abs(want_it.astype(np.float32)) < 2.0 ** -126
+    check(g_it, want_it, ~tiny, "g·I_t")
+    assert (g_it.view(torch.int16).numpy()[tiny] == 0).all()
+
+
+@pytest.mark.parametrize("shape", [(1, 37), (3, 8), (16, 64)])
+def test_bf16_wrapper_on_the_cpu_is_its_plain_version(shape):
+    """On CPU tensors the bf16 entry is its plain version and launches
+    nothing."""
+    from repro_torch.kernels.qat_backward import qat_backward_bf16, qat_backward_bf16_plain
+
+    rng = np.random.default_rng(shape[1])
+    g = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).bfloat16()
+    codes = torch.from_numpy(rng.choice(np.array([1.0, -1.0, 0.0], np.float32),
+                                        size=shape)).bfloat16()
+    w = torch.from_numpy(np.abs(rng.normal(size=(shape[0], 1))).astype(np.float32)).bfloat16()
+    before = qat_backward_bf16.launches
+    for a, b in zip(qat_backward_bf16(g, codes, w), qat_backward_bf16_plain(g, codes, w)):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    assert qat_backward_bf16.launches == before
