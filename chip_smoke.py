@@ -5,7 +5,12 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; no phase is skipped):
+``--phase NAME`` (repeatable; bf16_mesh, bf16_train, multidevice, midhead)
+runs the device and build phases and the named ones alone, says which it
+skipped, and prints an empty kernel table before the last line: a quick
+run of one path, not the smoke test.
+
+Phases (any failure exits non-zero; with no arguments no phase is skipped):
   1. device    — the card's name and power limit (nvidia-smi);
   2. build     — nvcc builds every kernel from src/, one process per source;
   3. checks    — each kernel against its plain PyTorch version:
@@ -99,11 +104,12 @@ Phases (any failure exits non-zero; no phase is skipped):
   8. zoo       — every family through ``launch.serve``'s functions, random
                  weights from seed 0, one deploy through TFW1 each (one
                  quantize_pack launch): gemma3-4b, granite-20b (4 of 52
-                 layers), llama-3.2-vision-11b (10 of 40 layers, cross gates
-                 0.5, 4 × 1,600 patch embeds) and hubert-xlarge packed, with
-                 the packed-vs-dequantized logits check (≤ 1e-4 of max
-                 |logits|); qwen3-moe-30b-a3b and deepseek-moe-16b (4 layers
-                 each), mamba2-370m and zamba2-1.2b dequantized; causal archs
+                 layers), llama-3.2-vision-11b (5 of 40 layers, one cross
+                 layer, cross gates 0.5, 4 × 1,600 patch embeds) and
+                 hubert-xlarge packed, with the packed-vs-dequantized logits
+                 check (≤ 1e-4 of max |logits|); qwen3-moe-30b-a3b and
+                 deepseek-moe-16b (2 layers each), mamba2-370m and
+                 zamba2-1.2b dequantized; causal archs
                  prefill 4 × 32 and take 15 greedy steps, hubert runs an
                  encoder forward of 2 × 512 frame embeds; per arch the peak
                  device memory, deploy s, prefill ms, decode tok/s and
@@ -189,7 +195,7 @@ Phases (any failure exits non-zero; no phase is skipped):
                  must fail both limits;
   9c. tensor_parallel — in the same spawn, which has four ranks (ranks 2
                  and 3 wait for the pods x model part): (a) olmo-1b at full
-                 width cut to 8 of 16 layers, TrainerConfig defaults, adam(3e-4), 2
+                 width cut to 4 of 16 layers, TrainerConfig defaults, adam(3e-4), 2
                  steps at 8 × 512 of the CLI's token stream over a (1, 2)
                  data × model mesh on ranks 0 and 1: per step ms, tokens/s
                  and loss, per rank peak memory, launches and wire bytes; the
@@ -257,7 +263,7 @@ Phases (any failure exits non-zero; no phase is skipped):
   9d. fsdp — in the same spawn, FSDP over the "data" axis (params and both
                  Adam moments cut on each leaf's "data" dim, each layer's
                  weights all-gathered where it uses them, their gradients
-                 reduce-scattered): (j) olmo-1b at full width cut to 8 of
+                 reduce-scattered): (j) olmo-1b at full width cut to 4 of
                  16 layers, TrainerConfig defaults, adam(3e-4), 2 steps at 8 ×
                  512 over a (2, 1) data × model mesh on ranks 0 and 1: per
                  step ms, tokens/s, loss and the wire bytes, per rank the
@@ -276,8 +282,8 @@ Phases (any failure exits non-zero; no phase is skipped):
                  and 8 greedy decode steps on the data shards (each layer
                  gathered, no autograd) against one process (1e-4 of max
                  |logits|, the same tokens); (k) olmo-1b cut to 4 of 16
-                 layers over (2, 2) data × model on all four ranks, 2
-                 steps: each rank's state bytes and the run against one
+                 layers over (2, 2) data × model on all four ranks, 1
+                 step: each rank's state bytes and the run against one
                  process (the same limits); (l) pods × data, mesh (2, 2,
                  1), olmo-1b cut to 4 layers: the compressed collective on
                  each rank's data shards (one quantize_pack and two
@@ -286,13 +292,40 @@ Phases (any failure exits non-zero; no phase is skipped):
                  version) and 2 compressed steps with the same launches, the
                  weights' gathers and reduce-scatters counted exactly;
   9e. serve_rows — in the same spawn: (o) is (n), 2 rows a rank, 4 greedy
-                 steps; (p) olmo-1b 8 of 16 layers, batch 1, a 4,096-slot cache's
+                 steps; (p) olmo-1b 4 of 16 layers, batch 1, a 4,096-slot cache's
                  sequence over the two data ranks, a 2,044-token prompt and
                  6 steps, the fifth writing rank 1's first slot; (q)
                  granite-20b (MQA) cut to 4 of 52 layers, batch 2, its
                  cache's sequence over 2 model ranks; each against one
                  process (1e-4 of max |logits|, the same tokens, every
                  rank's cache exactly half);
+  9g. bf16_mesh — in the same spawn, the reference's bf16 production train
+                 cell (``launch/dryrun.py::build_cell``: bf16 params and
+                 compute, remat "full", the batch constrained to "data",
+                 QAT, adam(1e-4), 2 microbatches) over the mesh, olmo-1b at
+                 full width cut to 4 of 16 layers, 2 steps at 8 × 512: (t)
+                 over (1, 2) data × model and (u) over (2, 1) on ranks 0
+                 and 1, each held on rank 0 to one process's bf16 steps
+                 from the same state (the loss within 2^-13, the worst
+                 leaf's ‖Δparams‖ within 0.25 of the one-process update
+                 ‖params − start‖) and a planted fault past both (FTTQ
+                 statistics per shard; the gather's backward keeping its
+                 own slice); the shards' codes against the whole leaves'
+                 (ties moved off Δ); exactly one bf16 ``qat_backward``
+                 launch per quantized leaf shard per microbatch per step
+                 and rank, none of the fp32 entry; per step ms, ms inside
+                 gloo, per rank peak memory; (u) its state bytes, its
+                 gathers and reduce-scatters a step in their closed form,
+                 its ternary save from the data shards (one quantize_pack
+                 launch, the one-process save's bytes, codes and scales
+                 equal to the plain version's, and so the records' scales)
+                 and its peak within 20% of the dry-run's; (v) pods × model
+                 on all four ranks, mesh (2, 1, 2), 4 layers, 2 compressed
+                 steps: one quantize_pack and two aggregate launches a step
+                 and rank, the all-gather 0.25 B a shard coordinate plus 4
+                 B a w_q, and each step's sync against the plain version on
+                 its own inputs (codes equal but at proven ties, mean and
+                 residuals within 1e-6);
   9f. midhead — sixteen ranks spawned on the card over gloo, a (1, 16) data
                  × model mesh: (s) gemma3-4b at its published widths cut to
                  6 of 34 layers (five sliding-window layers, then the global
@@ -416,6 +449,7 @@ import atexit
 import collections
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2768,9 +2802,12 @@ ZOO_MATMUL_SHAPES = [(4, 2560, 2048), (128, 2560, 2048),      # gemma3 wq, head_
                      (1024, 1280, 1280),                      # hubert, 2 × 512 frames
                      (6400, 4096, 1024)]                      # vlm cross K/V, 4 × 1600
 # (arch, how it is served, layers kept; None keeps them all)
+# the vlm cut from 10 to 5 layers (one cross layer) and the MoE archs from 4
+# to 2 to make room for the bf16_mesh phase: their deploys (the host's wire
+# codec) took 13.8, 8.0 and 5.6 s
 ZOO = [("gemma3-4b", "packed", None), ("granite-20b", "packed", 4),
-       ("llama-3.2-vision-11b", "packed", 10), ("hubert-xlarge", "packed", None),
-       ("qwen3-moe-30b-a3b", "ternary", 4), ("deepseek-moe-16b", "ternary", 4),
+       ("llama-3.2-vision-11b", "packed", 5), ("hubert-xlarge", "packed", None),
+       ("qwen3-moe-30b-a3b", "ternary", 2), ("deepseek-moe-16b", "ternary", 2),
        ("mamba2-370m", "ternary", None), ("zamba2-1.2b", "ternary", None)]
 ZOO_FRAMES = 512           # hubert: 2 × 512 frame embeddings
 LONG_PREFILL = 4096        # gemma3: one 4,096-token prefill into 4,112 slots
@@ -4786,23 +4823,32 @@ def _host_tree(tree):
     return tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
 
 
-def _md_gaps(dev, losses, ref_losses, params, ref_params) -> dict:
+def _md_gaps(dev, losses, ref_losses, params, ref_params, start=None) -> dict:
     """The largest loss gap over the steps relative to the reference's
     loss; after the last step the worst leaf's max |Δparam| over its largest
     reference |param|, and the worst leaf's ‖Δparam‖ over its reference
-    ‖param‖."""
+    ‖param‖; with ``start`` (the params both runs began from) also the
+    worst leaf's ‖Δparam‖ over the reference's update ‖param − start‖."""
     import torch
 
     from repro_torch.tree import tree_leaves
 
-    worst, worst_l2 = 0.0, 0.0
-    for a, b in zip(tree_leaves(params), tree_leaves(ref_params)):
-        d, b = a.to(dev) - b.to(dev), b.to(dev)
+    worst, worst_l2, worst_upd = 0.0, 0.0, 0.0
+    starts = tree_leaves(start) if start is not None else [None] * len(tree_leaves(params))
+    for a, b, a0 in zip(tree_leaves(params), tree_leaves(ref_params), starts):
+        d, b = (a.to(dev) - b.to(dev)).float(), b.to(dev).float()
         worst = max(worst, float(d.abs().max() / b.abs().max().clamp_min(1e-30)))
         worst_l2 = max(worst_l2, float(torch.linalg.vector_norm(d)
                                        / torch.linalg.vector_norm(b).clamp_min(1e-30)))
-    return {"loss_rel_gap": max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
-            "param_rel_gap": worst, "param_rel_l2": worst_l2}
+        if a0 is not None:
+            upd = torch.linalg.vector_norm(b - a0.to(dev).float())
+            worst_upd = max(worst_upd, float(torch.linalg.vector_norm(d)
+                                             / upd.clamp_min(1e-30)))
+    out = {"loss_rel_gap": max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
+           "param_rel_gap": worst, "param_rel_l2": worst_l2}
+    if start is not None:
+        out["update_rel_l2"] = worst_upd
+    return out
 
 
 def _md_train_emulation(dev, cfg, batches, losses, params) -> dict:
@@ -4918,11 +4964,12 @@ TP_LOGITS_REL = 1e-4         # prefill and decode logits, of max |logits|
 TP_LOSS_RTOL = 5e-5
 TP_SAVE_BYTES = 680_526_658  # olmo-1b's ternary checkpoint, as the train phase saves it
 # (a)-(c) and the fsdp part's (j), (m), (n): olmo-1b at its published widths
-# cut to 8 of 16 layers, to make room for the bf16_train phase in the
-# script's time; at 16 layers they are also held to the full-width bytes
-# TP_SAVE_BYTES, FSDP_STATE_BYTES and FSDP_GATHER_BYTES
-TP_OLMO_LAYERS = 8
-FSDP_OLMO_LAYERS = 8
+# cut to 4 of 16 layers (8 to make room for the bf16_train phase, then 4
+# for the bf16_mesh phase) in the script's time; at 16 layers they are
+# also held to the full-width bytes TP_SAVE_BYTES, FSDP_STATE_BYTES and
+# FSDP_GATHER_BYTES
+TP_OLMO_LAYERS = 4
+FSDP_OLMO_LAYERS = 4
 TP_PODS_LAYERS = 4           # (d): olmo-1b cut to 4 of 16 layers on mesh (2, 1, 2)
 TP_PODS_STEPS = 2
 # (f) qwen3-moe-30b-a3b cut from 48 layers: at 2 layers (1.87 B params) a TP
@@ -5097,8 +5144,10 @@ def _route_hashes():
 
 
 def _tp_train(mesh, dev, cfg, batches, fcfg, params, save_dir: str | None = None,
-              trace: bool = False, route_check: bool = False) -> tuple[dict, object]:
-    """TrainerConfig defaults and adam(3e-4) over the mesh's "model" and
+              trace: bool = False, route_check: bool = False,
+              train=None) -> tuple[dict, object]:
+    """TrainerConfig defaults and adam(3e-4) (``train``: another
+    (TrainerConfig, lr)) over the mesh's "model" and
     "data" axes from ``params`` (whole leaves, cut to the rank's shards):
     the bytes of the rank's params and Adam moments; per step the
     synchronized ms, tokens/s, loss, the ms the rank spent inside ``gloo``'s
@@ -5110,10 +5159,13 @@ def _tp_train(mesh, dev, cfg, batches, fcfg, params, save_dir: str | None = None
     routing in the first step, hashed and compared across the model group;
     with ``save_dir`` the trained params saved as a ternary checkpoint from
     the shards (gathered, written by the mesh's first rank: one
-    quantize_pack launch there). Returns (report, the gathered params on the
-    host at the mesh's first rank, else None)."""
+    quantize_pack launch there), and with ``train`` the save's codes and
+    scales against the plain version on the same segments. Returns (report,
+    the gathered params on the host at the mesh's first rank, else
+    None)."""
     import torch
 
+    from repro_torch.core import encode
     from repro_torch.core.compression import CodecSpec
     from repro_torch.optim import adam
     from repro_torch.parallel.collectives import reset_wire_bytes, wire_bytes
@@ -5123,10 +5175,12 @@ def _tp_train(mesh, dev, cfg, batches, fcfg, params, save_dir: str | None = None
     from repro_torch.tree import tree_leaves, tree_map
 
     specs = param_specs(cfg, mesh)
-    tcfg, opt = TrainerConfig(), adam(TRAIN_LR)
+    tcfg, lr = train or (TrainerConfig(), TRAIN_LR)
+    opt = adam(lr)
     _sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
     t0 = time.perf_counter()
     state = init_train_state(cfg, tcfg, opt, params=tree_map(lambda t: t.to(dev), params),
                              device=dev, mesh=mesh)
@@ -5134,7 +5188,10 @@ def _tp_train(mesh, dev, cfg, batches, fcfg, params, save_dir: str | None = None
     out = {"init_s": time.perf_counter() - t0, "state_bytes": sum(
         x.numel() * x.element_size() for tree in (state.params, state.opt_state["m"],
                                                   state.opt_state["v"])
-        for x in tree_leaves(tree))}
+        for x in tree_leaves(tree)), "held_bytes": held,
+        "quantized_leaves": sum(1 for w in tree_leaves(state.wq) if w is not None)
+        if state.wq is not None else 0,
+        "dtypes": sorted({str(x.dtype) for x in tree_leaves(state.params)})}
     step = make_train_step(cfg, tcfg, opt, mesh=mesh)
     zero_counters()
     rows, total = [], collections.Counter()
@@ -5163,17 +5220,22 @@ def _tp_train(mesh, dev, cfg, batches, fcfg, params, save_dir: str | None = None
             rows[-1]["device_ms"] = _md_device_ms(prof)
         del prof
     out.update(steps=rows, peak_gib=_peak_gib(dev), launches=read_counters(), wire=dict(total))
+    if dev.type == "cuda":
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
     if save_dir is not None:
         import hashlib
         import shutil
 
         shutil.rmtree(save_dir, ignore_errors=True)
+        calls = []
         zero_counters()
         _sync(dev)
         t0 = time.perf_counter()
-        path = save_checkpoint(save_dir, 1, state.params,
-                               compression=CodecSpec(kind="ternary", fttq=fcfg),
-                               mesh=mesh, specs=specs)
+        with (_recording(encode, "quantize_pack_segments", calls) if train is not None
+              else contextlib.nullcontext()):
+            path = save_checkpoint(save_dir, 1, state.params,
+                                   compression=CodecSpec(kind="ternary", fttq=fcfg),
+                                   mesh=mesh, specs=specs)
         _sync(dev)
         out["save"] = {"s": time.perf_counter() - t0, "launches": read_counters()}
         if mesh.rank == mesh.ranks[0]:
@@ -5181,11 +5243,48 @@ def _tp_train(mesh, dev, cfg, batches, fcfg, params, save_dir: str | None = None
                 blob = f.read()
             out["save"].update(sha256=hashlib.sha256(blob).hexdigest(), bytes=sum(
                 os.path.getsize(os.path.join(path, n)) for n in os.listdir(path)))
+            if calls:
+                out["save"].update(_save_vs_plain(calls, blob))
+        del calls
     whole = gather_tree(state.params, specs, mesh)
     host = _host_tree(whole) if mesh.rank == mesh.ranks[0] else None
     del whole, state, step
     _free()
     return out, host
+
+
+def _save_vs_plain(calls: list, blob: bytes) -> dict:
+    """A ternary save's recorded ``quantize_pack_segments`` calls against
+    the plain version on the same segments: the code bytes that differ, the
+    scales' largest relative gap, and the scales the file's records hold
+    (fp32 values of the leaves' w_q, one per ternary record) against the
+    plain version's in the segments' dtype."""
+    import numpy as np
+
+    from repro_torch.kernels.quantize_pack import quantize_pack_segments_plain
+    from repro_torch.train._msgpack import unpackb
+
+    byte_diff = n_bytes = 0
+    scale_rel = 0.0
+    plain_scales = []
+    for (rows, scal), kw, (packed, _, scales) in calls:
+        p_packed, _, p_scales = quantize_pack_segments_plain(rows, scal,
+                                                             kw.get("with_scales", False))
+        byte_diff += int((packed != p_packed).sum())
+        n_bytes += packed.numel()
+        if scales is not None:
+            scale_rel = max(scale_rel, float(((scales - p_scales).abs()
+                                              / p_scales.abs().clamp_min(1e-30)).max()))
+            # a record keeps its leaf's w_q, the scale in the leaf's dtype
+            plain_scales.append(p_scales.to(rows[0].dtype).float().reshape(-1).cpu().numpy())
+    records = [r for r in unpackb(blob)["leaves"] if "__tern__" in r]
+    on_disk = np.sort(np.concatenate([np.frombuffer(r["w_q"], np.float32) for r in records]))
+    want = np.sort(np.concatenate(plain_scales)) if plain_scales else np.zeros(0, np.float32)
+    record_rel = (float(np.max(np.abs(on_disk - want) / np.maximum(np.abs(want), 1e-30)))
+                  if on_disk.shape == want.shape and want.size else float("inf"))
+    return {"code_bytes": n_bytes, "code_bytes_differing": byte_diff, "scale_rtol": scale_rel,
+            "records": len(records), "record_scale_rtol": record_rel,
+            "segment_dtype": str(calls[0][0][0][0].dtype)}
 
 
 @contextlib.contextmanager
@@ -5245,12 +5344,13 @@ def _fault_local_gates(top_k: int):
 
 
 def _tp_single(dev, cfg, batches, fcfg, tp_run: dict, tp_params, save_dir: str,
-               start) -> tuple:
+               start, train=None) -> tuple:
     """On one rank after the others freed the card: where the TP run saved,
     its gathered params saved by one process (sha256 against the TP save),
     then one process stepping the same batches from the same state
-    (``start``, the whole params on the host), held to the TP run's losses
-    and final params. Returns (report, its params on the host)."""
+    (``start``, the whole params on the host; ``train`` as ``_tp_train``
+    takes it), held to the TP run's losses and final params. Returns
+    (report, its params on the host)."""
     import hashlib
     import shutil
 
@@ -5270,7 +5370,8 @@ def _tp_single(dev, cfg, batches, fcfg, tp_run: dict, tp_params, save_dir: str,
         shutil.rmtree(save_dir, ignore_errors=True)
         del params
         _free()
-    tcfg, opt = TrainerConfig(), adam(TRAIN_LR)
+    tcfg, lr = train or (TrainerConfig(), TRAIN_LR)
+    opt = adam(lr)
     state = init_train_state(cfg, tcfg, opt, params=tree_map(lambda t: t.to(dev), start),
                              device=dev)
     step = make_train_step(cfg, tcfg, opt)
@@ -5280,7 +5381,7 @@ def _tp_single(dev, cfg, batches, fcfg, tp_run: dict, tp_params, save_dir: str,
         got.append(float(m["loss"]))
     tp_losses = [r["loss"] for r in tp_run["steps"]]
     out = {"losses": got, "save_sha256": sha, **_md_gaps(dev, tp_losses, got, tp_params,
-                                                          state.params)}
+                                                          state.params, start)}
     ref = _host_tree(state.params)
     del state, step
     _free()
@@ -5369,8 +5470,7 @@ def _tp_pods_collective(mesh, dev, cfg, fcfg) -> dict:
 
     from repro_torch.models.transformer import param_shapes
     from repro_torch.parallel.collectives import (
-        all_gather, compressed_leaf, reset_wire_bytes, shard_scalars_plain,
-        ternary_allreduce_tree, ternary_allreduce_tree_plain, wire_bytes,
+        compressed_leaf, reset_wire_bytes, ternary_allreduce_tree, wire_bytes,
     )
     from repro_torch.parallel.tensor import param_shards
     from repro_torch.tree import flatten_with_path, path_str, tree_map_with_path
@@ -5402,27 +5502,62 @@ def _tp_pods_collective(mesh, dev, cfg, fcfg) -> dict:
            "want_gather_bytes": n_comp // 4 + 4 * sum(comp)}
     synced, res = _host_tree(synced), _host_tree(res)
     _free()
-    synced_p, res_p = ternary_allreduce_tree_plain(grads, group, cfg=fcfg, shards=sh)
+    out.update(_sync_vs_plain(dev, group, fcfg, sh, grads, synced, res))
+    del grads, synced, res
+    _free()
+    return out
+
+
+def _compressed_shard(path, x, fcfg, sh) -> bool:
+    """Whether the tree form of the sync compresses ``x``, this rank's
+    shard (cut as ``sh`` says, or whole) of the leaf at ``path``: its
+    whole leaf's last dim decides."""
+    from repro_torch.parallel.collectives import compressed_leaf
+    from repro_torch.tree import path_str
+
+    cut = sh.cuts.get(path_str(path), ()) if sh is not None else ()
+    return compressed_leaf(path, x, fcfg, x.shape[-1] * math.prod(
+        ax.size for ax, d in cut if d in (-1, x.ndim - 1)))
+
+
+def _sync_vs_plain(dev, group, fcfg, sh, grads, synced, res, res_in=None) -> dict:
+    """The kernel path's ``ternary_allreduce_tree`` outputs (``synced``,
+    ``res``, on the host or ``dev``) of ``grads`` with the residuals
+    ``res_in`` (None: zeros), leaf by leaf against the plain version on the
+    same shards: its code flips and the proven ties among them (|x_s|
+    within 1e-6 of Δ), and the means' and residuals' largest gap away from
+    a flip, over their largest |value|."""
+    import torch
+
+    from repro_torch.parallel.collectives import (
+        all_gather, shard_scalars_plain, ternary_allreduce_tree_plain,
+    )
+    from repro_torch.tree import flatten_with_path, path_str, tree_leaves
+
+    synced_p, res_p = ternary_allreduce_tree_plain(grads, group, cfg=fcfg, shards=sh,
+                                                   residuals=res_in)
+    items = flatten_with_path(grads)
+    ins = tree_leaves(res_in) if res_in is not None else [None] * len(items)
     flips = ties = 0
     mean_gap = res_gap = 0.0
-    for ((path, g), c, s_k, r_k, s_p, r_p) in zip(
-            items, comp, [x for _, x in flatten_with_path(synced)],
-            [x for _, x in flatten_with_path(res)], [x for _, x in flatten_with_path(synced_p)],
-            [x for _, x in flatten_with_path(res_p)]):
+    for ((path, g), r_in, s_k, r_k, s_p, r_p) in zip(
+            items, ins, tree_leaves(synced), tree_leaves(res), tree_leaves(synced_p),
+            tree_leaves(res_p)):
         s_k, r_k = s_k.to(dev), r_k.to(dev)
+        x = g.to(torch.float32) + (r_in.to(dev) if r_in is not None else 0.0)
         keep = torch.ones(g.shape, dtype=torch.bool, device=dev)
-        if c:
-            if path_str(path) in sh.cuts:
-                mx, delta, wq = shard_scalars_plain([g], fcfg.t_k, sh.axes(path_str(path)))[0]
+        if _compressed_shard(path, g, fcfg, sh):
+            if sh is not None and path_str(path) in sh.cuts:
+                mx, delta, wq = shard_scalars_plain([x], fcfg.t_k, sh.axes(path_str(path)))[0]
             else:
-                absg = g.abs()
-                mx = absg.max() + 1e-12
-                delta = fcfg.t_k * absg.mean() / mx
-                sel = (g / mx).abs() > delta
-                wq = torch.where(sel, absg, 0.0).sum() / (sel.sum() + 1e-12)
-            xs = g / mx
+                absx = x.abs()
+                mx = absx.max() + 1e-12
+                delta = fcfg.t_k * absx.mean() / mx
+                sel = (x / mx).abs() > delta
+                wq = torch.where(sel, absx, 0.0).sum() / (sel.sum() + 1e-12)
+            xs = x / mx
             codes_p = torch.where(xs.abs() > delta, torch.sign(xs), 0.0)
-            codes_k = torch.round((g - r_k) / wq)
+            codes_k = torch.round((x - r_k) / wq)
             flip = codes_k != codes_p
             mine = int(flip.sum())
             if mine:
@@ -5430,47 +5565,88 @@ def _tp_pods_collective(mesh, dev, cfg, fcfg) -> dict:
                 ties += int((gap <= 1e-6 * delta).sum())
             flips += mine
             keep = ~all_gather(flip.to(torch.uint8), group).any(0).to(torch.bool)
-            res_gap = max(res_gap, float((r_k - r_p)[~flip].abs().max()
-                                         / r_p.abs().max().clamp_min(1e-30)))
-        mean_gap = max(mean_gap, float((s_k - s_p)[keep].abs().max()
-                                       / s_p.abs().max().clamp_min(1e-30)))
-    out.update(code_flips=flips, proven_ties=ties, mean_rel_gap=mean_gap,
-               residual_rel_gap=res_gap)
-    del grads, synced, res, synced_p, res_p
-    _free()
-    return out
+            if bool((~flip).any()):
+                res_gap = max(res_gap, float((r_k - r_p)[~flip].abs().max()
+                                             / r_p.abs().max().clamp_min(1e-30)))
+        if bool(keep.any()):
+            mean_gap = max(mean_gap, float((s_k - s_p.to(s_k.dtype))[keep].abs().max().float()
+                                           / s_p.abs().max().float().clamp_min(1e-30)))
+    del synced_p, res_p
+    return {"code_flips": flips, "proven_ties": ties, "mean_rel_gap": mean_gap,
+            "residual_rel_gap": res_gap}
 
 
-def _tp_pods_train(mesh, dev, cfg, batches) -> dict:
+def _tp_pods_train(mesh, dev, cfg, batches, train=None, check_sync: bool = False) -> dict:
     """(d) TP_PODS_STEPS compressed steps over the pods x model mesh from
-    the seed-0 state (TrainerConfig defaults, adam(3e-4)): per step the ms,
-    loss, launches and wire bytes, each step counted on its own."""
+    the seed-0 state (TrainerConfig defaults, adam(3e-4); ``train``: another
+    (TrainerConfig, lr)): per step the ms, loss, launches and wire bytes,
+    each step counted on its own. With ``check_sync`` each step's cross-pod
+    sync is recorded (its inputs and outputs on the host) and, after the
+    step is counted, held to the plain version on the same inputs
+    (``_sync_vs_plain``), and the sync's all-gather bytes expected of its
+    compressed shard elements are reported."""
     import torch
 
+    import repro_torch.train.trainer as trainer_mod
     from repro_torch.optim import adam
     from repro_torch.parallel.collectives import reset_wire_bytes, wire_bytes
     from repro_torch.train import TrainerConfig, init_train_state, make_train_step
+    from repro_torch.tree import flatten_with_path
 
-    tcfg, opt = TrainerConfig(), adam(TRAIN_LR)
+    tcfg, lr = train or (TrainerConfig(), TRAIN_LR)
+    opt = adam(lr)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     state = init_train_state(cfg, tcfg, opt, seed=0, device=dev, n_pods=mesh.size("pod"),
                              mesh=mesh)
     step = make_train_step(cfg, tcfg, opt, mesh=mesh)
+    calls, sync = [], trainer_mod.ternary_allreduce_tree
+
+    def recorded(g_p, grp, *, residuals=None, **kw):
+        synced, res = sync(g_p, grp, residuals=residuals, **kw)
+        calls.append((_host_tree(g_p), _host_tree(residuals) if residuals is not None else None,
+                      _host_tree(synced), _host_tree(res), grp, kw))
+        return synced, res
+
     rows = []
     for b in batches:
         zero_counters()
         reset_wire_bytes()
-        _sync(dev)
-        t0 = time.perf_counter()
-        state, m = step(state, b)
-        _sync(dev)
+        if check_sync:
+            trainer_mod.ternary_allreduce_tree = recorded
+        try:
+            _sync(dev)
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            _sync(dev)
+        finally:
+            trainer_mod.ternary_allreduce_tree = sync
         rows.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": float(m["loss"]),
                      "launches": read_counters(), "wire": wire_bytes()})
-    out = {"steps": rows, "peak_gib": _peak_gib(dev)}
+        if check_sync:
+            (g, r_in, synced, res, grp, kw), = calls
+            calls.clear()
+            sh, fcfg = kw.get("shards"), kw.get("cfg")
+            comp = [x for p, x in flatten_with_path(g) if _compressed_shard(p, x, fcfg, sh)]
+            n_comp = sum(x.numel() for x in comp)
+            rows[-1].update(compressed_elements=n_comp,
+                            want_gather_bytes=n_comp // 4 + 4 * len(comp),
+                            sync_dtypes=sorted({str(x.dtype) for _, x in flatten_with_path(g)}),
+                            **_sync_vs_plain(dev, grp, fcfg, sh, _to_dev(g, dev), synced, res,
+                                             _to_dev(r_in, dev) if r_in is not None else None))
+            del g, r_in, synced, res
+            _free()
+    out = {"steps": rows, "peak_gib": _peak_gib(dev),
+           "dtypes": sorted({str(x.dtype) for _, x in flatten_with_path(state.params)})}
     del state, step
     _free()
     return out
+
+
+def _to_dev(tree, dev):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.to(dev), tree)
 
 
 def _first_grads(mesh, dev, cfg, batch, fcfg, start, routes: bool = False) -> tuple:
@@ -5547,7 +5723,7 @@ def _tp_twin(dev, cfg, batches, start, ref_losses, ref_params) -> dict:
 
 def _tp_cell(mesh, pair, dev, cfg, fcfg, out_dir: str, name: str, fault,
              save: bool = False, route_check: bool = False, first_step: bool = False,
-             steps: int = TP_STEPS) -> dict:
+             steps: int = TP_STEPS, train=None) -> dict:
     """One sharded train cell on ``mesh`` (its ranks the group ``pair``,
     None for all): the seed-0 params with their Δ ties moved
     (``_tp_detie``), ``steps`` steps of the CLI's token stream (the last
@@ -5559,7 +5735,8 @@ def _tp_cell(mesh, pair, dev, cfg, fcfg, out_dir: str, name: str, fault,
     ``first_step`` the run is held to one process at its first step instead
     (its loss and its gradients, TP and fault alike), and the trajectories
     are printed beside a noise twin's (``_tp_twin``): for a model that
-    amplifies a reordered sum past the limits within a few steps."""
+    amplifies a reordered sum past the limits within a few steps. ``train``:
+    the (TrainerConfig, lr) of every run, as ``_tp_train`` takes it."""
     import torch.distributed as dist
 
     from repro_torch.data.synthetic import synthetic_tokens, token_batches
@@ -5593,23 +5770,24 @@ def _tp_cell(mesh, pair, dev, cfg, fcfg, out_dir: str, name: str, fault,
         dist.barrier(group=pair)
     out["train"], tp_params = _tp_train(
         mesh, dev, cfg, batches, fcfg, start, trace=True, route_check=route_check,
-        save_dir=os.path.join(out_dir, f"{name}_tp_save") if save else None)
+        save_dir=os.path.join(out_dir, f"{name}_tp_save") if save else None, train=train)
     dist.barrier(group=pair)
     single_params = None
     if tp_params is not None:
         out["single"], single_params = _tp_single(
             dev, cfg, batches, fcfg, out["train"], tp_params,
-            os.path.join(out_dir, f"{name}_one_save"), start)
+            os.path.join(out_dir, f"{name}_one_save"), start, train=train)
     del tp_params
     dist.barrier(group=pair)
     fault_params = None
     if fault is not None:
         with fault():
-            out["fault"], fault_params = _tp_train(mesh, dev, cfg, batches, fcfg, start)
+            out["fault"], fault_params = _tp_train(mesh, dev, cfg, batches, fcfg, start,
+                                                   train=train)
     if fault_params is not None:
         fault_losses = [r["loss"] for r in out["fault"]["steps"]]
         out["fault"]["gaps"] = _md_gaps(dev, fault_losses, out["single"]["losses"],
-                                        fault_params, single_params)
+                                        fault_params, single_params, start)
         del fault_params
         if first_step:
             out["twin"] = _tp_twin(dev, cfg, batches, start, out["single"]["losses"],
@@ -6032,14 +6210,20 @@ FSDP_STATE_BYTES = 7_678_722_048
 FSDP_GATHER_BYTES = 2_147_483_648
 FSDP_TP_LAYERS = 4           # (k): olmo-1b cut to 4 of 16 layers on mesh (2, 2)
 FSDP_PODS_LAYERS = 4         # (l): olmo-1b cut to 4 of 16 layers on mesh (2, 2, 1)
-FSDP_TP_STEPS = FSDP_PODS_STEPS = 2
+# (k) 1 step (2 before the bf16_mesh phase; its second step took 11.9 s of
+# staged gathers), (l) 2
+FSDP_TP_STEPS, FSDP_PODS_STEPS = 1, 2
 
 
-def _fsdp_want(cfg, mesh) -> dict:
+def _fsdp_want(cfg, mesh, microbatches: int | None = None) -> dict:
     """What a rank of ``mesh`` holds and moves for ``cfg`` (fp32): the bytes
     of its params and both Adam moments, and the bytes it receives to
     gather its data-cut weights once, (P−1) × their shards' bytes, which is
-    also its reduce-scatter's count for their gradients."""
+    also its reduce-scatter's count for their gradients. With
+    ``microbatches`` (a bf16 cell): params in the cfg's dtype and fp32
+    moments, and a step's bytes: each microbatch gathers the weights twice
+    under remat "full" (the forward and its recompute) and reduce-scatters
+    their gradients once."""
     import math
 
     from repro_torch.models.transformer import param_shapes
@@ -6050,8 +6234,14 @@ def _fsdp_want(cfg, mesh) -> dict:
     shapes = flatten_with_path(param_shapes(cfg, mesh), is_leaf=lambda x: isinstance(x, tuple))
     cut = sum(math.prod(s) for p, s in shapes
               if any(a.name == "data" for a in sh.axes(path_str(p))))
-    return {"state_bytes": 3 * 4 * sum(math.prod(s) for _, s in shapes),
-            "gather_bytes": 4 * cut * (mesh.size("data") - 1)}
+    n = sum(math.prod(s) for _, s in shapes)
+    if microbatches is None:
+        return {"state_bytes": 3 * 4 * n, "gather_bytes": 4 * cut * (mesh.size("data") - 1)}
+    width = 2 if cfg.param_dtype == "bfloat16" else 4
+    once = width * cut * (mesh.size("data") - 1)
+    gathers = 2 if cfg.remat == "full" else 1
+    return {"state_bytes": (width + 8) * n, "gather_bytes": gathers * microbatches * once,
+            "scatter_bytes": microbatches * once}
 
 
 def fsdp_rank(rank: int, dev, fcfg, sizes: dict, pair, fsdp_mesh, fsdp_tp_mesh,
@@ -6179,6 +6369,250 @@ def fsdp_checks(reports: list, sizes: dict | None = None) -> None:
 
 
 # --------------------------------------------------------------------------
+# The reference's bf16 production train cell over the mesh.
+# --------------------------------------------------------------------------
+
+# (t) TP (1, 2), (u) FSDP (2, 1) and (v) pods x model (2, 1, 2): olmo-1b at
+# its published widths cut to 4 of 16 layers (the script's time), 2 steps
+BF16_MESH_LAYERS = 4
+BF16_MESH_PODS_LAYERS = 4
+BF16_MESH_STEPS = 2
+# (t) and (u) against one process's bf16 steps from the same state: the
+# largest loss gap over the steps, and the worst leaf's ‖Δparams‖ over the
+# one-process update ‖params − start‖ (a bf16 update of 1e-4 moves a weight
+# by whole ulps, so the params' own norm would hide it)
+BF16_MESH_LOSS_RTOL = 2.0 ** -13
+BF16_MESH_UPDATE_L2 = 0.25
+
+
+def bf16_mesh_cfg(n_layers: int | None = None, base=None):
+    """olmo-1b (or ``base``, a config) as ``launch.dryrun.build_cell``
+    builds it for a mesh: bf16 params and compute, remat "full", the batch
+    constrained to "data", EP over "model" (the a2a MoE, int8 wire)."""
+    import dataclasses
+
+    cfg = base if base is not None else bf16_train_cell(n_layers)[0]
+    return dataclasses.replace(cfg, param_dtype="bfloat16", compute_dtype="bfloat16",
+                               remat="full", mesh_batch_axes=("data",), mesh_ep_axis="model",
+                               moe_impl="a2a", moe_wire="int8")
+
+
+def bf16_mesh_train(pods: bool = False) -> tuple:
+    """build_cell's (TrainerConfig, lr): QAT, olmo-1b's 2 microbatches,
+    adam(1e-4); with ``pods`` the ternary cross-pod sync with error
+    feedback."""
+    import dataclasses
+
+    tcfg = bf16_train_cell(1)[1]
+    return dataclasses.replace(tcfg, pod_compression=pods, error_feedback=pods), BF16_TRAIN_LR
+
+
+def bf16_mesh_rank(rank: int, dev, fcfg, sizes: dict, pair, tp_mesh, fsdp_mesh, pods_mesh,
+                   out_dir: str, progress=lambda out: None) -> dict:
+    """The bf16_mesh phase on one rank of the multidevice spawn: (t) the
+    bf16 cell over the pair's "model" axis and (u) over its "data" axis,
+    each against one process and a planted fault (FTTQ statistics per
+    shard; the FSDP gather's backward keeping its own slice), (u) with its
+    ternary save from the data shards; then (v) pods x model on all four
+    ranks, 2 compressed bf16 steps, each step's sync held to the plain
+    version. ``progress(out)`` is called after each part."""
+    import torch.distributed as dist
+
+    from repro_torch.data.synthetic import synthetic_tokens, token_batches
+    from repro_torch.launch.train import DATA_SEED
+
+    out = {}
+    if tp_mesh.member:
+        cfg, train = sizes["bf16"], bf16_mesh_train()
+        out["t"] = _tp_cell(tp_mesh, pair, dev, cfg, fcfg, out_dir, "bf16_t", _fault_shard_stats,
+                            steps=BF16_MESH_STEPS, train=train)
+        progress(out)
+        dist.barrier(group=pair)
+        out["u"] = _tp_cell(fsdp_mesh, pair, dev, cfg, fcfg, out_dir, "bf16_u", _fault_own_slice,
+                            save=True, steps=BF16_MESH_STEPS, train=train)
+        out["u"]["want"] = _fsdp_want(cfg, fsdp_mesh, train[0].microbatches)
+        progress(out)
+    dist.barrier()
+    _free()
+    cfg, train = sizes["bf16_pods"], bf16_mesh_train(pods=True)
+    tokens = synthetic_tokens(DATA_SEED, TP_BATCH * (TP_SEQ + 1) * BF16_MESH_STEPS,
+                              cfg.vocab_size)
+    gen = token_batches(tokens, TP_BATCH, TP_SEQ, device=dev)
+    out["v"] = _tp_pods_train(pods_mesh, dev, cfg,
+                              [next(gen)[0] for _ in range(BF16_MESH_STEPS)], train=train,
+                              check_sync=True)
+    progress(out)
+    return out
+
+
+def bf16_mesh_checks(reports: list, sizes: dict | None = None) -> None:
+    """Print the bf16_mesh phase's numbers, then hold them to the contract:
+    (t) and (u) their codes (equal but at ties, none after moving them),
+    exactly one bf16 qat_backward launch per quantized leaf shard per
+    microbatch per step and rank and no fp32 one, the bf16 dtypes, the run
+    within BF16_MESH_LOSS_RTOL and BF16_MESH_UPDATE_L2 of one process and
+    the planted fault past both; (u) its all-gather and reduce-scatter bytes
+    a step and its save (one quantize_pack launch on the rank that writes
+    it, none on the other, the one-process save's
+    bytes, the codes and scales of the plain version, the records' scales;
+    its peak is held in the dryrun phase, ``bf16_mesh_peak_check``); (v)
+    per step and rank 1 quantize_pack and 2 aggregate
+    launches, the all-gather 0.25 B a shard coordinate plus 4 B a w_q, and
+    the sync against the plain version as (d) holds it."""
+    sizes = sizes or {}
+    failures = []
+
+    def hold(cond, msg):
+        if not cond:
+            failures.append(msg)
+
+    for rep in reports:
+        r, b = rep["rank"], rep.get("bf16_mesh")
+        if b is None:
+            continue
+        for tag, what, over in (("t", "TP (1, 2)", f"{TP_RANKS} model ranks"),
+                                ("u", "FSDP (2, 1)", f"{FSDP_RANKS} data ranks")):
+            if tag not in b:
+                continue
+            cell = b[tag]
+            c = cell["codes"]
+            print(f"rank {r}, bf16_mesh ({tag}) olmo-1b {cell['layers']} of 16 layers, bf16 "
+                  f"cell, {what}: {cell['wall_s']:.1f} s for the cell; QAT codes of the "
+                  f"seed-0 shards vs the whole leaves: {c['differing']} of {c['codes']} differ, "
+                  f"{c['ties']} of them ties at Δ; {c['moved']} weights moved off Δ, {c['left']} "
+                  "differing after")
+            hold(c["differing"] == c["ties"] and c["left"] == 0,
+                 f"({tag}) a shard's QAT code differs from the whole leaf's away from a tie")
+            for name in ("train", "fault"):
+                run = cell[name]
+                want = run["quantized_leaves"] * 2 * len(run["steps"])
+                print(f"rank {r}, bf16_mesh ({tag}) {TP_BATCH} x {TP_SEQ} over {over} ({name}): "
+                      "steps " + "; ".join(
+                          f"{s['ms']:.1f} ms{' traced' if s['traced'] else ''} "
+                          f"({s['tok_s']:.0f} tok/s) loss {s['loss']:.6f}, {s['gloo_ms']:.1f} ms "
+                          "in gloo calls" + (f", {s['device_ms']:.1f} ms of device kernels"
+                                             if "device_ms" in s else "")
+                          for s in run["steps"])
+                      + f"; peak {run['peak_gib']:.2f} GiB ({run['held_bytes'] / 2 ** 30:.2f} "
+                      f"GiB held before); param dtypes {run['dtypes']}; launches "
+                      f"{json.dumps(run['launches'])} (qat_backward_bf16 want {want}: "
+                      f"{run['quantized_leaves']} quantized leaf shards x 2 microbatches x "
+                      f"{len(run['steps'])} steps); wire {json.dumps(run['wire'])}")
+                hold(run["launches"]["qat_backward_bf16"] == want
+                     and run["launches"]["qat_backward"] == 0,
+                     f"({tag}, {name}) qat_backward_bf16 launched "
+                     f"{run['launches']['qat_backward_bf16']} times (want {want}), the fp32 "
+                     f"entry {run['launches']['qat_backward']} (want 0)")
+                hold(run["dtypes"] == ["torch.bfloat16"], f"({tag}) params not bf16")
+            if tag == "u":
+                w = cell["want"]
+                steps = len(cell["train"]["steps"])
+                print(f"rank {r}, bf16_mesh (u) state bytes {cell['train']['state_bytes']} "
+                      f"(want {w['state_bytes']}); wire over {steps} steps "
+                      f"{json.dumps(cell['train']['wire'])} (all-gather want "
+                      f"{w['gather_bytes'] * steps}: the data-cut weights twice a microbatch "
+                      f"under remat full; reduce-scatter want {w['scatter_bytes'] * steps})")
+                hold(cell["train"]["state_bytes"] == w["state_bytes"],
+                     "(u) a rank's bf16 state bytes are not its shards'")
+                hold(cell["train"]["wire"].get("all_gather", 0) == w["gather_bytes"] * steps
+                     and cell["train"]["wire"].get("reduce_scatter", 0)
+                     == w["scatter_bytes"] * steps,
+                     "(u) the FSDP all-gather or reduce-scatter bytes are not the closed form")
+                sv = cell["train"].get("save")
+                if sv is not None:
+                    print(f"rank {r}, bf16_mesh (u) ternary save from the data shards: "
+                          f"{sv['s']:.2f} s, launches {json.dumps(sv['launches'])}"
+                          + (f", {sv['bytes']} B, sha256 {sv['sha256']}; {sv['segment_dtype']} "
+                             f"segments, {sv['code_bytes_differing']} of {sv['code_bytes']} code "
+                             f"bytes differ from the plain version, scales within rtol "
+                             f"{sv['scale_rtol']:.2e}, the {sv['records']} records' scales "
+                             f"within rtol {sv['record_scale_rtol']:.2e} of the plain ones"
+                             if "sha256" in sv else ""))
+                    # the mesh's first rank encodes and writes the gathered leaves
+                    want = 1 if "sha256" in sv else 0
+                    hold(sv["launches"]["quantize_pack"] == want,
+                         f"(u) the bf16 save from the shards launched quantize_pack "
+                         f"{sv['launches']['quantize_pack']} times on this rank, want {want}")
+                    if "sha256" in sv:
+                        hold(sv["sha256"] == cell["single"]["save_sha256"],
+                             "(u) the bf16 save from the shards differs from the one-process "
+                             "save")
+                        hold(sv["segment_dtype"] == "torch.bfloat16"
+                             and sv["code_bytes_differing"] == 0 and sv["scale_rtol"] <= 1e-6
+                             and sv["record_scale_rtol"] <= 1e-6,
+                             "(u) the bf16 save's codes or scales differ from the plain "
+                             "version's")
+            if "single" in cell:
+                for name, g in (("sharded run", cell["single"]),
+                                ("planted fault", cell["fault"]["gaps"])):
+                    print(f"rank {r}, bf16_mesh ({tag}) {name} vs one process, "
+                          f"{len(cell['train']['steps'])} steps: one-process losses "
+                          f"{cell['single']['losses']}; max loss rel gap "
+                          f"{g['loss_rel_gap']:.3e} (limit {BF16_MESH_LOSS_RTOL:.3e}); params "
+                          f"worst leaf ‖Δ‖/‖update‖ {g['update_rel_l2']:.3e} (limit "
+                          f"{BF16_MESH_UPDATE_L2:g}), ‖Δ‖/‖p‖ {g['param_rel_l2']:.3e}, max |Δ| / "
+                          f"max |p| {g['param_rel_gap']:.3e}")
+                g, f = cell["single"], cell["fault"]["gaps"]
+                hold(g["loss_rel_gap"] <= BF16_MESH_LOSS_RTOL
+                     and g["update_rel_l2"] <= BF16_MESH_UPDATE_L2,
+                     f"({tag}) bf16 {what} training disagrees with one process")
+                hold(f["loss_rel_gap"] > BF16_MESH_LOSS_RTOL
+                     and f["update_rel_l2"] > BF16_MESH_UPDATE_L2,
+                     f"({tag}) a limit of the bf16 checks does not catch the planted fault")
+        v = b["v"]
+        print(f"rank {r}, bf16_mesh (v) olmo-1b {sizes.get('bf16_pods_layers', '?')} of 16 "
+              f"layers, bf16 cell, {TP_BATCH} x {TP_SEQ} over mesh (2, 1, 2): param dtypes "
+              f"{v['dtypes']}; peak {v['peak_gib']:.2f} GiB; steps " + "; ".join(
+                  f"{s['ms']:.1f} ms loss {s['loss']:.6f} launches {json.dumps(s['launches'])} "
+                  f"all-gather {s['wire'].get('all_gather', 0)} B (want "
+                  f"{s['want_gather_bytes']}); sync inputs {s['sync_dtypes']}, code flips "
+                  f"{s['code_flips']} ({s['proven_ties']} proven ties), mean rel gap "
+                  f"{s['mean_rel_gap']:.3e}, residual rel gap {s['residual_rel_gap']:.3e}"
+                  for s in v["steps"]))
+        hold(v["dtypes"] == ["torch.bfloat16"], "(v) params not bf16")
+        for s in v["steps"]:
+            hold(s["launches"]["quantize_pack"] == 1 and s["launches"]["aggregate"] == 2
+                 and s["launches"]["qat_backward"] == 0,
+                 "(v) a bf16 pods x model step launched other than 1 quantize_pack and 2 "
+                 "aggregate, or the fp32 QAT backward")
+            hold(s["wire"].get("all_gather", 0) == s["want_gather_bytes"],
+                 "(v) a bf16 pods x model step's all-gather is not 0.25 B a shard coordinate "
+                 "plus 4 B a w_q")
+            hold(s["code_flips"] == s["proven_ties"]
+                 and s["mean_rel_gap"] <= 1e-6 and s["residual_rel_gap"] <= 1e-6,
+                 "(v) the bf16 pods x model sync disagrees with the plain version")
+    check(not failures, "; ".join(failures))
+
+
+def bf16_mesh_peak_check(est: dict, reports: list) -> None:
+    """The dry-run's estimates of (t) and (u) against each rank's measured
+    peak over what it held before the run: (u) within DRYRUN_PEAK_REL,
+    (t) printed beside it."""
+    for rep_ in reports:
+        b = rep_.get("bf16_mesh") or {}
+        for tag in ("t", "u"):
+            if tag not in b:
+                continue
+            tr = b[tag]["train"]
+            measured = tr["peak_bytes"] - tr["held_bytes"]
+            e = est[f"bf16_{tag}"]
+            rel = e["memory"]["peak_estimate_bytes"] / measured - 1
+            print(f"dryrun: bf16_mesh ({tag}) rank {rep_['rank']}: params, m and v "
+                  f"{sum(e['state_parts'][k] for k in ('params', 'm', 'v'))} B estimated, "
+                  f"{tr['state_bytes']} B measured; peak estimate "
+                  f"{e['memory']['peak_estimate_bytes'] / 2 ** 30:.2f} GiB, measured "
+                  f"{measured / 2 ** 30:.2f} GiB over the {tr['held_bytes'] / 2 ** 30:.2f} GiB "
+                  f"held before: {100 * rel:+.1f}%"
+                  + (f" (limit ±{100 * DRYRUN_PEAK_REL:.0f}%)" if tag == "u" else " (printed)")
+                  + f"; collectives {json.dumps(e['collective'])}")
+            if tag == "u":
+                check(abs(rel) <= DRYRUN_PEAK_REL,
+                      "the dry-run's bf16 FSDP (u) peak estimate is off the measured peak")
+                check(sum(e["state_parts"][k] for k in ("params", "m", "v")) == tr["state_bytes"],
+                      "the dry-run's bf16 FSDP (u) state bytes are not the measured ones")
+
+
+# --------------------------------------------------------------------------
 # Serving rows and sequence-cut caches over the batch axes.
 # --------------------------------------------------------------------------
 
@@ -6187,9 +6621,9 @@ def fsdp_checks(reports: list, sizes: dict | None = None) -> None:
 # prompt fills rank 0's first 2,044 of 2,048 slots and the decode's fifth
 # step writes rank 1's first slot, position 2,048 (6 steps: the depth and
 # the steps cut from 16 to make room for (r), (s) and the bf16_train phase
-# in the script's time)
+# in the script's time; the depth from 8 to 4 for the bf16_mesh phase)
 SR_LONG_PROMPT, SR_LONG_GEN, SR_LONG_SLOTS = 2044, 6, 4096
-SR_LONG_LAYERS = 8
+SR_LONG_LAYERS = 4
 # (o) = the fsdp part's (n): 4 decode steps (cut from 8 for the same reason)
 SR_ROWS_GEN = 4
 # (q): granite-20b (MQA) cut to 4 of 52 layers, batch 2 on (1, 2), its
@@ -6528,10 +6962,15 @@ fp32 = (get_config("olmo-1b"), TrainKind(TrainerConfig(), lr={lr!r}), ({b}, {s})
 bf16 = (get_config("olmo-1b", param_dtype="bfloat16", compute_dtype="bfloat16", remat="full"),
         TrainKind(TrainerConfig(qat=True, microbatches=MICROBATCHES["olmo-1b"]), lr={bf16_lr!r}),
         ({bf16_b}, {bf16_s}))
+mesh_cfg = get_config("olmo-1b", n_layers={bf16_mesh_layers}, param_dtype="bfloat16",
+                      compute_dtype="bfloat16", remat="full", mesh_batch_axes=("data",),
+                      mesh_ep_axis="model", moe_impl="a2a", moe_wire="int8")
+bf16_mesh = (mesh_cfg, bf16[1], ({tp_b}, {tp_s}))
 for name, (cfg, kind, shape_bs), shape, axes in (
         ("one_device", fp32, (1,), ("data",)), ("bf16_train", bf16, (1,), ("data",)),
         ("fsdp_j", (get_config("olmo-1b", n_layers={fsdp_layers}),) + fp32[1:], (2, 1),
-         ("data", "model"))):
+         ("data", "model")), ("bf16_t", bf16_mesh, (1, 2), ("data", "model")),
+        ("bf16_u", bf16_mesh, (2, 1), ("data", "model"))):
     r = estimate_step(cfg, kind, shape_bs, shape, axes)
     out[name] = {{"memory": r["memory"], "state_parts": r["state_parts"],
                   "flops": r["hlo"]["flops_per_device"],
@@ -6552,19 +6991,15 @@ def dryrun_start():
     b, s = TRAIN_RUNS[0][:2]
     code = _DRYRUN_CODE.format(src=SRC, lr=TRAIN_LR, b=b, s=s, bf16_lr=BF16_TRAIN_LR,
                                bf16_b=BF16_TRAIN_BATCH, bf16_s=BF16_TRAIN_SEQ,
-                               fsdp_layers=FSDP_OLMO_LAYERS)
+                               fsdp_layers=FSDP_OLMO_LAYERS, bf16_mesh_layers=BF16_MESH_LAYERS,
+                               tp_b=TP_BATCH, tp_s=TP_SEQ)
     return subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True,
                             env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
 
 
-def dryrun_finish(proc, train: dict, md: dict, bf16_train: dict) -> dict:
-    """The estimates of ``dryrun_start`` against the train phase's first run,
-    the bf16_train phase's run and (j): the params' and Adam moments' bytes
-    exactly, each one-device peak within ``DRYRUN_PEAK_REL`` of the run's
-    peak over what earlier phases held; (j)'s peak printed beside its
-    measurement, unchecked (two ranks' peaks move by up to 7 GiB between
-    runs)."""
+def dryrun_estimates(proc) -> dict:
+    """The estimates ``dryrun_start``'s process printed."""
     try:
         stdout, stderr = proc.communicate(timeout=600)
     finally:
@@ -6572,7 +7007,17 @@ def dryrun_finish(proc, train: dict, md: dict, bf16_train: dict) -> dict:
             proc.kill()
             proc.wait()
     check(proc.returncode == 0, f"the dry-run estimate failed: {stderr[-3000:]}")
-    est = json.loads(stdout.strip().splitlines()[-1])
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
+def dryrun_finish(proc, train: dict, md: dict, bf16_train: dict) -> dict:
+    """The estimates of ``dryrun_start`` against the train phase's first run,
+    the bf16_train phase's run, (j) and the bf16_mesh phase's (t) and (u):
+    the params' and Adam moments' bytes exactly, each one-device peak and
+    (u)'s within ``DRYRUN_PEAK_REL`` of the run's peak over what was held
+    before it; (j)'s and (t)'s peaks printed beside their measurements,
+    unchecked (two fp32 ranks' peaks moved by up to 7 GiB between runs)."""
+    est = dryrun_estimates(proc)
     run = train["full_width"]["runs"][0]
     one = est["one_device"]
     mine = lambda e: e["state_parts"]["params"] + e["state_parts"]["m"] + e["state_parts"]["v"]
@@ -6621,6 +7066,7 @@ def dryrun_finish(proc, train: dict, md: dict, bf16_train: dict) -> dict:
               and (FSDP_OLMO_LAYERS != 16 or tr["state_bytes"] == FSDP_STATE_BYTES),
               "the dry-run's (j) state bytes are not the measured ones")
     check(len(got) == FSDP_RANKS, "the fsdp part's (j) reports are missing")
+    bf16_mesh_peak_check(est, md["reports"])
     return est
 
 
@@ -6710,6 +7156,16 @@ def multidevice_rank(rank: int, world: int, rdv: str, out_dir: str, device: str,
 
         report["serve_rows"] = serve_rows_rank(rank, dev, sizes, fsdp_mesh, tp_mesh,
                                                rows_progress)
+        dist.barrier()
+    if "bf16_mesh" in parts:
+        _free()
+
+        def bf16_progress(b_out):
+            report["bf16_mesh"] = b_out
+            save()
+
+        report["bf16_mesh"] = bf16_mesh_rank(rank, dev, FTTQConfig(), sizes, pair, tp_mesh,
+                                             fsdp_mesh, pods_mesh, out_dir, bf16_progress)
     report["rank_s"] = time.perf_counter() - t0
     save()
     dist.destroy_process_group()
@@ -6720,16 +7176,18 @@ def multidevice_phase(device: str = "cuda:0", olmo_cfg=None, moe_cfg=None, train
                       tp_cfg=None, tp_pods_cfg=None, tp_zamba_cfg=None, tp_moe_cfg=None,
                       tp_pods_moe_cfg=None, tp_a2a_cfg=None, fsdp_cfg=None, fsdp_tp_cfg=None,
                       fsdp_pods_cfg=None,
-                      serve_long_cfg=None, serve_mqa_cfg=None,
+                      serve_long_cfg=None, serve_mqa_cfg=None, bf16_cfg=None,
+                      bf16_pods_cfg=None,
                       parts: tuple = ("collective", "tensor_parallel", "fsdp",
-                                      "serve_rows")) -> dict:
+                                      "serve_rows", "bf16_mesh")) -> dict:
     """Ranks spawned on the one card over gloo (a file rendezvous in a
     temporary directory), in one spawn: on two of them (a) the collective at
     full width, (c) the client-sharded fan-in, (d) the expert-parallel MoE,
     (b) compressed multi-pod training, then the tensor_parallel phase on the
     two (its (a)-(c), (e)-(h)) and on four (its (d), (i)), then the fsdp
-    phase on two (its (j), (m), (n)) and on four (its (k), (l)). ``parts``
-    names the parts to run. A rank that fails or does not finish in time
+    phase on two (its (j), (m), (n)) and on four (its (k), (l)), the
+    serve_rows phase, and the bf16_mesh phase on two (its (t), (u)) and on
+    four (its (v)). ``parts`` names the parts to run. A rank that fails or does not finish in time
     fails the phase; every process is stopped."""
     import multiprocessing as mp
     import tempfile
@@ -6756,8 +7214,11 @@ def multidevice_phase(device: str = "cuda:0", olmo_cfg=None, moe_cfg=None, train
              "fsdp_pods": fsdp_pods_cfg or get_config("olmo-1b", n_layers=FSDP_PODS_LAYERS),
              "serve_long": serve_long_cfg or get_config("olmo-1b", n_layers=SR_LONG_LAYERS),
              "serve_mqa": serve_mqa_cfg or get_config("granite-20b", n_layers=SR_MQA_LAYERS),
+             "bf16": bf16_mesh_cfg(BF16_MESH_LAYERS, base=bf16_cfg),
+             "bf16_pods": bf16_mesh_cfg(BF16_MESH_PODS_LAYERS, base=bf16_pods_cfg),
              "batch": batch, "seq": seq, "steps": steps, "parts": tuple(parts)}
-    world = MD_WORLD if {"tensor_parallel", "fsdp", "serve_rows"} & set(parts) else MD_RANKS
+    world = (MD_WORLD if {"tensor_parallel", "fsdp", "serve_rows", "bf16_mesh"} & set(parts)
+             else MD_RANKS)
     ctx = mp.get_context("spawn")
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     # the ranks write two olmo-1b checkpoints there: keep them in the checkout's build/
@@ -6798,8 +7259,9 @@ def multidevice_phase(device: str = "cuda:0", olmo_cfg=None, moe_cfg=None, train
         "fsdp_layers": sizes["fsdp"].n_layers, "fsdp_tp_layers": sizes["fsdp_tp"].n_layers,
         "fsdp_pods_layers": sizes["fsdp_pods"].n_layers,
         "serve_long_layers": sizes["serve_long"].n_layers,
-        "serve_mqa_layers": sizes["serve_mqa"].n_layers, "batch": batch, "seq": seq,
-        "steps": steps, "world": world}}
+        "serve_mqa_layers": sizes["serve_mqa"].n_layers,
+        "bf16_layers": sizes["bf16"].n_layers, "bf16_pods_layers": sizes["bf16_pods"].n_layers,
+        "batch": batch, "seq": seq, "steps": steps, "world": world}}
 
 
 def multidevice_checks(md: dict) -> None:
@@ -6892,9 +7354,61 @@ def multidevice_checks(md: dict) -> None:
     print(f"multidevice phase: {md['wall_s']:.1f} s")
 
 
-def main() -> int:
+SELECTABLE = ("bf16_mesh", "bf16_train", "multidevice", "midhead")
+BF16_MESH_TITLE = (
+    "bf16_mesh: the reference's bf16 production train cell over the mesh (in the multidevice "
+    f"spawn), olmo-1b {BF16_MESH_LAYERS} of 16 layers at full width: (t) over (1, 2) data x "
+    "model, (u) over (2, 1) with its ternary save, each vs one process and a planted fault; "
+    f"(v) pods x model on (2, 1, 2), {BF16_MESH_PODS_LAYERS} layers, the sync vs the plain "
+    "version")
+
+
+def selected_phases(argv: list) -> list:
+    """The phases ``--phase NAME`` (repeatable) names, each one of
+    SELECTABLE; none: every phase."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU; with --phase, "
+                                             "the device and build phases and the named ones")
+    ap.add_argument("--phase", action="append", default=[], choices=SELECTABLE)
+    return ap.parse_args(argv).phase
+
+
+def run_selected(names: list, dev, card: str, dry) -> None:
+    """The phases ``names`` alone, after device and build (a developer's
+    quick run; every other phase skipped, and said so)."""
     import torch
 
+    from repro_torch.core.fttq import FTTQConfig
+
+    print(f"chip_smoke: phases selected {names}; skipped: every other phase but device and "
+          "build")
+    device = f"cuda:{torch.cuda.current_device()}"
+    if "bf16_train" in names:
+        phase("bf16_train")
+        bf16_train_phase(dev, FTTQConfig(), card)
+    parts = (("collective", "tensor_parallel", "fsdp", "serve_rows")
+             if "multidevice" in names else ()) + (("bf16_mesh",) if "bf16_mesh" in names
+                                                   else ())
+    if parts:
+        phase(f"multidevice parts {list(parts)}")
+        md = multidevice_phase(device, parts=parts)
+        if "multidevice" in names:
+            multidevice_checks(md)
+        if "bf16_mesh" in names:
+            phase(BF16_MESH_TITLE)
+            bf16_mesh_checks(md["reports"], md["sizes"])
+            phase("dryrun: the bf16_mesh cells' estimates")
+            bf16_mesh_peak_check(dryrun_estimates(dry), md["reports"])
+    if "midhead" in names:
+        phase("midhead")
+        midhead_checks(midhead_phase(device))
+
+
+def main(argv: list | None = None) -> int:
+    import torch
+
+    names = selected_phases(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is present", file=sys.stderr)
         return 1
@@ -6956,6 +7470,15 @@ def main() -> int:
           f"{param_count(cfg)} params, {n_quant} quantized "
           f"(init {time.perf_counter() - t0:.1f} s)")
     check(n_quant == 2 ** 30, f"expected 2^30 quantized weights, got {n_quant}")
+    if names:
+        del params
+        _free()
+        run_selected(names, dev, card, dry)
+        print(card)
+        print(json.dumps({"kernels": [], "selected_phases": names}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
 
     phase("checks: quantize_pack_segments on the deploy's segments, olmo-1b in one launch "
           "(bytes, guards and counts exact, sums and scales rtol 1e-6)")
@@ -7195,7 +7718,7 @@ def main() -> int:
     del cache, logits, prof
 
     phase("zoo: every family through launch/serve.py (gemma3-4b, granite-20b 4 of 52 layers, "
-          "llama-3.2-vision-11b 10 of 40, hubert-xlarge, qwen3-moe 4 of 48, deepseek-moe 4 of "
+          "llama-3.2-vision-11b 5 of 40, hubert-xlarge, qwen3-moe 2 of 48, deepseek-moe 2 of "
           "28, mamba2-370m, zamba2-1.2b)")
     t0 = time.perf_counter()
     zoo = zoo_phase(dev, fcfg)
@@ -7236,11 +7759,14 @@ def main() -> int:
           f"prompt and {SR_LONG_GEN} steps; (q) granite-20b {SR_MQA_LAYERS} of 52 layers (MQA), "
           "the cache's sequence over 2 model ranks; (r) qwen3-moe-30b-a3b "
           f"{TP_A2A_LAYERS} of 48 layers, the all-to-all MoE under 'model' vs the scatter "
-          "dispatch and a planted fault")
+          "dispatch and a planted fault; then bf16_mesh (its checks below)")
     _free()
     md = multidevice_phase(f"cuda:{torch.cuda.current_device()}")
     multidevice_checks(md)
     md_reports = md["reports"]
+
+    phase(BF16_MESH_TITLE)
+    bf16_mesh_checks(md_reports, md["sizes"])
 
     phase(f"midhead: (s) gemma3-4b {MH_LAYERS} of 34 layers at full width over {MH_RANKS} "
           "model ranks on the card over gloo (half a query head a rank): prefill and decode "
@@ -7267,6 +7793,20 @@ def main() -> int:
                        zamba2_train=tp["zamba2"]["train"]["launches"][name],
                        moe_train=tp["moe"]["train"]["launches"][name],
                        moe_ternary_save=tp["moe"]["train"]["save"]["launches"][name])
+        return out
+
+    def bf16_mesh_launches(name: str) -> dict:
+        """Each rank's launches of ``name`` on the bf16_mesh paths: (t) and
+        (u) over their runs, (u)'s save, (v) a step."""
+        out = {}
+        for rep in md_reports:
+            b = rep.get("bf16_mesh") or {}
+            got = {f"{tag}_{run}": b[tag][run]["launches"][name]
+                   for tag in ("t", "u") if tag in b for run in ("train", "fault")}
+            if "u" in b:
+                got["u_ternary_save"] = b["u"]["train"]["save"]["launches"][name]
+            got["v_steps"] = [s_["launches"][name] for s_ in b["v"]["steps"]]
+            out[f"rank{rep['rank']}"] = got
         return out
 
     def fsdp_launches(rep: dict, name: str) -> dict:
@@ -7369,6 +7909,7 @@ def main() -> int:
              f"rank{r['rank']}": tp_launches(r, "quantize_pack") for r in md_reports},
          "fsdp_launches": {
              f"rank{r['rank']}": fsdp_launches(r, "quantize_pack") for r in md_reports},
+         "bf16_mesh_launches": bf16_mesh_launches("quantize_pack"),
          "multidevice": md},
         {"name": "quantize_pack_bf16", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/quantize_pack_bf16.cu",
@@ -7382,6 +7923,8 @@ def main() -> int:
          "sum_rel": bf16["checks"]["quantize_pack_sum_rel"],
          "scale_rel": bf16["checks"]["quantize_pack_scale_rel"],
          "patterns": bf16["checks"]["quantize_pack_patterns"],
+         "bf16_mesh_save": {f"rank{r['rank']}": r["bf16_mesh"]["u"]["train"]["save"]
+                            for r in md_reports if "u" in r.get("bf16_mesh", {})},
          "layouts": bf16["checks"]["quantize_pack_layouts"],
          "subnormals": bf16["checks"]["subnormals"]},
         {"name": "ternary_matmul", "route": "cuda",
@@ -7432,6 +7975,7 @@ def main() -> int:
              f"rank{r['rank']}": tp_launches(r, "aggregate") for r in md_reports},
          "fsdp_launches": {
              f"rank{r['rank']}": fsdp_launches(r, "aggregate") for r in md_reports},
+         "bf16_mesh_launches": bf16_mesh_launches("aggregate"),
          "socket_launches": socket_launches("aggregate"), "socket": sock,
          "controller": {k: ctrl[k] for k in ("per_round", "wall_s", "bytes_by_kind",
                                              "blob_sizes", "fold_vs_cpu_elements",
@@ -7499,6 +8043,7 @@ def main() -> int:
          "plain_ms": bf16_train["qat_backward_bf16"]["plain_ms"],
          "bound_ms": bf16_train["qat_backward_bf16"]["bound_ms"],
          "bound_by": bf16_train["qat_backward_bf16"]["bound_by"], "library_ms": None,
+         "bf16_mesh_launches": bf16_mesh_launches("qat_backward_bf16"),
          "bf16_train": bf16_train},
     ]}
     print(card)

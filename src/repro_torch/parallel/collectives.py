@@ -158,12 +158,23 @@ def _host(t: torch.Tensor) -> torch.Tensor:
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
+_NARROW = (torch.bfloat16, torch.float16)
+
+
 def all_reduce_(t: torch.Tensor, group, *, mean: bool = False, op: str = "sum") -> torch.Tensor:
     """In-place sum (or mean, or with ``op="max"`` maximum) of ``t`` over
-    ``group``."""
+    ``group``. A bf16 or fp16 sum over more than two ranks is taken in fp32
+    and rounded once, as XLA promotes a narrow all-reduce to fp32; summed in
+    ``t``'s dtype, each add would round (over two ranks that is the same
+    single rounding, so the narrow tensor travels as it is)."""
     p = group_size(group)
     if p == 1:
         return t
+    if op == "sum" and p > 2 and t.dtype in _NARROW:
+        wide = t.to(torch.float32)
+        all_reduce_(wide, group)
+        t.copy_(wide)
+        return t.div_(p) if mean else t
     buf = _host(t) if _staged(t, group) else t
     dist.all_reduce(buf, group=group, op=_OPS[op])
     if buf is not t:
@@ -213,17 +224,23 @@ def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     all-to-all (chunk j of every rank to group rank j, staged as
     ``all_to_all`` stages a CUDA tensor) and a local sum of the P chunks
     received, added in group-rank order so that every run gives the same
-    bits. Adds (P−1)/P·n bytes to ``wire_bytes()["reduce_scatter"]``, a
-    reduce-scatter's count."""
+    bits. A bf16 or fp16 sum is taken in fp32 and rounded once, as XLA's
+    promoted all-reduce takes it (NCCL's is then in fp32 over more than
+    two ranks). Adds (P−1)/P·n bytes of what crosses the wire to
+    ``wire_bytes()["reduce_scatter"]``, a reduce-scatter's count."""
     p = group_size(group)
     if p == 1:
         return t
     x = t.movedim(dim, 0).contiguous()
     if dist.get_backend(group) == "gloo":
         parts = _all_to_all(x, group).unflatten(0, (p, -1))
-        out = parts[0].clone()
+        out = parts[0].to(torch.float32)
         for k in range(1, p):
             out += parts[k]
+        out = out.to(x.dtype)
+    elif p > 2 and x.dtype in _NARROW:
+        out = reduce_scatter(x.to(torch.float32), group).to(x.dtype)
+        return out.movedim(0, dim).contiguous()
     else:
         out = torch.empty((x.shape[0] // p,) + tuple(x.shape[1:]), dtype=x.dtype,
                           device=x.device)

@@ -165,7 +165,10 @@ def _pack_leaf(leaf) -> dict:
                 "dtype": leaf.dtype}
     if isinstance(leaf, TernaryTensor):
         packed = to_numpy(leaf.packed).reshape(-1)
-        w_q = to_numpy(leaf.w_q).astype(np.float32)
+        # the scale's value as fp32, as the reference writes it (a bf16
+        # scale's host bytes are its uint16 bits, not its value)
+        w_q = to_numpy(leaf.w_q.to(torch.float32) if isinstance(leaf.w_q, torch.Tensor)
+                       else leaf.w_q).astype(np.float32)
         return {
             _SENTINEL_TERNARY: True,
             "packed": packed.tobytes(),

@@ -29,8 +29,19 @@ from repro_torch.parallel.collectives import (
 from repro_torch.tree import tree_leaves, tree_map
 
 
+def _host(t: torch.Tensor):
+    """A tensor as numpy; a bf16 tensor (numpy has no bf16 of its own) as
+    an ``ml_dtypes.bfloat16`` array of its very bits, as JAX exports one."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
 def _np(tree):
-    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    return tree_map(_host, tree)
 
 
 def _torch(tree, device):
@@ -471,11 +482,13 @@ def _state_np(state) -> dict:
 
 def tp_steps(rank, world, *, runs, lr):
     """For each run (arch, (data, model) mesh shape, TrainerConfig kwargs,
-    ModelConfig overrides, reference state and batch): one train step on
-    that mesh from the state's shards, gathered into whole leaves, and the
-    port's one-device step from the same state; every rank of the mesh
-    reports whether its new leaves had their local shapes, rank 0 also both
-    steps."""
+    ModelConfig overrides, reference state and batch; ``steps`` and ``lr``
+    where the run sets them, else 1 and ``lr``): train steps on that mesh
+    from the state's shards, each step's state gathered into whole leaves,
+    and the port's one-device steps from the same state; every rank of the
+    mesh reports whether its new leaves had their local shapes after each
+    step, rank 0 also both packages' states and metrics a step (``tp`` and
+    ``one`` the first step's, ``steps`` every step's)."""
     from repro_torch.models.transformer import param_shapes
     from repro_torch.parallel.sharding import param_specs
     from repro_torch.parallel.tensor import gather_state, shard_state
@@ -496,23 +509,66 @@ def tp_steps(rank, world, *, runs, lr):
         state = _state(run["state"], "cpu")
         batch = {k: torch.from_numpy(v) for k, v in run["batch"].items()}
         specs = param_specs(cfg, mesh)
-        new, m = make_train_step(cfg, tcfg, adam(lr), mesh=mesh)(
-            shard_state(state, specs, mesh), batch)
+        opt = adam(run.get("lr", lr))
+        step = make_train_step(cfg, tcfg, opt, mesh=mesh)
         local = {path_str(p): tuple(v) for p, v in flatten_with_path(
             param_shapes(cfg, mesh), is_leaf=lambda x: isinstance(x, tuple))}
-        shapes_ok = all(tuple(x.shape) == local[name[len(prefix):]]
-                        for name, x in flatten(new)
-                        for prefix in (".params/", ".opt_state/m/", ".opt_state/v/")
-                        if name.startswith(prefix))
-        new = gather_state(new, specs, mesh)
+        sharded, shapes_ok, tp = shard_state(state, specs, mesh), True, []
+        for _ in range(run.get("steps", 1)):
+            sharded, m = step(sharded, batch)
+            shapes_ok &= all(tuple(x.shape) == local[name[len(prefix):]]
+                             for name, x in flatten(sharded)
+                             for prefix in (".params/", ".opt_state/m/", ".opt_state/v/")
+                             if name.startswith(prefix))
+            tp.append((gather_state(sharded, specs, mesh), m))
+        codes = _shard_codes(cfg, mesh, sharded, tp[-1][0]) if tcfg.qat else None
         if rank != 0:
             out.append({"local_shapes": shapes_ok})
             continue
-        new0, m0 = make_train_step(cfg, tcfg, adam(lr))(state, batch)
-        out.append({"local_shapes": shapes_ok, "tp": _state_np(new),
-                    "tp_metrics": {k: float(v) for k, v in m.items()},
-                    "one": _state_np(new0), "one_metrics": {k: float(v) for k, v in m0.items()}})
+        step0, one = make_train_step(cfg, tcfg, opt), []
+        for _ in tp:
+            state, m0 = step0(state, batch)
+            one.append((state, m0))
+        steps = [{"tp": _state_np(s), "tp_metrics": {k: float(v) for k, v in m.items()},
+                  "one": _state_np(s0), "one_metrics": {k: float(v) for k, v in m0.items()}}
+                 for (s, m), (s0, m0) in zip(tp, one)]
+        out.append({"local_shapes": shapes_ok, **steps[0], "steps": steps, "codes": codes,
+                    "digest": _digest(tp[-1][0])})
     return out
+
+
+def _digest(state) -> str:
+    """sha256 over every tensor leaf's path, dtype and raw bytes."""
+    import hashlib
+
+    from repro_torch.dtypes import to_numpy
+    from repro_torch.train.checkpoint import flatten
+
+    h = hashlib.sha256()
+    for name, x in flatten(state):
+        if isinstance(x, torch.Tensor):
+            h.update(f"{name}:{x.dtype}".encode())
+            h.update(to_numpy(x.contiguous()).tobytes())
+    return h.hexdigest()
+
+
+def _shard_codes(cfg, mesh, sharded, whole) -> dict:
+    """The QAT forward of the last state, θ_t = w_q · I_t: on this rank's
+    shards with each leaf's statistics (gathered whole) against one
+    process's on the whole leaves, as {path: (elements, mismatches)}."""
+    from repro_torch.core.fttq import FTTQConfig, quantize_tree
+    from repro_torch.parallel.sharding import param_specs
+    from repro_torch.parallel.tensor import gather_tree, param_shards
+    from repro_torch.tree import flatten_with_path, path_str
+
+    with torch.no_grad():
+        got = gather_tree(quantize_tree(sharded.params, sharded.wq, FTTQConfig(),
+                                        param_shards(cfg, mesh)), param_specs(cfg, mesh), mesh)
+        want = quantize_tree(whole.params, whole.wq, FTTQConfig())
+    assert tree_leaves(got) and [a.dtype for a in tree_leaves(got)] == \
+        [b.dtype for b in tree_leaves(want)]
+    return {path_str(p): (a.numel(), int((a != b).sum()))
+            for (p, a), b in zip(flatten_with_path(got), tree_leaves(want))}
 
 
 def tp_pods(rank, world, *, cfg, state, batch, lr, steps, trees, residuals_in=None,
@@ -565,13 +621,23 @@ def tp_pods(rank, world, *, cfg, state, batch, lr, steps, trees, residuals_in=No
     # pod, gathered over "data" and "model": where a code sits at Δ
     import repro_torch.train.trainer as trainer_mod
 
-    synced_inputs, sync = [], trainer_mod.ternary_allreduce_tree
+    from repro_torch.core.fttq import FTTQConfig
+    from repro_torch.parallel.collectives import compressed_leaf
+    from repro_torch.tree import flatten_with_path
+
+    synced_inputs, sync_wire, sync = [], [], trainer_mod.ternary_allreduce_tree
 
     def recorded(g_p, grp, *, residuals=None, **kw):
         res = iter(tree_leaves(residuals))
         x = tree_map(lambda g: g.to(torch.float32) + next(res), g_p)
         synced_inputs.append(_np(gather_tree(x, specs, mesh)))
-        return sync(g_p, grp, residuals=residuals, **kw)
+        comp = [g.numel() for path, g in flatten_with_path(g_p)
+                if compressed_leaf(path, g, FTTQConfig())]
+        reset_wire_bytes()
+        synced = sync(g_p, grp, residuals=residuals, **kw)
+        sync_wire.append({"all_gather": wire_bytes().get("all_gather", 0),
+                          "codes": sum(comp), "leaves": len(comp)})
+        return synced
 
     trainer_mod.ternary_allreduce_tree = recorded
     step_fn = make_train_step(cfg, tcfg, opt, mesh=mesh)
@@ -582,7 +648,8 @@ def tp_pods(rank, world, *, cfg, state, batch, lr, steps, trees, residuals_in=No
         losses.append(float(m["loss"]))
     trainer_mod.ternary_allreduce_tree = sync
     s = gather_state(gather_residuals(s, mesh), specs, mesh)
-    out["train"] = {"losses": losses, **_state_np(s), "synced_inputs": synced_inputs}
+    out["train"] = {"losses": losses, **_state_np(s), "synced_inputs": synced_inputs,
+                    "sync_wire": sync_wire}
     return out
 
 
@@ -1443,11 +1510,143 @@ def seq_attention(rank, world, *, device):
     return out
 
 
+def narrow_sums(rank, world, *, x):
+    """On a (1, world) data x model mesh: ``all_reduce_`` of this rank's
+    row of ``x`` ((world, n) fp32) and ``reduce_scatter`` of it, as bf16
+    tensors, over "model"."""
+    from repro_torch.parallel.collectives import all_reduce_, reduce_scatter
+
+    mesh = make_mesh((1, world), ("data", "model"), device="cpu")
+    group = mesh.group("model")
+    row = torch.from_numpy(x[rank]).to(torch.bfloat16)
+    return {"all_reduce": _np(all_reduce_(row.clone(), group)),
+            "reduce_scatter": _np(reduce_scatter(row.clone(), group))}
+
+
+def bf16_shards(rank, world, *, state, batch, lr, ckpt):
+    """olmo-1b (reduced) in the bf16 production cell: one QAT step on one
+    process from the reference's state (moments not zero), then (a) on
+    (1, 2) and (2, 1) data x model meshes of ranks 0-1 the state's TP and
+    FSDP shards saved raw and its params ternary under ``ckpt``/{tp,fsdp}-*
+    (rank 0 also the one-process saves under ``ckpt``/one-*), the raw file
+    restored to shards; (b) on all four ranks a (2, 2) step, its state
+    gathered and re-placed by ``elastic_reshard`` onto (1, 2) and (2, 1),
+    whose whole leaves and next step must equal ``shard_state``'s."""
+    from repro_torch.core.compression import CodecSpec
+    from repro_torch.parallel.sharding import P, NamedSharding, param_shardings, param_specs
+    from repro_torch.parallel.tensor import gather_state, shard_state
+    from repro_torch.train import TrainerConfig, make_train_step, restore_checkpoint, \
+        save_checkpoint
+    from repro_torch.train.checkpoint import flatten
+    from repro_torch.train.fault import elastic_reshard
+
+    cfg = get_reduced("olmo-1b", param_dtype="bfloat16", compute_dtype="bfloat16",
+                      remat="full", mesh_batch_axes=("data",))
+    tcfg, opt = TrainerConfig(qat=True, pod_compression=False), adam(lr)
+    b = {k: torch.from_numpy(v) for k, v in batch.items()}
+    new0, _ = make_train_step(cfg, tcfg, opt)(_state(state, "cpu"), b)
+    same = lambda u, v: all(
+        (a is None and c is None) or (torch.equal(a, c) and a.dtype == c.dtype)
+        for (_, a), (_, c) in zip(*(x if isinstance(x, list) else flatten(x) for x in (u, v))))
+    tern, out = CodecSpec(kind="ternary"), {"restored_equal": {}, "elastic": {}}
+    for name, shape in (("tp", (1, 2)), ("fsdp", (2, 1))):
+        mesh = make_mesh(shape, ("data", "model"), ranks=[0, 1], device="cpu")
+        mesh.device_mesh                    # every rank builds the DeviceMesh together
+        if mesh.member:
+            specs = param_specs(cfg, mesh)
+            sh = shard_state(new0, specs, mesh)
+            save_checkpoint(f"{ckpt}/{name}-raw", 1, sh, mesh=mesh, specs=specs)
+            save_checkpoint(f"{ckpt}/{name}-tern", 1, sh.params, compression=tern, mesh=mesh,
+                            specs=specs)
+            back, _ = restore_checkpoint(f"{ckpt}/{name}-raw", example_state=sh, device="cpu",
+                                         mesh=mesh, specs=specs)
+            out["restored_equal"][name] = same(back, sh)
+    if rank == 0:
+        save_checkpoint(f"{ckpt}/one-raw", 1, new0)
+        save_checkpoint(f"{ckpt}/one-tern", 1, new0.params, compression=tern)
+    mesh22 = make_mesh((2, 2), ("data", "model"), device="cpu")
+    specs22 = param_specs(cfg, mesh22)
+    s22, _ = make_train_step(cfg, tcfg, opt, mesh=mesh22)(shard_state(new0, specs22, mesh22), b)
+    host = gather_state(s22, specs22, mesh22)
+    for shape in ((1, 2), (2, 1)):
+        small = make_mesh(shape, ("data", "model"), ranks=[0, 1], device="cpu")
+        small.device_mesh
+        if not small.member:
+            continue
+        sp, shard = param_specs(cfg, small), param_shardings(cfg, small)
+        repl = NamedSharding(small, P())
+        placed = dataclasses.replace(
+            host, params=elastic_reshard(host.params, shard), wq=elastic_reshard(host.wq, repl),
+            opt_state={"step": elastic_reshard(host.opt_state["step"], repl),
+                       "m": elastic_reshard(host.opt_state["m"], shard),
+                       "v": elastic_reshard(host.opt_state["v"], shard)},
+            step=elastic_reshard(host.step, repl))
+        whole = gather_state(shard_state(host, sp, small), sp, small)
+        small_step = make_train_step(cfg, tcfg, opt, mesh=small)
+        n_dt, m_dt = small_step(placed, b)
+        n_sh, m_sh = small_step(shard_state(host, sp, small), b)
+        out["elastic"][shape] = {
+            "whole_equal": same(_full(placed), host) and same(whole, host),
+            "step_equal": same(n_dt, n_sh) and float(m_dt["loss"]) == float(m_sh["loss"])}
+    dist.barrier()
+    out["params"] = _np(new0.params)
+    return out
+
+
+def bf16_serve_steps(rank, world, *, prompts, gen):
+    """olmo-1b (reduced) with bf16 params and compute through
+    ``launch/steps.py``: a prefill of ``prompts`` (its rows over "data"
+    where it cuts them) and ``gen`` greedy decode steps from the seed-4
+    params' shards on (1, 2) and (2, 1) data x model meshes of ranks 0-1,
+    the logits gathered over the rows; on rank 0 also one process's."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.parallel.sharding import param_specs
+    from repro_torch.parallel.tensor import gather_rows
+
+    cfg = get_reduced("olmo-1b", param_dtype="bfloat16", compute_dtype="bfloat16")
+    whole = init_params(cfg, seed=4, device="cpu")
+    toks = torch.from_numpy(prompts).long()
+
+    def serve(mesh):
+        p = whole if mesh is None else params_from_jax(_np(whole), "cpu", mesh=mesh,
+                                                        specs=param_specs(cfg, mesh))
+        b = toks.shape[0]
+        with torch.no_grad():
+            logits, cache = make_prefill_step(cfg, toks.shape[1] + gen, mesh=mesh)(
+                p, {"tokens": toks})
+            decode = make_decode_step(cfg, mesh=mesh, batch=b)
+            steps = [gather_rows(logits, mesh, b)]
+            for i in range(gen):
+                logits, cache = decode(p, {"tokens": torch.argmax(logits, -1), "cache": cache,
+                                           "pos": toks.shape[1] + i})
+                steps.append(gather_rows(logits, mesh, b))
+        return [_np(x) for x in steps]
+
+    out = {}
+    for shape in ((1, 2), (2, 1)):
+        mesh = make_mesh(shape, ("data", "model"), ranks=[0, 1], device="cpu")
+        mesh.device_mesh
+        if mesh.member:
+            out[shape] = serve(mesh)
+    if rank == 0:
+        out["one"] = serve(None)
+    return out
+
+
+def _full(state) -> list:
+    """``state``'s flattened (path, leaf) pairs, a DTensor leaf as its
+    whole tensor."""
+    from repro_torch.train.checkpoint import flatten
+
+    return [(n, x.full_tensor() if hasattr(x, "full_tensor") else x) for n, x in flatten(state)]
+
+
 CASES = {f.__name__: f for f in (collectives, subnormal_sync, subnormal_shard_stats, fanin,
                                   trainer, elastic, moe_forward, moe_train,
                                   q8_a2a, tp_basics, tp_steps, tp_pods, tp_serve, tp_families,
                                   tp_family_steps, fsdp_basics, fsdp_step, serve_rows, combine,
-                                  seq_attention, tp_grads, a2a_serve)}
+                                  seq_attention, tp_grads, a2a_serve, narrow_sums,
+                                  bf16_shards, bf16_serve_steps)}
 
 
 def main() -> None:
